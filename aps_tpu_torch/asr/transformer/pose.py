@@ -1,0 +1,75 @@
+#!/usr/bin/env python
+"""Positional encodings (port of aps_tpu/asr/transformer/pose.py:
+RelPosEncoding "rel", InputSinPosEncoding "abs" and their sinusoid base).
+Batch-first outputs."""
+
+import math
+
+import torch
+from torch import nn
+
+from aps_tpu_torch.libs import Register
+
+PosEncodings = Register("pos_encodings")
+
+
+def get_xfmr_pose(pose: str, dim: int, **kwargs) -> nn.Module:
+    if pose not in PosEncodings:
+        raise NotImplementedError(f"pose layer {pose} is not ported yet")
+    return PosEncodings[pose](embed_dim=dim, **kwargs)
+
+
+class SinPosEncoding(nn.Module):
+    """Sinusoidal encodings of given (possibly negative) positions (the
+    base of the abs encoding; aps_tpu's "xl" pose is not ported yet)."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0):
+        super(SinPosEncoding, self).__init__()
+        self.embed_dim = embed_dim
+        self.dropout = nn.Dropout(dropout)
+
+    def _sin_enc(self, position: torch.Tensor) -> torch.Tensor:
+        div_term = torch.exp(
+            -math.log(10000.0) *
+            torch.arange(0, self.embed_dim, 2.0, device=position.device) /
+            self.embed_dim)
+        sequence = position[:, None] * div_term
+        sin_enc = torch.stack([torch.sin(sequence), torch.cos(sequence)], -1)
+        return sin_enc.reshape(position.shape[0], -1)
+
+    def forward(self, position: torch.Tensor) -> torch.Tensor:
+        """position: T -> T x D"""
+        return self.dropout(self._sin_enc(position))
+
+
+@PosEncodings.register("rel")
+class RelPosEncoding(nn.Module):
+    """Learnt relative-position embeddings (Shaw-style), clipped radius."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0,
+                 lradius: int = 128, rradius: int = 128):
+        super(RelPosEncoding, self).__init__()
+        self.lradius, self.rradius = lradius, rradius
+        self.embed = nn.Embedding(lradius + rradius + 1, embed_dim)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, position: torch.Tensor) -> torch.Tensor:
+        """position: T (relative offsets) -> T x D"""
+        position = torch.clamp(position, -self.lradius, self.rradius)
+        return self.dropout(self.embed(position + self.lradius))
+
+
+@PosEncodings.register("abs")
+class InputSinPosEncoding(SinPosEncoding):
+    """Add sinusoidal encodings to the input: N x T x D -> N x T x D."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0,
+                 scaled: bool = False):
+        super(InputSinPosEncoding, self).__init__(embed_dim, dropout=dropout)
+        self.scaled = scaled
+
+    def forward(self, inp: torch.Tensor, t: int = 0) -> torch.Tensor:
+        pos = t + torch.arange(inp.shape[1], dtype=torch.float32,
+                               device=inp.device)
+        factor = self.embed_dim**0.5 if self.scaled else 1
+        return self.dropout(inp * factor + self._sin_enc(pos))

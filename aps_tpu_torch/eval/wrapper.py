@@ -1,0 +1,107 @@
+#!/usr/bin/env python
+"""Checkpoint loading for the port (port of aps_tpu/eval/wrapper.py::
+load_checkpoint, NnetEvaluator).
+
+Reads the same checkpoint directory as aps_tpu: train.yaml beside a
+pickled <tag>.ckpt of numpy arrays, with the model variables under "params"
+(optionally scoped "nnet" by the task) and the other collections under
+"mstate". The weights are converted with aps_tpu_torch.convert."""
+
+import pathlib
+import pickle
+from typing import Dict
+
+import torch
+
+from aps_tpu_torch.convert import to_state_dict
+from aps_tpu_torch.libs import aps_asr_nnet, aps_transform
+
+
+class _Opaque(object):
+    """Stand-in for objects of a checkpoint that the port does not read
+    (the JAX trainer's optimizer state and the like): loading a checkpoint
+    must not import the JAX stack."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    _SAFE = ("numpy", "builtins", "collections", "copyreg", "_codecs")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in self._SAFE:
+            return super(_CheckpointUnpickler, self).find_class(module, name)
+        return _Opaque
+
+
+def read_checkpoint(path) -> Dict:
+    with open(path, "rb") as fd:
+        return _CheckpointUnpickler(fd).load()
+
+
+def load_conf(path) -> Dict:
+    """train.yaml; read as JSON (a subset of YAML) where PyYAML is absent."""
+    try:
+        import yaml
+    except ImportError:
+        import json
+        with open(path, "r") as f:
+            return json.load(f)
+    with open(path, "r") as f:
+        return yaml.full_load(f)
+
+
+def pick_device(device_id: int = -1) -> torch.device:
+    """-1: the first card when there is one, else the CPU; >= 0: that card
+    (raises without CUDA)."""
+    if device_id < 0:
+        return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--device-id {device_id} asks for a card, but "
+                           "torch sees no CUDA device")
+    return torch.device(f"cuda:{device_id}")
+
+
+def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
+    """Rebuild the nnet from train.yaml and load <tag>.ckpt into it (CPU,
+    eval mode)."""
+    cpt_dir = pathlib.Path(cpt_dir)
+    cpt = read_checkpoint(cpt_dir / f"{cpt_tag}.ckpt")
+    conf = load_conf(cpt_dir / "train.yaml")
+    nnet_cls = aps_asr_nnet(conf["nnet"])
+    if "enh_transform" in conf:
+        raise NotImplementedError("enh_transform is not ported yet")
+    kwargs = dict(conf["nnet_conf"])
+    if "asr_transform" in conf:
+        kwargs["asr_transform"] = aps_transform("asr")(
+            **conf["asr_transform"])
+    nnet = nnet_cls(**kwargs)
+    params = cpt["params"]
+    if "nnet" in params:
+        params = params["nnet"]
+    variables = {"params": params}
+    for col, tree in cpt.get("mstate", {}).items():
+        variables[col] = tree["nnet"] if "nnet" in tree else tree
+    nnet.load_state_dict(to_state_dict(variables, nnet))
+    nnet.eval()
+    return {
+        "epoch": cpt.get("epoch", 0),
+        "nnet": nnet,
+        "conf": conf,
+    }
+
+
+class NnetEvaluator(object):
+    """Binds a loaded nnet to a device for inference commands."""
+
+    def __init__(self, cpt_dir: str, cpt_tag: str = "best",
+                 device_id: int = -1) -> None:
+        stats = load_checkpoint(cpt_dir, cpt_tag=cpt_tag)
+        self.conf = stats["conf"]
+        self.device = pick_device(device_id)
+        self.nnet = stats["nnet"].to(self.device)
+        self.epoch = stats["epoch"]

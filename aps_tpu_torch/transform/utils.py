@@ -1,0 +1,108 @@
+#!/usr/bin/env python
+"""DSP helpers of the front end: windows, STFT geometry, mel matrix, frame
+counts.
+
+Port of aps_tpu/transform/utils.py (init_window, fft_size_of,
+_stft_geometry, make_window, mel_filter, num_frames). The coefficient
+builders are numpy, as in the JAX package, so both packages get the same
+float32 tables; num_frames takes ints or tensors."""
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def init_window(wnd: str, frame_len: int) -> np.ndarray:
+    """Periodic window coefficients (torch.*_window(periodic=True))."""
+
+    def periodic(fn, n):
+        return fn(n + 1)[:-1]
+
+    wnd_tpl = {
+        "hann": lambda n: periodic(np.hanning, n),
+        "sqrthann": lambda n: periodic(np.hanning, n)**0.5,
+        "hamm": lambda n: periodic(np.hamming, n),
+        "blackman": lambda n: periodic(np.blackman, n),
+        "bartlett": lambda n: periodic(np.bartlett, n),
+        "rect": np.ones,
+    }
+    if wnd not in wnd_tpl:
+        raise RuntimeError(f"Unknown window type: {wnd}")
+    return wnd_tpl[wnd](frame_len).astype(np.float32)
+
+
+def fft_size_of(frame_len: int, round_pow_of_two: bool = True) -> int:
+    return 2**math.ceil(math.log2(frame_len)) if round_pow_of_two else frame_len
+
+
+def _stft_geometry(frame_len: int, round_pow_of_two: bool,
+                   mode: str) -> Tuple[int, int]:
+    """Return (fft_size, win_length). kaldi always rounds to pow2 and keeps
+    frame_len-sample windows; librosa center-pads the window to fft_size."""
+    if mode not in ("librosa", "kaldi"):
+        raise ValueError(f"Unsupported STFT mode: {mode}")
+    fft_size = fft_size_of(frame_len, round_pow_of_two or mode == "kaldi")
+    win_length = frame_len if mode == "kaldi" else fft_size
+    return fft_size, win_length
+
+
+def make_window(wnd: str, frame_len: int, round_pow_of_two: bool,
+                mode: str) -> np.ndarray:
+    """Window padded to the analysis length for the given mode."""
+    fft_size, win_length = _stft_geometry(frame_len, round_pow_of_two, mode)
+    window = init_window(wnd, frame_len)
+    if mode == "librosa" and fft_size != frame_len:
+        lpad = (fft_size - frame_len) // 2
+        window = np.pad(window, (lpad, fft_size - frame_len - lpad))
+    return window.astype(np.float32)
+
+
+def mel_filter(frame_len: int,
+               round_pow_of_two: bool = True,
+               num_bins: Optional[int] = None,
+               sr: int = 16000,
+               num_mels: int = 80,
+               fmin: float = 0.0,
+               fmax: Optional[float] = None,
+               norm: bool = False) -> np.ndarray:
+    """HTK-mel triangular filterbank, num_mels x (N//2+1)
+    (librosa filters.mel(htk=True, norm="slaney" if norm else None))."""
+    if num_bins is None:
+        N = fft_size_of(frame_len, round_pow_of_two)
+    else:
+        N = (num_bins - 1) * 2
+    freq_upper = sr // 2
+    if fmax is None:
+        fmax = freq_upper
+    else:
+        fmax = min(fmax + freq_upper if fmax < 0 else fmax, freq_upper)
+    fmin = max(0, fmin)
+
+    def hz2mel(f):
+        return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+    def mel2hz(m):
+        return 700.0 * (10.0**(np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+    fft_freqs = np.linspace(0, sr / 2, N // 2 + 1)
+    mel_pts = mel2hz(np.linspace(hz2mel(fmin), hz2mel(fmax), num_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper))
+    if norm:
+        enorm = 2.0 / (mel_pts[2:num_mels + 2] - mel_pts[:num_mels])
+        weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def num_frames(wav_len, frame_len: int, frame_hop: int,
+               round_pow_of_two: bool = True, mode: str = "librosa",
+               center: bool = False):
+    """Frame count for given sample counts (int or tensor)."""
+    _, win_length = _stft_geometry(frame_len, round_pow_of_two, mode)
+    if center:
+        wav_len = wav_len + 2 * (win_length // 2)
+    return (wav_len - win_length) // frame_hop + 1
