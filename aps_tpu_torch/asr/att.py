@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Attention-based encoder-decoder ASR (port of aps_tpu/asr/att.py::
-XfmrASR, registered "asr@xfmr"): the decoding hooks the batched beam search
-calls. The training forward comes with the training port."""
+XfmrASR, registered "asr@xfmr"): the teacher-forced training forward and
+the decoding hooks the batched beam search calls."""
 
 from typing import Dict, Optional
 
@@ -47,6 +47,15 @@ class XfmrASR(ASREncoderBase):
         dec_vocab = vocab_size - 1 if ctc else vocab_size
         self.decoder = TorchTransformerDecoder(vocab_size=dec_vocab,
                                                **(dec_kwargs or {}))
+
+    def forward(self, x_pad, x_len, y_pad, y_len, ssr=0):
+        """x_pad: N x S waveforms (or N x T x F features), y_pad: N x To
+        sos-prefixed ids -> (dec_out N x To x V, enc_ctc N x T x V,
+        enc_len). ssr is unused (no schedule sampling for transformer
+        decoders, as in aps_tpu)."""
+        enc_out, enc_ctc, enc_len = self._training_prep(x_pad, x_len)
+        dec_out = self.decoder(enc_out, enc_len, y_pad, y_len)
+        return dec_out, enc_ctc, enc_len
 
     def decode_enc(self, x, x_len=None):
         """-> (enc_out N x T x D, enc_len, ctc logits N x T x V or None)."""

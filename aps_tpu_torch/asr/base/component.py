@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Encoder building blocks (port of aps_tpu/asr/base/component.py: Conv2d).
+"""Encoder building blocks (port of aps_tpu/asr/base/component.py: Conv2d,
+and the batch norms with aps_tpu's running statistics).
 
 aps_tpu is channel-last (N x T x F x C); PyTorch convolutions are
 channel-first, so the port runs N x C x T x F and the encoders that flatten
@@ -15,6 +16,34 @@ IntPair = Union[int, Tuple[int, int]]
 
 def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class _FlaxRunningStats(object):
+    """BatchNorm whose running statistics follow aps_tpu (flax, momentum
+    0.9): in training running <- 0.9 running + 0.1 batch, with the BIASED
+    batch variance, where PyTorch's own update takes the unbiased one. The
+    statistics are taken over every position of the batch, padded frames
+    included, as in aps_tpu. The normalisation itself is PyTorch's (batch
+    statistics in training, running ones in eval)."""
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super(_FlaxRunningStats, self).forward(inp)
+        dims = [0] + list(range(2, inp.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(inp, dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return nn.functional.batch_norm(inp, None, None, self.weight,
+                                        self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
 
 
 class Conv2d(nn.Module):
@@ -41,7 +70,7 @@ class Conv2d(nn.Module):
             raise NotImplementedError(f"Conv2d norm {norm} is not ported "
                                       "yet (only BN)")
         # aps_tpu's BatchNorm: epsilon 1e-5, momentum 0.9 (torch: 0.1)
-        self.norm2d = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.norm2d = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def compute_outp_dim(self, dim, axis: int):
         k, d, s = self.kernel_size[axis], self.dilation[axis], \

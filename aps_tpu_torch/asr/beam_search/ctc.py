@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from aps_tpu.const import MIN_F32
+from aps_tpu_torch.const import MIN_F32
 from aps_tpu_torch.ops.ctc_score import ctc_score_step
 
 

@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from aps_tpu.const import MIN_F32
+from aps_tpu_torch.const import MIN_F32
 from aps_tpu_torch.asr.beam_search.att import _per_utt, segmented_topk
 from aps_tpu_torch.asr.beam_search.ctc import CtcScorer, CtcScoreState
 from aps_tpu_torch.asr.beam_search.utils import (BeamSearchParam, BeamState,

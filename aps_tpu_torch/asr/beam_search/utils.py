@@ -17,7 +17,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from aps_tpu.const import MIN_F32
+from aps_tpu_torch.const import MIN_F32
 
 
 @dataclass

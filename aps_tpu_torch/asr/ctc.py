@@ -38,6 +38,18 @@ class ASREncoderBase(nn.Module):
         self.ctc_head = nn.Linear(self.enc_out_dim, vocab_size) \
             if ctc else None
 
+    def _training_prep(self, x_pad, x_len):
+        """-> (enc_out N x T x D, enc_ctc N x T x V or enc_out, enc_len);
+        the modules' own training flags decide dropout and batch norm."""
+        if self.asr_transform is not None:
+            x_pad, x_len = self.asr_transform(x_pad, x_len,
+                                              training=self.training)
+        enc_out, enc_len = self.encoder(x_pad, x_len)
+        enc_ctc = enc_out
+        if self.ctc_head is not None:
+            enc_ctc = self.ctc_head(enc_out)
+        return enc_out, enc_ctc, enc_len
+
     def _decoding_prep(self, x, x_len=None):
         """x: N x S (wave) or N x T x F (features) -> (enc_out N x T x D,
         enc_len)."""

@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Transformer decoder, incremental decoding (port of
-aps_tpu/asr/transformer/decoder.py: TransformerDecoderLayer.step_token and
-TorchTransformerDecoder.prep_memory_kv / init_cache / step_inc).
-The teacher-forced full pass comes with the training port."""
+"""Transformer decoder (port of aps_tpu/asr/transformer/decoder.py):
+the teacher-forced full pass used in training (TransformerDecoderLayer.
+forward, TorchTransformerDecoder.step / forward) and incremental decoding
+(step_token, prep_memory_kv / init_cache / step_inc). Its attentions carry
+a causal tgt_mask or are short cross-attention, so they take the dense
+math, as in aps_tpu."""
 
 from typing import Dict, List, Optional, Tuple
 
@@ -13,6 +15,7 @@ from aps_tpu_torch.asr.base.attention import padding_mask
 from aps_tpu_torch.asr.transformer.impl import (LN_EPS, ApsMultiheadAttention,
                                                 FeedForward)
 from aps_tpu_torch.asr.transformer.pose import get_xfmr_pose
+from aps_tpu_torch.asr.transformer.utils import prep_sub_mask
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -59,6 +62,21 @@ class TransformerDecoderLayer(nn.Module):
             tgt = self.norm3(tgt)
         return tgt
 
+    def forward(self, tgt, memory, tgt_mask=None,
+                tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                memory_kv=None):
+        """tgt: N x To x D, memory: N x Ti x D -> N x To x D."""
+        skip = tgt
+        if self.pre_norm:
+            tgt = self.norm1(tgt)
+        att, _ = self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask,
+                                key_padding_mask=tgt_key_padding_mask)
+        tgt = skip + self.drop(att)
+        if not self.pre_norm:
+            tgt = self.norm1(tgt)
+        return self._cross_ffn(tgt, memory, memory_key_padding_mask,
+                               memory_kv=memory_kv)
+
     def step_token(self, tok, hist, t: int, memory, memory_key_padding_mask,
                    memory_kv=None):
         """Incremental decode: ONE token (N x 1 x D) against the layer-input
@@ -102,6 +120,31 @@ class TorchTransformerDecoder(nn.Module):
         self.final_norm = nn.LayerNorm(att_dim, eps=LN_EPS) \
             if self.pre_norm else None
         self.output = nn.Linear(att_dim, vocab_size, bias=False)
+
+    def step(self, enc_out, tgt_pad, enc_len=None, tgt_len=None,
+             mem_kv=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced pass. enc_out: N x Ti x D, tgt_pad: N x To
+        (sos-prefixed ids) -> (dec_out N x To x V, tgt_emb N x To x D)."""
+        mem_pad_mask = None if enc_len is None else padding_mask(
+            enc_len, enc_out.shape[1])
+        tgt_pad_mask = None if tgt_len is None else padding_mask(
+            tgt_len, tgt_pad.shape[1])
+        tgt_emb = self.abs_pos_enc(self.vocab_embed(tgt_pad))
+        tgt_mask = prep_sub_mask(tgt_emb.shape[1], device=tgt_emb.device)
+        out = tgt_emb
+        for i, layer in enumerate(self.layers):
+            out = layer(out, enc_out, tgt_mask=tgt_mask,
+                        tgt_key_padding_mask=tgt_pad_mask,
+                        memory_key_padding_mask=mem_pad_mask,
+                        memory_kv=None if mem_kv is None else mem_kv[i])
+        if self.final_norm is not None:
+            out = self.final_norm(out)
+        return self.output(out), tgt_emb
+
+    def forward(self, enc_out, enc_len, tgt_pad, tgt_len) -> torch.Tensor:
+        """-> dec_out: N x To x V"""
+        return self.step(enc_out, tgt_pad, enc_len=enc_len,
+                         tgt_len=tgt_len)[0]
 
     def prep_memory_kv(self, memory: torch.Tensor) -> List[Tuple]:
         """Per-layer cross-attention (K, V) of a fixed memory, computed once

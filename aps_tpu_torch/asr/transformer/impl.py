@@ -12,18 +12,21 @@ Dispatch differs from aps_tpu in one place: RelMultiheadAttention runs
 self-attention through flash_attention_rel at any length, where aps_tpu
 takes its TPU kernel only from T >= 512 (REL_FLASH_MIN_LEN, a TPU
 measurement). On a CUDA tensor that launches the kernel, on a CPU tensor
-its plain version runs. The dense rel path (einsum + digit_shift), which
-an additive attn_mask or attention dropout in training needs, runs on CPU
-tensors only and raises on CUDA ones. The abs-pose flash kernel of aps_tpu
-(q_len >= 512 only) is not ported yet: abs-pose attention takes the dense
-path."""
+its plain version runs; in training (attention dropout 0) the gradient
+comes from the backward kernels through the wrapper's autograd Function.
+The dense rel path (einsum + digit_shift), which an additive attn_mask or
+attention dropout > 0 in training needs (the kernel has no dropout
+inside), runs on CPU tensors only and raises on CUDA ones. The abs-pose
+flash kernel of aps_tpu (q_len >= 512 only) is not ported yet: abs-pose
+attention takes the dense path."""
 
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from aps_tpu.const import MIN_F32
+from aps_tpu_torch.asr.base.component import BatchNorm1d
+from aps_tpu_torch.const import MIN_F32
 from aps_tpu_torch.asr.transformer.utils import digit_shift, get_activation_fn
 from aps_tpu_torch.ops.rel_attention import flash_attention_rel
 
@@ -250,7 +253,7 @@ class ApsConformerEncoderLayer(nn.Module):
         pad = 0 if casual_conv1d else (kernel_size - 1) // 2
         self.dconv = nn.Conv1d(att_dim, att_dim, kernel_size, padding=pad,
                                groups=att_dim)
-        self.bn = nn.BatchNorm1d(att_dim, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm1d(att_dim, eps=1e-5, momentum=0.1)
         self.pconv2 = nn.Linear(att_dim, att_dim)
 
     def conv_module(self, inp: torch.Tensor) -> torch.Tensor:

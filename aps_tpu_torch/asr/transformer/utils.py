@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Transformer helpers (port of aps_tpu/asr/transformer/utils.py:
-digit_shift, prep_sub_mask, get_activation_fn). Batch-first layout."""
+digit_shift, prep_sub_mask, get_activation_fn). Batch-first layout.
+padding_mask lives in aps_tpu_torch/asr/base/attention.py, as in aps_tpu."""
 
 import torch
 import torch.nn.functional as tf
 
-from aps_tpu.const import NEG_INF
+from aps_tpu_torch.const import NEG_INF
 
 
 def digit_shift(term: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ class FasterDecoder(NnetEvaluator):
     """Batched beam-search decoder over a loaded checkpoint."""
 
     def __init__(self, cpt_dir: str, cpt_tag: str = "best",
-                 device_id: int = -1):
+                 device: str = "cuda", device_id: int = -1):
         super(FasterDecoder, self).__init__(cpt_dir, cpt_tag=cpt_tag,
+                                            device=device,
                                             device_id=device_id)
         name = self.conf["nnet"]
         if name != "asr@xfmr":

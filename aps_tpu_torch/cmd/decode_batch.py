@@ -4,12 +4,14 @@
     python -m aps_tpu_torch.cmd.decode_batch wav.scp best.txt --am <cpt_dir>
         [--dict dict] [--batch-size 8] [--beam-size 8] [--ctc-weight 0.4]
 
-Takes the arguments of aps_tpu's decoder (aps_tpu.opts.DecodingParser),
-reads the same checkpoint directory and wav.scp, buckets utterances on the
-same duration grid and writes the same "key<TAB>transcript" lines.
---device-id -1 decodes on the first card when torch sees one, else on the
-CPU. The wall time of the decode loop is logged with the real-time factor
-and audio seconds per second."""
+Takes the arguments of aps_tpu's decoder (aps_tpu_torch.opts.
+DecodingParser), reads the same checkpoint directory and wav.scp, buckets
+utterances on the same duration grid and writes the same
+"key<TAB>transcript" lines. It decodes on the card (--device-id picks
+which) and raises when torch sees none; --device cpu asks for the CPU in so
+many words, where the kernels' plain versions run. The wall time of the
+decode loop is logged with the real-time factor and audio seconds per
+second."""
 
 import argparse
 import logging
@@ -18,9 +20,11 @@ import time
 
 import torch
 
-from aps_tpu.io import AudioReader, io_wrapper
-from aps_tpu.opts import DecodingParser
+from aps_tpu_torch.io import AudioReader, io_wrapper
+from aps_tpu_torch.opts import DecodingParser
 from aps_tpu_torch.cmd.decode import FasterDecoder, beam_search_params
+from aps_tpu_torch.conf import load_dict
+from aps_tpu_torch.const import UNK_TOKEN
 from aps_tpu_torch.eval.asr import TextPostProcessor
 
 logger = logging.getLogger("aps_tpu_torch.decode_batch")
@@ -43,7 +47,7 @@ def run(args) -> dict:
     if args.lm:
         raise NotImplementedError("--lm: LM fusion is not ported yet")
     decoder = FasterDecoder(args.am, cpt_tag=args.am_tag,
-                            device_id=args.device_id)
+                            device=args.device, device_id=args.device_id)
     logger.info(f"Loaded {args.am} (epoch {decoder.epoch}) on "
                 f"{decoder.device}")
     src_reader = AudioReader(args.feats_or_wav_scp, sr=args.sr,
@@ -56,8 +60,6 @@ def run(args) -> dict:
         if not args.dict:
             raise RuntimeError("--disable-unk needs --dict to look up the "
                                "<unk> id")
-        from aps_tpu.conf import load_dict
-        from aps_tpu.const import UNK_TOKEN
         kwargs["unk"] = load_dict(args.dict)[UNK_TOKEN]
     stdout_top, top = io_wrapper(args.best, "w")
     stats = {"utts": 0, "audio_secs": 0.0, "decode_secs": 0.0,

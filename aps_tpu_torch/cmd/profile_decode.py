@@ -47,6 +47,13 @@ def synced_secs(fn) -> float:
     return time.perf_counter() - beg
 
 
+def on_device(evt) -> bool:
+    """A kernel or copy that ran on the card (not a range an annotation
+    such as the optimizer's step draws around them)."""
+    return evt.device_type == torch.autograd.DeviceType.CUDA and \
+        not getattr(evt, "is_user_annotation", False)
+
+
 def profile(fn):
     """(device ms, profiled wall s, kernel launches, profiler) of fn()."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -55,7 +62,7 @@ def profile(fn):
         wall = synced_secs(fn)
     device_us, launches = 0.0, 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if on_device(evt):
             device_us += evt.self_device_time_total
         elif "LaunchKernel" in evt.name:
             launches += 1
@@ -114,8 +121,7 @@ def run(out: str) -> None:
               f"{launches} kernel launches, {steps} search steps, "
               f"{launches / max(steps, 1):.1f} launches per step; port "
               f"kernels {dict(build.LAUNCHES)}", flush=True)
-        ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = [e for e in prof.key_averages() if on_device(e)]
         ops.sort(key=lambda e: -e.self_device_time_total)
         for e in ops[:TOP]:
             ms = e.self_device_time_total / 1e3

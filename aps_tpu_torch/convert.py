@@ -3,9 +3,11 @@
 
 to_state_dict turns aps_tpu's variables tree of numpy arrays,
 {"params": ..., "batch_stats": ...} as aps_tpu's load_checkpoint returns
-it, into the port model's state_dict; to_variables is the inverse. Both
-walk the port model's modules, so the layout rule of each leaf follows the
-module that owns it:
+it, into the port model's state_dict; to_variables is the inverse (the
+trainer writes aps_tpu checkpoints with it) and to_gradients gives the
+parameters' gradients as a tree in aps_tpu's layout, so that they compare
+leaf by leaf with jax.grad. All walk the port model's modules, so the
+layout rule of each leaf follows the module that owns it:
 
   nn.Linear      weight (out, in)      <-> kernel (in, out); the fused QKV
                  in_proj keeps one (3E, E) weight <-> DenseGeneral (E, 3E)
@@ -142,12 +144,11 @@ def to_state_dict(variables: Dict, model: nn.Module
     return state
 
 
-def to_variables(model: nn.Module) -> Dict:
-    """The port model's weights -> aps_tpu variables tree of numpy
-    arrays."""
+def _to_tree(model: nn.Module, named_values) -> Dict:
+    """(port key, tensor) pairs -> aps_tpu tree of numpy arrays."""
     leaves = _leaves(model)
     tree = {}
-    for key, val in model.state_dict().items():
+    for key, val in named_values:
         if _skipped(key):
             continue
         if key not in leaves:
@@ -162,3 +163,21 @@ def to_variables(model: nn.Module) -> Dict:
         node[leaf] = np.ascontiguousarray(
             _to_jax(val.detach().cpu().numpy(), rule))
     return tree
+
+
+def to_variables(model: nn.Module) -> Dict:
+    """The port model's weights and buffers -> aps_tpu variables tree of
+    numpy arrays."""
+    return _to_tree(model, model.state_dict().items())
+
+
+def to_gradients(model: nn.Module) -> Dict:
+    """The gradients of the port model's parameters (after backward) ->
+    a tree shaped like aps_tpu's params; a parameter without a gradient
+    raises."""
+    grads = []
+    for key, p in model.named_parameters():
+        if p.grad is None:
+            raise ValueError(f"parameter {key} has no gradient")
+        grads.append((key, p.grad))
+    return _to_tree(model, grads)["params"]

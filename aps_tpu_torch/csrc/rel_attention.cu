@@ -9,7 +9,11 @@
 //
 // hp = 0 when the table is shared (Hp == 1) else h, keys s >= k_len[b]
 // masked (suffix padding), optional causal mask, and rows with no valid key
-// give 0. The TPU kernel realigns a (b, 2b) band product with log2(b) lane
+// give 0. When `lse` is not null the kernel also writes the row-wise
+// log-sum-exp of the masked scores (max + log(sum)), B x H x T, which the
+// backward kernels (rel_attention_bwd.cu) read; rows with no valid key get
+// kLseDead, a large positive value, so that exp(score - lse) is 0 there.
+// The TPU kernel realigns a (b, 2b) band product with log2(b) lane
 // rotates because Mosaic has no per-row dynamic shift; here the relative
 // term is a per-row index offset into a band of the pose table staged in
 // shared memory, so no shift is needed.
@@ -37,6 +41,7 @@ constexpr int kBK = 32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kBQ / kWarps;
+constexpr float kLseDead = 1.0e30f;
 
 template <int D>
 __global__ void rel_attn_fwd_kernel(const float* __restrict__ q_c,
@@ -46,7 +51,8 @@ __global__ void rel_attn_fwd_kernel(const float* __restrict__ q_c,
                                     const float* __restrict__ pose,
                                     const int* __restrict__ k_len, int H,
                                     int Hp, int T, float scale, int causal,
-                                    float* __restrict__ out) {
+                                    float* __restrict__ out,
+                                    float* __restrict__ lse) {
   constexpr int DP = D + 1;
   constexpr int DPL = (D + 31) / 32;
   __shared__ float sqc[kBQ][DP];
@@ -167,6 +173,10 @@ __global__ void rel_attn_fwd_kernel(const float* __restrict__ q_c,
       const int d = lane + 32 * i;
       if (d < D) out[head + static_cast<size_t>(l) * D + d] = acc[r][i] * inv;
     }
+    if (lse != nullptr && lane == 0) {
+      lse[static_cast<size_t>(bh) * T + l] =
+          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : kLseDead;
+    }
   }
 }
 
@@ -174,10 +184,10 @@ template <int D>
 void launch(const float* q_c, const float* q_p, const float* k,
             const float* v, const float* pose, const int* k_len, int B,
             int H, int Hp, int T, float scale, int causal, float* out,
-            cudaStream_t stream) {
+            float* lse, cudaStream_t stream) {
   dim3 grid((T + kBQ - 1) / kBQ, B * H);
   rel_attn_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      q_c, q_p, k, v, pose, k_len, H, Hp, T, scale, causal, out);
+      q_c, q_p, k, v, pose, k_len, H, Hp, T, scale, causal, out, lse);
 }
 
 }  // namespace
@@ -186,27 +196,28 @@ extern "C" const char* aps_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q_c, q_p, k, v, out: B x H x T x D; pose: Hp x (2T-1) x D; k_len: B int32.
-// All float32 (k_len int32), contiguous, on the device. D in {16, 32, 64}.
+// q_c, q_p, k, v, out: B x H x T x D; pose: Hp x (2T-1) x D; k_len: B int32;
+// lse: B x H x T or null (inference). All float32 (k_len int32), contiguous,
+// on the device. D in {16, 32, 64}.
 extern "C" int aps_rel_attention_fwd(const float* q_c, const float* q_p,
                                      const float* k, const float* v,
                                      const float* pose, const int* k_len,
                                      int B, int H, int Hp, int T, int D,
                                      float scale, int causal, float* out,
-                                     void* stream) {
+                                     float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
       launch<16>(q_c, q_p, k, v, pose, k_len, B, H, Hp, T, scale, causal,
-                 out, s);
+                 out, lse, s);
       break;
     case 32:
       launch<32>(q_c, q_p, k, v, pose, k_len, B, H, Hp, T, scale, causal,
-                 out, s);
+                 out, lse, s);
       break;
     case 64:
       launch<64>(q_c, q_p, k, v, pose, k_len, B, H, Hp, T, scale, causal,
-                 out, s);
+                 out, lse, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,8 +4,8 @@ the word and char tokenizers of aps_tpu/tokenizer/word.py)."""
 
 from typing import List
 
-from aps_tpu.conf import load_dict
-from aps_tpu.const import UNK_TOKEN
+from aps_tpu_torch.conf import load_dict
+from aps_tpu_torch.const import UNK_TOKEN
 
 
 class TextPostProcessor(object):

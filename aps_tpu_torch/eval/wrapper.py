@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from aps_tpu_torch.conf import load_yaml
 from aps_tpu_torch.convert import to_state_dict
 from aps_tpu_torch.libs import aps_asr_nnet, aps_transform
 
@@ -43,27 +44,19 @@ def read_checkpoint(path) -> Dict:
         return _CheckpointUnpickler(fd).load()
 
 
-def load_conf(path) -> Dict:
-    """train.yaml; read as JSON (a subset of YAML) where PyYAML is absent."""
-    try:
-        import yaml
-    except ImportError:
-        import json
-        with open(path, "r") as f:
-            return json.load(f)
-    with open(path, "r") as f:
-        return yaml.full_load(f)
-
-
-def pick_device(device_id: int = -1) -> torch.device:
-    """-1: the first card when there is one, else the CPU; >= 0: that card
-    (raises without CUDA)."""
-    if device_id < 0:
-        return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+def pick_device(device: str = "cuda", device_id: int = -1) -> torch.device:
+    """The device of an entry point. "cuda" (the default) is card
+    `device_id` (-1: card 0) and raises when torch sees no CUDA device;
+    the CPU is used only when the caller asks for "cpu"."""
+    if device == "cpu":
+        return torch.device("cpu")
+    if device != "cuda":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if not torch.cuda.is_available():
-        raise RuntimeError(f"--device-id {device_id} asks for a card, but "
-                           "torch sees no CUDA device")
-    return torch.device(f"cuda:{device_id}")
+        raise RuntimeError("torch sees no CUDA device: the port runs on the "
+                           "card; pass --device cpu (device='cpu') to run "
+                           "on the CPU")
+    return torch.device(f"cuda:{max(device_id, 0)}")
 
 
 def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
@@ -71,7 +64,7 @@ def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     eval mode)."""
     cpt_dir = pathlib.Path(cpt_dir)
     cpt = read_checkpoint(cpt_dir / f"{cpt_tag}.ckpt")
-    conf = load_conf(cpt_dir / "train.yaml")
+    conf = load_yaml(cpt_dir / "train.yaml")
     nnet_cls = aps_asr_nnet(conf["nnet"])
     if "enh_transform" in conf:
         raise NotImplementedError("enh_transform is not ported yet")
@@ -99,9 +92,9 @@ class NnetEvaluator(object):
     """Binds a loaded nnet to a device for inference commands."""
 
     def __init__(self, cpt_dir: str, cpt_tag: str = "best",
-                 device_id: int = -1) -> None:
+                 device: str = "cuda", device_id: int = -1) -> None:
         stats = load_checkpoint(cpt_dir, cpt_tag=cpt_tag)
         self.conf = stats["conf"]
-        self.device = pick_device(device_id)
+        self.device = pick_device(device, device_id)
         self.nnet = stats["nnet"].to(self.device)
         self.epoch = stats["epoch"]

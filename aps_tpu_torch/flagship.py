@@ -8,7 +8,7 @@ build_flagship builds the port's model from them; init_weights draws its
 weights from an explicit torch.Generator."""
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -16,12 +16,15 @@ from torch import nn
 from aps_tpu_torch.libs import aps_asr_nnet, aps_transform
 
 
-def flagship_conf(vocab_size: int = 64, small: bool = True) -> Dict:
+def flagship_conf(vocab_size: int = 64, small: bool = True,
+                  enc_att_dropout: Optional[float] = None) -> Dict:
     """Id layout: 0..V-4 tokens, V-3 sos, V-2 eos, V-1 ctc blank. The full
     width (small=False) is 12 conformer layers of width 256 with 4 heads
-    and 6 decoder layers."""
+    and 6 decoder layers. enc_att_dropout sets att_dropout of the encoder
+    layers (default 0.1 when left out): training on the card needs 0, since
+    the rel-pose attention kernel has no dropout inside."""
     att_dim = 64 if small else 256
-    return {
+    conf = {
         "nnet": "asr@xfmr",
         "asr_transform": {
             "feats": "fbank-log-cmvn",
@@ -59,6 +62,28 @@ def flagship_conf(vocab_size: int = 64, small: bool = True) -> Dict:
             },
         },
     }
+    if enc_att_dropout is not None:
+        conf["nnet_conf"]["enc_kwargs"]["arch_kwargs"]["att_dropout"] = \
+            enc_att_dropout
+    return conf
+
+
+def flagship_train_conf(vocab_size: int = 4233) -> Dict:
+    """flagship_conf at full width with the encoder's attention dropout 0,
+    plus the task and trainer sections of the training step the port is
+    measured at (the shape of bench.py's step: asr@ctc_xent with ctc weight
+    0.2 and label smoothing 0.1, Adam 1e-4, global-norm clip 5.0)."""
+    conf = flagship_conf(vocab_size, small=False, enc_att_dropout=0.0)
+    conf.update(
+        task="asr@ctc_xent",
+        task_conf={"ctc_weight": 0.2, "lsm_factor": 0.1},
+        trainer_conf={
+            "optimizer": "adam",
+            "optimizer_kwargs": {"lr": 1e-4},
+            "clip_gradient": 5.0,
+            "report_metrics": ["loss", "accu", "@ctc", "xent"],
+        })
+    return conf
 
 
 def build_flagship(conf: Dict) -> nn.Module:

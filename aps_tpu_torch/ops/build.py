@@ -34,6 +34,9 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "fused_logmel": 0,
     "flash_attention_rel": 0,
+    "flash_attention_rel_dq": 0,
+    "flash_attention_rel_dkv": 0,
+    "flash_attention_rel_dpose": 0,
     "ctc_score_step": 0,
 }
 
@@ -60,6 +63,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def sources() -> List[str]:
+    """Names of all kernel sources (csrc/<name>.cu)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every kernel source, all nvcc processes started together;
+    returns the seconds each took."""
+    from concurrent.futures import ThreadPoolExecutor
+    import time
+
+    def timed(name: str) -> float:
+        beg = time.perf_counter()
+        build(name)
+        return time.perf_counter() - beg
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu into a shared library (cached by content)."""
     src = CSRC / f"{name}.cu"
@@ -80,17 +104,19 @@ def build(name: str) -> Path:
 
 
 def load(name: str, entry: str, argtypes: List) -> ctypes.CDLL:
-    """Build (once) and load csrc/<name>.cu; declare its C entry point."""
+    """Build (once) and load csrc/<name>.cu; declare the C entry point
+    `entry` (a source may have several, each declared at its first use)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
             lib.aps_cuda_error_string.argtypes = [ctypes.c_int]
             lib.aps_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         return lib
 
 

@@ -14,7 +14,7 @@ from typing import Tuple, Union
 
 import torch
 
-from aps_tpu.const import MIN_F32
+from aps_tpu_torch.const import MIN_F32
 from aps_tpu_torch.ops import build
 
 __all__ = ["ctc_score_step", "ctc_score_step_plain"]

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from aps_tpu.const import EPSILON
+from aps_tpu_torch.const import EPSILON
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops.fbank import fused_logmel
 from aps_tpu_torch.transform.utils import (fft_size_of, make_window,

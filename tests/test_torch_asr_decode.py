@@ -225,8 +225,9 @@ class OptimizerState(NamedTuple):
 
 def test_decode_batch_cli_runs_without_jax(flagship, tmp_path):
     """`aps_tpu_torch.cmd.decode_batch` on an aps_tpu-format checkpoint
-    (written without jax), on the CPU, in a fresh interpreter: 2 transcript
-    lines and jax never imported."""
+    (written without jax), on the CPU because --device cpu asks for it, in
+    a fresh interpreter: 2 transcript lines, jax and aps_tpu never
+    imported."""
     _, _, model, wav, lens = flagship
     cpt = tmp_path / "cpt"
     cpt.mkdir()
@@ -252,12 +253,15 @@ def test_decode_batch_cli_runs_without_jax(flagship, tmp_path):
     best = tmp_path / "best.txt"
     argv = [str(tmp_path / "wav.scp"), str(best), "--am", str(cpt),
             "--dict", str(tmp_path / "dict"), "--beam-size", "4",
-            "--ctc-weight", "0.4", "--max-len", "20", "--batch-size", "2"]
+            "--ctc-weight", "0.4", "--max-len", "20", "--batch-size", "2",
+            "--device", "cpu"]
     code = ("import sys\n"
             "import aps_tpu_torch\n"
             "from aps_tpu_torch.cmd import decode_batch\n"
             f"decode_batch.main({argv!r})\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] == "
+            "'aps_tpu'], 'aps_tpu was imported'\n"
             "print('NO-JAX-OK')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=300)
@@ -274,3 +278,91 @@ def test_decode_batch_refuses_an_lm(tmp_path):
             str(tmp_path), "--lm", str(tmp_path / "lm")]
     with pytest.raises(NotImplementedError, match="--lm"):
         decode_batch.main(argv)
+
+
+def _port_modules():
+    pkg = REPO / "aps_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_port_imports_neither_jax_nor_aps_tpu():
+    """After importing every module of aps_tpu_torch and chip_smoke in a
+    fresh interpreter, neither jax nor any aps_tpu module is loaded."""
+    names = [name for _, name in _port_modules()] + ["chip_smoke"]
+    assert "aps_tpu_torch.cmd.train_am" in names and len(names) > 40
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'aps_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('IMPORTED', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "IMPORTED" in proc.stdout
+
+
+def test_port_sources_name_no_aps_tpu_import():
+    """No source of the port, nor chip_smoke.py, has an import of aps_tpu
+    (aps_tpu_torch passes the word boundary) or of jax."""
+    import re
+    pattern = re.compile(
+        r"^\s*(import\s+(aps_tpu|jax|flax|optax)\b(?!_)"
+        r"|from\s+(aps_tpu|jax|flax|optax)(\.[\w.]+)?\s+import\b)", re.M)
+    assert pattern.search("from aps_tpu.const import X")
+    assert pattern.search("    import aps_tpu.const")
+    assert not pattern.search("from aps_tpu_torch.const import X")
+    paths = [path for path, _ in _port_modules()] + [REPO / "chip_smoke.py"]
+    for path in paths:
+        found = pattern.search(path.read_text())
+        assert found is None, f"{path}: {found.group(0)}"
+
+
+def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """The default device is the card and raises when torch sees none; the
+    CPU only on explicit request."""
+    from aps_tpu_torch.cmd import decode_batch, train_am
+    from aps_tpu_torch.eval.wrapper import pick_device
+    assert pick_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pick_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pick_device("cuda", 1)
+    with pytest.raises(ValueError):
+        pick_device("tpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert pick_device() == torch.device("cuda:0")
+    assert pick_device("cuda", 2) == torch.device("cuda:2")
+    for parser in (decode_batch.make_parser(), train_am.make_parser()):
+        assert parser.get_default("device") == "cuda"
+
+
+def test_entry_points_refuse_to_run_without_a_card(flagship, tmp_path):
+    """decode_batch and train_am with their default device raise on a
+    machine without a card instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from aps_tpu_torch.cmd import decode_batch, train_am
+    _, _, model, _, _ = flagship
+    cpt = tmp_path / "cpt"
+    cpt.mkdir()
+    conf = dict(flagship_conf(VOCAB, small=True), task="asr@ctc_xent",
+                task_conf={}, data_conf={}, trainer_conf={})
+    (cpt / "train.yaml").write_text(json.dumps(conf))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": variables["params"],
+                     "mstate": {"batch_stats": variables["batch_stats"]}},
+                    fd)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_batch.main([str(tmp_path / "wav.scp"),
+                           str(tmp_path / "best.txt"), "--am", str(cpt)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_am.main(["--conf", str(cpt / "train.yaml"), "--dict",
+                       str(tmp_path / "dict"), "--checkpoint",
+                       str(tmp_path / "out")])

@@ -15,15 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from aps_tpu.const import EPSILON, MIN_F32  # noqa: E402
+from aps_tpu_torch.const import EPSILON, MIN_F32  # noqa: E402
 from aps_tpu_torch.asr.transformer import impl  # noqa: E402
 from aps_tpu_torch.ops import build  # noqa: E402
 from aps_tpu_torch.ops.ctc_score import (ctc_score_step,  # noqa: E402
                                          ctc_score_step_plain)
 from aps_tpu_torch.ops.fbank import (fused_logmel,  # noqa: E402
                                      fused_logmel_plain)
-from aps_tpu_torch.ops.rel_attention import (flash_attention_rel,  # noqa
-                                             rel_mha_reference)
+from aps_tpu_torch.ops.rel_attention import (  # noqa: E402
+    flash_attention_rel, rel_mha_backward_reference, rel_mha_reference)
 from aps_tpu_torch.transform.utils import make_window, mel_filter  # noqa
 
 # kernel vs plain version, both float32 on the card: log-mel features after
@@ -31,6 +31,12 @@ from aps_tpu_torch.transform.utils import make_window, mel_filter  # noqa
 # up to ~1e3 after 233 steps of the same recursion
 LOGMEL_ATOL = 1e-3
 ATT_ATOL = 1e-3
+# attention gradients: dq/dk/dv entries are O(1) sums of T float32 terms;
+# a dpose row sums up to T * B (* H for a shared table) terms, in another
+# order than the plain version's index_add_, so its bound scales with the
+# largest entry of the reference
+GRAD_ATOL = 1e-3
+DPOSE_RTOL = 1e-4
 CTC_ATOL, CTC_RTOL = 1e-3, 1e-5
 
 
@@ -190,3 +196,106 @@ def test_rel_mha_on_cuda_runs_the_kernel_or_raises(cuda_device):
              attn_mask=torch.zeros(T, T, device=cuda_device))
     with torch.no_grad(), pytest.raises(NotImplementedError):
         tmod.train()(x, x, x, inj_pose=pose)
+
+
+GRAD_NAMES = ("dq_c", "dq_p", "dk", "dv", "dpose")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D,Hp,causal", [
+    (4, 2, 40, 16, 1, False),
+    (4, 2, 77, 32, 2, True),
+    (8, 4, 233, 64, 1, False),
+    (8, 4, 233, 64, 4, True),
+    (4, 4, 700, 64, 1, True),
+])
+def test_rel_attention_backward_kernels_match_plain(cuda_device, B, H, T, D,
+                                                    Hp, causal):
+    """csrc/rel_attention_bwd.cu (dq, dk/dv, dpose) through the autograd
+    Function == rel_mha_backward_reference == autograd through
+    rel_mha_reference, with ragged T, k_len including 1 and 0 (fully masked
+    rows: zero gradients, no NaN) and every kernel launched once."""
+    rel, k_len = _rel_args(B, H, T, D, Hp)
+    rel = [t.to(cuda_device).requires_grad_() for t in rel]
+    k_len = k_len.to(cuda_device)
+    gen = torch.Generator().manual_seed(T)
+    do = torch.randn(rel[0].shape, generator=gen).to(cuda_device)
+    build.reset_launches()
+    out = flash_attention_rel(*rel, k_len=k_len, causal=causal)
+    got = torch.autograd.grad(out, rel, do)
+    for name in ("", "_dq", "_dkv", "_dpose"):
+        assert build.LAUNCHES["flash_attention_rel" + name] == 1
+    plain = rel_mha_backward_reference(*[t.detach() for t in rel], do,
+                                       k_len=k_len, causal=causal)
+    auto = torch.autograd.grad(
+        rel_mha_reference(*rel, k_len=k_len, causal=causal), rel, do)
+    for name, g, w, a in zip(GRAD_NAMES, got, plain, auto):
+        assert torch.isfinite(g).all(), name
+        atol = GRAD_ATOL if name != "dpose" else \
+            GRAD_ATOL + DPOSE_RTOL * w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol, rtol=0, msg=name)
+        torch.testing.assert_close(g, a, atol=atol, rtol=0, msg=name)
+    # padded keys (s >= k_len) get exactly zero dk, dv; so does the whole
+    # batch entry whose k_len is 0
+    for g in got[2:4]:
+        assert torch.count_nonzero(g[1, :, T - 77:]) == 0
+        assert torch.count_nonzero(g[3]) == 0
+    assert torch.count_nonzero(got[0][3]) == 0
+
+
+@pytest.mark.cuda
+def test_rel_attention_backward_is_deterministic(cuda_device):
+    """dpose sums per-(b, h) partial tables in a fixed order: two runs give
+    the same bits."""
+    rel, k_len = _rel_args(8, 4, 233, 64, 1)
+    rel = [t.to(cuda_device).requires_grad_() for t in rel]
+    do = torch.ones_like(rel[0])
+    runs = []
+    for _ in range(2):
+        out = flash_attention_rel(*rel, k_len=k_len.to(cuda_device))
+        runs.append(torch.autograd.grad(out, rel, do))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rel_attention_gradcheck_style(cuda_device):
+    """Directional derivative by central differences (float64 plain
+    version) against the kernels' gradients at a small ragged shape."""
+    rel, k_len = _rel_args(4, 2, 19, 16, 1)
+    k_len = k_len.to(cuda_device)
+    rel = [t.to(cuda_device).requires_grad_() for t in rel]
+    gen = torch.Generator().manual_seed(5)
+    do = torch.randn(rel[0].shape, generator=gen).to(cuda_device)
+    grads = torch.autograd.grad(
+        flash_attention_rel(*rel, k_len=k_len), rel, do)
+    dirs = [torch.randn(t.shape, generator=gen).to(cuda_device) for t in rel]
+    want = sum((g * d).sum().item() for g, d in zip(grads, dirs))
+    eps = 1e-3
+    f64 = lambda sign: (rel_mha_reference(  # noqa: E731
+        *[(t.detach() + sign * eps * d).double() for t, d in zip(rel, dirs)],
+        k_len=k_len) * do.double()).sum().item()
+    numeric = (f64(1) - f64(-1)) / (2 * eps)
+    assert abs(numeric - want) <= 1e-3 * max(1.0, abs(numeric))
+
+
+@pytest.mark.cuda
+def test_rel_mha_trains_on_cuda_without_attention_dropout(cuda_device):
+    """In training RelMultiheadAttention with dropout 0 goes through the
+    autograd Function (all four kernels launch); with dropout > 0 a CUDA
+    call raises."""
+    E, H, T = 64, 4, 50
+    tmod = impl.RelMultiheadAttention(E, H, dropout=0.0).train().to(
+        cuda_device)
+    x = torch.randn(2, T, E, device=cuda_device, requires_grad=True)
+    pose = torch.randn(2 * T - 1, E // H, device=cuda_device,
+                       requires_grad=True)
+    build.reset_launches()
+    out, _ = tmod(x, x, x, inj_pose=pose)
+    out.sum().backward()
+    for name in ("", "_dq", "_dkv", "_dpose"):
+        assert build.LAUNCHES["flash_attention_rel" + name] == 1
+    assert torch.isfinite(x.grad).all() and torch.isfinite(pose.grad).all()
+    with pytest.raises(NotImplementedError):
+        impl.RelMultiheadAttention(E, H, dropout=0.1).train().to(
+            cuda_device)(x, x, x, inj_pose=pose)
