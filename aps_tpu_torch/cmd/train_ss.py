@@ -1,0 +1,51 @@
+#!/usr/bin/env python
+"""Train a separation / enhancement model with the PyTorch port (port of
+cmd/train_ss.py).
+
+    python -m aps_tpu_torch.cmd.train_ss --conf train.yaml \
+        --checkpoint <dir> [--batch-size 32] [--epochs 50] [--seed 777]
+
+Takes aps_tpu's training arguments (aps_tpu_torch.opts.TrainParser) and
+YAML configs and writes aps_tpu-format checkpoints and train.yaml into
+--checkpoint, which aps_tpu_torch.cmd.separate and aps_tpu's own commands
+load. It trains on the card (--device-id picks which) and raises when torch
+sees none; --device cpu asks for the CPU in so many words. Training reaches
+no hand-written kernel: the fused TCN block is an inference-only fold."""
+
+import argparse
+import pprint
+
+from aps_tpu_torch.conf import load_ss_conf
+from aps_tpu_torch.eval.wrapper import pick_device
+from aps_tpu_torch.libs import aps_sse_nnet, start_trainer
+from aps_tpu_torch.opts import TrainParser
+from aps_tpu_torch.utils import set_seed
+
+
+def run(args):
+    """Train as the arguments say; returns the trainer."""
+    device = pick_device(args.device, args.device_id)
+    set_seed(args.seed)
+    conf = load_ss_conf(args.conf)
+    print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
+    print(f"Arguments in yaml:\n{pprint.pformat(conf)}", flush=True)
+    if "enh_transform" in conf:
+        raise NotImplementedError("enh_transform is not ported yet")
+    nnet = aps_sse_nnet(conf["nnet"])(**conf["nnet_conf"])
+    return start_trainer(args.trainer, conf, nnet, args, device,
+                         reduction_tag="#utt")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    return argparse.ArgumentParser(
+        description="Train separation/enhancement models (PyTorch port)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+        parents=[TrainParser.parser])
+
+
+def main(argv=None):
+    return run(make_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

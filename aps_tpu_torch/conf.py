@@ -1,10 +1,12 @@
 #!/usr/bin/env python
 """YAML experiment-config loading and the token dictionary (the port's own
 copy of what it needs from aps_tpu/conf.py: load_dict, dump_dict,
-load_am_conf). Same schema: required keys {nnet, nnet_conf, task,
+load_am_conf, load_ss_conf). Same schema: required keys {nnet, nnet_conf, task,
 task_conf, data_conf, trainer_conf}; AM configs get vocab_size/sos/eos from
 the dict file and the CTC blank id appended as len(vocab)."""
 
+import json
+import re
 from typing import Dict, List, Tuple
 
 from aps_tpu_torch.const import EOS_TOKEN, SOS_TOKEN, UNK_TOKEN
@@ -15,19 +17,27 @@ required_keys = [
 all_am_options = required_keys + [
     "enh_transform", "asr_transform", "cmd_args"
 ]
+all_ss_options = required_keys + ["enh_transform", "cmd_args"]
 
 
 def load_yaml(path) -> Dict:
-    """A YAML file; read as JSON (a subset of YAML) where PyYAML is
-    absent."""
-    try:
-        import yaml
-    except ImportError:
-        import json
-        with open(path, "r") as f:
-            return json.load(f)
+    """A YAML file. JSON text (what dump_conf writes) is read as JSON, so
+    its numbers come back as written; any other file goes through PyYAML."""
     with open(path, "r") as f:
-        return yaml.full_load(f)
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+        return yaml.full_load(text)
+
+
+def dump_conf(conf: Dict) -> str:
+    """conf as JSON text that is also valid YAML with the same values: YAML
+    1.1 reads a float only with a dot in it, so json's "1e-05" (a string to
+    PyYAML) is written "1.0e-05"."""
+    text = json.dumps(conf, indent=2)
+    return re.sub(r"(?<![\w.\"])(-?\d+)(e[-+]\d+)(?![\w\"])", r"\1.0\2", text)
 
 
 def load_dict(dict_path: str,
@@ -67,6 +77,11 @@ def check_conf(conf: Dict, required_keys: List[str],
         if key not in all_keys:
             raise ValueError(f"Unknown configuration key: {key}")
     return conf
+
+
+def load_ss_conf(yaml_conf: str) -> Dict:
+    """Load yaml configuration for speech enhancement/separation tasks."""
+    return check_conf(load_yaml(yaml_conf), required_keys, all_ss_options)
 
 
 def load_am_conf(yaml_conf: str, dict_path: str) -> Tuple[Dict, Dict]:

@@ -16,6 +16,14 @@ layout rule of each leaf follows the module that owns it:
   nn.BatchNorm   weight, bias          <-> params scale, bias
                  running_mean/_var     <-> batch_stats mean, var
   nn.Embedding   weight                <-> embedding (as is)
+  nn.ConvTranspose1d  weight (I, O, W) <-> kernel (W, I, O) with the W axis
+                 reversed: flax's ConvTranspose (transpose_kernel=False)
+                 correlates the dilated input with the kernel as stored,
+                 where PyTorch scatters it, i.e. applies it flipped
+  nn.PReLU       weight (1,)           <-> negative_slope ()
+  jax_params     a module's own parameters named in its `jax_params`
+                 (gLN gamma/beta, ScaleLinear scale) keep name and shape; one
+                 that is None (a ScaleLinear without scale) has no leaf
 
 BatchNorm's num_batches_tracked has no counterpart in aps_tpu and is left
 at 0; the port builds its norms with aps_tpu's epsilons (LayerNorm 1e-6,
@@ -38,6 +46,17 @@ MODULE_NAMES = {
     "linear2": "Dense_1",
     "embed": "Embed_0",
     "cross_attn": "multihead_attn",
+    # Conv-TasNet (aps_tpu_torch/sse/bss/tcn.py)
+    "tcn": "conv",
+    "linear_in": "ScaleLinear_0",
+    "linear_out": "ScaleLinear_1",
+    "dense": "Dense_0",
+    "prelu_in": "PReLU_0",
+    "prelu_out": "PReLU_1",
+    "norm_in": "NormalizeLayer_0",
+    "norm_out": "NormalizeLayer_1",
+    "gln": "GlobalChannelLayerNorm_0",
+    "bnorm": "BatchNorm_0",
 }
 _BN = (nn.BatchNorm1d, nn.BatchNorm2d)
 
@@ -76,6 +95,16 @@ def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str, object]]:
             out[prefix + "running_var"] = ("batch_stats", pfx + "var", None)
         elif isinstance(mod, nn.Embedding):
             out[prefix + "weight"] = ("params", pfx + "embedding", None)
+        elif isinstance(mod, nn.ConvTranspose1d):
+            out[prefix + "weight"] = ("params", pfx + "kernel", "conv_t")
+            if mod.bias is not None:
+                out[prefix + "bias"] = ("params", pfx + "bias", None)
+        elif isinstance(mod, nn.PReLU):
+            out[prefix + "weight"] = ("params", pfx + "negative_slope",
+                                      "scalar")
+        for leaf in getattr(mod, "jax_params", ()):
+            if getattr(mod, leaf) is not None:
+                out[prefix + leaf] = ("params", pfx + leaf, None)
     return out
 
 
@@ -86,6 +115,11 @@ def _to_port(value: np.ndarray, rule) -> np.ndarray:
         # (..., I, O) -> (O, I, ...)
         nd = value.ndim
         return np.transpose(value, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+    if rule == "conv_t":
+        # (W, I, O) -> (I, O, W), W reversed
+        return np.transpose(value, (1, 2, 0))[..., ::-1]
+    if rule == "scalar":
+        return value.reshape(1)
     return value
 
 
@@ -96,6 +130,11 @@ def _to_jax(value: np.ndarray, rule) -> np.ndarray:
         # (O, I, ...) -> (..., I, O)
         nd = value.ndim
         return np.transpose(value, tuple(range(2, nd)) + (1, 0))
+    if rule == "conv_t":
+        # (I, O, W) -> (W, I, O), W reversed
+        return np.transpose(value[..., ::-1], (2, 0, 1))
+    if rule == "scalar":
+        return value.reshape(())
     return value
 
 
@@ -160,8 +199,9 @@ def _to_tree(model: nn.Module, named_values) -> Dict:
             node = node.setdefault(seg, {})
         if leaf in node:
             raise KeyError(f"two port keys map onto {col}/{path}")
-        node[leaf] = np.ascontiguousarray(
-            _to_jax(val.detach().cpu().numpy(), rule))
+        arr = _to_jax(val.detach().cpu().numpy(), rule)
+        # ascontiguousarray alone would turn a 0-d leaf into shape (1,)
+        node[leaf] = np.ascontiguousarray(arr).reshape(arr.shape)
     return tree
 
 

@@ -15,7 +15,7 @@ import torch
 
 from aps_tpu_torch.conf import load_yaml
 from aps_tpu_torch.convert import to_state_dict
-from aps_tpu_torch.libs import aps_asr_nnet, aps_transform
+from aps_tpu_torch.libs import aps_nnet, aps_transform
 
 
 class _Opaque(object):
@@ -65,7 +65,7 @@ def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     cpt_dir = pathlib.Path(cpt_dir)
     cpt = read_checkpoint(cpt_dir / f"{cpt_tag}.ckpt")
     conf = load_yaml(cpt_dir / "train.yaml")
-    nnet_cls = aps_asr_nnet(conf["nnet"])
+    nnet_cls = aps_nnet(conf["nnet"])
     if "enh_transform" in conf:
         raise NotImplementedError("enh_transform is not ported yet")
     kwargs = dict(conf["nnet_conf"])

@@ -2,18 +2,21 @@
 """Registries of the port, keyed by the same names as aps_tpu/libs.py.
 
 Only what the port has so far is registered: the "asr" transform, the
-"asr@xfmr" model, the "asr@ctc_xent" and "asr@ctc" tasks, the "dp" trainer,
-the "am@raw" loader and the "word" tokenizer. Registration happens
+"asr@xfmr" and "sse@time_tcn" models, the "asr@ctc_xent", "asr@ctc" and
+"sse@sisnr" tasks, the "dp" trainer, the "am@raw" and "se@chunk" loaders and
+the "word" tokenizer. Registration happens
 when the defining module is imported; the factory functions import them on
 first use."""
 
 import importlib
 
 ASR_SUBMODULES = ["aps_tpu_torch.asr.att"]
+SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn"]
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr"]
-TASK_SUBMODULES = ["aps_tpu_torch.task.asr"]
+TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse"]
 TRAINER_SUBMODULES = ["aps_tpu_torch.trainer.dp"]
-LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw"]
+LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw",
+                     "aps_tpu_torch.loader.se.chunk"]
 TOKENIZER_SUBMODULES = ["aps_tpu_torch.tokenizer.word"]
 
 
@@ -38,6 +41,7 @@ class Register(dict):
 
 class ApsRegisters(object):
     asr = Register("asr")
+    sse = Register("sse")
     transform = Register("transform")
     task = Register("task")
     trainer = Register("trainer")
@@ -56,6 +60,22 @@ def _lookup(registry: Register, modules, name: str):
 
 def aps_asr_nnet(name: str):
     return _lookup(ApsRegisters.asr, ASR_SUBMODULES, name)
+
+
+def aps_sse_nnet(name: str):
+    return _lookup(ApsRegisters.sse, SSE_SUBMODULES, name)
+
+
+def aps_nnet(name: str):
+    """A registered nnet from either the asr or the sse registry."""
+    for registry, modules in ((ApsRegisters.asr, ASR_SUBMODULES),
+                              (ApsRegisters.sse, SSE_SUBMODULES)):
+        for module in modules:
+            importlib.import_module(module)
+        if name in registry:
+            return registry[name]
+    raise ValueError(f"{name} is in neither the port's asr nor its sse "
+                     "registry yet")
 
 
 def aps_transform(name: str):
@@ -89,8 +109,9 @@ def start_trainer(trainer: str,
     """Assemble task + trainer + loaders from an experiment config and run
     (port of aps_tpu/libs.py::start_trainer for one device). Returns the
     trainer."""
-    import json
     import os
+
+    from aps_tpu_torch.conf import dump_conf
 
     task = aps_task(conf["task"], nnet, **conf.get("task_conf", {}))
     trn = aps_trainer(trainer)(task,
@@ -103,10 +124,10 @@ def start_trainer(trainer: str,
                                seed=int(getattr(args, "seed", 777)),
                                **conf["trainer_conf"])
     # the assembled config beside the checkpoints rebuilds the model for
-    # evaluation; JSON text is valid YAML
+    # evaluation; JSON text that aps_tpu's YAML loader reads alike
     conf["cmd_args"] = vars(args)
     with open(os.path.join(args.checkpoint, "train.yaml"), "w") as f:
-        json.dump(conf, f, indent=2)
+        f.write(dump_conf(conf))
 
     data_conf = conf["data_conf"]
     loader_conf = {

@@ -1,0 +1,195 @@
+#!/usr/bin/env python
+"""Audio-chunk dataloader for enhancement / separation training (port of
+aps_tpu/loader/se/chunk.py, registered "se@chunk"; same arguments and egs
+contract, except that the sharding of the utterance order takes rank and
+world_size explicitly). Direction-of-arrival and embedding inputs (doa_scp,
+emb_scp) have no model in the port yet and raise.
+
+The chunk starts and the shuffle of the chunk pool draw from Python's global
+`random` generator, as in aps_tpu, so a seeded process gives the same
+batches in both packages."""
+
+import random
+from typing import Dict, Iterable, Iterator, List, Union
+
+import numpy as np
+
+from aps_tpu_torch.io.audio import AudioReader
+from aps_tpu_torch.libs import ApsRegisters
+from aps_tpu_torch.loader.utils import derive_indices
+
+
+@ApsRegisters.loader.register("se@chunk")
+def DataLoader(train: bool = True,
+               rank: int = 0,
+               world_size: int = 1,
+               sr: int = 16000,
+               mix_scp: str = "",
+               doa_scp: str = "",
+               ref_scp: str = "",
+               emb_scp: str = "",
+               chunk_size: int = 64000,
+               max_batch_size: int = 16,
+               num_workers: int = 4) -> Iterable[Dict]:
+    """Chunked waveform loader; ref_scp may be a comma-separated list for
+    several speakers. Egs: {mix: N x (C x) S, ref: N x S or [N x S, ...],
+    "#utt": N}."""
+    if not mix_scp:
+        raise RuntimeError("mix_scp can not be None")
+    if doa_scp or emb_scp:
+        raise NotImplementedError("doa_scp / emb_scp are not ported yet")
+    token = ref_scp.split(",") if ref_scp else []
+    dataset = ScriptDataset(sr=sr, mix_scp=mix_scp,
+                            ref_scp=token[0] if len(token) == 1 else token)
+    return WaveChunkDataLoader(dataset, train=train, chunk_size=chunk_size,
+                               batch_size=max_batch_size,
+                               num_workers=num_workers, rank=rank,
+                               world_size=world_size)
+
+
+class ScriptDataset(object):
+    """Dataset configured by a mixture scp and reference scp(s)."""
+
+    def __init__(self,
+                 mix_scp: str = "",
+                 ref_scp: Union[str, List[str]] = "",
+                 sr: int = 16000) -> None:
+        self.mix = AudioReader(mix_scp, sr=sr)
+        if isinstance(ref_scp, list) and ref_scp:
+            self.ref = [AudioReader(ref, sr=sr) for ref in ref_scp]
+            self.num_ref = len(ref_scp)
+        elif ref_scp:
+            self.ref = AudioReader(ref_scp, sr=sr)
+            self.num_ref = 1
+        else:
+            self.ref, self.num_ref = None, 0
+
+    def _idx(self, key: str) -> Dict:
+        eg = {}
+        if self.ref is not None:
+            eg["ref"] = (self.ref[key] if self.num_ref == 1 else
+                         [r[key] for r in self.ref])
+        return eg
+
+    def __getitem__(self, index: int) -> Dict:
+        key = self.mix.index_keys[index]
+        eg = self._idx(key)
+        eg["mix"] = self.mix[key]
+        return eg
+
+    def __len__(self) -> int:
+        return len(self.mix)
+
+    def __iter__(self) -> Iterator[Dict]:
+        for key, mix in self.mix:
+            eg = self._idx(key)
+            eg["mix"] = mix
+            yield eg
+
+
+class ChunkSplitter(object):
+    """Split utterances into fixed-size chunks (pad short, hop long)."""
+
+    def __init__(self, chunk_size: int, train: bool = True,
+                 hop: int = 16000) -> None:
+        self.chunk_size = chunk_size
+        self.hop = hop
+        self.train = train
+
+    def _chunk(self, mat_or_seq, s: int):
+        if isinstance(mat_or_seq, list):
+            return [m[..., s:s + self.chunk_size] for m in mat_or_seq]
+        return mat_or_seq[..., s:s + self.chunk_size]
+
+    def _pad(self, mat_or_seq, pad_width: int):
+
+        def pad1(mat):
+            widths = [(0, 0)] * (mat.ndim - 1) + [(0, pad_width)]
+            return np.pad(mat, widths, "constant")
+
+        if isinstance(mat_or_seq, list):
+            return [pad1(m) for m in mat_or_seq]
+        return pad1(mat_or_seq)
+
+    def split(self, eg: Dict) -> List[Dict]:
+        N = eg["mix"].shape[-1]
+        if N < self.hop:
+            return []
+        chunks = []
+        if N < self.chunk_size:
+            P = self.chunk_size - N
+            chunk = {"mix": self._pad(eg["mix"], P)}
+            if "ref" in eg:
+                chunk["ref"] = self._pad(eg["ref"], P)
+            chunks.append(chunk)
+        else:
+            s = random.randint(0, N % self.hop) if self.train else 0
+            while s + self.chunk_size <= N:
+                chunk = {"mix": self._chunk(eg["mix"], s)}
+                if "ref" in eg:
+                    chunk["ref"] = self._chunk(eg["ref"], s)
+                chunks.append(chunk)
+                s += self.hop
+        return chunks
+
+
+def _default_collate(chunks: List[Dict]) -> Dict:
+    """Stack a list of chunk dicts into batched float32 numpy arrays."""
+    out = {}
+    peek = chunks[0]
+    for k in peek:
+        if isinstance(peek[k], list):
+            out[k] = [
+                np.stack([np.asarray(c[k][i]) for c in chunks]).astype(
+                    np.float32) for i in range(len(peek[k]))
+            ]
+        else:
+            out[k] = np.stack([c[k] for c in chunks]).astype(np.float32)
+    return out
+
+
+class WaveChunkDataLoader(object):
+    """Chunk-splitting dataloader: iterates utterances (rank-sharded and
+    epoch-shuffled), splits into fixed chunks, emits full batches; what is
+    left of the chunk pool at the end of an epoch is dropped. Its length is
+    not known ahead and reads 0, as in aps_tpu."""
+
+    def __init__(self,
+                 dataset,
+                 num_workers: int = 4,
+                 chunk_size: int = 64000,
+                 batch_size: int = 16,
+                 train: bool = True,
+                 rank: int = 0,
+                 world_size: int = 1) -> None:
+        self.dataset = dataset
+        self.train = train
+        self.batch_size = batch_size
+        self.rank, self.world_size = rank, world_size
+        self.splitter = ChunkSplitter(chunk_size, train=train,
+                                      hop=chunk_size // 2)
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return 0
+
+    def _utt_indices(self) -> List[int]:
+        return derive_indices(len(self.dataset) // self.world_size,
+                              seed=self.epoch, shuffle=self.train,
+                              rank=self.rank, world_size=self.world_size)
+
+    def __iter__(self) -> Iterator[Dict]:
+        chunk_list = []
+        for idx in self._utt_indices():
+            chunk_list += self.splitter.split(self.dataset[idx])
+            while len(chunk_list) >= self.batch_size:
+                if self.train:
+                    random.shuffle(chunk_list)
+                batch, chunk_list = (chunk_list[:self.batch_size],
+                                     chunk_list[self.batch_size:])
+                obj = _default_collate(batch)
+                obj["#utt"] = self.batch_size
+                yield obj

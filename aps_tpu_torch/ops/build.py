@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_rel_dkv": 0,
     "flash_attention_rel_dpose": 0,
     "ctc_score_step": 0,
+    "tcn_block_fused": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

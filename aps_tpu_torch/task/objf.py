@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Objective functions of the ASR tasks (port of aps_tpu/task/objf.py:
-ce_objf, ls_objf, ctc_objf).
+"""Objective functions of the ASR and separation tasks (port of
+aps_tpu/task/objf.py: ce_objf, ls_objf, ctc_objf; sisnr_objf, multiple_objf,
+permu_invarint_objf, hybrid_permu_objf).
 
 ctc_objf calls torch.nn.functional.ctc_loss where aps_tpu calls
 optax.ctc_loss (a library call outside any kernel on both sides). optax
@@ -9,7 +10,8 @@ about 1e5 per utterance; PyTorch gives inf, which zero_infinity turns into 0
 with a zero gradient. A batch with such an utterance therefore differs
 between the two; every feasible batch agrees to float32 rounding."""
 
-from typing import Optional
+from itertools import permutations
+from typing import Any, Callable, List, Optional
 
 import torch
 import torch.nn.functional as tf
@@ -80,3 +82,113 @@ def ctc_objf(outs: torch.Tensor,
     loss = tf.ctc_loss(logp.transpose(0, 1), safe, out_len, tgt_len,
                        blank=blank, reduction="sum", zero_infinity=True)
     return loss / (tgt_len.sum() if reduction == "mean" else N)
+
+
+def _l2norm(mat: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    return torch.sqrt((mat**2).sum(-1, keepdim=keepdim))
+
+
+def sisnr_objf(x: torch.Tensor,
+               s: torch.Tensor,
+               eps: float = EPSILON,
+               zero_mean: bool = True,
+               non_nagetive: bool = False) -> torch.Tensor:
+    """Scale-invariant SNR in dB. x (estimate), s (reference): N x S -> N."""
+    if x.shape != s.shape:
+        raise RuntimeError(f"Shape mismatch in si-snr: {tuple(x.shape)} vs "
+                           f"{tuple(s.shape)}")
+    if zero_mean:
+        x = x - x.mean(-1, keepdim=True)
+        s = s - s.mean(-1, keepdim=True)
+    t = (x * s).sum(-1, keepdim=True) * s / (_l2norm(s, keepdim=True)**2 +
+                                             eps)
+    snr_linear = _l2norm(t) / (_l2norm(x - t) + eps)
+    if non_nagetive:
+        return 10 * torch.log10(1 + snr_linear**2)
+    return 20 * torch.log10(eps + snr_linear)
+
+
+def multiple_objf(inp: List[Any],
+                  ref: List[Any],
+                  objf: Callable,
+                  weight: Optional[List[float]] = None,
+                  transform: Optional[Callable] = None,
+                  batchmean: bool = False) -> torch.Tensor:
+    """Weighted sum of per-pair losses."""
+    if len(inp) != len(ref):
+        raise ValueError(f"#inp vs #ref: {len(inp)} vs {len(ref)}")
+    num_tasks = len(inp)
+    if weight is None:
+        weight = [1 / num_tasks] * num_tasks
+    if len(weight) != len(inp):
+        raise RuntimeError(f"Missing weight ({len(weight)}) for {num_tasks}")
+    if transform:
+        inp = [transform(i) for i in inp]
+        ref = [transform(r) for r in ref]
+    loss = sum(s * objf(o, r) for s, o, r in zip(weight, inp, ref))
+    return loss.mean() if batchmean else loss
+
+
+def permu_invarint_objf(inp: List[Any],
+                        ref: List[Any],
+                        objf: Callable,
+                        transform: Optional[Callable] = None,
+                        batchmean: bool = False,
+                        return_permutation: bool = False):
+    """Permutation-invariant loss: the minimum over the speaker
+    permutations (itertools order), taken over one stacked P x N tensor."""
+    num_spks = len(inp)
+    if num_spks != len(ref):
+        raise ValueError(f"#inp vs #ref: {num_spks} vs {len(ref)}")
+    if transform:
+        inp = [transform(i) for i in inp]
+        ref = [transform(r) for r in ref]
+    if num_spks == 1:
+        return objf(inp[0], ref[0])
+
+    def permu_objf(permu):
+        return sum(objf(inp[s], ref[t]) for s, t in enumerate(permu)) / \
+            len(permu)
+
+    loss_mat = torch.stack(
+        [permu_objf(p) for p in permutations(range(num_spks))])
+    loss, index = loss_mat.min(dim=0)
+    if batchmean:
+        loss = loss.mean()
+    if return_permutation:
+        return loss, index
+    return loss
+
+
+# correctly-spelled alias
+permutation_invariant_objf = permu_invarint_objf
+
+
+def hybrid_permu_objf(out: List[Any],
+                      ref: List[Any],
+                      objf: Callable,
+                      transform: Optional[Callable] = None,
+                      weight: Optional[List[float]] = None,
+                      permute: bool = True,
+                      permu_num_spks: int = 2) -> torch.Tensor:
+    """PIT over the first permu_num_spks branches + plain weighted loss on
+    the residual branches (e.g. a noise output)."""
+    num_branch = len(out)
+    if num_branch != len(ref):
+        raise RuntimeError(f"{len(ref)} references vs {num_branch} outputs")
+    if permute:
+        loss = permu_invarint_objf(out[:permu_num_spks],
+                                   ref[:permu_num_spks],
+                                   objf,
+                                   transform=transform)
+        if num_branch > permu_num_spks:
+            num_weight = num_branch - (permu_num_spks - 1)
+            if weight is None:
+                weight = [1 / num_weight] * num_weight
+            other = multiple_objf(out[permu_num_spks:], ref[permu_num_spks:],
+                                  objf, weight=weight[1:])
+            loss = weight[0] * loss + other
+    else:
+        loss = multiple_objf(out, ref, objf, weight=weight,
+                             transform=transform)
+    return loss

@@ -21,18 +21,27 @@ from aps_tpu_torch.convert import to_state_dict, to_variables
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.trainer.base import Trainer
 
-# aps_tpu's defaults for "adam", the one optimizer ported so far; the rate
-# comes from the scheduler at every step
-ADAM_DEFAULTS = {"lr": 1e-3, "betas": (0.9, 0.999), "eps": 1e-8}
+# what aps_tpu's "adam" reads from optimizer_kwargs, with its defaults; "lr"
+# is the scheduler's start and the rate comes from the scheduler at every
+# step. Any other key (weight_decay, amsgrad, ...) has no effect there, so it
+# has none here
+ADAM_KEYS = {"beta1": 0.9, "beta2": 0.999, "eps": 1e-8}
 
 
-def make_optimizer(name: str, params, kwargs: Dict) -> torch.optim.Optimizer:
+def make_optimizer(name: str, params, kwargs: Dict,
+                   log=None) -> torch.optim.Optimizer:
+    """The optimizer `name` as aps_tpu builds it from optimizer_kwargs;
+    keys that aps_tpu does not read are named to `log` in one line."""
     if name != "adam":
         raise ValueError(f"Unsupported optimizer: {name} (the port has adam)")
-    opts = dict(ADAM_DEFAULTS, **kwargs)
-    betas = (opts.pop("beta1", opts["betas"][0]),
-             opts.pop("beta2", opts["betas"][1]))
-    return torch.optim.Adam(params, **dict(opts, betas=betas))
+    ignored = sorted(k for k in kwargs if k != "lr" and k not in ADAM_KEYS)
+    if ignored and log is not None:
+        log(f"optimizer_kwargs {', '.join(ignored)} have no effect: adam "
+            f"reads {', '.join(ADAM_KEYS)} only, as in aps_tpu")
+    opts = {k: kwargs.get(k, v) for k, v in ADAM_KEYS.items()}
+    return torch.optim.Adam(params, lr=kwargs.get("lr", 1e-3),
+                            betas=(opts["beta1"], opts["beta2"]),
+                            eps=opts["eps"])
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -41,14 +50,18 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def to_device(egs: Dict, device: torch.device) -> Dict:
-    """numpy arrays and tensors of a batch -> tensors on device; the host
-    stats (#utt, #tok) stay as they are."""
-    out = {}
-    for key, val in egs.items():
+    """numpy arrays and tensors of a batch, also inside lists (the
+    references of a separation batch) -> tensors on device; the host stats
+    (#utt, #tok) stay as they are."""
+
+    def move(val):
+        if isinstance(val, (list, tuple)):
+            return [move(v) for v in val]
         if isinstance(val, np.ndarray):
             val = torch.from_numpy(val)
-        out[key] = val.to(device) if isinstance(val, torch.Tensor) else val
-    return out
+        return val.to(device) if isinstance(val, torch.Tensor) else val
+
+    return {key: move(val) for key, val in egs.items()}
 
 
 def _map_state(state: Dict, kind, fn) -> Dict:
@@ -67,7 +80,8 @@ class DataParallelTrainer(Trainer):
         super(DataParallelTrainer, self).__init__(task, **kwargs)
         self.params = [p for p in self.task.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.optimizer_name, self.params,
-                                        self.optimizer_kwargs)
+                                        self.optimizer_kwargs,
+                                        log=self.reporter.log)
         if self.cpt_stats is not None:
             self._load_states(self.cpt_stats)
         num_params = sum(p.numel() for p in self.params) / 1e6
@@ -104,7 +118,7 @@ class DataParallelTrainer(Trainer):
         """(host stats such as #utt / #tok, device tensors)."""
         egs = to_device(egs, self.device)
         host = {k: v for k, v in egs.items()
-                if not isinstance(v, torch.Tensor)}
+                if not isinstance(v, (torch.Tensor, list))}
         return host, {k: v for k, v in egs.items() if k not in host}
 
     def train_one_step(self, egs: Dict) -> bool:

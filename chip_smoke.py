@@ -44,6 +44,25 @@
    gradients of the pose table, one in_proj and the CTC head, against the
    same pass on the CPU (plain versions of every kernel).
 
+9. Holds the fused TCN block kernel (K5) against its plain version at the
+   separation path's shape: N = 32 mixtures of 4 s at 8 kHz, padded by the
+   command to 39062 samples, so T = 3905 frames of B = 256 channels with
+   H = 512 inside; float32 at the model's eight dilations, causal at
+   dilation 128, a T shorter than the dilation's reach, and bfloat16.
+10. Separates 64 seeded two-tone mixtures with a seeded full-width
+   Conv-TasNet (sse@time_tcn, R = 4 repeats of X = 8 blocks, BatchNorm with
+   running statistics off their initial values), written as an aps_tpu
+   checkpoint, through `aps_tpu_torch.cmd.separate` in batches of 32: 2 x
+   64 finite wavs of the right length, 32 K5 launches per batch at the
+   checked shape; then two mixtures card vs CPU (the plain fold) and the
+   folded forward vs the module itself on the card.
+11. Trains the same model through `aps_tpu_torch.cmd.train_ss` (task
+   sse@sisnr with PIT, Adam 1e-3, clip 10, loader se@chunk, batch 8 x 4 s):
+   three one-step epochs, then timed steps on the same batch; no hand-written
+   kernel launches (the fold is inference-only), the loss must fall; one
+   training-mode pass on 4 mixtures card vs CPU, the loss and four
+   gradients, with a float64 pass on the card as the referee.
+
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line is printed."""
@@ -53,6 +72,7 @@ import copy
 import json
 import math
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -72,11 +92,24 @@ TRAIN_LABELS = 24
 TRAIN_EPOCHS = 3  # one step each: the corpus is one batch
 TIMED_STEPS = 5
 ENC_LAYERS = 12
+# separation: the full-width Conv-TasNet on 8 kHz mixtures
+SEP_SR = 8000
+SEP_SECS = 4
+SEP_UTTS = 64
+SEP_BATCH = 32
+TCN_CONF = dict(num_spks=2, L=20, N=256, X=8, R=4, B=256, H=512, norm="BN")
+TCN_BLOCKS = TCN_CONF["R"] * TCN_CONF["X"]
+SEP_TRAIN_UTTS = 8  # one chunk each: the corpus is one batch
+SEP_TRAIN_EPOCHS = 3
+SEP_CHECK_UTTS = 4  # of the batch, in the card-vs-CPU training pass
 # published peaks of one H100 SXM at its full 700 W: device memory and
 # float32 outside the tensor cores (every kernel here computes in float32
 # on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# dense bfloat16 in the tensor cores: the bound of a bfloat16 product,
+# whatever unit the kernel itself uses
+PEAK_BF16_PER_S = 989e12
 
 KERNELS = {
     "fused_logmel": ("aps_tpu_torch/csrc/fbank.cu",
@@ -91,6 +124,8 @@ KERNELS = {
                                   "aps_tpu/ops/pallas/rel_attention.py:281"),
     "ctc_score_step": ("aps_tpu_torch/csrc/ctc_score.cu",
                        "aps_tpu/ops/pallas/ctc_score.py:231"),
+    "tcn_block_fused": ("aps_tpu_torch/csrc/tcn.cu",
+                        "aps_tpu/ops/pallas/tcn.py:126"),
 }
 # the path each kernel's first check row (and its `launches`) belongs to
 DECODE_KERNELS = ("fused_logmel", "flash_attention_rel", "ctc_score_step")
@@ -117,7 +152,26 @@ TOL_LOGMEL = 1e-3
 TOL_ATT = 1e-3
 TOL_GRAD, TOL_DPOSE_REL = 1e-3, 1e-4
 TOL_CTC_ABS, TOL_CTC_REL = 1e-3, 1e-5
+# TCN block: O(1) outputs after two float32 products of depth 256 and 512
+#   in another order; in bfloat16 the output is rounded to 8 bits of
+#   mantissa (half an ulp of a value of 4 is 1.6e-2) and an entry of y2 may
+#   round the other way before the second product;
+# separation, card vs CPU and folded vs module: 32 such blocks one after
+#   the other, relative to the largest output sample.
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 2e-3
+# sse@sisnr training pass: at random weights the gradient of a layer in
+#   front of a batch norm is a small difference of large terms, and float32
+#   passes on either device land up to a few 1e-2 of the largest entry from
+#   a float64 pass (seen: the CPU's 1e-4 to 2e-2, the card's 4e-4 to 3e-2,
+#   either one the larger, while float64 on card and CPU agree to 1e-14).
+#   So the card's float64 pass is the referee: the CPU's float32 gradient
+#   must be within TOL_SEP_GRAD_REFEREE of it (a missing term or a wrong
+#   sign is of order 1), and the card's float32 gradient within
+#   TOL_STEP_GRAD plus TOL_SEP_GRAD_NOISE times the CPU's own distance.
+TOL_SEP_GRAD_REFEREE, TOL_SEP_GRAD_NOISE = 1e-1, 10.0
+TOL_TCN = 1e-4
+TOL_TCN_BF16_ABS, TOL_TCN_BF16_REL = 3e-2, 2e-2
+TOL_SEP_REL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -143,12 +197,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move nbytes and do flops float32 operations, at its published
-    peaks."""
+    to move nbytes and do flops operations (float32 unless another peak is
+    given), at its published peaks."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_PER_S * 1e3
+    by_ops = flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else \
         (by_ops, "operations")
 
@@ -562,7 +616,7 @@ def train_shapes(model, egs):
 
 def _epoch_losses(log: Path, mode: str):
     """The loss of every "Epoch NN/<mode>" report line of a trainer.log."""
-    return [float(line.split(") = ")[1].split("/")[0])
+    return [float(re.match(r"[-+]?[0-9.]+", line.split(") = ")[1]).group(0))
             for line in log.read_text().splitlines() if f"/{mode}:" in line]
 
 
@@ -593,7 +647,7 @@ def train_phase(root: Path, train: Path, egs, dev, card):
     passes = 2 * TRAIN_EPOCHS + 1
     want = {"fused_logmel": passes,
             "flash_attention_rel": ENC_LAYERS * passes,
-            "ctc_score_step": 0}
+            "ctc_score_step": 0, "tcn_block_fused": 0}
     want.update({f"flash_attention_rel_{k}": ENC_LAYERS * TRAIN_EPOCHS
                  for k in BACKWARD})
     if launches != want:
@@ -608,7 +662,7 @@ def train_phase(root: Path, train: Path, egs, dev, card):
             fail(f"train_am wrote no {name}")
 
     per_step = {"fused_logmel": 1, "flash_attention_rel": ENC_LAYERS,
-                "ctc_score_step": 0}
+                "ctc_score_step": 0, "tcn_block_fused": 0}
     per_step.update({f"flash_attention_rel_{k}": ENC_LAYERS
                      for k in BACKWARD})
     trainer.reporter.train()
@@ -752,6 +806,442 @@ def reference_check(cpt: Path, wavs, dev, stats, shapes):
     return enc_err, score_err
 
 
+def sep_shapes():
+    """(S, T): samples of a SEP_SECS mixture after the separate command's
+    padding onto its length grid, and the encoder frames of that length."""
+    from aps_tpu_torch.cmd.separate import Separator
+    S = Separator.padded_len(SEP_SECS * SEP_SR)
+    stride = TCN_CONF["L"] // 2
+    return S, (S - TCN_CONF["L"]) // stride + 1
+
+
+def _tcn_inputs(N, T, dtype, dev, gen):
+    """A folded block at the magnitudes the model gives: unit-scale input,
+    kernels scaled by 1 / sqrt(fan-in), BatchNorm gains near 1, PReLU slopes
+    near 0.25."""
+    import torch
+    B, H = TCN_CONF["B"], TCN_CONF["H"]
+    rand = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    pack = 0.3 * rand(11, H)
+    pack[[1, 7]] = 1 + 0.2 * torch.rand((2, H), generator=gen)
+    pack[[9, 10]] = 0.25 + 0.1 * torch.rand((2, 1), generator=gen)
+    x, k1, k2 = rand(N, T, B), rand(B, H) / B**0.5, rand(H, B) / H**0.5
+    return (x.to(dev, dtype), k1.to(dev, dtype), pack.to(dev),
+            k2.to(dev, dtype), (0.1 * rand(1, B)).to(dev))
+
+
+def check_tcn(dev, gen, T):
+    """K5 at the separation batch's shape, N = SEP_BATCH x T frames x B
+    channels: float32 at the eight dilations one repeat runs (the first
+    eight rows, whose times add up to a quarter of a forward), causal at the
+    largest, a T shorter than twice the dilation, and bfloat16."""
+    import torch
+
+    from aps_tpu_torch.ops.tcn import tcn_block_fused, tcn_block_reference
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, H = TCN_CONF["B"], TCN_CONF["H"]
+    cases = [(T, 2**n, False, f32) for n in range(TCN_CONF["X"])]
+    cases += [(T, 128, True, f32), (100, 128, False, f32),
+              (100, 64, True, f32), (T, 16, False, bf16),
+              (T, 128, True, bf16)]
+    rows = []
+    args, made = None, None
+    for Tc, d, causal, dtype in cases:
+        if made != (Tc, dtype):
+            args, made = _tcn_inputs(SEP_BATCH, Tc, dtype, dev, gen), \
+                (Tc, dtype)
+        got = tcn_block_fused(*args, d, causal=causal)
+        want = tcn_block_reference(*args, d, causal=causal)
+        torch.cuda.synchronize()
+        label = (f"N={SEP_BATCH} T={Tc} B={B} H={H} dilation={d} "
+                 f"causal={causal} {str(dtype).split('.')[1]}")
+        if got.dtype != dtype or not torch.isfinite(got).all():
+            fail(f"tcn_block_fused {label}: wrong type or non-finite output")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if dtype == f32:
+            ok = err <= TOL_TCN
+            tol = f"{TOL_TCN}"
+        else:
+            ok = bool((diff <= TOL_TCN_BF16_ABS +
+                       TOL_TCN_BF16_REL * want.float().abs()).all())
+            tol = f"{TOL_TCN_BF16_ABS} + {TOL_TCN_BF16_REL} |x|"
+        if not ok:
+            fail(f"tcn_block_fused {label}: max abs err {err} outside {tol}")
+        ms = time_ms(lambda: tcn_block_fused(*args, d, causal=causal))
+        plain_ms = time_ms(lambda: tcn_block_reference(*args, d,
+                                                       causal=causal))
+        # x read and out written once, the weights once; the two products
+        # of B x H per frame, whatever part of the first the kernel repeats
+        # for its taps
+        size = args[0].element_size()
+        bound = bound_ms(
+            2 * SEP_BATCH * Tc * B * size + 2 * B * H * size +
+            4 * (11 * H + B), 2 * SEP_BATCH * Tc * 2 * B * H,
+            peak=PEAK_FP32_PER_S if dtype == f32 else PEAK_BF16_PER_S)
+        rows.append((label, err, ms, plain_ms) + bound)
+    return rows
+
+
+def init_tcn(model, gen) -> None:
+    """Seeded weights for the separation run: kernels of unit gain, small
+    biases, PReLU slopes of 0.25, BatchNorm gains near 1 and running
+    statistics off their initial values."""
+    import torch
+    from torch import nn
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+                fan_in = mod.weight[0].numel() if not isinstance(
+                    mod, nn.ConvTranspose1d) else mod.weight.shape[0]
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
+                                 / fan_in**0.5)
+                mod.bias.copy_(0.05 * torch.randn(mod.bias.shape,
+                                                  generator=gen))
+            elif isinstance(mod, nn.PReLU):
+                mod.weight.fill_(0.25)
+            elif isinstance(mod, nn.BatchNorm1d):
+                C = mod.weight.shape
+                mod.weight.copy_(1 + 0.1 * torch.randn(C, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(C, generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(C, generator=gen))
+                mod.running_var.copy_(1 + 0.2 * torch.rand(C, generator=gen))
+
+
+def write_mixtures(root: Path, count: int, gen):
+    """count seeded two-speaker mixtures of SEP_SECS at SEP_SR (two
+    modulated tones and a little noise) as 16-bit files, with their sources:
+    root/{mix,spk1,spk2}.scp -> {key: mixture samples as the readers give
+    them back}."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    S = SEP_SECS * SEP_SR
+    t = np.arange(S) / SEP_SR
+    mixes = {}
+    scps = {name: open(root / f"{name}.scp", "w")
+            for name in ("mix", "spk1", "spk2")}
+    for n in range(count):
+        noise = torch.randn(S, generator=gen).numpy()
+        a = 0.2 * np.sin(2 * np.pi * (180.0 + 7.0 * n) * t) * \
+            (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
+        b = 0.2 * np.sin(2 * np.pi * (520.0 + 11.0 * n) * t) * \
+            (0.5 + 0.5 * np.cos(2 * np.pi * 0.9 * t)) + 0.01 * noise
+        for name, sig in (("mix", a + b), ("spk1", a), ("spk2", b)):
+            pcm = np.clip(np.round(sig * 32768), -32768, 32767).astype(
+                np.int16)
+            path = root / f"{name}{n:02d}.wav"
+            wavfile.write(str(path), SEP_SR, pcm)
+            scps[name].write(f"mix{n:02d}\t{path}\n")
+            if name == "mix":
+                mixes[f"mix{n:02d}"] = pcm.astype(np.float32) / 32768
+    for fd in scps.values():
+        fd.close()
+    return mixes
+
+
+def write_tcn_checkpoint(root: Path, gen) -> Path:
+    """The full-width sse@time_tcn with seeded weights -> an aps_tpu
+    checkpoint directory root/cpt."""
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.libs import aps_sse_nnet
+    model = aps_sse_nnet("sse@time_tcn")(**TCN_CONF)
+    init_tcn(model, gen)
+    cpt = root / "cpt"
+    cpt.mkdir()
+    conf = dict(nnet="sse@time_tcn", nnet_conf=TCN_CONF, task="sse@sisnr",
+                task_conf={"num_spks": 2, "permute": True}, data_conf={},
+                trainer_conf={})
+    (cpt / "train.yaml").write_text(json.dumps(conf, indent=2))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": variables["params"],
+                     "mstate": {"batch_stats": variables["batch_stats"]},
+                     "epoch": 0}, fd)
+    return cpt
+
+
+def separate_phase(root: Path, cpt: Path, mixes, shapes, card):
+    """SEP_UTTS mixtures through aps_tpu_torch.cmd.separate in batches of
+    SEP_BATCH, the launch counts reset just before and read just after;
+    every K5 call must see the shape the kernel was checked at.
+    -> the launch counts of the run."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.sse.bss import tcn as tcn_mod
+    S, T = shapes
+    sep_dir = root / "sep"
+    argv = [str(root / "mix.scp"), str(sep_dir), "--checkpoint", str(cpt),
+            "--sr", str(SEP_SR), "--batch-size", str(SEP_BATCH)]
+    seen = []
+    launch = tcn_mod.tcn_block_fused
+
+    def recorded(x, *args, dilation, causal):
+        seen.append((tuple(x.shape), x.dtype, x.device.type, dilation))
+        return launch(x, *args, dilation=dilation, causal=causal)
+
+    tcn_mod.tcn_block_fused = recorded
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    tcn_mod.tcn_block_fused = launch
+    batches = SEP_UTTS // SEP_BATCH
+    if stats["utts"] != SEP_UTTS or len(stats["batch_secs"]) != batches:
+        fail(f"separate: {stats['utts']} utterances in "
+             f"{len(stats['batch_secs'])} batches")
+    want = {name: 0 for name in launches}
+    want["tcn_block_fused"] = TCN_BLOCKS * batches
+    if launches != want:
+        fail(f"separate launches {launches}, expected {want}")
+    dilations = [2**n for n in range(TCN_CONF["X"])] * TCN_CONF["R"]
+    expect = [((SEP_BATCH, T, TCN_CONF["B"]), torch.float32, "cuda", d)
+              for d in dilations] * batches
+    if seen != expect:
+        fail(f"the TCN block ran at {sorted(set(seen))}; the kernel was "
+             f"checked at {SEP_BATCH} x {T} x {TCN_CONF['B']}")
+    peak = 0.0
+    for spk in ("spk1", "spk2"):
+        lines = (sep_dir / f"{spk}.scp").read_text().splitlines()
+        if sorted(ln.split()[0] for ln in lines) != sorted(mixes):
+            fail(f"separate: {spk}.scp lists {len(lines)} utterances")
+        for key, mix in mixes.items():
+            sr, pcm = wavfile.read(str(sep_dir / spk / f"{key}.wav"))
+            if sr != SEP_SR or pcm.shape != mix.shape or \
+                    not np.isfinite(pcm).all():
+                fail(f"separate: {spk}/{key}.wav has sr {sr}, shape "
+                     f"{pcm.shape}")
+            peak = max(peak, float(np.abs(pcm).max()))
+    if not peak > 0:
+        fail("separate wrote silence")
+    secs = stats["batch_secs"]
+    audio = SEP_BATCH * SEP_SECS
+    print(f"separate: {SEP_UTTS} mixtures x {SEP_SECS} s at {SEP_SR} Hz "
+          f"through aps_tpu_torch.cmd.separate, batches of {SEP_BATCH} padded "
+          f"to {S} samples (T = {T}): first batch {secs[0]:.4f} s = "
+          f"{audio / secs[0]:.2f} audio-s/s (the model's first forward, in a "
+          f"process whose CUDA context and libraries are already up), "
+          f"second {secs[1]:.4f} s = {audio / secs[1]:.2f} audio-s/s (host "
+          f"clock around a synchronised batch, transfers both ways "
+          f"included), launches {launches} ({card})", flush=True)
+    return launches
+
+
+def separation_check(cpt: Path, mixes, dev, shapes, card):
+    """Two mixtures padded as the command pads them: the folded forward on
+    the card (K5) against the same fold on the CPU (the block's plain
+    version) and against the module itself on the card; also times a warm
+    batch of SEP_BATCH through both forwards on the card."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    S, _ = shapes
+    nnet = load_checkpoint(str(cpt))["nnet"]
+    batch = np.zeros((2, S), dtype=np.float32)
+    for n, key in enumerate(sorted(mixes)[:2]):
+        batch[n, :len(mixes[key])] = mixes[key]
+    outs = {}
+    with torch.inference_mode():
+        for where in ("cpu", dev):
+            model = nnet.to(where)
+            x = torch.from_numpy(batch).to(where)
+            outs[str(where)] = [s.cpu() for s in model.make_fused_eval()(x)]
+            if where == dev:
+                outs["module"] = [s.cpu() for s in model(x)]
+                big = torch.from_numpy(np.tile(batch, (SEP_BATCH // 2, 1)))
+                big = big.to(dev)
+                fused = model.make_fused_eval()
+                warm = {"folded": time_ms(lambda: fused(big), iters=5,
+                                          warmup=1),
+                        "module": time_ms(lambda: model(big), iters=5,
+                                          warmup=1)}
+    scale = max(s.abs().max().item() for s in outs["cpu"])
+    errs = {}
+    for name, other in (("card vs CPU", "cpu"), ("folded vs module",
+                                                 "module")):
+        errs[name] = max((a - b).abs().max().item()
+                         for a, b in zip(outs[str(dev)], outs[other]))
+        if not (scale > 0 and errs[name] <= TOL_SEP_REL * scale):
+            fail(f"separation {name}: max abs err {errs[name]} over "
+                 f"{TOL_SEP_REL} of the largest sample {scale}")
+    print(f"separation on 2 mixtures: card vs CPU max abs err "
+          f"{errs['card vs CPU']:.3e}, folded forward vs module on the card "
+          f"{errs['folded vs module']:.3e}, largest sample {scale:.3f}; a "
+          f"warm forward of {SEP_BATCH} x {S} samples on the card: folded "
+          f"{warm['folded']:.3f} ms, module {warm['module']:.3f} ms "
+          f"({card})", flush=True)
+
+
+def write_sep_corpus(root: Path, gen) -> Path:
+    """root/train_ss: SEP_TRAIN_UTTS mixtures with their sources and the
+    train.yaml of the full-width sse@time_tcn under sse@sisnr."""
+    train = root / "train_ss"
+    train.mkdir()
+    write_mixtures(train, SEP_TRAIN_UTTS, gen)
+    data = {"mix_scp": str(train / "mix.scp"),
+            "ref_scp": f"{train / 'spk1.scp'},{train / 'spk2.scp'}"}
+    conf = dict(
+        nnet="sse@time_tcn", nnet_conf=TCN_CONF, task="sse@sisnr",
+        task_conf={"num_spks": 2, "permute": True},
+        data_conf={"fmt": "se@chunk",
+                   "loader": {"chunk_size": SEP_SECS * SEP_SR, "sr": SEP_SR},
+                   "train": data, "valid": data},
+        trainer_conf={"optimizer": "adam",
+                      "optimizer_kwargs": {"lr": 1e-3, "weight_decay": 1e-5},
+                      "lr_scheduler": "reduce_lr",
+                      "lr_scheduler_kwargs": {"min_lr": 1e-8, "patience": 1,
+                                              "factor": 0.5},
+                      "clip_gradient": 10, "no_impr": 6,
+                      "report_metrics": ["loss"]})
+    (train / "train.yaml").write_text(json.dumps(conf, indent=2))
+    return train
+
+
+def train_ss_phase(train: Path, dev, card):
+    """SEP_TRAIN_EPOCHS one-step epochs through aps_tpu_torch.cmd.train_ss
+    with the launch counts read over the whole run (training and validation
+    reach no hand-written kernel: all 0), then TIMED_STEPS more steps of the
+    same trainer on the same batch. -> (the batch, launches of the run)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_ss
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.libs import aps_dataloader
+    from aps_tpu_torch.ops import build
+    cpt = train / "cpt"
+    argv = ["--conf", str(train / "train.yaml"), "--checkpoint", str(cpt),
+            "--batch-size", str(SEP_TRAIN_UTTS), "--epochs",
+            str(SEP_TRAIN_EPOCHS), "--seed", str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_ss.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if trainer.device.type != "cuda" or trainer.cur_step != SEP_TRAIN_EPOCHS:
+        fail(f"train_ss took {trainer.cur_step} steps on {trainer.device}")
+    if any(launches.values()):
+        fail(f"train_ss launches {launches}, expected none")
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    valid = _epoch_losses(cpt / "trainer.log", "valid")
+    if len(losses) != SEP_TRAIN_EPOCHS or len(valid) != SEP_TRAIN_EPOCHS + 1:
+        fail(f"trainer.log reports {len(losses)} training and {len(valid)} "
+             "validation epochs")
+    if "weight_decay have no effect" not in (cpt / "trainer.log").read_text():
+        fail("trainer.log does not say that weight_decay has no effect")
+    for name in ("best.ckpt", "last.ckpt", "train.yaml"):
+        if not (cpt / name).is_file():
+            fail(f"train_ss wrote no {name}")
+
+    data_conf = load_ss_conf(str(train / "train.yaml"))["data_conf"]
+    batches = list(aps_dataloader(fmt=data_conf["fmt"], train=False,
+                                  max_batch_size=SEP_TRAIN_UTTS,
+                                  **data_conf["loader"],
+                                  **data_conf["valid"]))
+    shape = (SEP_TRAIN_UTTS, SEP_SECS * SEP_SR)
+    if len(batches) != 1 or batches[0]["mix"].shape != shape:
+        fail(f"expected one batch of {shape}, got "
+             f"{[b['mix'].shape for b in batches]}")
+    egs = batches[0]
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for step in range(TIMED_STEPS):
+        build.reset_launches()
+        torch.cuda.synchronize()
+        beg = time.perf_counter()
+        done = trainer.train_one_step(egs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - beg)
+        if not done:
+            fail(f"timed step {step} was skipped (non-finite loss or norm)")
+        if any(build.LAUNCHES.values()):
+            fail(f"timed step {step} launches {dict(build.LAUNCHES)}, "
+                 "expected none")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses += [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses + valid)):
+        fail(f"non-finite loss: training {losses}, validation {valid}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on the repeated batch: {losses}")
+    print(f"train_ss: {SEP_TRAIN_UTTS} x {SEP_SECS} s at {SEP_SR} Hz, "
+          f"sse@sisnr through train_ss: {SEP_TRAIN_EPOCHS} one-step epochs, "
+          f"then {TIMED_STEPS} timed steps, no kernel launches; training "
+          f"losses {', '.join(f'{v:.4f}' for v in losses)}; validation "
+          f"losses {', '.join(f'{v:.4f}' for v in valid)}", flush=True)
+    print(f"train_ss step: median {statistics.median(secs):.4f} s of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} s (host clock around a "
+          f"synchronised step), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    return egs, launches
+
+
+# the first layer, the first and the last TCN block, the mask layer
+SEP_GRADS = ("encoder.weight", "tcn.block_0_0.linear_in.dense.weight",
+             f"tcn.block_{TCN_CONF['R'] - 1}_{TCN_CONF['X'] - 1}.conv.weight",
+             "mask_out.weight")
+
+
+def sep_step_check(egs, dev):
+    """One training-mode pass of sse@sisnr over the first SEP_CHECK_UTTS
+    mixtures of the batch, same seeded weights: in float32 on the CPU and on
+    the card, and in float64 on the card as the referee. The losses must
+    agree; each gradient named in SEP_GRADS is held to the float64 one (see
+    TOL_SEP_GRAD_*)."""
+    import torch
+
+    from aps_tpu_torch.libs import aps_sse_nnet, aps_task
+    from aps_tpu_torch.trainer.dp import to_device
+    torch.manual_seed(SEED)
+    task = aps_task("sse@sisnr", aps_sse_nnet("sse@time_tcn")(**TCN_CONF),
+                    num_spks=2, permute=True)
+    tensors = {"mix": egs["mix"][:SEP_CHECK_UTTS],
+               "ref": [r[:SEP_CHECK_UTTS] for r in egs["ref"]]}
+    outs = {}
+    for name, where, dtype in (("cpu32", "cpu", torch.float32),
+                               ("card32", dev, torch.float32),
+                               ("card64", dev, torch.float64)):
+        side = copy.deepcopy(task).to(where, dtype).train()
+        batch = to_device(tensors, torch.device(where))
+        batch = {"mix": batch["mix"].to(dtype),
+                 "ref": [r.to(dtype) for r in batch["ref"]]}
+        stats = side(batch)
+        stats["loss"].backward()
+        params = dict(side.nnet.named_parameters())
+        outs[name] = (stats["loss"].item(),
+                      {k: params[k].grad.double().cpu() for k in SEP_GRADS})
+    loss_c, loss_g, loss_ref = (outs[k][0] for k in ("cpu32", "card32",
+                                                     "card64"))
+    for loss in (loss_g, loss_ref):
+        if not (math.isfinite(loss) and
+                abs(loss - loss_c) <= TOL_STEP_LOSS * abs(loss_c)):
+            fail(f"sse@sisnr loss: card {loss_g} (float64 {loss_ref}) vs CPU "
+                 f"{loss_c}: outside {TOL_STEP_LOSS} relative")
+    errs = {}
+    for key in SEP_GRADS:
+        ref = outs["card64"][1][key]
+        scale = ref.abs().max().item()
+        rel = lambda name: ((outs[name][1][key] - ref).abs().max().item()  # noqa
+                            / scale)
+        noise_cpu, noise_card = rel("cpu32"), rel("card32")
+        errs[key] = (noise_card, noise_cpu)
+        if not (scale > 0 and noise_cpu <= TOL_SEP_GRAD_REFEREE):
+            fail(f"gradient of {key}: the CPU's float32 pass is {noise_cpu} "
+                 f"of the largest entry {scale} from the card's float64 "
+                 f"pass, over {TOL_SEP_GRAD_REFEREE}")
+        bound = TOL_STEP_GRAD + TOL_SEP_GRAD_NOISE * noise_cpu
+        if not noise_card <= bound:
+            fail(f"gradient of {key}: the card's float32 pass is "
+                 f"{noise_card} of the largest entry from the float64 pass, "
+                 f"over {bound} (the CPU's float32 pass: {noise_cpu})")
+    return loss_g, loss_c, errs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -842,37 +1332,83 @@ def main() -> None:
               "entry " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
               flush=True)
 
+        # the separation path: its kernel, the separate command, the
+        # train_ss command
+        sep_root = root / "separation"
+        sep_root.mkdir()
+        shapes_sep = S_sep, T_sep = sep_shapes()
+        print(f"separation path: batches of {SEP_BATCH} x {S_sep} samples, "
+              f"{TCN_BLOCKS} TCN blocks at T = {T_sep} frames x "
+              f"{TCN_CONF['B']} channels", flush=True)
+        checks["tcn_block_fused"] = check_tcn(dev, gen, T_sep)
+        for label, err, ms, plain_ms, bound, bound_by in \
+                checks["tcn_block_fused"]:
+            print(f"tcn_block_fused [{label}]: max abs err {err:.3e}, kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.5f} ms by {bound_by} ({card})", flush=True)
+        tcn_cpt = write_tcn_checkpoint(sep_root, gen)
+        mixes = write_mixtures(sep_root, SEP_UTTS, gen)
+        launches_sep = separate_phase(sep_root, tcn_cpt, mixes, shapes_sep,
+                                      card)
+        separation_check(tcn_cpt, mixes, dev, shapes_sep, card)
+        train_ss = write_sep_corpus(sep_root, gen)
+        egs_ss, launches_ss = train_ss_phase(train_ss, dev, card)
+        loss_g, loss_c, errs = sep_step_check(egs_ss, dev)
+        print(f"sse@sisnr training pass card vs CPU on {SEP_CHECK_UTTS} "
+              f"mixtures: loss {loss_g:.6f} vs {loss_c:.6f}; distance of "
+              "the float32 gradients (card, CPU) from the card's float64 "
+              "gradient, relative to the largest entry: "
+              + ", ".join(f"{k} {a:.3e}, {b:.3e}"
+                          for k, (a, b) in errs.items()), flush=True)
+
     kernels = []
     for name, rows in checks.items():
         source, replaces = KERNELS[name]
         _, _, ms, plain_ms, bound, bound_by = rows[0]
-        at_train = {}
+        extra = {}
         if name in TRAIN_ROW:
             row = rows[TRAIN_ROW[name]]
-            at_train = {"train_shape": row[0], "train_ms": row[2],
-                        "train_plain_ms": row[3], "train_bound_ms": row[4]}
+            extra = {"train_shape": row[0], "train_ms": row[2],
+                     "train_plain_ms": row[3], "train_bound_ms": row[4]}
+        if name in DECODE_KERNELS:
+            path_launches = launches[name]
+        elif name == "tcn_block_fused":
+            path_launches = launches_sep[name]
+            # one forward runs each of the first X rows' dilations R times
+            path = rows[:TCN_CONF["X"]]
+            extra = {"forward_ms": TCN_CONF["R"] * sum(r[2] for r in path),
+                     "forward_plain_ms": TCN_CONF["R"] * sum(
+                         r[3] for r in path),
+                     "launches_per_batch": TCN_BLOCKS,
+                     "max_abs_err_bfloat16": max(
+                         r[1] for r in rows if "bfloat16" in r[0])}
+        else:
+            path_launches = launches_trn[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            # of the path whose shape the first row was checked at; both
-            # paths' counts follow
-            "launches": (launches if name in DECODE_KERNELS
-                         else launches_trn)[name],
+            # of the path whose shape the first row was checked at; every
+            # path's counts follow
+            "launches": path_launches,
             "launches_decode": launches[name],
             "launches_train_run": launches_trn[name],
             "launches_train_step": per_step[name],
-            "max_abs_err": max(r[1] for r in rows),
+            "launches_separate": launches_sep[name],
+            "launches_train_ss": launches_ss[name],
+            "max_abs_err": max(r[1] for r in rows
+                               if "bfloat16" not in r[0]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": bound_by,
             # no single PyTorch call computes any of these functions: the
             # relative term is formed inside the attention kernels, the
-            # front end is a chain of calls, the scorer a loop over frames
+            # front end is a chain of calls, the scorer a loop over frames,
+            # the TCN block two products around a stencil
             "library_ms": None,
-            **at_train,
+            **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -293,6 +293,9 @@ def test_port_imports_neither_jax_nor_aps_tpu():
     fresh interpreter, neither jax nor any aps_tpu module is loaded."""
     names = [name for _, name in _port_modules()] + ["chip_smoke"]
     assert "aps_tpu_torch.cmd.train_am" in names and len(names) > 40
+    for new in ("cmd.separate", "cmd.train_ss", "sse.bss.tcn", "ops.tcn",
+                "task.sse", "loader.se.chunk", "eval.sse"):
+        assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
@@ -325,7 +328,7 @@ def test_port_sources_name_no_aps_tpu_import():
 def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     """The default device is the card and raises when torch sees none; the
     CPU only on explicit request."""
-    from aps_tpu_torch.cmd import decode_batch, train_am
+    from aps_tpu_torch.cmd import decode_batch, separate, train_am, train_ss
     from aps_tpu_torch.eval.wrapper import pick_device
     assert pick_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -338,7 +341,8 @@ def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert pick_device() == torch.device("cuda:0")
     assert pick_device("cuda", 2) == torch.device("cuda:2")
-    for parser in (decode_batch.make_parser(), train_am.make_parser()):
+    for parser in (decode_batch.make_parser(), train_am.make_parser(),
+                   separate.make_parser(), train_ss.make_parser()):
         assert parser.get_default("device") == "cuda"
 
 

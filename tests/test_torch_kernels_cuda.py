@@ -24,6 +24,8 @@ from aps_tpu_torch.ops.fbank import (fused_logmel,  # noqa: E402
                                      fused_logmel_plain)
 from aps_tpu_torch.ops.rel_attention import (  # noqa: E402
     flash_attention_rel, rel_mha_backward_reference, rel_mha_reference)
+from aps_tpu_torch.ops.tcn import (PACK_ROWS, tcn_block_fused,  # noqa: E402
+                                   tcn_block_reference)
 from aps_tpu_torch.transform.utils import make_window, mel_filter  # noqa
 
 # kernel vs plain version, both float32 on the card: log-mel features after
@@ -38,6 +40,11 @@ ATT_ATOL = 1e-3
 GRAD_ATOL = 1e-3
 DPOSE_RTOL = 1e-4
 CTC_ATOL, CTC_RTOL = 1e-3, 1e-5
+# TCN block: O(1) outputs after two float32 products of depth B and H in
+# another order; in bfloat16 the output itself is rounded to 8 bits of
+# mantissa and a y2 entry may round the other way before the second product
+TCN_ATOL = 1e-4
+TCN_BF16_ATOL, TCN_BF16_RTOL = 3e-2, 2e-2
 
 
 @pytest.fixture
@@ -82,6 +89,22 @@ def _ctc_args(T, L, G):
     return [torch.from_numpy(a) for a in (p_c, gnx, gbx, pb, rok, eosm, old)]
 
 
+def _tcn_args(N, T, B, H, dtype=torch.float32):
+    """A folded block at the magnitudes the model gives: unit-scale inputs,
+    kernels scaled by 1 / sqrt(fan-in), BN gains near 1, PReLU slopes near
+    0.25."""
+    rng = np.random.default_rng(T + B)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32))  # noqa
+    x = f32(rng.standard_normal((N, T, B)))
+    k1 = f32(rng.standard_normal((B, H)) / np.sqrt(B))
+    k2 = f32(rng.standard_normal((H, B)) / np.sqrt(H))
+    pack = 0.3 * rng.standard_normal((PACK_ROWS, H))
+    pack[[1, 7]] = 1 + 0.2 * rng.random((2, H))  # g1, g2
+    pack[[9, 10]] = 0.25 + 0.1 * rng.random((2, 1))  # the PReLU slopes
+    bias2 = f32(0.1 * rng.standard_normal((1, B)))
+    return (x.to(dtype), k1.to(dtype), f32(pack), k2.to(dtype), bias2)
+
+
 def _assert_ctc_close(got, want):
     """Entries at or below MIN_F32 / 2 on both sides compare equal."""
     for g, w in zip(got, want):
@@ -111,6 +134,10 @@ def test_cpu_tensors_take_the_plain_versions():
     for g, w in zip(ctc_score_step(*ctc, True),
                     ctc_score_step_plain(*ctc, True)):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+    tcn = _tcn_args(2, 50, 16, 32)
+    torch.testing.assert_close(tcn_block_fused(*tcn, 4, causal=True),
+                               tcn_block_reference(*tcn, 4, causal=True),
+                               atol=TCN_ATOL, rtol=0)
     assert all(n == 0 for n in build.LAUNCHES.values()), build.LAUNCHES
 
 
@@ -299,3 +326,78 @@ def test_rel_mha_trains_on_cuda_without_attention_dropout(cuda_device):
     with pytest.raises(NotImplementedError):
         impl.RelMultiheadAttention(E, H, dropout=0.1).train().to(
             cuda_device)(x, x, x, inj_pose=pose)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,B,H,dilation,causal", [
+    (4, 3905, 256, 512, 1, False),
+    (4, 3905, 256, 512, 16, True),
+    (4, 3905, 256, 512, 32, False),
+    (4, 3905, 256, 512, 128, False),
+    (4, 3905, 256, 512, 128, True),
+    (3, 50, 256, 512, 128, False),
+    (3, 50, 256, 512, 64, True),
+    (2, 333, 64, 128, 5, False),
+    (2, 333, 64, 100, 20, True),
+    (2, 97, 512, 256, 2, False),
+    (1, 1, 256, 512, 1, False),
+])
+def test_tcn_block_kernel_matches_plain(cuda_device, N, T, B, H, dilation,
+                                        causal):
+    """csrc/tcn.cu == the plain version in float32: the full width at the
+    frame count of a 4 s batch (ragged against the 32-row tile), both ways
+    of staging the taps' rows (one contiguous run up to dilation 32, three
+    runs above), T shorter than the dilation's reach, other widths (an H
+    that is no multiple of the 64-channel pass, two output columns per
+    thread at B = 512)."""
+    args = [t.to(cuda_device) for t in _tcn_args(N, T, B, H)]
+    build.reset_launches()
+    got = tcn_block_fused(*args, dilation, causal=causal)
+    assert build.LAUNCHES["tcn_block_fused"] == 1
+    want = tcn_block_reference(*args, dilation, causal=causal)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=TCN_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation,causal", [(1, False), (8, True),
+                                             (64, False)])
+def test_tcn_block_kernel_matches_plain_in_bfloat16(cuda_device, dilation,
+                                                    causal):
+    """The bfloat16 instance (activations and kernels bfloat16, pack and
+    bias float32, float32 accumulation, y2 rounded before the second
+    product) against the plain version, which rounds at the same places."""
+    args = [t.to(cuda_device)
+            for t in _tcn_args(4, 1000, 256, 512, torch.bfloat16)]
+    got = tcn_block_fused(*args, dilation, causal=causal)
+    want = tcn_block_reference(*args, dilation, causal=causal)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TCN_BF16_ATOL, rtol=TCN_BF16_RTOL)
+    # and it is the same function as the float32 instance on these values
+    wide = tcn_block_fused(*[a.float() for a in args], dilation,
+                           causal=causal)
+    torch.testing.assert_close(got.float(), wide, atol=TCN_BF16_ATOL,
+                               rtol=TCN_BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_tcn_block_kernel_rejects_bad_input(cuda_device):
+    x, k1, pack, k2, b2 = [t.to(cuda_device)
+                           for t in _tcn_args(2, 40, 64, 128)]
+    with pytest.raises(ValueError, match="contiguous"):
+        tcn_block_fused(x.transpose(0, 1).contiguous().transpose(0, 1), k1,
+                        pack, k2, b2, 1)
+    with pytest.raises(TypeError, match="dtype"):
+        tcn_block_fused(x, k1.bfloat16(), pack, k2, b2, 1)
+    with pytest.raises(TypeError, match="dtype"):
+        tcn_block_fused(x.half(), k1.half(), pack, k2.half(), b2, 1)
+    with pytest.raises(ValueError, match="kernel2"):
+        tcn_block_fused(x, k1, pack, k2.t().contiguous(), b2, 1)
+    with pytest.raises(ValueError, match="dilation"):
+        tcn_block_fused(x, k1, pack, k2, b2, 0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        tcn_block_fused(x, k1, pack.cpu(), k2, b2, 1)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tcn_block_fused(x[..., :62].contiguous(), k1[:62].contiguous(), pack,
+                        k2[:, :62].contiguous(), b2[:, :62].contiguous(), 1)

@@ -260,6 +260,45 @@ def test_one_trainer_step_at_default_eps_matches_optax(slice_pair, tmp_path):
     assert compared > 0.5 * total, (compared, total)
 
 
+def test_adam_reads_what_aps_tpu_reads(slice_pair, tmp_path):
+    """optimizer_kwargs {lr, weight_decay} as the separation recipes give
+    them: aps_tpu's "adam" reads beta1, beta2 and eps only, so weight_decay
+    has no effect there and must have none in the port (where handing it to
+    torch.optim.Adam would add an L2 term). One step in both packages from
+    the same kwargs: the parameters agree, they equal the port's step
+    without the key to the bit, and trainer.log says the key was ignored."""
+    from aps_tpu.trainer.dp import OPTIMIZERS
+    jtask, variables, task, _ = slice_pair
+    kwargs = {"lr": 1e-3, "weight_decay": 1e-5, "eps": 1e-3}
+    egs = make_batch(20)
+    trainers = []
+    for name, opt_kwargs in (("with", kwargs),
+                             ("without", {"lr": 1e-3, "eps": 1e-3})):
+        conf = dict(TRAINER_CONF, optimizer_kwargs=opt_kwargs)
+        trainers.append(aps_trainer("dp")(copy.deepcopy(task), device="cpu",
+                                          checkpoint=tmp_path / name, **conf))
+        assert trainers[-1].train_one_step(dict(egs))
+    with_wd, without = trainers
+    assert with_wd.optimizer.defaults["weight_decay"] == 0
+    for (key, a), b in zip(with_wd.task.state_dict().items(),
+                           without.task.state_dict().values()):
+        assert torch.equal(a, b), key
+    log = (tmp_path / "with" / "trainer.log").read_text()
+    assert "weight_decay have no effect" in log
+    assert "no effect" not in (tmp_path / "without" /
+                               "trainer.log").read_text()
+    params = variables["params"]
+    _, _, grads = jax_loss_and_grads(jtask, variables, egs)
+    tx = optax.chain(optax.clip_by_global_norm(5.0),
+                     OPTIMIZERS["adam"](kwargs))
+    updates, _ = tx.update(grads, tx.init(params), params)
+    rate = with_wd.reporter.stats["rate"][-1]
+    want = optax.apply_updates(
+        params, jax.tree_util.tree_map(lambda u: u * rate, updates))
+    assert_trees_close(to_variables(with_wd.task.nnet)["params"],
+                       want["nnet"], atol=STEP_ATOL)
+
+
 def test_am_raw_loader_matches_jax_package(tmp_path):
     """The port's am@raw loader with the word tokenizer gives the batches
     of aps_tpu's loader on the same corpus, in validation order and in two
