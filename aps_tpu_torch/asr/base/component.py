@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Encoder building blocks (port of aps_tpu/asr/base/component.py: Conv2d,
-and the batch norms with aps_tpu's running statistics).
+"""Encoder building blocks (port of aps_tpu/asr/base/component.py:
+Normalize1d, Conv1d, Conv2d, and the batch norms with aps_tpu's running
+statistics).
 
 aps_tpu is channel-last (N x T x F x C); PyTorch convolutions are
 channel-first, so the port runs N x C x T x F and the encoders that flatten
@@ -44,6 +45,58 @@ class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
     pass
+
+
+class Normalize1d(nn.Module):
+    """BN / LN over N x T x F (the feature axis is normalised)."""
+
+    def __init__(self, name: str, inp_features: int):
+        super(Normalize1d, self).__init__()
+        name = name.upper()
+        if name not in ("BN", "LN"):
+            raise ValueError(f"Unknown type of Normalize1d: {name}")
+        # aps_tpu's epsilons: BatchNorm 1e-5, LayerNorm 1e-6
+        self.bnorm = BatchNorm1d(inp_features, eps=1e-5, momentum=0.1) \
+            if name == "BN" else None
+        self.lnorm = nn.LayerNorm(inp_features, eps=1e-6) \
+            if name == "LN" else None
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        if self.lnorm is not None:
+            return self.lnorm(inp)
+        return self.bnorm(inp.transpose(1, 2)).transpose(1, 2)
+
+
+class Conv1d(nn.Module):
+    """TDNN block: Conv1d -> Norm -> ReLU -> Dropout on N x T x F."""
+
+    def __init__(self,
+                 inp_features: int,
+                 out_features: int,
+                 kernel_size: int = 3,
+                 stride: int = 2,
+                 dilation: int = 1,
+                 norm: str = "BN",
+                 dropout: float = 0,
+                 for_streaming: bool = False):
+        super(Conv1d, self).__init__()
+        self.kernel_size, self.stride, self.dilation = kernel_size, stride, \
+            dilation
+        self.padding = 0 if for_streaming else \
+            (dilation * (kernel_size - 1)) // 2
+        self.conv = nn.Conv1d(inp_features, out_features, kernel_size,
+                              stride=stride, padding=self.padding,
+                              dilation=dilation)
+        self.norm1d = Normalize1d(norm, out_features)
+        self.drop = nn.Dropout(dropout)
+
+    def compute_outp_dim(self, dim):
+        return (dim + 2 * self.padding - self.dilation *
+                (self.kernel_size - 1) - 1) // self.stride + 1
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        out = self.conv(inp.transpose(1, 2)).transpose(1, 2)
+        return self.drop(torch.relu(self.norm1d(out)))
 
 
 class Conv2d(nn.Module):

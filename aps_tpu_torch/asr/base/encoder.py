@@ -1,12 +1,58 @@
 #!/usr/bin/env python
-"""ASR encoders (port of aps_tpu/asr/base/encoder.py: Conv2dEncoder)."""
+"""ASR encoders (port of aps_tpu/asr/base/encoder.py: Conv1dEncoder,
+Conv2dEncoder)."""
 
 from typing import List, Union
 
 import torch
 from torch import nn
 
-from aps_tpu_torch.asr.base.component import Conv2d
+from aps_tpu_torch.asr.base.component import Conv1d, Conv2d
+
+
+class Conv1dEncoder(nn.Module):
+    """Stack of TDNN (conv1d) layers with time reduction on N x T x F."""
+
+    def __init__(self,
+                 inp_features: int,
+                 out_features: int,
+                 dim: int = 512,
+                 norm: str = "BN",
+                 num_layers: int = 3,
+                 kernel: Union[List[int], int] = 3,
+                 stride: Union[List[int], int] = 2,
+                 dilation: Union[List[int], int] = 1,
+                 dropout: float = 0,
+                 for_streaming: bool = False):
+        super(Conv1dEncoder, self).__init__()
+        cfgs = zip(*(self._list(p, num_layers)
+                     for p in (kernel, stride, dilation)))
+        self.convs = []
+        for i, (k, s, d) in enumerate(cfgs):
+            last = i == num_layers - 1
+            conv = Conv1d(inp_features if i == 0 else dim,
+                          (out_features if out_features > 0 else dim)
+                          if last else dim,
+                          kernel_size=k, stride=s, dilation=d, norm=norm,
+                          dropout=dropout, for_streaming=for_streaming)
+            self.add_module(f"conv_{i}", conv)
+            self.convs.append(conv)
+
+    @staticmethod
+    def _list(param, repeat):
+        return [param] * repeat if isinstance(param, int) else list(param)
+
+    def compute_outp_dim(self, dim):
+        for conv in self.convs:
+            dim = conv.compute_outp_dim(dim)
+        return dim
+
+    def forward(self, inp: torch.Tensor, inp_len=None):
+        for conv in self.convs:
+            inp = conv(inp)
+            if inp_len is not None:
+                inp_len = conv.compute_outp_dim(inp_len)
+        return inp, inp_len
 
 
 class Conv2dEncoder(nn.Module):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Positional encodings (port of aps_tpu/asr/transformer/pose.py:
-RelPosEncoding "rel", InputSinPosEncoding "abs" and their sinusoid base).
-Batch-first outputs."""
+SinPosEncoding "xl", RelPosEncoding "rel", InputSinPosEncoding "abs",
+Conv1dPosEncoding "conv1d"). Batch-first outputs."""
 
 import math
 
 import torch
+import torch.nn.functional as tf
 from torch import nn
 
 from aps_tpu_torch.libs import Register
@@ -15,13 +16,13 @@ PosEncodings = Register("pos_encodings")
 
 def get_xfmr_pose(pose: str, dim: int, **kwargs) -> nn.Module:
     if pose not in PosEncodings:
-        raise NotImplementedError(f"pose layer {pose} is not ported yet")
+        raise ValueError(f"Unsupported pose layer: {pose}")
     return PosEncodings[pose](embed_dim=dim, **kwargs)
 
 
+@PosEncodings.register("xl")
 class SinPosEncoding(nn.Module):
-    """Sinusoidal encodings of given (possibly negative) positions (the
-    base of the abs encoding; aps_tpu's "xl" pose is not ported yet)."""
+    """Sinusoidal encodings of given (possibly negative) positions."""
 
     def __init__(self, embed_dim: int, dropout: float = 0.0):
         super(SinPosEncoding, self).__init__()
@@ -73,3 +74,22 @@ class InputSinPosEncoding(SinPosEncoding):
                                device=inp.device)
         factor = self.embed_dim**0.5 if self.scaled else 1
         return self.dropout(inp * factor + self._sin_enc(pos))
+
+
+@PosEncodings.register("conv1d")
+class Conv1dPosEncoding(nn.Module):
+    """Convolutional position encoding: N x T x D -> N x T x D (added)."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.1,
+                 kernel: int = 33, groups: int = 16):
+        super(Conv1dPosEncoding, self).__init__()
+        self.conv = nn.Conv1d(embed_dim, embed_dim, kernel,
+                              padding=(kernel - 1) // 2, groups=groups)
+        nn.init.normal_(self.conv.weight,
+                        std=math.sqrt(4 / (kernel * embed_dim)))
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        pos = self.dropout(self.conv(inp.transpose(1, 2)).transpose(1, 2))
+        # jax.nn.gelu defaults to the tanh approximation
+        return tf.gelu(pos, approximate="tanh") + inp

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Transformer helpers (port of aps_tpu/asr/transformer/utils.py:
-digit_shift, prep_sub_mask, get_activation_fn). Batch-first layout.
+digit_shift, prep_sub_mask, prep_context_mask, get_activation_fn).
+Batch-first layout.
 padding_mask lives in aps_tpu_torch/asr/base/attention.py, as in aps_tpu."""
 
 import torch
@@ -28,6 +29,27 @@ def prep_sub_mask(num_frames: int, device=None) -> torch.Tensor:
     mask = torch.triu(torch.ones(num_frames, num_frames, device=device),
                       diagonal=1)
     return torch.where(mask == 1, NEG_INF, 0.0).to(torch.float32)
+
+
+def prep_context_mask(num_frames: int,
+                      chunk_size: int = 1,
+                      lctx: int = 0,
+                      rctx: int = 0,
+                      ninf: float = NEG_INF,
+                      device=None) -> torch.Tensor:
+    """Chunked-context additive mask (lctx/rctx in chunks, -1 = infinite):
+    T x T with ninf where frame s is outside the context of frame l."""
+    if lctx < 0:
+        lctx = num_frames
+    if rctx < 0:
+        rctx = num_frames
+    index = torch.arange(num_frames, device=device)
+    index_floor = index // chunk_size
+    right = (index_floor + rctx + 1) * chunk_size
+    left = torch.clamp_min((index_floor - lctx) * chunk_size, 0)
+    ctx_mask = (index[None, :] >= right[:, None]) | \
+        (index[None, :] < left[:, None])
+    return torch.where(ctx_mask, ninf, 0.0).to(torch.float32)
 
 
 def get_activation_fn(activation: str):

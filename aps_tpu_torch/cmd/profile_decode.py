@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Where the time of the port's batched decode goes, on one NVIDIA card.
 
-    python -m aps_tpu_torch.cmd.profile_decode [--out profile.txt]
+    python -m aps_tpu_torch.cmd.profile_decode [--model flagship|xfmr_abs]
+        [--out profile.txt]
 
-Builds the full-width flagship from a seed, with the peaky output layers
+Builds a full-width model from a seed (the flagship, or with --model
+xfmr_abs the long-form abs-pose transformer), with the peaky output layers
 chip_smoke.py gives it, and for each batch size decodes batches of 8 s
-utterances through beam_search_batch (beam 8, ctc weight 0.4, ctc beam 12,
-max_len 40), padded to their duration bucket as decode_batch pads them.
-For each batch size (8 and 64) it prints the cold first batch, the median
+(long-form: 24 s) utterances through beam_search_batch (beam 8, ctc weight
+0.4, ctc beam 12, max_len 40), padded to their duration bucket as
+decode_batch pads them. For each batch size (8 and 64; long-form: 4 and
+16) it prints the cold first batch, the median
 and p90 of RUNS warm batches (host clock around a synchronised search),
 decode_enc alone, the peak device memory, and a torch.profiler trace of
 one warm batch: device time, its share of the profiled wall and of the
@@ -25,15 +28,15 @@ import torch
 from aps_tpu_torch.asr.beam_search.transformer import beam_search_batch
 from aps_tpu_torch.asr.beam_search.utils import stack_padded
 from aps_tpu_torch.cmd.decode_batch import quantize_dur
-from aps_tpu_torch.flagship import build_flagship, flagship_conf, init_weights
+from aps_tpu_torch.flagship import MODELS, build_flagship, init_weights
 from aps_tpu_torch.ops import build
 
 SR = 16000
-UTT_SECS = 8
 VOCAB = 4233
+# model -> (seconds per utterance, batch sizes)
+SHAPES = {"flagship": (8, (8, 64)), "xfmr_abs": (24, (4, 16))}
 SEARCH = dict(sos=VOCAB - 3, eos=VOCAB - 2, beam_size=8, nbest=1,
               max_len=40, ctc_weight=0.4, allow_partial=True)
-BATCHES = (8, 64)
 RUNS = 10
 TOP = 15
 SEED = 777
@@ -69,7 +72,7 @@ def profile(fn):
     return device_us / 1e3, wall, launches, prof
 
 
-def run(out: str) -> None:
+def run(out: str, name: str = "flagship") -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -79,18 +82,21 @@ def run(out: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(SEED)
-    model = build_flagship(flagship_conf(vocab_size=VOCAB, small=False))
+    utt_secs, batches = SHAPES[name]
+    model = build_flagship(MODELS[name][0](vocab_size=VOCAB, small=False))
     init_weights(model, gen)
     with torch.no_grad():
         model.decoder.output.weight.mul_(8.0)
         model.ctc_head.weight.mul_(8.0)
     model = model.to(dev).eval()
-    pad_to = quantize_dur(UTT_SECS * SR, base=SR)
+    pad_to = quantize_dur(utt_secs * SR, base=SR)
+    print(f"model {name}: utterances of {utt_secs} s padded to {pad_to} "
+          "samples", flush=True)
     tables = []
-    for B in BATCHES:
-        batch = [(0.1 * torch.randn(UTT_SECS * SR, generator=gen)).numpy()
+    for B in batches:
+        batch = [(0.1 * torch.randn(utt_secs * SR, generator=gen)).numpy()
                  for _ in range(B)]
-        audio = B * UTT_SECS
+        audio = B * utt_secs
 
         def decode():
             return beam_search_batch(model, batch, device=dev,
@@ -136,14 +142,18 @@ def run(out: str) -> None:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Profile the batched decode of the full-width flagship "
-        "on one card")
+        description="Profile the batched decode of a full-width model on "
+        "one card")
+    parser.add_argument("--model", choices=sorted(SHAPES),
+                        default="flagship",
+                        help="the flagship (8 s utterances) or the long-form "
+                        "abs-pose model (24 s utterances)")
     parser.add_argument("--out", type=str, default="",
                         help="file for the profiler's tables")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
-    run(args.out)
+    run(args.out, args.model)
 
 
 if __name__ == "__main__":

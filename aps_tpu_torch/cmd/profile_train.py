@@ -1,13 +1,15 @@
 #!/usr/bin/env python
 """Where the time of the port's training step goes, on one NVIDIA card.
 
-    python -m aps_tpu_torch.cmd.profile_train [--out profile.txt]
+    python -m aps_tpu_torch.cmd.profile_train [--model flagship|xfmr_abs]
+        [--out profile.txt]
 
-Builds the full-width flagship (attention dropout 0 in the encoder, the
+Builds a full-width model (the flagship, or with --model xfmr_abs the
+long-form abs-pose transformer; attention dropout 0 in the encoder, the
 other dropouts 0.1) from a seed under task asr@ctc_xent (ctc weight 0.2,
 label smoothing 0.1) and the single-card trainer (Adam 1e-4, clip 5.0),
-and takes steps on one seeded batch of 32 x 8 s with 24 labels each, padded
-to 147884 samples as the loader's length grid pads 8 s. It prints the cold
+and takes steps on one seeded batch of 32 x 8 s (long-form: 8 x 24 s) with
+24 labels each, padded as the loader's length grid pads it. It prints the cold
 first step, the median and p90 of RUNS warm steps (host clock around a
 synchronised step), the peak device memory, and a torch.profiler trace of
 one warm step: device time, its share of the warm median, kernel launches
@@ -24,38 +26,38 @@ import torch
 
 from aps_tpu_torch.cmd.profile_decode import (on_device, profile,
                                               synced_secs)
-from aps_tpu_torch.flagship import build_flagship, flagship_train_conf
+from aps_tpu_torch.flagship import MODELS, build_flagship
 from aps_tpu_torch.libs import aps_task, aps_trainer
 from aps_tpu_torch.loader.utils import quantize_len
 from aps_tpu_torch.ops import build
 
 SR = 16000
-UTT_SECS = 8
 VOCAB = 4233
-BATCH = 32
+# model -> (seconds per utterance, utterances per batch)
+SHAPES = {"flagship": (8, 32), "xfmr_abs": (24, 8)}
 LABELS = 24
 RUNS = 10
 TOP = 20
 SEED = 777
 
 
-def seeded_batch() -> dict:
+def seeded_batch(utt_secs: int, batch: int) -> dict:
     rng = np.random.default_rng(SEED)
-    valid = UTT_SECS * SR
-    src = np.zeros((BATCH, quantize_len(valid, floor=8000, factor=1.2)),
+    valid = utt_secs * SR
+    src = np.zeros((batch, quantize_len(valid, floor=8000, factor=1.2)),
                    dtype=np.float32)
-    src[:, :valid] = 0.1 * rng.standard_normal((BATCH, valid))
+    src[:, :valid] = 0.1 * rng.standard_normal((batch, valid))
     return {
-        "#utt": BATCH,
-        "#tok": BATCH * (LABELS + 1),
+        "#utt": batch,
+        "#tok": batch * (LABELS + 1),
         "src_pad": src,
-        "src_len": np.full(BATCH, valid, dtype=np.int64),
-        "tgt_pad": rng.integers(1, VOCAB - 3, (BATCH, LABELS)),
-        "tgt_len": np.full(BATCH, LABELS, dtype=np.int64),
+        "src_len": np.full(batch, valid, dtype=np.int64),
+        "tgt_pad": rng.integers(1, VOCAB - 3, (batch, LABELS)),
+        "tgt_len": np.full(batch, LABELS, dtype=np.int64),
     }
 
 
-def run(out: str) -> None:
+def run(out: str, name: str = "flagship") -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -65,10 +67,13 @@ def run(out: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     dev = torch.device("cuda:0")
-    conf = flagship_train_conf(VOCAB)
+    utt_secs, batch = SHAPES[name]
+    conf = MODELS[name][1](VOCAB)
     task = aps_task(conf["task"], build_flagship(conf), blank=VOCAB - 1,
                     **conf["task_conf"])
-    egs = seeded_batch()
+    egs = seeded_batch(utt_secs, batch)
+    print(f"model {name}: one batch of {batch} x {egs['src_pad'].shape[1]} "
+          "samples", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = aps_trainer("dp")(task, device=dev, checkpoint=tmp,
                                     **conf["trainer_conf"])
@@ -85,9 +90,9 @@ def run(out: str) -> None:
         med = statistics.median(warm)
         p90 = float(np.percentile(warm, 90))
         losses = [float(v) for v in trainer.reporter.stats["loss"]]
-        print(f"N={BATCH} x {UTT_SECS} s: cold first step {cold:.4f} s; "
+        print(f"N={batch} x {utt_secs} s: cold first step {cold:.4f} s; "
               f"warm median {med:.4f} s, p90 {p90:.4f} s over {RUNS} steps "
-              f"= {BATCH * UTT_SECS / med:.2f} audio-s/s; peak memory "
+              f"= {batch * utt_secs / med:.2f} audio-s/s; peak memory "
               f"{peak:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
               f"({card})", flush=True)
         build.reset_launches()
@@ -104,20 +109,24 @@ def run(out: str) -> None:
               f" {e.key[:90]}", flush=True)
     if out:
         with open(out, "w") as fd:
-            fd.write(f"N={BATCH} ({card})\n" + prof.key_averages().table(
+            fd.write(f"N={batch} ({card})\n" + prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=80))
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Profile the training step of the full-width flagship "
-        "on one card")
+        description="Profile the training step of a full-width model on "
+        "one card")
+    parser.add_argument("--model", choices=sorted(SHAPES),
+                        default="flagship",
+                        help="the flagship (32 x 8 s) or the long-form "
+                        "abs-pose model (8 x 24 s)")
     parser.add_argument("--out", type=str, default="",
                         help="file for the profiler's table")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
-    run(args.out)
+    run(args.out, args.model)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ Takes aps_tpu's training arguments (aps_tpu_torch.opts.TrainParser) and
 YAML configs and writes aps_tpu-format checkpoints, train.yaml and the dict
 into --checkpoint. It trains on the card (--device-id picks which) and
 raises when torch sees none; --device cpu asks for the CPU in so many
-words. The flagship's rel-pose attention kernel has no dropout inside, so
-on the card a cfmr/rel encoder needs att_dropout: 0 in its arch_kwargs."""
+words. The attention kernels have no dropout inside: an encoder whose
+att_dropout is above 0 trains through the dense attention path, on either
+device, and one with att_dropout: 0 through the flash kernels."""
 
 import argparse
 import pprint

@@ -22,8 +22,10 @@ layout rule of each leaf follows the module that owns it:
                  where PyTorch scatters it, i.e. applies it flipped
   nn.PReLU       weight (1,)           <-> negative_slope ()
   jax_params     a module's own parameters named in its `jax_params`
-                 (gLN gamma/beta, ScaleLinear scale) keep name and shape; one
-                 that is None (a ScaleLinear without scale) has no leaf
+                 (gLN gamma/beta, ScaleLinear scale, the rel_u / rel_v of an
+                 xl attention or, when tied, of its encoder) keep name and
+                 shape; one that is None (a ScaleLinear without scale) has
+                 no leaf
 
 BatchNorm's num_batches_tracked has no counterpart in aps_tpu and is left
 at 0; the port builds its norms with aps_tpu's epsilons (LayerNorm 1e-6,
@@ -46,6 +48,10 @@ MODULE_NAMES = {
     "linear2": "Dense_1",
     "embed": "Embed_0",
     "cross_attn": "multihead_attn",
+    # LinearProj / Conv1dProj and their norms
+    "conv1d_encoder": "Conv1dEncoder_0",
+    "norm1d": "Normalize1d_0",
+    "lnorm": "LayerNorm_0",
     # Conv-TasNet (aps_tpu_torch/sse/bss/tcn.py)
     "tcn": "conv",
     "linear_in": "ScaleLinear_0",

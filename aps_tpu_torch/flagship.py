@@ -1,11 +1,15 @@
 #!/usr/bin/env python
-"""The flagship model of the repo, a Conformer AED with a CTC head, as the
-port builds it (the configuration of __graft_entry__._build_flagship).
+"""The named model configurations of the port.
 
-flagship_conf gives the train.yaml sections (nnet, nnet_conf,
-asr_transform) that aps_tpu's load_checkpoint and the port's both read;
-build_flagship builds the port's model from them; init_weights draws its
-weights from an explicit torch.Generator."""
+The flagship of the repo is a Conformer AED with a CTC head (the
+configuration of __graft_entry__._build_flagship): flagship_conf gives the
+train.yaml sections (nnet, nnet_conf, asr_transform) that aps_tpu's
+load_checkpoint and the port's both read. xfmr_abs_conf is the long-form
+model beside it, a post-norm transformer encoder with absolute (input
+sinusoid) positions, whose self-attention is the scaled-dot-product flash
+kernel. MODELS maps a name to (conf, train conf); build_flagship builds the
+port's model from either conf; init_weights draws its weights from an
+explicit torch.Generator."""
 
 import math
 from typing import Dict, Optional
@@ -21,8 +25,9 @@ def flagship_conf(vocab_size: int = 64, small: bool = True,
     """Id layout: 0..V-4 tokens, V-3 sos, V-2 eos, V-1 ctc blank. The full
     width (small=False) is 12 conformer layers of width 256 with 4 heads
     and 6 decoder layers. enc_att_dropout sets att_dropout of the encoder
-    layers (default 0.1 when left out): training on the card needs 0, since
-    the rel-pose attention kernel has no dropout inside."""
+    layers (default 0.1 when left out): with 0 the encoder's self-attention
+    takes the flash kernel in training too, with more it takes the dense
+    path there (the kernels have no dropout inside)."""
     att_dim = 64 if small else 256
     conf = {
         "nnet": "asr@xfmr",
@@ -68,12 +73,7 @@ def flagship_conf(vocab_size: int = 64, small: bool = True,
     return conf
 
 
-def flagship_train_conf(vocab_size: int = 4233) -> Dict:
-    """flagship_conf at full width with the encoder's attention dropout 0,
-    plus the task and trainer sections of the training step the port is
-    measured at (the shape of bench.py's step: asr@ctc_xent with ctc weight
-    0.2 and label smoothing 0.1, Adam 1e-4, global-norm clip 5.0)."""
-    conf = flagship_conf(vocab_size, small=False, enc_att_dropout=0.0)
+def _train_sections(conf: Dict) -> Dict:
     conf.update(
         task="asr@ctc_xent",
         task_conf={"ctc_weight": 0.2, "lsm_factor": 0.1},
@@ -84,6 +84,52 @@ def flagship_train_conf(vocab_size: int = 4233) -> Dict:
             "report_metrics": ["loss", "accu", "@ctc", "xent"],
         })
     return conf
+
+
+def flagship_train_conf(vocab_size: int = 4233) -> Dict:
+    """flagship_conf at full width with the encoder's attention dropout 0,
+    plus the task and trainer sections of the training step the port is
+    measured at (the shape of bench.py's step: asr@ctc_xent with ctc weight
+    0.2 and label smoothing 0.1, Adam 1e-4, global-norm clip 5.0)."""
+    return _train_sections(
+        flagship_conf(vocab_size, small=False, enc_att_dropout=0.0))
+
+
+def xfmr_abs_conf(vocab_size: int = 64, small: bool = True,
+                  enc_att_dropout: Optional[float] = None) -> Dict:
+    """The long-form abs-pose model: flagship_conf with the conformer
+    encoder replaced by a post-norm transformer encoder (enc_type xfmr,
+    pose abs). At full width 12 layers of width 256 with 4 heads (head dim
+    64) and the layer's default feed-forward width of 2048, the widths
+    aps_tpu's BENCHMARKS.md gives for its abs-pose encoder."""
+    conf = flagship_conf(vocab_size, small=small)
+    att_dim = 64 if small else 256
+    nnet_conf = conf["nnet_conf"]
+    nnet_conf["enc_type"] = "xfmr"
+    nnet_conf["enc_kwargs"].update(
+        pose="abs",
+        arch_kwargs={"att_dim": att_dim, "nhead": 4,
+                     "feedforward_dim": att_dim * 4 if small else 2048,
+                     "pre_norm": False})
+    if enc_att_dropout is not None:
+        nnet_conf["enc_kwargs"]["arch_kwargs"]["att_dropout"] = \
+            enc_att_dropout
+    return conf
+
+
+def xfmr_abs_train_conf(vocab_size: int = 4233) -> Dict:
+    """xfmr_abs_conf at full width with the encoder's attention dropout 0
+    (so that its self-attention takes the flash kernel in training), under
+    the task and trainer sections of flagship_train_conf."""
+    return _train_sections(
+        xfmr_abs_conf(vocab_size, small=False, enc_att_dropout=0.0))
+
+
+# name -> (conf(vocab_size, small, enc_att_dropout), train conf(vocab_size))
+MODELS = {
+    "flagship": (flagship_conf, flagship_train_conf),
+    "xfmr_abs": (xfmr_abs_conf, xfmr_abs_train_conf),
+}
 
 
 def build_flagship(conf: Dict) -> nn.Module:

@@ -33,6 +33,10 @@ NVCC_FLAGS = [
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "fused_logmel": 0,
+    "flash_attention": 0,
+    "flash_attention_dq": 0,
+    "flash_attention_dkv": 0,
+    "flash_attention_dbias": 0,
     "flash_attention_rel": 0,
     "flash_attention_rel_dq": 0,
     "flash_attention_rel_dkv": 0,

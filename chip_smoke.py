@@ -63,6 +63,30 @@
    training-mode pass on 4 mixtures card vs CPU, the loss and four
    gradients, with a float64 pass on the card as the referee.
 
+12. Holds the four kernels of the scaled-dot-product flash attention (K2:
+   forward, dq, dk/dv, dbias) against their plain versions at the long-form
+   path's decode and training shapes, with Tq != Tk, causal masks, a bias
+   that differs between the heads, batch entries without a key, ragged T,
+   and B = 16 at T = 1024; dbias twice for run-to-run equality. Without a
+   bias one PyTorch call, scaled_dot_product_attention, computes the same
+   forward (and autograd through it dq, dk and dv): its time is printed
+   beside the kernel's as `library_ms`, and the port never calls it.
+13. Trains one step of the flagship with att_dropout 0.1 in the encoder on
+   the card: the dense attention path, a finite loss, no attention kernel
+   launched.
+14. The long-form path at full width: the abs-pose transformer model (12
+   post-norm layers of width 256, 4 heads, feed-forward 2048, the
+   flagship's decoder and CTC head) written as an aps_tpu checkpoint; 8
+   utterances of 24 s through `aps_tpu_torch.cmd.decode_batch` in batches
+   of 4 (per batch K1 once, K2's forward 12 times, K4 once per search step,
+   the rel-pose kernels never); two utterances card vs CPU; then training
+   through `aps_tpu_torch.cmd.train_am` in batches of 8 x 24 s (a corpus
+   of 16, since the loader wants ten utterances; per step K2's forward,
+   dq and dk/dv 12 times each, dbias never: the model passes no bias), the
+   loss must fall; one training pass with dropouts off card vs CPU.
+   (Steps 12 to 14 run where their data is at hand: 12 with the other
+   kernel checks, 13 before step 7, 14 after step 8.)
+
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before that line is printed."""
@@ -92,6 +116,16 @@ TRAIN_LABELS = 24
 TRAIN_EPOCHS = 3  # one step each: the corpus is one batch
 TIMED_STEPS = 5
 ENC_LAYERS = 12
+# the long-form path: the abs-pose transformer model on 24 s utterances
+LONG_SECS = 24
+LONG_UTTS = 8
+LONG_BATCH = 4
+LONG_DECODE_ARGS = ["--batch-size", str(LONG_BATCH)] + DECODE_ARGS[2:]
+LONG_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU check
+LONG_TRAIN_UTTS = 8
+# the loader wants at least ten utterances: two batches an epoch
+LONG_TRAIN_BATCHES = 2
+LONG_TIMED_STEPS = 3
 # separation: the full-width Conv-TasNet on 8 kHz mixtures
 SEP_SR = 8000
 SEP_SECS = 4
@@ -114,6 +148,14 @@ PEAK_BF16_PER_S = 989e12
 KERNELS = {
     "fused_logmel": ("aps_tpu_torch/csrc/fbank.cu",
                      "aps_tpu/ops/pallas/fbank.py:72"),
+    "flash_attention": ("aps_tpu_torch/csrc/attention.cu",
+                        "aps_tpu/ops/pallas/attention.py:141"),
+    "flash_attention_dq": ("aps_tpu_torch/csrc/attention_bwd.cu",
+                           "aps_tpu/ops/pallas/attention.py:370"),
+    "flash_attention_dkv": ("aps_tpu_torch/csrc/attention_bwd.cu",
+                            "aps_tpu/ops/pallas/attention.py:394"),
+    "flash_attention_dbias": ("aps_tpu_torch/csrc/attention_bwd.cu",
+                              "aps_tpu/ops/pallas/attention.py:429"),
     "flash_attention_rel": ("aps_tpu_torch/csrc/rel_attention.cu",
                             "aps_tpu/ops/pallas/rel_attention.py:512"),
     "flash_attention_rel_dq": ("aps_tpu_torch/csrc/rel_attention_bwd.cu",
@@ -129,9 +171,16 @@ KERNELS = {
 }
 # the path each kernel's first check row (and its `launches`) belongs to
 DECODE_KERNELS = ("fused_logmel", "flash_attention_rel", "ctc_score_step")
+# the check rows of K1 and K4 at the long-form path's shapes
+LONG_ROWS = {"fused_logmel": (2, 3), "ctc_score_step": (4, 5)}
 # kernels on both paths: the check row taken at the training step's shape
-TRAIN_ROW = {"fused_logmel": 1, "flash_attention_rel": 4}
+TRAIN_ROW = {"fused_logmel": 1, "flash_attention_rel": 4,
+             "flash_attention": 1}
 BACKWARD = ("dq", "dkv", "dpose")
+# per model: its encoder's attention kernel and the backward kernels a
+# training step launches (the abs-pose model passes no bias: no dbias)
+ATTENTION = {"flagship": ("flash_attention_rel", BACKWARD),
+             "xfmr_abs": ("flash_attention", ("dq", "dkv"))}
 # tolerances of kernel vs plain version, both float32 on the card:
 # log-mel: 512-term DFT sums in another order, then a log (the JAX package's
 #   own fused-vs-layered bound), at the decode's and the training batch's
@@ -207,35 +256,44 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
         (by_ops, "operations")
 
 
-def path_shapes(model):
-    """(S, T, k_len) of a batch of UTT_SECS utterances in decode_batch:
+def path_shapes(model, secs=UTT_SECS):
+    """(S, T, k_len) of a batch of utterances of secs in decode_batch:
     samples per utterance after padding to the duration bucket, encoder
     (and CTC) frames of that padded batch, and the valid frames of each."""
     import torch
 
     from aps_tpu_torch.cmd.decode_batch import quantize_dur
-    S = quantize_dur(UTT_SECS * SR, base=SR)
-    frames = model.asr_transform._num_frames(torch.tensor([S, UTT_SECS * SR]))
+    S = quantize_dur(secs * SR, base=SR)
+    frames = model.asr_transform._num_frames(torch.tensor([S, secs * SR]))
     T, k_len = model.encoder.num_frames(frames).tolist()
     return S, T, k_len
 
 
-def check_fbank(dev, model, wavs, S, src_pad):
-    """K1 with the front end's own arguments on the decode's first batch,
-    padded as decode_batch pads it, and on the training batch as the loader
-    collates it (another grid size and frame count)."""
+def decode_batch_of(wavs, count, S):
+    """The first count utterances padded to S samples, as decode_batch
+    stacks its first batch."""
+    import torch
+    wav = torch.zeros((count, S))
+    for n, key in enumerate(sorted(wavs)[:count]):
+        wav[n, :len(wavs[key])] = torch.from_numpy(wavs[key])
+    return wav
+
+
+def check_fbank(dev, model, batches):
+    """K1 with the front end's own arguments on each (path, N x S batch):
+    the decode's first batch, padded as decode_batch pads it, the training
+    batch as the loader collates it (another grid size and frame count), and
+    the long-form path's two."""
     import torch
 
     from aps_tpu_torch.ops.fbank import fused_logmel, fused_logmel_plain
     tf = model.asr_transform
-    wav = torch.zeros((8, S))
-    for n, key in enumerate(sorted(wavs)[:8]):
-        wav[n, :len(wavs[key])] = torch.from_numpy(wavs[key])
     kw = dict(mel=tf.mel, pre_emphasis=tf.pre_emphasis,
               normalized=tf.stft_normalized, use_power=tf.use_power,
               log_lower_bound=tf.log_lower_bound, log_eps=tf.eps)
     rows = []
-    for path, wav in (("decode", wav), ("training", torch.as_tensor(src_pad))):
+    for path, wav in batches:
+        wav = torch.as_tensor(wav)
         args = (wav.to(dev), tf.window, tf.fft_size, tf.frame_hop)
         N, S = wav.shape
         label = f"N={N} S={S} M={tf.feats_dim} ({path})"
@@ -265,13 +323,15 @@ def check_fbank(dev, model, wavs, S, src_pad):
     return rows
 
 
-def valid_pairs(T, lens, causal):
+def valid_pairs(T, lens, causal, Tk=None):
     """Number of (query l, key s) pairs the mask leaves, summed over the
-    batch: s < k_len[b], and s <= l under causal."""
+    batch, for T queries and Tk (default T) keys: s < k_len[b], and s <= l
+    under causal."""
     total = 0
     for n in lens:
-        n = min(int(n), T)
-        total += n * (n + 1) // 2 + (T - n) * n if causal else T * n
+        n = min(int(n), T if Tk is None else Tk)
+        m = min(n, T)
+        total += m * (m + 1) // 2 + (T - m) * n if causal else T * n
     return total
 
 
@@ -422,6 +482,310 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     return rows
 
 
+def _sdpa(q, k, v, k_len):
+    """The one PyTorch call that computes K2's forward without a bias: a
+    boolean key mask B x 1 x 1 x Tk from k_len (rows with k_len >= 1 only:
+    it gives NaN for a row without a key). The yardstick of the checks
+    below; nothing in the port calls it."""
+    import torch
+    Tk = k.shape[2]
+    mask = (torch.arange(Tk, device=q.device)[None, :] <
+            k_len[:, None])[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+
+
+def _device_kernel_names(fn):
+    """The names of the device kernels one call of fn() runs, longest
+    first (what the profiler tells of the library's choice of backend)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return [e.key for e in ops]
+
+
+def _ragged(T):
+    return [T, max(T - 17, 2), T // 2, 1, 0, max(T - 90, 2), 3, T // 3]
+
+
+def check_attention(dev, gen, dec_shape, trn_shape):
+    """K2, the scaled-dot-product flash attention. Forward: as the long-form
+    encoder calls it in the decode (B x T, k_len valid) and in training,
+    then Tq != Tk, causal, a bias that differs between the heads, batch
+    entries without any key, ragged T, and B = 16 at T = 1024. Backward: dq,
+    dk/dv and dbias, each launched alone, against mha_backward_reference
+    and against autograd through mha_reference, at the training shape and
+    at shapes that widen it; dbias (which no model path launches) at the
+    training shape with a bias, twice, for run-to-run equality. Where one
+    PyTorch call computes the same function (no bias, every row with a
+    key), its time stands beside the kernel's as the library's.
+    -> (rows by kernel, library ms by kernel, the library's kernel names)"""
+    import torch
+
+    from aps_tpu_torch.ops.attention import (launch_backward_kernel,
+                                             launch_forward, flash_attention,
+                                             mha_backward_reference,
+                                             mha_reference)
+    H, D = 4, 64
+    scale = D**-0.5
+    (B_dec, T_dec, k_dec), (T_trn, lens_trn) = dec_shape, trn_shape
+    rows = {name: [] for name in ("fwd", "dq", "dkv", "dbias")}
+    library, backends = {}, {}
+
+    def make(B, Tq, Tk, with_bias):
+        q = torch.randn((B, H, Tq, D), generator=gen).to(dev)
+        k, v = (torch.randn((B, H, Tk, D), generator=gen).to(dev)
+                for _ in range(2))
+        bias = None
+        if with_bias:
+            bias = torch.randn((H, Tq, Tk), generator=gen)
+            bias[1:] *= 2.0
+            bias = bias.to(dev)
+        return q, k, v, bias
+
+    def label_of(B, Tq, Tk, causal, bias, lens):
+        return (f"B={B} H=4 D=64 Tq={Tq} Tk={Tk} causal={causal} "
+                f"bias={bias is not None} k_len="
+                + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+
+    # forward: decode shape, training shape, then the widening shapes
+    for B, Tq, Tk, causal, with_bias, lens, lib in (
+            (B_dec, T_dec, T_dec, False, False, [k_dec] * B_dec, "decode"),
+            (len(lens_trn), T_trn, T_trn, False, False, lens_trn, None),
+            (8, 200, 300, False, False, _ragged(300), None),
+            (8, 300, 200, True, True, _ragged(200), None),
+            (8, 601, 601, True, True, _ragged(601), None),
+            (16, 1024, 1024, False, False, [1024] * 16, "B=16 T=1024")):
+        q, k, v, bias = make(B, Tq, Tk, with_bias)
+        k_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(bias=bias, k_len=k_len, causal=causal)
+        label = label_of(B, Tq, Tk, causal, bias, lens)
+        got = flash_attention(q, k, v, **kw)
+        want = mha_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"flash_attention {label}: non-finite output")
+        err = (got - want).abs().max().item()
+        if not err <= TOL_ATT:
+            fail(f"flash_attention {label}: max abs err {err} > {TOL_ATT}")
+        for b, n in enumerate(lens):
+            if n == 0 and torch.count_nonzero(got[b]) != 0:
+                fail(f"flash_attention {label}: batch entry {b} has no key "
+                     "but a non-zero output")
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw))
+        # q read and the output written, k and v read, the bias and k_len;
+        # the two products q.k and p.v over the pairs the mask leaves
+        nbytes = 4 * (2 * B * H * Tq * D + 2 * B * H * Tk * D + B +
+                      (H * Tq * Tk if with_bias else 0))
+        bound = bound_ms(nbytes,
+                         2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk))
+        rows["fwd"].append((label, err, ms, plain_ms) + bound)
+        if lib is not None:
+            with torch.no_grad():
+                lib_out = _sdpa(q, k, v, k_len)
+                lib_err = (lib_out - got).abs().max().item()
+                if not lib_err <= TOL_ATT:
+                    fail(f"flash_attention {label}: {lib_err} from the "
+                         "library's scaled_dot_product_attention")
+                lib_ms = time_ms(lambda: _sdpa(q, k, v, k_len))
+                if lib == "decode":
+                    library["flash_attention"] = lib_ms
+                    backends["forward"] = _device_kernel_names(
+                        lambda: _sdpa(q, k, v, k_len))[:2]
+            print(f"flash_attention [{label}]: the library's "
+                  f"scaled_dot_product_attention {lib_ms:.4f} ms, max abs "
+                  f"diff from the kernel {lib_err:.3e}", flush=True)
+
+    # backward
+    for B, Tq, Tk, causal, with_bias, lens, path in (
+            (len(lens_trn), T_trn, T_trn, False, False, lens_trn, True),
+            (len(lens_trn), T_trn, T_trn, False, True, lens_trn, True),
+            (8, 200, 300, False, True, _ragged(300), False),
+            (8, 300, 200, True, False, _ragged(200), False),
+            (8, 601, 601, True, True, _ragged(601), False)):
+        q, k, v, bias = make(B, Tq, Tk, with_bias)
+        do = torch.randn((B, H, Tq, D), generator=gen).to(dev)
+        klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        label = label_of(B, Tq, Tk, causal, bias, lens)
+        kw = dict(bias=bias, k_len=klen, causal=causal)
+        out, lse = launch_forward(q, k, v, bias, klen, scale, causal, True)
+        delta = (do * out).sum(-1)
+        kernels = ("dq", "dkv") + (("dbias",) if with_bias else ())
+        run = lambda kernel: launch_backward_kernel(  # noqa: E731
+            kernel, q, k, v, bias, klen, do, lse, delta, scale, causal)
+        got = {kernel: run(kernel) for kernel in kernels}
+        want = mha_backward_reference(q, k, v, do, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if with_bias:
+            leaves.append(bias.clone().requires_grad_())
+        ref = mha_reference(*leaves[:3], bias=leaves[3] if with_bias
+                            else None, k_len=klen, causal=causal)
+        auto = torch.autograd.grad(ref, leaves, do)
+        torch.cuda.synchronize()
+        fwd_err = (out - ref).abs().max().item()
+        if not fwd_err <= TOL_ATT:
+            fail(f"flash_attention with lse {label}: max abs err {fwd_err} "
+                 f"> {TOL_ATT}")
+        dead = lse >= 1e30
+        if bool(dead.any()) != (min(lens) == 0) or \
+                not torch.isfinite(lse).all():
+            fail(f"flash_attention {label}: lse marks the wrong rows as "
+                 "without a visible key")
+        grads = {"dq": (got["dq"],), "dkv": got["dkv"]}
+        index = {"dq": (0,), "dkv": (1, 2), "dbias": (3,)}
+        if with_bias:
+            grads["dbias"] = (got["dbias"],)
+            if not torch.equal(got["dbias"], run("dbias")):
+                fail(f"flash_attention_dbias {label}: two launches differ")
+        plain_ms = time_ms(lambda: mha_backward_reference(q, k, v, do, **kw),
+                           iters=5, warmup=1)
+        pairs = H * valid_pairs(Tq, lens, causal, Tk)
+        qsize, ksize = B * H * Tq * D, B * H * Tk * D
+        # every kernel reads q, k, v, do, lse, delta, k_len (and the bias)
+        # and recomputes the scores and dp = do.v (4 D operations a pair);
+        # dq adds ds.k, dk/dv adds p.do and ds.q; dbias only sums
+        reads = 4 * (2 * qsize + 2 * ksize + 2 * B * H * Tq + B +
+                     (H * Tq * Tk if with_bias else 0))
+        bounds = {"dq": bound_ms(reads + 4 * qsize, 3 * 2 * D * pairs),
+                  "dkv": bound_ms(reads + 8 * ksize, 4 * 2 * D * pairs),
+                  "dbias": bound_ms(reads + 4 * H * Tq * Tk,
+                                    2 * 2 * D * pairs)}
+        for kernel in kernels:
+            err = 0.0
+            for g, i in zip(grads[kernel], index[kernel]):
+                if not torch.isfinite(g).all():
+                    fail(f"flash_attention_{kernel} {label}: non-finite "
+                         "gradient")
+                for other in (want[i], auto[i]):
+                    e = (g - other).abs().max().item()
+                    err = max(err, e)
+                    if not e <= TOL_GRAD:
+                        fail(f"flash_attention_{kernel} {label}: max abs "
+                             f"err {e} > {TOL_GRAD}")
+            ms = time_ms(lambda: run(kernel))
+            rows[kernel].append((label, err, ms, plain_ms) + bounds[kernel])
+        # keys past k_len get exactly zero dk and dv
+        for g in got["dkv"]:
+            for b, n in enumerate(lens):
+                if torch.count_nonzero(g[b, :, n:]) != 0:
+                    fail(f"flash_attention_dkv {label}: gradient at a "
+                         f"padded key of batch entry {b}")
+        if path and not with_bias:
+            # autograd through the library call: one backward gives dq, dk
+            # and dv together
+            lib_out = _sdpa(*leaves, klen)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lib_out, leaves, do, retain_graph=True)
+            for g, mine in zip(lib_bwd(), (got["dq"],) + got["dkv"]):
+                e = (g - mine).abs().max().item()
+                if not e <= TOL_GRAD:
+                    fail(f"flash_attention backward {label}: {e} from the "
+                         "library's backward")
+            lib_ms = time_ms(lib_bwd)
+            library["flash_attention_dq"] = lib_ms
+            library["flash_attention_dkv"] = lib_ms
+            backends["backward"] = _device_kernel_names(lib_bwd)[:2]
+            print(f"flash_attention backward [{label}]: autograd through "
+                  f"the library's scaled_dot_product_attention {lib_ms:.4f} "
+                  "ms for dq, dk and dv together", flush=True)
+    return rows, library, backends
+
+
+def dropout_step(egs, dev, gen, card):
+    """Two training steps of the full-width flagship with att_dropout 0.1 in
+    the encoder, through the trainer, on the card: active attention dropout
+    takes the dense rel path (plain PyTorch on the card), so the loss must
+    be finite and no attention kernel may launch in a step."""
+    import torch
+
+    from aps_tpu_torch.flagship import (build_flagship, flagship_train_conf,
+                                        init_weights)
+    from aps_tpu_torch.libs import aps_task, aps_trainer
+    from aps_tpu_torch.ops import build
+    conf = flagship_train_conf(VOCAB)
+    conf["nnet_conf"]["enc_kwargs"]["arch_kwargs"]["att_dropout"] = 0.1
+    model = build_flagship(conf)
+    init_weights(model, gen)
+    task = aps_task(conf["task"], model, blank=VOCAB - 1,
+                    **conf["task_conf"])
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = aps_trainer("dp")(task, device=dev, checkpoint=tmp,
+                                    **conf["trainer_conf"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = []
+        for _ in range(2):  # the first step also sets the libraries up
+            build.reset_launches()
+            torch.cuda.synchronize()
+            beg = time.perf_counter()
+            done = trainer.train_one_step(egs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - beg)
+            if not done:
+                break
+    launches = dict(build.LAUNCHES)
+    loss = float(trainer.reporter.stats["loss"][-1])
+    want = {kernel: 0 for kernel in launches}
+    want["fused_logmel"] = 1
+    if not done or not math.isfinite(loss):
+        fail(f"the att_dropout 0.1 step was skipped or its loss {loss} is "
+             "not finite")
+    if launches != want:
+        fail(f"the att_dropout 0.1 step launches {launches}, expected "
+             f"{want} (the dense attention path)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"train step (flagship, att_dropout 0.1): dense rel attention on "
+          f"the card, loss {loss:.4f}, launches per step {launches}, steps "
+          f"{', '.join(f'{v:.4f}' for v in secs)} s (host clock around a "
+          f"synchronised step), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+
+
+def long_decode_phase(root: Path, cpt: Path, wavs, card):
+    """LONG_UTTS utterances of LONG_SECS through decode_batch in batches of
+    LONG_BATCH, the launch counts reset just before and read just after:
+    per batch K1 once and K2's forward once per encoder layer, K4 once per
+    search step, nothing else. -> (stats, launches)."""
+    from aps_tpu_torch.cmd import decode_batch
+    from aps_tpu_torch.ops import build
+    best = root / "best.txt"
+    argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
+            "--dict", str(root / "dict")] + LONG_DECODE_ARGS
+    build.reset_launches()
+    stats = decode_batch.main(argv)
+    launches = dict(build.LAUNCHES)
+    lines = best.read_text().splitlines()
+    if len(lines) != LONG_UTTS or sorted(
+            ln.split("\t")[0] for ln in lines) != sorted(wavs):
+        fail(f"expected {LONG_UTTS} transcript lines, got {len(lines)}")
+    scores = list(stats["scores"].values())
+    if len(scores) != LONG_UTTS or not all(map(math.isfinite, scores)):
+        fail(f"non-finite or missing scores: {scores}")
+    batches = LONG_UTTS // LONG_BATCH
+    want = {kernel: 0 for kernel in launches}
+    want.update({"fused_logmel": batches,
+                 "flash_attention": ENC_LAYERS * batches,
+                 "ctc_score_step": launches["ctc_score_step"]})
+    if launches != want or launches["ctc_score_step"] <= 0 or \
+            len(stats["batch_secs"]) != batches:
+        fail(f"long-form decode launches {launches} in "
+             f"{len(stats['batch_secs'])} batches, expected {want} with "
+             "ctc_score_step > 0")
+    secs = stats["decode_secs"]
+    print(f"long-form decode: {LONG_UTTS} utterances x {LONG_SECS} s "
+          f"through decode_batch in {secs:.4f} s (batches of {LONG_BATCH}: "
+          f"{', '.join(f'{b:.4f}' for b in stats['batch_secs'])} s) = "
+          f"{stats['audio_secs'] / secs:.2f} audio-s/s, launches "
+          f"{launches} ({card})", flush=True)
+    return stats, launches
+
+
 def _ctc_inputs(T, L, groups, dev, gen):
     """Realistic scorer operands: log-probs, monotone gammas with some
     impossible lanes, eos and repeat lanes."""
@@ -458,16 +822,17 @@ def _ctc_err(got, want):
     return worst, ok
 
 
-def check_ctc(dev, gen, T):
+def check_ctc(dev, gen, T, batches=(8, 64)):
     """K4 at the decode's lanes (8 utterances x beam 8 x ctc beam 12) and
-    at the 64-utterance batch of the benchmark shape."""
+    at the 64-utterance batch of the benchmark shape; for the long-form
+    path at its T and its batch of 4."""
     import torch
 
     from aps_tpu_torch.ops.ctc_score import (ctc_score_step,
                                              ctc_score_step_plain)
     rows = []
     beam, C = 8, 12
-    for utts in (8, 64):
+    for utts in batches:
         L = utts * beam * C
         ops = _ctc_inputs(T, L, utts, dev, gen)
         for is_first in (True, False):
@@ -491,18 +856,18 @@ def check_ctc(dev, gen, T):
     return rows
 
 
-def write_wavs(root: Path, prefix: str, count: int, gen):
-    """count seeded UTT_SECS waveforms (noise under a modulated tone) as
+def write_wavs(root: Path, prefix: str, count: int, gen, secs=UTT_SECS):
+    """count seeded waveforms of secs (noise under a modulated tone) as
     16-bit files root/<prefix>NN.wav and root/wav.scp -> {key: samples as
     the readers give them back}."""
     import numpy as np
     import torch
     from scipy.io import wavfile
     wavs = {}
-    t = np.arange(UTT_SECS * SR) / SR
+    t = np.arange(secs * SR) / SR
     with open(root / "wav.scp", "w") as scp:
         for n in range(count):
-            noise = torch.randn(UTT_SECS * SR, generator=gen).numpy()
+            noise = torch.randn(secs * SR, generator=gen).numpy()
             f0 = 150.0 + 20.0 * n
             wav = 0.05 * noise + 0.2 * np.sin(2 * np.pi * f0 * t) * \
                 (0.5 + 0.5 * np.sin(2 * np.pi * 0.7 * t))
@@ -516,15 +881,16 @@ def write_wavs(root: Path, prefix: str, count: int, gen):
     return wavs
 
 
-def write_checkpoint(root: Path, gen):
-    """Full-width flagship with seeded weights -> an aps_tpu checkpoint
-    directory, a wav.scp of NUM_UTTS waveforms and a dict."""
+def write_checkpoint(root: Path, gen, name="flagship", utts=NUM_UTTS,
+                     secs=UTT_SECS):
+    """The full-width model `name` (flagship: the conformer; xfmr_abs: the
+    long-form abs-pose transformer) with seeded weights -> an aps_tpu
+    checkpoint directory, a wav.scp of utts waveforms of secs and a dict."""
     import torch
 
     from aps_tpu_torch.convert import to_variables
-    from aps_tpu_torch.flagship import (build_flagship, flagship_conf,
-                                        init_weights)
-    conf = flagship_conf(vocab_size=VOCAB, small=False)
+    from aps_tpu_torch.flagship import MODELS, build_flagship, init_weights
+    conf = MODELS[name][0](vocab_size=VOCAB, small=False)
     model = build_flagship(conf)
     init_weights(model, gen)
     with torch.no_grad():
@@ -548,56 +914,60 @@ def write_checkpoint(root: Path, gen):
         for i in range(1, VOCAB - 3):
             fd.write(f"t{i} {i}\n")
         fd.write(f"<sos> {VOCAB - 3}\n<eos> {VOCAB - 2}\n")
-    wavs = write_wavs(root, "utt", NUM_UTTS, gen)
+    wavs = write_wavs(root, "utt", utts, gen, secs)
     return cpt, wavs, model
 
 
-def write_corpus(root: Path, gen) -> Path:
-    """root/train: TRAIN_UTTS waveforms of UTT_SECS with TRAIN_LABELS seeded
-    labels each (wav.scp, text, utt2dur) and the train.yaml of the
-    full-width flagship under asr@ctc_xent. The encoder's attention dropout
-    is 0, as the rel-pose kernel needs in training; the other dropouts keep
-    their 0.1."""
+def write_corpus(root: Path, gen, name="flagship", utts=TRAIN_UTTS,
+                 secs=UTT_SECS) -> Path:
+    """root/train: utts waveforms of secs with TRAIN_LABELS seeded labels
+    each (wav.scp, text, utt2dur) and the train.yaml of the full-width
+    model `name` under asr@ctc_xent. The encoder's attention dropout is 0,
+    so that its attention takes the flash kernels in training; the other
+    dropouts keep their 0.1."""
     import torch
 
-    from aps_tpu_torch.flagship import flagship_train_conf
+    from aps_tpu_torch.flagship import MODELS
     train = root / "train"
     train.mkdir()
-    keys = sorted(write_wavs(train, "trn", TRAIN_UTTS, gen))
-    labels = torch.randint(1, VOCAB - 3, (TRAIN_UTTS, TRAIN_LABELS),
+    keys = sorted(write_wavs(train, "trn", utts, gen, secs))
+    labels = torch.randint(1, VOCAB - 3, (utts, TRAIN_LABELS),
                            generator=gen).tolist()
     with open(train / "text", "w") as text, \
             open(train / "utt2dur", "w") as dur:
         for key, toks in zip(keys, labels):
             text.write(f"{key} {' '.join(f't{i}' for i in toks)}\n")
-            dur.write(f"{key} {UTT_SECS:.2f}\n")
-    conf = flagship_train_conf(VOCAB)
+            dur.write(f"{key} {secs:.2f}\n")
+    conf = MODELS[name][1](VOCAB)
     for key in ("vocab_size", "sos", "eos", "ctc"):
         conf["nnet_conf"].pop(key)  # load_am_conf takes them from the dict
     data = {name: str(train / name) for name in ("text", "utt2dur")}
     data["wav_scp"] = str(train / "wav.scp")
     conf.update(
-        # 8 s utterances fill the whole batch size (adaptive batching
+        # the utterances fill the whole batch size (adaptive batching
         # halves it from adapt_dur seconds on)
         data_conf={"fmt": "am@raw",
-                   "loader": {"adapt_dur": UTT_SECS + 2, "tokenizer": "word"},
+                   "loader": {"adapt_dur": secs + 2, "tokenizer": "word"},
                    "train": data, "valid": data})
     (train / "train.yaml").write_text(json.dumps(conf, indent=2))
     return train
 
 
-def first_batch(root: Path, train: Path):
-    """The one batch of the corpus as the trainer's loader collates it."""
+def first_batch(root: Path, train: Path, utts=TRAIN_UTTS, count=1):
+    """The first of the corpus's count batches of utts utterances as the
+    trainer's loader collates them."""
     from aps_tpu_torch.conf import load_am_conf
     from aps_tpu_torch.libs import aps_dataloader
     conf, vocab = load_am_conf(str(train / "train.yaml"), str(root / "dict"))
     data_conf = conf["data_conf"]
     loader = aps_dataloader(fmt=data_conf["fmt"], train=False,
-                            vocab_dict=vocab, max_batch_size=TRAIN_UTTS,
+                            vocab_dict=vocab, max_batch_size=utts,
                             **data_conf["loader"], **data_conf["valid"])
     batches = list(loader)
-    if len(batches) != 1 or batches[0]["src_pad"].shape[0] != TRAIN_UTTS:
-        fail(f"expected one batch of {TRAIN_UTTS} utterances, got "
+    if len(batches) != count or any(b["src_pad"].shape != batches[0][
+            "src_pad"].shape for b in batches) or \
+            batches[0]["src_pad"].shape[0] != utts:
+        fail(f"expected {count} equal batches of {utts} utterances, got "
              f"{[b['src_pad'].shape for b in batches]}")
     return batches[0]
 
@@ -620,10 +990,26 @@ def _epoch_losses(log: Path, mode: str):
             for line in log.read_text().splitlines() if f"/{mode}:" in line]
 
 
-def train_phase(root: Path, train: Path, egs, dev, card):
-    """TRAIN_EPOCHS one-step epochs through aps_tpu_torch.cmd.train_am with
-    the launch counts read over the whole run, then TIMED_STEPS more steps
-    of the same trainer on the same batch, each timed and counted alone.
+def step_launches(name: str, passes: int, steps: int):
+    """The launch counts of `passes` forward passes of model `name` of
+    which `steps` are training steps: K1 once per pass, the encoder's
+    attention forward once per layer and pass, its backward kernels once
+    per layer and step, every other kernel 0."""
+    from aps_tpu_torch.ops import build
+    forward, backward = ATTENTION[name]
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want.update({"fused_logmel": passes, forward: ENC_LAYERS * passes})
+    want.update({f"{forward}_{k}": ENC_LAYERS * steps for k in backward})
+    return want
+
+
+def train_phase(root: Path, train: Path, egs, dev, card, name="flagship",
+                utts=TRAIN_UTTS, secs=UTT_SECS, timed_steps=TIMED_STEPS,
+                batches=1):
+    """TRAIN_EPOCHS epochs of `batches` steps each through
+    aps_tpu_torch.cmd.train_am with the launch counts read over the whole
+    run, then timed_steps more steps of the same trainer on the first
+    batch, each timed and counted alone.
     -> (launches of the run, launches of one step)."""
     import torch
 
@@ -631,7 +1017,7 @@ def train_phase(root: Path, train: Path, egs, dev, card):
     from aps_tpu_torch.ops import build
     cpt = train / "cpt"
     argv = ["--conf", str(train / "train.yaml"), "--dict", str(root / "dict"),
-            "--checkpoint", str(cpt), "--batch-size", str(TRAIN_UTTS),
+            "--checkpoint", str(cpt), "--batch-size", str(utts),
             "--epochs", str(TRAIN_EPOCHS), "--seed", str(SEED)]
     build.reset_launches()
     # the command prints its arguments and configuration: to stderr here,
@@ -640,16 +1026,12 @@ def train_phase(root: Path, train: Path, egs, dev, card):
         trainer = train_am.main(argv)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    if trainer.device.type != "cuda" or trainer.cur_step != TRAIN_EPOCHS:
+    steps = TRAIN_EPOCHS * batches
+    if trainer.device.type != "cuda" or trainer.cur_step != steps:
         fail(f"train_am took {trainer.cur_step} steps on {trainer.device}")
-    # every epoch is one training pass, and a validation pass (forward
-    # only) runs before the first and after each
-    passes = 2 * TRAIN_EPOCHS + 1
-    want = {"fused_logmel": passes,
-            "flash_attention_rel": ENC_LAYERS * passes,
-            "ctc_score_step": 0, "tcn_block_fused": 0}
-    want.update({f"flash_attention_rel_{k}": ENC_LAYERS * TRAIN_EPOCHS
-                 for k in BACKWARD})
+    # every epoch is one training pass over its batches, and a validation
+    # pass (forward only) runs before the first and after each
+    want = step_launches(name, (2 * TRAIN_EPOCHS + 1) * batches, steps)
     if launches != want:
         fail(f"train_am launches {launches}, expected {want}")
     losses = _epoch_losses(cpt / "trainer.log", "train")
@@ -657,24 +1039,21 @@ def train_phase(root: Path, train: Path, egs, dev, card):
     if len(losses) != TRAIN_EPOCHS or len(valid) != TRAIN_EPOCHS + 1:
         fail(f"trainer.log reports {len(losses)} training and {len(valid)} "
              "validation epochs")
-    for name in ("best.ckpt", "last.ckpt", "train.yaml", "dict"):
-        if not (cpt / name).is_file():
-            fail(f"train_am wrote no {name}")
+    for written in ("best.ckpt", "last.ckpt", "train.yaml", "dict"):
+        if not (cpt / written).is_file():
+            fail(f"train_am wrote no {written}")
 
-    per_step = {"fused_logmel": 1, "flash_attention_rel": ENC_LAYERS,
-                "ctc_score_step": 0, "tcn_block_fused": 0}
-    per_step.update({f"flash_attention_rel_{k}": ENC_LAYERS
-                     for k in BACKWARD})
+    per_step = step_launches(name, 1, 1)
     trainer.reporter.train()
     torch.cuda.reset_peak_memory_stats(dev)
-    secs = []
-    for step in range(TIMED_STEPS):
+    step_secs = []
+    for step in range(timed_steps):
         build.reset_launches()
         torch.cuda.synchronize()
         beg = time.perf_counter()
         done = trainer.train_one_step(egs)
         torch.cuda.synchronize()
-        secs.append(time.perf_counter() - beg)
+        step_secs.append(time.perf_counter() - beg)
         if not done:
             fail(f"timed step {step} was skipped (non-finite loss or norm)")
         if dict(build.LAUNCHES) != per_step:
@@ -686,25 +1065,34 @@ def train_phase(root: Path, train: Path, egs, dev, card):
         fail(f"non-finite loss: training {losses}, validation {valid}")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall on the repeated batch: {losses}")
-    print(f"train: {TRAIN_UTTS} x {UTT_SECS} s, {TRAIN_LABELS} labels each, "
-          f"asr@ctc_xent through train_am: {TRAIN_EPOCHS} one-step epochs, "
-          f"launches {launches}; then {TIMED_STEPS} timed steps, launches "
+    print(f"train ({name}): {utts} x {secs} s, {TRAIN_LABELS} labels each, "
+          f"asr@ctc_xent through train_am: {TRAIN_EPOCHS} epochs of "
+          f"{batches} step(s), launches {launches}; then {timed_steps} "
+          f"timed steps on the first batch, launches "
           f"per step {per_step}; training losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}; validation losses "
           f"{', '.join(f'{v:.4f}' for v in valid)}", flush=True)
-    print(f"train step: median {statistics.median(secs):.4f} s of "
-          f"{', '.join(f'{v:.4f}' for v in secs)} s (host clock around a "
-          f"synchronised step), peak memory {peak:.3f} GiB ({card})",
+    print(f"train step ({name}): median "
+          f"{statistics.median(step_secs):.4f} s of "
+          f"{', '.join(f'{v:.4f}' for v in step_secs)} s (host clock around "
+          f"a synchronised step), peak memory {peak:.3f} GiB ({card})",
           flush=True)
     return launches, per_step
 
 
-STEP_GRADS = ("encoder.pose_layer.embed.weight",
-              "encoder.encoder.layers.0.self_attn.in_proj.weight",
-              "ctc_head.weight")
+# per model: the pose table (flagship) or the last layer's feed-forward
+# (xfmr_abs), the first layer's in_proj and the CTC head
+STEP_GRADS = {
+    "flagship": ("encoder.pose_layer.embed.weight",
+                 "encoder.encoder.layers.0.self_attn.in_proj.weight",
+                 "ctc_head.weight"),
+    "xfmr_abs": ("encoder.encoder.layers.11.feedforward.linear1.weight",
+                 "encoder.encoder.layers.0.self_attn.in_proj.weight",
+                 "ctc_head.weight"),
+}
 
 
-def step_check(egs, dev, gen, shapes):
+def step_check(egs, dev, gen, shapes, name="flagship"):
     """One training-mode pass of asr@ctc_xent over the batch with every
     dropout off, on the card (kernels) and on the CPU (their plain
     versions), same seeded weights: the loss and the gradients named in
@@ -712,12 +1100,13 @@ def step_check(egs, dev, gen, shapes):
     the shapes their kernels were checked at."""
     import torch
 
-    from aps_tpu_torch.flagship import (build_flagship, flagship_train_conf,
-                                        init_weights)
+    from aps_tpu_torch.flagship import MODELS, build_flagship, init_weights
     from aps_tpu_torch.libs import aps_task
     from aps_tpu_torch.trainer.dp import to_device
     S, T, k_len = shapes
-    conf = flagship_train_conf(VOCAB)
+    utts = egs["src_pad"].shape[0]
+    grads = STEP_GRADS[name]
+    conf = MODELS[name][1](VOCAB)
     nnet_conf = conf["nnet_conf"]
     nnet_conf["enc_kwargs"]["arch_kwargs"]["ffn_dropout"] = 0.0
     nnet_conf["dec_kwargs"]["arch_kwargs"].update(att_dropout=0.0,
@@ -739,20 +1128,20 @@ def step_check(egs, dev, gen, shapes):
             lambda mod, args, out: wavs.append(tuple(args[0].shape)))
         stats = side(to_device(tensors, torch.device(where)))
         stats["loss"].backward()
-        if seen != [(T, k_len)] or wavs != [(TRAIN_UTTS, S)]:
+        if seen != [(T, k_len)] or wavs != [(utts, S)]:
             fail(f"on {where} the front end ran at {wavs} and the encoder "
-                 f"at {seen}; the kernels were checked at {TRAIN_UTTS} x "
+                 f"at {seen}; the kernels were checked at {utts} x "
                  f"{S} samples, T = {T}, k_len = {k_len}")
         params = dict(side.nnet.named_parameters())
         outs[str(where)] = (stats["loss"].item(),
-                            {k: params[k].grad.cpu() for k in STEP_GRADS})
+                            {k: params[k].grad.cpu() for k in grads})
     (loss_c, grad_c), (loss_g, grad_g) = outs["cpu"], outs[str(dev)]
     if not (math.isfinite(loss_g) and
             abs(loss_g - loss_c) <= TOL_STEP_LOSS * abs(loss_c)):
         fail(f"training loss card {loss_g} vs CPU {loss_c}: outside "
              f"{TOL_STEP_LOSS} relative")
     errs = {}
-    for key in STEP_GRADS:
+    for key in grads:
         scale = grad_c[key].abs().max().item()
         errs[key] = (grad_g[key] - grad_c[key]).abs().max().item() / scale
         if not (scale > 0 and errs[key] <= TOL_STEP_GRAD):
@@ -1281,23 +1670,55 @@ def main() -> None:
         print(f"training path: one batch of {TRAIN_UTTS} x {S_trn} samples, "
               f"encoder T = {T_trn} with {sorted(set(k_trn))} valid frames",
               flush=True)
+        # the long-form path: its checkpoint, utterances, corpus and shapes
+        long_root = root / "long"
+        long_root.mkdir()
+        cpt_long, wavs_long, model_long = write_checkpoint(
+            long_root, gen, "xfmr_abs", LONG_UTTS, LONG_SECS)
+        shapes_long = S_long, T_long, k_long = path_shapes(model_long,
+                                                           LONG_SECS)
+        print(f"long-form decode path: batches of {LONG_BATCH} x {S_long} "
+              f"samples, encoder T = {T_long} with {k_long} valid frames",
+              flush=True)
+        train_long = write_corpus(long_root, gen, "xfmr_abs",
+                                  LONG_TRAIN_UTTS * LONG_TRAIN_BATCHES,
+                                  LONG_SECS)
+        egs_long = first_batch(long_root, train_long, LONG_TRAIN_UTTS,
+                               LONG_TRAIN_BATCHES)
+        shapes_ltr = S_ltr, T_ltr, k_ltr = train_shapes(model_long, egs_long)
+        print(f"long-form training path: batches of {LONG_TRAIN_UTTS} x "
+              f"{S_ltr} samples, encoder T = {T_ltr} with "
+              f"{sorted(set(k_ltr))} valid frames", flush=True)
         checks = {
-            "fused_logmel": check_fbank(dev, model, wavs, S, egs["src_pad"]),
+            "fused_logmel": check_fbank(dev, model, (
+                ("decode", decode_batch_of(wavs, 8, S)),
+                ("training", egs["src_pad"]),
+                ("long-form decode",
+                 decode_batch_of(wavs_long, LONG_BATCH, S_long)),
+                ("long-form training", egs_long["src_pad"]))),
             "flash_attention_rel": check_rel_attention(dev, gen, T, k_len),
-            "ctc_score_step": check_ctc(dev, gen, T),
+            "ctc_score_step": check_ctc(dev, gen, T) + check_ctc(
+                dev, gen, T_long, batches=(LONG_BATCH,)),
         }
         bwd = check_rel_attention_bwd(dev, gen, T_trn, k_trn)
         checks["flash_attention_rel"] += bwd.pop("fwd")
         for kernel, rows in bwd.items():
             checks[f"flash_attention_rel_{kernel}"] = rows
-        del model
+        att, library, backends = check_attention(
+            dev, gen, (LONG_BATCH, T_long, k_long), (T_ltr, k_ltr))
+        checks["flash_attention"] = att.pop("fwd")
+        for kernel, rows in att.items():
+            checks[f"flash_attention_{kernel}"] = rows
+        print(f"the library's kernels (scaled_dot_product_attention, "
+              f"float32, TF32 off), longest first: {backends}", flush=True)
+        del model, model_long
         for name, rows in checks.items():
             for label, err, ms, plain_ms, bound, bound_by in rows:
                 print(f"{name} [{label}]: max abs err {err:.3e}, kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                       f"{bound:.5f} ms by {bound_by} ({card})", flush=True)
         print("the plain time beside a backward kernel is that of the whole "
-              "plain backward, which gives all five gradients", flush=True)
+              "plain backward, which gives all of its gradients", flush=True)
 
         best = root / "best.txt"
         argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
@@ -1325,11 +1746,32 @@ def main() -> None:
         print(f"card vs CPU on 2 utterances: encoder max abs err "
               f"{enc_err:.3e}, best-score diff {score_err:.3e}", flush=True)
 
+        dropout_step(egs, dev, gen, card)
         launches_trn, per_step = train_phase(root, train, egs, dev, card)
         loss_g, loss_c, errs = step_check(egs, dev, gen, shapes_trn)
         print(f"training pass card vs CPU, dropouts off: loss {loss_g:.6f} "
               f"vs {loss_c:.6f}; gradient errors relative to the largest "
               "entry " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+
+        # the long-form path: decode, card vs CPU, training, card vs CPU
+        stats_long, launches_long = long_decode_phase(long_root, cpt_long,
+                                                      wavs_long, card)
+        enc_err, score_err = reference_check(cpt_long, wavs_long, dev,
+                                             stats_long, shapes_long)
+        print(f"long-form card vs CPU on {LONG_CHECK_UTTS} utterances: "
+              f"encoder max abs err {enc_err:.3e}, best-score diff "
+              f"{score_err:.3e}", flush=True)
+        launches_ltr, per_step_long = train_phase(
+            long_root, train_long, egs_long, dev, card, "xfmr_abs",
+            LONG_TRAIN_UTTS, LONG_SECS, LONG_TIMED_STEPS,
+            LONG_TRAIN_BATCHES)
+        loss_g, loss_c, errs = step_check(egs_long, dev, gen, shapes_ltr,
+                                          "xfmr_abs")
+        print(f"long-form training pass card vs CPU, dropouts off: loss "
+              f"{loss_g:.6f} vs {loss_c:.6f}; gradient errors relative to "
+              "the largest entry "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
               flush=True)
 
         # the separation path: its kernel, the separate command, the
@@ -1370,8 +1812,26 @@ def main() -> None:
             row = rows[TRAIN_ROW[name]]
             extra = {"train_shape": row[0], "train_ms": row[2],
                      "train_plain_ms": row[3], "train_bound_ms": row[4]}
+        if name in LONG_ROWS:
+            extra["long_form_rows"] = [
+                {"shape": rows[i][0], "ms": rows[i][2],
+                 "plain_ms": rows[i][3], "bound_ms": rows[i][4]}
+                for i in LONG_ROWS[name]]
         if name in DECODE_KERNELS:
             path_launches = launches[name]
+        elif name == "flash_attention":
+            path_launches = launches_long[name]
+        elif name.startswith("flash_attention_d"):
+            path_launches = launches_ltr[name]
+            if name == "flash_attention_dbias":
+                extra["why_no_launches"] = (
+                    "no model passes a bias (nor does any caller in "
+                    "aps_tpu): the kernel is held against its plain "
+                    "versions only")
+            else:
+                extra["library_ms_covers"] = (
+                    "dq, dk and dv together (one backward through the "
+                    "library call)")
         elif name == "tcn_block_fused":
             path_launches = launches_sep[name]
             # one forward runs each of the first X rows' dilations R times
@@ -1397,17 +1857,25 @@ def main() -> None:
             "launches_train_step": per_step[name],
             "launches_separate": launches_sep[name],
             "launches_train_ss": launches_ss[name],
+            "launches_decode_long": launches_long[name],
+            "launches_train_long_run": launches_ltr[name],
+            "launches_train_long_step": per_step_long[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": bound_by,
-            # no single PyTorch call computes any of these functions: the
-            # relative term is formed inside the attention kernels, the
-            # front end is a chain of calls, the scorer a loop over frames,
-            # the TCN block two products around a stencil
-            "library_ms": None,
+            # one PyTorch call, scaled_dot_product_attention, computes the
+            # scaled-dot-product attention's forward without a bias, and
+            # autograd through it dq, dk and dv together: timed in
+            # check_attention and used nowhere in the port. No single call
+            # computes any other of these functions: the relative term is
+            # formed inside the rel attention kernels, a bias gradient
+            # summed over the batch has no call of its own, the front end
+            # is a chain of calls, the scorer a loop over frames, the TCN
+            # block two products around a stencil
+            "library_ms": library.get(name),
             **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

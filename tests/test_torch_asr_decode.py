@@ -294,7 +294,7 @@ def test_port_imports_neither_jax_nor_aps_tpu():
     names = [name for _, name in _port_modules()] + ["chip_smoke"]
     assert "aps_tpu_torch.cmd.train_am" in names and len(names) > 40
     for new in ("cmd.separate", "cmd.train_ss", "sse.bss.tcn", "ops.tcn",
-                "task.sse", "loader.se.chunk", "eval.sse"):
+                "task.sse", "loader.se.chunk", "eval.sse", "ops.attention"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

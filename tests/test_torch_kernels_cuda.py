@@ -18,6 +18,9 @@ torch = pytest.importorskip("torch")
 from aps_tpu_torch.const import EPSILON, MIN_F32  # noqa: E402
 from aps_tpu_torch.asr.transformer import impl  # noqa: E402
 from aps_tpu_torch.ops import build  # noqa: E402
+from aps_tpu_torch.ops.attention import (flash_attention,  # noqa: E402
+                                         mha_backward_reference,
+                                         mha_reference)
 from aps_tpu_torch.ops.ctc_score import (ctc_score_step,  # noqa: E402
                                          ctc_score_step_plain)
 from aps_tpu_torch.ops.fbank import (fused_logmel,  # noqa: E402
@@ -72,6 +75,19 @@ def _rel_args(B, H, T, D, Hp):
     k_len = torch.tensor([T, T - 77, 1, 0] + [T // 3] * (B - 4),
                          dtype=torch.int32)[:B]
     return [q_c, q_p, k, v, pose], k_len
+
+
+def _att_args(B, H, Tq, Tk, D):
+    """q, k, v, a bias that differs between the heads, and k_len with a
+    full, a ragged, a one-key and (from B = 4 on) a no-key entry."""
+    gen = torch.Generator().manual_seed(Tq + Tk)
+    q = torch.randn((B, H, Tq, D), generator=gen)
+    k, v = (torch.randn((B, H, Tk, D), generator=gen) for _ in range(2))
+    bias = torch.randn((H, Tq, Tk), generator=gen)
+    bias[1:] *= 2.0
+    k_len = torch.tensor([Tk, max(Tk - 77, 2), 1, 0] + [Tk // 3] * (B - 4),
+                         dtype=torch.int32)[:B]
+    return [q, k, v], bias, k_len
 
 
 def _ctc_args(T, L, G):
@@ -130,6 +146,11 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(flash_attention_rel(*rel, k_len=k_len),
                                rel_mha_reference(*rel, k_len=k_len),
                                atol=ATT_ATOL, rtol=0)
+    att, bias, k_len = _att_args(3, 2, 50, 70, 16)
+    torch.testing.assert_close(
+        flash_attention(*att, bias=bias, k_len=k_len, causal=True),
+        mha_reference(*att, bias=bias, k_len=k_len, causal=True),
+        atol=ATT_ATOL, rtol=0)
     ctc = _ctc_args(20, 24, 2)
     for g, w in zip(ctc_score_step(*ctc, True),
                     ctc_score_step_plain(*ctc, True)):
@@ -207,8 +228,10 @@ def test_ctc_score_step_kernel_matches_plain(cuda_device, L, G):
 
 @pytest.mark.cuda
 def test_rel_mha_on_cuda_runs_the_kernel_or_raises(cuda_device):
-    """RelMultiheadAttention on the card always launches the kernel; what
-    needs the dense path raises instead of leaving the kernel."""
+    """RelMultiheadAttention on the card launches the kernel wherever the
+    call is eligible; an attn_mask or active attention dropout takes the
+    dense path on the card, as in aps_tpu, and launches nothing; a padding
+    mask that is not a suffix raises."""
     E, H, T = 64, 4, 50
     tmod = impl.RelMultiheadAttention(E, H, dropout=0.1).eval().to(
         cuda_device)
@@ -216,13 +239,21 @@ def test_rel_mha_on_cuda_runs_the_kernel_or_raises(cuda_device):
     pose = torch.randn(2 * T - 1, E // H, device=cuda_device)
     build.reset_launches()
     with torch.no_grad():
-        tmod(x, x, x, inj_pose=pose)
-    assert build.LAUNCHES["flash_attention_rel"] == 1
-    with torch.no_grad(), pytest.raises(NotImplementedError):
-        tmod(x, x, x, inj_pose=pose,
-             attn_mask=torch.zeros(T, T, device=cuda_device))
-    with torch.no_grad(), pytest.raises(NotImplementedError):
-        tmod.train()(x, x, x, inj_pose=pose)
+        flash, weight = tmod(x, x, x, inj_pose=pose)
+    assert weight is None and build.LAUNCHES["flash_attention_rel"] == 1
+    build.reset_launches()
+    with torch.no_grad():
+        dense, weight = tmod(x, x, x, inj_pose=pose,
+                             attn_mask=torch.zeros(T, T, device=cuda_device))
+        assert weight.shape == (2, T, T)
+        torch.testing.assert_close(dense, flash, atol=ATT_ATOL, rtol=0)
+        out, weight = tmod.train()(x, x, x, inj_pose=pose)
+        assert weight.shape == (2, T, T) and torch.isfinite(out).all()
+    assert not any(build.LAUNCHES.values())
+    holes = torch.zeros(2, T, dtype=torch.bool, device=cuda_device)
+    holes[1, 3] = True
+    with torch.no_grad(), pytest.raises(ValueError, match="suffix"):
+        tmod.eval()(x, x, x, inj_pose=pose, key_padding_mask=holes)
 
 
 GRAD_NAMES = ("dq_c", "dq_p", "dk", "dv", "dpose")
@@ -309,8 +340,8 @@ def test_rel_attention_gradcheck_style(cuda_device):
 @pytest.mark.cuda
 def test_rel_mha_trains_on_cuda_without_attention_dropout(cuda_device):
     """In training RelMultiheadAttention with dropout 0 goes through the
-    autograd Function (all four kernels launch); with dropout > 0 a CUDA
-    call raises."""
+    autograd Function (all four kernels launch); with dropout > 0 it takes
+    the dense path on the card and launches none."""
     E, H, T = 64, 4, 50
     tmod = impl.RelMultiheadAttention(E, H, dropout=0.0).train().to(
         cuda_device)
@@ -323,9 +354,227 @@ def test_rel_mha_trains_on_cuda_without_attention_dropout(cuda_device):
     for name in ("", "_dq", "_dkv", "_dpose"):
         assert build.LAUNCHES["flash_attention_rel" + name] == 1
     assert torch.isfinite(x.grad).all() and torch.isfinite(pose.grad).all()
-    with pytest.raises(NotImplementedError):
-        impl.RelMultiheadAttention(E, H, dropout=0.1).train().to(
-            cuda_device)(x, x, x, inj_pose=pose)
+    build.reset_launches()
+    out, weight = impl.RelMultiheadAttention(E, H, dropout=0.1).train().to(
+        cuda_device)(x, x, x, inj_pose=pose)
+    out.sum().backward()
+    assert weight is not None and not any(build.LAUNCHES.values())
+
+
+ATT_GRAD_NAMES = ("dq", "dk", "dv", "dbias")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,with_bias", [
+    (4, 4, 601, 601, 64, False, False),
+    (4, 4, 601, 601, 64, True, True),
+    (5, 2, 200, 300, 32, False, True),
+    (5, 2, 300, 200, 16, True, False),
+    (16, 4, 1024, 1024, 64, False, False),
+    (4, 1, 1, 37, 64, False, True),
+])
+def test_attention_kernel_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
+                                        with_bias):
+    """csrc/attention.cu == the plain version: ragged Tq and Tk against the
+    16 x 32 tiles, Tq != Tk, causal, a bias that differs between the heads,
+    suffix k_len including 1 and 0 (a row without a key gives 0)."""
+    att, bias, k_len = _att_args(B, H, Tq, Tk, D)
+    att = [t.to(cuda_device) for t in att]
+    bias = bias.to(cuda_device) if with_bias else None
+    k_len = k_len.to(cuda_device)
+    build.reset_launches()
+    got = flash_attention(*att, bias=bias, k_len=k_len, causal=causal)
+    assert build.LAUNCHES["flash_attention"] == 1
+    want = mha_reference(*att, bias=bias, k_len=k_len, causal=causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATT_ATOL, rtol=0)
+    assert torch.count_nonzero(got[3]) == 0
+    scaled = flash_attention(*att, bias=bias, k_len=k_len, causal=causal,
+                             softmax_scale=0.05)
+    torch.testing.assert_close(
+        scaled, mha_reference(*att, bias=bias, k_len=k_len, causal=causal,
+                              softmax_scale=0.05), atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_matches_the_library_call(cuda_device):
+    """Without a bias one PyTorch call computes the same function (rows
+    with at least one key): scaled_dot_product_attention in float32."""
+    att, _, _ = _att_args(4, 4, 300, 300, 64)
+    att = [t.to(cuda_device) for t in att]
+    k_len = torch.tensor([300, 223, 1, 100], dtype=torch.int32,
+                         device=cuda_device)
+    mask = (torch.arange(300, device=cuda_device)[None, :]
+            < k_len[:, None])[:, None, None, :]
+    want = torch.nn.functional.scaled_dot_product_attention(
+        *att, attn_mask=mask)
+    got = flash_attention(*att, k_len=k_len)
+    torch.testing.assert_close(got, want, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_bad_input(cuda_device):
+    att, bias, _ = _att_args(2, 2, 40, 40, 16)
+    q, k, v = [t.to(cuda_device) for t in att]
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = [torch.zeros((1, 1, 8, 48), device=cuda_device)] * 3
+        flash_attention(*wide)
+    with pytest.raises(ValueError, match="not CUDA"):
+        flash_attention(q, k, v, bias=bias)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,with_bias", [
+    (4, 2, 40, 40, 16, False, True),
+    (5, 2, 77, 130, 32, True, True),
+    (5, 2, 130, 77, 32, True, False),
+    (8, 4, 601, 601, 64, False, False),
+    (4, 4, 601, 601, 64, True, True),
+    (4, 4, 700, 700, 64, False, True),
+])
+def test_attention_backward_kernels_match_plain(cuda_device, B, H, Tq, Tk, D,
+                                                causal, with_bias):
+    """csrc/attention_bwd.cu (dq, dk/dv, dbias) through the autograd
+    Function == mha_backward_reference == autograd through mha_reference,
+    with ragged Tq and Tk, k_len including 1 and 0 (rows without a key:
+    zero gradients, no NaN) and every kernel launched once (dbias only
+    when there is a bias)."""
+    att, bias, k_len = _att_args(B, H, Tq, Tk, D)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att]
+    if with_bias:
+        leaves.append(bias.to(cuda_device).requires_grad_())
+    t_bias = leaves[3] if with_bias else None
+    k_len = k_len.to(cuda_device)
+    gen = torch.Generator().manual_seed(Tq)
+    do = torch.randn(leaves[0].shape, generator=gen).to(cuda_device)
+    build.reset_launches()
+    out = flash_attention(*leaves[:3], bias=t_bias, k_len=k_len,
+                          causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    for name in ("", "_dq", "_dkv"):
+        assert build.LAUNCHES["flash_attention" + name] == 1
+    assert build.LAUNCHES["flash_attention_dbias"] == int(with_bias)
+    plain = mha_backward_reference(*[t.detach() for t in leaves[:3]], do,
+                                   bias=None if t_bias is None
+                                   else t_bias.detach(), k_len=k_len,
+                                   causal=causal)
+    auto = torch.autograd.grad(
+        mha_reference(*leaves[:3], bias=t_bias, k_len=k_len, causal=causal),
+        leaves, do)
+    for name, g, w, a in zip(ATT_GRAD_NAMES, got, plain, auto):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=0, msg=name)
+        torch.testing.assert_close(g, a, atol=GRAD_ATOL, rtol=0, msg=name)
+    # keys past k_len get exactly zero dk, dv; so does the whole batch entry
+    # whose k_len is 0, and its dq
+    for g in got[1:3]:
+        assert torch.count_nonzero(g[1, :, int(k_len[1]):]) == 0
+        assert torch.count_nonzero(g[3]) == 0
+    assert torch.count_nonzero(got[0][3]) == 0
+
+
+@pytest.mark.cuda
+def test_attention_dbias_is_deterministic(cuda_device):
+    """dbias sums over the batch in order inside one block: two runs give
+    the same bits."""
+    att, bias, k_len = _att_args(8, 4, 233, 233, 64)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att + [bias]]
+    do = torch.ones_like(leaves[0])
+    runs = []
+    for _ in range(2):
+        out = flash_attention(*leaves[:3], bias=leaves[3],
+                              k_len=k_len.to(cuda_device))
+        runs.append(torch.autograd.grad(out, leaves, do))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_attention_gradcheck_style(cuda_device):
+    """Directional derivative by central differences (float64 plain
+    version) against the kernels' gradients at a small ragged shape with a
+    bias and Tq != Tk."""
+    att, bias, k_len = _att_args(4, 2, 19, 27, 16)
+    k_len = k_len.to(cuda_device)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att + [bias]]
+    gen = torch.Generator().manual_seed(5)
+    do = torch.randn(leaves[0].shape, generator=gen).to(cuda_device)
+    grads = torch.autograd.grad(
+        flash_attention(*leaves[:3], bias=leaves[3], k_len=k_len), leaves,
+        do)
+    dirs = [torch.randn(t.shape, generator=gen).to(cuda_device)
+            for t in leaves]
+    want = sum((g * d).sum().item() for g, d in zip(grads, dirs))
+    eps = 1e-3
+
+    def f64(sign):
+        q, k, v, b = [(t.detach() + sign * eps * d).double()
+                      for t, d in zip(leaves, dirs)]
+        return (mha_reference(q, k, v, bias=b, k_len=k_len)
+                * do.double()).sum().item()
+
+    numeric = (f64(1) - f64(-1)) / (2 * eps)
+    assert abs(numeric - want) <= 1e-3 * max(1.0, abs(numeric))
+
+
+@pytest.mark.cuda
+def test_aps_mha_on_cuda_takes_the_kernels_where_eligible(cuda_device):
+    """ApsMultiheadAttention on the card: self-attention launches the flash
+    kernels (forward, and dq and dk/dv in training with dropout 0; never
+    dbias); cross-attention below 512 query frames, an attn_mask and active
+    dropout take the dense path and launch nothing."""
+    E, H, T = 64, 4, 50
+    tmod = impl.ApsMultiheadAttention(E, H, dropout=0.0).train().to(
+        cuda_device)
+    x = torch.randn(2, T, E, device=cuda_device, requires_grad=True)
+    mem = torch.randn(2, 70, E, device=cuda_device)
+    pad = torch.arange(T, device=cuda_device)[None, :] >= torch.tensor(
+        [T, 31], device=cuda_device)[:, None]
+    build.reset_launches()
+    out, weight = tmod(x, x, x, key_padding_mask=pad)
+    out.sum().backward()
+    assert weight is None
+    want = {name: 0 for name in build.LAUNCHES}
+    want.update(flash_attention=1, flash_attention_dq=1,
+                flash_attention_dkv=1)
+    assert dict(build.LAUNCHES) == want
+    with torch.no_grad():
+        dense, weight = tmod(x, x, x, key_padding_mask=pad,
+                             attn_mask=torch.zeros(T, T, device=cuda_device))
+    torch.testing.assert_close(dense, out, atol=ATT_ATOL, rtol=0)
+    build.reset_launches()
+    with torch.no_grad():
+        _, weight = tmod(x, mem, mem)
+        assert weight.shape == (2, T, 70)
+        _, weight = impl.ApsMultiheadAttention(E, H, dropout=0.1).train().to(
+            cuda_device)(x, x, x)
+        assert weight.shape == (2, T, T)
+    assert not any(build.LAUNCHES.values())
+    long_q = torch.randn(2, 512, E, device=cuda_device)
+    with torch.no_grad():
+        _, weight = tmod(long_q, mem, mem)
+    assert weight is None and build.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_xl_mha_on_cuda_takes_the_rel_kernels(cuda_device):
+    """XlMultiheadAttention on the card runs flash_attention_rel with one
+    table per head and agrees with its dense path."""
+    E, H, T = 64, 4, 60
+    tmod = impl.XlMultiheadAttention(E, H).eval().to(cuda_device)
+    x = torch.randn(2, T, E, device=cuda_device)
+    pose = torch.randn(2 * T - 1, E, device=cuda_device)
+    build.reset_launches()
+    with torch.no_grad():
+        flash, weight = tmod(x, x, x, inj_pose=pose)
+        dense, _ = tmod(x, x, x, inj_pose=pose,
+                        attn_mask=torch.zeros(T, T, device=cuda_device))
+    assert weight is None and build.LAUNCHES["flash_attention_rel"] == 1
+    torch.testing.assert_close(flash, dense, atol=ATT_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
