@@ -12,11 +12,21 @@ optional causal mask (aligned top-left when Tq != Tk), and rows without a
 visible key giving 0. Tq need not equal Tk.
 
 On CUDA tensors the forward is csrc/attention.cu and the backward
-csrc/attention_bwd.cu (dq, dk/dv and dbias kernels), joined by the autograd
-Function `_Flash`; a failed build or launch raises. `mha_reference` and
-`mha_backward_reference` are the same functions in plain PyTorch: the first
-serves CPU tensors (autograd gives its gradient), and both are held against
-the kernels on the card."""
+csrc/attention_bwd.cu, joined by the autograd Function `_Flash`; a failed
+build or launch raises. The backward replaces the TPU kernels _dq_kernel,
+_dkv_kernel and _dbias_kernel of aps_tpu's flash_attention. dq and dk/dv
+are bound by arithmetic (6 and 8 Tq Tk D operations a head on a few T D
+floats), so they run on the tensor cores: a block owns 64 rows, streams
+the other side through a two-stage cp.async ring, keeps its gradients in
+registers and does every product as three TF32 products on the split
+operands, which gives float32's accuracy (csrc/attn_tiles.cuh). The dq
+kernel also forms delta = sum(do * out, -1) and hands it to the two others,
+so dq is launched first. dbias (one block per tile, the batch summed in
+order; no model passes a bias) is as first ported. Every kernel owns its
+reduction: the gradients repeat bit for bit from run to run.
+`mha_reference` and `mha_backward_reference` are the same functions in plain
+PyTorch: the first serves CPU tensors (autograd gives its gradient), and
+both are held against the kernels on the card."""
 
 from typing import Optional, Tuple
 
@@ -108,7 +118,8 @@ _HEAD_DIMS = (16, 32, 64)
 _IN = [build.P] * 5  # q k v bias k_len
 _DIMS = [build.I] * 5 + [build.F, build.I]  # B H Tq Tk D scale causal
 _FWD_ARGTYPES = _IN + _DIMS + [build.P] * 3  # out lse stream
-# do lse delta, dims, two outputs (dq, dbias: the first only), stream
+# do lse delta, dims, two more pointers (dq: dq and the forward's output;
+# dkv: dk and dv; dbias: dbias, null), stream
 _BWD_ARGTYPES = _IN + [build.P] * 3 + _DIMS + [build.P] * 3
 
 BACKWARD_KERNELS = ("dq", "dkv", "dbias")
@@ -134,15 +145,17 @@ def launch_forward(q, k, v, bias, klen, scale: float, causal: bool,
     return out, lse
 
 
-def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, delta,
-                           scale: float, causal: bool):
-    """Launch one of BACKWARD_KERNELS on checked CUDA tensors: "dq" -> dq,
-    "dkv" -> (dk, dv), "dbias" -> dbias (H x Tq x Tk float32; needs a
-    bias). delta = sum(do * out, -1)."""
+def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, out,
+                           delta, scale: float, causal: bool):
+    """Launch one of BACKWARD_KERNELS on checked CUDA tensors -> dq, (dk,
+    dv) or dbias (H x Tq x Tk float32; needs a bias). out is the forward's
+    output and delta a B x H x Tq float32 buffer: "dq" forms delta = sum(do *
+    out, -1) in its prologue and writes it there; "dkv" and "dbias" read it
+    (and not out), so they run after dq."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if kernel == "dq":
-        outs = (torch.empty_like(q), None)
+        outs = (torch.empty_like(q), out)
     elif kernel == "dkv":
         outs = (torch.empty_like(k), torch.empty_like(v))
     else:
@@ -164,10 +177,33 @@ def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, delta,
     return outs if kernel == "dkv" else outs[0]
 
 
+def backward_occupancy(D: int, kernel: str):
+    """How the "dq" or "dkv" kernel sits on an SM of the current card at
+    head dim D: registers and bytes of local memory (spills) a thread, bytes
+    of dynamic shared memory a block, resident blocks an SM, streamed rows a
+    tile."""
+    import ctypes
+    lib = build.load("attention_bwd", "aps_attention_bwd_occupancy",
+                     [build.I, build.I, build.P])
+    info = (ctypes.c_int * 5)()
+    rc = lib.aps_attention_bwd_occupancy(D, int(kernel == "dkv"), info)
+    build.check(lib, rc, "flash_attention backward occupancy")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "stream_rows"), info))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The dq and dk/dv kernels copy rows 16 bytes at a time (cp.async). Rows
+    are D * 4 bytes, so only a contiguous view at an odd storage offset
+    starts off that grid: it is copied."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 class _Flash(torch.autograd.Function):
     """flash_attention on CUDA tensors with a gradient: the forward kernel
-    also writes lse; backward launches the dq and dk/dv kernels, and the
-    dbias kernel when a bias asks for its gradient (k_len gets none)."""
+    also writes lse; backward launches the dq kernel (which also forms
+    delta), then dk/dv, and the dbias kernel when a bias asks for its
+    gradient (k_len gets none)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, klen, scale, causal):
@@ -179,11 +215,11 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         *args, out, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = _aligned(do.contiguous())
         build.require_cuda("flash_attention backward", {"do": do})
-        delta = (do * out).sum(-1)
+        delta = torch.empty_like(lse)
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
-            kernel, *args, do, lse, delta, ctx.scale, ctx.causal)
+            kernel, *args, do, lse, out, delta, ctx.scale, ctx.causal)
         dq = run("dq")
         dk, dv = run("dkv")
         dbias = run("dbias") if ctx.needs_input_grad[3] else None
@@ -242,5 +278,6 @@ def flash_attention(q: torch.Tensor,
         klen = k_len.to(device=dev, dtype=torch.int32).contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in tensors.values()):
-        return _Flash.apply(q, k, v, bias, klen, scale, bool(causal))
+        return _Flash.apply(_aligned(q), _aligned(k), _aligned(v), bias, klen,
+                            scale, bool(causal))
     return launch_forward(q, k, v, bias, klen, scale, bool(causal), False)[0]

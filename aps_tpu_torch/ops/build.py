@@ -4,8 +4,9 @@
 Each kernel is one file aps_tpu_torch/csrc/<name>.cu with a plain C entry
 point. On first use the file is compiled by nvcc for sm_90a into
 build/aps_tpu_torch/lib<name>-<hash>.so under the repository root (the hash
-is taken over the source and the flags, so an edited source rebuilds) and
-loaded with ctypes. A plain C interface compiles in seconds, where a source
+is taken over the source, the headers csrc/*.cuh that a source may include
+and the flags, so an edited source or header rebuilds) and loaded with
+ctypes. A plain C interface compiles in seconds, where a source
 that includes PyTorch's headers takes minutes.
 
 Every kernel wrapper adds one to its entry of LAUNCHES where it launches
@@ -89,18 +90,30 @@ def build_all() -> Dict[str, float]:
         return dict(zip(names, pool.map(timed, names)))
 
 
+def source_digest(name: str) -> str:
+    """Hash of csrc/<name>.cu, of every header csrc/*.cuh (a source finds
+    them beside itself) and of the compiler flags."""
+    sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode() + header.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return sha.hexdigest()[:12]
+
+
+def compile_source(cmd: List[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu into a shared library (cached by content)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() +
-                          " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = compile_source(cmd)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name} "
                            f"(rc {proc.returncode}):\n{proc.stderr}")

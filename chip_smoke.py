@@ -67,10 +67,17 @@
    forward, dq, dk/dv, dbias) against their plain versions at the long-form
    path's decode and training shapes, with Tq != Tk, causal masks, a bias
    that differs between the heads, batch entries without a key, ragged T,
-   and B = 16 at T = 1024; dbias twice for run-to-run equality. Without a
-   bias one PyTorch call, scaled_dot_product_attention, computes the same
-   forward (and autograd through it dq, dk and dv): its time is printed
-   beside the kernel's as `library_ms`, and the port never calls it.
+   and B = 16 at T = 1024; the backward also at lengths that straddle its
+   64-row tiles (63, 64, 65, 129; k_len inside a tile; head dims 16 and
+   32) and, twice each at the training shape, for run-to-run equality of
+   dq, dk/dv and dbias. The dq kernel also forms delta = sum(do * out),
+   held against PyTorch's. Without a bias one PyTorch call,
+   scaled_dot_product_attention, computes the same forward (and autograd
+   through it dq, dk and dv): its time is printed beside the kernel's as
+   `library_ms`, and the port never calls it. dq and dk/dv run on the
+   tensor cores (TF32, each product split in three for float32's
+   accuracy), so their entries also carry the tensor cores' bound. No
+   kernel's time may read below its bound.
 13. Trains one step of the flagship with att_dropout 0.1 in the encoder on
    the card: the dense attention path, a finite loss, no attention kernel
    launched.
@@ -137,13 +144,23 @@ SEP_TRAIN_UTTS = 8  # one chunk each: the corpus is one batch
 SEP_TRAIN_EPOCHS = 3
 SEP_CHECK_UTTS = 4  # of the batch, in the card-vs-CPU training pass
 # published peaks of one H100 SXM at its full 700 W: device memory and
-# float32 outside the tensor cores (every kernel here computes in float32
-# on the CUDA cores)
+# float32 outside the tensor cores. Every bound below counts float32
+# operations at that rate, whatever unit the kernel uses, so that the rows
+# of all kernels compare (all but K2's dq and dk/dv compute on the CUDA
+# cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # dense bfloat16 in the tensor cores: the bound of a bfloat16 product,
 # whatever unit the kernel itself uses
 PEAK_BF16_PER_S = 989e12
+# dense TF32 in the tensor cores. K2's dq and dk/dv do each float32
+# product as three TF32 products, so their second bound is their operations
+# over a third of this rate
+PEAK_TF32_PER_S = 495e12
+TF32_PASSES = 3
+# launches queued between two events when a short kernel is timed a second
+# time with the host's enqueue hidden (see time_ms)
+QUEUED_CALLS = 10
 
 KERNELS = {
     "fused_logmel": ("aps_tpu_torch/csrc/fbank.cu",
@@ -228,8 +245,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms over iters timed calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median device time of fn() in ms over iters timed samples. A sample
+    is the time between two events around `calls` calls. With one call a
+    short kernel reads up to some 20 us high (the stream idles between the
+    first event and the launch that the host is still preparing); with
+    several calls queued back to back that gap hides behind the call
+    before."""
     import torch
     for _ in range(warmup):
         fn()
@@ -239,10 +261,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         beg = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         beg.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(beg.elapsed_time(end))
+        times.append(beg.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -254,6 +277,17 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
     by_ops = flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else \
         (by_ops, "operations")
+
+
+def print_rows(name, rows, card):
+    """One line per check row of a kernel; a time below the row's bound
+    means that the bound or the clock is wrong, and fails."""
+    for label, err, ms, plain_ms, bound, bound_by in rows:
+        print(f"{name} [{label}]: max abs err {err:.3e}, kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms by "
+              f"{bound_by} ({card})", flush=True)
+        if not ms >= bound:
+            fail(f"{name} [{label}]: {ms} ms reads below its bound {bound}")
 
 
 def path_shapes(model, secs=UTT_SECS):
@@ -514,31 +548,43 @@ def _ragged(T):
     return [T, max(T - 17, 2), T // 2, 1, 0, max(T - 90, 2), 3, T // 3]
 
 
+# lengths on either side of the backward kernels' 64-row tiles, none 0 (the
+# library's call gives NaN for a row without a key)
+_EDGE_LENS = [129, 70, 65, 64, 63, 1, 33, 128]
+
+
 def check_attention(dev, gen, dec_shape, trn_shape):
     """K2, the scaled-dot-product flash attention. Forward: as the long-form
     encoder calls it in the decode (B x T, k_len valid) and in training,
     then Tq != Tk, causal, a bias that differs between the heads, batch
-    entries without any key, ragged T, and B = 16 at T = 1024. Backward: dq,
-    dk/dv and dbias, each launched alone, against mha_backward_reference
-    and against autograd through mha_reference, at the training shape and
-    at shapes that widen it; dbias (which no model path launches) at the
-    training shape with a bias, twice, for run-to-run equality. Where one
-    PyTorch call computes the same function (no bias, every row with a
-    key), its time stands beside the kernel's as the library's.
-    -> (rows by kernel, library ms by kernel, the library's kernel names)"""
+    entries without any key, ragged T, and B = 16 at T = 1024. Backward: dq
+    (with the delta it forms), dk/dv and dbias, each launched alone, against
+    mha_backward_reference and against autograd through mha_reference, at
+    the training shape, at B = 16, T = 1024, at shapes that widen them and
+    at lengths that straddle the 64-row tiles of dq and dk/dv (63, 64, 65,
+    129; k_len inside a tile; a batch entry without a key; causal with Tq
+    != Tk; head dims 16 and 32); at the training shape dq and dk/dv (and
+    with a bias dbias, which no model path launches) run twice for
+    run-to-run equality. Where one PyTorch call computes the same function
+    (no bias, every row with a key), the kernels are held against it too,
+    and at the path's shapes and at T = 1024 its time stands beside theirs
+    as the library's.
+    -> (rows by kernel, library ms by kernel, the library's kernel names,
+    further numbers by kernel for the `kernels` line)"""
     import torch
 
-    from aps_tpu_torch.ops.attention import (launch_backward_kernel,
+    from aps_tpu_torch.ops.attention import (backward_occupancy,
+                                             launch_backward_kernel,
                                              launch_forward, flash_attention,
                                              mha_backward_reference,
                                              mha_reference)
-    H, D = 4, 64
-    scale = D**-0.5
+    H = 4
     (B_dec, T_dec, k_dec), (T_trn, lens_trn) = dec_shape, trn_shape
     rows = {name: [] for name in ("fwd", "dq", "dkv", "dbias")}
     library, backends = {}, {}
+    more = {f"flash_attention_{kernel}": {} for kernel in ("dq", "dkv")}
 
-    def make(B, Tq, Tk, with_bias):
+    def make(B, Tq, Tk, with_bias, D=64):
         q = torch.randn((B, H, Tq, D), generator=gen).to(dev)
         k, v = (torch.randn((B, H, Tk, D), generator=gen).to(dev)
                 for _ in range(2))
@@ -549,15 +595,17 @@ def check_attention(dev, gen, dec_shape, trn_shape):
             bias = bias.to(dev)
         return q, k, v, bias
 
-    def label_of(B, Tq, Tk, causal, bias, lens):
-        return (f"B={B} H=4 D=64 Tq={Tq} Tk={Tk} causal={causal} "
+    def label_of(B, Tq, Tk, causal, bias, lens, D=64):
+        return (f"B={B} H=4 D={D} Tq={Tq} Tk={Tk} causal={causal} "
                 f"bias={bias is not None} k_len="
                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
 
     # forward: decode shape, training shape, then the widening shapes
+    D = 64
     for B, Tq, Tk, causal, with_bias, lens, lib in (
             (B_dec, T_dec, T_dec, False, False, [k_dec] * B_dec, "decode"),
-            (len(lens_trn), T_trn, T_trn, False, False, lens_trn, None),
+            (len(lens_trn), T_trn, T_trn, False, False, lens_trn,
+             "training"),
             (8, 200, 300, False, False, _ragged(300), None),
             (8, 300, 200, True, True, _ragged(200), None),
             (8, 601, 601, True, True, _ragged(601), None),
@@ -599,27 +647,45 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                     library["flash_attention"] = lib_ms
                     backends["forward"] = _device_kernel_names(
                         lambda: _sdpa(q, k, v, k_len))[:2]
+                elif lib == "training":
+                    library["flash_attention (training shape)"] = lib_ms
             print(f"flash_attention [{label}]: the library's "
                   f"scaled_dot_product_attention {lib_ms:.4f} ms, max abs "
                   f"diff from the kernel {lib_err:.3e}", flush=True)
 
-    # backward
-    for B, Tq, Tk, causal, with_bias, lens, path in (
-            (len(lens_trn), T_trn, T_trn, False, False, lens_trn, True),
-            (len(lens_trn), T_trn, T_trn, False, True, lens_trn, True),
-            (8, 200, 300, False, True, _ragged(300), False),
-            (8, 300, 200, True, False, _ragged(200), False),
-            (8, 601, 601, True, True, _ragged(601), False)):
-        q, k, v, bias = make(B, Tq, Tk, with_bias)
+    # backward: (B, Tq, Tk, D, causal, bias, k_len, what the row is for)
+    ragged8 = lambda Tk: (8, _ragged(Tk))  # noqa: E731
+    for (B, lens), Tq, Tk, D, causal, with_bias, role in (
+            ((len(lens_trn), lens_trn), T_trn, T_trn, 64, False, False,
+             "path"),
+            ((len(lens_trn), lens_trn), T_trn, T_trn, 64, False, True,
+             "path"),
+            (ragged8(300), 200, 300, 64, False, True, ""),
+            (ragged8(200), 300, 200, 64, True, False, ""),
+            (ragged8(601), 601, 601, 64, True, True, ""),
+            ((16, [1024] * 16), 1024, 1024, 64, False, False, "timed"),
+            # the tiles' edges
+            (ragged8(63), 63, 63, 64, False, False, ""),
+            (ragged8(65), 64, 65, 64, True, False, ""),
+            (ragged8(129), 65, 129, 64, False, True, ""),
+            (ragged8(64), 129, 64, 64, True, True, ""),
+            (ragged8(129), 129, 129, 16, True, False, ""),
+            (ragged8(129), 64, 129, 32, False, False, ""),
+            ((8, _EDGE_LENS), 129, 129, 64, False, False, "library"),
+            ((8, _EDGE_LENS), 65, 129, 32, False, False, "library")):
+        q, k, v, bias = make(B, Tq, Tk, with_bias, D)
+        scale = D**-0.5
         do = torch.randn((B, H, Tq, D), generator=gen).to(dev)
         klen = torch.tensor(lens, dtype=torch.int32, device=dev)
-        label = label_of(B, Tq, Tk, causal, bias, lens)
+        label = label_of(B, Tq, Tk, causal, bias, lens, D)
         kw = dict(bias=bias, k_len=klen, causal=causal)
         out, lse = launch_forward(q, k, v, bias, klen, scale, causal, True)
-        delta = (do * out).sum(-1)
         kernels = ("dq", "dkv") + (("dbias",) if with_bias else ())
+        # dq runs first: it forms delta from do and the forward's output
+        # and writes it where the two others read it
+        delta_k = torch.full_like(lse, float("nan"))
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
-            kernel, q, k, v, bias, klen, do, lse, delta, scale, causal)
+            kernel, q, k, v, bias, klen, do, lse, out, delta_k, scale, causal)
         got = {kernel: run(kernel) for kernel in kernels}
         want = mha_backward_reference(q, k, v, do, **kw)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -638,25 +704,44 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                 not torch.isfinite(lse).all():
             fail(f"flash_attention {label}: lse marks the wrong rows as "
                  "without a visible key")
+        delta_err = (delta_k - (do * out).sum(-1)).abs().max().item()
+        if not delta_err <= TOL_GRAD:
+            fail(f"flash_attention_dq {label}: its delta is {delta_err} "
+                 "from sum(do * out)")
         grads = {"dq": (got["dq"],), "dkv": got["dkv"]}
         index = {"dq": (0,), "dkv": (1, 2), "dbias": (3,)}
         if with_bias:
             grads["dbias"] = (got["dbias"],)
-            if not torch.equal(got["dbias"], run("dbias")):
-                fail(f"flash_attention_dbias {label}: two launches differ")
+        if role == "path":
+            # every kernel owns its sums: a second launch gives the same
+            # bits
+            delta_first = delta_k.clone()
+            for kernel in kernels:
+                first, again = got[kernel], run(kernel)
+                if kernel != "dkv":
+                    first, again = (first,), (again,)
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    fail(f"flash_attention_{kernel} {label}: two launches "
+                         "differ")
+            if not torch.equal(delta_first, delta_k):
+                fail(f"flash_attention_dq {label}: two launches differ in "
+                     "delta")
         plain_ms = time_ms(lambda: mha_backward_reference(q, k, v, do, **kw),
                            iters=5, warmup=1)
         pairs = H * valid_pairs(Tq, lens, causal, Tk)
         qsize, ksize = B * H * Tq * D, B * H * Tk * D
         # every kernel reads q, k, v, do, lse, delta, k_len (and the bias)
         # and recomputes the scores and dp = do.v (4 D operations a pair);
-        # dq adds ds.k, dk/dv adds p.do and ds.q; dbias only sums
+        # dq adds ds.k, dk/dv adds p.do and ds.q; dbias only sums. (dq
+        # reads the forward's output where the others read delta, and
+        # writes delta: T D floats more, far from binding.)
         reads = 4 * (2 * qsize + 2 * ksize + 2 * B * H * Tq + B +
                      (H * Tq * Tk if with_bias else 0))
-        bounds = {"dq": bound_ms(reads + 4 * qsize, 3 * 2 * D * pairs),
-                  "dkv": bound_ms(reads + 8 * ksize, 4 * 2 * D * pairs),
-                  "dbias": bound_ms(reads + 4 * H * Tq * Tk,
-                                    2 * 2 * D * pairs)}
+        ops = {"dq": 3 * 2 * D * pairs, "dkv": 4 * 2 * D * pairs,
+               "dbias": 2 * 2 * D * pairs}
+        bounds = {"dq": bound_ms(reads + 4 * qsize, ops["dq"]),
+                  "dkv": bound_ms(reads + 8 * ksize, ops["dkv"]),
+                  "dbias": bound_ms(reads + 4 * H * Tq * Tk, ops["dbias"])}
         for kernel in kernels:
             err = 0.0
             for g, i in zip(grads[kernel], index[kernel]):
@@ -677,25 +762,59 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                 if torch.count_nonzero(g[b, :, n:]) != 0:
                     fail(f"flash_attention_dkv {label}: gradient at a "
                          f"padded key of batch entry {b}")
-        if path and not with_bias:
-            # autograd through the library call: one backward gives dq, dk
-            # and dv together
-            lib_out = _sdpa(*leaves, klen)
-            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-                lib_out, leaves, do, retain_graph=True)
-            for g, mine in zip(lib_bwd(), (got["dq"],) + got["dkv"]):
-                e = (g - mine).abs().max().item()
-                if not e <= TOL_GRAD:
-                    fail(f"flash_attention backward {label}: {e} from the "
-                         "library's backward")
-            lib_ms = time_ms(lib_bwd)
-            library["flash_attention_dq"] = lib_ms
-            library["flash_attention_dkv"] = lib_ms
-            backends["backward"] = _device_kernel_names(lib_bwd)[:2]
-            print(f"flash_attention backward [{label}]: autograd through "
-                  f"the library's scaled_dot_product_attention {lib_ms:.4f} "
-                  "ms for dq, dk and dv together", flush=True)
-    return rows, library, backends
+        if with_bias or not role:
+            continue
+        # autograd through the library call: one backward gives dq, dk
+        # and dv together
+        lib_out = _sdpa(*leaves, klen)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, do, retain_graph=True)
+        lib_err = 0.0
+        for g, mine in zip(lib_bwd(), (got["dq"],) + got["dkv"]):
+            lib_err = max(lib_err, (g - mine).abs().max().item())
+        if not lib_err <= TOL_GRAD:
+            fail(f"flash_attention backward {label}: {lib_err} from the "
+                 "library's backward")
+        if role == "library":
+            print(f"flash_attention backward [{label}]: max abs diff from "
+                  f"the library's backward {lib_err:.3e}", flush=True)
+            continue
+        lib_ms = time_ms(lib_bwd)
+        # once more with launches queued, which hides the host's share of
+        # either side's time
+        queued = {kernel: time_ms(lambda: run(kernel), calls=QUEUED_CALLS)
+                  for kernel in ("dq", "dkv")}
+        lib_queued = time_ms(lib_bwd, calls=QUEUED_CALLS)
+        print(f"flash_attention backward [{label}]: autograd through the "
+              f"library's scaled_dot_product_attention {lib_ms:.4f} ms for "
+              f"dq, dk and dv together, max abs diff {lib_err:.3e}; with "
+              f"{QUEUED_CALLS} launches queued: dq {queued['dq']:.4f} ms, "
+              f"dk/dv {queued['dkv']:.4f} ms, the library {lib_queued:.4f} "
+              "ms", flush=True)
+        for kernel in ("dq", "dkv"):
+            name = f"flash_attention_{kernel}"
+            tensor_ms = ops[kernel] * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            if role == "path":
+                library[name] = lib_ms
+                backends["backward"] = _device_kernel_names(lib_bwd)[:2]
+                more[name].update(
+                    ms_queued=queued[kernel], library_ms_queued=lib_queued,
+                    tensor_core_bound_ms=tensor_ms,
+                    tensor_core_bound_note=(
+                        f"operations x {TF32_PASSES} (each float32 product "
+                        "is three TF32 products) over the dense TF32 peak"),
+                    occupancy=backward_occupancy(D, kernel))
+            else:
+                more[name]["b16_t1024"] = {
+                    "shape": label, "ms": rows[kernel][-1][2],
+                    "ms_queued": queued[kernel],
+                    "bound_ms": bounds[kernel][0],
+                    "tensor_core_bound_ms": tensor_ms,
+                    "library_ms": lib_ms, "library_ms_queued": lib_queued}
+            if not queued[kernel] >= tensor_ms:
+                fail(f"{name} {label}: {queued[kernel]} ms reads below the "
+                     f"tensor cores' bound {tensor_ms}")
+    return rows, library, backends, more
 
 
 def dropout_step(egs, dev, gen, card):
@@ -1704,7 +1823,7 @@ def main() -> None:
         checks["flash_attention_rel"] += bwd.pop("fwd")
         for kernel, rows in bwd.items():
             checks[f"flash_attention_rel_{kernel}"] = rows
-        att, library, backends = check_attention(
+        att, library, backends, more = check_attention(
             dev, gen, (LONG_BATCH, T_long, k_long), (T_ltr, k_ltr))
         checks["flash_attention"] = att.pop("fwd")
         for kernel, rows in att.items():
@@ -1713,10 +1832,7 @@ def main() -> None:
               f"float32, TF32 off), longest first: {backends}", flush=True)
         del model, model_long
         for name, rows in checks.items():
-            for label, err, ms, plain_ms, bound, bound_by in rows:
-                print(f"{name} [{label}]: max abs err {err:.3e}, kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{bound:.5f} ms by {bound_by} ({card})", flush=True)
+            print_rows(name, rows, card)
         print("the plain time beside a backward kernel is that of the whole "
               "plain backward, which gives all of its gradients", flush=True)
 
@@ -1783,11 +1899,7 @@ def main() -> None:
               f"{TCN_BLOCKS} TCN blocks at T = {T_sep} frames x "
               f"{TCN_CONF['B']} channels", flush=True)
         checks["tcn_block_fused"] = check_tcn(dev, gen, T_sep)
-        for label, err, ms, plain_ms, bound, bound_by in \
-                checks["tcn_block_fused"]:
-            print(f"tcn_block_fused [{label}]: max abs err {err:.3e}, kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound:.5f} ms by {bound_by} ({card})", flush=True)
+        print_rows("tcn_block_fused", checks["tcn_block_fused"], card)
         tcn_cpt = write_tcn_checkpoint(sep_root, gen)
         mixes = write_mixtures(sep_root, SEP_UTTS, gen)
         launches_sep = separate_phase(sep_root, tcn_cpt, mixes, shapes_sep,
@@ -1821,6 +1933,8 @@ def main() -> None:
             path_launches = launches[name]
         elif name == "flash_attention":
             path_launches = launches_long[name]
+            extra["train_library_ms"] = library[
+                "flash_attention (training shape)"]
         elif name.startswith("flash_attention_d"):
             path_launches = launches_ltr[name]
             if name == "flash_attention_dbias":
@@ -1832,6 +1946,7 @@ def main() -> None:
                 extra["library_ms_covers"] = (
                     "dq, dk and dv together (one backward through the "
                     "library call)")
+                extra.update(more[name])
         elif name == "tcn_block_fused":
             path_launches = launches_sep[name]
             # one forward runs each of the first X rows' dilations R times

@@ -40,7 +40,8 @@ def _inputs(seed, B, H, Tq, Tk, D, with_bias, dead):
     q = rng.standard_normal((B, H, Tq, D)).astype(f32)
     k, v = (rng.standard_normal((B, H, Tk, D)).astype(f32) for _ in range(2))
     bias = rng.standard_normal((H, Tq, Tk)).astype(f32) if with_bias else None
-    k_len = np.array([Tk, Tk - 77] + [Tk // 3] * (B - 2), dtype=np.int32)
+    k_len = np.array([Tk, Tk - 77 if Tk > 77 else Tk // 2 + 1]
+                     + [Tk // 3] * (B - 2), dtype=np.int32)
     if dead:
         k_len[-1] = 0
     return q, k, v, bias, k_len
@@ -132,6 +133,12 @@ GRAD_CASES = [
     (3, 300, 333, 32, False, True, True),
     (3, 333, 300, 32, True, True, False),
     (3, 300, 300, 32, True, False, True),
+    # on either side of the 64-row tiles of the CUDA dq and dk/dv kernels,
+    # with k_len inside a tile
+    (3, 63, 63, 16, False, False, True),
+    (3, 64, 65, 32, True, False, False),
+    (3, 65, 129, 16, False, True, True),
+    (3, 129, 64, 32, True, True, False),
 ]
 
 
@@ -182,7 +189,7 @@ def test_attention_gradients_match_jax(B, Tq, Tk, D, causal, with_bias,
             assert np.count_nonzero(g[-1]) == 0
     # keys past k_len get exactly zero dk and dv
     for g in (plain[1], plain[2], auto[1], auto[2]):
-        assert np.count_nonzero(g[1, :, Tk - 77:]) == 0
+        assert np.count_nonzero(g[1, :, k_len[1]:]) == 0
 
 
 def test_attention_bias_is_indexed_by_head_not_by_batch():
@@ -401,3 +408,72 @@ def test_xl_mha_matches_flax(tie):
         np.testing.assert_allclose(tmod.rel_u.grad.numpy(),
                                    np.asarray(want_g[0]["rel_u"]),
                                    atol=MOD_GRAD_ATOL)
+
+
+def _fake_csrc(tmp_path, monkeypatch):
+    """A kernel directory with one source and one header, a build directory
+    beside it, and a compiler that writes its output file and counts."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "toy.cu").write_text('#include "toy_tiles.cuh"\n')
+    (csrc / "toy_tiles.cuh").write_text("constexpr int kRows = 64;\n")
+    calls = []
+
+    def fake_compile(cmd):
+        calls.append(cmd)
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "w") as fd:
+            fd.write("built")
+        import subprocess
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build, "compile_source", fake_compile)
+    return csrc, calls
+
+
+def test_build_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
+    """The library's name carries a digest of the source, of every
+    csrc/*.cuh and of the flags: an edited header gives a new library, an
+    untouched tree the cached one."""
+    csrc, calls = _fake_csrc(tmp_path, monkeypatch)
+    first = build.build("toy")
+    assert build.build("toy") == first and len(calls) == 1
+    (csrc / "toy_tiles.cuh").write_text("constexpr int kRows = 32;\n")
+    second = build.build("toy")
+    assert second != first and second.is_file() and len(calls) == 2
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert build.build("toy") not in (first, second) and len(calls) == 3
+
+
+def test_build_digest_covers_source_and_flags(tmp_path, monkeypatch):
+    csrc, _ = _fake_csrc(tmp_path, monkeypatch)
+    plain = build.source_digest("toy")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-DTILE=64"])
+    flagged = build.source_digest("toy")
+    assert flagged != plain
+    (csrc / "toy.cu").write_text("// edited\n")
+    assert build.source_digest("toy") not in (plain, flagged)
+
+
+def test_build_sources_lists_kernel_sources_only(tmp_path, monkeypatch):
+    """A header is no kernel source: sources() (what build_all compiles)
+    lists the .cu files; the package's own header sits beside them."""
+    assert "attn_tiles" not in build.sources()
+    assert "attention_bwd" in build.sources()
+    assert (build.CSRC / "attn_tiles.cuh").is_file()
+    _fake_csrc(tmp_path, monkeypatch)
+    assert build.sources() == ["toy"]
+
+
+def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
+    import subprocess
+    _fake_csrc(tmp_path, monkeypatch)
+    monkeypatch.setattr(
+        build, "compile_source",
+        lambda cmd: subprocess.CompletedProcess(cmd, 1, "", "toy.cu: bad"))
+    with pytest.raises(RuntimeError, match="toy.cu: bad"):
+        build.build("toy")
+    assert not list((tmp_path / "build").glob("*.so"))

@@ -428,6 +428,23 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
+def test_attention_backward_takes_an_unaligned_view(cuda_device):
+    """The backward copies 16 bytes at a time: a contiguous view one float
+    into its storage is copied by the wrapper and gets its gradient."""
+    att, _, _ = _att_args(2, 2, 40, 40, 16)
+    q, k, v = [t.to(cuda_device) for t in att]
+    odd = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    odd.copy_(q)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    torch.testing.assert_close(flash_attention(odd, k, v),
+                               flash_attention(q, k, v))
+    do = torch.ones(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    grads = [torch.autograd.grad(flash_attention(t.requires_grad_(), k, v),
+                                 t, do)[0] for t in (odd, q.clone())]
+    assert torch.equal(*grads)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Tq,Tk,D,causal,with_bias", [
     (4, 2, 40, 40, 16, False, True),
     (5, 2, 77, 130, 32, True, True),
@@ -435,14 +452,23 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     (8, 4, 601, 601, 64, False, False),
     (4, 4, 601, 601, 64, True, True),
     (4, 4, 700, 700, 64, False, True),
+    # on either side of the 64-row tiles of dq and dk/dv, k_len inside a
+    # tile, causal with Tq != Tk, every head dim
+    (4, 2, 63, 63, 16, False, False),
+    (4, 2, 64, 64, 32, True, False),
+    (4, 2, 65, 129, 64, False, True),
+    (4, 2, 129, 65, 32, True, True),
+    (5, 2, 64, 129, 64, True, False),
+    (5, 2, 129, 64, 16, False, False),
+    (5, 4, 129, 129, 64, True, False),
 ])
 def test_attention_backward_kernels_match_plain(cuda_device, B, H, Tq, Tk, D,
                                                 causal, with_bias):
-    """csrc/attention_bwd.cu (dq, dk/dv, dbias) through the autograd
-    Function == mha_backward_reference == autograd through mha_reference,
-    with ragged Tq and Tk, k_len including 1 and 0 (rows without a key:
-    zero gradients, no NaN) and every kernel launched once (dbias only
-    when there is a bias)."""
+    """csrc/attention_bwd.cu (dq and dk/dv on the tensor cores in 64-row
+    tiles, dbias) through the autograd Function == mha_backward_reference
+    == autograd through mha_reference, with ragged Tq and Tk, k_len
+    including 1 and 0 (rows without a key: zero gradients, no NaN) and
+    every kernel launched once (dbias only when there is a bias)."""
     att, bias, k_len = _att_args(B, H, Tq, Tk, D)
     leaves = [t.to(cuda_device).requires_grad_() for t in att]
     if with_bias:
@@ -491,6 +517,55 @@ def test_attention_dbias_is_deterministic(cuda_device):
         runs.append(torch.autograd.grad(out, leaves, do))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_backward_is_deterministic(cuda_device, causal):
+    """dq and dk/dv each own their sums (a block per 64 rows, no atomics):
+    two runs give the same bits, at a length that is ragged against the
+    tiles."""
+    att, _, k_len = _att_args(8, 4, 233, 233, 64)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att]
+    do = torch.randn(leaves[0].shape,
+                     generator=torch.Generator().manual_seed(3)).to(
+                         cuda_device)
+    runs = []
+    for _ in range(2):
+        out = flash_attention(*leaves, k_len=k_len.to(cuda_device),
+                              causal=causal)
+        runs.append(torch.autograd.grad(out, leaves, do))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk,D", [(130, 77, 64), (64, 64, 32),
+                                     (65, 200, 16)])
+def test_attention_dq_kernel_forms_delta(cuda_device, Tq, Tk, D):
+    """The dq kernel's prologue forms delta = sum(do * out, -1) for the
+    dk/dv and dbias kernels, which take it as it is."""
+    from aps_tpu_torch.ops.attention import (launch_backward_kernel,
+                                             launch_forward)
+    att, _, k_len = _att_args(4, 2, Tq, Tk, D)
+    q, k, v = [t.to(cuda_device) for t in att]
+    k_len = k_len.to(cuda_device)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(
+        cuda_device)
+    out, lse = launch_forward(q, k, v, None, k_len, D**-0.5, False, True)
+    build.reset_launches()
+    delta = torch.full_like(lse, float("nan"))
+    run = lambda kernel: launch_backward_kernel(  # noqa: E731
+        kernel, q, k, v, None, k_len, do, lse, out, delta, D**-0.5, False)
+    dq = run("dq")
+    assert build.LAUNCHES["flash_attention_dq"] == 1
+    torch.testing.assert_close(delta, (do * out).sum(-1), atol=1e-5,
+                               rtol=1e-5)
+    want = mha_backward_reference(q, k, v, do, k_len=k_len)
+    torch.testing.assert_close(dq, want[0], atol=GRAD_ATOL, rtol=0)
+    dk, dv = run("dkv")
+    torch.testing.assert_close(dk, want[1], atol=GRAD_ATOL, rtol=0)
+    torch.testing.assert_close(dv, want[2], atol=GRAD_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
