@@ -21,53 +21,82 @@
 // parallel and in no order here, so the k loop is inside the block, and the
 // ragged ends of Tq and Tk are handled by bounds instead of padded copies.
 //
-// Layout: one block per (q-tile of kBQ rows, batch*head), kThreads threads.
-// For each key tile of kBK rows the block stages K and V in shared memory
-// (rows padded to D+1 floats so lanes that read neighbouring rows hit
-// distinct banks), writes the kBQ x kBK score tile, and each warp runs the
-// online softmax for kBQ/4 rows with the row state (max, sum, D/32
-// accumulators per lane) held in registers. Key tiles past k_len (and past
-// the tile's last row under causal) are skipped.
+// What bounds it on the card: 4 Tq Tk D operations a head on a few T D
+// floats: arithmetic, not device memory. The first port ran them on the
+// CUDA cores from shared memory (one thread per score, two shared loads per
+// multiply-add, p broadcast by shuffles, 16 x 32 tiles restaged between two
+// barriers) at a tenth of the float32 rate. This design takes the pieces of
+// attn_tiles.cuh that the backward (attention_bwd.cu) is built from:
 //
-// What bounds it on the card: 4 Tq Tk D operations per head on the CUDA
-// cores in float32 from shared memory against a few T D floats of traffic,
-// so it is bound by float32 arithmetic and shared-memory bandwidth, not by
-// device memory; tensor cores (wgmma) and larger tiles are later work.
+//   - a block of kWarps warps owns kQRows query rows, 16 a warp. Q is
+//     staged once; each warp splits its Q fragments into TF32 head and
+//     remainder once and keeps them in registers for every key tile;
+//   - K and V stream through in tiles of kKRows rows, copied with cp.async
+//     (16 bytes a thread, zeros past the end) into a ring of two stages:
+//     the next tile's loads are in flight while this one is computed, one
+//     barrier a tile;
+//   - s = q . k^T and o += p . v run on the tensor cores (mma.sync
+//     m16n8k8) as three TF32 products of the split operands: float32's
+//     accuracy at a third of the TF32 rate;
+//   - the online softmax stays in registers (attn_tiles::RowSoftmax: row
+//     maxima across the four lanes that share a fragment row), and the
+//     tile of p becomes the A operand of p . v where it lies (acc_as_a,
+//     load_b_rows_k): no trip through shared memory;
+//   - a warp whose 16 x kKRows tile lies wholly inside the mask (and has no
+//     bias) skips the tests; a warp with nothing visible in a tile skips it;
+//   - no atomics: two launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
+#include "attn_tiles.cuh"
+
 namespace {
 
-constexpr int kBQ = 16;
-constexpr int kBK = 32;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kBQ / kWarps;
-constexpr float kLseDead = 1.0e30f;
+// A block of kWarps warps owns kQRows query rows and streams the keys in
+// tiles of kKRows. At D = 64 it takes 175 registers and 52 KB: two blocks
+// an SM. 32-row blocks (two warps) measured 1-2% slower at the long-form
+// decode shape (B = 4, H = 4, T = 710: 368 blocks against 192 of 64 rows),
+// 10% at the training shape and 2-7% at B = 16, T = 1024 (PERF.md): the
+// grid's extra blocks buy less than the K and V tiles staged twice as often
+// cost.
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQRows = 16 * kWarps;
+constexpr int kKRows = 32;
+constexpr float kLseDead = attn_tiles::kLseDead;
+
+// floats of dynamic shared memory: Q, and two stages of K and V
+template <int D>
+constexpr int smem_floats() {
+  return (kQRows + 4 * kKRows) * attn_tiles::tile_ld(D);
+}
 
 template <int D>
-__global__ void attn_fwd_kernel(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ v,
-                                const float* __restrict__ bias,
-                                const int* __restrict__ k_len, int H, int Tq,
-                                int Tk, float scale, int causal,
-                                float* __restrict__ out,
-                                float* __restrict__ lse) {
-  constexpr int DP = D + 1;
-  constexpr int DPL = (D + 31) / 32;
-  __shared__ float sq[kBQ][DP];
-  __shared__ float sk[kBK][DP];
-  __shared__ float sv[kBK][D];
-  __shared__ float ss[kBQ][kBK + 1];
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ bias,
+                const int* __restrict__ k_len, int H, int Tq, int Tk,
+                float scale, int causal, float* __restrict__ out,
+                float* __restrict__ lse) {
+  using namespace attn_tiles;
+  constexpr int LD = tile_ld(D);
+  constexpr int NT = kKRows / 8;  // 8-wide fragments across a key tile
+  constexpr int ND = D / 8;       // 8-wide fragments across the head dim
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;
+  float* skv = sq + kQRows * LD;  // [stage][k, v][kKRows][LD]
 
   const int bh = blockIdx.y;
   const int b = bh / H;
-  const int l0 = blockIdx.x * kBQ;
+  const int l0 = blockIdx.x * kQRows;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row0 = l0 + (tid / 32) * 16;  // this warp's first row
   const float* q_h = q + static_cast<size_t>(bh) * Tq * D;
   const float* k_h = k + static_cast<size_t>(bh) * Tk * D;
   const float* v_h = v + static_cast<size_t>(bh) * Tk * D;
@@ -77,109 +106,194 @@ __global__ void attn_fwd_kernel(const float* __restrict__ q,
                       : bias + static_cast<size_t>(bh % H) * Tq * Tk;
   const int klen = min(Tk, k_len[b]);
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    sq[r][d] = (l0 + r < Tq) ? q_h[static_cast<size_t>(l0 + r) * D + d] : 0.f;
-  }
-
-  float m_i[kRowsPerWarp], l_i[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-
+  // keys the block's rows can see: below k_len, under causal none after
+  // its last row; the warp's rows, none after the warp's last row
   int kend = klen;
-  if (causal) kend = min(kend, l0 + kBQ);
-  for (int s0 = 0; s0 < kend; s0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const bool ok = s0 + r < Tk;
-      sk[r][d] = ok ? k_h[static_cast<size_t>(s0 + r) * D + d] : 0.f;
-      sv[r][d] = ok ? v_h[static_cast<size_t>(s0 + r) * D + d] : 0.f;
-    }
-    __syncthreads();
+  if (causal) kend = min(kend, l0 + kQRows);
+  const int nt = kend > 0 ? (kend + kKRows - 1) / kKRows : 0;
+  const int wend = causal ? min(kend, row0 + 16) : kend;
 
-    for (int e = tid; e < kBQ * kBK; e += kThreads) {
-      const int li = e / kBK;
-      const int sj = e - li * kBK;
-      float a = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) a = fmaf(sq[li][d], sk[sj][d], a);
-      a *= scale;
-      if (bias_h != nullptr && l0 + li < Tq && s0 + sj < Tk) {
-        a += bias_h[static_cast<size_t>(l0 + li) * Tk + s0 + sj];
-      }
-      ss[li][sj] = a;
-    }
-    __syncthreads();
+  auto stage = [&](int tile, int st) {
+    float* dst = skv + st * 2 * kKRows * LD;
+    stage_rows_async<D, kKRows, kThreads>(dst, k_h, tile * kKRows, Tk, tid);
+    stage_rows_async<D, kKRows, kThreads>(dst + kKRows * LD, v_h,
+                                          tile * kKRows, Tk, tid);
+  };
+  stage_rows_async<D, kQRows, kThreads>(sq, q_h, l0, Tq, tid);
+  if (nt > 0) stage(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
+  FragA qa[ND];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int li = warp * kRowsPerWarp + r;
-      const int l = l0 + li;
-      const int s = s0 + lane;
-      const bool ok = l < Tq && s < klen && (!causal || s <= l);
-      const float x = ok ? ss[li][lane] : -INFINITY;
-      float mx = x;
+  for (int kk = 0; kk < ND; ++kk) {
+    load_a<LD>(qa[kk], sq, row0 - l0, 8 * kk, g, t);
+  }
+  float o[ND][4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  }
+  RowSoftmax sm;
+  sm.init();
+
+  for (int tile = 0; tile < nt; ++tile) {
+    if (tile > 0) {
+      // this tile has landed, and every warp is done with the previous one
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (tile + 1 < nt) {
+      stage(tile + 1, (tile + 1) & 1);
+      cp_async_commit();
+    }
+    const int s0 = tile * kKRows;
+    if (s0 >= wend || row0 >= Tq) continue;  // nothing visible to the warp
+    const float* tk = skv + (tile & 1) * 2 * kKRows * LD;
+    const float* tv = tk + kKRows * LD;
+
+    // s = q . k^T, 16 x kKRows a warp
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      FragB bk[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        load_b_rows_n<LD>(bk[j], tk, 8 * j, 8 * kk, g, t);
       }
-      const float m_new = fmaxf(m_i[r], mx);
-      const float p = ok ? expf(x - m_new) : 0.f;
-      const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_i[r] - m_new);
-      float psum = p;
+      mma_f32<NT>(s, qa[kk], bk);
+    }
+
+    // scale, bias and mask: -inf where a key is not visible
+    const int s_hi = s0 + kKRows - 1;
+    const bool inside = bias_h == nullptr && row0 + 15 < Tq && s_hi < klen &&
+                        (!causal || s_hi <= row0);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      }
-      l_i[r] = l_i[r] * alpha + psum;
-      m_i[r] = m_new;
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[r][i] = fmaf(pj, sv[j][d], acc[r][i]);
+      for (int c = 0; c < 4; ++c) {
+        float x = s[j][c] * scale;
+        if (!inside) {
+          const int l = row0 + g + 8 * (c / 2);
+          const int sk = s0 + 8 * j + 2 * t + (c & 1);
+          if (!visible(l, sk, Tq, klen, causal)) {
+            x = -INFINITY;
+          } else if (bias_h != nullptr) {
+            x += bias_h[static_cast<size_t>(l) * Tk + sk];
+          }
         }
+        s[j][c] = x;
       }
+    }
+
+    // s -> p in place; rescale what o summed so far; o += p . v
+    float alpha[2];
+    sm.update<NT>(s, alpha);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragA ap;
+      FragB bv[ND];
+      acc_as_a(ap, s[j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        load_b_rows_k<LD>(bv[n], tv, 8 * j, 8 * n, g, t);
+      }
+      mma_f32<ND>(o, ap, bv);
     }
   }
 
-  float* out_h = out + static_cast<size_t>(bh) * Tq * D;
+  float sum[2];
+  sm.finish(sum);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int l = l0 + warp * kRowsPerWarp + r;
+  for (int h = 0; h < 2; ++h) {
+    const int l = row0 + g + 8 * h;
     if (l >= Tq) continue;
-    const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
+    const float inv = sum[h] > 0.f ? 1.f / sum[h] : 0.f;
+    float* at = out + (static_cast<size_t>(bh) * Tq + l) * D + 2 * t;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) out_h[static_cast<size_t>(l) * D + d] = acc[r][i] * inv;
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(at + 8 * n) =
+          make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
     }
-    if (lse != nullptr && lane == 0) {
+    if (lse != nullptr && t == 0) {
       lse[static_cast<size_t>(bh) * Tq + l] =
-          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : kLseDead;
+          sum[h] > 0.f ? sm.m[h] + logf(sum[h]) : kLseDead;
     }
   }
 }
 
+// the kernel may take more than 48 KB of dynamic shared memory, and the SM's
+// split between shared memory and L1 goes to shared memory. A function's
+// attributes belong to a device: set once for each instantiation and device,
+// at its first launch or query there (setting them twice does no harm)
+constexpr int kMaxDevices = 64;
+
 template <int D>
-void launch(const float* q, const float* k, const float* v,
-            const float* bias, const int* k_len, int B, int H, int Tq, int Tk,
-            float scale, int causal, float* out, float* lse,
-            cudaStream_t stream) {
-  dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  attn_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+cudaError_t fwd_attributes() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  auto kernel = attn_fwd_kernel<D>;
+  rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_floats<D>() * static_cast<int>(sizeof(float)));
+  if (rc != cudaSuccess) return rc;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributePreferredSharedMemoryCarveout,
+                            cudaSharedmemCarveoutMaxShared);
+  if (rc == cudaSuccess && known) {
+    done[dev].store(true, std::memory_order_release);
+  }
+  return rc;
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* bias, const int* k_len, int B, int H, int Tq,
+                   int Tk, float scale, int causal, float* out, float* lse,
+                   cudaStream_t stream) {
+  constexpr int kBytes = smem_floats<D>() * sizeof(float);
+  const cudaError_t rc = fwd_attributes<D>();
+  if (rc != cudaSuccess) return rc;
+  dim3 grid((Tq + kQRows - 1) / kQRows, B * H);
+  attn_fwd_kernel<D><<<grid, kThreads, kBytes, stream>>>(
       q, k, v, bias, k_len, H, Tq, Tk, scale, causal, out, lse);
+  return cudaGetLastError();
+}
+
+// registers a thread, bytes of local memory a thread (spills), bytes of
+// dynamic shared memory and resident blocks an SM
+template <int D>
+cudaError_t occupancy(int* info) {
+  auto kernel = attn_fwd_kernel<D>;
+  constexpr int kBytes = smem_floats<D>() * sizeof(float);
+  cudaError_t rc = fwd_attributes<D>();
+  if (rc != cudaSuccess) return rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return rc;
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = kBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(info + 3, kernel,
+                                                       kThreads, kBytes);
 }
 
 }  // namespace
@@ -188,33 +302,34 @@ extern "C" const char* aps_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+#define APS_DISPATCH_D(D, fn, ...)                                \
+  switch (D) {                                                    \
+    case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
+    case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
+    case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
+    default: return static_cast<int>(cudaErrorInvalidValue);      \
+  }
+
 // q, out: B x H x Tq x D; k, v: B x H x Tk x D; bias: H x Tq x Tk or null;
 // k_len: B int32; lse: B x H x Tq or null (inference). All float32 (k_len
-// int32), contiguous, on the device. D in {16, 32, 64}.
+// int32), contiguous, on the device; q, k and v 16-byte aligned. D in {16,
+// 32, 64}.
 extern "C" int aps_attention_fwd(const float* q, const float* k,
                                  const float* v, const float* bias,
                                  const int* k_len, int B, int H, int Tq,
                                  int Tk, int D, float scale, int causal,
                                  float* out, float* lse, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || Tq <= 0) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (D) {
-    case 16:
-      launch<16>(q, k, v, bias, k_len, B, H, Tq, Tk, scale, causal, out, lse,
-                 s);
-      break;
-    case 32:
-      launch<32>(q, k, v, bias, k_len, B, H, Tq, Tk, scale, causal, out, lse,
-                 s);
-      break;
-    case 64:
-      launch<64>(q, k, v, bias, k_len, B, H, Tq, Tk, scale, causal, out, lse,
-                 s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  APS_DISPATCH_D(D, launch, q, k, v, bias, k_len, B, H, Tq, Tk, scale, causal,
+                 out, lse, static_cast<cudaStream_t>(stream));
+}
+
+// How the forward sits on an SM at head dim D: info = {registers a thread,
+// bytes of local memory a thread, bytes of dynamic shared memory a block,
+// resident blocks an SM, query rows a block}.
+extern "C" int aps_attention_fwd_occupancy(int D, int* info) {
+  info[4] = kQRows;
+  APS_DISPATCH_D(D, occupancy, info);
 }

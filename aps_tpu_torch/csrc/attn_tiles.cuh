@@ -1,9 +1,10 @@
-// Building blocks of the tiled attention kernels for Hopper (sm_90a):
-// float32-accurate products on the tensor cores, fragment loads from padded
-// shared-memory tiles, asynchronous staging of row tiles, and the mask test.
-// Used by attention_bwd.cu (dq, dk/dv); written so that the forward of the
-// scaled-dot-product attention and the four kernels of the rel-pose
-// attention can be built from the same pieces.
+// Building blocks of the tiled kernels for Hopper (sm_90a): float32-accurate
+// products on the tensor cores, fragment loads from padded shared-memory
+// tiles, asynchronous staging of row tiles, the mask test and the online
+// softmax on accumulator fragments. Used by attention.cu (forward),
+// attention_bwd.cu (dq, dk/dv) and tcn.cu (the TCN block's two products);
+// written so that the four kernels of the rel-pose attention can be built
+// from the same pieces.
 //
 // The products. A warp multiplies 16 x 8 by 8 x 8 fragments with
 // mma.sync.aligned.m16n8k8 on TF32 operands and float32 accumulators. TF32
@@ -39,12 +40,24 @@
 // The tiles. A staged tile holds rows of D floats at a stride of D + 4.
 // With that stride the two fragment patterns, (row g, column t) and (row
 // 2t, column g), both fall on 32 different banks; the stride keeps rows
-// 16-byte aligned for cp.async.
+// 16-byte aligned for cp.async. A B operand read as (row t, column g) of a
+// k-major tile (load_b_kn) wants a stride of 8 modulo 32 instead.
+//
+// The online softmax. Of each 16 x 8 accumulator tile a thread holds rows g
+// (c0, c1) and g + 8 (c2, c3), and the four lanes of a group (t = 0..3)
+// share those two rows. RowSoftmax keeps, for the two rows, the running
+// maximum (reduced across the four lanes with __shfl_xor_sync by 1 and 2,
+// so that all four agree) and the thread's own share of the running sum,
+// which is reduced across the four lanes once, after the last tile: the
+// factor exp(m_old - m_new) that rescales it is the same on all four. A
+// row that has seen no visible score keeps the maximum -inf; its p are 0
+// and its sum stays 0.
 
 #ifndef APS_TPU_TORCH_CSRC_ATTN_TILES_CUH_
 #define APS_TPU_TORCH_CSRC_ATTN_TILES_CUH_
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace attn_tiles {
@@ -147,6 +160,75 @@ __device__ __forceinline__ void load_b_rows_k(FragB& b, const float* tile,
   b.set(x);
 }
 
+// B[k][n] = tile[k0 + k][n0 + n]: a k-major tile (row stride LD = 8 mod 32)
+template <int LD>
+__device__ __forceinline__ void load_b_kn(FragB& b, const float* tile, int k0,
+                                          int n0, int g, int t) {
+  const float* p = tile + (k0 + t) * LD + n0 + g;
+  const float x[2] = {p[0], p[4 * LD]};
+  b.set(x);
+}
+
+// ---- the online softmax of a warp's 16 rows ----
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows g (index 0) and g + 8 (index 1) of a thread; every call is made by
+// the whole warp
+struct RowSoftmax {
+  float m[2];  // running maximum of the visible scores, -inf: none yet
+  float l[2];  // this thread's share of the sum of exp(score - m)
+
+  __device__ __forceinline__ void init() {
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+
+  // x: the scores of a 16 x 8N tile, -inf where masked. Replaced by p =
+  // exp(x - m_new); alpha = exp(m_old - m_new) rescales what was summed
+  // before (1 while the row has no visible score).
+  template <int N>
+  __device__ __forceinline__ void update(float (&x)[N][4], float (&alpha)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        mx = fmaxf(mx, fmaxf(x[j][2 * h], x[j][2 * h + 1]));
+      }
+      mx = quad_max(mx);
+      const bool none = mx == -INFINITY;
+      alpha[h] = none ? 1.f : __expf(m[h] - mx);
+      m[h] = mx;
+      float sum = l[h] * alpha[h];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int c = 2 * h; c < 2 * h + 2; ++c) {
+          const float p = none ? 0.f : __expf(x[j][c] - mx);
+          x[j][c] = p;
+          sum += p;
+        }
+      }
+      l[h] = sum;
+    }
+  }
+
+  // the rows' sums, the same on the four lanes of a group
+  __device__ __forceinline__ void finish(float (&sum)[2]) const {
+    sum[0] = quad_sum(l[0]);
+    sum[1] = quad_sum(l[1]);
+  }
+};
+
 // ---- asynchronous staging ----
 
 // 16 bytes global -> shared; zeros when !valid (src must still be mapped)
@@ -155,6 +237,15 @@ __device__ __forceinline__ void cp_async_16(float* dst, const float* src,
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
                "l"(src), "r"(bytes)
                : "memory");
 }

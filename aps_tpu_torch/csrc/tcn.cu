@@ -14,50 +14,83 @@
 // where round() takes y2 to the kernels' type before the second product, the
 // residual is added in float32 and out has x's type. Rows of y outside [0, T)
 // are zero: the padding is applied to the intermediate, after PReLU and the
-// affine. Both products run inside this kernel, on the CUDA cores.
+// affine.
 //
 // The TPU kernel keeps a whole T x B row in its fast memory and sweeps it in
-// slabs, with a budget gate and a fall-back for long inputs. Here one block
-// owns 32 output rows of one batch row, at any T:
+// slabs, with a budget gate and a fall-back for long inputs. Here a block
+// owns 64 output rows of one batch row and 256 output columns, at any T.
 //
-//   1. It stages the rows of x that its outputs need in shared memory. The
-//      three taps need y at rows t - pad_l, t - pad_l + d, t - pad_l + 2d. For
-//      d <= 32 these are taken as one contiguous run of 32 + 2d rows; for
-//      larger d as three separate runs of 32 rows, which caps the first
-//      product at 3x its least size at every dilation (a contiguous halo at
-//      d = 128 would cost 9x).
-//   2. It walks H in passes of 128 channels. In a pass each thread forms
-//      two channels of y for up to 24 staged rows (kernel1 streamed from L2,
-//      x broadcast from shared memory, eight multiply-adds per shared load),
-//      the stencil and second activation give a 32 x 128 tile of y2 in shared
-//      memory, and each thread adds that tile's share to 16 rows of its two
-//      (at B > 256: four) output columns, kept in registers (kernel2 streamed
-//      from L2, y2 broadcast from shared memory).
-//   3. It adds bias2 and the residual from the staged x and writes its rows.
+// What bounds it on the card: operations. At B = 256, H = 512 the two 1x1
+// products are 2 * 2 * B * H operations a frame against 2 * B * itemsize
+// bytes, far above the card's balance, so they belong on the tensor cores.
+// The first port ran both on the CUDA cores, streamed kernel1 and kernel2
+// from L2 into every thread and did the first product 1.25x to 3x over for
+// the taps. This design:
 //
-// What bounds it on the card: operations. At B = 256, H = 512 the two
-// products are 2 * 2 * B * H operations per frame against 2 * B * itemsize
-// bytes, far above the card's float32 balance; without tensor cores and with
-// the first product done 1.25x (40 staged rows, d <= 4), 2x (64 rows,
-// d <= 16) or 3x (96 rows) over, it stays well under that bound (PERF.md has
-// the times). Tensor-core tiles (wgmma) and TMA staging are the later rewrite.
+//   - Both products run on the tensor cores (mma.sync). bfloat16: m16n8k16
+//     on bf16 operands with float32 accumulators, exact in the products.
+//     float32: m16n8k8 as three TF32 products of split operands
+//     (attn_tiles.cuh), float32's accuracy at a third of the TF32 rate.
+//   - The operands reach shared memory by cp.async (16-byte pieces; 8 for
+//     bfloat16 widths that are no multiple of 8) in k-slices 256 bytes deep
+//     (64 float32 or 128 bfloat16 channels) through a ring of two stages:
+//     for the first product a slice of input channels of the staged rows of
+//     x and of kernel1's 128 hidden channels of the pass, for the second a
+//     slice of hidden channels of kernel2 across the block's 256 columns;
+//     one barrier a slice, the next slice in flight while this one is
+//     multiplied. The pass's 11 pack rows land beside them.
+//   - H is walked in passes of 128 hidden channels. The first product's
+//     accumulators take c1, PReLU and the affine (zero outside [0, T)) into
+//     a float32 tile y; the stencil and the second activation give the tile
+//     y2 (rounded to the kernels' type), which is the A operand of the
+//     second product. The 64 x 256 output tile stays in the registers of
+//     the block's sixteen warps over all passes; y and y2 never leave the
+//     SM. One block an SM (at most 128 registers a thread, 204-220 KB).
+//   - The staged rows. Below d = 16 the block's 64 rows are contiguous and
+//     need 64 + 2d rows of y (80 or 96 staged: the first product's repeat is
+//     1.25x up to d = 8). From d = 16 on the block owns a chain of four
+//     16-row tiles one dilation apart (t0 + j d + i, j < 4, i < 16), whose
+//     taps fall on six 16-row runs t0 - pad_l + u d + i (u < 6): each staged
+//     run feeds up to three output tiles and the repeat is 6/4 = 1.5x at
+//     every dilation (the first port's three separate runs gave 3x).
+//     Blocks tile [0, T) in periods of 4d: d / 16 chains a period, rows of a
+//     16-row tile past the dilation belong to the next chain and are not
+//     written (dilations that are no multiple of 16 waste those rows).
+//   - Ragged edges (T, B, H) by bounds and zero fill. No atomics: two
+//     launches give the same bits.
+//
+// What still bounds it (PERF.md): not the tensor cores' rate. With one
+// block an SM its phases (copies, the two products, the activations and the
+// stencil) follow each other between barriers: leaving out any one of them
+// saves 6% to 42% of the time, and with no copies issued at all the kernel
+// still takes more than three quarters of it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <type_traits>
+
+#include "attn_tiles.cuh"
+
 namespace {
 
-constexpr int kTM = 32;  // output rows per block
-constexpr int kThreads = 256;
-// first product: 64 channel lanes x 4 row groups, 2 channels per thread
-constexpr int kLanes = 64;
-constexpr int kCPT = 2;
-constexpr int kHC = kLanes * kCPT;  // hidden channels per pass
-constexpr int kRowGroups = kThreads / kLanes;
-// second product: 128 column lanes x 2 slices of the block's rows
-constexpr int kColLanes = 128;
-constexpr int kSlice = kTM / (kThreads / kColLanes);  // rows per thread
-constexpr int kMaxShared = 232448;  // bytes a block may use on sm_90
+constexpr int kThreads = 512;  // sixteen warps
+constexpr int kOutRows = 64;   // output rows of a block: four 16-row tiles
+constexpr int kCols = 256;     // output columns of a block
+constexpr int kHC = 128;       // hidden channels of a pass
+constexpr int kStages = 2;     // depth of the ring
+constexpr int kMaxRows = 96;   // staged rows of y, at most
+// A slice of either product is 256 bytes of each row deep: 64 float32 or
+// 128 bfloat16 channels. Three stages of 128-byte slices measured 11%
+// (float32) and 20% (bfloat16) slower at the separation shape (PERF.md):
+// half as many barriers pay more than a slice more in flight.
+template <typename T>
+constexpr int slice_depth() {
+  return 256 / static_cast<int>(sizeof(T));
+}
+constexpr int kChainFrom = 16;  // dilations from here on take the chain
+constexpr int kMaxDevices = 64;
 
 // pack rows
 enum PackRow {
@@ -80,281 +113,502 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// four consecutive elements as float32 (16 or 8 aligned bytes)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ float prelu(float v, float slope) {
   return v >= 0.f ? v : slope * v;
 }
 
-// RPT: staged rows per thread in the first product (4 * RPT rows staged);
-// NC: output columns per thread in the second (NC * 128 >= B). The instances
-// of 40 and 64 staged rows keep to 128 registers, so that two blocks fit an
-// SM, which runs them faster than one block with more registers; at 96 rows
-// the shared memory allows one block, which takes the registers it wants.
-// R staged rows are in use; staged row r holds time
-//   lo - pad_l + r                       (contiguous)
-//   lo - pad_l + (r / 32) * d + r % 32   (three runs)
-// and tap j of output row i is staged row i + j * off (off = d or 32).
-template <typename T, int RPT, int NC>
-__global__ void __launch_bounds__(kThreads, RPT <= 16 ? 2 : 1)
-    tcn_block_kernel(const T* __restrict__ x, const T* __restrict__ k1,
-                     const float* __restrict__ pack,
-                     const T* __restrict__ k2,
-                     const float* __restrict__ bias2, T* __restrict__ out,
-                     int Tlen, int B, int H, int d, int pad_l, int R, int off,
-                     int contiguous, int center, int tiles) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int RA = RPT * kRowGroups;
-  float* xs = smem;            // RA x B
-  float* ys = xs + RA * B;     // RA x kHC
-  float* y2s = ys + RA * kHC;  // kTM x kHC
+// ---- the tensor-core product of one element type ----
+//
+// A tiles are row-major (k contiguous) at a row stride of kPadA elements
+// past a multiple of 32 words' worth, B tiles k-major (n contiguous) at
+// kPadB past; both strides keep the fragment loads free of bank conflicts
+// and rows 16-byte aligned.
+
+template <typename T>
+struct Tc;
+
+template <>
+struct Tc<float> {
+  static constexpr int kK = 8;  // depth of one mma
+  static constexpr int kPadA = 4;
+  static constexpr int kPadB = 8;
+  using A = attn_tiles::FragA;
+  using B = attn_tiles::FragB;
+
+  template <int LD>
+  static __device__ __forceinline__ void load_a(A& a, const float* tile,
+                                                int r0, int k0, int lane) {
+    attn_tiles::load_a<LD>(a, tile, r0, k0, lane / 4, lane % 4);
+  }
+  // n8 tiles n0 and n0 + 8 of a k-major tile
+  template <int LD>
+  static __device__ __forceinline__ void load_b2(B* b, const float* tile,
+                                                 int k0, int n0, int lane) {
+    attn_tiles::load_b_kn<LD>(b[0], tile, k0, n0, lane / 4, lane % 4);
+    attn_tiles::load_b_kn<LD>(b[1], tile, k0, n0 + 8, lane / 4, lane % 4);
+  }
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&c)[N][4], const A& a,
+                                             const B (&b)[N]) {
+    attn_tiles::mma_f32<N>(c, a, b);
+  }
+};
+
+template <>
+struct Tc<__nv_bfloat16> {
+  static constexpr int kK = 16;
+  static constexpr int kPadA = 8;
+  static constexpr int kPadB = 8;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+
+  // m16n8k16 A: (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)
+  template <int LD>
+  static __device__ __forceinline__ void load_a(A& a,
+                                                const __nv_bfloat16* tile,
+                                                int r0, int k0, int lane) {
+    const __nv_bfloat16* p = tile + (r0 + lane / 4) * LD + k0 + 2 * (lane % 4);
+    a.r[0] = *reinterpret_cast<const uint32_t*>(p);
+    a.r[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+    a.r[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+    a.r[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+  }
+  // B (k 2t, 2t + 1 | 2t + 8, 2t + 9; n g) of n8 tiles n0 and n0 + 8 from a
+  // k-major tile, transposed by ldmatrix: lanes 0-15 address rows k0.. of
+  // columns n0.., lanes 16-31 the same rows at n0 + 8
+  template <int LD>
+  static __device__ __forceinline__ void load_b2(B* b,
+                                                 const __nv_bfloat16* tile,
+                                                 int k0, int n0, int lane) {
+    const __nv_bfloat16* p = tile + (k0 + lane % 16) * LD + n0 + 8 * (lane / 16);
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(b[0].r[0]), "=r"(b[0].r[1]), "=r"(b[1].r[0]), "=r"(b[1].r[1])
+        : "r"(s));
+  }
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&c)[N][4], const A& a,
+                                             const B (&b)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]),
+            "r"(b[i].r[0]), "r"(b[i].r[1]));
+    }
+  }
+};
+
+// ---- shared memory ----
+
+template <typename T>
+struct Layout {
+  static constexpr int kKS = slice_depth<T>();
+  static constexpr int kLdX = kKS + Tc<T>::kPadA;     // x slice [row][k]
+  static constexpr int kLdK1 = kHC + Tc<T>::kPadB;    // kernel1 slice [k][h]
+  static constexpr int kLdK2 = kCols + Tc<T>::kPadB;  // kernel2 slice [h][c]
+  static constexpr int kLdY = kHC + 4;                 // y [row][h], float
+  static constexpr int kLdY2 = kHC + Tc<T>::kPadA;    // y2 [row][h]
+  static constexpr int kStage1 =
+      (kMaxRows * kLdX + kKS * kLdK1) * static_cast<int>(sizeof(T));
+  static constexpr int kStage2 = kKS * kLdK2 * static_cast<int>(sizeof(T));
+  static constexpr int kStage = kStage1 > kStage2 ? kStage1 : kStage2;
+  static constexpr int kY = kMaxRows * kLdY * 4;
+  static constexpr int kY2 = kOutRows * kLdY2 * static_cast<int>(sizeof(T));
+  static constexpr int kPack = 11 * kHC * 4;  // the pass's pack columns
+  static constexpr int kBytes = kStages * kStage + kY + kY2 + kPack;
+  // the pack of pass p + 1 lands in the one pack tile while pass p's
+  // second product runs: its stencil must be done by then
+  static_assert(kHC / kKS >= kStages - 1,
+                "a pass has at least kStages - 1 second-product slices");
+};
+
+// P elements global -> shared, 16 or 8 bytes; zeros when !ok
+template <int P, typename T>
+__device__ __forceinline__ void cp_piece(T* dst, const T* src, bool ok) {
+  if constexpr (P * sizeof(T) == 16) {
+    attn_tiles::cp_async_16(reinterpret_cast<float*>(dst),
+                            reinterpret_cast<const float*>(src), ok);
+  } else {
+    static_assert(P * sizeof(T) == 8, "a piece is 16 or 8 bytes");
+    attn_tiles::cp_async_8(dst, src, ok);
+  }
+}
+
+struct Args {
+  const void* x;
+  const void* k1;
+  const float* pack;
+  const void* k2;
+  const float* bias2;
+  void* out;
+  int T, B, H, d, causal;
+  int chain;      // d >= kChainFrom
+  int rows;       // staged rows of y (multiple of 16, <= kMaxRows)
+  int per_row;    // blocks of a batch row
+  int wide;       // B and H allow 16-byte pieces (bfloat16: multiples of 8)
+};
+
+// blockIdx.x = n * per_row + i; blockIdx.y = group of kCols columns
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) tcn_block_kernel(Args a) {
+  using L = Layout<T>;
+  using M = Tc<T>;
+  constexpr int KK = M::kK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KS = L::kKS;
+  float* sy = reinterpret_cast<float*>(smem + kStages * L::kStage);
+  T* sy2 = reinterpret_cast<T*>(smem + kStages * L::kStage + L::kY);
+  float* spack = reinterpret_cast<float*>(smem + kStages * L::kStage + L::kY +
+                                          L::kY2);
+
+  const T* x = static_cast<const T*>(a.x);
+  const T* k1 = static_cast<const T*>(a.k1);
+  const T* k2 = static_cast<const T*>(a.k2);
+  const int Tlen = a.T, B = a.B, H = a.H, d = a.d;
+  const int n = blockIdx.x / a.per_row;
+  const int blk = blockIdx.x - n * a.per_row;
+  const int col0 = blockIdx.y * kCols;
+  // where the block's rows lie: output row o at t0 + (o / 16) * S + o % 16
+  // (owned when o % 16 < seg), staged row r at t0 - pad_l + (r / 16) * S +
+  // r % 16, tap m of output row o at staged row o + m * off
+  int t0, S, off, seg;
+  if (a.chain) {
+    const int nseg = (d + 15) / 16;
+    const int c = blk % nseg;
+    t0 = (blk / nseg) * 4 * d + 16 * c;
+    S = d;
+    off = 16;
+    seg = min(16, d - 16 * c);
+  } else {
+    t0 = blk * kOutRows;
+    S = 16;
+    off = d;
+    seg = 16;
+  }
+  if (t0 >= Tlen) return;  // the whole block: no barrier passed yet
+  const int pad_l = a.causal ? 2 * d : d;
+  const int tbase = t0 - pad_l;
+  const T* xn = x + static_cast<size_t>(n) * Tlen * B;
 
   const int tid = threadIdx.x;
-  const int n = blockIdx.x / tiles;
-  const int lo = (blockIdx.x % tiles) * kTM;
-  const T* xn = x + static_cast<size_t>(n) * Tlen * B;
-  const int t0 = lo - pad_l;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int mtiles = a.rows / 16;
 
-  const int B4 = B / 4;
-  for (int idx = tid; idx < RA * B4; idx += kThreads) {
-    const int r = idx / B4;
-    const int c4 = idx - r * B4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < R) {
-      const int t = contiguous ? t0 + r : t0 + (r / kTM) * d + (r % kTM);
-      if (t >= 0 && t < Tlen) {
-        v = load4(xn + static_cast<size_t>(t) * B + 4 * c4);
+  const int s1 = (B + KS - 1) / KS;  // first-product slices a pass
+  constexpr int s2 = kHC / KS;       // second-product slices a pass
+  const int per_pass = s1 + s2;
+  const int steps = ((H + kHC - 1) / kHC) * per_pass;
+
+  // the copies of step s into ring stage st
+  auto issue = [&](int s, int st) {
+    unsigned char* base = smem + st * L::kStage;
+    const int h0 = (s / per_pass) * kHC;
+    const int sub = s % per_pass;
+    if (sub == 0) {
+      constexpr int kQp = kHC / 4;
+      for (int i = tid; i < 11 * kQp; i += kThreads) {
+        const int r = i / kQp;
+        const int c = (i - r * kQp) * 4;
+        const bool ok = h0 + c < H;
+        attn_tiles::cp_async_16(spack + r * kHC + c,
+                                ok ? a.pack + r * H + h0 + c : a.pack, ok);
       }
     }
-    reinterpret_cast<float4*>(xs)[idx] = v;
-  }
-  __syncthreads();
-
-  // first product and activations: channel lane hc (channels h0 + hc and
-  // h0 + hc + 64 of a pass) x row group rg (staged rows rg, rg + 4, ...)
-  const int hc = tid % kLanes;
-  const int rg = tid / kLanes;
-  // second product: column lane ct (columns ct, ct + 128, ...) x row slice rh
-  const int ct = tid % kColLanes;
-  const int rh = tid / kColLanes;
-  float o[NC][kSlice];
-#pragma unroll
-  for (int jc = 0; jc < NC; ++jc) {
-#pragma unroll
-    for (int i = 0; i < kSlice; ++i) o[jc][i] = 0.f;
-  }
-
-  for (int h0 = 0; h0 < H; h0 += kHC) {
-    bool hok[kCPT];
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) hok[c] = h0 + hc + c * kLanes < H;
-
-    float acc[kCPT][RPT];
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) {
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) acc[c][j] = 0.f;
+    // rows cut into pieces of P elements, 16 bytes (8 for bfloat16 widths
+    // that are multiples of 4 only)
+    auto slices = [&](auto piece) {
+      constexpr int P = decltype(piece)::value;
+      if (sub < s1) {
+        const int k0 = sub * KS;
+        T* sx = reinterpret_cast<T*>(base);
+        T* sk = sx + kMaxRows * L::kLdX;
+        constexpr int kQ = KS / P;  // pieces of a row
+        for (int i = tid; i < a.rows * kQ; i += kThreads) {
+          const int r = i / kQ;
+          const int c = (i - r * kQ) * P;
+          const int time = tbase + (r / 16) * S + r % 16;
+          const bool ok = time >= 0 && time < Tlen && k0 + c < B;
+          cp_piece<P>(sx + r * L::kLdX + c,
+                      ok ? xn + static_cast<size_t>(time) * B + k0 + c : x,
+                      ok);
+        }
+        constexpr int kQ1 = kHC / P;
+        for (int i = tid; i < KS * kQ1; i += kThreads) {
+          const int r = i / kQ1;
+          const int c = (i - r * kQ1) * P;
+          const bool ok = k0 + r < B && h0 + c < H;
+          cp_piece<P>(sk + r * L::kLdK1 + c,
+                      ok ? k1 + static_cast<size_t>(k0 + r) * H + h0 + c : k1,
+                      ok);
+        }
+      } else {
+        const int j0 = h0 + (sub - s1) * KS;
+        T* sk = reinterpret_cast<T*>(base);
+        constexpr int kQ2 = kCols / P;
+        for (int i = tid; i < KS * kQ2; i += kThreads) {
+          const int r = i / kQ2;
+          const int c = (i - r * kQ2) * P;
+          const bool ok = j0 + r < H && col0 + c < B;
+          cp_piece<P>(sk + r * L::kLdK2 + c,
+                      ok ? k2 + static_cast<size_t>(j0 + r) * B + col0 + c
+                         : k2,
+                      ok);
+        }
+      }
+    };
+    if (a.wide) {
+      slices(std::integral_constant<int, 16 / sizeof(T)>{});
+    } else {
+      slices(std::integral_constant<int, 4>{});
     }
-    if (hok[0]) {
-      const T* kcol = k1 + h0 + hc;
-      for (int k = 0; k < B; k += 4) {
-        float w[kCPT][4];
+  };
+
+  // first product: warp (mg, ng) owns m-tiles mg, mg + 2, mg + 4 of the
+  // staged rows and the hidden columns 16 ng .. 16 ng + 15 of the pass
+  const int mg = warp / 8;
+  const int ng = warp % 8;
+  float acc1[3][2][4];
+  // second product: warp (m2, n2) owns output rows 32 m2 .. 32 m2 + 31 and
+  // columns 32 n2 .. 32 n2 + 31 of the block
+  const int m2 = warp / 8;
+  const int n2 = warp % 8;
+  float acc2[2][4][4];
 #pragma unroll
-        for (int c = 0; c < kCPT; ++c) {
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            w[c][q] = hok[c] ? to_f32(kcol[static_cast<size_t>(k + q) * H +
-                                           c * kLanes])
-                             : 0.f;
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc2[i][j][c] = 0.f;
+    }
+  }
+
+  // the ring: step s in stage s % kStages, kStages - 1 steps in flight; a
+  // group is committed for every step, empty past the last
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) issue(s, s);
+    attn_tiles::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    // step s has landed, and every warp is done with step s - 1
+    attn_tiles::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int ahead = s + kStages - 1;
+    if (ahead < steps) issue(ahead, ahead % kStages);
+    attn_tiles::cp_async_commit();
+    const unsigned char* base = smem + (s % kStages) * L::kStage;
+    const int h0 = (s / per_pass) * kHC;
+    const int sub = s % per_pass;
+    if (sub < s1) {
+      if (sub == 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc1[i][j][c] = 0.f;
           }
         }
+      }
+      const T* sx = reinterpret_cast<const T*>(base);
+      const T* sk = sx + kMaxRows * L::kLdX;
 #pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float4 xv = *reinterpret_cast<const float4*>(
-              xs + (rg + kRowGroups * j) * B + k);
+      for (int k0 = 0; k0 < KS; k0 += KK) {
+        typename M::B bk[2];
+        M::template load_b2<L::kLdK1>(bk, sk, k0, 16 * ng, lane);
 #pragma unroll
-          for (int c = 0; c < kCPT; ++c) {
-            acc[c][j] = fmaf(xv.x, w[c][0], acc[c][j]);
-            acc[c][j] = fmaf(xv.y, w[c][1], acc[c][j]);
-            acc[c][j] = fmaf(xv.z, w[c][2], acc[c][j]);
-            acc[c][j] = fmaf(xv.w, w[c][3], acc[c][j]);
+        for (int i = 0; i < 3; ++i) {
+          const int mt = mg + 2 * i;
+          if (mt < mtiles) {
+            typename M::A ax;
+            M::template load_a<L::kLdX>(ax, sx, 16 * mt, k0, lane);
+            M::template mma<2>(acc1[i], ax, bk);
           }
         }
       }
-    }
+      if (sub == s1 - 1) {
+        // y = prelu(x . kernel1 + c1, a1) * g1 + h1 inside [0, T), else 0
 #pragma unroll
-    for (int c = 0; c < kCPT; ++c) {
-      const int h = h0 + hc + c * kLanes;
-      float c1 = 0.f, g1 = 0.f, h1 = 0.f, a1 = 0.f;
-      if (hok[c]) {
-        c1 = pack[kC1 * H + h];
-        g1 = pack[kG1 * H + h];
-        h1 = pack[kH1 * H + h];
-        a1 = pack[kA1 * H + h];
-      }
+        for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = rg + kRowGroups * j;
-        const int t = contiguous ? t0 + r : t0 + (r / kTM) * d + (r % kTM);
-        float y = 0.f;
-        if (hok[c] && r < R && t >= 0 && t < Tlen) {
-          y = prelu(acc[c][j] + c1, a1) * g1 + h1;
+          for (int e = 0; e < 2; ++e) {
+            const int col = 16 * ng + 8 * j + 2 * t + e;
+            const bool live = h0 + col < H;
+            const float c1 = spack[kC1 * kHC + col];
+            const float g1 = spack[kG1 * kHC + col];
+            const float h1 = spack[kH1 * kHC + col];
+            const float a1 = spack[kA1 * kHC + col];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              const int mt = mg + 2 * i;
+              if (mt >= mtiles) continue;
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int r = 16 * mt + g + 8 * hh;
+                const int time = tbase + (r / 16) * S + r % 16;
+                float y = 0.f;
+                if (live && time >= 0 && time < Tlen) {
+                  y = prelu(acc1[i][j][2 * hh + e] + c1, a1) * g1 + h1;
+                }
+                sy[r * L::kLdY + col] = y;
+              }
+            }
+          }
         }
-        ys[r * kHC + hc + c * kLanes] = y;
-      }
-    }
-    __syncthreads();
-
-    // stencil and second activation: a kTM x kHC tile of y2
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) {
-      const int col = hc + c * kLanes;
-      const int h = h0 + col;
-      float w0 = 0.f, w1 = 0.f, w2 = 0.f, cb = 0.f, g2 = 0.f, h2 = 0.f,
-            a2 = 0.f;
-      if (hok[c]) {
-        w0 = pack[kW0 * H + h];
-        w1 = pack[kW1 * H + h];
-        w2 = pack[kW2 * H + h];
-        cb = pack[kCb * H + h];
-        g2 = pack[kG2 * H + h];
-        h2 = pack[kH2 * H + h];
-        a2 = pack[kA2 * H + h];
-      }
-      for (int i = rg; i < kTM; i += kRowGroups) {
-        float v = 0.f;
-        if (hok[c]) {
-          v = w0 * ys[i * kHC + col] + w1 * ys[(i + off) * kHC + col] +
-              w2 * ys[(i + 2 * off) * kHC + col] + cb;
-          v = prelu(v, a2) * g2 + h2;
-          v = to_f32(from_f32<T>(v));
+        __syncthreads();
+        // y2 = round(prelu(w0 y[o] + w1 y[o + off] + w2 y[o + 2 off] + cb,
+        // a2) * g2 + h2): one hidden column a thread, every fourth row
+        {
+          const int col = tid % kHC;
+          const bool live = h0 + col < H;
+          const float w0 = spack[kW0 * kHC + col];
+          const float w1 = spack[kW1 * kHC + col];
+          const float w2 = spack[kW2 * kHC + col];
+          const float cb = spack[kCb * kHC + col];
+          const float g2 = spack[kG2 * kHC + col];
+          const float h2 = spack[kH2 * kHC + col];
+          const float a2 = spack[kA2 * kHC + col];
+          for (int o = tid / kHC; o < kOutRows; o += kThreads / kHC) {
+            float v = w0 * sy[o * L::kLdY + col] +
+                      w1 * sy[(o + off) * L::kLdY + col] +
+                      w2 * sy[(o + 2 * off) * L::kLdY + col] + cb;
+            v = prelu(v, a2) * g2 + h2;
+            sy2[o * L::kLdY2 + col] = from_f32<T>(live ? v : 0.f);
+          }
         }
-        y2s[i * kHC + col] = v;
+        __syncthreads();
       }
-    }
-    __syncthreads();
-
-    // second product: this pass's share of the thread's kSlice rows of its
-    // output columns
-    const int hcnt = min(kHC, H - h0);
-    for (int hh = 0; hh < hcnt; hh += 4) {
-      float w[NC][4];
+    } else {
+      // out += y2[:, slice] . kernel2[slice, :]
+      const T* sk = reinterpret_cast<const T*>(base);
+      const int kh = (sub - s1) * KS;
 #pragma unroll
-      for (int jc = 0; jc < NC; ++jc) {
-        const int c = ct + jc * kColLanes;
+      for (int k0 = 0; k0 < KS; k0 += KK) {
+        typename M::B bk[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          w[jc][q] = c < B ? to_f32(k2[static_cast<size_t>(h0 + hh + q) * B +
-                                       c])
-                           : 0.f;
+        for (int j = 0; j < 4; j += 2) {
+          M::template load_b2<L::kLdK2>(bk + j, sk, k0, 32 * n2 + 8 * j,
+                                        lane);
         }
-      }
 #pragma unroll
-      for (int i = 0; i < kSlice; ++i) {
-        const float4 yv = *reinterpret_cast<const float4*>(
-            y2s + (rh * kSlice + i) * kHC + hh);
-#pragma unroll
-        for (int jc = 0; jc < NC; ++jc) {
-          o[jc][i] = fmaf(yv.x, w[jc][0], o[jc][i]);
-          o[jc][i] = fmaf(yv.y, w[jc][1], o[jc][i]);
-          o[jc][i] = fmaf(yv.z, w[jc][2], o[jc][i]);
-          o[jc][i] = fmaf(yv.w, w[jc][3], o[jc][i]);
+        for (int i = 0; i < 2; ++i) {
+          typename M::A ay;
+          M::template load_a<L::kLdY2>(ay, sy2, 32 * m2 + 16 * i, kh + k0,
+                                       lane);
+          M::template mma<4>(acc2[i], ay, bk);
         }
       }
     }
-    // the next pass writes ys only after its own first product and y2s only
-    // after the barrier that follows; every thread has left this pass's
-    // reads of both by then
   }
 
-  T* outn = out + static_cast<size_t>(n) * Tlen * B;
+  // out = acc + bias2 + x, the rows the block owns
+  T* outn = static_cast<T*>(a.out) + static_cast<size_t>(n) * Tlen * B;
 #pragma unroll
-  for (int jc = 0; jc < NC; ++jc) {
-    const int c = ct + jc * kColLanes;
-    if (c >= B) continue;
-    const float b2 = bias2[c];
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int i = 0; i < kSlice; ++i) {
-      const int row = rh * kSlice + i;
-      const int t = lo + row;
-      if (t < Tlen) {
-        const float v = o[jc][i] + b2 + xs[(row + center) * B + c];
-        outn[static_cast<size_t>(t) * B + c] = from_f32<T>(v);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int o = 32 * m2 + 16 * i + g + 8 * hh;
+      const int time = t0 + (o / 16) * S + o % 16;
+      if (o % 16 >= seg || time >= Tlen) continue;
+      const size_t at = static_cast<size_t>(time) * B;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = col0 + 32 * n2 + 8 * j + 2 * t;
+        if (c >= B) continue;  // B is even: c + 1 < B as well
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc2[i][j][2 * hh + e] + __ldg(a.bias2 + c + e) +
+                          to_f32(xn[at + c + e]);
+          outn[at + c + e] = from_f32<T>(v);
+        }
       }
     }
   }
 }
 
-template <typename T, int RPT, int NC>
-cudaError_t launch(const T* x, const T* k1, const float* pack, const T* k2,
-                   const float* bias2, T* out, int N, int Tlen, int B, int H,
-                   int d, int causal, int R, int contiguous,
-                   cudaStream_t stream) {
-  constexpr int RA = RPT * kRowGroups;
-  const size_t shared =
-      sizeof(float) * (static_cast<size_t>(RA) * B + RA * kHC + kTM * kHC);
-  if (shared > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = tcn_block_kernel<T, RPT, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shared));
-  if (err != cudaSuccess) return err;
-  const int tiles = (Tlen + kTM - 1) / kTM;
-  const int off = contiguous ? d : kTM;
-  const int pad_l = causal ? 2 * d : d;
-  const int center = (causal ? 2 : 1) * off;
-  kernel<<<static_cast<unsigned>(N) * tiles, kThreads, shared, stream>>>(
-      x, k1, pack, k2, bias2, out, Tlen, B, H, d, pad_l, R, off, contiguous,
-      center, tiles);
-  return cudaGetLastError();
+// The plan of a launch: the first product's staged rows, blocks a batch
+// row, column groups
+struct Plan {
+  int chain, rows, per_row, groups;
+};
+
+Plan plan_of(int T, int B, int d) {
+  Plan p;
+  p.chain = d >= kChainFrom;
+  if (p.chain) {
+    p.rows = 96;  // six 16-row runs for four output tiles
+    p.per_row = ((T + 4 * d - 1) / (4 * d)) * ((d + 15) / 16);
+  } else {
+    p.rows = ((kOutRows + 2 * d + 15) / 16) * 16;
+    p.per_row = (T + kOutRows - 1) / kOutRows;
+  }
+  p.groups = (B + kCols - 1) / kCols;
+  return p;
 }
 
-template <typename T, int NC>
-cudaError_t dispatch_rows(const T* x, const T* k1, const float* pack,
-                          const T* k2, const float* bias2, T* out, int N,
-                          int Tlen, int B, int H, int d, int causal,
-                          cudaStream_t stream) {
-  // a contiguous run of 32 + 2d staged rows, or three runs of 32
-  const int contiguous = d <= kTM;
-  const int R = contiguous ? kTM + 2 * d : 3 * kTM;
-#define APS_TCN_ROWS(RPT)                                                  \
-  if (R <= RPT * kRowGroups)                                               \
-    return launch<T, RPT, NC>(x, k1, pack, k2, bias2, out, N, Tlen, B, H, d, \
-                              causal, R, contiguous, stream);
-  // 40, 64 or 96 staged rows (an instance of 48 is not worth its build time)
-  APS_TCN_ROWS(10)
-  APS_TCN_ROWS(16)
-  APS_TCN_ROWS(24)
-#undef APS_TCN_ROWS
-  return cudaErrorInvalidValue;
+// the kernel takes more than 48 KB of dynamic shared memory: set once for
+// each instantiation and device
+template <typename T>
+cudaError_t attributes() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  auto kernel = tcn_block_kernel<T>;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            Layout<T>::kBytes);
+  if (rc != cudaSuccess) return rc;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributePreferredSharedMemoryCarveout,
+                            cudaSharedmemCarveoutMaxShared);
+  if (rc == cudaSuccess && known) {
+    done[dev].store(true, std::memory_order_release);
+  }
+  return rc;
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* k1, const float* pack,
-                     const void* k2, const float* bias2, void* out, int N,
-                     int Tlen, int B, int H, int d, int causal,
-                     cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* k1t = static_cast<const T*>(k1);
-  const T* k2t = static_cast<const T*>(k2);
-  T* outt = static_cast<T*>(out);
-  if (B <= 2 * kColLanes) {
-    return dispatch_rows<T, 2>(xt, k1t, pack, k2t, bias2, outt, N, Tlen, B, H,
-                               d, causal, stream);
-  }
-  return dispatch_rows<T, 4>(xt, k1t, pack, k2t, bias2, outt, N, Tlen, B, H,
-                             d, causal, stream);
+cudaError_t launch(Args a, int N, cudaStream_t stream) {
+  const cudaError_t rc = attributes<T>();
+  if (rc != cudaSuccess) return rc;
+  const Plan p = plan_of(a.T, a.B, a.d);
+  a.chain = p.chain;
+  a.rows = p.rows;
+  a.per_row = p.per_row;
+  a.wide = 16 / sizeof(T) == 4 || (a.B % 8 == 0 && a.H % 8 == 0);
+  dim3 grid(static_cast<unsigned>(N) * p.per_row, p.groups);
+  tcn_block_kernel<T><<<grid, kThreads, Layout<T>::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t occupancy(int* info) {
+  auto kernel = tcn_block_kernel<T>;
+  cudaError_t rc = attributes<T>();
+  if (rc != cudaSuccess) return rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return rc;
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = Layout<T>::kBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      info + 3, kernel, kThreads, Layout<T>::kBytes);
 }
 
 }  // namespace
@@ -364,22 +618,42 @@ extern "C" const char* aps_cuda_error_string(int code) {
 }
 
 // x, out: N x T x B; kernel1: B x H; kernel2: H x B (float32, or bfloat16 when
-// is_bf16); pack: 11 x H and bias2: B, float32. All contiguous, on the device.
-// B and H multiples of 4, B <= 512, dilation >= 1.
+// is_bf16); pack: 11 x H and bias2: B, float32. All contiguous, on the
+// device, x, kernel1, pack and kernel2 aligned to 16 bytes. B and H multiples of
+// 4, B <= 512, dilation >= 1.
 extern "C" int aps_tcn_block_fused(const void* x, const void* kernel1,
                                    const float* pack, const void* kernel2,
                                    const float* bias2, void* out, int N, int T,
                                    int B, int H, int dilation, int causal,
                                    int is_bf16, void* stream) {
   if (N <= 0 || T <= 0) return 0;
-  if (B % 4 != 0 || H % 4 != 0 || B > 4 * kColLanes || dilation < 1) {
+  if (B % 4 != 0 || H % 4 != 0 || B <= 0 || H <= 0 || B > 2 * kCols ||
+      dilation < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(x, kernel1, pack, kernel2, bias2, out,
-                                        N, T, B, H, dilation, causal, s)
-              : dispatch<float>(x, kernel1, pack, kernel2, bias2, out, N, T, B,
-                                H, dilation, causal, s);
+  const Args a{x, kernel1, pack, kernel2, bias2, out, T, B, H, dilation,
+               causal, 0, 0, 0, 0};
+  const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(a, N, s)
+                                  : launch<float>(a, N, s);
   return static_cast<int>(err);
+}
+
+// The launch at (T, B, dilation) and how the instance sits on an SM: info =
+// {staged rows of y a block, output rows a block, blocks a batch row, column
+// groups, registers a thread, bytes of local memory a thread, bytes of
+// dynamic shared memory a block, resident blocks an SM}. Staged rows times
+// blocks over T is the first product's repeat.
+extern "C" int aps_tcn_block_fused_plan(int T, int B, int dilation,
+                                        int is_bf16, int* info) {
+  if (T <= 0 || B <= 0 || dilation < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan p = plan_of(T, B, dilation);
+  info[0] = p.rows;
+  info[1] = kOutRows;
+  info[2] = p.per_row;
+  info[3] = p.groups;
+  return static_cast<int>(is_bf16 ? occupancy<__nv_bfloat16>(info + 4)
+                                  : occupancy<float>(info + 4));
 }

@@ -14,16 +14,18 @@ visible key giving 0. Tq need not equal Tk.
 On CUDA tensors the forward is csrc/attention.cu and the backward
 csrc/attention_bwd.cu, joined by the autograd Function `_Flash`; a failed
 build or launch raises. The backward replaces the TPU kernels _dq_kernel,
-_dkv_kernel and _dbias_kernel of aps_tpu's flash_attention. dq and dk/dv
-are bound by arithmetic (6 and 8 Tq Tk D operations a head on a few T D
-floats), so they run on the tensor cores: a block owns 64 rows, streams
-the other side through a two-stage cp.async ring, keeps its gradients in
-registers and does every product as three TF32 products on the split
-operands, which gives float32's accuracy (csrc/attn_tiles.cuh). The dq
-kernel also forms delta = sum(do * out, -1) and hands it to the two others,
-so dq is launched first. dbias (one block per tile, the batch summed in
-order; no model passes a bias) is as first ported. Every kernel owns its
-reduction: the gradients repeat bit for bit from run to run.
+_dkv_kernel and _dbias_kernel of aps_tpu's flash_attention. The forward,
+dq and dk/dv are bound by arithmetic (4, 6 and 8 Tq Tk D operations a head
+on a few T D floats), so they run on the tensor cores: a block owns 64
+rows, streams the other side through a two-stage cp.async ring, keeps its
+sums in registers and does every product as three TF32 products on the
+split operands, which gives float32's accuracy (csrc/attn_tiles.cuh). The
+dq kernel also forms delta = sum(do * out, -1) and hands it to the two
+others, so dq is launched first. dbias (one block per tile, the batch
+summed in order; no model passes a bias) is as first ported. Every kernel
+owns its reduction: outputs and gradients repeat bit for bit from run to
+run. The kernels copy rows 16 bytes at a time, so an operand at an odd
+storage offset is copied first (`_aligned`).
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -177,6 +179,23 @@ def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, out,
     return outs if kernel == "dkv" else outs[0]
 
 
+_OCCUPANCY_KEYS = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm")
+
+
+def forward_occupancy(D: int):
+    """How the forward kernel sits on an SM of the current card at head dim
+    D: registers and bytes of local memory (spills) a thread, bytes of
+    dynamic shared memory a block, resident blocks an SM, query rows a
+    block."""
+    import ctypes
+    lib = build.load("attention", "aps_attention_fwd_occupancy",
+                     [build.I, build.P])
+    info = (ctypes.c_int * 5)()
+    rc = lib.aps_attention_fwd_occupancy(D, info)
+    build.check(lib, rc, "flash_attention occupancy")
+    return dict(zip(_OCCUPANCY_KEYS + ("query_rows",), info))
+
+
 def backward_occupancy(D: int, kernel: str):
     """How the "dq" or "dkv" kernel sits on an SM of the current card at
     head dim D: registers and bytes of local memory (spills) a thread, bytes
@@ -188,14 +207,13 @@ def backward_occupancy(D: int, kernel: str):
     info = (ctypes.c_int * 5)()
     rc = lib.aps_attention_bwd_occupancy(D, int(kernel == "dkv"), info)
     build.check(lib, rc, "flash_attention backward occupancy")
-    return dict(zip(("registers", "local_bytes", "smem_bytes",
-                     "blocks_per_sm", "stream_rows"), info))
+    return dict(zip(_OCCUPANCY_KEYS + ("stream_rows",), info))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The dq and dk/dv kernels copy rows 16 bytes at a time (cp.async). Rows
-    are D * 4 bytes, so only a contiguous view at an odd storage offset
-    starts off that grid: it is copied."""
+    """The kernels copy rows 16 bytes at a time (cp.async). Rows are D * 4
+    bytes, so only a contiguous view at an odd storage offset starts off
+    that grid: it is copied."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -280,4 +298,5 @@ def flash_attention(q: torch.Tensor,
                                        for t in tensors.values()):
         return _Flash.apply(_aligned(q), _aligned(k), _aligned(v), bias, klen,
                             scale, bool(causal))
-    return launch_forward(q, k, v, bias, klen, scale, bool(causal), False)[0]
+    return launch_forward(_aligned(q), _aligned(k), _aligned(v), bias, klen,
+                          scale, bool(causal), False)[0]

@@ -6,9 +6,11 @@ Port of aps_tpu/ops/pallas/tcn.py::tcn_block_fused: 1x1 conv B -> H + bias,
 PReLU, BatchNorm affine, 3-tap dilated depthwise conv (symmetric or causal,
 zero padding of the intermediate), PReLU, BatchNorm affine, 1x1 conv H -> B
 + bias, residual, with the activations never leaving the chip between the
-two products. The CUDA kernel (csrc/tcn.cu) gives one block 32 output rows
-of one batch row and runs at any T; the TPU kernel's slab count, its
-fast-memory budget and `tcn_fused_fits` have no counterpart.
+two products. The CUDA kernel (csrc/tcn.cu) gives one block 64 output rows
+and 256 output columns of one batch row, runs both products on the tensor
+cores (bfloat16 directly, float32 as three TF32 products of split
+operands) and runs at any T; the TPU kernel's slab count, its fast-memory
+budget and `tcn_fused_fits` have no counterpart.
 `tcn_block_reference` is the same function in plain PyTorch, used for CPU
 tensors and held against the kernel on the card.
 
@@ -26,21 +28,9 @@ __all__ = ["tcn_block_fused", "tcn_block_reference", "PACK_ROWS"]
 # pack rows, all H-wide float32, in this order: c1, g1, h1, w0, w1, w2, cb,
 # g2, h2, a1, a2
 PACK_ROWS = 11
-# the kernel's limits: 16-byte loads along the channel axes, at most four
-# output columns per thread of its 128 column lanes, and a block's staged
-# rows (x at B channels, y and y2 at 128 channels of a pass, float32) within
-# the shared memory of an SM
+# the kernel's limits: pieces of 4 elements along the channel axes, and at
+# most two groups of 256 output columns
 MAX_B = 512
-MAX_SHARED_BYTES = 232448
-
-
-def _shared_bytes(B: int, dilation: int) -> int:
-    """Shared memory of one block of csrc/tcn.cu: 32 output rows need
-    32 + 2 * dilation staged rows up to dilation 32 and 3 runs of 32 above,
-    rounded up to the kernel's instances of 40, 64 and 96."""
-    rows = 32 + 2 * dilation if dilation <= 32 else 96
-    staged = next(n for n in (40, 64, 96) if n >= rows)
-    return 4 * (staged * B + staged * 128 + 32 * 128)
 
 
 def _check_shapes(x, kernel1, pack, kernel2, bias2, dilation) -> None:
@@ -134,10 +124,9 @@ def tcn_block_fused(x: torch.Tensor, kernel1: torch.Tensor,
         raise ValueError(f"tcn_block_fused: the kernel takes B and H that "
                          f"are multiples of 4 with B <= {MAX_B}, got B={B}, "
                          f"H={H}")
-    if _shared_bytes(B, int(dilation)) > MAX_SHARED_BYTES:
-        raise ValueError(f"tcn_block_fused: B={B} at dilation {dilation} "
-                         f"needs {_shared_bytes(B, int(dilation))} bytes of "
-                         f"shared memory, over {MAX_SHARED_BYTES}")
+    # the kernel copies rows 16 bytes at a time
+    x, kernel1, pack, kernel2 = (t.clone() if t.data_ptr() % 16 else t
+                                 for t in (x, kernel1, pack, kernel2))
     out = torch.empty_like(x)
     lib = build.load("tcn", "aps_tcn_block_fused", _ARGTYPES)
     rc = lib.aps_tcn_block_fused(x.data_ptr(), kernel1.data_ptr(),
@@ -149,3 +138,24 @@ def tcn_block_fused(x: torch.Tensor, kernel1: torch.Tensor,
     build.check(lib, rc, "tcn_block_fused")
     build.count_launch("tcn_block_fused")
     return out
+
+
+def launch_plan(T: int, B: int, dilation: int, dtype=torch.float32):
+    """How csrc/tcn.cu runs a block of T frames, B channels at a dilation on
+    the current card: staged rows of y a block (the first product's rows),
+    output rows a block, blocks a batch row, column groups, and the
+    instance's registers, local bytes (spills) a thread, shared bytes a
+    block and resident blocks an SM. repeat = staged rows x blocks / T is
+    how often the first product is done over for the taps."""
+    import ctypes
+    lib = build.load("tcn", "aps_tcn_block_fused_plan",
+                     [build.I, build.I, build.I, build.I, build.P])
+    info = (ctypes.c_int * 8)()
+    rc = lib.aps_tcn_block_fused_plan(int(T), int(B), int(dilation),
+                                      int(dtype == torch.bfloat16), info)
+    build.check(lib, rc, "tcn_block_fused plan")
+    plan = dict(zip(("staged_rows", "out_rows", "blocks_per_row",
+                     "column_groups", "registers", "local_bytes",
+                     "smem_bytes", "blocks_per_sm"), info))
+    plan["repeat"] = plan["staged_rows"] * plan["blocks_per_row"] / T
+    return plan

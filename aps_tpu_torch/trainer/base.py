@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Trainer base: progress reporting, scheduling, checkpointing and the
 epoch/step loops (port of aps_tpu/trainer/base.py: ProgressReporter,
-ErrorDetector, Trainer). The step itself lives in
+ErrorDetector, StopDetector, Trainer). The step itself lives in
 aps_tpu_torch/trainer/dp.py.
 
 Checkpoints keep aps_tpu's layout: a pickled dict of numpy trees with the
 task's parameters under "params" ({"nnet": ...}) and the other collections
 under "mstate" ({"batch_stats": {"nnet": ...}}), beside "epoch", "step"
-and "lr_scheduler_state"; train.yaml beside them rebuilds the model. So
+"lr_scheduler_state" and "stop_state" (the early-stopping state);
+train.yaml beside them rebuilds the model. So
 aps_tpu_torch.cmd.decode_batch and aps_tpu's own load_checkpoint both read
 them. The optimizer's state goes under "torch_opt_state" (its layout is
 PyTorch's, not optax's).
@@ -16,9 +17,7 @@ Not ported yet, and refused when asked for: schedule sampling, gradient
 accumulation, weight noise, checkpoint averaging, tensorboard, profiling,
 another matmul precision than float32, tensor/sequence parallelism, a
 pipeline depth, warm starts from another checkpoint (init), checkpoints
-every N epochs and validation every N steps. Early stopping is not ported
-either: no_impr is accepted, since aps_tpu sets it by default, and
-trainer.log says that training runs all its epochs."""
+every N epochs and validation every N steps."""
 
 import math
 import pickle
@@ -121,6 +120,59 @@ class ProgressReporter(object):
         return reports, logstr
 
 
+class StopDetector(object):
+    """Early stopping: stop once the tracked dev metric has gone `no_impr`
+    evaluations without beating the best so far by more than
+    `no_impr_thres`. It tracks `sign * value`, so that "min" (losses) and
+    "max" (accuracies) share one comparison; its state_dict is aps_tpu's."""
+
+    def __init__(self,
+                 no_impr: int,
+                 mode: str = "min",
+                 no_impr_thres: float = 2e-3) -> None:
+        if mode not in ("min", "max"):
+            raise ValueError(f"StopDetector: unknown mode {mode}")
+        self.max_no_impr = no_impr
+        self.no_impr = 0
+        self.no_impr_thres = no_impr_thres
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.best_criterion = self.sign * math.inf
+
+    def reset(self, update_value: float) -> None:
+        self.best_criterion = self.sign * update_value
+
+    def stop(self) -> bool:
+        return self.no_impr >= self.max_no_impr
+
+    @property
+    def best(self) -> float:
+        return self.sign * self.best_criterion
+
+    def state_dict(self) -> Dict:
+        return dict(self.__dict__)
+
+    def load_state_dict(self, state_dict: Dict) -> None:
+        state_dict = dict(state_dict)
+        if "mode" in state_dict:
+            # older checkpoints keep the mode and an unsigned best
+            sign = 1.0 if state_dict.pop("mode") == "min" else -1.0
+            state_dict["sign"] = sign
+            if "best_criterion" in state_dict:
+                state_dict["best_criterion"] = \
+                    sign * state_dict["best_criterion"]
+        self.__dict__.update(state_dict)
+
+    def step(self, update_value: float) -> bool:
+        """True when update_value is a new best."""
+        signed = self.sign * update_value
+        if signed + self.no_impr_thres < self.best_criterion:
+            self.best_criterion = signed
+            self.no_impr = 0
+            return True
+        self.no_impr += 1
+        return False
+
+
 class ErrorDetector(object):
     """Circuit breaker for the train loop: trips once `stop_on_errors`
     consecutive steps fail (a success closes the breaker again)."""
@@ -169,7 +221,7 @@ class Trainer(object):
                  prog_interval: int = 100,
                  resume: str = "",
                  stop_criterion: str = "loss",
-                 no_impr: int = 0,
+                 no_impr: int = 6,
                  no_impr_thres: float = 1e-3,
                  report_metrics: List[str] = ["loss"],
                  reduction_tag: str = "none",
@@ -203,10 +255,10 @@ class Trainer(object):
         self.cur_epoch = 0
         self.cur_step = 0
         self.seed = int(seed)
+        mode = "max" if stop_criterion == "accu" else "min"
         self.stop_on = stop_criterion
-        self.sign = -1.0 if stop_criterion == "accu" else 1.0
-        self.no_impr_thres = no_impr_thres
-        self.best = math.inf
+        self.stop_detector = StopDetector(no_impr, mode=mode,
+                                          no_impr_thres=no_impr_thres)
         self.detector = ErrorDetector(stop_on_errors)
         self.optimizer_name = optimizer
         self.optimizer_kwargs = dict(optimizer_kwargs or {})
@@ -217,7 +269,7 @@ class Trainer(object):
         if lr_scheduler == "reduce_lr":
             lr_scheduler_period = "epoch"
             lr_kwargs.update({
-                "mode": "max" if stop_criterion == "accu" else "min",
+                "mode": mode,
                 "threshold_mode": "abs",
                 "threshold": no_impr_thres
             })
@@ -226,20 +278,18 @@ class Trainer(object):
         self.lr_scheduler = LrScheduler[lr_scheduler](lr=lr0, **lr_kwargs)
         self.lr_scheduler_period = lr_scheduler_period
 
-        if no_impr:
-            self.reporter.log(
-                f"no_impr={no_impr} has no effect: early stopping is not "
-                "ported, training runs all its epochs")
         # the checkpoint to resume from (applied by the subclass)
         self.cpt_stats = None
         if resume:
             self.cpt_stats = self.load_checkpoint_file(resume)
             self.cur_epoch = self.cpt_stats["epoch"]
             self.cur_step = self.cpt_stats.get("step", 0)
-            self.best = self.cpt_stats.get("best", math.inf)
             if "lr_scheduler_state" in self.cpt_stats:
                 self.lr_scheduler.load_state_dict(
                     self.cpt_stats["lr_scheduler_state"])
+            if "stop_state" in self.cpt_stats:
+                self.stop_detector.load_state_dict(
+                    self.cpt_stats["stop_state"])
             self.reporter.log(
                 f"Resume from checkpoint {resume}: epoch {self.cur_epoch}")
         if clip_gradient:
@@ -259,8 +309,8 @@ class Trainer(object):
         return {
             "epoch": epoch,
             "step": self.cur_step,
-            "best": self.best,
             "lr_scheduler_state": self.lr_scheduler.state_dict(),
+            "stop_state": self.stop_detector.state_dict(),
         }
 
     def save_checkpoint(self, epoch: int, best: bool = True) -> None:
@@ -305,26 +355,26 @@ class Trainer(object):
         lr = self.lr_scheduler.get_lr()
         reports, logstr = self.reporter.report(self.cur_epoch, lr)
         value = reports[self.stop_on]
-        better = self.sign * value + self.no_impr_thres < self.best
-        if better:
-            self.best = self.sign * value
+        better = self.stop_detector.step(value)
         if self.lr_scheduler_period == "epoch":
             self.lr_scheduler.step(value)
         logstr += " | best" if better else \
-            f" | no impr, best = {self.sign * self.best:.4f}"
+            f" | no impr {self.stop_detector.no_impr:d}, " \
+            f"best = {self.stop_detector.best:.4f}"
         self.reporter.log(logstr)
         self.save_checkpoint(self.cur_epoch, best=better)
         return better
 
     def run(self, trn_loader, dev_loader, num_epochs: int = 50) -> None:
-        """Validate once, then train num_epochs epochs, validating (and
-        saving a checkpoint) after each."""
+        """Validate once, then train up to num_epochs epochs, validating
+        (and saving a checkpoint) after each; stop early once the stop
+        criterion has not improved for no_impr validations."""
         timer = SimpleTimer()
         self.valid_epoch(dev_loader)
         reports, logstr = self.reporter.report(self.cur_epoch, 0)
         self.reporter.log(logstr)
         if self.cpt_stats is None:
-            self.best = self.sign * reports[self.stop_on]
+            self.stop_detector.reset(reports[self.stop_on])
         while self.cur_epoch < num_epochs:
             trn_loader.set_epoch(self.cur_epoch)
             self.cur_epoch += 1
@@ -335,6 +385,11 @@ class Trainer(object):
                                              self.lr_scheduler.get_lr())
             self.reporter.log(logstr)
             self._eval_and_schedule(dev_loader)
+            if self.stop_detector.stop():
+                self.reporter.log("Stop training cause no impr for "
+                                  f"{self.stop_detector.no_impr:d} epochs")
+                break
         self.reporter.log(
             f"Training for {self.cur_epoch:d}/{num_epochs:d} epochs done "
-            f"(best = {self.sign * self.best:.4f}, {timer.elapsed():.2f}m)")
+            f"(best = {self.stop_detector.best:.4f}, "
+            f"{timer.elapsed():.2f}m)")

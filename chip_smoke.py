@@ -146,18 +146,20 @@ SEP_CHECK_UTTS = 4  # of the batch, in the card-vs-CPU training pass
 # published peaks of one H100 SXM at its full 700 W: device memory and
 # float32 outside the tensor cores. Every bound below counts float32
 # operations at that rate, whatever unit the kernel uses, so that the rows
-# of all kernels compare (all but K2's dq and dk/dv compute on the CUDA
-# cores)
+# of all kernels compare (K2's forward, dq and dk/dv and K5 compute on the
+# tensor cores: they also carry the tensor cores' bound)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # dense bfloat16 in the tensor cores: the bound of a bfloat16 product,
 # whatever unit the kernel itself uses
 PEAK_BF16_PER_S = 989e12
-# dense TF32 in the tensor cores. K2's dq and dk/dv do each float32
+# dense TF32 in the tensor cores. K2's kernels and K5 do each float32
 # product as three TF32 products, so their second bound is their operations
 # over a third of this rate
 PEAK_TF32_PER_S = 495e12
 TF32_PASSES = 3
+TF32_NOTE = (f"operations x {TF32_PASSES} (each float32 product is three "
+             "TF32 products) over the dense TF32 peak")
 # launches queued between two events when a short kernel is timed a second
 # time with the host's enqueue hidden (see time_ms)
 QUEUED_CALLS = 10
@@ -574,6 +576,7 @@ def check_attention(dev, gen, dec_shape, trn_shape):
     import torch
 
     from aps_tpu_torch.ops.attention import (backward_occupancy,
+                                             forward_occupancy,
                                              launch_backward_kernel,
                                              launch_forward, flash_attention,
                                              mha_backward_reference,
@@ -582,7 +585,9 @@ def check_attention(dev, gen, dec_shape, trn_shape):
     (B_dec, T_dec, k_dec), (T_trn, lens_trn) = dec_shape, trn_shape
     rows = {name: [] for name in ("fwd", "dq", "dkv", "dbias")}
     library, backends = {}, {}
-    more = {f"flash_attention_{kernel}": {} for kernel in ("dq", "dkv")}
+    more = {f"flash_attention{kernel}": {} for kernel in ("", "_dq", "_dkv")}
+    more["flash_attention"].update(occupancy=forward_occupancy(64),
+                                   rows=[])
 
     def make(B, Tq, Tk, with_bias, D=64):
         q = torch.randn((B, H, Tq, D), generator=gen).to(dev)
@@ -636,6 +641,9 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                          2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk))
         rows["fwd"].append((label, err, ms, plain_ms) + bound)
         if lib is not None:
+            # no atomics: a second launch gives the same bits
+            if not torch.equal(got, flash_attention(q, k, v, **kw)):
+                fail(f"flash_attention {label}: two launches differ")
             with torch.no_grad():
                 lib_out = _sdpa(q, k, v, k_len)
                 lib_err = (lib_out - got).abs().max().item()
@@ -643,15 +651,31 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                     fail(f"flash_attention {label}: {lib_err} from the "
                          "library's scaled_dot_product_attention")
                 lib_ms = time_ms(lambda: _sdpa(q, k, v, k_len))
+                lib_queued = time_ms(lambda: _sdpa(q, k, v, k_len),
+                                     calls=QUEUED_CALLS)
                 if lib == "decode":
                     library["flash_attention"] = lib_ms
                     backends["forward"] = _device_kernel_names(
                         lambda: _sdpa(q, k, v, k_len))[:2]
                 elif lib == "training":
                     library["flash_attention (training shape)"] = lib_ms
+            queued = time_ms(lambda: flash_attention(q, k, v, **kw),
+                             calls=QUEUED_CALLS)
+            # each float32 product is three TF32 products in the kernel
+            tensor_ms = 2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk) \
+                * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            if not queued >= tensor_ms:
+                fail(f"flash_attention {label}: {queued} ms reads below the "
+                     f"tensor cores' bound {tensor_ms}")
+            more["flash_attention"]["rows"].append({
+                "path": lib, "shape": label, "ms": ms, "ms_queued": queued,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_ms_queued": lib_queued, "bound_ms": bound[0],
+                "tensor_core_bound_ms": tensor_ms})
             print(f"flash_attention [{label}]: the library's "
-                  f"scaled_dot_product_attention {lib_ms:.4f} ms, max abs "
-                  f"diff from the kernel {lib_err:.3e}", flush=True)
+                  f"scaled_dot_product_attention {lib_ms:.4f} ms (queued "
+                  f"{lib_queued:.4f}), the kernel queued {queued:.4f} ms, "
+                  f"max abs diff from the kernel {lib_err:.3e}", flush=True)
 
     # backward: (B, Tq, Tk, D, causal, bias, k_len, what the row is for)
     ragged8 = lambda Tk: (8, _ragged(Tk))  # noqa: E731
@@ -800,9 +824,7 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                 more[name].update(
                     ms_queued=queued[kernel], library_ms_queued=lib_queued,
                     tensor_core_bound_ms=tensor_ms,
-                    tensor_core_bound_note=(
-                        f"operations x {TF32_PASSES} (each float32 product "
-                        "is three TF32 products) over the dense TF32 peak"),
+                    tensor_core_bound_note=TF32_NOTE,
                     occupancy=backward_occupancy(D, kernel))
             else:
                 more[name]["b16_t1024"] = {
@@ -1341,18 +1363,21 @@ def _tcn_inputs(N, T, dtype, dev, gen):
 def check_tcn(dev, gen, T):
     """K5 at the separation batch's shape, N = SEP_BATCH x T frames x B
     channels: float32 at the eight dilations one repeat runs (the first
-    eight rows, whose times add up to a quarter of a forward), causal at the
-    largest, a T shorter than twice the dilation, and bfloat16."""
+    eight rows, whose times add up to a quarter of a forward), bfloat16 at
+    the same eight, causal at the largest, a T shorter than twice the
+    dilation; two launches of each type give the same bits.
+    -> (rows, the per-dilation records of the `kernels` line)"""
     import torch
 
-    from aps_tpu_torch.ops.tcn import tcn_block_fused, tcn_block_reference
+    from aps_tpu_torch.ops.tcn import (launch_plan, tcn_block_fused,
+                                       tcn_block_reference)
     f32, bf16 = torch.float32, torch.bfloat16
-    B, H = TCN_CONF["B"], TCN_CONF["H"]
-    cases = [(T, 2**n, False, f32) for n in range(TCN_CONF["X"])]
+    B, H, X = TCN_CONF["B"], TCN_CONF["H"], TCN_CONF["X"]
+    cases = [(T, 2**n, False, dtype) for dtype in (f32, bf16)
+             for n in range(X)]
     cases += [(T, 128, True, f32), (100, 128, False, f32),
-              (100, 64, True, f32), (T, 16, False, bf16),
-              (T, 128, True, bf16)]
-    rows = []
+              (100, 64, True, f32), (T, 128, True, bf16)]
+    rows, per_dilation = [], {}
     args, made = None, None
     for Tc, d, causal, dtype in cases:
         if made != (Tc, dtype):
@@ -1361,10 +1386,14 @@ def check_tcn(dev, gen, T):
         got = tcn_block_fused(*args, d, causal=causal)
         want = tcn_block_reference(*args, d, causal=causal)
         torch.cuda.synchronize()
+        kind = str(dtype).split('.')[1]
         label = (f"N={SEP_BATCH} T={Tc} B={B} H={H} dilation={d} "
-                 f"causal={causal} {str(dtype).split('.')[1]}")
+                 f"causal={causal} {kind}")
         if got.dtype != dtype or not torch.isfinite(got).all():
             fail(f"tcn_block_fused {label}: wrong type or non-finite output")
+        if d == 16 and not torch.equal(got, tcn_block_fused(*args, d,
+                                                            causal=causal)):
+            fail(f"tcn_block_fused {label}: two launches differ")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         if dtype == f32:
@@ -1383,12 +1412,40 @@ def check_tcn(dev, gen, T):
         # of B x H per frame, whatever part of the first the kernel repeats
         # for its taps
         size = args[0].element_size()
-        bound = bound_ms(
-            2 * SEP_BATCH * Tc * B * size + 2 * B * H * size +
-            4 * (11 * H + B), 2 * SEP_BATCH * Tc * 2 * B * H,
-            peak=PEAK_FP32_PER_S if dtype == f32 else PEAK_BF16_PER_S)
+        nbytes = 2 * SEP_BATCH * Tc * B * size + 2 * B * H * size + \
+            4 * (11 * H + B)
+        ops = 2 * SEP_BATCH * Tc * 2 * B * H
+        bound = bound_ms(nbytes, ops, peak=PEAK_FP32_PER_S if dtype == f32
+                         else PEAK_BF16_PER_S)
         rows.append((label, err, ms, plain_ms) + bound)
-    return rows
+        if Tc != T or causal:
+            continue
+        plan = launch_plan(Tc, B, d, dtype)
+        rec = per_dilation.setdefault(d, {
+            "dilation": d, "shape": f"N={SEP_BATCH} T={Tc} B={B} H={H}",
+            "first_product_repeat": plan["repeat"],
+            "staged_rows_per_block": plan["staged_rows"],
+            "blocks": SEP_BATCH * plan["blocks_per_row"] *
+            plan["column_groups"]})
+        rec[kind] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                     "registers": plan["registers"],
+                     "local_bytes": plan["local_bytes"],
+                     "smem_bytes": plan["smem_bytes"],
+                     "blocks_per_sm": plan["blocks_per_sm"]}
+        if dtype == f32:
+            tensor_ms = ops * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            rec[kind].update(bound_ms=bound[0], tensor_core_bound_ms=tensor_ms)
+            if not ms >= tensor_ms:
+                fail(f"tcn_block_fused {label}: {ms} ms reads below the "
+                     f"tensor cores' bound {tensor_ms}")
+        else:
+            rec[kind].update(bound_ms=bound[0], bound_by=bound[1])
+        print(f"tcn_block_fused [{label}]: the first product done "
+              f"{plan['repeat']:.4f}x over ({plan['staged_rows']} staged rows "
+              f"for 64 output rows), {plan['registers']} registers, "
+              f"{plan['smem_bytes']} shared bytes, {plan['blocks_per_sm']} "
+              "block(s) an SM", flush=True)
+    return rows, list(per_dilation.values())
 
 
 def init_tcn(model, gen) -> None:
@@ -1898,7 +1955,7 @@ def main() -> None:
         print(f"separation path: batches of {SEP_BATCH} x {S_sep} samples, "
               f"{TCN_BLOCKS} TCN blocks at T = {T_sep} frames x "
               f"{TCN_CONF['B']} channels", flush=True)
-        checks["tcn_block_fused"] = check_tcn(dev, gen, T_sep)
+        checks["tcn_block_fused"], tcn_dilations = check_tcn(dev, gen, T_sep)
         print_rows("tcn_block_fused", checks["tcn_block_fused"], card)
         tcn_cpt = write_tcn_checkpoint(sep_root, gen)
         mixes = write_mixtures(sep_root, SEP_UTTS, gen)
@@ -1935,6 +1992,8 @@ def main() -> None:
             path_launches = launches_long[name]
             extra["train_library_ms"] = library[
                 "flash_attention (training shape)"]
+            extra["tensor_core_bound_note"] = TF32_NOTE
+            extra.update(more[name])
         elif name.startswith("flash_attention_d"):
             path_launches = launches_ltr[name]
             if name == "flash_attention_dbias":
@@ -1950,13 +2009,18 @@ def main() -> None:
         elif name == "tcn_block_fused":
             path_launches = launches_sep[name]
             # one forward runs each of the first X rows' dilations R times
-            path = rows[:TCN_CONF["X"]]
-            extra = {"forward_ms": TCN_CONF["R"] * sum(r[2] for r in path),
-                     "forward_plain_ms": TCN_CONF["R"] * sum(
-                         r[3] for r in path),
+            # (the next X rows: the same in bfloat16)
+            X, R = TCN_CONF["X"], TCN_CONF["R"]
+            extra = {"forward_ms": R * sum(r[2] for r in rows[:X]),
+                     "forward_plain_ms": R * sum(r[3] for r in rows[:X]),
+                     "forward_ms_bfloat16": R * sum(
+                         r[2] for r in rows[X:2 * X]),
                      "launches_per_batch": TCN_BLOCKS,
                      "max_abs_err_bfloat16": max(
-                         r[1] for r in rows if "bfloat16" in r[0])}
+                         r[1] for r in rows if "bfloat16" in r[0]),
+                     "tensor_core_bound_note": TF32_NOTE + " (float32); "
+                     "bfloat16: operations over the dense bf16 peak",
+                     "per_dilation": tcn_dilations}
         else:
             path_launches = launches_trn[name]
         kernels.append({

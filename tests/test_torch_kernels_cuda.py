@@ -162,6 +162,27 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(n == 0 for n in build.LAUNCHES.values()), build.LAUNCHES
 
 
+@pytest.mark.parametrize("source,product", [
+    ("attention.cu", "mma_f32<"),
+    ("tcn.cu", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
+])
+def test_kernel_sources_use_the_tensor_cores(source, product):
+    """K2's forward and K5 run every product on the tensor cores (mma.sync,
+    the three-pass TF32 split of attn_tiles.cuh for float32) and stage
+    their operands with its cp.async ring: a later edit that goes back to
+    the CUDA-core loops (fmaf over shared memory) fails here."""
+    csrc = build.CSRC
+    text = (csrc / source).read_text()
+    tiles = (csrc / "attn_tiles.cuh").read_text()
+    assert '#include "attn_tiles.cuh"' in text
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in tiles
+    assert product in text and "mma_f32" in tiles
+    assert "cp.async" in tiles
+    assert "cp_async_commit()" in text and "cp_async_wait<" in text
+    assert "stage_rows_async" in text or "cp_async_16" in text
+    assert "fmaf(" not in text
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_mel", [True, False])
 def test_fused_logmel_kernel_matches_plain(cuda_device, with_mel):
@@ -394,6 +415,70 @@ def test_attention_kernel_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
     torch.testing.assert_close(
         scaled, mha_reference(*att, bias=bias, k_len=k_len, causal=causal,
                               softmax_scale=0.05), atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk,D,causal,with_bias", [
+    (63, 63, 64, False, False),
+    (64, 64, 64, True, False),
+    (65, 65, 32, False, True),
+    (129, 129, 64, True, True),
+    (31, 129, 16, False, False),
+    (32, 65, 64, True, True),
+    (33, 33, 32, True, False),
+    (129, 64, 16, False, True),
+    (65, 200, 64, True, False),
+])
+def test_attention_forward_at_the_tile_edges(cuda_device, Tq, Tk, D, causal,
+                                             with_bias):
+    """The forward's row tiles (64 query rows a block, 32 keys a streamed
+    tile) at lengths on either side of them, every head dim, Tq != Tk,
+    causal, with and without the bias: the output == the plain version,
+    rows without a key give 0 and lse = 1e30, every other lse == the plain
+    log-sum-exp, and two launches give the same bits."""
+    from aps_tpu_torch.ops.attention import launch_forward
+    att, bias, k_len = _att_args(5, 2, Tq, Tk, D)
+    q, k, v = [t.to(cuda_device) for t in att]
+    bias = bias.to(cuda_device) if with_bias else None
+    k_len = k_len.to(cuda_device)
+    scale = D**-0.5
+    out, lse = launch_forward(q, k, v, bias, k_len, scale, causal, True)
+    again, lse2 = launch_forward(q, k, v, bias, k_len, scale, causal, True)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    want = mha_reference(q, k, v, bias=bias, k_len=k_len, causal=causal)
+    torch.testing.assert_close(out, want, atol=ATT_ATOL, rtol=0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        s = s + bias[None]
+    col = torch.arange(Tk, device=cuda_device)
+    mask = (col[None, None, None, :] < k_len[:, None, None, None]).expand(
+        -1, 2, Tq, Tk)
+    if causal:
+        mask = mask & (col[None, None, None, :]
+                       <= torch.arange(Tq, device=cuda_device)[:, None])
+    dead = ~mask.any(-1)
+    assert torch.count_nonzero(out[dead]) == 0
+    assert bool((lse[dead] == 1e30).all())
+    live = torch.logsumexp(torch.where(mask, s, -torch.inf), -1)[~dead]
+    torch.testing.assert_close(lse[~dead], live, atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_forward_one_key_corner(cuda_device):
+    """Batch entries that see one key under a long causal mask: every row
+    of entry 0 gives v[0]; the error against the plain version is printed
+    (the three-pass products keep it near float32's rounding)."""
+    T = 640
+    att, _, _ = _att_args(4, 4, T, T, 64)
+    q, k, v = [t.to(cuda_device) for t in att]
+    k_len = torch.tensor([1, 1, T, 2], dtype=torch.int32, device=cuda_device)
+    got = flash_attention(q, k, v, k_len=k_len, causal=True)
+    want = mha_reference(q, k, v, k_len=k_len, causal=True)
+    err = (got - want).abs().max().item()
+    print(f"one-key corner (k_len 1, causal, T = {T}): max abs err {err:.3e}")
+    torch.testing.assert_close(got, want, atol=ATT_ATOL, rtol=0)
+    torch.testing.assert_close(got[0], v[0, :, :1].expand(-1, T, -1),
+                               atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda
@@ -703,6 +788,57 @@ def test_tcn_block_kernel_matches_plain_in_bfloat16(cuda_device, dilation,
                            causal=causal)
     torch.testing.assert_close(got.float(), wide, atol=TCN_BF16_ATOL,
                                rtol=TCN_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tcn_block_kernel_at_every_dilation(cuda_device, dtype, causal):
+    """Every dilation of a Conv-TasNet repeat (1 to 128: the contiguous
+    64-row blocks below 16, the chains of four 16-row tiles from 16 on) at
+    a T that is no multiple of the tiles, and T shorter than twice the
+    largest dilations, in either type; two launches give the same bits."""
+    dt = getattr(torch, dtype)
+    for T in (411, 150):
+        args = [t.to(cuda_device) for t in _tcn_args(2, T, 256, 512, dt)]
+        for n in range(8):
+            d = 2**n
+            got = tcn_block_fused(*args, d, causal=causal)
+            assert torch.equal(got, tcn_block_fused(*args, d, causal=causal))
+            want = tcn_block_reference(*args, d, causal=causal)
+            assert got.dtype == dt and torch.isfinite(got.float()).all()
+            if dt == torch.float32:
+                torch.testing.assert_close(got, want, atol=TCN_ATOL, rtol=0,
+                                           msg=f"T={T} d={d}")
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=TCN_BF16_ATOL,
+                                           rtol=TCN_BF16_RTOL,
+                                           msg=f"T={T} d={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,dilation,causal", [
+    (12, 20, 77, 3, False),
+    (12, 20, 77, 40, True),
+    (20, 12, 5, 1, True),
+    (300, 68, 70, 17, False),
+    (512, 36, 130, 24, True),
+])
+def test_tcn_block_kernel_at_small_and_ragged_widths(cuda_device, B, H, T,
+                                                     dilation, causal):
+    """Widths the wrapper takes that are no multiple of the kernel's
+    slices (B and H multiples of 4, down to 12), two column groups (B >
+    256), dilations that are no multiple of 16, in either type."""
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t.to(cuda_device) for t in _tcn_args(3, T, B, H, dt)]
+        got = tcn_block_fused(*args, dilation, causal=causal)
+        want = tcn_block_reference(*args, dilation, causal=causal)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, atol=TCN_ATOL, rtol=0)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TCN_BF16_ATOL, rtol=TCN_BF16_RTOL)
 
 
 @pytest.mark.cuda

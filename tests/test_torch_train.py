@@ -8,6 +8,7 @@ skip; and the train_am command, whose checkpoint both packages load."""
 
 import copy
 import json
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -331,14 +332,124 @@ def test_am_raw_loader_matches_jax_package(tmp_path):
     assert num_batches >= 6
 
 
-def test_trainer_logs_that_no_impr_has_no_effect(slice_pair, tmp_path):
-    """aps_tpu stops early after no_impr epochs without improvement; the
-    port accepts the key and says in trainer.log that it trains on."""
-    _, _, task, _ = slice_pair
-    DataParallelTrainer(copy.deepcopy(task), device="cpu",
-                        checkpoint=tmp_path, no_impr=6, **TRAINER_CONF)
-    log = (tmp_path / "trainer.log").read_text()
-    assert "no_impr=6 has no effect" in log
+@pytest.mark.parametrize("mode,thres", [("min", 1e-3), ("min", 0.5),
+                                         ("max", 1e-3), ("max", 0.5)])
+def test_stop_detector_matches_aps_tpu(mode, thres):
+    """The port's StopDetector and aps_tpu's on the same values: the same
+    verdict at every step, the same best, the same point where it stops,
+    the same state_dict; a legacy state (mode + unsigned best) loads into
+    both alike."""
+    from aps_tpu.trainer.base import StopDetector as JaxStopDetector
+    from aps_tpu_torch.trainer.base import StopDetector
+    rng = np.random.default_rng(len(mode) + int(thres * 10))
+    values = np.cumsum(rng.normal(0.0, 0.6, size=40)).tolist()
+    ours = StopDetector(4, mode=mode, no_impr_thres=thres)
+    theirs = JaxStopDetector(4, mode=mode, no_impr_thres=thres)
+    ours.reset(values[0])
+    theirs.reset(values[0])
+    stops = []
+    for n, value in enumerate(values[1:]):
+        assert ours.step(value) == theirs.step(value), n
+        assert ours.best == theirs.best and ours.stop() == theirs.stop()
+        if ours.stop():
+            stops.append(n)
+    assert stops, "the sequence never stalls for 4 steps"
+    assert ours.state_dict() == theirs.state_dict()
+    legacy = {"mode": mode, "best_criterion": 1.5, "no_impr": 2,
+              "max_no_impr": 4, "no_impr_thres": thres}
+    ours, theirs = StopDetector(1), JaxStopDetector(1)
+    ours.load_state_dict(legacy)
+    theirs.load_state_dict(legacy)
+    assert ours.state_dict() == theirs.state_dict()
+    assert ours.best == theirs.best == 1.5
+    after = [ours.step(1.2), ours.step(1.9), ours.stop()]
+    assert after == [theirs.step(1.2), theirs.step(1.9), theirs.stop()]
+
+
+class _OneBatch:
+    """A loader of one batch a pass."""
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter([{}])
+
+
+def _scripted_trainer(checkpoint, dev_losses, **kwargs):
+    """The port's Trainer on a stand-in step whose n-th validation
+    reports dev_losses[n]."""
+    from aps_tpu_torch.trainer.base import Trainer
+
+    class Scripted(Trainer):
+        validations = 0
+
+        def train_one_step(self, egs):
+            self.reporter.add("loss", 1.0)
+            return True
+
+        def valid_one_step(self, egs):
+            self.reporter.add("loss", dev_losses[type(self).validations])
+            type(self).validations += 1
+
+    return Scripted(torch.nn.Linear(2, 2), device="cpu",
+                    checkpoint=checkpoint,
+                    **kwargs)
+
+
+def test_trainer_stops_early_as_aps_tpu_does(tmp_path):
+    """Trainer.run on a dev loss that stalls stops after the epoch where
+    aps_tpu's StopDetector says stop, logs aps_tpu's line, writes its
+    stop_state into the checkpoints, and a run cut short and resumed from
+    last.ckpt keeps the count and stops after the same epoch."""
+    from aps_tpu.trainer.base import StopDetector as JaxStopDetector
+    dev = [5.0, 4.0, 3.0, 3.0005, 2.9995, 3.5, 2.0, 2.0, 2.0]
+    rule = JaxStopDetector(3, no_impr_thres=1e-3)
+    rule.reset(dev[0])
+    stop_epoch = next(n for n, value in enumerate(dev[1:], 1)
+                      if not rule.step(value) and rule.stop())
+    assert stop_epoch == 5
+    whole = _scripted_trainer(tmp_path / "whole", dev, no_impr=3)
+    whole.run(_OneBatch(), _OneBatch(), num_epochs=8)
+    assert whole.cur_epoch == stop_epoch
+    log = (tmp_path / "whole" / "trainer.log").read_text()
+    assert "Stop training cause no impr for 3 epochs" in log
+    for name in ("last", "best"):
+        with open(tmp_path / "whole" / f"{name}.ckpt", "rb") as fd:
+            state = pickle.load(fd)
+        epoch = stop_epoch if name == "last" else 2
+        assert state["epoch"] == epoch
+        assert state["stop_state"]["no_impr"] == (3 if name == "last" else 0)
+        assert state["stop_state"]["best_criterion"] == 3.0
+    assert whole.stop_detector.state_dict() == rule.state_dict()
+
+    cut = _scripted_trainer(tmp_path / "cut", dev, no_impr=3)
+    cut.run(_OneBatch(), _OneBatch(), num_epochs=4)
+    assert cut.cur_epoch == 4 and cut.stop_detector.no_impr == 2
+    # the resumed run validates once more before its first epoch: its
+    # script repeats the value of epoch 4
+    again = _scripted_trainer(tmp_path / "cut", [dev[4]] + dev[5:],
+                              no_impr=3)
+    assert again.cur_epoch == 4 and again.stop_detector.no_impr == 2
+    assert again.stop_detector.best == 3.0
+    again.run(_OneBatch(), _OneBatch(), num_epochs=8)
+    assert again.cur_epoch == stop_epoch
+
+
+def test_trainer_defaults_are_aps_tpus():
+    """The port's Trainer takes aps_tpu's defaults for early stopping and
+    the stop criterion."""
+    import inspect
+
+    from aps_tpu.trainer.base import Trainer as JaxTrainer
+    from aps_tpu_torch.trainer.base import Trainer
+    ours = inspect.signature(Trainer).parameters
+    theirs = inspect.signature(JaxTrainer).parameters
+    for key in ("no_impr", "no_impr_thres", "stop_criterion",
+                "report_metrics", "stop_on_errors", "prog_interval"):
+        assert ours[key].default == theirs[key].default, key
+    assert ours["no_impr"].default == 6
+    assert ours["no_impr_thres"].default == 1e-3
 
 
 def test_trainer_skips_a_non_finite_step(slice_pair, tmp_path):
