@@ -7,18 +7,25 @@ is called directly: the K2 forward (`aps_attention_fwd`) at the long-form
 decode and training shapes and at B = 16, T = 1024 beside the library's
 `scaled_dot_product_attention`; K5 (`aps_tcn_block_fused`) at the
 separation batch's shape (32 x 3905 frames, B = 256, H = 512) at every
-dilation of a repeat, in float32 and bfloat16. The versions run in the
-order given, so pass them as parent, change, change, parent. A version is
-any file: the parent's source from `git archive`, or a copy with one
-constant changed. Each result is also checked against the plain version.
+dilation of a repeat, in float32 and bfloat16; K3's backward kernels dq
+(`aps_rel_attention_dq`) and dpose (`aps_rel_attention_dpose`, with its
+reduction) at the flagship training step's shape (B = 32, H = 4, T = 231,
+200 valid frames each, one shared table) and at T = 700 with per-head
+tables, a causal mask and ragged k_len. The versions run in the order
+given, so pass them as parent, change, change, parent. A version is any
+file: the parent's source from `git archive`, or a copy with one constant
+changed. Each result is also checked against the plain version.
 
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --attention parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
-        --tcn parent/tcn.cu aps_tpu_torch/csrc/tcn.cu
+        --tcn parent/tcn.cu aps_tpu_torch/csrc/tcn.cu \\
+        --rel-bwd parent/rel_attention_bwd.cu \\
+        aps_tpu_torch/csrc/rel_attention_bwd.cu
 """
 
 import argparse
 import ctypes
+import re
 import statistics
 import subprocess
 import tempfile
@@ -29,6 +36,9 @@ import torch
 
 from aps_tpu_torch.ops import build
 from aps_tpu_torch.ops.attention import _FWD_ARGTYPES, mha_reference
+from aps_tpu_torch.ops.rel_attention import (_BWD_ARGTYPES, _DQ_ARGTYPES,
+                                             launch_forward,
+                                             rel_mha_backward_reference)
 from aps_tpu_torch.ops.tcn import _ARGTYPES as _TCN_ARGTYPES
 from aps_tpu_torch.ops.tcn import tcn_block_reference
 
@@ -38,6 +48,10 @@ ATTENTION_SHAPES = ((4, 710, 600), (8, 690, 600), (16, 1024, 1024))
 # the separation batch: N, T, B, H, and the dilations of a repeat
 TCN_SHAPE = (32, 3905, 256, 512)
 TCN_DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
+# K3's backward: (B, T, Hp, causal, k_len) of the flagship training step
+# and of a long causal shape with per-head tables; H = 4, D = 64
+REL_SHAPES = ((32, 231, 1, False, [200] * 32),
+              (8, 700, 4, True, [700, 683, 350, 1, 0, 610, 3, 233]))
 QUEUED = 10
 
 
@@ -149,15 +163,77 @@ def compare_tcn(sources, dev, gen):
                           for src, ms in zip(sources, total)), flush=True)
 
 
+def compare_rel_bwd(sources, dev, gen):
+    """dq and dpose of each version of csrc/rel_attention_bwd.cu. A version
+    whose dq takes the forward's output forms delta itself (and writes
+    it); an older one reads it: both are given the same delta buffer,
+    filled with sum(do * out) before every call."""
+    libs = compile_all(sources, Path(tempfile.mkdtemp()))
+    writes_delta = []
+    for src, lib in zip(sources, libs):
+        text = Path(src).read_text()
+        new = re.search(r"aps_rel_attention_dq\([^)]*const float\* out",
+                        text) is not None
+        writes_delta.append(new)
+        lib.aps_rel_attention_dq.argtypes = \
+            _DQ_ARGTYPES if new else _BWD_ARGTYPES
+        lib.aps_rel_attention_dpose.argtypes = _BWD_ARGTYPES
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    H, D = 4, 64
+    for B, T, Hp, causal, lens in REL_SHAPES:
+        q_c, q_p, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                              for _ in range(5))
+        pose = (0.3 * torch.randn((Hp, 2 * T - 1, D), generator=gen)).to(dev)
+        klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, lse = launch_forward(q_c, q_p, k, v, pose, klen, causal, True)
+        delta_ref = (do * out).sum(-1)
+        delta = delta_ref.clone()
+        want = rel_mha_backward_reference(q_c, q_p, k, v, pose, do,
+                                          k_len=klen, causal=causal)
+        dq_c, dq_p = torch.empty_like(q_c), torch.empty_like(q_c)
+        partial = torch.empty((B * H, 2 * T - 1, D), device=dev)
+        dpose = torch.empty_like(pose)
+        head = [q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
+                pose.data_ptr(), klen.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), B, H, Hp, T, D, D**-0.5,
+                int(causal)]
+        label = (f"B={B} H={H} T={T} D={D} Hp={Hp} causal={causal} k_len="
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+        for src, lib, new in zip(sources, libs, writes_delta):
+            tail = [out.data_ptr()] if new else []
+            runs = {
+                "dq": lambda: lib.aps_rel_attention_dq(  # noqa: E731
+                    *head, dq_c.data_ptr(), dq_p.data_ptr(), *tail, stream),
+                "dpose": lambda: lib.aps_rel_attention_dpose(  # noqa: E731
+                    *head, partial.data_ptr(), dpose.data_ptr(), stream)}
+            line = []
+            for kernel, run in runs.items():
+                delta.copy_(delta_ref)
+                if run() != 0:
+                    raise RuntimeError(f"{src}: {kernel} launch failed")
+                torch.cuda.synchronize()
+                got = (dq_c, dq_p) if kernel == "dq" else (dpose,)
+                ref = want[:2] if kernel == "dq" else want[4:]
+                err = max((x - y).abs().max().item()
+                          for x, y in zip(got, ref))
+                line.append(f"{kernel} {time_ms(run):.4f} ms (queued "
+                            f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
+                            f"{err:.3e}")
+            print(f"K3 backward {label}: {src}: " + "; ".join(line),
+                  flush=True)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Time versions of the K2 forward and K5 sources on the "
-        "card, in the order given",
+        description="Time versions of the K2 forward, K5 and K3 backward "
+        "sources on the card, in the order given",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--attention", nargs="*", default=[],
                         help="versions of csrc/attention.cu")
     parser.add_argument("--tcn", nargs="*", default=[],
                         help="versions of csrc/tcn.cu")
+    parser.add_argument("--rel-bwd", nargs="*", default=[],
+                        help="versions of csrc/rel_attention_bwd.cu")
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -174,6 +250,8 @@ def main(argv=None) -> None:
         compare_attention(args.attention, dev, gen)
     if args.tcn:
         compare_tcn(args.tcn, dev, gen)
+    if args.rel_bwd:
+        compare_rel_bwd(args.rel_bwd, dev, gen)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,8 @@
 // products on the tensor cores, fragment loads from padded shared-memory
 // tiles, asynchronous staging of row tiles, the mask test and the online
 // softmax on accumulator fragments. Used by attention.cu (forward),
-// attention_bwd.cu (dq, dk/dv) and tcn.cu (the TCN block's two products);
-// written so that the four kernels of the rel-pose attention can be built
-// from the same pieces.
+// attention_bwd.cu (dq, dk/dv), rel_attention_bwd.cu (dq, dpose) and tcn.cu
+// (the TCN block's two products).
 //
 // The products. A warp multiplies 16 x 8 by 8 x 8 fragments with
 // mma.sync.aligned.m16n8k8 on TF32 operands and float32 accumulators. TF32
@@ -41,7 +40,10 @@
 // With that stride the two fragment patterns, (row g, column t) and (row
 // 2t, column g), both fall on 32 different banks; the stride keeps rows
 // 16-byte aligned for cp.async. A B operand read as (row t, column g) of a
-// k-major tile (load_b_kn) wants a stride of 8 modulo 32 instead.
+// k-major tile (load_b_kn) wants a stride of 8 modulo 32 instead. A tile
+// that a warp writes from accumulators and reads back as pairs (row g,
+// columns 2t and 2t + 1: load_a_acc) wants a stride of 24 modulo 32
+// (skew_ld).
 //
 // The online softmax. Of each 16 x 8 accumulator tile a thread holds rows g
 // (c0, c1) and g + 8 (c2, c3), and the four lanes of a group (t = 0..3)
@@ -138,6 +140,26 @@ __device__ __forceinline__ void load_a(FragA& a, const float* tile, int r0,
 __device__ __forceinline__ void acc_as_a(FragA& a, const float (&c)[4]) {
   const float x[4] = {c[0], c[2], c[1], c[3]};
   a.set(x);
+}
+
+// A = tile[r0 .. r0 + 16, c0 .. c0 + 8] of a tile that holds accumulator
+// values, read with acc_as_a's permutation of k (B: load_b_rows_k); two
+// float2 loads. LD = 24 mod 32: no bank conflicts.
+template <int LD>
+__device__ __forceinline__ void load_a_acc(FragA& a, const float* tile,
+                                           int r0, int c0, int g, int t) {
+  const float2 lo =
+      *reinterpret_cast<const float2*>(tile + (r0 + g) * LD + c0 + 2 * t);
+  const float2 hi = *reinterpret_cast<const float2*>(
+      tile + (r0 + g + 8) * LD + c0 + 2 * t);
+  const float x[4] = {lo.x, hi.x, lo.y, hi.y};
+  a.set(x);
+}
+
+// the stride, in floats, of a tile of at least n columns that a warp writes
+// as accumulator pairs and reads with load_a_acc: 24 modulo 32
+__host__ __device__ constexpr int skew_ld(int n) {
+  return n + ((24 - n) % 32 + 32) % 32;
 }
 
 // B[k][n] = tile[n0 + n][k0 + k]: the tile's rows are the product's columns
@@ -291,6 +313,26 @@ __device__ __forceinline__ void stage_rows_async(float* tile,
     const bool ok = first + r + i * kPassRows < limit;
     cp_async_16(dst + i * kPassRows * LD, ok ? from + i * kPassRows * D : src,
                 ok);
+  }
+}
+
+// rows [first, first + ROWS) of a (limit x D) matrix -> tile, zeros for
+// rows outside [0, limit): first may be negative (a window that starts
+// before the matrix) and ROWS need not fill whole passes of all threads
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_window_async(
+    float* tile, const float* __restrict__ src, int first, int limit,
+    int tid) {
+  constexpr int LD = tile_ld(D);
+  constexpr int kChunks = D / 4;  // 16-byte pieces of a row
+#pragma unroll
+  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * 4;
+    const int row = first + r;
+    const bool ok = row >= 0 && row < limit;
+    cp_async_16(tile + r * LD + c,
+                ok ? src + static_cast<size_t>(row) * D + c : src, ok);
   }
 }
 

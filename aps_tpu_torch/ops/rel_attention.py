@@ -12,7 +12,9 @@ masked rows giving 0. Self-attention only (Tq == Tk == T).
 
 On CUDA tensors the forward is csrc/rel_attention.cu and the backward
 csrc/rel_attention_bwd.cu (dq_c/dq_p, dk/dv and dpose kernels), joined by
-the autograd Function `_FlashRel`; a failed build or launch raises.
+the autograd Function `_FlashRel`; a failed build or launch raises. The
+backward copies rows 16 bytes at a time, so an operand at an odd storage
+offset is copied first.
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
 its gradient), and both are held against the kernels on the card."""
@@ -23,6 +25,7 @@ import torch
 
 from aps_tpu_torch.asr.transformer.utils import digit_shift
 from aps_tpu_torch.ops import build
+from aps_tpu_torch.ops.attention import _OCCUPANCY_KEYS, _aligned
 
 __all__ = [
     "flash_attention_rel", "rel_mha_reference", "rel_mha_backward_reference"
@@ -118,8 +121,10 @@ _HEAD_DIMS = (16, 32, 64)
 _IN = [build.P] * 6  # q_c q_p k v pose k_len
 _DIMS = [build.I] * 5 + [build.F, build.I]  # B H Hp T D scale causal
 _FWD_ARGTYPES = _IN + _DIMS + [build.P] * 3  # out lse stream
-# do lse delta, dims, two outputs (dpose: scratch and output), stream
+# do lse delta, dims, two outputs (dpose: scratch and output), stream; dq
+# also reads the forward's output (before the stream)
 _BWD_ARGTYPES = _IN + [build.P] * 3 + _DIMS + [build.P] * 3
+_DQ_ARGTYPES = _BWD_ARGTYPES[:-1] + [build.P] * 2
 
 
 BACKWARD_KERNELS = ("dq", "dkv", "dpose")
@@ -145,11 +150,14 @@ def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool):
 
 
 def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
-                           delta, causal: bool
+                           out, delta, causal: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch one of BACKWARD_KERNELS on checked CUDA tensors: "dq" ->
-    (dq_c, dq_p), "dkv" -> (dk, dv), "dpose" -> (dpose, the per-(b, h)
-    partial tables it was summed from). delta = sum(do * out, -1)."""
+    """Launch one of BACKWARD_KERNELS on checked, 16-byte aligned CUDA
+    tensors: "dq" -> (dq_c, dq_p), "dkv" -> (dk, dv), "dpose" -> (dpose,
+    the per-(b, h) partial tables it was summed from). out is the forward's
+    output and delta a B x H x T float32 buffer: "dq" forms delta =
+    sum(do * out, -1) and writes it there; "dkv" and "dpose" read it (and
+    not out), so they run after dq."""
     B, H, T, D = q_c.shape
     if kernel == "dpose":
         outs = (torch.empty((B * H, 2 * T - 1, D), dtype=torch.float32,
@@ -157,22 +165,38 @@ def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
     else:
         outs = (torch.empty_like(q_c), torch.empty_like(q_c))
     entry = f"aps_rel_attention_{kernel}"
-    lib = build.load("rel_attention_bwd", entry, _BWD_ARGTYPES)
+    lib = build.load("rel_attention_bwd", entry,
+                     _DQ_ARGTYPES if kernel == "dq" else _BWD_ARGTYPES)
+    extra = [out.data_ptr()] if kernel == "dq" else []
     rc = getattr(lib, entry)(
         q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
         pose.data_ptr(), klen.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), B, H, pose.shape[0], T, D, float(D**-0.5),
-        int(causal), outs[0].data_ptr(), outs[1].data_ptr(),
+        int(causal), outs[0].data_ptr(), outs[1].data_ptr(), *extra,
         build.stream_ptr(q_c.device))
     build.check(lib, rc, f"flash_attention_rel_{kernel}")
     build.count_launch(f"flash_attention_rel_{kernel}")
     return outs[::-1] if kernel == "dpose" else outs
 
 
+def backward_occupancy(D: int, kernel: str):
+    """How the "dq" or "dpose" kernel sits on an SM of the current card at
+    head dim D: registers and bytes of local memory (spills) a thread, bytes
+    of dynamic shared memory a block, resident blocks an SM, and key rows a
+    dq tile or table rows a dpose block."""
+    import ctypes
+    lib = build.load("rel_attention_bwd", "aps_rel_attention_bwd_occupancy",
+                     [build.I, build.I, build.P])
+    info = (ctypes.c_int * 5)()
+    rc = lib.aps_rel_attention_bwd_occupancy(D, int(kernel == "dpose"), info)
+    build.check(lib, rc, "flash_attention_rel backward occupancy")
+    return dict(zip(_OCCUPANCY_KEYS + ("tile_rows",), info))
+
+
 class _FlashRel(torch.autograd.Function):
     """flash_attention_rel on CUDA tensors with a gradient: the forward
-    kernel also writes lse; backward launches the dq, dk/dv and dpose
-    kernels (k_len gets no gradient)."""
+    kernel also writes lse; backward launches the dq kernel (which also
+    forms delta), then dk/dv and dpose (k_len gets no gradient)."""
 
     @staticmethod
     def forward(ctx, q_c, q_p, k, v, pose, klen, causal):
@@ -184,10 +208,10 @@ class _FlashRel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         *args, out, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = _aligned(do.contiguous())
         build.require_cuda("flash_attention_rel backward", {"do": do})
-        delta = (do * out).sum(-1)
-        grads = [launch_backward_kernel(kernel, *args, do, lse, delta,
+        delta = torch.empty_like(lse)
+        grads = [launch_backward_kernel(kernel, *args, do, lse, out, delta,
                                         ctx.causal)
                  for kernel in BACKWARD_KERNELS]
         return (*grads[0], *grads[1], grads[2][0], None, None)
@@ -239,5 +263,6 @@ def flash_attention_rel(q_c: torch.Tensor,
                              f"{tuple(klen.shape)}, expected ({B},)")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in tensors.values()):
-        return _FlashRel.apply(q_c, q_p, k, v, pose, klen, bool(causal))
+        return _FlashRel.apply(*map(_aligned, (q_c, q_p, k, v, pose)), klen,
+                               bool(causal))
     return launch_forward(q_c, q_p, k, v, pose, klen, bool(causal), False)[0]

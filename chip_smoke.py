@@ -22,9 +22,16 @@
    kernels of the rel-pose attention are held against the explicit plain
    backward and against autograd through the plain forward at the training
    step's shape (B = 32, T and k_len as the loader pads the batch) and at
-   shapes that widen it. Each kernel's time stands beside its bound: the
-   larger of its bytes over the card's memory rate and its operations over
-   the card's float32 rate.
+   shapes that widen it (T = 65, 129 and 700, per-head tables, causal,
+   k_len 0, and the one-key corner, k_len 1 under a causal mask at T =
+   640, whose errors are printed); the delta that dq forms is held against
+   PyTorch's, and at the training shape and at T = 700 every backward
+   kernel runs twice for bit-equal results. Each kernel's time stands
+   beside its bound: the larger of its bytes over the card's memory rate
+   and its operations over the card's float32 rate. dq and dpose run on
+   the tensor cores, so their times with launches queued are also held
+   against the tensor cores' bound (TF32, each product split in three);
+   the forward and dk/dv carry that bound as a column.
 5. Decodes them through `aps_tpu_torch.cmd.decode_batch` (batch 8, beam 8,
    ctc weight 0.4, max_len 40), with every kernel's launch count reset just
    before and read just after; each kernel must have launched.
@@ -371,16 +378,24 @@ def valid_pairs(T, lens, causal, Tk=None):
     return total
 
 
+def tensor_core_ms(flops: float) -> float:
+    """The tensor cores' bound of float32 products done as three TF32
+    products each (TF32_NOTE), in ms."""
+    return flops * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+
+
 def check_rel_attention(dev, gen, T_path, k_path):
     """K3 first as the encoder calls it (q_c = q_p, one shared pose table,
     every utterance k_path of T_path frames valid), then with ragged k_len,
-    causal masks, per-head tables and several key tiles."""
+    causal masks, per-head tables and several key tiles. -> (rows, the
+    tensor cores' bound of the first row: the forward still runs on the
+    CUDA cores, so it is a column, not a check)"""
     import torch
 
     from aps_tpu_torch.ops.rel_attention import (flash_attention_rel,
                                                  rel_mha_reference)
     B, H, D = 8, 4, 64
-    rows = []
+    rows, tensor = [], []
     for T, Hp, causal, ragged in ((T_path, 1, False, False),
                                   (T_path, 1, True, True),
                                   (700, 1, False, True),
@@ -407,38 +422,57 @@ def check_rel_attention(dev, gen, T_path, k_path):
         plain_ms = time_ms(lambda: rel_mha_reference(*args, **kw))
         # four inputs and the output, the pose table and k_len; the three
         # products q_c.k, q_p.pose and p.v over the pairs the mask leaves
+        flops = 3 * 2 * D * H * valid_pairs(T, lens, causal)
         bound = bound_ms(
-            4 * (5 * B * H * T * D + Hp * (2 * T - 1) * D + B),
-            3 * 2 * D * H * valid_pairs(T, lens, causal))
+            4 * (5 * B * H * T * D + Hp * (2 * T - 1) * D + B), flops)
         rows.append((label, err, ms, plain_ms) + bound)
+        tensor.append(tensor_core_ms(flops))
         if not err <= TOL_ATT:
             fail(f"flash_attention_rel {label}: max abs err {err} > "
                  f"{TOL_ATT}")
-    return rows
+    return rows, tensor[0]
 
 
 def check_rel_attention_bwd(dev, gen, T_path, lens_path):
-    """The three backward kernels of K3, each launched alone, against
-    rel_mha_backward_reference and against autograd through
-    rel_mha_reference: first at the training step's shape (B = 32, one
-    shared pose table, the loader's padded T and valid frames), then with
-    ragged k_len over several tiles, causal masks, per-head tables and
-    batch entries without any valid key (k_len 0: zero gradients, no NaN).
-    Also holds and times the forward that writes lse, which the backward
-    reads (rows "fwd")."""
+    """The three backward kernels of K3, each launched alone (dq first: it
+    forms delta from do and the forward's output and writes it where dk/dv
+    and dpose read it), against rel_mha_backward_reference and against
+    autograd through rel_mha_reference: first at the training step's shape
+    (B = 32, one shared pose table, the loader's padded T and valid
+    frames), then with ragged k_len over several tiles, causal masks,
+    per-head tables, batch entries without any valid key (k_len 0: zero
+    gradients, no NaN), lengths on either side of dq's 64 query rows and
+    dpose's 64 table rows, and the one-key corner (k_len 1 under a long
+    causal mask). At the path's shape and at T = 700 with per-head tables
+    every kernel runs twice for run-to-run equality, and dq and dpose are
+    timed with launches queued against the tensor cores' bound. Also holds
+    and times the forward that writes lse, which the backward reads (rows
+    "fwd"). -> (rows by kernel, further numbers by kernel name for the
+    `kernels` line)"""
     import torch
 
-    from aps_tpu_torch.ops.rel_attention import (launch_backward_kernel,
+    from aps_tpu_torch.ops.rel_attention import (backward_occupancy,
+                                                 launch_backward_kernel,
                                                  launch_forward,
                                                  rel_mha_backward_reference,
                                                  rel_mha_reference)
     H, D = 4, 64
-    ragged = lambda T: [T, T - 17, T // 2, 1, 0, T - 90, 3, T // 3]
     rows = {kernel: [] for kernel in BACKWARD + ("fwd",)}
-    for T, Hp, causal, lens in ((T_path, 1, False, lens_path),
-                                (T_path, 1, True, ragged(T_path)),
-                                (700, 1, False, ragged(700)),
-                                (700, H, True, ragged(700))):
+    names = [f"flash_attention_rel_{k}" for k in BACKWARD]
+    more = {name: {} for name in names}
+    for name, kernel in zip(names, BACKWARD):
+        if kernel != "dkv":
+            more[name]["occupancy"] = backward_occupancy(D, kernel)
+    corner = [1, 1, 640, 2, 1, 1, 640, 2]
+    # (T, Hp, causal, k_len, what the row is for)
+    for T, Hp, causal, lens, role in (
+            (T_path, 1, False, lens_path, "path"),
+            (T_path, 1, True, _ragged(T_path), ""),
+            (700, 1, False, _ragged(700), ""),
+            (700, H, True, _ragged(700), "t700"),
+            (65, H, True, _ragged(65), ""),
+            (129, 1, False, _ragged(129), ""),
+            (640, H, True, corner, "corner")):
         B = len(lens)
         q_c, q_p, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
                               for _ in range(5))
@@ -446,12 +480,13 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
         klen = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q_c, q_p, k, v, pose, klen)
         label = (f"B={B} H=4 D=64 T={T} Hp={Hp} causal={causal} k_len="
-                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else
+                    "1, 2 and T" if role == "corner" else "ragged"))
         out, lse = launch_forward(*args, causal, True)
-        delta = (do * out).sum(-1)
-        got = {kernel: launch_backward_kernel(kernel, *args, do, lse, delta,
-                                              causal)
-               for kernel in BACKWARD}
+        delta = torch.full_like(lse, float("nan"))
+        run = lambda kernel: launch_backward_kernel(  # noqa: E731
+            kernel, *args, do, lse, out, delta, causal)
+        got = {kernel: run(kernel) for kernel in BACKWARD}
         want = rel_mha_backward_reference(q_c, q_p, k, v, pose, do,
                                           k_len=klen, causal=causal)
         leaves = [t.clone().requires_grad_() for t in args[:5]]
@@ -462,13 +497,33 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
         if not fwd_err <= TOL_ATT:
             fail(f"flash_attention_rel with lse {label}: max abs err "
                  f"{fwd_err} > {TOL_ATT}")
-        fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
-        fwd_plain_ms = time_ms(lambda: rel_mha_reference(
-            *args[:5], k_len=klen, causal=causal))
-        rows["fwd"].append((label + " with lse", fwd_err, fwd_ms,
-                            fwd_plain_ms) + bound_ms(
-            4 * (5 * B * H * T * D + B * H * T + Hp * (2 * T - 1) * D + B),
-            3 * 2 * D * H * valid_pairs(T, lens, causal)))
+        delta_err = (delta - (do * out).sum(-1)).abs().max().item()
+        if not delta_err <= TOL_GRAD:
+            fail(f"flash_attention_rel_dq {label}: its delta is "
+                 f"{delta_err} from sum(do * out)")
+        pairs = H * valid_pairs(T, lens, causal)
+        if role in ("path", "t700"):
+            fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
+            fwd_plain_ms = time_ms(lambda: rel_mha_reference(
+                *args[:5], k_len=klen, causal=causal))
+            rows["fwd"].append((label + " with lse", fwd_err, fwd_ms,
+                                fwd_plain_ms) + bound_ms(
+                4 * (5 * B * H * T * D + B * H * T + Hp * (2 * T - 1) * D
+                     + B), 3 * 2 * D * pairs))
+            if role == "path":
+                more["fwd_train_tensor_core_bound_ms"] = tensor_core_ms(
+                    3 * 2 * D * pairs)
+            # every kernel owns its sums: a second launch gives the same
+            # bits, delta included
+            delta_first = delta.clone()
+            for kernel in BACKWARD:
+                if not all(torch.equal(x, y) for x, y in
+                           zip(got[kernel], run(kernel))):
+                    fail(f"flash_attention_rel_{kernel} {label}: two "
+                         "launches differ")
+            if not torch.equal(delta_first, delta):
+                fail(f"flash_attention_rel_dq {label}: two launches differ "
+                     "in delta")
         dead = lse >= 1e30
         if bool(dead.any()) != (min(lens) == 0) or \
                 not torch.isfinite(lse).all():
@@ -480,17 +535,21 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
         plain_ms = time_ms(lambda: rel_mha_backward_reference(
             q_c, q_p, k, v, pose, do, k_len=klen, causal=causal),
             iters=5, warmup=1)
-        pairs = H * valid_pairs(T, lens, causal)
         size = B * H * T * D
         table = Hp * (2 * T - 1) * D
         # every kernel reads q_c, q_p, k, v, do, pose, lse, delta and k_len
         # and recomputes the scores (q_c.k, q_p.pose) and dp = do.v; dq
         # adds ds.k and ds.pose, dk/dv adds p.do and ds.q_c, dpose adds
-        # ds.q_p; outputs: two B x H x T x D tensors, or the table
+        # ds.q_p; outputs: two B x H x T x D tensors, or the table. (dq
+        # reads the forward's output where the others read delta, and
+        # writes delta: T D floats more, far from binding.)
         reads = 4 * (5 * size + table + 2 * B * H * T + B)
-        bounds = {"dq": bound_ms(reads + 8 * size, 5 * 2 * D * pairs),
-                  "dkv": bound_ms(reads + 8 * size, 5 * 2 * D * pairs),
-                  "dpose": bound_ms(reads + 4 * table, 4 * 2 * D * pairs)}
+        ops = {"dq": 5 * 2 * D * pairs, "dkv": 5 * 2 * D * pairs,
+               "dpose": 4 * 2 * D * pairs}
+        bounds = {"dq": bound_ms(reads + 8 * size, ops["dq"]),
+                  "dkv": bound_ms(reads + 8 * size, ops["dkv"]),
+                  "dpose": bound_ms(reads + 4 * table, ops["dpose"])}
+        errs = {}
         for kernel in BACKWARD:
             err = 0.0
             for g, i in zip(grads[kernel], index[kernel]):
@@ -506,8 +565,8 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
                     if not e <= tol:
                         fail(f"flash_attention_rel_{kernel} {label}: max "
                              f"abs err {e} > {tol}")
-            ms = time_ms(lambda: launch_backward_kernel(
-                kernel, *args, do, lse, delta, causal))
+            errs[kernel] = err
+            ms = time_ms(lambda: run(kernel))
             rows[kernel].append((label, err, ms, plain_ms) + bounds[kernel])
         # keys past k_len get exactly zero dk and dv
         for g in got["dkv"]:
@@ -515,7 +574,38 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
                 if torch.count_nonzero(g[b, :, n:]) != 0:
                     fail(f"flash_attention_rel_dkv {label}: gradient at a "
                          f"padded key of batch entry {b}")
-    return rows
+        if role == "corner":
+            print(f"flash_attention_rel backward [{label}] (one-key "
+                  "corner): max abs err dq "
+                  f"{errs['dq']:.3e}, dk/dv {errs['dkv']:.3e}, dpose "
+                  f"{errs['dpose']:.3e}", flush=True)
+            for name, kernel in zip(names, BACKWARD):
+                more[name]["one_key_corner_max_abs_err"] = errs[kernel]
+        if role not in ("path", "t700"):
+            continue
+        # once more with launches queued, which hides the host's share
+        for name, kernel in zip(names, BACKWARD):
+            tensor_ms = tensor_core_ms(ops[kernel])
+            entry = {"ms_queued": time_ms(lambda: run(kernel),
+                                          calls=QUEUED_CALLS),
+                     "tensor_core_bound_ms": tensor_ms}
+            if kernel != "dkv" and not entry["ms_queued"] >= tensor_ms:
+                fail(f"{name} {label}: {entry['ms_queued']} ms reads below "
+                     f"the tensor cores' bound {tensor_ms}")
+            if role == "path":
+                more[name].update(entry)
+            else:
+                more[name]["t700"] = {
+                    "shape": label, "ms": rows[kernel][-1][2],
+                    "bound_ms": bounds[kernel][0], **entry}
+        queued = {kernel: (more[name] if role == "path" else
+                           more[name]["t700"])["ms_queued"]
+                  for name, kernel in zip(names, BACKWARD)}
+        print(f"flash_attention_rel backward [{label}]: with "
+              f"{QUEUED_CALLS} launches queued: "
+              + ", ".join(f"{kernel} {ms:.4f} ms"
+                          for kernel, ms in queued.items()), flush=True)
+    return rows, more
 
 
 def _sdpa(q, k, v, k_len):
@@ -661,9 +751,8 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                     library["flash_attention (training shape)"] = lib_ms
             queued = time_ms(lambda: flash_attention(q, k, v, **kw),
                              calls=QUEUED_CALLS)
-            # each float32 product is three TF32 products in the kernel
-            tensor_ms = 2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk) \
-                * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            tensor_ms = tensor_core_ms(
+                2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk))
             if not queued >= tensor_ms:
                 fail(f"flash_attention {label}: {queued} ms reads below the "
                      f"tensor cores' bound {tensor_ms}")
@@ -817,7 +906,7 @@ def check_attention(dev, gen, dec_shape, trn_shape):
               "ms", flush=True)
         for kernel in ("dq", "dkv"):
             name = f"flash_attention_{kernel}"
-            tensor_ms = ops[kernel] * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            tensor_ms = tensor_core_ms(ops[kernel])
             if role == "path":
                 library[name] = lib_ms
                 backends["backward"] = _device_kernel_names(lib_bwd)[:2]
@@ -1433,7 +1522,7 @@ def check_tcn(dev, gen, T):
                      "smem_bytes": plan["smem_bytes"],
                      "blocks_per_sm": plan["blocks_per_sm"]}
         if dtype == f32:
-            tensor_ms = ops * TF32_PASSES / PEAK_TF32_PER_S * 1e3
+            tensor_ms = tensor_core_ms(ops)
             rec[kind].update(bound_ms=bound[0], tensor_core_bound_ms=tensor_ms)
             if not ms >= tensor_ms:
                 fail(f"tcn_block_fused {label}: {ms} ms reads below the "
@@ -1872,11 +1961,12 @@ def main() -> None:
                 ("long-form decode",
                  decode_batch_of(wavs_long, LONG_BATCH, S_long)),
                 ("long-form training", egs_long["src_pad"]))),
-            "flash_attention_rel": check_rel_attention(dev, gen, T, k_len),
-            "ctc_score_step": check_ctc(dev, gen, T) + check_ctc(
-                dev, gen, T_long, batches=(LONG_BATCH,)),
         }
-        bwd = check_rel_attention_bwd(dev, gen, T_trn, k_trn)
+        checks["flash_attention_rel"], rel_tensor_ms = check_rel_attention(
+            dev, gen, T, k_len)
+        checks["ctc_score_step"] = check_ctc(dev, gen, T) + check_ctc(
+            dev, gen, T_long, batches=(LONG_BATCH,))
+        bwd, more_rel = check_rel_attention_bwd(dev, gen, T_trn, k_trn)
         checks["flash_attention_rel"] += bwd.pop("fwd")
         for kernel, rows in bwd.items():
             checks[f"flash_attention_rel_{kernel}"] = rows
@@ -2023,6 +2113,14 @@ def main() -> None:
                      "per_dilation": tcn_dilations}
         else:
             path_launches = launches_trn[name]
+        if name == "flash_attention_rel":
+            # on the CUDA cores still: the tensor cores' bound is a column
+            extra.update(tensor_core_bound_ms=rel_tensor_ms,
+                         train_tensor_core_bound_ms=more_rel[
+                             "fwd_train_tensor_core_bound_ms"],
+                         tensor_core_bound_note=TF32_NOTE)
+        elif name.startswith("flash_attention_rel_"):
+            extra.update(more_rel[name], tensor_core_bound_note=TF32_NOTE)
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -10,6 +10,8 @@ but not the JAX stack:
 
 Tests that need the card carry the `cuda` marker and skip without one."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -162,24 +164,45 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(n == 0 for n in build.LAUNCHES.values()), build.LAUNCHES
 
 
+def _kernel_body(text: str, name: str) -> str:
+    """The body of the __global__ function `name` in a CUDA source."""
+    head = re.search(r"__global__ void[^{;]*?\b" + name + r"\(", text)
+    assert head is not None, name
+    beg = text.index("{", head.end())
+    depth = 0
+    for end in range(beg, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[end], 0)
+        if depth == 0:
+            return text[beg:end + 1]
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
 @pytest.mark.parametrize("source,product", [
     ("attention.cu", "mma_f32<"),
     ("tcn.cu", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
+    ("rel_attention_bwd.cu:rel_attn_dq_kernel", "mma_f32<"),
+    ("rel_attention_bwd.cu:rel_attn_dpose_kernel", "mma_f32<"),
 ])
 def test_kernel_sources_use_the_tensor_cores(source, product):
-    """K2's forward and K5 run every product on the tensor cores (mma.sync,
-    the three-pass TF32 split of attn_tiles.cuh for float32) and stage
-    their operands with its cp.async ring: a later edit that goes back to
-    the CUDA-core loops (fmaf over shared memory) fails here."""
+    """K2's forward, K5 and K3's dq and dpose run every product on the
+    tensor cores (mma.sync, the three-pass TF32 split of attn_tiles.cuh for
+    float32) and stage their operands with its cp.async ring: a later edit
+    that goes back to the CUDA-core loops (fmaf over shared memory) fails
+    here. "file:kernel" holds that kernel's body alone (K3's dk/dv, in the
+    same file, is still a CUDA-core loop)."""
     csrc = build.CSRC
+    source, _, kernel = source.partition(":")
     text = (csrc / source).read_text()
     tiles = (csrc / "attn_tiles.cuh").read_text()
     assert '#include "attn_tiles.cuh"' in text
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in tiles
-    assert product in text and "mma_f32" in tiles
-    assert "cp.async" in tiles
+    assert "mma_f32" in tiles and "cp.async" in tiles
+    if kernel:
+        text = _kernel_body(text, kernel)
+    assert product in text
     assert "cp_async_commit()" in text and "cp_async_wait<" in text
-    assert "stage_rows_async" in text or "cp_async_16" in text
+    assert "stage_rows_async" in text or "stage_window_async" in text or \
+        "cp_async_16" in text
     assert "fmaf(" not in text
 
 
@@ -287,6 +310,16 @@ GRAD_NAMES = ("dq_c", "dq_p", "dk", "dv", "dpose")
     (8, 4, 233, 64, 1, False),
     (8, 4, 233, 64, 4, True),
     (4, 4, 700, 64, 1, True),
+    # the edges of dq's 64 query rows and dpose's 64 table rows (2T - 1 =
+    # 125, 127, 129, 257), the flagship step's T, per-head tables at T = 700
+    (4, 2, 63, 16, 2, False),
+    (4, 2, 64, 32, 1, True),
+    (4, 4, 65, 64, 4, False),
+    (4, 4, 65, 64, 1, True),
+    (4, 2, 129, 16, 1, True),
+    (4, 4, 129, 32, 4, False),
+    (8, 4, 231, 64, 1, False),
+    (4, 4, 700, 64, 4, False),
 ])
 def test_rel_attention_backward_kernels_match_plain(cuda_device, B, H, T, D,
                                                     Hp, causal):
@@ -323,10 +356,11 @@ def test_rel_attention_backward_kernels_match_plain(cuda_device, B, H, T, D,
 
 
 @pytest.mark.cuda
-def test_rel_attention_backward_is_deterministic(cuda_device):
-    """dpose sums per-(b, h) partial tables in a fixed order: two runs give
-    the same bits."""
-    rel, k_len = _rel_args(8, 4, 233, 64, 1)
+@pytest.mark.parametrize("T,Hp", [(233, 1), (700, 4)])
+def test_rel_attention_backward_is_deterministic(cuda_device, T, Hp):
+    """No kernel uses atomics; dpose sums per-(b, h) partial tables in a
+    fixed order: two runs give the same bits."""
+    rel, k_len = _rel_args(8, 4, T, 64, Hp)
     rel = [t.to(cuda_device).requires_grad_() for t in rel]
     do = torch.ones_like(rel[0])
     runs = []
@@ -335,6 +369,55 @@ def test_rel_attention_backward_is_deterministic(cuda_device):
         runs.append(torch.autograd.grad(out, rel, do))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rel_attention_backward_takes_an_unaligned_view(cuda_device):
+    """dq and dpose copy 16 bytes at a time: an operand, or a gradient of
+    the output, that is a contiguous view one float into its storage is
+    copied by the wrapper and gets the same gradients."""
+    rel, k_len = _rel_args(4, 2, 40, 16, 1)
+    rel = [t.to(cuda_device) for t in rel]
+    k_len = k_len.to(cuda_device)
+    odd = torch.zeros(rel[0].numel() + 1, device=cuda_device)[1:]
+    odd = odd.view(rel[0].shape).copy_(rel[0])
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    do = torch.ones(odd.numel() + 1, device=cuda_device)[1:].view(odd.shape)
+    grads = []
+    for q_c in (odd, rel[0].clone()):
+        leaves = [q_c] + [t.clone() for t in rel[1:]]
+        leaves = [t.requires_grad_() for t in leaves]
+        grads.append(torch.autograd.grad(
+            flash_attention_rel(*leaves, k_len=k_len), leaves, do))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hp", [1, 4])
+def test_rel_attention_backward_one_key_corner(cuda_device, Hp):
+    """Batch entries that see one key under a long causal mask: every
+    gradient within the tolerances of the plain version; the errors of dq
+    and dpose are printed (a key that is the only one its 640 rows see
+    gives sums that cancel)."""
+    T = 640
+    rel, _ = _rel_args(4, 4, T, 64, Hp)
+    rel = [t.to(cuda_device).requires_grad_() for t in rel]
+    k_len = torch.tensor([1, 1, T, 2], dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator().manual_seed(Hp)
+    do = torch.randn(rel[0].shape, generator=gen).to(cuda_device)
+    got = torch.autograd.grad(
+        flash_attention_rel(*rel, k_len=k_len, causal=True), rel, do)
+    plain = rel_mha_backward_reference(*[t.detach() for t in rel], do,
+                                       k_len=k_len, causal=True)
+    errs = {}
+    for name, g, w in zip(GRAD_NAMES, got, plain):
+        atol = GRAD_ATOL if name != "dpose" else \
+            GRAD_ATOL + DPOSE_RTOL * w.abs().max().item()
+        errs[name] = (g - w).abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol, rtol=0, msg=name)
+    print(f"one-key corner (k_len 1, causal, T = {T}, Hp = {Hp}): max abs "
+          "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
 
 @pytest.mark.cuda
