@@ -72,15 +72,13 @@ class CtcScorer(object):
         B, C = cand.shape
         cf = cand.reshape(-1)
         f32 = torch.float32
+        # the parent beams' gammas and scores go in unexpanded: lane b*C + c
+        # reads column b
         gamma_n, gamma_b, score, delta = ctc_score_step(
-            self._gather_cand(cand),
-            state.gamma_n.repeat_interleave(C, dim=1),
-            state.gamma_b.repeat_interleave(C, dim=1),
+            self._gather_cand(cand), state.gamma_n, state.gamma_b,
             self._blank_col(),
             (last_tok.repeat_interleave(C) != cf).to(f32)[None],
-            (cf == self.eos).to(f32)[None],
-            state.score.repeat_interleave(C)[None],
-            is_first)
+            (cf == self.eos).to(f32)[None], state.score[None], is_first)
         return delta.reshape(B, C), CtcScoreState(gamma_n, gamma_b, score[0])
 
     def update_var(self, state: CtcScoreState,

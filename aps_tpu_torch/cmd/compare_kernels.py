@@ -11,16 +11,26 @@ dilation of a repeat, in float32 and bfloat16; K3's backward kernels dq
 (`aps_rel_attention_dq`) and dpose (`aps_rel_attention_dpose`, with its
 reduction) at the flagship training step's shape (B = 32, H = 4, T = 231,
 200 valid frames each, one shared table) and at T = 700 with per-head
-tables, a causal mask and ragged k_len. The versions run in the order
-given, so pass them as parent, change, change, parent. A version is any
-file: the parent's source from `git archive`, or a copy with one constant
-changed. Each result is also checked against the plain version.
+tables, a causal mask and ragged k_len; K3's forward
+(`aps_rel_attention_fwd`, with lse) at the flagship decode's shape (B = 8,
+T = 233, 200 valid, q_c = q_p as the encoder passes them) and at the
+step's; K4 (`aps_ctc_score_step`) at the flagship decode's lanes (T = 233,
+L = 8 x 8 x 12) and the long-form decode's (T = 710, L = 4 x 8 x 12). A K4
+source whose entry takes P gets the parent beams' gammas unexpanded (P = L
+/ 12, as the search step passes them); an older one gets them expanded.
+The versions run in the order given, so pass them as parent, change,
+change, parent. A version is any file: the parent's source from `git
+archive`, or an edited copy (one constant changed, or K4's serial walk).
+Each result is also checked against the plain version.
 
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --attention parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
         --tcn parent/tcn.cu aps_tpu_torch/csrc/tcn.cu \\
         --rel-bwd parent/rel_attention_bwd.cu \\
-        aps_tpu_torch/csrc/rel_attention_bwd.cu
+        aps_tpu_torch/csrc/rel_attention_bwd.cu \\
+        --rel-fwd parent/rel_attention.cu \\
+        aps_tpu_torch/csrc/rel_attention.cu \\
+        --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu
 """
 
 import argparse
@@ -36,9 +46,14 @@ import torch
 
 from aps_tpu_torch.ops import build
 from aps_tpu_torch.ops.attention import _FWD_ARGTYPES, mha_reference
+from aps_tpu_torch.ops.ctc_score import _ARGTYPES as _CTC_ARGTYPES
+from aps_tpu_torch.ops.ctc_score import ctc_score_step_plain
+from aps_tpu_torch.ops.rel_attention import _FWD_ARGTYPES as _REL_ARGTYPES
 from aps_tpu_torch.ops.rel_attention import (_BWD_ARGTYPES, _DQ_ARGTYPES,
                                              launch_forward,
-                                             rel_mha_backward_reference)
+                                             rel_lse_reference,
+                                             rel_mha_backward_reference,
+                                             rel_mha_reference)
 from aps_tpu_torch.ops.tcn import _ARGTYPES as _TCN_ARGTYPES
 from aps_tpu_torch.ops.tcn import tcn_block_reference
 
@@ -52,6 +67,11 @@ TCN_DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128)
 # and of a long causal shape with per-head tables; H = 4, D = 64
 REL_SHAPES = ((32, 231, 1, False, [200] * 32),
               (8, 700, 4, True, [700, 683, 350, 1, 0, 610, 3, 233]))
+# K3's forward: (B, T, valid keys) of the flagship decode batch and step
+REL_FWD_SHAPES = ((8, 233, 200), (32, 231, 200))
+# K4: (T, utterances) of the flagship and long-form decode batches; beam 8,
+# ctc beam 12
+CTC_SHAPES = ((233, 8), (710, 4))
 QUEUED = 10
 
 
@@ -223,10 +243,97 @@ def compare_rel_bwd(sources, dev, gen):
                   flush=True)
 
 
+def compare_rel_fwd(sources, dev, gen):
+    """K3's forward (with lse, as a training step launches it; the decode
+    launches it without) of each version of csrc/rel_attention.cu."""
+    libs = compile_all(sources, Path(tempfile.mkdtemp()))
+    for lib in libs:
+        lib.aps_rel_attention_fwd.argtypes = _REL_ARGTYPES
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    H, D = 4, 64
+    for B, T, valid in REL_FWD_SHAPES:
+        q_c, k, v = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                     for _ in range(3))
+        pose = (0.3 * torch.randn((1, 2 * T - 1, D), generator=gen)).to(dev)
+        klen = torch.full((B,), valid, dtype=torch.int32, device=dev)
+        want = rel_mha_reference(q_c, q_c, k, v, pose, k_len=klen)
+        lse_want = rel_lse_reference(q_c, q_c, k, pose, k_len=klen)
+        out = torch.empty_like(q_c)
+        lse = torch.empty((B, H, T), device=dev)
+        for src, lib in zip(sources, libs):
+            for with_lse in (False, True):
+                run = lambda: lib.aps_rel_attention_fwd(  # noqa: E731
+                    q_c.data_ptr(), q_c.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), pose.data_ptr(), klen.data_ptr(), B, H, 1,
+                    T, D, D**-0.5, 0, out.data_ptr(),
+                    lse.data_ptr() if with_lse else None, stream)
+                if run() != 0:
+                    raise RuntimeError(f"{src}: launch failed")
+                torch.cuda.synchronize()
+                err = (out - want).abs().max().item()
+                if with_lse:
+                    err = max(err, (lse - lse_want).abs().max().item())
+                print(f"K3 forward B={B} H={H} T={T} D={D} k_len={valid}"
+                      f"{' with lse' if with_lse else ''}: {src}: "
+                      f"{time_ms(run):.4f} ms (queued "
+                      f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
+                      f"{err:.3e}", flush=True)
+
+
+def compare_ctc(sources, dev, gen):
+    """K4 of each version of csrc/ctc_score.cu at the two decode paths'
+    shapes, each with the argument list its source declares."""
+    libs = compile_all(sources, Path(tempfile.mkdtemp()))
+    takes_p = []
+    for src, lib in zip(sources, libs):
+        text = Path(src).read_text()
+        new = re.search(r"int T, int L, int P,", text) is not None
+        takes_p.append(new)
+        lib.aps_ctc_score_step.argtypes = _CTC_ARGTYPES if new else \
+            _CTC_ARGTYPES[:11] + _CTC_ARGTYPES[12:]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    beam, C = 8, 12
+    for T, utts in CTC_SHAPES:
+        L, P = utts * beam * C, utts * beam
+        p_c = -1.0 - 3.0 * torch.rand((T, L), generator=gen)
+        gnx = torch.cumsum(-2.0 * torch.rand((T, P), generator=gen), 0)
+        gbx = torch.cumsum(-2.0 * torch.rand((T, P), generator=gen), 0)
+        gnx[:, ::7] = -3.402823466e38
+        pb = -0.05 - 0.5 * torch.rand((T, utts), generator=gen)
+        rok = (torch.rand((1, L), generator=gen) > 0.1).float()
+        eos = (torch.rand((1, L), generator=gen) > 0.92).float()
+        old = -50.0 * torch.rand((1, P), generator=gen)
+        compact = [x.to(dev) for x in (p_c, gnx, gbx, pb, rok, eos, old)]
+        full = list(compact)
+        for i in (1, 2, 6):
+            full[i] = compact[i].repeat_interleave(C, dim=1).contiguous()
+        isf = torch.zeros((1, 1), device=dev)
+        want = ctc_score_step_plain(*compact, isf)
+        outs = [torch.empty((T, L), device=dev) for _ in range(2)] + \
+            [torch.empty((1, L), device=dev) for _ in range(2)]
+        for src, lib, new in zip(sources, libs, takes_p):
+            ops, dims = (compact, [T, L, P]) if new else (full, [T, L])
+            run = lambda: lib.aps_ctc_score_step(  # noqa: E731
+                *[x.data_ptr() for x in ops[:4]], utts,
+                *[x.data_ptr() for x in ops[4:]], isf.data_ptr(), *dims,
+                *[x.data_ptr() for x in outs], stream)
+            if run() != 0:
+                raise RuntimeError(f"{src}: launch failed")
+            torch.cuda.synchronize()
+            err = 0.0
+            for g, w in zip(outs, want):
+                live = ~((g <= -1.7e38) & (w <= -1.7e38))
+                err = max(err, (g - w).abs()[live].max().item())
+            print(f"K4 T={T} L={L} P={dims[-1] if new else L}: {src}: "
+                  f"{time_ms(run):.4f} ms (queued "
+                  f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
+                  f"{err:.3e}", flush=True)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Time versions of the K2 forward, K5 and K3 backward "
-        "sources on the card, in the order given",
+        description="Time versions of the K2 forward, K5, K3 backward, K3 "
+        "forward and K4 sources on the card, in the order given",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--attention", nargs="*", default=[],
                         help="versions of csrc/attention.cu")
@@ -234,6 +341,10 @@ def main(argv=None) -> None:
                         help="versions of csrc/tcn.cu")
     parser.add_argument("--rel-bwd", nargs="*", default=[],
                         help="versions of csrc/rel_attention_bwd.cu")
+    parser.add_argument("--rel-fwd", nargs="*", default=[],
+                        help="versions of csrc/rel_attention.cu")
+    parser.add_argument("--ctc", nargs="*", default=[],
+                        help="versions of csrc/ctc_score.cu")
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -252,6 +363,10 @@ def main(argv=None) -> None:
         compare_tcn(args.tcn, dev, gen)
     if args.rel_bwd:
         compare_rel_bwd(args.rel_bwd, dev, gen)
+    if args.rel_fwd:
+        compare_rel_fwd(args.rel_fwd, dev, gen)
+    if args.ctc:
+        compare_ctc(args.ctc, dev, gen)
 
 
 if __name__ == "__main__":

@@ -13,11 +13,12 @@ masked rows giving 0. Self-attention only (Tq == Tk == T).
 On CUDA tensors the forward is csrc/rel_attention.cu and the backward
 csrc/rel_attention_bwd.cu (dq_c/dq_p, dk/dv and dpose kernels), joined by
 the autograd Function `_FlashRel`; a failed build or launch raises. The
-backward copies rows 16 bytes at a time, so an operand at an odd storage
+kernels copy rows 16 bytes at a time, so an operand at an odd storage
 offset is copied first.
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
-its gradient), and both are held against the kernels on the card."""
+its gradient), and both are held against the kernels on the card, as is
+`rel_lse_reference` against the forward's lse."""
 
 from typing import Optional, Tuple
 
@@ -28,7 +29,8 @@ from aps_tpu_torch.ops import build
 from aps_tpu_torch.ops.attention import _OCCUPANCY_KEYS, _aligned
 
 __all__ = [
-    "flash_attention_rel", "rel_mha_reference", "rel_mha_backward_reference"
+    "flash_attention_rel", "rel_mha_reference", "rel_lse_reference",
+    "rel_mha_backward_reference"
 ]
 
 
@@ -45,6 +47,32 @@ def _attn_mask(T: int, k_len: Optional[torch.Tensor], causal: bool,
     return mask
 
 
+def _rel_scores(q_c, q_p, k, pose, k_len, causal):
+    """Masked scaled scores, B x H x T x T (the dtype's minimum where a key
+    is not visible), and the mask."""
+    B, H, T, D = q_c.shape
+    s = torch.einsum("bhld,bhsd->bhls", q_c, k)
+    g = torch.einsum("bhld,hpd->bhlp", q_p,
+                     pose.expand((H,) + tuple(pose.shape[1:])))
+    s = (s + digit_shift(g)) * D**-0.5
+    mask = _attn_mask(T, k_len, causal, q_c.device)
+    return torch.where(mask, s, torch.finfo(s.dtype).min), mask
+
+
+def rel_lse_reference(q_c: torch.Tensor,
+                      q_p: torch.Tensor,
+                      k: torch.Tensor,
+                      pose: torch.Tensor,
+                      k_len: Optional[torch.Tensor] = None,
+                      causal: bool = False) -> torch.Tensor:
+    """Plain-PyTorch row-wise log-sum-exp of the masked scores, B x H x T,
+    as the forward kernel writes it for the backward: 1e30 for a row
+    without a visible key."""
+    s, mask = _rel_scores(q_c, q_p, k, pose, k_len, causal)
+    lse = torch.logsumexp(s, -1)
+    return torch.where(mask.any(-1), lse, torch.full_like(lse, 1e30))
+
+
 def rel_mha_reference(q_c: torch.Tensor,
                       q_p: torch.Tensor,
                       k: torch.Tensor,
@@ -54,14 +82,7 @@ def rel_mha_reference(q_c: torch.Tensor,
                       causal: bool = False) -> torch.Tensor:
     """Dense plain-PyTorch version. q_c/q_p/k/v: B x H x T x D,
     pose: Hp x 2T-1 x D, k_len: B."""
-    B, H, T, D = q_c.shape
-    scale = D**-0.5
-    s = torch.einsum("bhld,bhsd->bhls", q_c, k)
-    g = torch.einsum("bhld,hpd->bhlp", q_p,
-                     pose.expand((H,) + tuple(pose.shape[1:])))
-    s = (s + digit_shift(g)) * scale
-    mask = _attn_mask(T, k_len, causal, q_c.device)
-    s = torch.where(mask, s, torch.finfo(s.dtype).min)
+    s, mask = _rel_scores(q_c, q_p, k, pose, k_len, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m) * mask
     l = p.sum(-1, keepdim=True)
@@ -131,9 +152,10 @@ BACKWARD_KERNELS = ("dq", "dkv", "dpose")
 
 
 def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool):
-    """Launch the forward kernel on checked CUDA tensors (klen int32) ->
-    (out, lse or None). flash_attention_rel is the public entry; this one
-    and launch_backward_kernel let a check time each kernel alone."""
+    """Launch the forward kernel on checked, 16-byte aligned CUDA tensors
+    (klen int32) -> (out, lse or None). flash_attention_rel is the public
+    entry; this one and launch_backward_kernel let a check time each kernel
+    alone."""
     B, H, T, D = q_c.shape
     out = torch.empty_like(q_c)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q_c.device) \
@@ -179,18 +201,26 @@ def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
     return outs[::-1] if kernel == "dpose" else outs
 
 
-def backward_occupancy(D: int, kernel: str):
-    """How the "dq" or "dpose" kernel sits on an SM of the current card at
-    head dim D: registers and bytes of local memory (spills) a thread, bytes
-    of dynamic shared memory a block, resident blocks an SM, and key rows a
-    dq tile or table rows a dpose block."""
+def occupancy(D: int, kernel: str):
+    """How kernel "fwd", "dq" or "dpose" sits on an SM of the current card
+    at head dim D: registers and bytes of local memory (spills) a thread,
+    bytes of dynamic shared memory a block, resident blocks an SM, and query
+    rows a forward block, key rows a dq tile or table rows a dpose block."""
     import ctypes
-    lib = build.load("rel_attention_bwd", "aps_rel_attention_bwd_occupancy",
-                     [build.I, build.I, build.P])
     info = (ctypes.c_int * 5)()
-    rc = lib.aps_rel_attention_bwd_occupancy(D, int(kernel == "dpose"), info)
-    build.check(lib, rc, "flash_attention_rel backward occupancy")
-    return dict(zip(_OCCUPANCY_KEYS + ("tile_rows",), info))
+    if kernel == "fwd":
+        lib = build.load("rel_attention", "aps_rel_attention_fwd_occupancy",
+                         [build.I, build.P])
+        rc = lib.aps_rel_attention_fwd_occupancy(D, info)
+    else:
+        lib = build.load("rel_attention_bwd",
+                         "aps_rel_attention_bwd_occupancy",
+                         [build.I, build.I, build.P])
+        rc = lib.aps_rel_attention_bwd_occupancy(D, int(kernel == "dpose"),
+                                                 info)
+    build.check(lib, rc, f"flash_attention_rel {kernel} occupancy")
+    rows = "query_rows" if kernel == "fwd" else "tile_rows"
+    return dict(zip(_OCCUPANCY_KEYS + (rows,), info))
 
 
 class _FlashRel(torch.autograd.Function):
@@ -265,4 +295,5 @@ def flash_attention_rel(q_c: torch.Tensor,
                                        for t in tensors.values()):
         return _FlashRel.apply(*map(_aligned, (q_c, q_p, k, v, pose)), klen,
                                bool(causal))
-    return launch_forward(q_c, q_p, k, v, pose, klen, bool(causal), False)[0]
+    return launch_forward(*map(_aligned, (q_c, q_p, k, v, pose)), klen,
+                          bool(causal), False)[0]

@@ -16,7 +16,14 @@
    error and the median times of both. decode_batch pads each 8 s
    utterance to its duration bucket, so the front end sees N = 8 x
    149003 samples and the encoder and CTC scorer T = 233 frames of which
-   200 are valid; a few other shapes widen the check. The log-mel kernel is
+   200 are valid; a few other shapes widen the check. The rel-pose
+   attention's forward is also held at T = 65, 129 and 700 with per-head
+   tables and causal masks, with batch entries without a key and at the
+   one-key corner, its lse against the plain log-sum-exp; the CTC scorer
+   takes the parent beams' gammas and scores unexpanded, as the search step
+   passes them. Both run twice for bit-equal results, and both are timed
+   once more with launches queued (the forward against the tensor cores'
+   bound). The log-mel kernel is
    also held at the training batch (32 x the loader's padded length), whose
    grid and frame count differ from the decode's. The three backward
    kernels of the rel-pose attention are held against the explicit plain
@@ -28,13 +35,16 @@
    PyTorch's, and at the training shape and at T = 700 every backward
    kernel runs twice for bit-equal results. Each kernel's time stands
    beside its bound: the larger of its bytes over the card's memory rate
-   and its operations over the card's float32 rate. dq and dpose run on
-   the tensor cores, so their times with launches queued are also held
-   against the tensor cores' bound (TF32, each product split in three);
-   the forward and dk/dv carry that bound as a column.
+   and its operations over the card's float32 rate. The forward, dq and
+   dpose run on the tensor cores, so their times with launches queued are
+   also held against the tensor cores' bound (TF32, each product split in
+   three); dk/dv carries that bound as a column.
 5. Decodes them through `aps_tpu_torch.cmd.decode_batch` (batch 8, beam 8,
    ctc weight 0.4, max_len 40), with every kernel's launch count reset just
-   before and read just after; each kernel must have launched.
+   before and read just after: per batch K1 once and the rel-pose forward
+   once per encoder layer, K4 once per search step, nothing else; every
+   search step hands K4 the parent beams' gammas and scores unexpanded (no
+   repeat of them across the candidates).
 6. Checks 16 transcripts with finite scores, and holds the card's encoder
    output (which must have the shapes the kernels were checked at) and
    best hypotheses for two utterances against the same model on the CPU
@@ -92,8 +102,9 @@
    post-norm layers of width 256, 4 heads, feed-forward 2048, the
    flagship's decoder and CTC head) written as an aps_tpu checkpoint; 8
    utterances of 24 s through `aps_tpu_torch.cmd.decode_batch` in batches
-   of 4 (per batch K1 once, K2's forward 12 times, K4 once per search step,
-   the rel-pose kernels never); two utterances card vs CPU; then training
+   of 4 (per batch K1 once, K2's forward 12 times, K4 once per search step
+   with the parent beams' operands unexpanded, the rel-pose kernels never);
+   two utterances card vs CPU; then training
    through `aps_tpu_torch.cmd.train_am` in batches of 8 x 24 s (a corpus
    of 16, since the loader wants ten utterances; per step K2's forward,
    dq and dk/dv 12 times each, dbias never: the model passes no bias), the
@@ -200,7 +211,7 @@ DECODE_KERNELS = ("fused_logmel", "flash_attention_rel", "ctc_score_step")
 # the check rows of K1 and K4 at the long-form path's shapes
 LONG_ROWS = {"fused_logmel": (2, 3), "ctc_score_step": (4, 5)}
 # kernels on both paths: the check row taken at the training step's shape
-TRAIN_ROW = {"fused_logmel": 1, "flash_attention_rel": 4,
+TRAIN_ROW = {"fused_logmel": 1, "flash_attention_rel": 8,
              "flash_attention": 1}
 BACKWARD = ("dq", "dkv", "dpose")
 # per model: its encoder's attention kernel and the backward kernels a
@@ -385,39 +396,63 @@ def tensor_core_ms(flops: float) -> float:
 
 
 def check_rel_attention(dev, gen, T_path, k_path):
-    """K3 first as the encoder calls it (q_c = q_p, one shared pose table,
-    every utterance k_path of T_path frames valid), then with ragged k_len,
-    causal masks, per-head tables and several key tiles. -> (rows, the
-    tensor cores' bound of the first row: the forward still runs on the
-    CUDA cores, so it is a column, not a check)"""
+    """K3's forward first as the encoder calls it in the decode (q_c = q_p,
+    one shared pose table, every utterance k_path of T_path frames valid),
+    then with ragged k_len including batch entries without a key, causal
+    masks, per-head tables, T = 65, 129 and 700 (several 64-row blocks and
+    32-key tiles), and the one-key corner (k_len 1 under a causal mask at T
+    = 640, both table kinds, errors printed). Every case also holds the lse
+    the kernel writes for the backward against the plain log-sum-exp, and
+    launches twice for bit-equal results. The decode's row is timed once
+    more with launches queued, against the tensor cores' bound.
+    -> (rows, further numbers for the `kernels` line)"""
     import torch
 
     from aps_tpu_torch.ops.rel_attention import (flash_attention_rel,
+                                                 launch_forward,
+                                                 occupancy,
+                                                 rel_lse_reference,
                                                  rel_mha_reference)
     B, H, D = 8, 4, 64
-    rows, tensor = [], []
-    for T, Hp, causal, ragged in ((T_path, 1, False, False),
-                                  (T_path, 1, True, True),
-                                  (700, 1, False, True),
-                                  (700, H, True, True)):
+    rows = []
+    more = {"occupancy": occupancy(D, "fwd")}
+    corner = [1, 1, 640, 2, 1, 1, 640, 2]
+    for T, Hp, causal, lens, role in (
+            (T_path, 1, False, [k_path] * B, "path"),
+            (T_path, 1, True, _ragged(T_path), ""),
+            (65, H, True, _ragged(65), ""),
+            (129, H, True, _ragged(129), ""),
+            (700, 1, False, _ragged(700), ""),
+            (700, H, True, _ragged(700), ""),
+            (640, 1, True, corner, "corner"),
+            (640, H, True, corner, "corner")):
         q_c, q_p, k, v = (torch.randn((B, H, T, D), generator=gen).to(dev)
                           for _ in range(4))
-        if not ragged:
+        if role == "path":
             q_p = q_c
         pose = (0.3 * torch.randn((Hp, 2 * T - 1, D), generator=gen)).to(dev)
-        lens = [T, T - 17, T // 2, 1, T, T - 90, 3, T // 3] if ragged \
-            else [k_path] * B
         k_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q_c, q_p, k, v, pose)
         kw = dict(k_len=k_len, causal=causal)
         got = flash_attention_rel(*args, **kw)
         want = rel_mha_reference(*args, **kw)
+        out, lse = launch_forward(*args, k_len, causal, True)
+        again = launch_forward(*args, k_len, causal, True)
+        lse_want = rel_lse_reference(q_c, q_p, k, pose, **kw)
         torch.cuda.synchronize()
         label = (f"B=8 H=4 D=64 T={T} Hp={Hp} causal={causal} k_len="
-                 + ("ragged" if ragged else f"{k_path}"))
+                 + (f"{k_path}" if role == "path" else "1, 2 and T"
+                    if role == "corner" else "ragged with 0"))
         if not torch.isfinite(got).all():
             fail(f"flash_attention_rel {label}: non-finite output")
+        if not (torch.equal(out, got) and torch.equal(again[0], out) and
+                torch.equal(again[1], lse)):
+            fail(f"flash_attention_rel {label}: two launches differ")
         err = (got - want).abs().max().item()
+        lse_err = (lse - lse_want).abs().max().item()
+        if not lse_err <= TOL_ATT:
+            fail(f"flash_attention_rel {label}: lse max abs err {lse_err} > "
+                 f"{TOL_ATT}")
         ms = time_ms(lambda: flash_attention_rel(*args, **kw))
         plain_ms = time_ms(lambda: rel_mha_reference(*args, **kw))
         # four inputs and the output, the pose table and k_len; the three
@@ -426,11 +461,28 @@ def check_rel_attention(dev, gen, T_path, k_path):
         bound = bound_ms(
             4 * (5 * B * H * T * D + Hp * (2 * T - 1) * D + B), flops)
         rows.append((label, err, ms, plain_ms) + bound)
-        tensor.append(tensor_core_ms(flops))
         if not err <= TOL_ATT:
             fail(f"flash_attention_rel {label}: max abs err {err} > "
                  f"{TOL_ATT}")
-    return rows, tensor[0]
+        if role == "corner":
+            print(f"flash_attention_rel [{label}] (one-key corner): max abs "
+                  f"err {err:.3e}, lse {lse_err:.3e}", flush=True)
+            more["one_key_corner_max_abs_err"] = max(
+                err, more.get("one_key_corner_max_abs_err", 0.0))
+        if role == "path":
+            more["ms_queued"] = time_ms(
+                lambda: flash_attention_rel(*args, **kw), calls=QUEUED_CALLS)
+            more["tensor_core_bound_ms"] = tensor_core_ms(flops)
+            if not more["ms_queued"] >= more["tensor_core_bound_ms"]:
+                fail(f"flash_attention_rel {label}: {more['ms_queued']} ms "
+                     "reads below the tensor cores' bound "
+                     f"{more['tensor_core_bound_ms']}")
+            print(f"flash_attention_rel [{label}]: {ms:.4f} ms one launch, "
+                  f"{more['ms_queued']:.4f} ms with {QUEUED_CALLS} queued; "
+                  f"float32 bound {bound[0]:.5f} ms, TF32/3 bound "
+                  f"{more['tensor_core_bound_ms']:.5f} ms; "
+                  f"{more['occupancy']}", flush=True)
+    return rows, more
 
 
 def check_rel_attention_bwd(dev, gen, T_path, lens_path):
@@ -451,9 +503,8 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     `kernels` line)"""
     import torch
 
-    from aps_tpu_torch.ops.rel_attention import (backward_occupancy,
-                                                 launch_backward_kernel,
-                                                 launch_forward,
+    from aps_tpu_torch.ops.rel_attention import (launch_backward_kernel,
+                                                 launch_forward, occupancy,
                                                  rel_mha_backward_reference,
                                                  rel_mha_reference)
     H, D = 4, 64
@@ -462,7 +513,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     more = {name: {} for name in names}
     for name, kernel in zip(names, BACKWARD):
         if kernel != "dkv":
-            more[name]["occupancy"] = backward_occupancy(D, kernel)
+            more[name]["occupancy"] = occupancy(D, kernel)
     corner = [1, 1, 640, 2, 1, 1, 640, 2]
     # (T, Hp, causal, k_len, what the row is for)
     for T, Hp, causal, lens, role in (
@@ -511,8 +562,17 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
                 4 * (5 * B * H * T * D + B * H * T + Hp * (2 * T - 1) * D
                      + B), 3 * 2 * D * pairs))
             if role == "path":
-                more["fwd_train_tensor_core_bound_ms"] = tensor_core_ms(
-                    3 * 2 * D * pairs)
+                tensor_ms = tensor_core_ms(3 * 2 * D * pairs)
+                queued = time_ms(lambda: launch_forward(*args, causal, True),
+                                 calls=QUEUED_CALLS)
+                if not queued >= tensor_ms:
+                    fail(f"flash_attention_rel with lse {label}: {queued} ms "
+                         f"reads below the tensor cores' bound {tensor_ms}")
+                more["fwd_train_tensor_core_bound_ms"] = tensor_ms
+                more["fwd_train_ms_queued"] = queued
+                print(f"flash_attention_rel with lse [{label}]: {fwd_ms:.4f} "
+                      f"ms one launch, {queued:.4f} ms with {QUEUED_CALLS} "
+                      f"queued; TF32/3 bound {tensor_ms:.5f} ms", flush=True)
             # every kernel owns its sums: a second launch gives the same
             # bits, delta included
             delta_first = delta.clone()
@@ -981,14 +1041,16 @@ def long_decode_phase(root: Path, cpt: Path, wavs, card):
     """LONG_UTTS utterances of LONG_SECS through decode_batch in batches of
     LONG_BATCH, the launch counts reset just before and read just after:
     per batch K1 once and K2's forward once per encoder layer, K4 once per
-    search step, nothing else. -> (stats, launches)."""
+    search step (the parent beams' operands unexpanded), nothing else.
+    -> (stats, launches)."""
     from aps_tpu_torch.cmd import decode_batch
     from aps_tpu_torch.ops import build
     best = root / "best.txt"
     argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
             "--dict", str(root / "dict")] + LONG_DECODE_ARGS
     build.reset_launches()
-    stats = decode_batch.main(argv)
+    with scorer_steps() as steps:
+        stats = decode_batch.main(argv)
     launches = dict(build.LAUNCHES)
     lines = best.read_text().splitlines()
     if len(lines) != LONG_UTTS or sorted(
@@ -998,15 +1060,12 @@ def long_decode_phase(root: Path, cpt: Path, wavs, card):
     if len(scores) != LONG_UTTS or not all(map(math.isfinite, scores)):
         fail(f"non-finite or missing scores: {scores}")
     batches = LONG_UTTS // LONG_BATCH
-    want = {kernel: 0 for kernel in launches}
-    want.update({"fused_logmel": batches,
-                 "flash_attention": ENC_LAYERS * batches,
-                 "ctc_score_step": launches["ctc_score_step"]})
-    if launches != want or launches["ctc_score_step"] <= 0 or \
+    want = decode_launches("xfmr_abs", batches, len(steps))
+    if launches != want or not steps or \
             len(stats["batch_secs"]) != batches:
         fail(f"long-form decode launches {launches} in "
-             f"{len(stats['batch_secs'])} batches, expected {want} with "
-             "ctc_score_step > 0")
+             f"{len(stats['batch_secs'])} batches and {len(steps)} search "
+             f"steps, expected {want} with steps > 0")
     secs = stats["decode_secs"]
     print(f"long-form decode: {LONG_UTTS} utterances x {LONG_SECS} s "
           f"through decode_batch in {secs:.4f} s (batches of {LONG_BATCH}: "
@@ -1016,21 +1075,22 @@ def long_decode_phase(root: Path, cpt: Path, wavs, card):
     return stats, launches
 
 
-def _ctc_inputs(T, L, groups, dev, gen):
+def _ctc_inputs(T, L, groups, parents, dev, gen):
     """Realistic scorer operands: log-probs, monotone gammas with some
-    impossible lanes, eos and repeat lanes."""
+    impossible lanes, eos and repeat lanes; the parent beams' gammas and
+    scores over `parents` columns, as the search step passes them."""
     import torch
 
     from aps_tpu_torch.ops.ctc_score import MIN_F32
     p_c = -1.0 - 3.0 * torch.rand((T, L), generator=gen)
-    gnx = torch.cumsum(-2.0 * torch.rand((T, L), generator=gen), 0)
-    gbx = torch.cumsum(-2.0 * torch.rand((T, L), generator=gen), 0)
+    gnx = torch.cumsum(-2.0 * torch.rand((T, parents), generator=gen), 0)
+    gbx = torch.cumsum(-2.0 * torch.rand((T, parents), generator=gen), 0)
     gnx[:, ::7] = float(MIN_F32)
     gbx[:3] = float(MIN_F32)
     p_blank = -0.05 - 0.5 * torch.rand((T, groups), generator=gen)
     repeat_ok = (torch.rand((1, L), generator=gen) > 0.1).float()
     eos_mask = (torch.rand((1, L), generator=gen) > 0.92).float()
-    old = -50.0 * torch.rand((1, L), generator=gen)
+    old = -50.0 * torch.rand((1, parents), generator=gen)
     return [x.to(dev) for x in (p_c, gnx, gbx, p_blank, repeat_ok, eos_mask,
                                 old)]
 
@@ -1055,35 +1115,107 @@ def _ctc_err(got, want):
 def check_ctc(dev, gen, T, batches=(8, 64)):
     """K4 at the decode's lanes (8 utterances x beam 8 x ctc beam 12) and
     at the 64-utterance batch of the benchmark shape; for the long-form
-    path at its T and its batch of 4."""
+    path at its T and its batch of 4. The parent beams' gammas and scores go
+    in unexpanded (beam 8 columns an utterance), as the search step passes
+    them; every case launches twice for bit-equal results. The kernel is
+    timed on its launch alone, operands and outputs already on the card;
+    the first batch's rows once more with launches queued, and through the
+    wrapper ctc_score_step with launches queued, whose host work (shape
+    checks, the is_first flag, four allocations) outlasts the kernel.
+    -> (rows, {label: kernel ms with launches queued}, {label: wrapper ms
+    with launches queued})"""
     import torch
 
     from aps_tpu_torch.ops.ctc_score import (ctc_score_step,
-                                             ctc_score_step_plain)
-    rows = []
+                                             ctc_score_step_plain, launch)
+    rows, queued, wrapper = [], {}, {}
     beam, C = 8, 12
     for utts in batches:
         L = utts * beam * C
-        ops = _ctc_inputs(T, L, utts, dev, gen)
+        ops = _ctc_inputs(T, L, utts, utts * beam, dev, gen)
         for is_first in (True, False):
             got = ctc_score_step(*ops, is_first)
+            again = ctc_score_step(*ops, is_first)
             want = ctc_score_step_plain(*ops, is_first)
             torch.cuda.synchronize()
             err, ok = _ctc_err(got, want)
-            label = f"T={T} L={L} is_first={is_first}"
-            ms = time_ms(lambda: ctc_score_step(*ops, is_first))
+            label = f"T={T} L={L} P={utts * beam} is_first={is_first}"
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"ctc_score_step {label}: two launches differ")
+            isf = torch.full((1, 1), float(is_first), device=dev)
+            out = tuple(torch.empty_like(x) for x in got)
+            kernel = lambda: launch(*ops, isf, out)  # noqa: E731
+            ms = time_ms(kernel)
             plain_ms = time_ms(lambda: ctc_score_step_plain(*ops, is_first),
                                iters=5, warmup=1)
-            # reads p_c and the two gammas, writes the two new gammas
-            # (T x L each), the blank column and five lane rows; two
-            # logaddexp of about eight operations per frame and lane
-            bound = bound_ms(4 * (5 * T * L + T * utts + 5 * L),
-                             16 * T * L)
+            if utts == batches[0]:
+                queued[label] = time_ms(kernel, calls=QUEUED_CALLS)
+                wrapper[label] = time_ms(
+                    lambda: ctc_score_step(*ops, is_first),
+                    calls=QUEUED_CALLS)
+                if not all(torch.equal(x, y) for x, y in zip(got, out)):
+                    fail(f"ctc_score_step {label}: the kernel's launch "
+                         "differs from the wrapper's")
+            # reads p_c (T x L), the parent's two gammas (T x P), the blank
+            # columns and the lane rows; writes the two new gammas (T x L)
+            # and score and delta; two logaddexp of about eight operations
+            # per frame and lane
+            P = utts * beam
+            bound = bound_ms(4 * (3 * T * L + 2 * T * P + T * utts + 4 * L +
+                                  P + 1), 16 * T * L)
             rows.append((label, err, ms, plain_ms) + bound)
             if not ok:
                 fail(f"ctc_score_step {label}: outside |d| <= {TOL_CTC_ABS} "
                      f"+ {TOL_CTC_REL} |x| (max abs err {err})")
-    return rows
+    for label, ms in queued.items():
+        print(f"ctc_score_step [{label}]: {ms:.4f} ms a launch with "
+              f"{QUEUED_CALLS} queued; through the wrapper "
+              f"{wrapper[label]:.4f} ms", flush=True)
+    return rows, queued, wrapper
+
+
+@contextlib.contextmanager
+def scorer_steps():
+    """Count the search steps that reach the CTC scorer, and hold every
+    call's operands to the parent beams' shapes: gamma_nx, gamma_bx (T x P)
+    and old_score (1 x P) reach ctc_score_step with P = L / C columns, so
+    the search step repeats none of them across the candidates. Yields the
+    list of (L, P), one entry a step."""
+    from aps_tpu_torch.asr.beam_search import ctc as scorer_module
+    real = scorer_module.ctc_score_step
+    steps = []
+
+    def record(p_c, gamma_nx, gamma_bx, p_blank, repeat_ok, eos_mask,
+               old_score, is_first):
+        T, L = p_c.shape
+        P = gamma_nx.shape[1]
+        if not (P < L and L % P == 0 and tuple(gamma_bx.shape) == (T, P)
+                and tuple(old_score.shape) == (1, P)):
+            fail(f"the search step passes the scorer gammas "
+                 f"{tuple(gamma_nx.shape)}, {tuple(gamma_bx.shape)} and "
+                 f"scores {tuple(old_score.shape)} for {L} lanes: expanded "
+                 "to the candidates")
+        steps.append((L, P))
+        return real(p_c, gamma_nx, gamma_bx, p_blank, repeat_ok, eos_mask,
+                    old_score, is_first)
+
+    scorer_module.ctc_score_step = record
+    try:
+        yield steps
+    finally:
+        scorer_module.ctc_score_step = real
+
+
+def decode_launches(name: str, batches: int, steps: int):
+    """The launch counts of a decode of `batches` batches and `steps`
+    search steps in all: K1 once a batch, the encoder's attention forward
+    once per layer and batch, K4 once per search step, nothing else."""
+    from aps_tpu_torch.ops import build
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want.update({"fused_logmel": batches,
+                 ATTENTION[name][0]: ENC_LAYERS * batches,
+                 "ctc_score_step": steps})
+    return want
 
 
 def write_wavs(root: Path, prefix: str, count: int, gen, secs=UTT_SECS):
@@ -1962,10 +2094,12 @@ def main() -> None:
                  decode_batch_of(wavs_long, LONG_BATCH, S_long)),
                 ("long-form training", egs_long["src_pad"]))),
         }
-        checks["flash_attention_rel"], rel_tensor_ms = check_rel_attention(
+        checks["flash_attention_rel"], more_fwd = check_rel_attention(
             dev, gen, T, k_len)
-        checks["ctc_score_step"] = check_ctc(dev, gen, T) + check_ctc(
+        ctc_rows, ctc_queued, ctc_wrapper = check_ctc(dev, gen, T)
+        long_rows, long_queued, long_wrapper = check_ctc(
             dev, gen, T_long, batches=(LONG_BATCH,))
+        checks["ctc_score_step"] = ctc_rows + long_rows
         bwd, more_rel = check_rel_attention_bwd(dev, gen, T_trn, k_trn)
         checks["flash_attention_rel"] += bwd.pop("fwd")
         for kernel, rows in bwd.items():
@@ -1987,7 +2121,8 @@ def main() -> None:
         argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
                 "--dict", str(root / "dict")] + DECODE_ARGS
         build.reset_launches()
-        stats = decode_batch.main(argv)
+        with scorer_steps() as steps:
+            stats = decode_batch.main(argv)
         launches = dict(build.LAUNCHES)
         lines = best.read_text().splitlines()
         if len(lines) != NUM_UTTS or sorted(
@@ -1999,6 +2134,15 @@ def main() -> None:
         for name in DECODE_KERNELS:
             if launches[name] <= 0:
                 fail(f"kernel {name} did not launch during the decode")
+        want = decode_launches("flagship", len(stats["batch_secs"]),
+                               len(steps))
+        if launches != want or len(stats["batch_secs"]) != NUM_UTTS // 8:
+            fail(f"decode launches {launches} in "
+                 f"{len(stats['batch_secs'])} batches and {len(steps)} "
+                 f"search steps, expected {want}")
+        print(f"decode: {len(steps)} search steps, each one K4 launch over "
+              f"{steps[0][0]} lanes reading {steps[0][1]} parent columns "
+              "(no repeat of the gammas or the score)", flush=True)
         secs = stats["decode_secs"]
         batches = ", ".join(f"{b:.4f}" for b in stats["batch_secs"])
         print(f"decode: {NUM_UTTS} utterances x {UTT_SECS} s through "
@@ -2113,9 +2257,14 @@ def main() -> None:
                      "per_dilation": tcn_dilations}
         else:
             path_launches = launches_trn[name]
+        if name == "ctc_score_step":
+            extra.update(ms_queued=ctc_queued,
+                         long_form_ms_queued=long_queued,
+                         wrapper_ms_queued=ctc_wrapper,
+                         long_form_wrapper_ms_queued=long_wrapper)
         if name == "flash_attention_rel":
-            # on the CUDA cores still: the tensor cores' bound is a column
-            extra.update(tensor_core_bound_ms=rel_tensor_ms,
+            extra.update(more_fwd,
+                         train_ms_queued=more_rel["fwd_train_ms_queued"],
                          train_tensor_core_bound_ms=more_rel[
                              "fwd_train_tensor_core_bound_ms"],
                          tensor_core_bound_note=TF32_NOTE)

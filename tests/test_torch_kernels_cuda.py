@@ -28,7 +28,8 @@ from aps_tpu_torch.ops.ctc_score import (ctc_score_step,  # noqa: E402
 from aps_tpu_torch.ops.fbank import (fused_logmel,  # noqa: E402
                                      fused_logmel_plain)
 from aps_tpu_torch.ops.rel_attention import (  # noqa: E402
-    flash_attention_rel, rel_mha_backward_reference, rel_mha_reference)
+    flash_attention_rel, launch_forward, rel_lse_reference,
+    rel_mha_backward_reference, rel_mha_reference)
 from aps_tpu_torch.ops.tcn import (PACK_ROWS, tcn_block_fused,  # noqa: E402
                                    tcn_block_reference)
 from aps_tpu_torch.transform.utils import make_window, mel_filter  # noqa
@@ -92,18 +93,21 @@ def _att_args(B, H, Tq, Tk, D):
     return [q, k, v], bias, k_len
 
 
-def _ctc_args(T, L, G):
-    rng = np.random.default_rng(L)
+def _ctc_args(T, L, G, P=None):
+    """Scorer operands; the parent's gammas and scores over P columns
+    (default L: one a lane)."""
+    P = L if P is None else P
+    rng = np.random.default_rng(L + T)
     f32 = np.float32
     p_c = (-1 - 3 * rng.random((T, L))).astype(f32)
-    gnx = np.cumsum(-2 * rng.random((T, L)), 0).astype(f32)
-    gbx = np.cumsum(-2 * rng.random((T, L)), 0).astype(f32)
+    gnx = np.cumsum(-2 * rng.random((T, P)), 0).astype(f32)
+    gbx = np.cumsum(-2 * rng.random((T, P)), 0).astype(f32)
     gnx[:, ::5] = MIN_F32
     gbx[:2] = MIN_F32
     pb = (-0.05 - 0.5 * rng.random((T, G))).astype(f32)
     rok = (rng.random((1, L)) > 0.25).astype(f32)
     eosm = (rng.random((1, L)) > 0.8).astype(f32)
-    old = (-20 * rng.random((1, L))).astype(f32)
+    old = (-20 * rng.random((1, P))).astype(f32)
     return [torch.from_numpy(a) for a in (p_c, gnx, gbx, pb, rok, eosm, old)]
 
 
@@ -179,13 +183,14 @@ def _kernel_body(text: str, name: str) -> str:
 
 @pytest.mark.parametrize("source,product", [
     ("attention.cu", "mma_f32<"),
+    ("rel_attention.cu", "mma_f32<"),
     ("tcn.cu", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
     ("rel_attention_bwd.cu:rel_attn_dq_kernel", "mma_f32<"),
     ("rel_attention_bwd.cu:rel_attn_dpose_kernel", "mma_f32<"),
 ])
 def test_kernel_sources_use_the_tensor_cores(source, product):
-    """K2's forward, K5 and K3's dq and dpose run every product on the
-    tensor cores (mma.sync, the three-pass TF32 split of attn_tiles.cuh for
+    """K2's forward, K5 and K3's forward, dq and dpose run every product on
+    the tensor cores (mma.sync, the three-pass TF32 split of attn_tiles.cuh for
     float32) and stage their operands with its cp.async ring: a later edit
     that goes back to the CUDA-core loops (fmaf over shared memory) fails
     here. "file:kernel" holds that kernel's body alone (K3's dk/dv, in the
@@ -204,6 +209,20 @@ def test_kernel_sources_use_the_tensor_cores(source, product):
     assert "stage_rows_async" in text or "stage_window_async" in text or \
         "cp_async_16" in text
     assert "fmaf(" not in text
+
+
+def test_ctc_score_kernel_scans_over_chunks():
+    """csrc/ctc_score.cu solves the recursions as a chunked scan over T (32
+    chunks a block, the maps scanned with warp shuffles) and reads the
+    parent's columns in place: a later edit that goes back to one thread
+    walking a lane through T fails here."""
+    text = (build.CSRC / "ctc_score.cu").read_text()
+    body = _kernel_body(text, "ctc_score_kernel")
+    assert re.search(r"constexpr int kChunks = 32;", text)
+    assert "__shfl_up_sync" in text and "m.after(e)" in body
+    assert "then_frame" in body and "__syncthreads()" in body
+    assert "g.L / g.P" in body
+    assert re.search(r"int T, int L, int P,", text)
 
 
 @pytest.mark.cuda
@@ -228,12 +247,33 @@ def test_fused_logmel_kernel_matches_plain(cuda_device, with_mel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,Hp,causal", [(233, 1, False), (233, 4, True),
-                                         (700, 4, True)])
-def test_rel_attention_kernel_matches_plain(cuda_device, T, Hp, causal):
-    """csrc/rel_attention.cu == the plain version: ragged T, several key
-    tiles, suffix k_len including 1 and 0 (a fully masked row gives 0)."""
-    rel, k_len = _rel_args(8, 4, T, 64, Hp)
+@pytest.mark.parametrize("B,T,D,Hp,causal,lens", [
+    (8, 233, 64, 1, False, "path"),  # the flagship decode batch
+    (32, 231, 64, 1, False, "path"),  # the flagship step
+    (8, 233, 64, 1, False, "ragged"),
+    (8, 233, 64, 4, True, "ragged"),
+    (4, 65, 64, 4, True, "ragged"),
+    (4, 129, 64, 4, True, "ragged"),
+    (8, 700, 64, 4, True, "ragged"),
+    (4, 77, 16, 2, False, "ragged"),
+    (4, 129, 32, 1, True, "ragged"),
+    (4, 640, 64, 1, True, "corner"),
+    (4, 640, 64, 4, True, "corner"),
+])
+def test_rel_attention_kernel_matches_plain(cuda_device, B, T, D, Hp, causal,
+                                            lens):
+    """csrc/rel_attention.cu == the plain version, its lse == the plain
+    log-sum-exp (1e30 where a row sees no key), and two launches give the
+    same bits: the decode's and the step's shapes, ragged T over several
+    64-row blocks and 32-key tiles, per-head tables, causal, suffix k_len
+    including 1 and 0 (a fully masked row gives 0), and the one-key
+    corner, whose error is printed."""
+    H = 4 if D == 64 else 2
+    rel, k_len = _rel_args(B, H, T, D, Hp)  # ragged: T, T - 77, 1, 0, ...
+    if lens == "path":  # 200 of T valid
+        k_len = torch.full((B,), 200, dtype=torch.int32)
+    elif lens == "corner":  # one key under a long causal mask
+        k_len = torch.tensor([1, 1, T, 2], dtype=torch.int32)
     rel = [t.to(cuda_device) for t in rel]
     k_len = k_len.to(cuda_device)
     build.reset_launches()
@@ -241,7 +281,20 @@ def test_rel_attention_kernel_matches_plain(cuda_device, T, Hp, causal):
     assert build.LAUNCHES["flash_attention_rel"] == 1
     want = rel_mha_reference(*rel, k_len=k_len, causal=causal)
     torch.testing.assert_close(got, want, atol=ATT_ATOL, rtol=0)
-    assert torch.count_nonzero(got[3]) == 0
+    out, lse = launch_forward(*rel, k_len, causal, True)
+    assert torch.equal(out, got)
+    lse_want = rel_lse_reference(*rel[:3], rel[4], k_len=k_len,
+                                 causal=causal)
+    torch.testing.assert_close(lse, lse_want, atol=ATT_ATOL, rtol=0)
+    again = launch_forward(*rel, k_len, causal, True)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    for b, n in enumerate(k_len.tolist()):
+        if n == 0:
+            assert torch.count_nonzero(got[b]) == 0
+    if lens == "corner":
+        print(f"one-key corner (k_len 1, causal, T = {T}, Hp = {Hp}): max "
+              f"abs err out {(got - want).abs().max().item():.3e}, lse "
+              f"{(lse - lse_want).abs().max().item():.3e}")
 
 
 @pytest.mark.cuda
@@ -258,16 +311,28 @@ def test_rel_attention_kernel_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,G", [(768, 8), (6144, 64)])
-def test_ctc_score_step_kernel_matches_plain(cuda_device, L, G):
-    """csrc/ctc_score.cu == the plain version at the encoder length of an
-    8 s utterance, T = 233, both is_first."""
-    ops = [t.to(cuda_device) for t in _ctc_args(233, L, G)]
+@pytest.mark.parametrize("T", [1, 2, 31, 32, 33, 233, 710])
+@pytest.mark.parametrize("L", [384, 768, 6144])
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("shared_blank", [False, True])
+def test_ctc_score_step_kernel_matches_plain(cuda_device, T, L, compact,
+                                             shared_blank):
+    """csrc/ctc_score.cu == the plain version, both is_first, at the decode
+    lanes of 4, 8 and 64 utterances x beam 8 x ctc beam 12: the parent's
+    gammas and scores expanded (P = L) or read in place (P = L / 12), one
+    blank column a batch (G = 1) or an utterance (G = N), T below, at and
+    above the 32 chunks of a block and at the two paths' encoder lengths;
+    two launches give the same bits."""
+    N = L // 96
+    ops = [t.to(cuda_device) for t in _ctc_args(
+        T, L, 1 if shared_blank else N, L // 12 if compact else L)]
     for is_first in (True, False):
         build.reset_launches()
         got = ctc_score_step(*ops, is_first)
         assert build.LAUNCHES["ctc_score_step"] == 1
         _assert_ctc_close(got, ctc_score_step_plain(*ops, is_first))
+        for g, a in zip(got, ctc_score_step(*ops, is_first)):
+            assert torch.equal(g, a)
 
 
 @pytest.mark.cuda
