@@ -8,8 +8,9 @@ decode and training shapes and at B = 16, T = 1024 beside the library's
 `scaled_dot_product_attention`; K5 (`aps_tcn_block_fused`) at the
 separation batch's shape (32 x 3905 frames, B = 256, H = 512) at every
 dilation of a repeat, in float32 and bfloat16; K3's backward kernels dq
-(`aps_rel_attention_dq`) and dpose (`aps_rel_attention_dpose`, with its
-reduction) at the flagship training step's shape (B = 32, H = 4, T = 231,
+(`aps_rel_attention_dq`), dk/dv (`aps_rel_attention_dkv`) and dpose
+(`aps_rel_attention_dpose`, with its reduction) at the flagship training
+step's shape (B = 32, H = 4, T = 231,
 200 valid frames each, one shared table) and at T = 700 with per-head
 tables, a causal mask and ragged k_len; K3's forward
 (`aps_rel_attention_fwd`, with lse) at the flagship decode's shape (B = 8,
@@ -17,7 +18,12 @@ T = 233, 200 valid, q_c = q_p as the encoder passes them) and at the
 step's; K4 (`aps_ctc_score_step`) at the flagship decode's lanes (T = 233,
 L = 8 x 8 x 12) and the long-form decode's (T = 710, L = 4 x 8 x 12). A K4
 source whose entry takes P gets the parent beams' gammas unexpanded (P = L
-/ 12, as the search step passes them); an older one gets them expanded.
+/ 12, as the search step passes them); an older one gets them expanded. K1
+(`aps_fused_logmel`) with the flagship's front end at the four batches the
+paths give it (decode 8 x 149003 samples, step 32 x 147884, long-form
+decode 4 x 454718, long-form step 8 x 441576): a source whose entry takes
+the twiddle table (the FFT) gets it, the stages' radices and the mel
+bands, an older one the dense DFT's cos/sin tables and the mel matrix.
 The versions run in the order given, so pass them as parent, change,
 change, parent. A version is any file: the parent's source from `git
 archive`, or an edited copy (one constant changed, or K4's serial walk).
@@ -30,7 +36,8 @@ Each result is also checked against the plain version.
         aps_tpu_torch/csrc/rel_attention_bwd.cu \\
         --rel-fwd parent/rel_attention.cu \\
         aps_tpu_torch/csrc/rel_attention.cu \\
-        --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu
+        --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu \\
+        --fbank parent/fbank.cu aps_tpu_torch/csrc/fbank.cu
 """
 
 import argparse
@@ -42,6 +49,7 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from aps_tpu_torch.ops import build
@@ -72,6 +80,10 @@ REL_FWD_SHAPES = ((8, 233, 200), (32, 231, 200))
 # K4: (T, utterances) of the flagship and long-form decode batches; beam 8,
 # ctc beam 12
 CTC_SHAPES = ((233, 8), (710, 4))
+# K1: (path, N, S) of the front end's batches
+FBANK_SHAPES = (("decode", 8, 149003), ("training", 32, 147884),
+                ("long-form decode", 4, 454718),
+                ("long-form training", 8, 441576))
 QUEUED = 10
 
 
@@ -184,7 +196,8 @@ def compare_tcn(sources, dev, gen):
 
 
 def compare_rel_bwd(sources, dev, gen):
-    """dq and dpose of each version of csrc/rel_attention_bwd.cu. A version
+    """dq, dk/dv and dpose of each version of csrc/rel_attention_bwd.cu
+    (dk/dv and dpose read the delta that dq wrote). A version
     whose dq takes the forward's output forms delta itself (and writes
     it); an older one reads it: both are given the same delta buffer,
     filled with sum(do * out) before every call."""
@@ -197,6 +210,7 @@ def compare_rel_bwd(sources, dev, gen):
         writes_delta.append(new)
         lib.aps_rel_attention_dq.argtypes = \
             _DQ_ARGTYPES if new else _BWD_ARGTYPES
+        lib.aps_rel_attention_dkv.argtypes = _BWD_ARGTYPES
         lib.aps_rel_attention_dpose.argtypes = _BWD_ARGTYPES
     stream = torch.cuda.current_stream(dev).cuda_stream
     H, D = 4, 64
@@ -211,6 +225,7 @@ def compare_rel_bwd(sources, dev, gen):
         want = rel_mha_backward_reference(q_c, q_p, k, v, pose, do,
                                           k_len=klen, causal=causal)
         dq_c, dq_p = torch.empty_like(q_c), torch.empty_like(q_c)
+        dk, dv = torch.empty_like(q_c), torch.empty_like(q_c)
         partial = torch.empty((B * H, 2 * T - 1, D), device=dev)
         dpose = torch.empty_like(pose)
         head = [q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -224,6 +239,8 @@ def compare_rel_bwd(sources, dev, gen):
             runs = {
                 "dq": lambda: lib.aps_rel_attention_dq(  # noqa: E731
                     *head, dq_c.data_ptr(), dq_p.data_ptr(), *tail, stream),
+                "dkv": lambda: lib.aps_rel_attention_dkv(  # noqa: E731
+                    *head, dk.data_ptr(), dv.data_ptr(), stream),
                 "dpose": lambda: lib.aps_rel_attention_dpose(  # noqa: E731
                     *head, partial.data_ptr(), dpose.data_ptr(), stream)}
             line = []
@@ -232,8 +249,10 @@ def compare_rel_bwd(sources, dev, gen):
                 if run() != 0:
                     raise RuntimeError(f"{src}: {kernel} launch failed")
                 torch.cuda.synchronize()
-                got = (dq_c, dq_p) if kernel == "dq" else (dpose,)
-                ref = want[:2] if kernel == "dq" else want[4:]
+                got = {"dq": (dq_c, dq_p), "dkv": (dk, dv),
+                       "dpose": (dpose,)}[kernel]
+                ref = {"dq": want[:2], "dkv": want[2:4],
+                       "dpose": want[4:]}[kernel]
                 err = max((x - y).abs().max().item()
                           for x, y in zip(got, ref))
                 line.append(f"{kernel} {time_ms(run):.4f} ms (queued "
@@ -330,10 +349,57 @@ def compare_ctc(sources, dev, gen):
                   f"{err:.3e}", flush=True)
 
 
+def compare_fbank(sources, dev, gen):
+    """K1 of each version of csrc/fbank.cu with the flagship's front end at
+    the four path batches, each with the operands its entry declares."""
+    from aps_tpu_torch.const import EPSILON
+    from aps_tpu_torch.flagship import flagship_conf
+    from aps_tpu_torch.ops import fbank
+    from aps_tpu_torch.transform.asr import AsrTransform
+    libs = compile_all(sources, Path(tempfile.mkdtemp()))
+    ffts = []  # whether the source's entry takes the FFT's operands
+    for src, lib in zip(sources, libs):
+        ffts.append("const double* twiddle" in Path(src).read_text())
+        lib.aps_fused_logmel.argtypes = fbank._ARGTYPES if ffts[-1] else \
+            [build.P, build.I, build.I, build.I, build.P, build.I, build.I,
+             build.P, build.P, build.I, build.P, build.I, build.F, build.I,
+             build.F, build.F, build.F, build.P, build.P]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tf = AsrTransform(**flagship_conf()["asr_transform"])
+    n, hop = tf.fft_size, tf.frame_hop
+    W, F, M = len(tf.window), n // 2 + 1, tf.mel.shape[1]
+    ops = tf.fbank_operands(dev)
+    cos, sin = fbank._dft_tables(n, W, dev)
+    mel = torch.from_numpy(np.ascontiguousarray(tf.mel)).to(dev)
+    for path, N, S in FBANK_SHAPES:
+        wav = (0.1 * torch.randn((N, S), generator=gen)).to(dev)
+        T = (S - W) // hop + 1
+        want = fbank.fused_logmel_plain(wav, tf.window, n, hop, mel=tf.mel,
+                                        log_eps=EPSILON)
+        out = torch.empty((N, T, M), device=dev)
+        tail = [0.97, 0, 0.0, 0.0, EPSILON, out.data_ptr(), stream]
+        for src, lib, fft in zip(sources, libs, ffts):
+            tables = [n, ops.twiddle.data_ptr(), ops.radices,
+                      ops.mel_vals.data_ptr(), ops.mel_bands.data_ptr(),
+                      M] if fft else [cos.data_ptr(), sin.data_ptr(), F,
+                                      mel.data_ptr(), M]
+            run = lambda: lib.aps_fused_logmel(  # noqa: E731
+                wav.data_ptr(), N, S, T, ops.dev_window.data_ptr(), W, hop,
+                *tables, *tail)
+            if run() != 0:
+                raise RuntimeError(f"{src}: launch failed")
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            print(f"K1 {path} N={N} S={S} T={T} fft={n}: {src}: "
+                  f"{time_ms(run):.4f} ms (queued "
+                  f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
+                  f"{err:.3e}", flush=True)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time versions of the K2 forward, K5, K3 backward, K3 "
-        "forward and K4 sources on the card, in the order given",
+        "forward, K4 and K1 sources on the card, in the order given",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--attention", nargs="*", default=[],
                         help="versions of csrc/attention.cu")
@@ -345,6 +411,8 @@ def main(argv=None) -> None:
                         help="versions of csrc/rel_attention.cu")
     parser.add_argument("--ctc", nargs="*", default=[],
                         help="versions of csrc/ctc_score.cu")
+    parser.add_argument("--fbank", nargs="*", default=[],
+                        help="versions of csrc/fbank.cu")
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -367,6 +435,8 @@ def main(argv=None) -> None:
         compare_rel_fwd(args.rel_fwd, dev, gen)
     if args.ctc:
         compare_ctc(args.ctc, dev, gen)
+    if args.fbank:
+        compare_fbank(args.fbank, dev, gen)
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@
 // the same bits):
 //
 //   dq:    one block per (64 query rows, b*h), loop over key tiles;
-//   dk/dv: one block per (32 key rows, b*h), loop over query tiles;
+//   dk/dv: one block per (64 key rows, b*h), loop over query tiles;
 //   dpose: one block per (64 table rows r, b*h), loop over query tiles. Row
 //          r of the table gathers one diagonal of ds, so for a tile of
 //          diagonals the pose rows are fixed and query tile l0 meets the
@@ -42,17 +42,18 @@
 //          read once, some 10 us at 3.35 TB/s.
 //
 // What bounds them: per head dq does 5 products of T * T * D multiply-adds
-// (the scores' two, dp, ds.k, ds.pose), dpose 4 and dk/dv 5, on a few T D
-// floats: arithmetic, not device memory. dk/dv still runs them on the CUDA
-// cores from shared memory (one thread per score, two shared loads per
-// multiply-add, 16 x 32 tiles restaged between barriers), at a tenth of the
-// float32 rate. dq and dpose run every product on the tensor cores with
-// the pieces of attn_tiles.cuh that K2's kernels are built from: mma.sync
-// m16n8k8 on TF32 operands split in three (head and remainder of either
-// operand, float32 accumulators: float32's accuracy), operands streamed
-// through a cp.async ring (zero fill past the ends of the keys and of the
-// table, one barrier a tile), score tiles kept in registers and turned
-// into p and ds in place, ds fed back as an A operand (acc_as_a).
+// (the scores' two, dp, ds.k, ds.pose), dpose 4 and dk/dv 5 (the scores'
+// two, dp, p.do, ds.q_c), on a few T D floats: arithmetic, not device
+// memory. On the CUDA cores from shared memory (one thread per score, two
+// shared loads per multiply-add, tiles restaged between barriers) they ran
+// at a tenth of the float32 rate. All three now run every product on the
+// tensor cores with the pieces of attn_tiles.cuh that K2's kernels are
+// built from: mma.sync m16n8k8 on TF32 operands split in three (head and
+// remainder of either operand, float32 accumulators: float32's accuracy),
+// operands streamed through a cp.async ring (zero fill past the ends of the
+// rows and of the table, one barrier a tile), score tiles kept in registers
+// and turned into p and ds in place, p and ds fed back as A operands
+// (acc_as_a).
 //
 // The relative term is what the scaled-dot-product kernels do not have.
 // Entry (l, s) reads pose row s - l + T - 1, which depends on the row of
@@ -70,6 +71,21 @@
 //     dq_p it writes ds un-skewed into the same tile, dg[li][sj - li + 15]
 //     = ds[li][sj], zeros elsewhere, and does one product, dq_p += dg .
 //     band. Band rows outside [0, 2T - 1) are staged as zeros.
+//   dk/dv: K2's dk/dv (attention_bwd.cu) with this relative term. A warp
+//     owns 16 key rows s = sw + sj and keeps dk and dv (16 x D each) in
+//     registers; a query tile of kDkvQ rows l = l0 + li streams through the
+//     ring with q_c, q_p, do, lse, delta and the kDkvKeys + kDkvQ pose rows
+//     the block's keys meet. Each warp computes the transposed tiles k .
+//     q_c^T and v . do^T, turns them into p^T and ds^T in place and feeds
+//     them back: dv += p^T . do, dk += ds^T . q_c. The relative term of
+//     entry (sj, li) reads pose row sw + sj - l0 - li + T - 1, which
+//     depends on both the A row and the B column; the block computes G =
+//     q_p . band^T (kDkvQ x (kDkvKeys + kDkvQ), 1.25 times the entries
+//     needed) once a tile, each warp a share of the 8-column fragments,
+//     into a shared tile, and each warp reads its 16 x kDkvQ entries back
+//     along the diagonal: one barrier more a tile. (A skew tile a warp, as
+//     dq's, computes 32 band rows x 16 queries for each 16-query sub-block:
+//     twice the entries, no second barrier.)
 //   dpose: a warp owns 16 table rows r = rw + rj; for a query tile of 16
 //     rows l = l0 + li the relative term is a plain product, pose_w .
 //     q_p^T, with the warp's pose fragments split once and held in
@@ -96,6 +112,12 @@
 // bytes from shared memory costs more than the split's integer
 // instructions saves. dpose 0.192 ms with 64 table rows a block against
 // 0.212 with 32 (two warps, the window 1.5 times the entries needed).
+// dk/dv: K and V of the block's 64 keys (35 KB), two stages of 16 query
+// rows of q_c, q_p and do with their 80 band rows and row statistics (70
+// KB), the shared G (6 KB): 110336 bytes and 147 registers, two blocks an
+// SM; 512 blocks at the flagship step. Measured there: 0.158 ms against
+// the CUDA-core loop's 0.50, and 0.228 ms with a skew tile a warp instead
+// of the shared G (117 KB: one block an SM).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,13 +129,8 @@
 
 namespace {
 
-// dk/dv: 16 x 32 tiles on the CUDA cores
-constexpr int kBQ = 16;   // query rows of a tile
-constexpr int kBK = 32;   // key rows of a tile
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKRowsPerWarp = kBK / kWarps;
-constexpr int kBand = kBQ + kBK - 1;
 constexpr float kLseDead = attn_tiles::kLseDead;
 
 // dq: a block of kWarps warps owns kDqRows query rows, 16 a warp, and
@@ -140,32 +157,19 @@ constexpr int kPoseFrags = kPoseKeys / 8;
 constexpr int kPoseFragsPerWarp = (kPoseFrags + kPoseWarps - 1) / kPoseWarps;
 constexpr int kPoseLd = attn_tiles::skew_ld(kPoseKeys);
 
-// rows [first, first + rows) of a (limit x D) matrix -> dst, zeros outside
-template <int D>
-__device__ __forceinline__ void stage_rows(float (*dst)[D + 1],
-                                           const float* __restrict__ src,
-                                           int first, int rows, int limit,
-                                           int tid) {
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int g = first + r;
-    dst[r][d] = (g >= 0 && g < limit)
-                    ? src[static_cast<size_t>(g) * D + d]
-                    : 0.f;
-  }
-}
-
-__device__ __forceinline__ void stage_row_stats(float* slse, float* sdelta,
-                                                const float* __restrict__ lse,
-                                                const float* __restrict__ delta,
-                                                int l0, int T, int tid) {
-  if (tid < kBQ) {
-    const bool ok = l0 + tid < T;
-    slse[tid] = ok ? lse[l0 + tid] : kLseDead;
-    sdelta[tid] = ok ? delta[l0 + tid] : 0.f;
-  }
-}
+// dk/dv: a block of kWarps warps owns kDkvKeys key rows, 16 a warp, and
+// streams kDkvQ query rows a tile with the kDkvBand pose rows the block's
+// keys meet (one spare). The tile's relative term G = q_p . band^T, kDkvQ
+// x kDkvBand, is computed once by the block, warp w taking 8-column
+// fragments w, w + kWarps, ..., into a shared tile of kDkvGLd floats a row.
+constexpr int kDkvKeys = 16 * kWarps;
+constexpr int kDkvQ = 16;
+constexpr int kDkvBand = kDkvKeys + kDkvQ;
+constexpr int kDkvFrags = kDkvBand / 8;
+constexpr int kDkvGLd = attn_tiles::skew_ld(kDkvBand);
+static_assert(kDkvQ % 8 == 0 && 2 * kDkvQ <= kThreads,
+              "query tiles are whole 8-row fragments; one thread stages one "
+              "row statistic");
 
 struct Args {
   const float *q_c, *q_p, *k, *v, *pose;
@@ -192,10 +196,26 @@ constexpr int dpose_smem_floats() {
          2 * kPoseChunks * 16 * attn_tiles::tile_ld(D) + 2 * 16 * kPoseLd;
 }
 
+// the dk/dv kernel's: the owned K and V; two stages of q_c, q_p, do, the
+// band and the row statistics (lse, delta); the tile's relative term G
+template <int D>
+__host__ __device__ constexpr int dkv_stage_floats() {
+  return (3 * kDkvQ + kDkvBand) * attn_tiles::tile_ld(D) + 2 * kDkvQ;
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 2 * kDkvKeys * attn_tiles::tile_ld(D) + 2 * dkv_stage_floats<D>() +
+         kDkvQ * kDkvGLd;
+}
+
 constexpr int kMaxSmemBytes = 232448;  // a block's limit on sm_90
 static_assert(dq_smem_floats<64>() * 4 <= kMaxSmemBytes &&
                   dpose_smem_floats<64>() * 4 <= kMaxSmemBytes,
               "a block fits in the SM's shared memory");
+// two dk/dv blocks share an SM (233472 bytes, 1 KB of it reserved a block)
+static_assert(2 * (dkv_smem_floats<64>() * 4 + 1024) <= 233472,
+              "two dk/dv blocks fit in an SM's shared memory");
 
 // dq_c and dq_p of the block's query rows own0 .. own0 + kDqRows; also
 // delta = sum(do * out, -1) of those rows, written to delta_out
@@ -472,114 +492,232 @@ rel_attn_dq_kernel(Args a, const float* __restrict__ out,
   }
 }
 
+// dk and dv of the block's key rows own0 .. own0 + kDkvKeys (zeros for keys
+// past k_len)
 template <int D>
-__global__ void rel_attn_dkv_kernel(
-    const float* __restrict__ q_c, const float* __restrict__ q_p,
-    const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ pose, const int* __restrict__ k_len,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, int H, int Hp, int T, float scale,
-    int causal, float* __restrict__ dk, float* __restrict__ dv) {
-  constexpr int DP = D + 1;
-  constexpr int DPL = (D + 31) / 32;
-  __shared__ float sqc[kBQ][DP];
-  __shared__ float sqp[kBQ][DP];
-  __shared__ float sdo[kBQ][DP];
-  __shared__ float sk[kBK][DP];
-  __shared__ float sv[kBK][DP];
-  __shared__ float sband[kBand][DP];
-  __shared__ float sp[kBQ][kBK + 1];
-  __shared__ float sds[kBQ][kBK + 1];
-  __shared__ float slse[kBQ];
-  __shared__ float sdelta[kBQ];
+__global__ void __launch_bounds__(kThreads, 2)
+rel_attn_dkv_kernel(Args a, float* __restrict__ dk, float* __restrict__ dv) {
+  using namespace attn_tiles;
+  constexpr int LD = tile_ld(D);
+  constexpr int NQ = kDkvQ / 8;  // 8-wide fragments across a query tile
+  constexpr int ND = D / 8;      // ... across the head dim
+  constexpr int kStage = dkv_stage_floats<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;
+  float* sv = sk + kDkvKeys * LD;
+  float* sring = sv + kDkvKeys * LD;  // [stage][q_c, q_p, do, band, stats]
+  float* sg = sring + 2 * kStage;     // [kDkvQ][kDkvGLd]: G of the tile
 
+  const int T = a.T;
+  const int P = 2 * T - 1;
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int hp = (Hp == 1) ? 0 : bh % H;
-  const int s0 = blockIdx.x * kBK;
+  const int b = bh / a.H;
+  const int hp = (a.Hp == 1) ? 0 : bh % a.H;
+  const int own0 = blockIdx.x * kDkvKeys;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = warp * 16;
+  const int sw = own0 + wrow;  // the warp's first key row
   const size_t head = static_cast<size_t>(bh) * T * D;
-  const float* pose_h = pose + static_cast<size_t>(hp) * (2 * T - 1) * D;
-  const int klen = k_len[b];
+  const size_t shead = static_cast<size_t>(bh) * T;
+  const float* pose_h = a.pose + static_cast<size_t>(hp) * P * D;
+  const int klen = min(T, a.k_len[b]);
 
-  float acc_k[kKRowsPerWarp][DPL], acc_v[kKRowsPerWarp][DPL];
+  // the query tiles the block's keys can see: none past k_len (their
+  // gradients are exactly 0), and under causal only rows l >= s see key s,
+  // so the first tile is the one that holds row own0
+  const int beg = a.causal ? own0 : 0;
+  const int end = own0 < klen ? T : 0;
+  const int nt = end > beg ? (end - beg + kDkvQ - 1) / kDkvQ : 0;
+
+  // query tile l0 meets pose rows own0 - l0 - kDkvQ + T .. (band row i):
+  // entry (sw + sj, l0 + li) is band row wrow + sj - li + kDkvQ - 1
+  auto stage_stream = [&](int tile, int st) {
+    const int l0 = beg + tile * kDkvQ;
+    float* dst = sring + st * kStage;
+    stage_window_async<D, kDkvQ, kThreads>(dst, a.q_c + head, l0, T, tid);
+    stage_window_async<D, kDkvQ, kThreads>(dst + kDkvQ * LD, a.q_p + head,
+                                           l0, T, tid);
+    stage_window_async<D, kDkvQ, kThreads>(dst + 2 * kDkvQ * LD,
+                                           a.dout + head, l0, T, tid);
+    stage_window_async<D, kDkvBand, kThreads>(
+        dst + 3 * kDkvQ * LD, pose_h, own0 - l0 - kDkvQ + T, P, tid);
+    if (tid < 2 * kDkvQ) {
+      const int which = tid / kDkvQ;  // 0 lse, 1 delta
+      const int l = l0 + tid - which * kDkvQ;
+      const bool ok = l < T;
+      cp_async_4(dst + (3 * kDkvQ + kDkvBand) * LD + tid,
+                 (which ? a.delta : a.lse) + shead + (ok ? l : 0), ok);
+    }
+  };
+
+  stage_window_async<D, kDkvKeys, kThreads>(sk, a.k + head, own0, T, tid);
+  stage_window_async<D, kDkvKeys, kThreads>(sv, a.v + head, own0, T, tid);
+  if (nt > 0) stage_stream(0, 0);
+  cp_async_commit();
+
+  float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
-  for (int r = 0; r < kKRowsPerWarp; ++r) {
+  for (int n = 0; n < ND; ++n) {
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      acc_k[r][i] = 0.f;
-      acc_v[r][i] = 0.f;
+    for (int c = 0; c < 4; ++c) {
+      acc_k[n][c] = 0.f;
+      acc_v[n][c] = 0.f;
     }
   }
 
-  // a key tile past k_len has no valid key: its gradients are exactly 0
-  if (s0 < min(T, klen)) {
-    stage_rows<D>(sk, k + head, s0, kBK, T, tid);
-    stage_rows<D>(sv, v + head, s0, kBK, T, tid);
-    // under causal only rows l >= s see key s
-    const int lbeg = causal ? (s0 / kBQ) * kBQ : 0;
-    for (int l0 = lbeg; l0 < T; l0 += kBQ) {
-      __syncthreads();  // the previous tile's readers are done
-      stage_rows<D>(sqc, q_c + head, l0, kBQ, T, tid);
-      stage_rows<D>(sqp, q_p + head, l0, kBQ, T, tid);
-      stage_rows<D>(sdo, dout + head, l0, kBQ, T, tid);
-      stage_row_stats(slse, sdelta, lse + static_cast<size_t>(bh) * T,
-                      delta + static_cast<size_t>(bh) * T, l0, T, tid);
-      stage_rows<D>(sband, pose_h, s0 - l0 - kBQ + T, kBand, 2 * T - 1, tid);
-      __syncthreads();
-
-      for (int e = tid; e < kBQ * kBK; e += kThreads) {
-        const int li = e / kBK;
-        const int sj = e - li * kBK;
-        const float* band = sband[sj - li + kBQ - 1];
-        float a = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          a = fmaf(sqc[li][d], sk[sj][d], a);
-          a = fmaf(sqp[li][d], band[d], a);
-          dp = fmaf(sdo[li][d], sv[sj][d], dp);
-        }
-        const int l = l0 + li;
-        const int s = s0 + sj;
-        const bool ok = l < T && s < T && s < klen && (!causal || s <= l);
-        const float p = ok ? expf(a * scale - slse[li]) : 0.f;
-        sp[li][sj] = p;
-        sds[li][sj] = p * (dp - sdelta[li]) * scale;
-      }
-      __syncthreads();
-
+  // this warp's share of G: fragments warp, warp + kWarps, ... (the first
+  // kDkvFrags % kWarps warps take one more)
+  auto rel_share = [&](const float* tqp, const float* tband, auto count) {
+    constexpr int NW = decltype(count)::value;
+    float gq[NW][4];
 #pragma unroll
-      for (int r = 0; r < kKRowsPerWarp; ++r) {
-        const int sj = warp * kKRowsPerWarp + r;
-        for (int li = 0; li < kBQ; ++li) {
-          const float p = sp[li][sj];
-          const float ds = sds[li][sj];
+    for (int i = 0; i < NW; ++i) {
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) {
-              acc_v[r][i] = fmaf(p, sdo[li][d], acc_v[r][i]);
-              acc_k[r][i] = fmaf(ds, sqc[li][d], acc_k[r][i]);
-            }
-          }
+      for (int c = 0; c < 4; ++c) gq[i][c] = 0.f;
+    }
+#pragma unroll 2
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      FragA ap;
+      FragB bb[NW];
+      load_a<LD>(ap, tqp, 0, k0, g, t);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        load_b_rows_n<LD>(bb[i], tband, 8 * (warp + kWarps * i), k0, g, t);
+      }
+      mma_f32<NW>(gq, ap, bb);
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(sg + (g + 8 * h) * kDkvGLd +
+                                   8 * (warp + kWarps * i) + 2 * t) =
+            make_float2(gq[i][2 * h], gq[i][2 * h + 1]);
+      }
+    }
+  };
+
+  for (int tile = 0; tile < nt; ++tile) {
+    // this tile has landed, and every warp is done with the previous one
+    // (its G included)
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile + 1 < nt) {
+      stage_stream(tile + 1, (tile + 1) & 1);
+      cp_async_commit();
+    }
+    const float* tqc = sring + (tile & 1) * kStage;
+    const float* tqp = tqc + kDkvQ * LD;
+    const float* tdo = tqp + kDkvQ * LD;
+    const float* tband = tdo + kDkvQ * LD;
+    const float* tstat = tband + kDkvBand * LD;  // lse [kDkvQ], delta
+    const int l0 = beg + tile * kDkvQ;
+    // nothing visible to the warp: keys past k_len, or (causal) keys after
+    // the tile's last row
+    const bool live = sw < klen && !(a.causal && sw > l0 + kDkvQ - 1);
+
+    if (warp < kDkvFrags % kWarps) {
+      rel_share(tqp, tband,
+                std::integral_constant<int, kDkvFrags / kWarps + 1>{});
+    } else {
+      rel_share(tqp, tband, std::integral_constant<int, kDkvFrags / kWarps>{});
+    }
+
+    // s^T = k . q_c^T and dp^T = v . do^T, 16 keys x kDkvQ queries a warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = 0.f;
+        dp[j][c] = 0.f;
+      }
+    }
+    if (live) {
+#pragma unroll 2
+      for (int k0 = 0; k0 < D; k0 += 8) {
+        FragA ak, av;
+        FragB bq[NQ], bd[NQ];
+        load_a<LD>(ak, sk, wrow, k0, g, t);
+        load_a<LD>(av, sv, wrow, k0, g, t);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          load_b_rows_n<LD>(bq[j], tqc, 8 * j, k0, g, t);
+          load_b_rows_n<LD>(bd[j], tdo, 8 * j, k0, g, t);
+        }
+        mma_f32<NQ>(s, ak, bq);
+        mma_f32<NQ>(dp, av, bd);
+      }
+    }
+    __syncthreads();  // G is in place
+    if (!live) continue;
+
+    // in place: s^T plus G read along the diagonal -> p^T, dp^T -> ds^T =
+    // p^T * (dp^T - delta) * scale. A warp whose 16 x kDkvQ tile lies
+    // wholly inside the mask skips the tests.
+    const bool inside = l0 + kDkvQ - 1 < T && sw + 15 < klen &&
+                        (!a.causal || sw + 15 <= l0);
+    auto soften = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int sj = g + 8 * (c / 2);
+          const int li = 8 * j + 2 * t + (c & 1);
+          const float x =
+              (s[j][c] + sg[li * kDkvGLd + wrow + sj - li + kDkvQ - 1]) *
+              a.scale;
+          bool ok = true;
+          if (kMasked) ok = visible(l0 + li, sw + sj, T, klen, a.causal);
+          const float p = ok ? __expf(x - tstat[li]) : 0.f;
+          s[j][c] = p;
+          dp[j][c] = p * (dp[j][c] - tstat[kDkvQ + li]) * a.scale;
         }
       }
+    };
+    if (inside) {
+      soften(std::false_type{});
+    } else {
+      soften(std::true_type{});
+    }
+
+    // dv += p^T . do and dk += ds^T . q_c: the tile is the A operand, the
+    // tile's query rows are summed over
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      FragA ap, ads;
+      FragB bf[ND];
+      acc_as_a(ap, s[j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        load_b_rows_k<LD>(bf[n], tdo, 8 * j, 8 * n, g, t);
+      }
+      mma_f32<ND>(acc_v, ap, bf);
+      acc_as_a(ads, dp[j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        load_b_rows_k<LD>(bf[n], tqc, 8 * j, 8 * n, g, t);
+      }
+      mma_f32<ND>(acc_k, ads, bf);
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kKRowsPerWarp; ++r) {
-    const int s = s0 + warp * kKRowsPerWarp + r;
+  for (int h = 0; h < 2; ++h) {
+    const int s = sw + g + 8 * h;
     if (s >= T) continue;
+    const size_t at = head + static_cast<size_t>(s) * D + 2 * t;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) {
-        dk[head + static_cast<size_t>(s) * D + d] = acc_k[r][i];
-        dv[head + static_cast<size_t>(s) * D + d] = acc_v[r][i];
-      }
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
 }
@@ -840,22 +978,27 @@ __global__ void rel_attn_dpose_reduce_kernel(const float* __restrict__ partial,
   dpose[static_cast<size_t>(hp) * n + i] = sum;
 }
 
-// dq and dpose may take more than 48 KB of dynamic shared memory, and the
+// The three kernels take more than 48 KB of dynamic shared memory, and the
 // SM's split between shared memory and L1 goes to shared memory. A
 // function's attributes belong to a device: set once for each kernel and
 // device, at its first launch or query there (setting them twice does no
 // harm)
 constexpr int kMaxDevices = 64;
 
-template <int D, bool kPose>
+// the kernels, in the order of the occupancy entry's argument
+enum Kernel { kDq = 0, kDkv = 1, kDpose = 2 };
+
+template <int D, Kernel K>
 struct Tiles {
   static constexpr int kBytes =
-      (kPose ? dpose_smem_floats<D>() : dq_smem_floats<D>()) *
+      (K == kDq ? dq_smem_floats<D>()
+                : K == kDkv ? dkv_smem_floats<D>() : dpose_smem_floats<D>()) *
       static_cast<int>(sizeof(float));
-  static constexpr int kThreadsOf = kPose ? kPoseThreads : kThreads;
+  static constexpr int kThreadsOf = K == kDpose ? kPoseThreads : kThreads;
   static const void* kernel() {
-    return kPose ? reinterpret_cast<const void*>(rel_attn_dpose_kernel<D>)
-                 : reinterpret_cast<const void*>(rel_attn_dq_kernel<D>);
+    if (K == kDq) return reinterpret_cast<const void*>(rel_attn_dq_kernel<D>);
+    if (K == kDkv) return reinterpret_cast<const void*>(rel_attn_dkv_kernel<D>);
+    return reinterpret_cast<const void*>(rel_attn_dpose_kernel<D>);
   }
   static cudaError_t attributes() {
     static std::atomic<bool> done[kMaxDevices];
@@ -883,7 +1026,7 @@ struct Tiles {
 template <int D>
 cudaError_t launch_dq(const Args& a, const float* out, float* delta_out,
                       float* dq_c, float* dq_p, cudaStream_t s) {
-  using Dq = Tiles<D, false>;
+  using Dq = Tiles<D, kDq>;
   const cudaError_t rc = Dq::attributes();
   if (rc != cudaSuccess) return rc;
   dim3 grid((a.T + kDqRows - 1) / kDqRows, a.B * a.H);
@@ -894,17 +1037,18 @@ cudaError_t launch_dq(const Args& a, const float* out, float* delta_out,
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t s) {
-  dim3 grid((a.T + kBK - 1) / kBK, a.B * a.H);
-  rel_attn_dkv_kernel<D><<<grid, kThreads, 0, s>>>(
-      a.q_c, a.q_p, a.k, a.v, a.pose, a.k_len, a.dout, a.lse, a.delta, a.H,
-      a.Hp, a.T, a.scale, a.causal, dk, dv);
+  using Dkv = Tiles<D, kDkv>;
+  const cudaError_t rc = Dkv::attributes();
+  if (rc != cudaSuccess) return rc;
+  dim3 grid((a.T + kDkvKeys - 1) / kDkvKeys, a.B * a.H);
+  rel_attn_dkv_kernel<D><<<grid, kThreads, Dkv::kBytes, s>>>(a, dk, dv);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dpose(const Args& a, float* partial, float* dpose,
                          cudaStream_t s) {
-  using Pose = Tiles<D, true>;
+  using Pose = Tiles<D, kDpose>;
   cudaError_t rc = Pose::attributes();
   if (rc != cudaSuccess) return rc;
   const int P = 2 * a.T - 1;
@@ -921,27 +1065,30 @@ cudaError_t launch_dpose(const Args& a, float* partial, float* dpose,
 }
 
 // registers a thread, bytes of local memory a thread (spills), bytes of
-// dynamic shared memory and resident blocks an SM of the dq (pose 0) or
-// dpose (pose 1) kernel
-template <int D, bool kPose>
+// dynamic shared memory and resident blocks an SM of kernel K
+template <int D, Kernel K>
 cudaError_t tiles_occupancy(int* info) {
-  using K = Tiles<D, kPose>;
-  cudaError_t rc = K::attributes();
+  using Kn = Tiles<D, K>;
+  cudaError_t rc = Kn::attributes();
   if (rc != cudaSuccess) return rc;
   cudaFuncAttributes attr;
-  rc = cudaFuncGetAttributes(&attr, K::kernel());
+  rc = cudaFuncGetAttributes(&attr, Kn::kernel());
   if (rc != cudaSuccess) return rc;
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = K::kBytes;
+  info[2] = Kn::kBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      info + 3, K::kernel(), K::kThreadsOf, K::kBytes);
+      info + 3, Kn::kernel(), Kn::kThreadsOf, Kn::kBytes);
 }
 
 template <int D>
-cudaError_t occupancy(int pose, int* info) {
-  return pose ? tiles_occupancy<D, true>(info)
-              : tiles_occupancy<D, false>(info);
+cudaError_t occupancy(int kernel, int* info) {
+  switch (kernel) {
+    case kDq: return tiles_occupancy<D, kDq>(info);
+    case kDkv: return tiles_occupancy<D, kDkv>(info);
+    case kDpose: return tiles_occupancy<D, kDpose>(info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool bad_dims(int B, int H, int Hp, int T) {
@@ -1006,11 +1153,11 @@ extern "C" int aps_rel_attention_dpose(
                  static_cast<cudaStream_t>(stream));
 }
 
-// How the dq (pose 0) or dpose (pose 1) kernel sits on an SM at head dim D:
-// info = {registers a thread, bytes of local memory a thread, bytes of
-// dynamic shared memory a block, resident blocks an SM, key rows of a dq
-// tile or table rows of a dpose block}.
-extern "C" int aps_rel_attention_bwd_occupancy(int D, int pose, int* info) {
-  info[4] = pose ? kPoseRows : kDqKeys;
-  APS_DISPATCH_D(D, occupancy, pose, info);
+// How the dq (kernel 0), dk/dv (1) or dpose (2) kernel sits on an SM at
+// head dim D: info = {registers a thread, bytes of local memory a thread,
+// bytes of dynamic shared memory a block, resident blocks an SM, key rows of
+// a dq tile, query rows of a dk/dv tile or table rows of a dpose block}.
+extern "C" int aps_rel_attention_bwd_occupancy(int D, int kernel, int* info) {
+  info[4] = kernel == kDq ? kDqKeys : kernel == kDkv ? kDkvQ : kPoseRows;
+  APS_DISPATCH_D(D, occupancy, kernel, info);
 }

@@ -202,10 +202,11 @@ def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
 
 
 def occupancy(D: int, kernel: str):
-    """How kernel "fwd", "dq" or "dpose" sits on an SM of the current card
-    at head dim D: registers and bytes of local memory (spills) a thread,
-    bytes of dynamic shared memory a block, resident blocks an SM, and query
-    rows a forward block, key rows a dq tile or table rows a dpose block."""
+    """How kernel "fwd", "dq", "dkv" or "dpose" sits on an SM of the current
+    card at head dim D: registers and bytes of local memory (spills) a
+    thread, bytes of dynamic shared memory a block, resident blocks an SM,
+    and query rows a forward block, key rows a dq tile, query rows a dk/dv
+    tile or table rows a dpose block."""
     import ctypes
     info = (ctypes.c_int * 5)()
     if kernel == "fwd":
@@ -216,8 +217,8 @@ def occupancy(D: int, kernel: str):
         lib = build.load("rel_attention_bwd",
                          "aps_rel_attention_bwd_occupancy",
                          [build.I, build.I, build.P])
-        rc = lib.aps_rel_attention_bwd_occupancy(D, int(kernel == "dpose"),
-                                                 info)
+        rc = lib.aps_rel_attention_bwd_occupancy(
+            D, BACKWARD_KERNELS.index(kernel), info)
     build.check(lib, rc, f"flash_attention_rel {kernel} occupancy")
     rows = "query_rows" if kernel == "fwd" else "tile_rows"
     return dict(zip(_OCCUPANCY_KEYS + (rows,), info))

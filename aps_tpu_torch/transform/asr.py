@@ -18,7 +18,7 @@ from torch import nn
 
 from aps_tpu_torch.const import EPSILON
 from aps_tpu_torch.libs import ApsRegisters
-from aps_tpu_torch.ops.fbank import fused_logmel
+from aps_tpu_torch.ops import fbank
 from aps_tpu_torch.transform.utils import (fft_size_of, make_window,
                                            mel_filter, num_frames)
 
@@ -138,6 +138,7 @@ class FeatureTransform(nn.Module):
         self.steps = []
         self.cmvn = None
         self.feats_dim = 0
+        self._fbank_ops = {}  # device -> fbank.Operands, made at its first use
         toks = feats.split("-")
         i = 0
         while i < len(toks):
@@ -196,20 +197,27 @@ class FeatureTransform(nn.Module):
                         self.round_pow_of_two, self.stft_mode, self.center)
         return nf // self.subsampling_factor
 
+    def fbank_operands(self, device: torch.device) -> fbank.Operands:
+        """The window, the mel matrix and the kernel's tables on a device,
+        copied there at the first call for it."""
+        ops = self._fbank_ops.get(device)
+        if ops is None:
+            ops = self._fbank_ops[device] = fbank.operands(
+                self.window, self.fft_size, self.mel, self.stft_normalized,
+                device)
+        return ops
+
     def _fbank_log(self, wav: torch.Tensor) -> torch.Tensor:
         shape = wav.shape
         if wav.dim() > 2:
             wav = wav.reshape(-1, shape[-1])
-        out = fused_logmel(wav,
-                           self.window,
-                           self.fft_size,
-                           self.frame_hop,
-                           mel=self.mel,
-                           pre_emphasis=self.pre_emphasis,
-                           normalized=self.stft_normalized,
-                           use_power=self.use_power,
-                           log_lower_bound=self.log_lower_bound,
-                           log_eps=self.eps)
+        out = fbank.fused_logmel(wav,
+                                 self.fbank_operands(wav.device),
+                                 self.frame_hop,
+                                 pre_emphasis=self.pre_emphasis,
+                                 use_power=self.use_power,
+                                 log_lower_bound=self.log_lower_bound,
+                                 log_eps=self.eps)
         if len(shape) > 2:
             out = out.reshape(shape[:-1] + out.shape[-2:])
         return out

@@ -25,7 +25,10 @@
    once more with launches queued (the forward against the tensor cores'
    bound). The log-mel kernel is
    also held at the training batch (32 x the loader's padded length), whose
-   grid and frame count differ from the decode's. The three backward
+   grid and frame count differ from the decode's, and at the long-form
+   path's two batches; at each it runs twice for bit-equal results, and its
+   launch alone (operands on the card) and the whole wrapper are timed with
+   launches queued, apart. The three backward
    kernels of the rel-pose attention are held against the explicit plain
    backward and against autograd through the plain forward at the training
    step's shape (B = 32, T and k_len as the loader pads the batch) and at
@@ -35,10 +38,10 @@
    PyTorch's, and at the training shape and at T = 700 every backward
    kernel runs twice for bit-equal results. Each kernel's time stands
    beside its bound: the larger of its bytes over the card's memory rate
-   and its operations over the card's float32 rate. The forward, dq and
-   dpose run on the tensor cores, so their times with launches queued are
-   also held against the tensor cores' bound (TF32, each product split in
-   three); dk/dv carries that bound as a column.
+   and its operations over the card's float32 rate. The forward, dq, dk/dv
+   and dpose run on the tensor cores, so their times with launches queued
+   are also held against the tensor cores' bound (TF32, each product split
+   in three).
 5. Decodes them through `aps_tpu_torch.cmd.decode_batch` (batch 8, beam 8,
    ctc weight 0.4, max_len 40), with every kernel's launch count reset just
    before and read just after: per batch K1 once and the rel-pose forward
@@ -337,44 +340,74 @@ def check_fbank(dev, model, batches):
     """K1 with the front end's own arguments on each (path, N x S batch):
     the decode's first batch, padded as decode_batch pads it, the training
     batch as the loader collates it (another grid size and frame count), and
-    the long-form path's two."""
+    the long-form path's two. Each runs twice for bit-equal results; the
+    kernel's launch alone (ops.fbank.launch) and the whole wrapper (its
+    checks and the launch) are timed with launches queued, apart, on the
+    operands the transform keeps on the card. -> (rows, further numbers for
+    the `kernels` line)"""
+    import numpy as np
     import torch
 
-    from aps_tpu_torch.ops.fbank import fused_logmel, fused_logmel_plain
+    from aps_tpu_torch.ops import fbank
     tf = model.asr_transform
-    kw = dict(mel=tf.mel, pre_emphasis=tf.pre_emphasis,
-              normalized=tf.stft_normalized, use_power=tf.use_power,
+    ops = tf.fbank_operands(dev)
+    kw = dict(pre_emphasis=tf.pre_emphasis, use_power=tf.use_power,
               log_lower_bound=tf.log_lower_bound, log_eps=tf.eps)
+    plain_kw = dict(kw, mel=tf.mel, normalized=tf.stft_normalized)
     rows = []
+    more = {"ms_queued": {}, "wrapper_ms_queued": {}}
+    radices = [ops.radices >> 3 * i & 7 for i in range(10)]
+    print(f"fused_logmel: fft_size {tf.fft_size}, the kernel's stages of "
+          f"radix {[r for r in radices if r]} (ops.fbank.fft_plan, passed to "
+          f"it)", flush=True)
     for path, wav in batches:
-        wav = torch.as_tensor(wav)
-        args = (wav.to(dev), tf.window, tf.fft_size, tf.frame_hop)
+        wav = torch.as_tensor(wav).to(dev)
         N, S = wav.shape
         label = f"N={N} S={S} M={tf.feats_dim} ({path})"
-        got = fused_logmel(*args, **kw)
-        want = fused_logmel_plain(*args, **kw)
+        args = (wav, ops, tf.frame_hop)
+        plain_args = (wav, tf.window, tf.fft_size, tf.frame_hop)
+        got = fbank.fused_logmel(*args, **kw)
+        want = fbank.fused_logmel_plain(*plain_args, **plain_kw)
+        again = fbank.fused_logmel(*args, **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"fused_logmel {label}: non-finite output")
+        if not torch.equal(got, again):
+            fail(f"fused_logmel {label}: two launches differ")
         err = (got - want).abs().max().item()
         if not err <= TOL_LOGMEL:
             fail(f"fused_logmel {label}: max abs err {err} > {TOL_LOGMEL}")
-        ms = time_ms(lambda: fused_logmel(*args, **kw))
-        plain_ms = time_ms(lambda: fused_logmel_plain(*args, **kw))
+        ms = time_ms(lambda: fbank.fused_logmel(*args, **kw))
+        plain_ms = time_ms(
+            lambda: fbank.fused_logmel_plain(*plain_args, **plain_kw))
+        queued = time_ms(lambda: fbank.launch(*args, **kw),
+                         calls=QUEUED_CALLS)
+        wrapper = time_ms(lambda: fbank.fused_logmel(*args, **kw),
+                          calls=QUEUED_CALLS)
         # the least the function needs: it reads the waveform, the window
-        # and the mel matrix and writes the features; per frame a fast
-        # Fourier transform of fft_size points (5 n log2 n operations),
-        # pre-emphasis and window (3 per sample), the power of each bin (3)
-        # and the mel product. The kernel itself runs a dense DFT, 4 * F *
-        # fft_size operations per frame: over twenty times that transform.
+        # and the mel matrix and writes the features; per frame the real
+        # FFT of n = fft_size points as a complex FFT of n/2 points (5 (n/2)
+        # log2(n/2) operations) and the split step to the n/2 + 1 bins
+        # (about 12 a bin: 6 n), pre-emphasis and window (3 per sample), the
+        # power of each bin (3) and the mel product over the matrix's
+        # nonzero entries (2 each; its zeros need no operation)
         T, M = got.shape[1:]
-        n_fft, F = tf.fft_size, tf.fft_size // 2 + 1
-        per_frame = 5 * n_fft * math.log2(n_fft) + 3 * tf.frame_len + \
-            3 * F + 2 * F * M
+        half, F = tf.fft_size // 2, tf.fft_size // 2 + 1
+        nnz = int(np.count_nonzero(tf.mel)) if tf.mel is not None else 0
+        per_frame = 5 * half * math.log2(half) + 6 * tf.fft_size + \
+            3 * tf.frame_len + 3 * F + 2 * nnz
         bound = bound_ms(4 * (N * S + len(tf.window) + F * M + N * T * M),
                          N * T * per_frame)
+        if not queued >= bound[0]:
+            fail(f"fused_logmel {label}: {queued} ms queued reads below its "
+                 f"bound {bound[0]}")
+        more["ms_queued"][path] = queued
+        more["wrapper_ms_queued"][path] = wrapper
+        print(f"fused_logmel [{label}]: launch alone {queued:.4f} ms, through "
+              f"the wrapper {wrapper:.4f} ms, with {QUEUED_CALLS} queued",
+              flush=True)
         rows.append((label, err, ms, plain_ms) + bound)
-    return rows
+    return rows, more
 
 
 def valid_pairs(T, lens, causal, Tk=None):
@@ -496,7 +529,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     gradients, no NaN), lengths on either side of dq's 64 query rows and
     dpose's 64 table rows, and the one-key corner (k_len 1 under a long
     causal mask). At the path's shape and at T = 700 with per-head tables
-    every kernel runs twice for run-to-run equality, and dq and dpose are
+    every kernel runs twice for run-to-run equality, and all three are
     timed with launches queued against the tensor cores' bound. Also holds
     and times the forward that writes lse, which the backward reads (rows
     "fwd"). -> (rows by kernel, further numbers by kernel name for the
@@ -512,8 +545,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     names = [f"flash_attention_rel_{k}" for k in BACKWARD]
     more = {name: {} for name in names}
     for name, kernel in zip(names, BACKWARD):
-        if kernel != "dkv":
-            more[name]["occupancy"] = occupancy(D, kernel)
+        more[name]["occupancy"] = occupancy(D, kernel)
     corner = [1, 1, 640, 2, 1, 1, 640, 2]
     # (T, Hp, causal, k_len, what the row is for)
     for T, Hp, causal, lens, role in (
@@ -649,7 +681,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
             entry = {"ms_queued": time_ms(lambda: run(kernel),
                                           calls=QUEUED_CALLS),
                      "tensor_core_bound_ms": tensor_ms}
-            if kernel != "dkv" and not entry["ms_queued"] >= tensor_ms:
+            if not entry["ms_queued"] >= tensor_ms:
                 fail(f"{name} {label}: {entry['ms_queued']} ms reads below "
                      f"the tensor cores' bound {tensor_ms}")
             if role == "path":
@@ -2086,14 +2118,13 @@ def main() -> None:
         print(f"long-form training path: batches of {LONG_TRAIN_UTTS} x "
               f"{S_ltr} samples, encoder T = {T_ltr} with "
               f"{sorted(set(k_ltr))} valid frames", flush=True)
-        checks = {
-            "fused_logmel": check_fbank(dev, model, (
-                ("decode", decode_batch_of(wavs, 8, S)),
-                ("training", egs["src_pad"]),
-                ("long-form decode",
-                 decode_batch_of(wavs_long, LONG_BATCH, S_long)),
-                ("long-form training", egs_long["src_pad"]))),
-        }
+        fbank_rows, more_fbank = check_fbank(dev, model, (
+            ("decode", decode_batch_of(wavs, 8, S)),
+            ("training", egs["src_pad"]),
+            ("long-form decode",
+             decode_batch_of(wavs_long, LONG_BATCH, S_long)),
+            ("long-form training", egs_long["src_pad"])))
+        checks = {"fused_logmel": fbank_rows}
         checks["flash_attention_rel"], more_fwd = check_rel_attention(
             dev, gen, T, k_len)
         ctc_rows, ctc_queued, ctc_wrapper = check_ctc(dev, gen, T)
@@ -2257,6 +2288,8 @@ def main() -> None:
                      "per_dilation": tcn_dilations}
         else:
             path_launches = launches_trn[name]
+        if name == "fused_logmel":
+            extra.update(more_fbank)
         if name == "ctc_score_step":
             extra.update(ms_queued=ctc_queued,
                          long_form_ms_queued=long_queued,

@@ -14,7 +14,7 @@ from aps_tpu.const import EPSILON  # noqa: E402
 from aps_tpu.ops.pallas import fbank as jax_fbank  # noqa: E402
 from aps_tpu.transform import AsrTransform as JaxAsrTransform  # noqa: E402
 from aps_tpu.transform import utils as jax_utils  # noqa: E402
-from aps_tpu_torch.ops.fbank import fused_logmel  # noqa: E402
+from aps_tpu_torch.ops import fbank  # noqa: E402
 from aps_tpu_torch.transform import utils as port_utils  # noqa: E402
 from aps_tpu_torch.transform.asr import AsrTransform  # noqa: E402
 
@@ -68,11 +68,13 @@ def test_fused_logmel_plain_matches_jax(mode, with_mel, pre_emphasis,
     wav = (0.1 * rng.standard_normal((2, 9000))).astype(np.float32)
     fft_size, win, mel = _geometry(mode, 400)
     mel = mel if with_mel else None
-    kw = dict(mel=mel, pre_emphasis=pre_emphasis, normalized=normalized,
-              use_power=use_power, log_lower_bound=log_lower_bound,
-              log_eps=EPSILON)
-    got = fused_logmel(torch.from_numpy(wav), win, fft_size, 160, **kw)
+    kw = dict(pre_emphasis=pre_emphasis, use_power=use_power,
+              log_lower_bound=log_lower_bound, log_eps=EPSILON)
+    got = fbank.fused_logmel(torch.from_numpy(wav),
+                             fbank.operands(win, fft_size, mel, normalized),
+                             160, **kw)
     want = jax_fbank.fused_logmel(jnp.asarray(wav), win, fft_size, 160,
+                                  mel=mel, normalized=normalized,
                                   interpret=True, **kw)
     ref = jax_fbank._reference(jnp.asarray(wav), win, fft_size, 160, mel,
                                pre_emphasis, normalized, use_power, 0.0,
@@ -120,3 +122,37 @@ def test_transform_refuses_what_is_not_ported():
     assert feats.shape == (1, (4000 - 512) // 160 + 1, 80)
     with pytest.raises(NotImplementedError):
         tf(wav, torch.tensor([4000]), training=True)
+
+
+def test_fused_logmel_caches_its_device_operands(monkeypatch):
+    """The transform makes K1's operands (the window, the mel matrix, its
+    bands and the twiddle table) once for a device and hands the same ones
+    to every call, so a repeated call copies nothing from the host; the
+    bands hold each filter's nonzero coefficients in the kernel's layout."""
+    tf = AsrTransform(feats="fbank-log", frame_len=400, frame_hop=160,
+                      window="hamm")
+    made = []
+    real = fbank.operands
+
+    def counted(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    cpu = torch.device("cpu")
+    wav = torch.from_numpy(
+        (0.1 * np.random.default_rng(4).standard_normal((2, 4000))).astype(
+            np.float32))
+    monkeypatch.setattr(fbank, "operands", counted)
+    first, _ = tf(wav)
+    again, _ = tf(wav)
+    assert len(made) == 1
+    assert tf.fbank_operands(cpu) is made[0]
+    torch.testing.assert_close(first, again, atol=0, rtol=0)
+    mel = np.asarray(tf.mel, np.float32)
+    vals, bands = fbank.band_tables(mel)
+    lo, hi = fbank.mel_bands(mel)
+    np.testing.assert_array_equal(bands, np.stack(
+        [lo, hi, np.concatenate([[0], np.cumsum(hi - lo)[:-1]])], -1))
+    for m, (a, b, off) in enumerate(bands):
+        np.testing.assert_array_equal(vals[off:off + b - a], mel[a:b, m])
+        assert not mel[:a, m].any() and not mel[b:, m].any()

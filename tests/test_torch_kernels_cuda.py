@@ -26,7 +26,7 @@ from aps_tpu_torch.ops.attention import (flash_attention,  # noqa: E402
 from aps_tpu_torch.ops.ctc_score import (ctc_score_step,  # noqa: E402
                                          ctc_score_step_plain)
 from aps_tpu_torch.ops.fbank import (fused_logmel,  # noqa: E402
-                                     fused_logmel_plain)
+                                     fused_logmel_plain, operands)
 from aps_tpu_torch.ops.rel_attention import (  # noqa: E402
     flash_attention_rel, launch_forward, rel_lse_reference,
     rel_mha_backward_reference, rel_mha_reference)
@@ -68,6 +68,12 @@ def _fbank_args(N, S, with_mel):
     win = make_window("hamm", 400, True, "librosa")
     mel = mel_filter(400, num_mels=80).T if with_mel else None
     return wav, win, 512, 160, mel
+
+
+def _logmel(wav, window, fft_size, hop, mel=None, normalized=False, **kw):
+    """fused_logmel on this front end's operands for the wav's device."""
+    return fused_logmel(wav, operands(window, fft_size, mel, normalized,
+                                      wav.device), hop, **kw)
 
 
 def _rel_args(B, H, T, D, Hp):
@@ -145,7 +151,7 @@ def test_cpu_tensors_take_the_plain_versions():
     matmul-based ones compare at the kernel tolerances."""
     build.reset_launches()
     args = _fbank_args(2, 4000, True)
-    torch.testing.assert_close(fused_logmel(*args, log_eps=EPSILON),
+    torch.testing.assert_close(_logmel(*args, log_eps=EPSILON),
                                fused_logmel_plain(*args, log_eps=EPSILON),
                                atol=LOGMEL_ATOL, rtol=0)
     rel, k_len = _rel_args(4, 2, 90, 16, 1)
@@ -187,14 +193,15 @@ def _kernel_body(text: str, name: str) -> str:
     ("tcn.cu", "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"),
     ("rel_attention_bwd.cu:rel_attn_dq_kernel", "mma_f32<"),
     ("rel_attention_bwd.cu:rel_attn_dpose_kernel", "mma_f32<"),
+    ("rel_attention_bwd.cu:rel_attn_dkv_kernel", "mma_f32<"),
 ])
 def test_kernel_sources_use_the_tensor_cores(source, product):
-    """K2's forward, K5 and K3's forward, dq and dpose run every product on
-    the tensor cores (mma.sync, the three-pass TF32 split of attn_tiles.cuh for
-    float32) and stage their operands with its cp.async ring: a later edit
-    that goes back to the CUDA-core loops (fmaf over shared memory) fails
-    here. "file:kernel" holds that kernel's body alone (K3's dk/dv, in the
-    same file, is still a CUDA-core loop)."""
+    """K2's forward, K5 and K3's forward, dq, dk/dv and dpose run every
+    product on the tensor cores (mma.sync, the three-pass TF32 split of
+    attn_tiles.cuh for float32) and stage their operands with its cp.async
+    ring: a later edit that goes back to the CUDA-core loops (fmaf over
+    shared memory) fails here. "file:kernel" holds that kernel's body alone
+    (the file's reduction kernel sums partial tables on the CUDA cores)."""
     csrc = build.CSRC
     source, _, kernel = source.partition(":")
     text = (csrc / source).read_text()
@@ -225,6 +232,28 @@ def test_ctc_score_kernel_scans_over_chunks():
     assert re.search(r"int T, int L, int P,", text)
 
 
+def test_fbank_kernel_is_an_fft():
+    """csrc/fbank.cu computes each frame's spectrum by Stockham stages of
+    radix 4, 3, 5 and 2 (those the wrapper passes) and the real-FFT split
+    step, in float64, and takes no cos/sin tables: a later edit that goes
+    back to a dense DFT over W x F fails here."""
+    text = (build.CSRC / "fbank.cu").read_text()
+    body = _kernel_body(text, "fbank_fft_kernel")
+    for radix in (2, 3, 4, 5):
+        assert f"fft_stage<{radix}>(src, dst" in body
+    assert "butterfly<R>(v)" in text and "cmul(tw[k], o)" in body
+    assert "double2* src = buf0;" in body
+    entry = text[text.index('extern "C" int aps_fused_logmel('):]
+    assert "const double* twiddle" in entry and "cos" not in entry
+    # the stages are the ones the wrapper passes (ops.fbank.fft_plan): the
+    # radix rule is written once, in Python
+    assert "for (unsigned plan = a.radices; plan != 0; plan >>= 3)" in body
+    assert "int radices" in entry and "% 4 == 0" not in text
+    assert "dft_" not in text
+    assert not re.search(r"for \(int j = 0; j < (a\.)?W;", text)
+    assert "__ldg(a.mel_bands" in body
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_mel", [True, False])
 def test_fused_logmel_kernel_matches_plain(cuda_device, with_mel):
@@ -233,7 +262,7 @@ def test_fused_logmel_kernel_matches_plain(cuda_device, with_mel):
     wav, *rest = _fbank_args(4, 149003, with_mel)
     wav = wav.to(cuda_device)
     build.reset_launches()
-    got = fused_logmel(wav, *rest, log_eps=EPSILON)
+    got = _logmel(wav, *rest, log_eps=EPSILON)
     assert build.LAUNCHES["fused_logmel"] == 1
     want = fused_logmel_plain(wav, *rest, log_eps=EPSILON)
     if with_mel:
@@ -244,6 +273,112 @@ def test_fused_logmel_kernel_matches_plain(cuda_device, with_mel):
         mag, ref = got.exp(), want.exp()
         peak = ref.amax(-1, keepdim=True)
         assert ((mag - ref).abs() / peak).max().item() <= 1e-5
+
+
+# (N, S) of the front end's batches: the flagship step (32 x the loader's
+# padded length), the long-form decode's and step's
+FBANK_PATHS = [(32, 147884), (4, 454718), (8, 441576)]
+# frames a block at fft_size 512 (csrc/fbank.cu)
+FBANK_BLOCK_FRAMES = 8
+# (pre_emphasis, normalized, use_power, log_lower_bound)
+FBANK_OPTIONS = [(0.97, False, False, 0.0), (0.0, False, False, 0.0),
+                 (0.97, True, True, 1.0), (0.96, False, True, 0.0)]
+
+
+def _logmel_float64(wav, window, fft_size, hop, mel=None, pre_emphasis=0.97,
+                    normalized=False, use_power=False, log_lower_bound=0.0,
+                    log_eps=EPSILON):
+    """fused_logmel's function in float64 (torch.fft.rfft of each frame):
+    the referee where the float32 roundings of the plain version's own
+    dense sums reach the tolerance, as in the log of a mel band whose power
+    lies four orders below its neighbours' (seen: kernel and plain version
+    each some 5e-4 from it there, on either side)."""
+    frames = wav.double().unfold(-1, len(window), hop)
+    if pre_emphasis > 0:
+        frames = torch.cat([frames[..., :1] * (1 - pre_emphasis),
+                            frames[..., 1:] - pre_emphasis * frames[..., :-1]],
+                           -1)
+    win = torch.from_numpy(np.asarray(window, np.float64)).to(wav.device)
+    if normalized:
+        win = win / np.sqrt(fft_size)
+    spec = torch.fft.rfft(frames * win, n=fft_size)
+    feat = spec.real**2 + spec.imag**2
+    if not use_power:
+        feat = feat.sqrt()
+    if mel is not None:
+        feat = feat @ torch.from_numpy(np.asarray(mel, np.float64)).to(
+            wav.device)
+    if log_lower_bound > 0:
+        return torch.log(log_lower_bound + feat).float()
+    return torch.log(torch.clamp_min(feat, log_eps)).float()
+
+
+def _assert_logmel_close(got, want, with_mel):
+    if with_mel:
+        torch.testing.assert_close(got, want, atol=LOGMEL_ATOL, rtol=0)
+    else:
+        mag, ref = got.exp(), want.exp()
+        peak = ref.amax(-1, keepdim=True)
+        assert ((mag - ref).abs() / peak).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", FBANK_PATHS + [
+    (3, 512 + 160 * (frames - 1))
+    for frames in (1, FBANK_BLOCK_FRAMES - 1, FBANK_BLOCK_FRAMES,
+                   FBANK_BLOCK_FRAMES + 1)])
+@pytest.mark.parametrize("options", FBANK_OPTIONS)
+def test_fused_logmel_kernel_at_path_shapes_and_block_edges(
+        cuda_device, N, S, options):
+    """The FFT kernel == the function in float64 at the step's and the
+    long-form path's batches and at frame counts around a block's 8
+    frames, with pre-emphasis off, a normalized window, power and the log's
+    lower bound; two launches give the same bits."""
+    pre, normalized, use_power, lower = options
+    wav, win, fft_size, hop, mel = _fbank_args(N, S, True)
+    wav = wav.to(cuda_device)
+    kw = dict(mel=mel, pre_emphasis=pre, normalized=normalized,
+              use_power=use_power, log_lower_bound=lower, log_eps=EPSILON)
+    got = _logmel(wav, win, fft_size, hop, **kw)
+    assert got.shape == (N, (S - len(win)) // hop + 1, 80)
+    _assert_logmel_close(got, _logmel_float64(wav, win, fft_size, hop,
+                                              **kw), True)
+    assert torch.equal(got, _logmel(wav, win, fft_size, hop, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_size", [256, 400, 1024])
+@pytest.mark.parametrize("full_window", [True, False])
+@pytest.mark.parametrize("with_mel", [True, False])
+def test_fused_logmel_kernel_at_other_fft_sizes(cuda_device, fft_size,
+                                                full_window, with_mel):
+    """fft_size 256 (radix 4 and a final 2), 400 (radix 5) and 1024, with
+    a window of fft_size samples or shorter (kaldi's: zeros past W), against
+    the function in float64."""
+    frame_len = fft_size if full_window else fft_size * 3 // 4
+    win = make_window("hamm", frame_len, False, "kaldi")
+    mel = mel_filter(fft_size, round_pow_of_two=False,
+                     num_mels=40).T if with_mel else None
+    gen = torch.Generator().manual_seed(fft_size)
+    wav = (0.1 * torch.randn((3, 20000), generator=gen)).to(cuda_device)
+    kw = dict(mel=mel, log_eps=EPSILON)
+    got = _logmel(wav, win, fft_size, 160, **kw)
+    _assert_logmel_close(got, _logmel_float64(wav, win, fft_size, 160,
+                                              **kw), with_mel)
+    assert torch.equal(got, _logmel(wav, win, fft_size, 160, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_size", [402, 448, 375])
+def test_fused_logmel_kernel_refuses_other_fft_sizes(cuda_device, fft_size):
+    """A size with a prime factor above 5, or an odd one, raises and names
+    the size; nothing is launched."""
+    win = np.hamming(300).astype(np.float32)
+    wav = torch.zeros((1, 4000), device=cuda_device)
+    build.reset_launches()
+    with pytest.raises(ValueError, match=f"fft_size {fft_size} "):
+        _logmel(wav, win, fft_size, 160)
+    assert build.LAUNCHES["fused_logmel"] == 0
 
 
 @pytest.mark.cuda
@@ -434,6 +569,33 @@ def test_rel_attention_backward_is_deterministic(cuda_device, T, Hp):
         runs.append(torch.autograd.grad(out, rel, do))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,Hp,causal", [
+    (63, 16, 4, False), (64, 32, 1, True), (65, 64, 4, False),
+    (129, 64, 1, True), (231, 64, 1, False), (700, 64, 4, True)])
+def test_rel_attention_dkv_kernel_is_deterministic(cuda_device, T, D, Hp,
+                                                   causal):
+    """dk/dv launched twice on the same delta gives the same bits at the
+    edges of its 64 key rows and 16-row query tiles (k_len 0 and 1
+    included), and matches the plain backward."""
+    from aps_tpu_torch.ops.rel_attention import launch_backward_kernel
+    rel, k_len = _rel_args(4, 4, T, D, Hp)
+    rel = [t.to(cuda_device) for t in rel]
+    k_len = k_len.to(cuda_device)
+    gen = torch.Generator().manual_seed(T + D)
+    do = torch.randn(rel[0].shape, generator=gen).to(cuda_device)
+    out, lse = launch_forward(*rel, k_len, causal, True)
+    delta = torch.empty_like(lse)
+    args = (*rel, k_len, do, lse, out, delta, causal)
+    launch_backward_kernel("dq", *args)
+    first = launch_backward_kernel("dkv", *args)
+    second = launch_backward_kernel("dkv", *args)
+    want = rel_mha_backward_reference(*rel, do, k_len=k_len, causal=causal)
+    for a, b, w in zip(first, second, want[2:4]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=GRAD_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
