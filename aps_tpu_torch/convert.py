@@ -159,9 +159,12 @@ def _skipped(key: str) -> bool:
     return key.endswith("num_batches_tracked")
 
 
-def to_state_dict(variables: Dict, model: nn.Module
+def to_state_dict(variables: Dict, model: nn.Module, strict: bool = True
                   ) -> Dict[str, torch.Tensor]:
-    """aps_tpu variables tree (numpy) -> state_dict for `model`."""
+    """aps_tpu variables tree (numpy) -> state_dict for `model`. With
+    strict=False (a warm start) the state_dict holds only the keys whose
+    leaf the tree has at the model's shape, and left-over leaves are
+    ignored: load it with load_state_dict(..., strict=False)."""
     flat = {f"{col}/{path}": val
             for col, tree in variables.items()
             for path, val in _flatten(tree).items()}
@@ -177,14 +180,18 @@ def to_state_dict(variables: Dict, model: nn.Module
         col, path, rule = leaves[key]
         src = flat.pop(f"{col}/{path}", None)
         if src is None:
+            if not strict:
+                continue
             raise KeyError(f"aps_tpu leaf {col}/{path} (for {key}) is "
                            "missing")
         val = torch.from_numpy(np.array(_to_port(src, rule), copy=True))
         if tuple(val.shape) != tuple(ref.shape):
+            if not strict:
+                continue
             raise ValueError(f"{col}/{path} -> {key}: shape "
                              f"{tuple(val.shape)} != {tuple(ref.shape)}")
         state[key] = val.to(ref.dtype)
-    if flat:
+    if flat and strict:
         raise KeyError(f"aps_tpu leaves left unmapped: {sorted(flat)}")
     return state
 

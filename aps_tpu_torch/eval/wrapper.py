@@ -18,7 +18,7 @@ from aps_tpu_torch.convert import to_state_dict
 from aps_tpu_torch.libs import aps_nnet, aps_transform
 
 
-class _Opaque(object):
+class Opaque(object):
     """Stand-in for objects of a checkpoint that the port does not read
     (the JAX trainer's optimizer state and the like): loading a checkpoint
     must not import the JAX stack."""
@@ -36,7 +36,7 @@ class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split(".")[0] in self._SAFE:
             return super(_CheckpointUnpickler, self).find_class(module, name)
-        return _Opaque
+        return Opaque
 
 
 def read_checkpoint(path) -> Dict:

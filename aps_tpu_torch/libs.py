@@ -118,6 +118,9 @@ def start_trainer(trainer: str,
                                device=device,
                                checkpoint=args.checkpoint,
                                resume=getattr(args, "resume", ""),
+                               init=getattr(args, "init", ""),
+                               save_interval=getattr(args, "save_interval",
+                                                     -1),
                                prog_interval=getattr(args, "prog_interval",
                                                      100),
                                reduction_tag=reduction_tag,
@@ -146,5 +149,6 @@ def start_trainer(trainer: str,
         int(loader_conf["max_batch_size"] / dev_factor), 1)
     dev_loader = aps_dataloader(train=False, **dev_loader_conf,
                                 **data_conf["valid"])
-    trn.run(trn_loader, dev_loader, num_epochs=getattr(args, "epochs", 50))
+    trn.run(trn_loader, dev_loader, num_epochs=getattr(args, "epochs", 50),
+            eval_interval=getattr(args, "eval_interval", -1))
     return trn

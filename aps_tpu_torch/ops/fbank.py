@@ -172,22 +172,24 @@ def fused_logmel_plain(wav: torch.Tensor,
                        log_lower_bound: float = 0.0,
                        log_eps: float = 1e-8) -> torch.Tensor:
     """Plain PyTorch version of fused_logmel (the window and the mel matrix
-    as numpy arrays)."""
+    as numpy arrays), in the waveform's dtype."""
     W = int(np.asarray(window).shape[0])
     frames = wav.unfold(-1, W, frame_hop)  # N x T x W
     if pre_emphasis > 0:
         head = frames[..., :1] * (1 - pre_emphasis)
         rest = frames[..., 1:] - pre_emphasis * frames[..., :-1]
         frames = torch.cat([head, rest], dim=-1)
-    frames = frames * _window(window, fft_size, normalized, wav.device)
-    cos, sin = _dft_tables(fft_size, W, wav.device)
+    frames = frames * _window(window, fft_size, normalized,
+                              wav.device).to(wav.dtype)
+    cos, sin = (t.to(wav.dtype) for t in _dft_tables(fft_size, W,
+                                                      wav.device))
     re = frames @ cos
     im = frames @ sin
     power = re * re + im * im
     feat = power if use_power else torch.sqrt(power + mag_eps)
     if mel is not None:
         feat = feat @ torch.as_tensor(np.asarray(mel, dtype=np.float32),
-                                      device=wav.device)
+                                      device=wav.device).to(wav.dtype)
     if log_lower_bound > 0:
         return torch.log(log_lower_bound + feat)
     return torch.log(torch.clamp_min(feat, log_eps))

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Shared argparse parser parents of the port's commands (the port's own
 copy of the decoding and training parsers of aps_tpu/opts.py, with the
-same option names and defaults; --init, --eval-interval and --save-interval
-are left out until the trainer has them).
+same option names and defaults; the multi-host and tensorboard options are
+left out).
 
 Devices. The port's commands run on the card: --device defaults to "cuda"
 and the command raises when torch sees no CUDA device. The CPU is used only
@@ -45,6 +45,12 @@ class TrainParser(object):
                         help="Batch size")
     parser.add_argument("--epochs", type=int, default=50,
                         help="Number of training epochs")
+    parser.add_argument("--eval-interval", type=int, default=-1,
+                        help="Run validation every N steps (-1: per epoch)")
+    parser.add_argument("--save-interval", type=int, default=-1,
+                        help="Also write epoch.N.ckpt every N epochs (-1: "
+                        "never; average_checkpoint > 1 in the trainer's "
+                        "configuration makes it 1)")
     parser.add_argument("--prog-interval", type=int, default=100,
                         help="Log progress every N batches")
     parser.add_argument("--num-workers", type=int, default=0,
@@ -53,6 +59,8 @@ class TrainParser(object):
                         help="Validation uses batch-size/factor batches")
     parser.add_argument("--resume", type=str, default="",
                         help="Checkpoint to resume from")
+    parser.add_argument("--init", type=str, default="",
+                        help="Checkpoint to warm-start weights from")
     parser.add_argument("--seed", type=str, default="777",
                         help="Random seed (-1: skip seeding)")
     parser.add_argument("--trainer", type=str, default="dp",

@@ -11,24 +11,69 @@ under "mstate" ({"batch_stats": {"nnet": ...}}), beside "epoch", "step"
 train.yaml beside them rebuilds the model. So
 aps_tpu_torch.cmd.decode_batch and aps_tpu's own load_checkpoint both read
 them. The optimizer's state goes under "torch_opt_state" (its layout is
-PyTorch's, not optax's).
+PyTorch's, not optax's). With save_interval N (1 when average_checkpoint
+asks for more than one), every N-th epoch also goes to epoch.N.ckpt, which
+aps_tpu_torch.cmd.average_checkpoint averages.
 
-Not ported yet, and refused when asked for: schedule sampling, gradient
-accumulation, weight noise, checkpoint averaging, tensorboard, profiling,
-another matmul precision than float32, tensor/sequence parallelism, a
-pipeline depth, warm starts from another checkpoint (init), checkpoints
-every N epochs and validation every N steps."""
+matmul_precision takes aps_tpu's five values. On a CUDA device the
+training and validation steps run under cuBLAS's and cuDNN's TF32 flags
+set from it ("bfloat16", "tensorfloat32" and "default": TF32; "float32"
+and "highest": full float32), and the flags are restored after each step.
+aps_tpu scopes its steps with jax.default_matmul_precision, which XLA runs
+on an NVIDIA GPU as TF32 products with float32 in and out for everything
+below "highest"; PyTorch has no float32 product with bfloat16 operands, and
+autocast would change the types the model sees. On the CPU the value has
+no effect (JAX's CPU backend ignores it too). The hand-written kernels do
+not read it.
 
+The trainer owns a torch.Generator on its device, seeded from `seed`, and
+hands it to every module of the task with a `generator` attribute (the
+feature transform's speed perturbation and SpecAugment draw from it).
+
+Not ported yet, and refused when asked for: schedule sampling, weight
+noise, tensorboard, profiling, tensor/sequence parallelism and a pipeline
+depth."""
+
+import contextlib
 import math
 import pickle
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from aps_tpu_torch.trainer.lr import LrScheduler
 from aps_tpu_torch.utils import SimpleTimer, get_logger
+
+
+class ParameterAverager(object):
+    """Average trees (nested dicts) of numpy arrays across checkpoints:
+    the sum in the leaves' own type, divided by the count at the end."""
+
+    def __init__(self):
+        self.count = 0
+        self.averaged = None
+
+    def add(self, params: Dict) -> None:
+        if self.averaged is None:
+            self.averaged = _tree_map(np.copy, params)
+        else:
+            self.averaged = _tree_map(np.add, self.averaged, params)
+        self.count += 1
+
+    def state_dict(self) -> Dict:
+        return _tree_map(lambda x: (x / self.count).astype(x.dtype),
+                         self.averaged)
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts of arrays of the same layout."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(np.asarray(tree), *map(np.asarray, rest))
 
 
 class ProgressReporter(object):
@@ -190,18 +235,34 @@ class ErrorDetector(object):
 # value that turns them off
 _UNPORTED = {
     "ss_scheduler_kwargs": None,
-    "acmu_gradient": 1,
     "weight_noise_std": None,
-    "average_checkpoint": 0,
     "tensorboard": False,
     "profile": "",
-    "matmul_precision": "float32",
     "tensor_parallel": 1,
     "sequence_parallel": False,
     "pipeline_depth": 1,
 }
 # accepted without effect: they only tune options refused above
 _TUNES_UNPORTED = ("ss_scheduler", "weight_noise_cfg", "profile_steps")
+# matmul_precision -> TF32 on for cuBLAS and cuDNN
+TF32_PRECISIONS = {"float32": False, "highest": False, "bfloat16": True,
+                   "tensorfloat32": True, "default": True}
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str, device: torch.device):
+    """cuBLAS's and cuDNN's TF32 flags as `precision` asks, on a CUDA
+    device, for the body only; nothing on another device."""
+    if device.type != "cuda":
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = TF32_PRECISIONS[precision]
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 class Trainer(object):
@@ -218,15 +279,20 @@ class Trainer(object):
                  lr_scheduler_kwargs: Optional[Dict] = None,
                  lr_scheduler_period: str = "epoch",
                  clip_gradient: Optional[float] = None,
+                 acmu_gradient: int = 1,
                  prog_interval: int = 100,
+                 save_interval: int = -1,
                  resume: str = "",
+                 init: str = "",
                  stop_criterion: str = "loss",
                  no_impr: int = 6,
                  no_impr_thres: float = 1e-3,
+                 average_checkpoint: int = 0,
                  report_metrics: List[str] = ["loss"],
                  reduction_tag: str = "none",
                  stop_on_errors: int = 32,
                  seed: int = 777,
+                 matmul_precision: str = "float32",
                  **kwargs) -> None:
         for key, value in kwargs.items():
             if key in _TUNES_UNPORTED:
@@ -242,6 +308,10 @@ class Trainer(object):
         if stop_criterion not in report_metrics:
             raise ValueError("stop_criterion not in report_metrics: "
                              f"{stop_criterion}")
+        if matmul_precision not in TF32_PRECISIONS:
+            raise ValueError(
+                f"Unsupported matmul_precision: {matmul_precision}")
+        self.matmul_precision = matmul_precision
         self.device = torch.device(device)
         self.task = task.to(self.device)
         self.checkpoint = Path(checkpoint)
@@ -252,9 +322,19 @@ class Trainer(object):
                                          period=prog_interval,
                                          reduction_tag=reduction_tag)
         self.clip_gradient = clip_gradient
+        self.acmu_gradient = acmu_gradient
         self.cur_epoch = 0
         self.cur_step = 0
+        self.save_interval = 1 if average_checkpoint > 1 else save_interval
         self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device)
+        if self.seed >= 0:
+            self.generator.manual_seed(self.seed)
+        else:
+            self.generator.seed()
+        for module in self.task.modules():
+            if hasattr(module, "generator"):
+                module.generator = self.generator
         mode = "max" if stop_criterion == "accu" else "min"
         self.stop_on = stop_criterion
         self.stop_detector = StopDetector(no_impr, mode=mode,
@@ -278,10 +358,13 @@ class Trainer(object):
         self.lr_scheduler = LrScheduler[lr_scheduler](lr=lr0, **lr_kwargs)
         self.lr_scheduler_period = lr_scheduler_period
 
-        # the checkpoint to resume from (applied by the subclass)
+        # the checkpoint to resume or warm start from (applied by the
+        # subclass): "resume" restores everything, "init" the weights only
         self.cpt_stats = None
+        self.init_mode = ""
         if resume:
             self.cpt_stats = self.load_checkpoint_file(resume)
+            self.init_mode = "resume"
             self.cur_epoch = self.cpt_stats["epoch"]
             self.cur_step = self.cpt_stats.get("step", 0)
             if "lr_scheduler_state" in self.cpt_stats:
@@ -292,9 +375,16 @@ class Trainer(object):
                     self.cpt_stats["stop_state"])
             self.reporter.log(
                 f"Resume from checkpoint {resume}: epoch {self.cur_epoch}")
+        elif init:
+            self.cpt_stats = self.load_checkpoint_file(init)
+            self.init_mode = "init"
+            self.reporter.log(f"Initialize model from checkpoint {init}")
         if clip_gradient:
             self.reporter.log(
                 f"Clip gradient if over {clip_gradient} L2 norm")
+        if acmu_gradient > 1:
+            self.reporter.log(
+                f"Accumulate gradient per {acmu_gradient} batches")
 
     # ------------------------------------------------------------------
     # checkpoint IO
@@ -319,6 +409,8 @@ class Trainer(object):
         if best:
             (self.checkpoint / "best.ckpt").write_bytes(blob)
             self.reporter.log(f"Save the best checkpoint: epoch {epoch}")
+        if self.save_interval > 0 and epoch % self.save_interval == 0:
+            (self.checkpoint / f"epoch.{epoch}.ckpt").write_bytes(blob)
 
     # ------------------------------------------------------------------
     # hooks of the subclass
@@ -365,16 +457,29 @@ class Trainer(object):
         self.save_checkpoint(self.cur_epoch, best=better)
         return better
 
-    def run(self, trn_loader, dev_loader, num_epochs: int = 50) -> None:
+    def run(self, trn_loader, dev_loader, num_epochs: int = 50,
+            eval_interval: int = -1) -> None:
         """Validate once, then train up to num_epochs epochs, validating
-        (and saving a checkpoint) after each; stop early once the stop
-        criterion has not improved for no_impr validations."""
+        (and saving a checkpoint) after each, or every eval_interval steps
+        when that is above 0; stop early once the stop criterion has not
+        improved for no_impr validations."""
         timer = SimpleTimer()
         self.valid_epoch(dev_loader)
         reports, logstr = self.reporter.report(self.cur_epoch, 0)
         self.reporter.log(logstr)
-        if self.cpt_stats is None:
+        if self.init_mode != "resume":
             self.stop_detector.reset(reports[self.stop_on])
+        if eval_interval > 0:
+            self._run_in_batch(trn_loader, dev_loader, num_epochs,
+                               eval_interval)
+        else:
+            self._run_in_epoch(trn_loader, dev_loader, num_epochs)
+        self.reporter.log(
+            f"Training for {self.cur_epoch:d}/{num_epochs:d} epochs done "
+            f"(best = {self.stop_detector.best:.4f}, "
+            f"{timer.elapsed():.2f}m)")
+
+    def _run_in_epoch(self, trn_loader, dev_loader, num_epochs: int) -> None:
         while self.cur_epoch < num_epochs:
             trn_loader.set_epoch(self.cur_epoch)
             self.cur_epoch += 1
@@ -389,7 +494,24 @@ class Trainer(object):
                 self.reporter.log("Stop training cause no impr for "
                                   f"{self.stop_detector.no_impr:d} epochs")
                 break
-        self.reporter.log(
-            f"Training for {self.cur_epoch:d}/{num_epochs:d} epochs done "
-            f"(best = {self.stop_detector.best:.4f}, "
-            f"{timer.elapsed():.2f}m)")
+
+    def _run_in_batch(self, trn_loader, dev_loader, num_epochs: int,
+                      eval_interval: int) -> None:
+        """For large corpora: validate every eval_interval steps (the
+        checkpoints keep the number of the epoch under way)."""
+        stop = False
+        while not stop and self.cur_epoch < num_epochs:
+            trn_loader.set_epoch(self.cur_epoch)
+            self.cur_epoch += 1
+            self.reporter.train()
+            for egs in trn_loader:
+                self._train_step(egs)
+                if self.cur_step % eval_interval == 0:
+                    _, logstr = self.reporter.report(
+                        self.cur_epoch, self.lr_scheduler.get_lr())
+                    self.reporter.log(logstr)
+                    self._eval_and_schedule(dev_loader)
+                    if self.stop_detector.stop():
+                        stop = True
+                        break
+                    self.reporter.train()

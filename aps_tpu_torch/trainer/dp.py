@@ -4,44 +4,133 @@ aps_tpu/trainer/dp.py::DataParallelTrainer, without the mesh).
 
 One step, as in aps_tpu: loss and gradients; the global L2 norm of the
 gradients; a non-finite loss or norm skips the update and keeps parameters,
-optimizer state and batch-norm statistics; otherwise the gradients are
-scaled by clip / max(norm, clip) (optax.clip_by_global_norm divides by the
-norm itself, where torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6),
-and the optimizer's update is scaled by the scheduler's current rate. The
-step reads one flag back from the device (finite or not), so it is
-synchronous; aps_tpu's pipelined dispatch, its OOM skipping, weight noise
-and gradient accumulation are not ported."""
+optimizer state, the accumulated gradient and batch-norm statistics;
+otherwise the gradients are scaled by clip / max(norm, clip)
+(optax.clip_by_global_norm divides by the norm itself, where
+torch.nn.utils.clip_grad_norm_ divides by norm + 1e-6), and the optimizer's
+update is scaled by the scheduler's current rate. With acmu_gradient k > 1
+the step is optax.MultiSteps': a running mean of k mini-batch gradients,
+clipped and applied on the k-th mini-step only, at that step's rate; the
+parameters do not move on the others, the batch-norm statistics do, and
+the reported norm is each mini-batch's own. The step reads one flag back
+from the device (finite or not), so it is synchronous; aps_tpu's pipelined
+dispatch, its OOM skipping and weight noise are not ported."""
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from aps_tpu_torch.convert import to_state_dict, to_variables
 from aps_tpu_torch.libs import ApsRegisters
-from aps_tpu_torch.trainer.base import Trainer
+from aps_tpu_torch.trainer.base import Trainer, matmul_precision
 
-# what aps_tpu's "adam" reads from optimizer_kwargs, with its defaults; "lr"
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """optax.rmsprop at rate 1 (the trainer scales the update): eps inside
+    the root, nu from 0, then a trace of decay `momentum`:
+    t = g / sqrt(nu + eps) + momentum * t; p -= lr * t."""
+
+    def __init__(self, params, lr=1.0, alpha=0.99, eps=1e-8, momentum=0.0):
+        super(OptaxRMSprop, self).__init__(
+            params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            alpha, eps = group["alpha"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                    state["trace"] = torch.zeros_like(p)
+                nu, trace = state["nu"], state["trace"]
+                nu.mul_(alpha).addcmul_(p.grad, p.grad, value=1 - alpha)
+                trace.mul_(group["momentum"]).add_(
+                    p.grad * torch.rsqrt(nu + eps))
+                p.add_(trace, alpha=-group["lr"])
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """optax.adagrad at rate 1: the sum of squares starts at 0.1 and eps
+    goes inside the root: s += g * g; p -= lr * g / sqrt(s + eps)."""
+
+    def __init__(self, params, lr=1.0, initial_accumulator_value=0.1,
+                 eps=1e-7):
+        super(OptaxAdagrad, self).__init__(
+            params, dict(lr=lr, initial=initial_accumulator_value, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum"] = torch.full_like(p, group["initial"])
+                total = state["sum"]
+                total.addcmul_(p.grad, p.grad)
+                scale = torch.where(total > 0,
+                                    torch.rsqrt(total + group["eps"]),
+                                    torch.zeros_like(total))
+                p.add_(p.grad * scale, alpha=-group["lr"])
+
+
+def _sgd(params, kw):
+    # optax.sgd takes momentum 0 as no momentum (and then no nesterov)
+    momentum = kw["momentum"] or 0
+    return torch.optim.SGD(params, lr=1.0, momentum=momentum,
+                           nesterov=bool(kw["nesterov"]) and momentum > 0)
+
+
+def _adam(params, kw):
+    return torch.optim.Adam(params, lr=1.0, betas=(kw["beta1"], kw["beta2"]),
+                            eps=kw["eps"])
+
+
+# name -> (the optimizer_kwargs keys aps_tpu's OPTIMIZERS reads, with its
+# defaults; a maker of the torch optimizer whose update is optax's). "lr"
 # is the scheduler's start and the rate comes from the scheduler at every
-# step. Any other key (weight_decay, amsgrad, ...) has no effect there, so it
-# has none here
-ADAM_KEYS = {"beta1": 0.9, "beta2": 0.999, "eps": 1e-8}
+# step; any other key has no effect in aps_tpu, so it has none here
+OPTIMIZERS = {
+    "adamw": ({"beta1": 0.9, "beta2": 0.999, "eps": 1e-8,
+               "weight_decay": 1e-2},
+              # optax.adamw decays every parameter: u = adam + wd * p, and
+              # p -= lr * u is AdamW's p *= 1 - lr * wd; p -= lr * adam
+              lambda params, kw: torch.optim.AdamW(
+                  params, lr=1.0, betas=(kw["beta1"], kw["beta2"]),
+                  eps=kw["eps"], weight_decay=kw["weight_decay"])),
+    "sgd": ({"momentum": 0, "nesterov": False}, _sgd),
+    "noam_adam": ({"beta1": 0.9, "beta2": 0.98, "eps": 1e-9}, _adam),
+    "adadelta": ({"rho": 0.9},
+                 lambda params, kw: torch.optim.Adadelta(
+                     params, lr=1.0, rho=kw["rho"], eps=1e-6)),
+    "rmsprop": ({"alpha": 0.99, "momentum": 0},
+                lambda params, kw: OptaxRMSprop(params, alpha=kw["alpha"],
+                                                momentum=kw["momentum"])),
+    "adam": ({"beta1": 0.9, "beta2": 0.999, "eps": 1e-8}, _adam),
+    # optax.adamax: max(b2 * u, |g| + eps), as torch's
+    "adamax": ({}, lambda params, kw: torch.optim.Adamax(params, lr=1.0)),
+    "adagrad": ({}, lambda params, kw: OptaxAdagrad(params)),
+}
 
 
 def make_optimizer(name: str, params, kwargs: Dict,
                    log=None) -> torch.optim.Optimizer:
     """The optimizer `name` as aps_tpu builds it from optimizer_kwargs;
     keys that aps_tpu does not read are named to `log` in one line."""
-    if name != "adam":
-        raise ValueError(f"Unsupported optimizer: {name} (the port has adam)")
-    ignored = sorted(k for k in kwargs if k != "lr" and k not in ADAM_KEYS)
+    if name not in OPTIMIZERS:
+        raise ValueError(f"Unsupported optimizer: {name}")
+    keys, build = OPTIMIZERS[name]
+    ignored = sorted(k for k in kwargs if k != "lr" and k not in keys)
     if ignored and log is not None:
-        log(f"optimizer_kwargs {', '.join(ignored)} have no effect: adam "
-            f"reads {', '.join(ADAM_KEYS)} only, as in aps_tpu")
-    opts = {k: kwargs.get(k, v) for k, v in ADAM_KEYS.items()}
-    return torch.optim.Adam(params, lr=kwargs.get("lr", 1e-3),
-                            betas=(opts["beta1"], opts["beta2"]),
-                            eps=opts["eps"])
+        reads = ", ".join(keys) if keys else "no key"
+        log(f"optimizer_kwargs {', '.join(ignored)} have no effect: {name} "
+            f"reads {reads} only, as in aps_tpu")
+    return build(params, {k: kwargs.get(k, v) for k, v in keys.items()})
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -82,6 +171,10 @@ class DataParallelTrainer(Trainer):
         self.optimizer = make_optimizer(self.optimizer_name, self.params,
                                         self.optimizer_kwargs,
                                         log=self.reporter.log)
+        # optax.MultiSteps' state: the running mean and the mini-step
+        self.acc_grads = [torch.zeros_like(p) for p in self.params] \
+            if self.acmu_gradient > 1 else None
+        self.mini_step = 0
         if self.cpt_stats is not None:
             self._load_states(self.cpt_stats)
         num_params = sum(p.numel() for p in self.params) / 1e6
@@ -93,6 +186,16 @@ class DataParallelTrainer(Trainer):
         for col, tree in cpt.get("mstate", {}).items():
             variables[col] = tree.get("nnet", tree)
         nnet = self.task.nnet
+        if self.init_mode == "init":
+            # a warm start: every weight whose path and shape match, and
+            # nothing of the optimizer
+            state = to_state_dict(variables, nnet, strict=False)
+            nnet.load_state_dict(state, strict=False)
+            num = sum(1 for k, _ in nnet.named_parameters() if k in state)
+            total = sum(1 for _ in nnet.parameters())
+            self.reporter.log(f"Warm start: loaded {num}/{total} parameter "
+                              "tensors")
+            return
         nnet.load_state_dict(to_state_dict(variables, nnet))
         if "torch_opt_state" in cpt:
             opt = dict(cpt["torch_opt_state"])
@@ -100,6 +203,11 @@ class DataParallelTrainer(Trainer):
                 opt["state"], np.ndarray,
                 lambda v: torch.from_numpy(np.array(v)))
             self.optimizer.load_state_dict(opt)
+        if "torch_acmu_state" in cpt and self.acc_grads is not None:
+            acmu = cpt["torch_acmu_state"]
+            self.mini_step = int(acmu["mini_step"])
+            for acc, val in zip(self.acc_grads, acmu["acc_grads"]):
+                acc.copy_(torch.from_numpy(np.asarray(val)))
 
     def checkpoint_states(self, epoch: int) -> Dict:
         stats = super(DataParallelTrainer, self).checkpoint_states(epoch)
@@ -112,6 +220,10 @@ class DataParallelTrainer(Trainer):
         opt["state"] = _map_state(opt["state"], torch.Tensor,
                                   lambda v: v.cpu().numpy())
         stats["torch_opt_state"] = opt
+        if self.acc_grads is not None:
+            stats["torch_acmu_state"] = {
+                "mini_step": self.mini_step,
+                "acc_grads": [a.cpu().numpy() for a in self.acc_grads]}
         return stats
 
     def _split_egs(self, egs: Dict) -> Tuple[Dict, Dict]:
@@ -121,16 +233,48 @@ class DataParallelTrainer(Trainer):
                 if not isinstance(v, (torch.Tensor, list))}
         return host, {k: v for k, v in egs.items() if k not in host}
 
+    def _accumulate(self, grads: List[torch.Tensor]) -> bool:
+        """Fold a mini-batch's gradients into the running mean; True (and
+        the mean in the parameters' .grad) on the k-th mini-step."""
+        diff = torch._foreach_sub(grads, self.acc_grads)
+        torch._foreach_div_(diff, self.mini_step + 1)
+        torch._foreach_add_(self.acc_grads, diff)
+        self.mini_step += 1
+        if self.mini_step < self.acmu_gradient:
+            return False
+        for p, acc in zip(self.params, self.acc_grads):
+            p.grad = acc.clone()
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+    def _apply(self, norm: torch.Tensor) -> None:
+        """Clip the parameters' .grad by their global norm `norm` and take
+        the optimizer's step at the scheduler's rate."""
+        grads = [p.grad for p in self.params]
+        if self.clip_gradient:
+            scale = self.clip_gradient / torch.clamp_min(norm,
+                                                         self.clip_gradient)
+            torch._foreach_mul_(grads, scale)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_scheduler.get_lr()
+        self.optimizer.step()
+
     def train_one_step(self, egs: Dict) -> bool:
         host, dev = self._split_egs(egs)
         self.task.train()
         buffers = [b for b in self.task.buffers()]
         saved = [b.clone() for b in buffers]
         self.optimizer.zero_grad(set_to_none=True)
-        stats = self.task(dev)
-        loss = stats["loss"]
-        loss.backward()
-        grads = [p.grad for p in self.params if p.grad is not None]
+        with matmul_precision(self.matmul_precision, self.device):
+            stats = self.task(dev)
+            loss = stats["loss"]
+            loss.backward()
+        for p in self.params:
+            # optax updates every parameter, also one without a gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if not bool(torch.isfinite(loss) & torch.isfinite(norm)):
             with torch.no_grad():
@@ -139,17 +283,13 @@ class DataParallelTrainer(Trainer):
             self.reporter.log(
                 f"Step {self.cur_step}: non-finite loss/grad, skipped")
             return False
-        if self.clip_gradient:
-            scale = self.clip_gradient / torch.clamp_min(norm,
-                                                         self.clip_gradient)
-            torch._foreach_mul_(grads, scale)
-        lr = self.lr_scheduler.get_lr()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        if self.acc_grads is None:
+            self._apply(norm)
+        elif self._accumulate(grads):
+            self._apply(global_norm([p.grad for p in self.params]))
         stats = {k: v.detach() for k, v in stats.items()}
         stats["norm"] = norm
-        stats["rate"] = lr
+        stats["rate"] = self.lr_scheduler.get_lr()
         self.reporter.update(host)
         self.reporter.update(stats)
         return True
@@ -159,4 +299,5 @@ class DataParallelTrainer(Trainer):
         host, dev = self._split_egs(egs)
         self.task.eval()
         self.reporter.update(host)
-        self.reporter.update(self.task(dev))
+        with matmul_precision(self.matmul_precision, self.device):
+            self.reporter.update(self.task(dev))

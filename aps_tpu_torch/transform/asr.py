@@ -2,25 +2,151 @@
 """ASR feature transform: waveform -> (normalised) log-mel features.
 
 Port of aps_tpu/transform/asr.py (FeatureTransform / AsrTransform,
-CmvnTransform). A feature string whose spectral part is a fusable
+RescaleTransform, SpeedPerturbTransform, CmvnTransform,
+SpecAugTransform). A feature string whose spectral part is a fusable
 "fbank-log" pair always runs through the fused log-mel kernel
 (aps_tpu_torch.ops.fbank); the JAX package does so only on a TPU and only
 when frame_hop % 8 == 0, a TPU tiling condition that does not apply here.
 "cmvn" keeps the masked statistics, so a padded batch normalises exactly as
-its utterances would alone. "perturb" and "aug" are identities at inference
-and are accepted for config parity; training through them, and every other
-token, raises NotImplementedError until the port has them."""
+its utterances would alone. audio_norm: false rescales the waveform to the
+int16 range first. "perturb" and "aug" are identities at inference; in
+training they draw from the transform's `generator` (the trainer sets one
+on its device) through perturb.draw and specaug.draw, which a check may
+replace to feed in draws of its own. The other tokens
+(spectrogram, mfcc, delta, splice, ...) and gcmvn raise
+NotImplementedError until the port has them."""
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from aps_tpu_torch.const import EPSILON
+from aps_tpu_torch.const import EPSILON, MAX_INT16
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops import fbank
+from aps_tpu_torch.transform.augment import perturb_speed, tf_mask
 from aps_tpu_torch.transform.utils import (fft_size_of, make_window,
-                                           mel_filter, num_frames)
+                                           mel_filter, num_frames,
+                                           speed_perturb_filter)
+
+
+class RescaleTransform(nn.Module):
+    """[-1, 1] samples -> int16 scale: round(wav * 32767), half to even
+    (as jnp.round)."""
+
+    def __init__(self, rescale: float = MAX_INT16 * 1.0):
+        super(RescaleTransform, self).__init__()
+        self.rescale = rescale
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        return torch.round(wav * self.rescale)
+
+
+class SpeedPerturbTransform(nn.Module):
+    """Random speed perturbation by polyphase resampling, one branch (a
+    factor) a batch, drawn uniformly over the factors; the last branch is
+    the identity. The buffer keeps S samples: a slower copy is cut, a
+    faster one zero-padded; output_length gives each utterance's length
+    after it."""
+
+    def __init__(self, sr: int = 16000, perturb: str = "0.9,1.0,1.1"):
+        super(SpeedPerturbTransform, self).__init__()
+        dst_sr = [int(f * sr) for f in map(float, perturb.split(","))]
+        if not dst_sr:
+            raise ValueError("No perturb options for doing speed perturb")
+        if sr not in dst_sr:
+            raise ValueError(f"Keep 1.0 in perturb options: {perturb}")
+        self.weights = [torch.from_numpy(speed_perturb_filter(sr, fs))
+                        for fs in dst_sr if fs != sr]
+        self.ratios = [(w.shape[1], w.shape[0]) for w in self.weights]
+        self._banks = {}  # device -> the filter banks there
+
+    @property
+    def identity(self) -> int:
+        return len(self.weights)
+
+    def output_length(self, inp_len, choice: int):
+        """Lengths after perturbation with branch `choice`."""
+        if inp_len is None:
+            return None
+        src, dst = (list(self.ratios) + [(1, 1)])[choice]
+        return (inp_len // src) * dst
+
+    def draw(self, generator: Optional[torch.Generator] = None) -> int:
+        """A branch, uniform over the factors. The resampler's shape
+        depends on it, so it is read back to the host."""
+        device = generator.device if generator is not None else None
+        return int(torch.randint(self.identity + 1, (1,),
+                                 generator=generator, device=device))
+
+    def forward(self, wav: torch.Tensor, choice: int) -> torch.Tensor:
+        """wav: N x S -> N x S at the speed of branch `choice`."""
+        if choice == self.identity:
+            return wav
+        banks = self._banks.get(wav.device)
+        if banks is None:
+            banks = self._banks[wav.device] = [
+                w.to(wav.device) for w in self.weights]
+        S = wav.shape[-1]
+        out = perturb_speed(wav, banks[choice].to(wav.dtype))
+        if out.shape[-1] >= S:
+            return out[..., :S].contiguous()
+        return F.pad(out, (0, S - out.shape[-1]))
+
+
+class SpecAugTransform(nn.Module):
+    """SpecAugment: a coin for each utterance with probability p, then
+    time and frequency masks. maxp_time < 1 caps each time mask at that
+    fraction of the frames. The masked entries become 0 (mask_zero) or
+    the mean of the whole padded batch."""
+
+    def __init__(self,
+                 p: float = 0.5,
+                 adaptive_args: Tuple[float, float] = (0.0, 0.0),
+                 time_args: Tuple[int, int] = (40, 1),
+                 freq_args: Tuple[int, int] = (30, 1),
+                 maxp_time: float = 1.0,
+                 mask_zero: bool = True):
+        super(SpecAugTransform, self).__init__()
+        self.p = p
+        self.pm = adaptive_args[0]
+        ps = adaptive_args[1]
+        if maxp_time < 1.0:
+            ps = min(ps, maxp_time) if ps > 0 else maxp_time
+        self.ps = ps
+        self.time_args = tuple(time_args)
+        self.freq_args = tuple(freq_args)
+        self.mask_zero = mask_zero
+
+    def draw(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mask N x T x F, coin N) for features x: N x (C x) T x F, drawn
+        on x's device."""
+        N, T, F = x.shape[0], x.shape[-2], x.shape[-1]
+        mask = tf_mask(N, (T, F),
+                       pm=self.pm,
+                       ps=self.ps,
+                       max_bands=self.freq_args[0],
+                       max_frame=self.time_args[0],
+                       num_freq_masks=self.freq_args[1],
+                       num_time_masks=self.time_args[1],
+                       generator=generator,
+                       device=x.device)
+        coin = torch.rand((N,), generator=generator, device=x.device) < self.p
+        return mask, coin
+
+    def forward(self, x: torch.Tensor,
+                draws: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        mask, coin = draws
+        mask = torch.where(coin[:, None, None], mask.to(x.dtype),
+                           torch.ones((), dtype=x.dtype, device=x.device))
+        if x.dim() == 4:
+            mask = mask[:, None]
+        if self.mask_zero:
+            return x * mask
+        return torch.where(mask == 0, x.mean(), x)
 
 
 class CmvnTransform(nn.Module):
@@ -120,10 +246,9 @@ class FeatureTransform(nn.Module):
         super(FeatureTransform, self).__init__()
         if not feats:
             raise ValueError("FeatureTransform: 'feats' can not be empty")
-        if not audio_norm:
-            raise NotImplementedError("audio_norm=False (int16 rescale) is "
-                                      "not ported yet")
         self.feats = feats
+        # [-1, 1] samples -> int16 scale ahead of every other step
+        self.rescale = None if audio_norm else RescaleTransform()
         self.frame_len = frame_len
         self.frame_hop = frame_hop
         self.round_pow_of_two = round_pow_of_two
@@ -137,6 +262,11 @@ class FeatureTransform(nn.Module):
         self.eps = eps
         self.steps = []
         self.cmvn = None
+        self.perturb = None
+        self.specaug = None
+        # the training draws' generator (the trainer sets one on its
+        # device); None draws from torch's default generator
+        self.generator = None
         self.feats_dim = 0
         self._fbank_ops = {}  # device -> fbank.Operands, made at its first use
         toks = feats.split("-")
@@ -177,7 +307,18 @@ class FeatureTransform(nn.Module):
                                           per_band=norm_per_band,
                                           eps=eps)
                 self.steps.append("cmvn")
-            elif tok in ("perturb", "aug"):
+            elif tok == "perturb":
+                self.perturb = SpeedPerturbTransform(sr=sr,
+                                                     perturb=speed_perturb)
+                self.steps.append(tok)
+            elif tok == "aug":
+                self.specaug = SpecAugTransform(
+                    p=aug_prob,
+                    adaptive_args=aug_adaptive_args,
+                    time_args=aug_time_args,
+                    freq_args=aug_freq_args,
+                    maxp_time=aug_maxp_time,
+                    mask_zero=aug_mask_zero)
                 self.steps.append(tok)
             else:
                 raise NotImplementedError(
@@ -190,9 +331,11 @@ class FeatureTransform(nn.Module):
     def dim(self) -> int:
         return self.feats_dim
 
-    def _num_frames(self, inp_len):
+    def _num_frames(self, inp_len, choice: Optional[int] = None):
         if inp_len is None:
             return None
+        if self.perturb is not None and choice is not None:
+            inp_len = self.perturb.output_length(inp_len, choice)
         nf = num_frames(inp_len, self.frame_len, self.frame_hop,
                         self.round_pow_of_two, self.stft_mode, self.center)
         return nf // self.subsampling_factor
@@ -225,12 +368,15 @@ class FeatureTransform(nn.Module):
     def forward(self, inp_pad: torch.Tensor, inp_len=None,
                 training: bool = False):
         """inp_pad: N x (C x) S waveform, inp_len: N or None ->
-        (feats N x (C x) T x F, num_frames N or None)."""
-        if training and ("perturb" in self.steps or "aug" in self.steps):
-            raise NotImplementedError("speed perturbation and SpecAugment "
-                                      "are not ported yet")
+        (feats N x (C x) T x F, num_frames N or None). In training the
+        branch and the masks come from perturb.draw and specaug.draw."""
+        choice = None
+        if training and self.perturb is not None:
+            choice = self.perturb.draw(self.generator)
         feats = inp_pad
-        nf = self._num_frames(inp_len)
+        if self.rescale is not None:
+            feats = self.rescale(feats)
+        nf = self._num_frames(inp_len, choice)
         if nf is not None:
             nf = torch.clamp_max(torch.as_tensor(nf),
                                  num_frames(inp_pad.shape[-1],
@@ -238,10 +384,16 @@ class FeatureTransform(nn.Module):
                                             self.round_pow_of_two,
                                             self.stft_mode, self.center))
         for step in self.steps:
-            if step == "fbank-log":
+            if step == "perturb":
+                if choice is not None:
+                    feats = self.perturb(feats, choice)
+            elif step == "fbank-log":
                 feats = self._fbank_log(feats)
             elif step == "cmvn":
                 feats = self.cmvn(feats, num_frames=nf)
+            elif step == "aug" and training and self.specaug.p > 0:
+                feats = self.specaug(
+                    feats, self.specaug.draw(feats, self.generator))
         return feats, nf
 
 

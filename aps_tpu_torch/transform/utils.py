@@ -3,9 +3,10 @@
 counts.
 
 Port of aps_tpu/transform/utils.py (init_window, fft_size_of,
-_stft_geometry, make_window, mel_filter, num_frames). The coefficient
-builders are numpy, as in the JAX package, so both packages get the same
-float32 tables; num_frames takes ints or tensors."""
+_stft_geometry, make_window, mel_filter, num_frames,
+speed_perturb_filter). The coefficient tables are made with numpy, as in
+the JAX package, so both packages get the same float32 tables; num_frames
+takes ints or tensors."""
 
 import math
 from typing import Optional, Tuple
@@ -106,3 +107,28 @@ def num_frames(wav_len, frame_len: int, frame_hop: int,
     if center:
         wav_len = wav_len + 2 * (win_length // 2)
     return (wav_len - win_length) // frame_hop + 1
+
+
+def speed_perturb_filter(src_sr: int,
+                         dst_sr: int,
+                         cutoff_ratio: float = 0.95,
+                         num_zeros: int = 64) -> np.ndarray:
+    """Polyphase resampling filter bank, dst_sr x src_sr x K (after gcd
+    reduction). Windowed-sinc design following lilfilter/resampler."""
+    if src_sr == dst_sr:
+        raise ValueError(f"src_sr == dst_sr: {src_sr}/{dst_sr}")
+    gcd = math.gcd(src_sr, dst_sr)
+    src_sr = src_sr // gcd
+    dst_sr = dst_sr // gcd
+    if src_sr == 1 or dst_sr == 1:
+        raise ValueError("integer-factor resampling not supported")
+    zeros_per_block = min(src_sr, dst_sr) * cutoff_ratio
+    padding = 1 + int(num_zeros / zeros_per_block)
+    times = (np.arange(dst_sr)[:, None, None] / float(dst_sr) -
+             np.arange(src_sr)[None, :, None] / float(src_sr) -
+             np.arange(2 * padding + 1)[None, None, :] + padding)
+    window = np.heaviside(1 - np.abs(times / padding), 0.0) * \
+        (0.5 + 0.5 * np.cos(times / padding * math.pi))
+    weight = np.sinc(times * zeros_per_block) * window * \
+        zeros_per_block / float(src_sr)
+    return weight.astype(np.float32)

@@ -111,9 +111,29 @@
    through `aps_tpu_torch.cmd.train_am` in batches of 8 x 24 s (a corpus
    of 16, since the loader wants ten utterances; per step K2's forward,
    dq and dk/dv 12 times each, dbias never: the model passes no bias), the
-   loss must fall; one training pass with dropouts off card vs CPU.
-   (Steps 12 to 14 run where their data is at hand: 12 with the other
-   kernel checks, 13 before step 7, 14 after step 8.)
+   loss must fall; one training pass with dropouts off at the weights of
+   each of five seeds, in float32 on the card and on the CPU, held to a
+   float64 pass on the CPU as the referee.
+15. Trains examples/asr/librispeech/conf/1a.yaml as written (conformer
+   with xl pose, width 512, 12 layers, adamw, acmu_gradient 4, speed
+   perturbation, SpecAugment, int16 rescale, matmul_precision bfloat16)
+   through `aps_tpu_torch.cmd.train_am` on the 32 utterances of step 7 in
+   batches of 4: two epochs of eight mini-steps, launches counted over the
+   run (K1 once and each K3 kernel once a layer per mini-step), no
+   epoch.N.ckpt; K1 held against its plain version on the first
+   rescaled, perturbed batch a training pass handed it, with the recipe
+   transform's options, and K3's forward and backward kernels at every
+   shape the passes gave them (B = 4, H = 8, one pose table a head),
+   twice each for bit-equal results; then at bfloat16 (TF32) and at float32 one accumulation
+   cycle with each mini-step timed and counted and one traced for its
+   device time and the shares of cuBLAS's products and cuDNN's
+   convolutions, the parameters moving on the 4th mini-step of each
+   cycle only; finally one training pass with dropouts off and the draws
+   fed in, card vs CPU at float32 and TF32 vs float32 on the card (not
+   bit-equal, the TF32 flags read inside the pass).
+   (Steps 12 to 15 run where their data is at hand: 12 with the other
+   kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
+   14.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -154,6 +174,9 @@ LONG_TRAIN_UTTS = 8
 # the loader wants at least ten utterances: two batches an epoch
 LONG_TRAIN_BATCHES = 2
 LONG_TIMED_STEPS = 3
+# the long-form training pass is held to a float64 referee at the weights
+# of each of these seeds
+LONG_STEP_SEEDS = tuple(range(SEED, SEED + 5))
 # separation: the full-width Conv-TasNet on 8 kHz mixtures
 SEP_SR = 8000
 SEP_SECS = 4
@@ -261,6 +284,24 @@ TOL_SEP_GRAD_REFEREE, TOL_SEP_GRAD_NOISE = 1e-1, 10.0
 TOL_TCN = 1e-4
 TOL_TCN_BF16_ABS, TOL_TCN_BF16_REL = 3e-2, 2e-2
 TOL_SEP_REL = 1e-3
+# the recipe: examples/asr/librispeech/conf/1a.yaml as written (xl pose,
+# width 512, 12 layers, adamw, acmu_gradient 4, perturb and aug, int16
+# rescale, matmul_precision bfloat16) on the tone corpus of the training
+# path, 8 mini-steps of RECIPE_BATCH utterances an epoch
+RECIPE_YAML = "examples/asr/librispeech/conf/1a.yaml"
+RECIPE_BATCH = 4
+RECIPE_HEADS = 8  # its encoder's, one xl pose table each
+RECIPE_EPOCHS = 2
+# its training pass with every dropout off and the draws fed in: the
+# TF32 pass (the recipe's bfloat16) against the float32 pass on the card,
+# loss relative, each gradient relative to its largest entry. TF32 keeps
+# 10 of float32's 23 mantissa bits (each operand of a product rounded by
+# up to 2^-11 of itself). Read on three runs: loss 2.4e-6 to 1.9e-5,
+# gradients 7.1e-4 to 6.1e-3; the limits stand about 5 and 3 times above
+# the largest reading. Bfloat16 operands (8 bits, 2^-9) would read about 8
+# times TF32's distance, and a pass whose flags were never set equals the
+# float32 pass bit for bit: both fail (the flags are also read inside)
+TOL_TF32_LOSS, TOL_TF32_GRAD = 1e-4, 2e-2
 
 
 def fail(msg: str) -> None:
@@ -428,16 +469,18 @@ def tensor_core_ms(flops: float) -> float:
     return flops * TF32_PASSES / PEAK_TF32_PER_S * 1e3
 
 
-def check_rel_attention(dev, gen, T_path, k_path):
+def check_rel_attention(dev, gen, T_path=None, k_path=None, H=4,
+                        cases=None):
     """K3's forward first as the encoder calls it in the decode (q_c = q_p,
     one shared pose table, every utterance k_path of T_path frames valid),
     then with ragged k_len including batch entries without a key, causal
     masks, per-head tables, T = 65, 129 and 700 (several 64-row blocks and
     32-key tiles), and the one-key corner (k_len 1 under a causal mask at T
-    = 640, both table kinds, errors printed). Every case also holds the lse
-    the kernel writes for the backward against the plain log-sum-exp, and
-    launches twice for bit-equal results. The decode's row is timed once
-    more with launches queued, against the tensor cores' bound.
+    = 640, both table kinds, errors printed); or the given cases, (T, Hp,
+    causal, k_len, role) each, B = len(k_len). Every case also holds the
+    lse the kernel writes for the backward against the plain log-sum-exp,
+    and launches twice for bit-equal results. The decode's row is timed
+    once more with launches queued, against the tensor cores' bound.
     -> (rows, further numbers for the `kernels` line)"""
     import torch
 
@@ -446,12 +489,12 @@ def check_rel_attention(dev, gen, T_path, k_path):
                                                  occupancy,
                                                  rel_lse_reference,
                                                  rel_mha_reference)
-    B, H, D = 8, 4, 64
+    D = 64
     rows = []
     more = {"occupancy": occupancy(D, "fwd")}
     corner = [1, 1, 640, 2, 1, 1, 640, 2]
-    for T, Hp, causal, lens, role in (
-            (T_path, 1, False, [k_path] * B, "path"),
+    for T, Hp, causal, lens, role in cases or (
+            (T_path, 1, False, [k_path] * 8, "path"),
             (T_path, 1, True, _ragged(T_path), ""),
             (65, H, True, _ragged(65), ""),
             (129, H, True, _ragged(129), ""),
@@ -459,6 +502,7 @@ def check_rel_attention(dev, gen, T_path, k_path):
             (700, H, True, _ragged(700), ""),
             (640, 1, True, corner, "corner"),
             (640, H, True, corner, "corner")):
+        B = len(lens)
         q_c, q_p, k, v = (torch.randn((B, H, T, D), generator=gen).to(dev)
                           for _ in range(4))
         if role == "path":
@@ -473,9 +517,10 @@ def check_rel_attention(dev, gen, T_path, k_path):
         again = launch_forward(*args, k_len, causal, True)
         lse_want = rel_lse_reference(q_c, q_p, k, pose, **kw)
         torch.cuda.synchronize()
-        label = (f"B=8 H=4 D=64 T={T} Hp={Hp} causal={causal} k_len="
+        label = (f"B={B} H={H} D=64 T={T} Hp={Hp} causal={causal} k_len="
                  + (f"{k_path}" if role == "path" else "1, 2 and T"
-                    if role == "corner" else "ragged with 0"))
+                    if role == "corner" else f"{lens} ({role})" if role
+                    else "ragged with 0"))
         if not torch.isfinite(got).all():
             fail(f"flash_attention_rel {label}: non-finite output")
         if not (torch.equal(out, got) and torch.equal(again[0], out) and
@@ -518,7 +563,8 @@ def check_rel_attention(dev, gen, T_path, k_path):
     return rows, more
 
 
-def check_rel_attention_bwd(dev, gen, T_path, lens_path):
+def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
+                            cases=None):
     """The three backward kernels of K3, each launched alone (dq first: it
     forms delta from do and the forward's output and writes it where dk/dv
     and dpose read it), against rel_mha_backward_reference and against
@@ -528,19 +574,20 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
     per-head tables, batch entries without any valid key (k_len 0: zero
     gradients, no NaN), lengths on either side of dq's 64 query rows and
     dpose's 64 table rows, and the one-key corner (k_len 1 under a long
-    causal mask). At the path's shape and at T = 700 with per-head tables
-    every kernel runs twice for run-to-run equality, and all three are
-    timed with launches queued against the tensor cores' bound. Also holds
-    and times the forward that writes lse, which the backward reads (rows
-    "fwd"). -> (rows by kernel, further numbers by kernel name for the
-    `kernels` line)"""
+    causal mask); or the given cases, (T, Hp, causal, k_len, role) each, B
+    = len(k_len). At the path's shape, at T = 700 with per-head tables and
+    in a case of role "recipe" every kernel runs twice for run-to-run
+    equality; at the first two all three are timed with launches queued
+    against the tensor cores' bound. Also holds and times the forward that
+    writes lse, which the backward reads (rows "fwd"). -> (rows by kernel,
+    further numbers by kernel name for the `kernels` line)"""
     import torch
 
     from aps_tpu_torch.ops.rel_attention import (launch_backward_kernel,
                                                  launch_forward, occupancy,
                                                  rel_mha_backward_reference,
                                                  rel_mha_reference)
-    H, D = 4, 64
+    D = 64
     rows = {kernel: [] for kernel in BACKWARD + ("fwd",)}
     names = [f"flash_attention_rel_{k}" for k in BACKWARD]
     more = {name: {} for name in names}
@@ -548,7 +595,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
         more[name]["occupancy"] = occupancy(D, kernel)
     corner = [1, 1, 640, 2, 1, 1, 640, 2]
     # (T, Hp, causal, k_len, what the row is for)
-    for T, Hp, causal, lens, role in (
+    for T, Hp, causal, lens, role in cases or (
             (T_path, 1, False, lens_path, "path"),
             (T_path, 1, True, _ragged(T_path), ""),
             (700, 1, False, _ragged(700), ""),
@@ -562,9 +609,10 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
         pose = (0.3 * torch.randn((Hp, 2 * T - 1, D), generator=gen)).to(dev)
         klen = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q_c, q_p, k, v, pose, klen)
-        label = (f"B={B} H=4 D=64 T={T} Hp={Hp} causal={causal} k_len="
+        label = (f"B={B} H={H} D=64 T={T} Hp={Hp} causal={causal} k_len="
                  + (f"{lens[0]}" if len(set(lens)) == 1 else
-                    "1, 2 and T" if role == "corner" else "ragged"))
+                    "1, 2 and T" if role == "corner" else
+                    f"{lens} ({role})" if role == "recipe" else "ragged"))
         out, lse = launch_forward(*args, causal, True)
         delta = torch.full_like(lse, float("nan"))
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
@@ -585,7 +633,7 @@ def check_rel_attention_bwd(dev, gen, T_path, lens_path):
             fail(f"flash_attention_rel_dq {label}: its delta is "
                  f"{delta_err} from sum(do * out)")
         pairs = H * valid_pairs(T, lens, causal)
-        if role in ("path", "t700"):
+        if role in ("path", "t700", "recipe"):
             fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
             fwd_plain_ms = time_ms(lambda: rel_mha_reference(
                 *args[:5], k_len=klen, causal=causal))
@@ -1471,7 +1519,7 @@ def train_phase(root: Path, train: Path, egs, dev, card, name="flagship",
           f"{', '.join(f'{v:.4f}' for v in step_secs)} s (host clock around "
           f"a synchronised step), peak memory {peak:.3f} GiB ({card})",
           flush=True)
-    return launches, per_step
+    return launches, per_step, statistics.median(step_secs)
 
 
 # per model: the pose table (flagship) or the last layer's feed-forward
@@ -1486,12 +1534,12 @@ STEP_GRADS = {
 }
 
 
-def step_check(egs, dev, gen, shapes, name="flagship"):
+def step_passes(egs, gen, shapes, name, sides):
     """One training-mode pass of asr@ctc_xent over the batch with every
-    dropout off, on the card (kernels) and on the CPU (their plain
-    versions), same seeded weights: the loss and the gradients named in
-    STEP_GRADS must agree, and the front end and the encoder must run at
-    the shapes their kernels were checked at."""
+    dropout off for each (device, dtype) of sides, same seeded weights:
+    on the card the kernels, on the CPU their plain versions; the front end
+    and the encoder must run at the shapes the kernels were checked at.
+    -> [(loss, {STEP_GRADS key: gradient on the CPU in float64})]"""
     import torch
 
     from aps_tpu_torch.flagship import MODELS, build_flagship, init_weights
@@ -1510,9 +1558,9 @@ def step_check(egs, dev, gen, shapes, name="flagship"):
     task = aps_task(conf["task"], model, blank=VOCAB - 1,
                     **conf["task_conf"])
     tensors = {k: v for k, v in egs.items() if not k.startswith("#")}
-    outs = {}
-    for where in ("cpu", dev):
-        side = copy.deepcopy(task).to(where).train()
+    outs = []
+    for where, dtype in sides:
+        side = copy.deepcopy(task).to(where, dtype).train()
         seen = []
         side.nnet.encoder.register_forward_hook(
             lambda mod, args, out: seen.append(
@@ -1520,28 +1568,80 @@ def step_check(egs, dev, gen, shapes, name="flagship"):
         wavs = []
         side.nnet.asr_transform.register_forward_hook(
             lambda mod, args, out: wavs.append(tuple(args[0].shape)))
-        stats = side(to_device(tensors, torch.device(where)))
+        batch = to_device(tensors, torch.device(where))
+        batch["src_pad"] = batch["src_pad"].to(dtype)
+        stats = side(batch)
         stats["loss"].backward()
         if seen != [(T, k_len)] or wavs != [(utts, S)]:
             fail(f"on {where} the front end ran at {wavs} and the encoder "
                  f"at {seen}; the kernels were checked at {utts} x "
                  f"{S} samples, T = {T}, k_len = {k_len}")
         params = dict(side.nnet.named_parameters())
-        outs[str(where)] = (stats["loss"].item(),
-                            {k: params[k].grad.cpu() for k in grads})
-    (loss_c, grad_c), (loss_g, grad_g) = outs["cpu"], outs[str(dev)]
+        outs.append((stats["loss"].item(),
+                     {k: params[k].grad.double().cpu() for k in grads}))
+    return outs
+
+
+def step_check(egs, dev, gen, shapes, name="flagship"):
+    """step_passes on the CPU and on the card in float32: the loss and the
+    gradients named in STEP_GRADS must agree."""
+    import torch
+    (loss_c, grad_c), (loss_g, grad_g) = step_passes(
+        egs, gen, shapes, name, (("cpu", torch.float32),
+                                 (dev, torch.float32)))
     if not (math.isfinite(loss_g) and
             abs(loss_g - loss_c) <= TOL_STEP_LOSS * abs(loss_c)):
         fail(f"training loss card {loss_g} vs CPU {loss_c}: outside "
              f"{TOL_STEP_LOSS} relative")
     errs = {}
-    for key in grads:
+    for key in STEP_GRADS[name]:
         scale = grad_c[key].abs().max().item()
         errs[key] = (grad_g[key] - grad_c[key]).abs().max().item() / scale
         if not (scale > 0 and errs[key] <= TOL_STEP_GRAD):
             fail(f"gradient of {key} card vs CPU: {errs[key]} of its "
                  f"largest entry {scale}, over {TOL_STEP_GRAD}")
     return loss_g, loss_c, errs
+
+
+def referee_step_check(egs, dev, shapes, name, seeds):
+    """step_passes at each seed's weights in float32 on the CPU and on the
+    card and in float64 on the CPU as the referee (the plain versions run
+    in the waveform's dtype). The card's and the referee's losses within
+    TOL_STEP_LOSS of the CPU's; each gradient of STEP_GRADS held to the
+    float64 one as the separation's are (TOL_SEP_GRAD_*), since at random
+    weights float32 passes on either device can land some 1e-3 from it.
+    -> {seed: (loss card, loss CPU, {key: (card vs CPU, card vs float64,
+    CPU vs float64)})}"""
+    import torch
+    out = {}
+    for seed in seeds:
+        (loss_c, grad_c), (loss_g, grad_g), (loss_r, grad_r) = step_passes(
+            egs, torch.Generator().manual_seed(seed), shapes, name,
+            (("cpu", torch.float32), (dev, torch.float32),
+             ("cpu", torch.float64)))
+        for loss in (loss_g, loss_r):
+            if not (math.isfinite(loss) and
+                    abs(loss - loss_c) <= TOL_STEP_LOSS * abs(loss_c)):
+                fail(f"{name} seed {seed}: training loss card {loss_g} "
+                     f"(float64 {loss_r}) vs CPU {loss_c}: outside "
+                     f"{TOL_STEP_LOSS} relative")
+        errs = {}
+        for key in STEP_GRADS[name]:
+            scale = grad_r[key].abs().max().item()
+            errs[key] = tuple((a - b).abs().max().item() / scale for a, b in
+                              ((grad_g[key], grad_c[key]),
+                               (grad_g[key], grad_r[key]),
+                               (grad_c[key], grad_r[key])))
+            _, noise_card, noise_cpu = errs[key]
+            bound = TOL_STEP_GRAD + TOL_SEP_GRAD_NOISE * noise_cpu
+            if not (scale > 0 and noise_cpu <= TOL_SEP_GRAD_REFEREE and
+                    noise_card <= bound):
+                fail(f"{name} seed {seed}: gradient of {key} is {noise_card} "
+                     f"(card) and {noise_cpu} (CPU) of its largest entry "
+                     f"{scale} from the float64 pass, over {bound} or "
+                     f"{TOL_SEP_GRAD_REFEREE}")
+        out[seed] = (loss_g, loss_c, errs)
+    return out
 
 
 def reference_check(cpt: Path, wavs, dev, stats, shapes):
@@ -2060,6 +2160,324 @@ def sep_step_check(egs, dev):
     return loss_g, loss_c, errs
 
 
+def write_recipe(root: Path, train: Path) -> Path:
+    """root/recipe/train.yaml: RECIPE_YAML as written, its data sections
+    pointed at the tone corpus of the training path."""
+    from aps_tpu_torch.conf import load_yaml
+    conf = load_yaml(Path(__file__).resolve().parent / RECIPE_YAML)
+    data = {name: str(train / name) for name in ("text", "utt2dur")}
+    data["wav_scp"] = str(train / "wav.scp")
+    conf["data_conf"].update(train=data, valid=dict(data))
+    recipe = root / "recipe"
+    recipe.mkdir()
+    (recipe / "train.yaml").write_text(json.dumps(conf, indent=2))
+    return recipe
+
+
+@contextlib.contextmanager
+def training_operands():
+    """Record what training passes (gradients enabled; validation runs
+    without) hand K1 and K3: K1's first waveform, and (B, H, T, D, Hp,
+    k_len, causal) of every K3 call. Yields {"wav": tensor or None, "rel":
+    [...]}."""
+    import torch
+
+    from aps_tpu_torch.asr.transformer import impl
+    from aps_tpu_torch.ops import fbank
+    real_fbank, real_rel = fbank.fused_logmel, impl.flash_attention_rel
+    seen = {"wav": None, "rel": []}
+
+    def record_fbank(wav, *args, **kw):
+        if torch.is_grad_enabled() and seen["wav"] is None:
+            seen["wav"] = wav.detach().clone()
+        return real_fbank(wav, *args, **kw)
+
+    def record_rel(q_c, q_p, k, v, pose, k_len=None, causal=False):
+        if torch.is_grad_enabled():
+            B, _, T, _ = q_c.shape
+            lens = (T,) * B if k_len is None else tuple(k_len.tolist())
+            seen["rel"].append((*q_c.shape, pose.shape[0], lens, causal))
+        return real_rel(q_c, q_p, k, v, pose, k_len=k_len, causal=causal)
+
+    fbank.fused_logmel, impl.flash_attention_rel = record_fbank, record_rel
+    try:
+        yield seen
+    finally:
+        fbank.fused_logmel, impl.flash_attention_rel = real_fbank, real_rel
+
+
+def recipe_steps(trainer, egs, precision: str, per_step):
+    """One accumulation cycle (acmu_gradient mini-steps) of the recipe's
+    trainer on egs under matmul_precision `precision`, each mini-step timed
+    and counted alone: the parameters must stay put on every mini-step but
+    the last, and move on it. -> host seconds of each mini-step."""
+    import torch
+
+    from aps_tpu_torch.ops import build
+    trainer.matmul_precision = precision
+    if trainer.mini_step != 0:
+        fail(f"the recipe's trainer is {trainer.mini_step} mini-steps into "
+             "an accumulation")
+    secs = []
+    for step in range(trainer.acmu_gradient):
+        before = [p.detach().clone() for p in trainer.params]
+        build.reset_launches()
+        torch.cuda.synchronize()
+        beg = time.perf_counter()
+        done = trainer.train_one_step(egs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - beg)
+        trainer.cur_step += 1
+        trainer.lr_scheduler.step()
+        if not done:
+            fail(f"recipe mini-step {step} ({precision}) was skipped")
+        if dict(build.LAUNCHES) != per_step:
+            fail(f"recipe mini-step {step} launches {dict(build.LAUNCHES)}, "
+                 f"expected {per_step}")
+        moved = any(not torch.equal(p, b)
+                    for p, b in zip(trainer.params, before))
+        if moved != (step == trainer.acmu_gradient - 1):
+            fail(f"recipe mini-step {step + 1} of {trainer.acmu_gradient} "
+                 f"({precision}) {'moved' if moved else 'left'} the "
+                 "parameters")
+    return secs
+
+
+def gemm_share(prof, device_ms: float):
+    """Shares of the device time in cuDNN's convolutions (fprop, dgrad,
+    wgrad or conv in the kernel's name) and in cuBLAS's products (gemm,
+    or nvjet for cuBLASLt's Hopper kernels)."""
+    from aps_tpu_torch.cmd.profile_decode import on_device
+    gemm = conv = 0.0
+    for evt in prof.events():
+        if not on_device(evt):
+            continue
+        name = evt.name.lower()
+        ms = evt.self_device_time_total / 1e3
+        if any(k in name for k in ("conv", "fprop", "dgrad", "wgrad")):
+            conv += ms
+        elif "gemm" in name or "nvjet" in name:
+            gemm += ms
+    return gemm / device_ms, conv / device_ms
+
+
+def recipe_phase(root: Path, train: Path, dev, card):
+    """RECIPE_YAML through aps_tpu_torch.cmd.train_am on the tone corpus:
+    RECIPE_EPOCHS epochs of 8 mini-steps with the launch counts read over
+    the run (K1 once and each K3 kernel once a layer per mini-step, K1 and
+    K3's forward per validation batch); no epoch.N.ckpt (the recipe asks
+    for no averaging); then one accumulation cycle at the recipe's
+    bfloat16 (TF32) and one at float32 on the first batch, each mini-step
+    timed and counted, the parameters moving on the 4th only, and each
+    cycle traced once. -> (egs, launches of the run, of one mini-step,
+    {precision: (median mini-step s, device ms of a cycle, GEMM share,
+    conv share)}, the trainer, what its training passes handed K1 and K3
+    (training_operands))."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_am
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.ops import build
+    recipe = write_recipe(root, train)
+    cpt = recipe / "cpt"
+    argv = ["--conf", str(recipe / "train.yaml"), "--dict",
+            str(root / "dict"), "--checkpoint", str(cpt), "--batch-size",
+            str(RECIPE_BATCH), "--epochs", str(RECIPE_EPOCHS), "--seed",
+            str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr), training_operands() as seen:
+        trainer = train_am.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    batches = TRAIN_UTTS // RECIPE_BATCH
+    steps = RECIPE_EPOCHS * batches
+    model = trainer.task.nnet
+    transform = model.asr_transform
+    layers = len(model.encoder.encoder.layers)
+    if trainer.device.type != "cuda" or trainer.cur_step != steps or \
+            trainer.mini_step != 0:
+        fail(f"train_am took {trainer.cur_step} mini-steps on "
+             f"{trainer.device}, {trainer.mini_step} into an accumulation")
+    setup = (trainer.acmu_gradient, trainer.matmul_precision,
+             type(trainer.optimizer).__name__, layers,
+             transform.rescale is not None, transform.perturb is not None,
+             transform.specaug is not None, transform.generator is
+             trainer.generator, trainer.generator.device.type)
+    if setup != (4, "bfloat16", "AdamW", ENC_LAYERS, True, True, True, True,
+                 "cuda"):
+        fail(f"the recipe's trainer and front end are not as written: "
+             f"{setup}")
+    want = step_launches("flagship", steps + (RECIPE_EPOCHS + 1) * batches,
+                         steps)
+    if launches != want:
+        fail(f"recipe launches {launches}, expected {want}")
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    valid = _epoch_losses(cpt / "trainer.log", "valid")
+    if len(losses) != RECIPE_EPOCHS or len(valid) != RECIPE_EPOCHS + 1:
+        fail(f"the recipe's trainer.log reports {len(losses)} training and "
+             f"{len(valid)} validation epochs")
+    # best.ckpt only once the accuracy beats its start by no_impr_thres
+    written = sorted(p.name for p in cpt.glob("*.ckpt"))
+    if "last.ckpt" not in written or \
+            not set(written) <= {"best.ckpt", "last.ckpt"}:
+        fail(f"the recipe's run wrote {written}: it asks for no epoch "
+             "checkpoints")
+    egs = first_batch(root, recipe, RECIPE_BATCH, batches)
+    per_step = step_launches("flagship", 1, 1)
+    trainer.reporter.train()
+    timed = {}
+    for precision in ("bfloat16", "float32"):
+        secs = recipe_steps(trainer, egs, precision, per_step)
+        device_ms, wall, _, prof = profile(
+            lambda: recipe_steps(trainer, egs, precision, per_step))
+        timed[precision] = (statistics.median(secs), device_ms,
+                            *gemm_share(prof, device_ms))
+    losses += [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses + valid)):
+        fail(f"non-finite recipe loss: training {losses}, validation "
+             f"{valid}")
+    print(f"recipe ({RECIPE_YAML}, as written): {TRAIN_UTTS} x "
+          f"{UTT_SECS} s through train_am in batches of {RECIPE_BATCH}: "
+          f"{RECIPE_EPOCHS} epochs of {batches} mini-steps (acmu_gradient "
+          f"{trainer.acmu_gradient}), launches {launches}; per mini-step "
+          f"{per_step}; training losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; validation losses "
+          f"{', '.join(f'{v:.4f}' for v in valid)}", flush=True)
+    for precision, (med, device_ms, gemm, conv) in timed.items():
+        print(f"recipe mini-step at matmul_precision {precision}: median "
+              f"{med:.4f} s (host clock around a synchronised mini-step); "
+              f"one cycle of {trainer.acmu_gradient} mini-steps traced: "
+              f"device {device_ms:.3f} ms, cuBLAS products {gemm:.4f} and "
+              f"cuDNN convolutions {conv:.4f} of it ({card})", flush=True)
+    return egs, launches, per_step, timed, trainer, seen
+
+
+def check_recipe_kernels(dev, gen, model, seen):
+    """K1 and K3 as the recipe's training passes called them: K1 on the
+    first rescaled, speed-perturbed batch with the recipe transform's own
+    options (check_fbank), K3's forward and its backward kernels at every
+    (B, H, T, k_len) the passes gave it (the branches of the perturbation
+    give other k_len), with one pose table a head (xl), each launched
+    twice for bit-equal results and held to its plain version.
+    -> {kernel name: rows}"""
+    shapes = sorted(set(seen["rel"]), key=seen["rel"].index)
+    wav = seen["wav"]
+    if wav is None or tuple(wav.shape) != (RECIPE_BATCH, wav.shape[1]) or \
+            {(B, H, D, Hp, causal) for B, H, _, D, Hp, _, causal in shapes} \
+            != {(RECIPE_BATCH, RECIPE_HEADS, 64, RECIPE_HEADS, False)}:
+        fail(f"the recipe's training passes handed K1 "
+             f"{None if wav is None else tuple(wav.shape)} and K3 {shapes}")
+    print(f"recipe path: K1 on {tuple(wav.shape)} samples (rescaled and "
+          f"perturbed), K3 at (B, H, T, D, Hp, k_len, causal) {shapes}",
+          flush=True)
+    rows = {"fused_logmel": check_fbank(dev, model,
+                                        (("recipe training", wav),))[0]}
+    cases = [(T, Hp, causal, list(lens), "recipe")
+             for _, _, T, _, Hp, lens, causal in shapes]
+    rows["flash_attention_rel"] = check_rel_attention(
+        dev, gen, H=RECIPE_HEADS, cases=cases)[0]
+    bwd = check_rel_attention_bwd(dev, gen, H=RECIPE_HEADS, cases=cases)[0]
+    rows["flash_attention_rel"] += bwd.pop("fwd")
+    for kernel, kernel_rows in bwd.items():
+        rows[f"flash_attention_rel_{kernel}"] = kernel_rows
+    return rows
+
+
+RECIPE_GRADS = ("encoder.encoder.layers.0.self_attn.in_proj.weight",
+                "encoder.encoder.layers.11.feedforward2.linear1.weight",
+                "ctc_head.weight", "decoder.output.weight")
+
+
+def tf32_flags():
+    import torch
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def recipe_check(root: Path, egs, dev, gen):
+    """One training pass of the recipe with every dropout off and the
+    draws fed in (the 0.9 branch of the speed perturbation, one seeded
+    SpecAugment mask): on the CPU, on the card at matmul_precision
+    float32 and at the recipe's bfloat16 (TF32). Card vs CPU within the
+    training pass's tolerances; TF32 vs float32 on the card within
+    TOL_TF32_* and not bit-equal, with cuBLAS's and cuDNN's TF32 flags read
+    inside each card pass and after it. -> (losses, errors of the card,
+    errors of TF32)."""
+    import torch
+
+    from aps_tpu_torch.conf import load_am_conf
+    from aps_tpu_torch.flagship import build_flagship, init_weights
+    from aps_tpu_torch.libs import aps_task
+    from aps_tpu_torch.trainer.base import matmul_precision
+    from aps_tpu_torch.trainer.dp import to_device
+    from aps_tpu_torch.transform.augment import tf_mask
+    conf, _ = load_am_conf(str(root / "recipe" / "train.yaml"),
+                           str(root / "dict"))
+    nnet_conf = conf["nnet_conf"]
+    for part in ("enc_kwargs", "dec_kwargs"):
+        nnet_conf[part]["pose_kwargs"]["dropout"] = 0.0
+        nnet_conf[part]["arch_kwargs"].update(att_dropout=0.0,
+                                              ffn_dropout=0.0)
+    model = build_flagship(conf)
+    init_weights(model, gen)
+    task = aps_task(conf["task"], model, **conf["task_conf"])
+    transform = model.asr_transform
+    frames = int(transform._num_frames(torch.tensor(egs["src_pad"].shape[-1])))
+    aug = transform.specaug
+    mask = tf_mask(RECIPE_BATCH, (frames, transform.dim()), pm=aug.pm,
+                   ps=aug.ps, max_bands=aug.freq_args[0],
+                   max_frame=aug.time_args[0],
+                   num_freq_masks=aug.freq_args[1],
+                   num_time_masks=aug.time_args[1], generator=gen)
+    if not 0 < float(mask.mean()) < 1:
+        fail("the fed SpecAugment mask masks nothing or everything")
+    tensors = {k: v for k, v in egs.items() if not k.startswith("#")}
+    outs = []
+    for where, precision in (("cpu", "float32"), (dev, "float32"),
+                             (dev, "bfloat16")):
+        side = copy.deepcopy(task).to(where).train()
+        tf = side.nnet.asr_transform
+        tf.perturb.draw = lambda generator: 0
+        tf.specaug.draw = lambda x, generator: (
+            mask.to(x.device), torch.ones(x.shape[0], dtype=torch.bool,
+                                          device=x.device))
+        with matmul_precision(precision, torch.device(where)):
+            flags_in = tf32_flags()
+            stats = side(to_device(tensors, torch.device(where)))
+            stats["loss"].backward()
+        want = where != "cpu" and precision == "bfloat16"
+        if where != "cpu" and (flags_in, tf32_flags()) != \
+                ((want, want), (False, False)):
+            fail(f"matmul_precision {precision}: TF32 flags (cuBLAS, cuDNN) "
+                 f"{flags_in} inside the pass, {tf32_flags()} after it")
+        params = dict(side.nnet.named_parameters())
+        outs.append((stats["loss"].item(),
+                     {k: params[k].grad.cpu() for k in RECIPE_GRADS}))
+    cpu, card, tf32 = outs
+
+    def distance(got, ref):
+        loss = abs(got[0] - ref[0]) / abs(ref[0])
+        grads = {k: ((got[1][k] - ref[1][k]).abs().max() /
+                     ref[1][k].abs().max()).item() for k in RECIPE_GRADS}
+        return loss, grads
+
+    loss_err, errs = distance(card, cpu)
+    if not (math.isfinite(card[0]) and loss_err <= TOL_STEP_LOSS and
+            all(v <= TOL_STEP_GRAD for v in errs.values())):
+        fail(f"recipe pass card vs CPU at float32: loss {card[0]} vs "
+             f"{cpu[0]}, gradient errors {errs}")
+    tf32_loss_err, tf32_errs = distance(tf32, card)
+    if tf32[0] == card[0] and all(torch.equal(tf32[1][k], card[1][k])
+                                  for k in RECIPE_GRADS):
+        fail("recipe pass: TF32 equals float32 on the card bit for bit")
+    if not (tf32_loss_err <= TOL_TF32_LOSS and
+            all(v <= TOL_TF32_GRAD for v in tf32_errs.values())):
+        fail(f"recipe pass TF32 vs float32 on the card: loss {tf32[0]} vs "
+             f"{card[0]}, gradient errors {tf32_errs}")
+    return (cpu[0], card[0], tf32[0]), (loss_err, errs), \
+        (tf32_loss_err, tf32_errs)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2185,11 +2603,40 @@ def main() -> None:
               f"{enc_err:.3e}, best-score diff {score_err:.3e}", flush=True)
 
         dropout_step(egs, dev, gen, card)
-        launches_trn, per_step = train_phase(root, train, egs, dev, card)
+        launches_trn, per_step, flagship_secs = train_phase(
+            root, train, egs, dev, card)
         loss_g, loss_c, errs = step_check(egs, dev, gen, shapes_trn)
         print(f"training pass card vs CPU, dropouts off: loss {loss_g:.6f} "
               f"vs {loss_c:.6f}; gradient errors relative to the largest "
               "entry " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              flush=True)
+
+        # the recipe as written: train_am, then its pass card vs CPU and
+        # TF32 vs float32
+        egs_rcp, launches_rcp, per_step_rcp, timed, trainer, seen = \
+            recipe_phase(root, train, dev, card)
+        recipe_rows = check_recipe_kernels(dev, gen, trainer.task.nnet,
+                                           seen)
+        del trainer, seen
+        for name, rows in recipe_rows.items():
+            checks[name] += rows
+            print_rows(name, rows, card)
+        losses, (loss_err, errs), (tf32_loss_err, tf32_errs) = \
+            recipe_check(root, egs_rcp, dev, gen)
+        print(f"recipe pass, dropouts off, draws fed in: loss CPU "
+              f"{losses[0]:.6f}, card float32 {losses[1]:.6f}, card TF32 "
+              f"{losses[2]:.6f}; card vs CPU: loss {loss_err:.3e}, "
+              "gradients " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in errs.items()) +
+              f"; TF32 vs float32 on the card: loss {tf32_loss_err:.3e}, "
+              "gradients " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in tf32_errs.items()),
+              flush=True)
+        print(f"three steps: recipe mini-step ({RECIPE_BATCH} x {UTT_SECS} "
+              f"s) at float32 {timed['float32'][0]:.4f} s, at its bfloat16 "
+              f"(TF32) {timed['bfloat16'][0]:.4f} s; flagship step "
+              f"({TRAIN_UTTS} x {UTT_SECS} s) {flagship_secs:.4f} s (host "
+              f"clock around a synchronised step, medians) ({card})",
               flush=True)
 
         # the long-form path: decode, card vs CPU, training, card vs CPU
@@ -2200,17 +2647,19 @@ def main() -> None:
         print(f"long-form card vs CPU on {LONG_CHECK_UTTS} utterances: "
               f"encoder max abs err {enc_err:.3e}, best-score diff "
               f"{score_err:.3e}", flush=True)
-        launches_ltr, per_step_long = train_phase(
+        launches_ltr, per_step_long, _ = train_phase(
             long_root, train_long, egs_long, dev, card, "xfmr_abs",
             LONG_TRAIN_UTTS, LONG_SECS, LONG_TIMED_STEPS,
             LONG_TRAIN_BATCHES)
-        loss_g, loss_c, errs = step_check(egs_long, dev, gen, shapes_ltr,
-                                          "xfmr_abs")
-        print(f"long-form training pass card vs CPU, dropouts off: loss "
-              f"{loss_g:.6f} vs {loss_c:.6f}; gradient errors relative to "
-              "the largest entry "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
-              flush=True)
+        for seed, (loss_g, loss_c, errs) in referee_step_check(
+                egs_long, dev, shapes_ltr, "xfmr_abs",
+                LONG_STEP_SEEDS).items():
+            print(f"long-form training pass, dropouts off, weights of seed "
+                  f"{seed}: loss card {loss_g:.6f} vs CPU {loss_c:.6f}; "
+                  "gradient errors relative to the largest entry (card vs "
+                  "CPU, card vs float64, CPU vs float64) "
+                  + ", ".join(f"{k} " + ", ".join(f"{e:.3e}" for e in v)
+                              for k, v in errs.items()), flush=True)
 
         # the separation path: its kernel, the separate command, the
         # train_ss command
@@ -2290,6 +2739,11 @@ def main() -> None:
             path_launches = launches_trn[name]
         if name == "fused_logmel":
             extra.update(more_fbank)
+        if name in recipe_rows:
+            extra["recipe_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4]}
+                for r in recipe_rows[name]]
         if name == "ctc_score_step":
             extra.update(ms_queued=ctc_queued,
                          long_form_ms_queued=long_queued,
@@ -2319,6 +2773,8 @@ def main() -> None:
             "launches_decode_long": launches_long[name],
             "launches_train_long_run": launches_ltr[name],
             "launches_train_long_step": per_step_long[name],
+            "launches_recipe_run": launches_rcp[name],
+            "launches_recipe_step": per_step_rcp[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,

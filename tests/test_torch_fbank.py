@@ -295,3 +295,32 @@ def test_float64_stages_keep_deep_bands_within_the_tolerance():
                                    **kw)[0] - want).max()
             for dtype in (np.complex64, np.complex128)}
     assert errs[np.complex128] <= LOGMEL_ATOL < errs[np.complex64], errs
+
+
+def test_plain_version_runs_in_the_waveform_dtype():
+    """fused_logmel_plain computes in the waveform's dtype (a float64 pass
+    of the model on the CPU is a referee for float32 passes): in float64
+    it stays within 1e-6 of numpy's float64 function (its DFT tables are
+    rounded to float32 first), and float32 within LOGMEL_ATOL of it."""
+    rng = np.random.default_rng(64)
+    wav = 0.1 * rng.standard_normal((2, 8000))
+    win = make_window("hamm", 400, True, "librosa")
+    mel = mel_filter(400, num_mels=80).T
+    kw = dict(pre_emphasis=0.97, normalized=False, use_power=True,
+              log_lower_bound=1.0, log_eps=EPSILON)
+    got = {dtype: fbank.fused_logmel_plain(torch.from_numpy(wav).to(dtype),
+                                           win, 512, 160, mel=mel, **kw)
+           for dtype in (torch.float32, torch.float64)}
+    assert got[torch.float64].dtype == torch.float64
+    T = (wav.shape[1] - len(win)) // 160 + 1
+    idx = np.arange(T)[:, None] * 160 + np.arange(len(win))[None, :]
+    frames = wav[:, idx]
+    frames = np.concatenate([frames[..., :1] * (1 - 0.97),
+                             frames[..., 1:] - 0.97 * frames[..., :-1]], -1)
+    spec = np.fft.rfft(frames * win.astype(np.float64), axis=-1)
+    want = np.log(1.0 + (spec.real**2 + spec.imag**2) @ mel.astype(
+        np.float64))
+    np.testing.assert_allclose(got[torch.float64].numpy(), want, atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(got[torch.float32].numpy(), want,
+                               atol=LOGMEL_ATOL, rtol=0)
