@@ -133,3 +133,15 @@ class Conv2d(nn.Module):
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
         """inp: N x C x T x F."""
         return torch.relu(self.norm2d(self.conv(inp)))
+
+
+class OneHotEmbedding(nn.Module):
+    """Token ids -> one-hot vectors (port of aps_tpu's OneHotEmbedding, the
+    LM's embedding when embed_size equals the vocabulary)."""
+
+    def __init__(self, vocab_size: int):
+        super(OneHotEmbedding, self).__init__()
+        self.vocab_size = vocab_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.one_hot(x, self.vocab_size).float()

@@ -1,9 +1,15 @@
 #!/usr/bin/env python
-"""Batched beam search for transformer-decoder AMs (port of
-aps_tpu/asr/beam_search/transformer.py: beam_search_batch, _search_core).
+"""Beam search for transformer-decoder AMs (port of
+aps_tpu/asr/beam_search/transformer.py: beam_search, greedy_search,
+beam_search_batch, _search_core), with LM shallow fusion.
 
-One search over N*K flat (utterance x beam) lanes. Differences from the
-JAX package, all deliberate:
+One search over N*K flat (utterance x beam) lanes (N = 1 for the
+single-utterance beam_search). With an LM adapter (asr/beam_search/lm.py)
+the LM steps on the previous token every step, lm_weight x its log-softmax
+is added on the candidates (with CTC) or on the whole vocabulary (without),
+and its state is reordered with the parents' lanes and kept on frozen
+ones, as the search's own state is. Differences from the JAX package, all
+deliberate:
   * the compiled lax.while_loop is a Python loop that stops when every
     utterance is done (or stalled under end detection) or at max_len; the
     stop test reads one flag from the device per step;
@@ -12,15 +18,20 @@ JAX package, all deliberate:
     measurement, and documents it as equivalent to the full rescore;
   * candidate pruning is the exact torch.topk, called directly (aps_tpu's
     topk_candidates only adds the TPU's approx_max_k option);
-  * no LM fusion and no bfloat16 decoding yet."""
+  * the single-utterance search runs on the encoder output as it is, where
+    aps_tpu pads it to a frame bucket (blank-certain CTC rows, masked
+    encoder rows) to limit its compiles;
+  * no bfloat16 decoding yet."""
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from aps_tpu_torch.const import MIN_F32
 from aps_tpu_torch.asr.beam_search.att import _per_utt, segmented_topk
 from aps_tpu_torch.asr.beam_search.ctc import CtcScorer, CtcScoreState
+from aps_tpu_torch.asr.beam_search.lm import LmAdapter
 from aps_tpu_torch.asr.beam_search.utils import (BeamSearchParam, BeamState,
                                                  apply_eos_threshold,
                                                  disable_unk, extract_nbest,
@@ -50,9 +61,9 @@ def _select(act_lane: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
 
 def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                  ctc_out: Optional[torch.Tensor], param: BeamSearchParam,
-                 max_len: int) -> BeamState:
-    """enc_out N x T x D, enc_len N, ctc_out N x T x V or None -> final
-    BeamState over N*K lanes."""
+                 max_len: int, lm: Optional[LmAdapter] = None) -> BeamState:
+    """enc_out N x T x D, enc_len N, ctc_out N x T x V or None, lm an LM
+    adapter or None -> final BeamState over N*K lanes."""
     K = param.beam_size
     N = enc_out.shape[0]
     dev = enc_out.device
@@ -63,6 +74,7 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
         if use_ctc else None
     state = init_beam_state(K, max_len, param.sos, num_utts=N, device=dev)
     ctc_state = scorer.init_state() if use_ctc else None
+    lm_state = lm.init_state(lanes, device=dev) if lm is not None else None
     cache = nnet.decode_init_cache(lanes, max_len, device=dev)
     # cross-attention K/V projected once per UTTERANCE and read
     # beam-shared by every step (the attention folds the K beams)
@@ -88,7 +100,10 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                                                mem_kv=mem_kv)
         am_prob = torch.log_softmax(pred.float() / param.temperature, -1)
         V = am_prob.shape[-1]
-        new_ctc = None
+        new_ctc = new_lm = None
+        lm_prob = 0.0
+        if lm is not None:
+            lm_prob, new_lm = lm.step(lm_state, tok_prev, t)
         if use_ctc:
             C = min(param.ctc_beam_size, V)
             # mask <unk> before pruning so it also holds under CTC fusion
@@ -99,6 +114,9 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
             delta, ctc_x = scorer(ctc_state, tok_prev, cand, t == 0)
             fusion = att_score * (1 - param.ctc_weight) + \
                 delta * param.ctc_weight
+            if lm is not None:
+                fusion = fusion + param.lm_weight * torch.gather(
+                    lm_prob, -1, cand)
             frozen = torch.where(
                 torch.arange(C, device=dev) == 0, 0.0,
                 MIN_F32).to(fusion.dtype)
@@ -108,7 +126,8 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                 total, cand, N, K)
             new_ctc = scorer.update_var(ctc_x, flat_idx)
         else:
-            fusion = disable_unk(am_prob, param.unk)
+            fusion = disable_unk(am_prob + param.lm_weight * lm_prob,
+                                 param.unk)
             fusion = apply_eos_threshold(fusion, param.eos,
                                          param.eos_threshold)
             fusion = mask_finished_scores(fusion, state.done, param.eos)
@@ -123,6 +142,8 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                               length=length)
         # carry the history of the selected parent beams
         new_cache = new_cache[:, beam_idx]
+        if lm is not None:
+            new_lm = lm.reorder(new_lm, beam_idx)
         cur_best = _per_utt(torch.where(done, flat_score, MIN_F32), N,
                             torch.amax)
         improved = cur_best > best_done
@@ -139,6 +160,8 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                     _select(act_lane, new_ctc.gamma_b, ctc_state.gamma_b,
                             axis=1),
                     _select(act_lane, new_ctc.score, ctc_state.score))
+            if lm is not None:
+                new_lm = lm.select(act_lane, new_lm, lm_state)
             # a frozen utterance never resumes, so its cache rows (updated
             # in place at column t) are never read again
             improved = improved & act
@@ -146,24 +169,66 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                                 best_done)
         last_improve = torch.where(improved, t, last_improve)
         state, ctc_state, cache = new_state, new_ctc, new_cache
+        lm_state = new_lm
     return state
 
 
-def beam_search_batch(nnet, batch: List, sos: int = -1,
-                      eos: int = -1, beam_size: int = 8, nbest: int = 1,
-                      max_len: int = -1, pad_to: int = -1,
-                      dtype: str = "float32", device=None,
-                      **kwargs) -> List[List[Dict]]:
-    """Batched transformer-decoder beam search over N*K flat lanes, without
-    LM fusion (not ported yet). batch: list of 1-D waveforms (numpy or
-    tensors). Returns one nbest list per utterance. The model must be in
-    eval mode on `device`."""
+def _check_param(dtype: str, param: BeamSearchParam) -> None:
     if dtype != "float32":
         raise NotImplementedError("bfloat16 decoding is not ported yet")
-    param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
     if param.cov_penalty > 0:
         raise NotImplementedError("the transformer search keeps no "
                                   "attention weights for a coverage penalty")
+
+
+def beam_search(nnet, x, lm: Optional[LmAdapter] = None, sos: int = -1,
+                eos: int = -1, beam_size: int = 8, nbest: int = 1,
+                max_len: int = -1, dtype: str = "float32", device=None,
+                **kwargs) -> List[Dict]:
+    """Single-utterance beam search. x: a 1-D waveform (numpy or tensor).
+    max_len as aps_tpu's: at most min(param.max_len, T) steps when not
+    given, else the given number (capped at param.max_len only)."""
+    param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
+    _check_param(dtype, param)
+    if device is None:
+        device = next(nnet.parameters()).device
+    with torch.inference_mode():
+        x = torch.as_tensor(np.asarray(x, dtype=np.float32),
+                            device=device)[None]
+        enc_out, enc_len, ctc_out = nnet.decode_enc(x)
+        T = enc_out.shape[1]
+        if max_len <= 0:
+            max_len = min(param.max_len, T)
+        max_len = min(max_len, param.max_len)
+        use_ctc = param.ctc_weight > 0 and ctc_out is not None
+        enc_len = torch.full((1,), T, dtype=torch.int64, device=device)
+        final = _search_core(nnet, enc_out, enc_len,
+                             ctc_out if use_ctc else None, param, max_len,
+                             lm=lm)
+    final = BeamState(*(x.cpu().numpy() for x in final))
+    return extract_nbest(final, param, nbest, final=True)
+
+
+def greedy_search(nnet, x, sos: int = -1, eos: int = -1,
+                  **kwargs) -> List[Dict]:
+    """beam_search with one beam and one hypothesis."""
+    kwargs.pop("beam_size", None)
+    kwargs.pop("nbest", None)
+    return beam_search(nnet, x, sos=sos, eos=eos, beam_size=1, nbest=1,
+                       **kwargs)
+
+
+def beam_search_batch(nnet, batch: List, lm: Optional[LmAdapter] = None,
+                      sos: int = -1, eos: int = -1, beam_size: int = 8,
+                      nbest: int = 1, max_len: int = -1, pad_to: int = -1,
+                      dtype: str = "float32", device=None,
+                      **kwargs) -> List[List[Dict]]:
+    """Batched transformer-decoder beam search over N*K flat lanes, with
+    LM shallow fusion when lm (an adapter on the same device) is given.
+    batch: list of 1-D waveforms (numpy or tensors). Returns one nbest list
+    per utterance. The models must be in eval mode on `device`."""
+    param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
+    _check_param(dtype, param)
     if device is None:
         device = next(nnet.parameters()).device
     with torch.inference_mode():
@@ -184,7 +249,8 @@ def beam_search_batch(nnet, batch: List, sos: int = -1,
             ctc_out = torch.where(tmask[..., None], ctc_out, pad_logits)
         else:
             ctc_out = None
-        final = _search_core(nnet, enc_out, enc_len, ctc_out, param, ml)
+        final = _search_core(nnet, enc_out, enc_len, ctc_out, param, ml,
+                             lm=lm)
     final = BeamState(*(x.cpu().numpy() for x in final))
     K = param.beam_size
     return [

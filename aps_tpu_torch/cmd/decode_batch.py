@@ -3,15 +3,22 @@
 
     python -m aps_tpu_torch.cmd.decode_batch wav.scp best.txt --am <cpt_dir>
         [--dict dict] [--batch-size 8] [--beam-size 8] [--ctc-weight 0.4]
+        [--lm <lm_dir> --lm-weight 0.2]
 
 Takes the arguments of aps_tpu's decoder (aps_tpu_torch.opts.
 DecodingParser), reads the same checkpoint directory and wav.scp, buckets
 utterances on the same duration grid and writes the same
-"key<TAB>transcript" lines. It decodes on the card (--device-id picks
-which) and raises when torch sees none; --device cpu asks for the CPU in so
-many words, where the kernels' plain versions run. The wall time of the
-decode loop is logged with the real-time factor and audio seconds per
-second."""
+"key<TAB>transcript" lines. --lm names an LM checkpoint directory
+(asr@rnn_lm or asr@xfmr_lm): the batched search fuses it (shallow fusion
+at --lm-weight), which aps_tpu's command parses and then drops (its
+run_batch gets no LM), while its beam_search_batch takes one. An n-gram
+file raises NotImplementedError: aps_tpu has no batched n-gram path; decode
+with aps_tpu_torch.cmd.decode or rescore the nbest with lm_rescore. The
+body runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored
+after. It decodes on the card (--device-id picks which) and raises when
+torch sees none; --device cpu asks for the CPU in so many words, where the
+kernels' plain versions run. The wall time of the decode loop is logged
+with the real-time factor and audio seconds per second."""
 
 import argparse
 import logging
@@ -22,10 +29,10 @@ import torch
 
 from aps_tpu_torch.io import AudioReader, io_wrapper
 from aps_tpu_torch.opts import DecodingParser
-from aps_tpu_torch.cmd.decode import FasterDecoder, beam_search_params
-from aps_tpu_torch.conf import load_dict
-from aps_tpu_torch.const import UNK_TOKEN
+from aps_tpu_torch.cmd.decode import (FasterDecoder, is_ngram, load_nn_lm,
+                                      search_kwargs)
 from aps_tpu_torch.eval.asr import TextPostProcessor
+from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
 
 logger = logging.getLogger("aps_tpu_torch.decode_batch")
 
@@ -44,23 +51,27 @@ def run(args) -> dict:
     """Decode args.feats_or_wav_scp into args.best. Returns the counts,
     audio seconds, decode seconds (in all and per batch, host clock around
     the synchronised search) and each utterance's best score."""
-    if args.lm:
-        raise NotImplementedError("--lm: LM fusion is not ported yet")
+    if args.lm and is_ngram(args.lm):
+        raise NotImplementedError(
+            f"--lm {args.lm} is an n-gram file: the batched search fuses "
+            "NN LMs only (as aps_tpu, which has no batched n-gram path); "
+            "decode with aps_tpu_torch.cmd.decode, or rescore the nbest "
+            "with aps_tpu_torch.cmd.lm_rescore")
     decoder = FasterDecoder(args.am, cpt_tag=args.am_tag,
                             device=args.device, device_id=args.device_id)
+    with matmul_precision(INFERENCE_PRECISION, decoder.device):
+        return _decode(args, decoder)
+
+
+def _decode(args, decoder: FasterDecoder) -> dict:
     logger.info(f"Loaded {args.am} (epoch {decoder.epoch}) on "
                 f"{decoder.device}")
     src_reader = AudioReader(args.feats_or_wav_scp, sr=args.sr,
                              channel=args.channel)
+    lm = load_nn_lm(args, decoder.sos) if args.lm else None
     processor = TextPostProcessor(args.dict, space=args.space,
                                   show_unk=args.show_unk, spm=args.spm)
-    kwargs = {k: getattr(args, k) for k in beam_search_params
-              if hasattr(args, k)}
-    if args.disable_unk:
-        if not args.dict:
-            raise RuntimeError("--disable-unk needs --dict to look up the "
-                               "<unk> id")
-        kwargs["unk"] = load_dict(args.dict)[UNK_TOKEN]
+    kwargs = search_kwargs(args)
     stdout_top, top = io_wrapper(args.best, "w")
     stats = {"utts": 0, "audio_secs": 0.0, "decode_secs": 0.0,
              "batch_secs": [], "scores": {}}
@@ -70,8 +81,8 @@ def run(args) -> dict:
         if decoder.device.type == "cuda":
             torch.cuda.synchronize(decoder.device)
         start = time.perf_counter()
-        hyps = decoder.run_batch([s for _, s in entries], pad_to=bucket,
-                                 **kwargs)
+        hyps = decoder.run_batch([s for _, s in entries], lm=lm,
+                                 pad_to=bucket, **kwargs)
         stats["batch_secs"].append(time.perf_counter() - start)
         stats["decode_secs"] += stats["batch_secs"][-1]
         for (key, _), nbest in zip(entries, hyps):

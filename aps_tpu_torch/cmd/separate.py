@@ -8,7 +8,9 @@ cmd/separate.py).
 
 Reads the same checkpoint directory and wav.scp as aps_tpu's command and
 writes the same files: sep_dir/spk<i>/<key>.wav (or sep_dir/<key>.wav for a
-one-speaker model) and an scp per output stream. It runs on the card
+one-speaker model) and an scp per output stream. The body runs with
+cuBLAS's and cuDNN's TF32 flags off (float32; the separation gate's
+precision), restored after. It runs on the card
 (--device-id picks which) and raises when torch sees none; --device cpu asks
 for the CPU in so many words, where the block kernel's plain version runs.
 
@@ -42,6 +44,7 @@ from aps_tpu_torch.eval.wrapper import NnetEvaluator
 from aps_tpu_torch.io import AudioReader, write_audio
 from aps_tpu_torch.loader.utils import quantize_len
 from aps_tpu_torch.opts import add_device_args
+from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
 
 logger = logging.getLogger("aps_tpu_torch.separate")
 
@@ -163,6 +166,11 @@ def run(args) -> dict:
     separator = Separator(args.checkpoint, cpt_tag=args.tag,
                           device=args.device, device_id=args.device_id,
                           dtype=args.dtype, fused=args.fused)
+    with matmul_precision(INFERENCE_PRECISION, separator.device):
+        return _separate(args, separator, sep_dir)
+
+
+def _separate(args, separator, sep_dir: pathlib.Path) -> dict:
     logger.info(f"Loaded {args.checkpoint} (epoch {separator.epoch}) on "
                 f"{separator.device}")
     reader = AudioReader(args.wav_scp, sr=args.sr, channel=args.channel)

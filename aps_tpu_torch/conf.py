@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """YAML experiment-config loading and the token dictionary (the port's own
 copy of what it needs from aps_tpu/conf.py: load_dict, dump_dict,
-load_am_conf, load_ss_conf). Same schema: required keys {nnet, nnet_conf, task,
+load_am_conf, load_lm_conf, load_ss_conf). Same schema: required keys {nnet, nnet_conf, task,
 task_conf, data_conf, trainer_conf}; AM configs get vocab_size/sos/eos from
 the dict file and the CTC blank id appended as len(vocab)."""
 
@@ -18,6 +18,7 @@ all_am_options = required_keys + [
     "enh_transform", "asr_transform", "cmd_args"
 ]
 all_ss_options = required_keys + ["enh_transform", "cmd_args"]
+all_lm_options = required_keys + ["cmd_args", "sos", "eos"]
 
 
 def load_yaml(path) -> Dict:
@@ -82,6 +83,22 @@ def check_conf(conf: Dict, required_keys: List[str],
 def load_ss_conf(yaml_conf: str) -> Dict:
     """Load yaml configuration for speech enhancement/separation tasks."""
     return check_conf(load_yaml(yaml_conf), required_keys, all_ss_options)
+
+
+def load_lm_conf(yaml_conf: str, dict_path: str) -> Tuple[Dict, Dict]:
+    """Load yaml configuration for language model tasks: vocab_size from
+    the dict; its <sos>/<eos> ids at the top level of the configuration
+    (they feed the LM loaders, not the task)."""
+    conf = check_conf(load_yaml(yaml_conf), required_keys, all_lm_options)
+    vocab = load_dict(dict_path)
+    conf["nnet_conf"]["vocab_size"] = len(vocab)
+    sos = vocab.get(SOS_TOKEN, -1)
+    eos = vocab.get(EOS_TOKEN, -1)
+    if sos < 0 or eos < 0:
+        raise RuntimeError(f"Missing {SOS_TOKEN}/{EOS_TOKEN} in {dict_path}")
+    conf["sos"] = sos
+    conf["eos"] = eos
+    return conf, vocab
 
 
 def load_am_conf(yaml_conf: str, dict_path: str) -> Tuple[Dict, Dict]:

@@ -21,6 +21,13 @@ layout rule of each leaf follows the module that owns it:
                  correlates the dilated input with the kernel as stored,
                  where PyTorch scatters it, i.e. applies it flipped
   nn.PReLU       weight (1,)           <-> negative_slope ()
+  nn.LSTM/GRU/RNN  weight_ih/hh, bias_ih/hh (G*H, ...) <-> one flax Dense a
+                 gate (kernel (in, H), bias (H)) as the layer's `jax_gates`
+                 names them (aps_tpu_torch/asr/base/rnn.py): each gate's
+                 block of rows is its leaf transposed; a None block is 0
+                 (a bias flax's cell lacks, frozen at 0), a "+leaf" block
+                 is 0 on the way in and added into that leaf on the way out
+                 (its gradient is the leaf's own, so it is not written)
   jax_params     a module's own parameters named in its `jax_params`
                  (gLN gamma/beta, ScaleLinear scale, the rel_u / rel_v of an
                  xl attention or, when tied, of its encoder) keep name and
@@ -47,6 +54,8 @@ MODULE_NAMES = {
     "linear1": "Dense_0",
     "linear2": "Dense_1",
     "embed": "Embed_0",
+    # the RNN LM's token embedding (aps_tpu: "embed")
+    "lm_embed": "embed",
     "cross_attn": "multihead_attn",
     # LinearProj / Conv1dProj and their norms
     "conv1d_encoder": "Conv1dEncoder_0",
@@ -108,6 +117,12 @@ def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str, object]]:
         elif isinstance(mod, nn.PReLU):
             out[prefix + "weight"] = ("params", pfx + "negative_slope",
                                       "scalar")
+        for leaf, parts in getattr(mod, "jax_gates", {}).items():
+            kind = "/kernel" if leaf.startswith("weight") else "/bias"
+            out[prefix + leaf] = ("params", tuple(
+                None if p is None else
+                ("+" + pfx + p[1:] + kind if p[0] == "+" else pfx + p + kind)
+                for p in parts), "gates")
         for leaf in getattr(mod, "jax_params", ()):
             if getattr(mod, leaf) is not None:
                 out[prefix + leaf] = ("params", pfx + leaf, None)
@@ -178,7 +193,10 @@ def to_state_dict(variables: Dict, model: nn.Module, strict: bool = True
         if key not in leaves:
             raise KeyError(f"port key {key} has no aps_tpu mapping")
         col, path, rule = leaves[key]
-        src = flat.pop(f"{col}/{path}", None)
+        if rule == "gates":
+            src = _gates_in(flat, col, path, ref)
+        else:
+            src = flat.pop(f"{col}/{path}", None)
         if src is None:
             if not strict:
                 continue
@@ -196,25 +214,68 @@ def to_state_dict(variables: Dict, model: nn.Module, strict: bool = True
     return state
 
 
-def _to_tree(model: nn.Module, named_values) -> Dict:
-    """(port key, tensor) pairs -> aps_tpu tree of numpy arrays."""
+def _gates_in(flat: Dict, col: str, parts, ref: torch.Tensor):
+    """The (G*H, ...) value of a recurrent layer's parameter from its gate
+    leaves (None and "+leaf" blocks are 0); None when a leaf is
+    missing."""
+    rows = ref.shape[0] // len(parts)
+    blocks = []
+    for part in parts:
+        if part is None or part[0] == "+":
+            blocks.append(np.zeros((rows,) + tuple(ref.shape[1:]),
+                                   dtype=np.float32))
+            continue
+        val = flat.pop(f"{col}/{part}", None)
+        if val is None:
+            return None
+        blocks.append(val.T if val.ndim == 2 else val)
+    return np.concatenate(blocks, 0)
+
+
+def _to_tree(model: nn.Module, named_values, gradients: bool = False
+             ) -> Dict:
+    """(port key, tensor) pairs -> aps_tpu tree of numpy arrays. A
+    recurrent layer's "+leaf" blocks are added into their leaves (values)
+    or left out (gradients: the leaf's gradient is its own block's)."""
     leaves = _leaves(model)
     tree = {}
-    for key, val in named_values:
-        if _skipped(key):
-            continue
-        if key not in leaves:
-            raise KeyError(f"port key {key} has no aps_tpu mapping")
-        col, path, rule = leaves[key]
+    folds = []
+
+    def put(col, path, arr):
         node = tree.setdefault(col, {})
         *mods, leaf = path.split("/")
         for seg in mods:
             node = node.setdefault(seg, {})
         if leaf in node:
             raise KeyError(f"two port keys map onto {col}/{path}")
-        arr = _to_jax(val.detach().cpu().numpy(), rule)
         # ascontiguousarray alone would turn a 0-d leaf into shape (1,)
         node[leaf] = np.ascontiguousarray(arr).reshape(arr.shape)
+
+    for key, val in named_values:
+        if _skipped(key):
+            continue
+        if key not in leaves:
+            raise KeyError(f"port key {key} has no aps_tpu mapping")
+        col, path, rule = leaves[key]
+        if rule != "gates":
+            put(col, path, _to_jax(val.detach().cpu().numpy(), rule))
+            continue
+        blocks = np.split(val.detach().cpu().numpy(), len(path), 0)
+        for part, block in zip(path, blocks):
+            if part is None:
+                continue
+            block = block.T if block.ndim == 2 else block
+            if part[0] == "+":
+                folds.append((col, part[1:], block))
+            else:
+                put(col, part, block)
+    if not gradients:
+        for col, path, block in folds:
+            node = tree[col]
+            *mods, leaf = path.split("/")
+            for seg in mods:
+                node = node[seg]
+            node[leaf] = node[leaf] + block
     return tree
 
 
@@ -226,11 +287,14 @@ def to_variables(model: nn.Module) -> Dict:
 
 def to_gradients(model: nn.Module) -> Dict:
     """The gradients of the port model's parameters (after backward) ->
-    a tree shaped like aps_tpu's params; a parameter without a gradient
-    raises."""
+    a tree shaped like aps_tpu's params; a trainable parameter without a
+    gradient raises."""
     grads = []
     for key, p in model.named_parameters():
+        if not p.requires_grad:
+            # frozen at 0: a bias that aps_tpu's cell lacks
+            continue
         if p.grad is None:
             raise ValueError(f"parameter {key} has no gradient")
         grads.append((key, p.grad))
-    return _to_tree(model, grads)["params"]
+    return _to_tree(model, grads, gradients=True)["params"]

@@ -1,35 +1,53 @@
 #!/usr/bin/env python
-"""Id sequence -> text (port of aps_tpu/eval/asr.py::TextPostProcessor with
-the word and char tokenizers of aps_tpu/tokenizer/word.py)."""
+"""ASR text pre/post processing (the port's own copy of
+aps_tpu/eval/asr.py: TextProcess, TextPreProcessor, TextPostProcessor on
+the word, char and subword tokenizers)."""
 
 from typing import List
 
 from aps_tpu_torch.conf import load_dict
-from aps_tpu_torch.const import UNK_TOKEN
+from aps_tpu_torch.tokenizer import Tokenizer
 
 
-class TextPostProcessor(object):
+class TextProcess(object):
+
+    def __init__(self, dict_str: str, space: str = "", spm: str = "") -> None:
+        tokenizer_kwargs = {}
+        if spm:
+            tokenizer = "subword"
+            tokenizer_kwargs["spm"] = spm
+        elif space:
+            tokenizer = "char"
+            tokenizer_kwargs["space"] = space
+        else:
+            tokenizer = "word"
+        if dict_str:
+            vocab_dict = load_dict(dict_str)
+            self.tokenizer = Tokenizer(vocab_dict,
+                                       tokenizer=tokenizer,
+                                       tokenizer_kwargs=tokenizer_kwargs)
+        else:
+            self.tokenizer = None
+
+
+class TextPreProcessor(TextProcess):
+
+    def run(self, str_seq: List[str]) -> List[int]:
+        if self.tokenizer:
+            return self.tokenizer.encode(str_seq)
+        return [int(idx) for idx in str_seq]
+
+
+class TextPostProcessor(TextProcess):
 
     def __init__(self, dict_str: str, space: str = "",
                  show_unk: str = "<unk>", spm: str = "") -> None:
-        if spm:
-            raise NotImplementedError("sentencepiece detokenisation is not "
-                                      "ported yet")
-        self.space = space
+        super(TextPostProcessor, self).__init__(dict_str, space=space,
+                                                spm=spm)
         self.unk = show_unk
-        self.int2str = None
-        if dict_str:
-            vocab = load_dict(dict_str)
-            self.int2str = {v: k for k, v in vocab.items()}
-            self.has_unk = UNK_TOKEN in vocab
 
     def run(self, int_seq: List[int]) -> str:
-        if self.int2str is None:
-            return " ".join(str(idx) for idx in int_seq)
-        toks = [self.int2str[n] for n in int_seq]
-        if self.space:
-            # char units with an explicit word separator
-            toks = "".join(toks).replace(self.space, " ").split(" ")
-        if self.has_unk and self.unk != UNK_TOKEN:
-            toks = [self.unk if s == UNK_TOKEN else s for s in toks]
-        return " ".join(toks)
+        if self.tokenizer:
+            return " ".join(self.tokenizer.decode(int_seq,
+                                                  unk_sym=self.unk))
+        return " ".join(str(idx) for idx in int_seq)

@@ -61,7 +61,8 @@ def pick_device(device: str = "cuda", device_id: int = -1) -> torch.device:
 
 def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     """Rebuild the nnet from train.yaml and load <tag>.ckpt into it (CPU,
-    eval mode)."""
+    eval mode). accept_raw: the model takes waveforms (its asr_transform
+    starts with a spectral feature)."""
     cpt_dir = pathlib.Path(cpt_dir)
     cpt = read_checkpoint(cpt_dir / f"{cpt_tag}.ckpt")
     conf = load_yaml(cpt_dir / "train.yaml")
@@ -69,9 +70,11 @@ def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     if "enh_transform" in conf:
         raise NotImplementedError("enh_transform is not ported yet")
     kwargs = dict(conf["nnet_conf"])
+    accept_raw = False
     if "asr_transform" in conf:
         kwargs["asr_transform"] = aps_transform("asr")(
             **conf["asr_transform"])
+        accept_raw = kwargs["asr_transform"].accept_raw
     nnet = nnet_cls(**kwargs)
     params = cpt["params"]
     if "nnet" in params:
@@ -83,6 +86,7 @@ def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     nnet.eval()
     return {
         "epoch": cpt.get("epoch", 0),
+        "accept_raw": accept_raw,
         "nnet": nnet,
         "conf": conf,
     }
@@ -98,3 +102,4 @@ class NnetEvaluator(object):
         self.device = pick_device(device, device_id)
         self.nnet = stats["nnet"].to(self.device)
         self.epoch = stats["epoch"]
+        self.accept_raw = stats["accept_raw"]

@@ -1,13 +1,14 @@
 #!/usr/bin/env python
 """Audio IO: wav read/write and the kaldi-style wav.scp reader (the port's
 own copy of what it needs from aps_tpu/io/audio.py: read_audio,
-write_audio, AudioReader). The wav.scp value grammar is the same: plain
+write_audio, AudioReader, group_segments, SegmentAudioReader). The wav.scp value grammar is the same: plain
 paths, "cmd ... |" pipes and "file.ark:offset" archives."""
 
 import io
 import os
 import subprocess
 import warnings
+from collections import defaultdict
 from typing import IO, Any, Dict, Optional, Union
 
 import numpy as np
@@ -15,7 +16,10 @@ import numpy as np
 from aps_tpu_torch.io.base import BaseReader
 from aps_tpu_torch.io.wav import wav_read, wav_read_header, wav_write
 
-__all__ = ["read_audio", "write_audio", "AudioReader"]
+__all__ = [
+    "read_audio", "write_audio", "AudioReader", "SegmentAudioReader",
+    "group_segments"
+]
 
 
 def read_audio(fname: Union[str, IO[Any]],
@@ -124,3 +128,40 @@ class AudioReader(BaseReader):
 
     def duration(self, key: str) -> float:
         return self.nsamps(key) / self.sr
+
+
+def group_segments(segment: str, sr: int, wav_scp: str = "") -> Dict:
+    """Group a kaldi segments file ("seg utt beg end") by utterance key."""
+    seg_reader = BaseReader(
+        segment, num_tokens=4,
+        value_processor=lambda x: (x[0], float(x[1]), float(x[2])))
+    wav_reader = BaseReader(wav_scp, num_tokens=2) if wav_scp else None
+    grouped = defaultdict(list)
+    for seg_key, (utt_key, beg, end) in seg_reader:
+        if wav_reader is not None and utt_key not in wav_reader:
+            continue
+        grouped[utt_key].append((seg_key, int(sr * beg), int(sr * end)))
+    return grouped
+
+
+class SegmentAudioReader(object):
+    """Sequential reader over (wav.scp, segments)."""
+
+    def __init__(self,
+                 wav_scp: str,
+                 segment: str,
+                 sr: int = 16000,
+                 norm: bool = True,
+                 channel: int = -1):
+        self.audio_reader = AudioReader(wav_scp, sr=sr, norm=norm,
+                                        channel=channel)
+        self.segment = group_segments(segment, sr, wav_scp=wav_scp)
+
+    def __len__(self):
+        return sum(len(v) for v in self.segment.values())
+
+    def __iter__(self):
+        for utt_key in self.segment:
+            audio = self.audio_reader[utt_key]
+            for seg_key, beg, end in self.segment[utt_key]:
+                yield seg_key, audio[..., beg:end]

@@ -2,22 +2,27 @@
 """Registries of the port, keyed by the same names as aps_tpu/libs.py.
 
 Only what the port has so far is registered: the "asr" transform, the
-"asr@xfmr" and "sse@time_tcn" models, the "asr@ctc_xent", "asr@ctc" and
-"sse@sisnr" tasks, the "dp" trainer, the "am@raw" and "se@chunk" loaders and
-the "word" tokenizer. Registration happens
+"asr@xfmr", "asr@rnn_lm", "asr@xfmr_lm" and "sse@time_tcn" models, the
+"asr@ctc_xent", "asr@ctc", "asr@lm" and "sse@sisnr" tasks, the "dp"
+trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and the
+"word", "char" and "subword" tokenizers. Registration happens
 when the defining module is imported; the factory functions import them on
 first use."""
 
 import importlib
 
-ASR_SUBMODULES = ["aps_tpu_torch.asr.att"]
+ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.lm.rnn",
+                  "aps_tpu_torch.asr.lm.transformer"]
 SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn"]
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr"]
 TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse"]
 TRAINER_SUBMODULES = ["aps_tpu_torch.trainer.dp"]
 LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw",
+                     "aps_tpu_torch.loader.lm.utt",
+                     "aps_tpu_torch.loader.lm.bptt",
                      "aps_tpu_torch.loader.se.chunk"]
-TOKENIZER_SUBMODULES = ["aps_tpu_torch.tokenizer.word"]
+TOKENIZER_SUBMODULES = ["aps_tpu_torch.tokenizer.word",
+                        "aps_tpu_torch.tokenizer.subword"]
 
 
 class Register(dict):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """ASR tasks (port of aps_tpu/task/asr.py: CtcTask "asr@ctc",
-CtcXentHybridTask "asr@ctc_xent", compute_accu, prep_asr_label,
-load_label_count)."""
+CtcXentHybridTask "asr@ctc_xent", LmXentTask "asr@lm", compute_accu,
+prep_asr_label, load_label_count)."""
 
 import warnings
 from typing import Dict, Optional
@@ -16,7 +16,7 @@ from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.task.base import Task
 from aps_tpu_torch.task.objf import ce_objf, ctc_objf, ls_objf
 
-__all__ = ["CtcTask", "CtcXentHybridTask"]
+__all__ = ["CtcTask", "CtcXentHybridTask", "LmXentTask"]
 
 
 def compute_accu(dec_out: torch.Tensor, tgt_pad: torch.Tensor):
@@ -139,3 +139,28 @@ class CtcXentHybridTask(ASRTask):
         stats["loss"] = self.ctc_weight * ctc_loss + \
             (1 - self.ctc_weight) * att_loss
         return stats
+
+
+@ApsRegisters.task.register("asr@lm")
+class LmXentTask(ASRTask):
+    """LM cross-entropy over egs {src, tgt, len} (the lm@utt and lm@bptt
+    loaders' batches) -> {accu, loss, @ppl}; the trainer's report takes
+    exp of @ppl.
+
+    bptt_mode reads the LM's state from egs["hidden"], as aps_tpu does; but
+    no loader sets that key (lm@bptt yields "reset" only), so in aps_tpu
+    and here no state is carried from one BPTT window to the next: every
+    window starts from the zero state."""
+
+    def __init__(self, nnet: nn.Module, bptt_mode: bool = False, **kwargs):
+        super(LmXentTask, self).__init__(nnet, **kwargs)
+        self.bptt_mode = bptt_mode
+
+    def forward(self, egs: Dict) -> Dict:
+        hidden = egs.get("hidden", None) if self.bptt_mode else None
+        pred, _ = self.nnet(egs["src"], hidden, egs.get("len", None))
+        loss = ce_objf(pred, egs["tgt"], reduction=self.reduction)
+        accu, den = compute_accu(pred, egs["tgt"])
+        ppl = loss if self.reduction == "mean" else \
+            loss * pred.shape[0] / den
+        return {"accu": accu, "loss": loss, "@ppl": ppl}

@@ -34,7 +34,6 @@ Not ported yet, and refused when asked for: schedule sampling, weight
 noise, tensorboard, profiling, tensor/sequence parallelism and a pipeline
 depth."""
 
-import contextlib
 import math
 import pickle
 from collections import defaultdict
@@ -45,7 +44,8 @@ import numpy as np
 import torch
 
 from aps_tpu_torch.trainer.lr import LrScheduler
-from aps_tpu_torch.utils import SimpleTimer, get_logger
+from aps_tpu_torch.utils import (TF32_PRECISIONS, SimpleTimer, get_logger,
+                                 matmul_precision)
 
 
 class ParameterAverager(object):
@@ -244,27 +244,6 @@ _UNPORTED = {
 }
 # accepted without effect: they only tune options refused above
 _TUNES_UNPORTED = ("ss_scheduler", "weight_noise_cfg", "profile_steps")
-# matmul_precision -> TF32 on for cuBLAS and cuDNN
-TF32_PRECISIONS = {"float32": False, "highest": False, "bfloat16": True,
-                   "tensorfloat32": True, "default": True}
-
-
-@contextlib.contextmanager
-def matmul_precision(precision: str, device: torch.device):
-    """cuBLAS's and cuDNN's TF32 flags as `precision` asks, on a CUDA
-    device, for the body only; nothing on another device."""
-    if device.type != "cuda":
-        yield
-        return
-    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
-    matmul.allow_tf32 = cudnn.allow_tf32 = TF32_PRECISIONS[precision]
-    try:
-        yield
-    finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
-
-
 class Trainer(object):
     """Owns the scheduler, reporter, checkpoint IO and the epoch loops; the
     step is the subclass's (train_one_step / valid_one_step)."""

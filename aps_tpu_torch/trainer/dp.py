@@ -13,8 +13,13 @@ the step is optax.MultiSteps': a running mean of k mini-batch gradients,
 clipped and applied on the k-th mini-step only, at that step's rate; the
 parameters do not move on the others, the batch-norm statistics do, and
 the reported norm is each mini-batch's own. The step reads one flag back
-from the device (finite or not), so it is synchronous; aps_tpu's pipelined
-dispatch, its OOM skipping and weight noise are not ported."""
+from the device (finite or not), so it is synchronous. A device
+out-of-memory error in the forward or backward skips the batch as aps_tpu
+does when its train state survives: the step's tensors are freed, the
+parameters, optimizer state and batch-norm statistics stay, the trainer
+logs "Step N: device OOM on batch <shapes>, skipped" and the step counts
+as failed for the error breaker. aps_tpu's pipelined dispatch and weight
+noise are not ported."""
 
 from typing import Dict, List, Tuple
 
@@ -23,7 +28,8 @@ import torch
 
 from aps_tpu_torch.convert import to_state_dict, to_variables
 from aps_tpu_torch.libs import ApsRegisters
-from aps_tpu_torch.trainer.base import Trainer, matmul_precision
+from aps_tpu_torch.trainer.base import Trainer
+from aps_tpu_torch.utils import matmul_precision
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -153,6 +159,16 @@ def to_device(egs: Dict, device: torch.device) -> Dict:
     return {key: move(val) for key, val in egs.items()}
 
 
+def _shapes(egs: Dict) -> List[Tuple[int, ...]]:
+    """The shapes of a batch's tensors, also inside lists."""
+    out = []
+    for val in egs.values():
+        for v in (val if isinstance(val, list) else [val]):
+            if isinstance(v, torch.Tensor):
+                out.append(tuple(v.shape))
+    return out
+
+
 def _map_state(state: Dict, kind, fn) -> Dict:
     """fn over the leaves of type `kind` of an optimizer's per-parameter
     state."""
@@ -266,10 +282,24 @@ class DataParallelTrainer(Trainer):
         buffers = [b for b in self.task.buffers()]
         saved = [b.clone() for b in buffers]
         self.optimizer.zero_grad(set_to_none=True)
-        with matmul_precision(self.matmul_precision, self.device):
-            stats = self.task(dev)
-            loss = stats["loss"]
-            loss.backward()
+        try:
+            with matmul_precision(self.matmul_precision, self.device):
+                stats = self.task(dev)
+                loss = stats["loss"]
+                loss.backward()
+        except torch.cuda.OutOfMemoryError:
+            # as aps_tpu when its train state survived the OOM: drop the
+            # batch, free what the step allocated and go on
+            stats = loss = None
+            self.optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for b, old in zip(buffers, saved):
+                    b.copy_(old)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self.reporter.log(f"Step {self.cur_step}: device OOM on batch "
+                              f"{_shapes(dev)}, skipped")
+            return False
         for p in self.params:
             # optax updates every parameter, also one without a gradient
             if p.grad is None:

@@ -328,6 +328,13 @@ class FeatureTransform(nn.Module):
             raise NotImplementedError(f"{feats}: the port needs an "
                                       "fbank-log front end")
 
+    @property
+    def accept_raw(self) -> bool:
+        """True if the pipeline starts from the raw waveform (as
+        aps_tpu's, from the feats string)."""
+        return any(t in ("spectrogram", "fbank", "mfcc")
+                   for t in self.feats.split("-"))
+
     def dim(self) -> int:
         return self.feats_dim
 

@@ -1,8 +1,11 @@
 #!/usr/bin/env python
 """Small shared utilities: logging, timing, seeding (the port's own copy of
 what it needs from aps_tpu/utils.py; set_seed seeds torch's global
-generators, from which the dropouts draw)."""
+generators, from which the dropouts draw), and matmul_precision, the TF32
+flags of cuBLAS and cuDNN around a body of work (the trainer's steps and
+the inference commands)."""
 
+import contextlib
 import logging
 import random
 import sys
@@ -54,3 +57,28 @@ class SimpleTimer(object):
 
     def elapsed(self) -> float:
         return (time.time() - self.start) / 60.0
+
+
+# the precision of the inference commands' products and convolutions
+# (decode, decode_batch, lm_rescore, separate): the one at which the
+# card-vs-CPU decode and separation gates hold
+INFERENCE_PRECISION = "float32"
+# matmul_precision -> TF32 on for cuBLAS and cuDNN
+TF32_PRECISIONS = {"float32": False, "highest": False, "bfloat16": True,
+                   "tensorfloat32": True, "default": True}
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str, device: torch.device):
+    """cuBLAS's and cuDNN's TF32 flags as `precision` asks, on a CUDA
+    device, for the body only; nothing on another device."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = TF32_PRECISIONS[precision]
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

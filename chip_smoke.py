@@ -302,6 +302,35 @@ RECIPE_EPOCHS = 2
 # times TF32's distance, and a pass whose flags were never set equals the
 # float32 pass bit for bit: both fail (the flags are also read inside)
 TOL_TF32_LOSS, TOL_TF32_GRAD = 1e-4, 2e-2
+# the LM slice. REPO: the checkout this script lies in (the recipes' YAML)
+REPO = Path(__file__).resolve().parent
+# run.sh stage 4 of examples/asr/aishell_v1 (run.sh:83-94): decode_batch
+# with the RNN LM of its stage 3, in batches of LM_BATCH of the flagship's
+# utterances
+LM_STAGE4_ARGS = ["--beam-size", "16", "--nbest", "8", "--ctc-weight", "0.4",
+                  "--lm-weight", "0.2", "--max-len", "50", "--len-norm",
+                  "false"]
+LM_MAX_LEN = 50
+# the decode gate of PERF.md section 2, on scores that len_norm false
+# leaves as sums over the hypothesis: card vs CPU within LM_SCORE_TOL a
+# token (the length-normalised score's gate), i.e. |diff| <= LM_SCORE_TOL
+# x (tokens + eos)
+LM_SCORE_TOL = 1e-3
+LM_BATCH = 8
+LM_CHECK_UTTS = 2  # of the fused decode, in the card-vs-CPU check
+RNN_LM_YAML = "examples/asr/aishell_v1/conf/nnlm/1a.yaml"
+XFMR_LM_YAML = "examples/asr/librispeech/conf/nnlm/1b.yaml"
+XFMR_LM_UTTS = 2  # it scores the whole prefix again every step
+# the seeded LMs' output layers are scaled so that their log-probabilities
+# are far from uniform and the fusion moves the search
+LM_PEAKY = 4.0
+# train_lm: RNN_LM_YAML as written on seeded token text of the vocabulary
+LM_TRAIN_LINES = 64
+LM_TRAIN_BATCH = 32
+LM_TRAIN_EPOCHS = 2
+LM_TIMED_STEPS = 5
+LM_GRADS = ("lm_embed.weight", "pred.OptimizedLSTMCell_0.weight_hh_l0",
+            "dist.weight")
 
 
 def fail(msg: str) -> None:
@@ -492,7 +521,7 @@ def check_rel_attention(dev, gen, T_path=None, k_path=None, H=4,
     D = 64
     rows = []
     more = {"occupancy": occupancy(D, "fwd")}
-    corner = [1, 1, 640, 2, 1, 1, 640, 2]
+    corner = _CORNER_LENS
     for T, Hp, causal, lens, role in cases or (
             (T_path, 1, False, [k_path] * 8, "path"),
             (T_path, 1, True, _ragged(T_path), ""),
@@ -593,7 +622,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
     more = {name: {} for name in names}
     for name, kernel in zip(names, BACKWARD):
         more[name]["occupancy"] = occupancy(D, kernel)
-    corner = [1, 1, 640, 2, 1, 1, 640, 2]
+    corner = _CORNER_LENS
     # (T, Hp, causal, k_len, what the row is for)
     for T, Hp, causal, lens, role in cases or (
             (T_path, 1, False, lens_path, "path"),
@@ -721,6 +750,13 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
                   f"{errs['dpose']:.3e}", flush=True)
             for name, kernel in zip(names, BACKWARD):
                 more[name]["one_key_corner_max_abs_err"] = errs[kernel]
+            # the referee: the plain backward in float64
+            ref64 = rel_mha_backward_reference(
+                *(t.double() for t in (q_c, q_p, k, v, pose, do)),
+                k_len=klen, causal=causal)
+            more[names[1]]["one_key_corner_float64"] = corner_referee(
+                "flash_attention_rel_dkv", label, got["dkv"],
+                want[2:4], ref64[2:4], T)
         if role not in ("path", "t700"):
             continue
         # once more with launches queued, which hides the host's share
@@ -778,6 +814,40 @@ def _device_kernel_names(fn):
 
 def _ragged(T):
     return [T, max(T - 17, 2), T // 2, 1, 0, max(T - 90, 2), 3, T // 3]
+
+
+# the one-key corner: batch entries with one visible key (and two) beside
+# long ones, under a causal mask
+_CORNER_LENS = [1, 1, 640, 2, 1, 1, 640, 2]
+
+
+def corner_referee(name, label, got, plain, ref64, Tq):
+    """dk and dv of a kernel and of the float32 plain backward, each held
+    to the plain backward in float64: their largest distances from it,
+    float32's rounding at the size of the largest entry (2^-24 of it), and
+    the rounding budget of the kernel's accumulation: dk and dv sum over
+    the Tq queries in m16n8k8 products of three TF32 passes each, 3 *
+    ceil(Tq / 8) additions into a float32 accumulator, each off by up to
+    2^-24 of the largest entry. Printed and returned; the kernel's
+    tolerance against the float32 plain pass (TOL_GRAD) is checked where
+    the row is made."""
+    out = {}
+    adds = 3 * -(-Tq // 8)
+    for part, g, p, r in zip(("dk", "dv"), got, plain, ref64):
+        ulp = r.abs().max().item() * 2.0**-24
+        out[part] = {
+            "kernel": (g.double() - r).abs().max().item(),
+            "plain_float32": (p.double() - r).abs().max().item(),
+            "float32_ulp_of_largest": ulp,
+            "accumulation_budget": adds * ulp}
+    print(f"{name} [{label}] (one-key corner) distance from the float64 "
+          "plain backward: " + "; ".join(
+              f"{part} kernel {v['kernel']:.3e}, float32 plain "
+              f"{v['plain_float32']:.3e} (2^-24 of the largest entry "
+              f"{v['float32_ulp_of_largest']:.3e}, {adds} accumulator "
+              f"additions {v['accumulation_budget']:.3e})"
+              for part, v in out.items()), flush=True)
+    return out
 
 
 # lengths on either side of the backward kernels' 64-row tiles, none 0 (the
@@ -925,7 +995,9 @@ def check_attention(dev, gen, dec_shape, trn_shape):
             (ragged8(129), 129, 129, 16, True, False, ""),
             (ragged8(129), 64, 129, 32, False, False, ""),
             ((8, _EDGE_LENS), 129, 129, 64, False, False, "library"),
-            ((8, _EDGE_LENS), 65, 129, 32, False, False, "library")):
+            ((8, _EDGE_LENS), 65, 129, 32, False, False, "library"),
+            # the one-key corner: k_len 1 under a long causal mask
+            ((8, _CORNER_LENS), 640, 640, 64, True, False, "corner")):
         q, k, v, bias = make(B, Tq, Tk, with_bias, D)
         scale = D**-0.5
         do = torch.randn((B, H, Tq, D), generator=gen).to(dev)
@@ -1015,6 +1087,14 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                 if torch.count_nonzero(g[b, :, n:]) != 0:
                     fail(f"flash_attention_dkv {label}: gradient at a "
                          f"padded key of batch entry {b}")
+        if role == "corner":
+            ref64 = mha_backward_reference(
+                *(t.double() for t in (q, k, v, do)), k_len=klen,
+                causal=causal)
+            more["flash_attention_dkv"]["one_key_corner_float64"] = \
+                corner_referee("flash_attention_dkv", label, got["dkv"],
+                               want[1:3], ref64[1:3], Tq)
+            continue
         if with_bias or not role:
             continue
         # autograd through the library call: one backward gives dq, dk
@@ -2164,7 +2244,7 @@ def write_recipe(root: Path, train: Path) -> Path:
     """root/recipe/train.yaml: RECIPE_YAML as written, its data sections
     pointed at the tone corpus of the training path."""
     from aps_tpu_torch.conf import load_yaml
-    conf = load_yaml(Path(__file__).resolve().parent / RECIPE_YAML)
+    conf = load_yaml(REPO / RECIPE_YAML)
     data = {name: str(train / name) for name in ("text", "utt2dur")}
     data["wav_scp"] = str(train / "wav.scp")
     conf["data_conf"].update(train=data, valid=dict(data))
@@ -2478,6 +2558,460 @@ def recipe_check(root: Path, egs, dev, gen):
         (tf32_loss_err, tf32_errs)
 
 
+# ---------------------------------------------------------------------------
+# the LM slice: run.sh stages 3 to 5 of the LM recipes
+# ---------------------------------------------------------------------------
+def init_lm(model, gen) -> None:
+    """Seeded weights for an LM: each trainable matrix N(0, 1 / fan_in),
+    each vector 0.1 N(0, 1) (a bias frozen at 0 stays 0), the output
+    layer LM_PEAKY times larger, so that the fused log-probabilities are
+    far from uniform."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=gen) /
+                        math.sqrt(p.shape[-1]))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+        model.dist.weight.mul_(LM_PEAKY)
+
+
+def write_lm(root: Path, yaml: str, gen, name: str):
+    """The LM of the recipe `yaml` as written, its vocabulary the smoke's
+    dict, with seeded weights -> a checkpoint directory root/name as
+    train_lm writes it (train.yaml from load_lm_conf, best.ckpt, dict) and
+    the model."""
+    from aps_tpu_torch.conf import dump_conf, load_lm_conf
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.libs import aps_asr_nnet
+    conf, _ = load_lm_conf(str(REPO / yaml), str(root / "dict"))
+    model = aps_asr_nnet(conf["nnet"])(**conf["nnet_conf"])
+    init_lm(model, gen)
+    cpt = root / name
+    cpt.mkdir()
+    (cpt / "train.yaml").write_text(dump_conf(conf))
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": to_variables(model)["params"], "epoch": 0},
+                    fd)
+    (cpt / "dict").write_bytes((root / "dict").read_bytes())
+    return cpt, model
+
+
+def synced(fn):
+    """(fn(), host seconds around it, synchronised on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    beg = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - beg
+
+
+def lm_decode_phase(root: Path, cpt: Path, lm_dir: Path, wavs, shapes, dev,
+                    card):
+    """run.sh stage 4 with the LM: NUM_UTTS utterances through
+    aps_tpu_torch.cmd.decode_batch with LM_STAGE4_ARGS in batches of
+    LM_BATCH, without the LM and then with it (shallow fusion), the launch
+    counts reset just before and read just after each; then stage 5,
+    compute_wer --cer true of the fused transcripts against the unfused
+    ones (the reference text the smoke writes); one batch of each profiled
+    (device time, wall time, host launches a search step); the first
+    LM_CHECK_UTTS utterances card vs CPU with the LM.
+    -> (launches of the fused decode, numbers for the summary)"""
+    import io
+
+    from aps_tpu_torch.asr.beam_search.lm import lm_adapter
+    from aps_tpu_torch.asr.beam_search.transformer import beam_search_batch
+    from aps_tpu_torch.cmd import compute_wer, decode, decode_batch
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.ops import build
+    S, T, k_len = shapes
+    runs = {}
+    for tag, extra in (("plain", []), ("lm", ["--lm", str(lm_dir)])):
+        best = root / f"best.{tag}"
+        argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
+                "--dict", str(root / "dict"), "--batch-size",
+                str(LM_BATCH)] + LM_STAGE4_ARGS + extra
+        build.reset_launches()
+        with scorer_steps() as steps:
+            stats = decode_batch.main(argv)
+        launches = dict(build.LAUNCHES)
+        lines = best.read_text().splitlines()
+        if sorted(ln.split("\t")[0] for ln in lines) != sorted(wavs) or \
+                not all(map(math.isfinite, stats["scores"].values())):
+            fail(f"decode_batch ({tag}): {len(lines)} transcript lines, "
+                 f"scores {list(stats['scores'].values())}")
+        batches = len(stats["batch_secs"])
+        want = decode_launches("flagship", batches, len(steps))
+        if launches != want or batches != NUM_UTTS // LM_BATCH:
+            fail(f"decode_batch ({tag}) launches {launches} in {batches} "
+                 f"batches and {len(steps)} search steps, expected {want}")
+        runs[tag] = (stats, launches, len(steps), argv)
+        print(f"decode_batch {' '.join(LM_STAGE4_ARGS)} ({tag}): "
+              f"{NUM_UTTS} x {UTT_SECS} s in batches of {LM_BATCH}: "
+              f"{', '.join(f'{b:.4f}' for b in stats['batch_secs'])} s (host "
+              f"clock around a synchronised batch); {len(steps)} search "
+              f"steps; launches a batch: K1 {launches['fused_logmel'] / batches:g},"
+              f" K3 forward {launches['flash_attention_rel'] / batches:g}, K4 "
+              f"{launches['ctc_score_step'] / batches:g} ({card})",
+              flush=True)
+    stats, launches, _, argv = runs["lm"]
+    if stats["scores"] == runs["plain"][0]["scores"]:
+        fail("the LM changed no score of the decode")
+    # stage 5: compute_wer --cer true, the unfused transcripts as reference
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        compute_wer.main([str(root / "best.lm"), str(root / "best.plain"),
+                          "--cer", "true"])
+    cer = re.search(r"Total \((\d+) utterances\): (\d+)/(\d+) = ([\d.]+)%",
+                    report.getvalue())
+    if cer is None or int(cer.group(1)) != NUM_UTTS:
+        fail(f"compute_wer printed {report.getvalue()!r}")
+    print(f"compute_wer --cer true, fused against unfused transcripts: "
+          f"{cer.group(0)}", flush=True)
+
+    # one batch of each profiled
+    kw = decode.search_kwargs(decode_batch.make_parser().parse_args(argv))
+    nnet = load_checkpoint(str(cpt))["nnet"].to(dev)
+    lm = load_checkpoint(str(lm_dir))["nnet"].to(dev)
+    batch = [wavs[k] for k in sorted(wavs)[:LM_BATCH]]
+    sos, eos = VOCAB - 3, VOCAB - 2
+    prof = {}
+    for tag, adapter in (("plain", None),
+                         ("lm", lm_adapter(lm, max_len=LM_MAX_LEN,
+                                           sos=sos))):
+        search = lambda: beam_search_batch(  # noqa: E731
+            nnet, batch, lm=adapter, sos=sos, eos=eos, device=dev,
+            pad_to=S, **kw)
+        search()
+        build.reset_launches()
+        device_ms, wall, host_launches, _ = profile(search)
+        steps = build.LAUNCHES["ctc_score_step"]
+        prof[tag] = (device_ms, wall, host_launches / max(steps, 1), steps)
+        print(f"decode batch of {LM_BATCH} x {UTT_SECS} s ({tag}), "
+              f"profiled: device time {device_ms:.3f} ms in {wall:.4f} s "
+              f"wall, {steps} search steps, "
+              f"{host_launches / max(steps, 1):.1f} host launches a step "
+              f"({card})", flush=True)
+    del nnet, lm
+
+    # the first LM_CHECK_UTTS utterances, card vs CPU, with the LM
+    model = load_checkpoint(str(cpt))["nnet"]
+    lm = load_checkpoint(str(lm_dir))["nnet"]
+    keys = sorted(wavs)[:LM_CHECK_UTTS]
+    outs = {}
+    for where in ("cpu", dev):
+        hyps = beam_search_batch(
+            model.to(where), [wavs[k] for k in keys],
+            lm=lm_adapter(lm.to(where), max_len=LM_MAX_LEN, sos=sos),
+            sos=sos, eos=eos, device=where, pad_to=S, **kw)
+        outs[str(where)] = hyps
+    score_err = token_err = largest = 0.0
+    for key, hc, hg in zip(keys, outs["cpu"], outs[str(dev)]):
+        if [h["trans"] for h in hc] != [h["trans"] for h in hg]:
+            fail(f"{key}: card and CPU n-best lists differ with the LM")
+        for a, b in zip(hc, hg):
+            diff = abs(a["score"] - b["score"])
+            score_err = max(score_err, diff)
+            token_err = max(token_err, diff / (len(a["trans"]) - 1))
+            largest = max(largest, abs(a["score"]))
+        if abs(hg[0]["score"] - stats["scores"][key]) > \
+                LM_SCORE_TOL * (len(hg[0]["trans"]) - 1):
+            fail(f"{key}: decode_batch score {stats['scores'][key]} != "
+                 f"search score {hg[0]['score']}")
+    if not token_err <= LM_SCORE_TOL:
+        fail(f"n-best scores with the LM card vs CPU differ by {token_err} "
+             "a token")
+    print(f"LM-fused search card vs CPU on {LM_CHECK_UTTS} utterances: "
+          f"n-best of {len(outs['cpu'][0])} equal, largest score diff "
+          f"{score_err:.3e} ({token_err:.3e} a token; the largest score "
+          f"{largest:.3f})", flush=True)
+    return launches, {"batch_secs": {t: runs[t][0]["batch_secs"]
+                                     for t in runs},
+                      "profiled": prof, "cer": cer.group(0),
+                      "score_err": score_err}
+
+
+def xfmr_lm_phase(root: Path, cpt: Path, lm_dir: Path, wavs, card):
+    """The Transformer LM of XFMR_LM_YAML in the single-utterance search:
+    XFMR_LM_UTTS utterances through aps_tpu_torch.cmd.decode with --lm and
+    LM_STAGE4_ARGS, --dump-nbest, on the card (launches counted: K1 once
+    and K3's forward once a layer per utterance, K4 once a search step)
+    and on the CPU: the same best transcripts, scores within 1e-3.
+    -> (launches, the nbest file, seconds per utterance on the card)"""
+    from aps_tpu_torch.cmd import decode
+    from aps_tpu_torch.ops import build
+    keys = sorted(wavs)[:XFMR_LM_UTTS]
+    scp = root / "xfmr_lm.scp"
+    scp.write_text("".join(f"{k}\t{root / (k + '.wav')}\n" for k in keys))
+    outs = {}
+    for where in ("cuda", "cpu"):
+        best, nbest = root / f"xfmr_lm.{where}", root / f"nbest.{where}"
+        argv = [str(scp), str(best), "--am", str(cpt), "--dict",
+                str(root / "dict"), "--lm", str(lm_dir), "--dump-nbest",
+                str(nbest), "--device", where] + LM_STAGE4_ARGS
+        build.reset_launches()
+        with scorer_steps() as steps:
+            stats = decode.main(argv)
+        outs[where] = (stats, best.read_text(), dict(build.LAUNCHES),
+                       len(steps))
+    stats, text, launches, steps = outs["cuda"]
+    want = decode_launches("flagship", XFMR_LM_UTTS, steps)
+    if launches != want:
+        fail(f"decode --lm (Transformer LM) launches {launches}, expected "
+             f"{want}")
+    if text != outs["cpu"][1] or len(text.splitlines()) != XFMR_LM_UTTS:
+        fail("decode --lm (Transformer LM): card and CPU transcripts differ")
+    # each best hypothesis's length: its token count in the nbest file
+    # and the eos
+    lengths = {}
+    lines = (root / "nbest.cuda").read_text().splitlines()
+    for n, line in enumerate(lines):
+        if line in keys:
+            lengths[line] = int(lines[n + 1].split("\t")[1]) + 1
+    score_err = max(abs(stats["scores"][k] - outs["cpu"][0]["scores"][k])
+                    for k in keys)
+    token_err = max(abs(stats["scores"][k] - outs["cpu"][0]["scores"][k]) /
+                    lengths[k] for k in keys)
+    if not token_err <= LM_SCORE_TOL:
+        fail(f"decode --lm (Transformer LM) scores card vs CPU differ by "
+             f"{token_err} a token")
+    shown = ", ".join(f"{stats['scores'][k]:.3f}" for k in keys)
+    print(f"decode --lm {XFMR_LM_YAML} ({' '.join(LM_STAGE4_ARGS)}): "
+          f"{XFMR_LM_UTTS} x {UTT_SECS} s, one utterance at a time: "
+          f"{', '.join(f'{v:.4f}' for v in stats['utt_secs'])} s on the "
+          f"card (host clock around a synchronised search), CPU "
+          f"{', '.join(f'{v:.4f}' for v in outs['cpu'][0]['utt_secs'])} s; "
+          f"{steps} search steps; launches {launches}; card vs CPU best "
+          f"transcripts equal, score diff {score_err:.3e} ({token_err:.3e} "
+          f"a token; scores {shown}) ({card})",
+          flush=True)
+    return launches, root / "nbest.cuda", stats["utt_secs"]
+
+
+ARPA_SMOKE = """\\data\\
+ngram 1=5
+ngram 2=2
+
+\\1-grams:
+-0.8\t<s>\t-0.3
+-0.6\tt1\t-0.2
+-0.9\tt2\t-0.4
+-0.7\t</s>
+-3.0\t<unk>
+
+\\2-grams:
+-0.2\t<s> t1
+-0.3\tt1 t2
+
+\\end\\
+"""
+
+
+def lm_rescore_phase(root: Path, nbest: Path, lm_dir: Path, card):
+    """Stage 4's --dump-nbest output through aps_tpu_torch.cmd.lm_rescore,
+    with the RNN LM (on the card) and with a small ARPA file: one best
+    line for each utterance of the nbest file."""
+    from aps_tpu_torch.cmd import lm_rescore
+    arpa = root / "lm.arpa"
+    arpa.write_text(ARPA_SMOKE)
+    keys = [ln for ln in nbest.read_text().splitlines()[1:]
+            if ln and "\t" not in ln]
+    secs = {}
+    for tag, lm in (("nn", lm_dir), ("arpa", arpa)):
+        best = root / f"rescored.{tag}"
+        _, secs[tag] = synced(lambda: lm_rescore.main(
+            [str(nbest), str(best), "--lm", str(lm), "--dict",
+             str(root / "dict"), "--lm-weight", "0.2"]))
+        lines = best.read_text().splitlines()
+        if sorted(ln.split("\t")[0] for ln in lines) != sorted(keys):
+            fail(f"lm_rescore ({tag}) wrote {lines}")
+    print(f"lm_rescore of {len(keys)} utterances' nbest: NN LM "
+          f"{secs['nn']:.4f} s on the card, ARPA {secs['arpa']:.4f} s "
+          f"(host clock, model loading included) ({card})", flush=True)
+
+
+def write_lm_corpus(root: Path, gen) -> Path:
+    """root/lm_train: LM_TRAIN_LINES seeded lines of 10 to 40 tokens of
+    the smoke's vocabulary (kaldi format) for training and for validation,
+    and RNN_LM_YAML as written with its data paths pointed at them."""
+    import torch
+
+    from aps_tpu_torch.conf import load_yaml
+    train = root / "lm_train"
+    train.mkdir()
+    for split in ("train", "valid"):
+        with open(train / f"{split}.txt", "w") as fd:
+            for n in range(LM_TRAIN_LINES):
+                size = int(torch.randint(10, 41, (1,), generator=gen))
+                toks = torch.randint(1, VOCAB - 3, (size,), generator=gen)
+                fd.write(f"{split}{n:03d} " +
+                         " ".join(f"t{t}" for t in toks.tolist()) + "\n")
+    conf = load_yaml(REPO / RNN_LM_YAML)
+    conf["data_conf"]["train"] = {"text": str(train / "train.txt")}
+    conf["data_conf"]["valid"] = {"text": str(train / "valid.txt")}
+    (train / "nnlm.yaml").write_text(json.dumps(conf, indent=2))
+    return train
+
+
+def train_lm_phase(root: Path, train: Path, dev, card):
+    """RNN_LM_YAML as written through aps_tpu_torch.cmd.train_lm on the
+    card (LM_TRAIN_EPOCHS epochs, batch LM_TRAIN_BATCH), launch counts
+    reset before and read after (no port kernel runs in LM training); then
+    LM_TIMED_STEPS steps on the first batch, each timed, the loss falling;
+    then one training pass with dropout off, card vs CPU at float32: loss
+    and three gradients. -> (launches, median step s, peak GiB)"""
+    import torch
+
+    from aps_tpu_torch.cmd import train_lm
+    from aps_tpu_torch.conf import load_lm_conf
+    from aps_tpu_torch.libs import aps_asr_nnet, aps_dataloader, aps_task
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.trainer.dp import to_device
+    cpt = train / "cpt"
+    argv = ["--conf", str(train / "nnlm.yaml"), "--dict", str(root / "dict"),
+            "--checkpoint", str(cpt), "--batch-size", str(LM_TRAIN_BATCH),
+            "--epochs", str(LM_TRAIN_EPOCHS), "--seed", str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_lm.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if any(launches.values()):
+        fail(f"train_lm launched port kernels: {launches}")
+    if trainer.device.type != "cuda" or trainer.cur_step < LM_TRAIN_EPOCHS:
+        fail(f"train_lm took {trainer.cur_step} steps on {trainer.device}")
+    valid = _epoch_losses(cpt / "trainer.log", "valid")
+    if len(valid) != LM_TRAIN_EPOCHS + 1:
+        fail(f"train_lm reported {len(valid)} validation epochs")
+    conf, vocab = load_lm_conf(str(train / "nnlm.yaml"), str(root / "dict"))
+    loader = aps_dataloader(fmt="lm@utt", train=False, vocab_dict=vocab,
+                            sos=conf["sos"], eos=conf["eos"],
+                            max_batch_size=LM_TRAIN_BATCH,
+                            **conf["data_conf"]["loader"],
+                            **conf["data_conf"]["train"])
+    egs = next(iter(loader))
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_secs, losses = [], []
+    for step in range(LM_TIMED_STEPS):
+        done, secs = synced(lambda: trainer.train_one_step(egs))
+        if not done:
+            fail(f"train_lm timed step {step} was skipped")
+        step_secs.append(secs)
+        losses.append(float(trainer.reporter.stats["loss"][-1]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not (all(map(math.isfinite, losses + valid)) and
+            losses[-1] < losses[0]):
+        fail(f"the LM loss did not fall on the repeated batch: {losses}")
+    # one training pass with dropout off, card vs CPU
+    conf["nnet_conf"]["dropout"] = 0.0
+    model = aps_asr_nnet(conf["nnet"])(**conf["nnet_conf"])
+    init_lm(model, torch.Generator().manual_seed(SEED))
+    task = aps_task(conf["task"], model, **conf["task_conf"])
+    tensors = {k: v for k, v in egs.items() if not k.startswith("#")}
+    outs = []
+    for where in ("cpu", dev):
+        side = copy.deepcopy(task).to(where).train()
+        stats = side(to_device(tensors, torch.device(where)))
+        stats["loss"].backward()
+        params = dict(side.nnet.named_parameters())
+        outs.append((stats["loss"].item(),
+                     {k: params[k].grad.double().cpu() for k in LM_GRADS}))
+    (loss_c, grad_c), (loss_g, grad_g) = outs
+    if not abs(loss_g - loss_c) <= TOL_STEP_LOSS * abs(loss_c):
+        fail(f"LM training loss card {loss_g} vs CPU {loss_c}")
+    errs = {}
+    for key in LM_GRADS:
+        scale = grad_c[key].abs().max().item()
+        errs[key] = (grad_g[key] - grad_c[key]).abs().max().item() / scale
+        if not (scale > 0 and errs[key] <= TOL_STEP_GRAD):
+            fail(f"LM gradient of {key} card vs CPU: {errs[key]} of its "
+                 f"largest entry {scale}")
+    print(f"train_lm {RNN_LM_YAML} as written: {trainer.cur_step} steps in "
+          f"{LM_TRAIN_EPOCHS} epochs of batches of {LM_TRAIN_BATCH}, "
+          f"validation losses {', '.join(f'{v:.4f}' for v in valid)}; "
+          f"{LM_TIMED_STEPS} steps on a batch of {egs['src'].shape}: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, median "
+          f"{statistics.median(step_secs):.4f} s of "
+          f"{', '.join(f'{v:.4f}' for v in step_secs)} s (host clock around "
+          f"a synchronised step), peak memory {peak:.3f} GiB; pass with "
+          f"dropout off card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f}, "
+          "gradients relative to the largest entry "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" ({card})", flush=True)
+    return launches, statistics.median(step_secs), peak
+
+
+@contextlib.contextmanager
+def parent_precision(*modules):
+    """The commands as they ran before they stated their precision: torch's
+    defaults for the TF32 flags (cuBLAS off, cuDNN on) and no scoping."""
+    import torch
+    saved = [m.matmul_precision for m in modules]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    for m in modules:
+        m.matmul_precision = lambda *args: contextlib.nullcontext()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        for m, real in zip(modules, saved):
+            m.matmul_precision = real
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+
+
+def precision_phase(root: Path, cpt: Path, sep_root: Path, tcn_cpt: Path,
+                    card):
+    """decode_batch (DECODE_ARGS) and separate (batches of SEP_BATCH) as
+    the commands run now (float32: both TF32 flags off) and as they ran
+    before (torch's defaults: cuDNN's convolutions at TF32), in turns
+    (now, before, before, now): the seconds of each batch."""
+    from aps_tpu_torch.cmd import decode_batch, separate
+    from aps_tpu_torch.cmd.profile_decode import profile
+    runs = {"now": [], "before": []}
+    for tag in ("now", "before", "before", "now"):
+        scope = parent_precision(decode_batch, separate) \
+            if tag == "before" else contextlib.nullcontext()
+        with scope, contextlib.redirect_stdout(sys.stderr):
+            dec = decode_batch.main(
+                [str(root / "wav.scp"), str(root / "best.precision"), "--am",
+                 str(cpt), "--dict", str(root / "dict")] + DECODE_ARGS)
+            dec_ms = profile(lambda: decode_batch.main(
+                [str(root / "wav.scp"), str(root / "best.precision"), "--am",
+                 str(cpt), "--dict", str(root / "dict")] + DECODE_ARGS))[0]
+            sep_argv = [str(sep_root / "mix.scp"),
+                        str(sep_root / "sep.precision"), "--checkpoint",
+                        str(tcn_cpt), "--sr", str(SEP_SR), "--batch-size",
+                        str(SEP_BATCH)]
+            sep = separate.main(sep_argv)
+            sep_ms = profile(lambda: separate.main(sep_argv))[0]
+        runs[tag].append((dec["batch_secs"], sep["batch_secs"], dec_ms,
+                          sep_ms))
+    for tag, entries in runs.items():
+        print(f"precision {tag} ("
+              f"{'float32' if tag == 'now' else 'TF32 in cuDNN'}): "
+              "decode_batch batches of 8 "
+              + " | ".join(", ".join(f"{v:.4f}" for v in e[0])
+                           for e in entries)
+              + f" s; separate batches of {SEP_BATCH} "
+              + " | ".join(", ".join(f"{v:.4f}" for v in e[1])
+                           for e in entries)
+              + " s (host clock around a synchronised batch); device time "
+              "of a whole command run (profiled, loading included): "
+              "decode_batch " + " | ".join(f"{e[2]:.3f}" for e in entries)
+              + " ms, separate " + " | ".join(f"{e[3]:.3f}" for e in entries)
+              + f" ms ({card})", flush=True)
+    return runs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2602,6 +3136,19 @@ def main() -> None:
         print(f"card vs CPU on 2 utterances: encoder max abs err "
               f"{enc_err:.3e}, best-score diff {score_err:.3e}", flush=True)
 
+        # the LM slice: run.sh stage 4 with the RNN LM and stage 5, the
+        # Transformer LM in the single-utterance search, lm_rescore on its
+        # nbest, and stage 3, train_lm
+        lm_dir, _ = write_lm(root, RNN_LM_YAML, gen, "rnn_lm")
+        xfmr_dir, _ = write_lm(root, XFMR_LM_YAML, gen, "xfmr_lm")
+        launches_lm, _ = lm_decode_phase(root, cpt, lm_dir, wavs, shapes,
+                                         dev, card)
+        launches_xlm, xlm_nbest, _ = xfmr_lm_phase(root, cpt, xfmr_dir,
+                                                   wavs, card)
+        lm_rescore_phase(root, xlm_nbest, lm_dir, card)
+        launches_tlm, _, _ = train_lm_phase(root, write_lm_corpus(root, gen),
+                                            dev, card)
+
         dropout_step(egs, dev, gen, card)
         launches_trn, per_step, flagship_secs = train_phase(
             root, train, egs, dev, card)
@@ -2676,6 +3223,7 @@ def main() -> None:
         launches_sep = separate_phase(sep_root, tcn_cpt, mixes, shapes_sep,
                                       card)
         separation_check(tcn_cpt, mixes, dev, shapes_sep, card)
+        precision_phase(root, cpt, sep_root, tcn_cpt, card)
         train_ss = write_sep_corpus(sep_root, gen)
         egs_ss, launches_ss = train_ss_phase(train_ss, dev, card)
         loss_g, loss_c, errs = sep_step_check(egs_ss, dev)
@@ -2775,6 +3323,9 @@ def main() -> None:
             "launches_train_long_step": per_step_long[name],
             "launches_recipe_run": launches_rcp[name],
             "launches_recipe_step": per_step_rcp[name],
+            "launches_decode_lm": launches_lm[name],
+            "launches_decode_xfmr_lm": launches_xlm[name],
+            "launches_train_lm": launches_tlm[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,

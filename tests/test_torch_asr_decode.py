@@ -272,11 +272,13 @@ def test_decode_batch_cli_runs_without_jax(flagship, tmp_path):
 
 
 def test_decode_batch_refuses_an_lm(tmp_path):
-    """LM fusion is not ported: --lm raises instead of being ignored."""
+    """The batched search fuses NN LMs only: an n-gram file given to --lm
+    raises (naming decode and lm_rescore) instead of being ignored."""
     from aps_tpu_torch.cmd import decode_batch
+    (tmp_path / "lm.arpa").write_text("\\data\\\nngram 1=1\n")
     argv = [str(tmp_path / "wav.scp"), str(tmp_path / "best.txt"), "--am",
-            str(tmp_path), "--lm", str(tmp_path / "lm")]
-    with pytest.raises(NotImplementedError, match="--lm"):
+            str(tmp_path), "--lm", str(tmp_path / "lm.arpa")]
+    with pytest.raises(NotImplementedError, match="--lm .*lm_rescore"):
         decode_batch.main(argv)
 
 
@@ -294,7 +296,13 @@ def test_port_imports_neither_jax_nor_aps_tpu():
     names = [name for _, name in _port_modules()] + ["chip_smoke"]
     assert "aps_tpu_torch.cmd.train_am" in names and len(names) > 40
     for new in ("cmd.separate", "cmd.train_ss", "sse.bss.tcn", "ops.tcn",
-                "task.sse", "loader.se.chunk", "eval.sse", "ops.attention"):
+                "task.sse", "loader.se.chunk", "eval.sse", "ops.attention",
+                "cmd.decode", "cmd.lm_rescore", "cmd.train_lm",
+                "cmd.compute_wer", "cmd.text_tokenize", "asr.lm.rnn",
+                "asr.lm.transformer", "asr.lm.ngram", "asr.base.rnn",
+                "asr.beam_search.lm", "loader.lm.utt", "loader.lm.bptt",
+                "tokenizer.subword", "tokenizer.bpe", "metric.asr",
+                "metric.reporter"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -328,7 +336,8 @@ def test_port_sources_name_no_aps_tpu_import():
 def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     """The default device is the card and raises when torch sees none; the
     CPU only on explicit request."""
-    from aps_tpu_torch.cmd import decode_batch, separate, train_am, train_ss
+    from aps_tpu_torch.cmd import (decode, decode_batch, lm_rescore,
+                                   separate, train_am, train_lm, train_ss)
     from aps_tpu_torch.eval.wrapper import pick_device
     assert pick_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -342,7 +351,9 @@ def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     assert pick_device() == torch.device("cuda:0")
     assert pick_device("cuda", 2) == torch.device("cuda:2")
     for parser in (decode_batch.make_parser(), train_am.make_parser(),
-                   separate.make_parser(), train_ss.make_parser()):
+                   separate.make_parser(), train_ss.make_parser(),
+                   decode.make_parser(), lm_rescore.make_parser(),
+                   train_lm.make_parser()):
         assert parser.get_default("device") == "cuda"
 
 
