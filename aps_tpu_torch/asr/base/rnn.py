@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Stacked recurrent layers with carried state (port of
-aps_tpu/asr/base/rnn.py::StackedLSTMWithState).
+"""Stacked recurrent layers (port of aps_tpu/asr/base/rnn.py:
+StackedLSTMWithState, with carried state, and SingleRNN and StackedRNN,
+bidirectional as set).
 
 One torch.nn.LSTM (or GRU, or tanh RNN) a layer, batch first, on cuDNN on
 the card; aps_tpu runs the same recurrence as plain JAX (flax cells under
@@ -62,15 +63,34 @@ _CELLS = {
 }
 
 
-def recurrent_layer(rnn_type: str, inp_size: int,
-                    hidden: int) -> nn.Module:
+def _in_cell(cell: str, part: Optional[str]) -> Optional[str]:
+    """A gate leaf of _CELLS inside the flax cell `cell`."""
+    if part is None:
+        return None
+    if part[0] == "+":
+        return f"+{cell}/{part[1:]}"
+    return f"{cell}/{part}"
+
+
+def recurrent_layer(rnn_type: str, inp_size: int, hidden: int,
+                    bidirectional: bool = False,
+                    named_cells: bool = False) -> nn.Module:
     """One batch-first torch recurrent layer whose biases follow flax's
-    cell (see the module's docstring)."""
+    cell (see the module's docstring). named_cells: the layer stands for a
+    SingleRNN, whose flax cells are its children <cell>_0 (the forward
+    direction) and <cell>_1 (the reverse one, the _reverse parameters)."""
     rnn_type = rnn_type.lower()
     if rnn_type not in _CELLS:
         raise ValueError(f"Unsupported rnn type: {rnn_type}")
-    cls, _, gates = _CELLS[rnn_type]
-    layer = cls(inp_size, hidden, batch_first=True)
+    cls, cell, gates = _CELLS[rnn_type]
+    layer = cls(inp_size, hidden, batch_first=True,
+                bidirectional=bidirectional)
+    if named_cells:
+        gates = {
+            name + suffix: tuple(_in_cell(f"{cell}_{d}", p) for p in parts)
+            for d, suffix in enumerate(("", "_reverse")[:1 + bidirectional])
+            for name, parts in gates.items()
+        }
     layer.jax_gates = gates
     for name, parts in gates.items():
         if all(p is None for p in parts):
@@ -153,3 +173,74 @@ class StackedLSTMWithState(nn.Module):
             if self.layer_norm:
                 out = getattr(self, f"ln_{i}")(out)
         return out, tuple(new_state)
+
+
+class SingleRNN(nn.Module):
+    """One (optionally bidirectional) recurrent layer over N x T x D, one
+    torch layer (cuDNN on the card) whose directions map onto flax's cells
+    <cell>_0 and <cell>_1 (aps_tpu creates the forward cell first); the
+    torch layer `cells` has no path segment of its own in aps_tpu
+    (convert.MODULE_NAMES). Without lengths, as aps_tpu's without
+    seq_lengths, the reverse direction reads the whole padded sequence."""
+
+    def __init__(self, inp_size: int, hidden: int, rnn_type: str = "lstm",
+                 bidirectional: bool = False):
+        super(SingleRNN, self).__init__()
+        self.cells = recurrent_layer(rnn_type, inp_size, hidden,
+                                     bidirectional=bidirectional,
+                                     named_cells=True)
+        self.output_size = hidden * (2 if bidirectional else 1)
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        return self.cells(inp)[0]
+
+
+class StackedRNN(nn.Module):
+    """Multi-layer RNN (port of aps_tpu's StackedRNN): an optional input
+    projection, then each layer layer_i followed by tanh of its projection
+    proj_i (hidden_proj > 0), its layer norm ln_i, and dropout on every
+    layer but the last, in that order (StackedLSTMWithState projects
+    without tanh and drops out before the norm)."""
+
+    def __init__(self,
+                 inp_size: int,
+                 hidden: int,
+                 num_layers: int = 3,
+                 rnn_type: str = "lstm",
+                 bidirectional: bool = False,
+                 dropout: float = 0.0,
+                 input_proj: int = -1,
+                 hidden_proj: int = -1,
+                 layer_norm: bool = False):
+        super(StackedRNN, self).__init__()
+        self.num_layers = num_layers
+        self.hidden_proj = hidden_proj
+        self.layer_norm = layer_norm
+        self.input_proj = nn.Linear(inp_size, input_proj) \
+            if input_proj > 0 else None
+        size = input_proj if input_proj > 0 else inp_size
+        for i in range(num_layers):
+            layer = SingleRNN(size, hidden, rnn_type=rnn_type,
+                              bidirectional=bidirectional)
+            self.add_module(f"layer_{i}", layer)
+            size = layer.output_size
+            if hidden_proj > 0:
+                self.add_module(f"proj_{i}", nn.Linear(size, hidden_proj))
+                size = hidden_proj
+            if layer_norm:
+                self.add_module(f"ln_{i}", nn.LayerNorm(size, eps=LN_EPS))
+        self.drop = nn.Dropout(dropout) if dropout > 0 else None
+        self.output_size = size
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        """N x T x D -> N x T x output_size"""
+        out = inp if self.input_proj is None else self.input_proj(inp)
+        for i in range(self.num_layers):
+            out = getattr(self, f"layer_{i}")(out)
+            if self.hidden_proj > 0:
+                out = torch.tanh(getattr(self, f"proj_{i}")(out))
+            if self.layer_norm:
+                out = getattr(self, f"ln_{i}")(out)
+            if self.drop is not None and i != self.num_layers - 1:
+                out = self.drop(out)
+        return out

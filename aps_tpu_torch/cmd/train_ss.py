@@ -9,15 +9,17 @@ Takes aps_tpu's training arguments (aps_tpu_torch.opts.TrainParser) and
 YAML configs and writes aps_tpu-format checkpoints and train.yaml into
 --checkpoint, which aps_tpu_torch.cmd.separate and aps_tpu's own commands
 load. It trains on the card (--device-id picks which) and raises when torch
-sees none; --device cpu asks for the CPU in so many words. Training reaches
-no hand-written kernel: the fused TCN block is an inference-only fold."""
+sees none; --device cpu asks for the CPU in so many words. A
+frequency-domain model gets the enh_transform of its YAML
+(aps_tpu_torch.transform.enh). Training reaches no hand-written kernel:
+the fused TCN block is an inference-only fold."""
 
 import argparse
 import pprint
 
 from aps_tpu_torch.conf import load_ss_conf
 from aps_tpu_torch.eval.wrapper import pick_device
-from aps_tpu_torch.libs import aps_sse_nnet, start_trainer
+from aps_tpu_torch.libs import aps_sse_nnet, aps_transform, start_trainer
 from aps_tpu_torch.opts import TrainParser
 from aps_tpu_torch.utils import set_seed
 
@@ -29,9 +31,11 @@ def run(args):
     conf = load_ss_conf(args.conf)
     print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
     print(f"Arguments in yaml:\n{pprint.pformat(conf)}", flush=True)
+    kwargs = dict(conf["nnet_conf"])
     if "enh_transform" in conf:
-        raise NotImplementedError("enh_transform is not ported yet")
-    nnet = aps_sse_nnet(conf["nnet"])(**conf["nnet_conf"])
+        kwargs["enh_transform"] = aps_transform("enh")(
+            **conf["enh_transform"])
+    nnet = aps_sse_nnet(conf["nnet"])(**kwargs)
     return start_trainer(args.trainer, conf, nnet, args, device,
                          reduction_tag="#utt")
 

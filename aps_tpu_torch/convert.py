@@ -21,7 +21,8 @@ layout rule of each leaf follows the module that owns it:
                  correlates the dilated input with the kernel as stored,
                  where PyTorch scatters it, i.e. applies it flipped
   nn.PReLU       weight (1,)           <-> negative_slope ()
-  nn.LSTM/GRU/RNN  weight_ih/hh, bias_ih/hh (G*H, ...) <-> one flax Dense a
+  nn.LSTM/GRU/RNN  weight_ih/hh, bias_ih/hh (G*H, ...), and their _reverse
+                 twins of a bidirectional layer <-> one flax Dense a
                  gate (kernel (in, H), bias (H)) as the layer's `jax_gates`
                  names them (aps_tpu_torch/asr/base/rnn.py): each gate's
                  block of rows is its leaf transposed; a None block is 0
@@ -72,6 +73,9 @@ MODULE_NAMES = {
     "norm_out": "NormalizeLayer_1",
     "gln": "GlobalChannelLayerNorm_0",
     "bnorm": "BatchNorm_0",
+    # a SingleRNN's torch layer: its flax cells are the SingleRNN's own
+    # children (aps_tpu_torch/asr/base/rnn.py)
+    "cells": "",
 }
 _BN = (nn.BatchNorm1d, nn.BatchNorm2d)
 
@@ -82,7 +86,8 @@ def jax_module_path(torch_path: str) -> str:
     path = re.sub(r"(^|\.)encoder\.layers\.(\d+)\.self_attn(?=\.|$)",
                   r"\1encoder.attn_\2", torch_path)
     path = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layer_\2", path)
-    return "/".join(MODULE_NAMES.get(seg, seg) for seg in path.split("."))
+    return "/".join(name for name in (MODULE_NAMES.get(seg, seg)
+                                      for seg in path.split(".")) if name)
 
 
 def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str, object]]:

@@ -61,20 +61,23 @@ def pick_device(device: str = "cuda", device_id: int = -1) -> torch.device:
 
 def load_checkpoint(cpt_dir: str, cpt_tag: str = "best") -> Dict:
     """Rebuild the nnet from train.yaml and load <tag>.ckpt into it (CPU,
-    eval mode). accept_raw: the model takes waveforms (its asr_transform
-    starts with a spectral feature)."""
+    eval mode), with its asr_transform or enh_transform. accept_raw: the
+    model takes waveforms (its asr_transform starts with a spectral
+    feature, or it has an enh_transform)."""
     cpt_dir = pathlib.Path(cpt_dir)
     cpt = read_checkpoint(cpt_dir / f"{cpt_tag}.ckpt")
     conf = load_yaml(cpt_dir / "train.yaml")
     nnet_cls = aps_nnet(conf["nnet"])
-    if "enh_transform" in conf:
-        raise NotImplementedError("enh_transform is not ported yet")
     kwargs = dict(conf["nnet_conf"])
     accept_raw = False
     if "asr_transform" in conf:
         kwargs["asr_transform"] = aps_transform("asr")(
             **conf["asr_transform"])
         accept_raw = kwargs["asr_transform"].accept_raw
+    if "enh_transform" in conf:
+        kwargs["enh_transform"] = aps_transform("enh")(
+            **conf["enh_transform"])
+        accept_raw = True
     nnet = nnet_cls(**kwargs)
     params = cpt["params"]
     if "nnet" in params:

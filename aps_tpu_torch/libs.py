@@ -1,11 +1,13 @@
 #!/usr/bin/env python
 """Registries of the port, keyed by the same names as aps_tpu/libs.py.
 
-Only what the port has so far is registered: the "asr" transform, the
-"asr@xfmr", "asr@rnn_lm", "asr@xfmr_lm" and "sse@time_tcn" models, the
-"asr@ctc_xent", "asr@ctc", "asr@lm" and "sse@sisnr" tasks, the "dp"
-trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and the
-"word", "char" and "subword" tokenizers. Registration happens
+Only what the port has so far is registered: the "asr" and "enh"
+transforms, the "asr@xfmr", "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
+"sse@freq_tcn" and "sse@base_rnn" models, the "asr@ctc_xent", "asr@ctc",
+"asr@lm", "sse@sisnr", "sse@snr", "sse@wa", "sse@freq_linear_sa",
+"sse@freq_mel_sa", "sse@time_linear_sa" and "sse@time_mel_sa" tasks, the
+"dp" trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and
+the "word", "char" and "subword" tokenizers. Registration happens
 when the defining module is imported; the factory functions import them on
 first use."""
 
@@ -13,8 +15,9 @@ import importlib
 
 ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.lm.rnn",
                   "aps_tpu_torch.asr.lm.transformer"]
-SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn"]
-TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr"]
+SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy"]
+TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr",
+                        "aps_tpu_torch.transform.enh"]
 TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse"]
 TRAINER_SUBMODULES = ["aps_tpu_torch.trainer.dp"]
 LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw",
@@ -88,7 +91,11 @@ def aps_transform(name: str):
 
 
 def aps_task(name: str, nnet, **kwargs):
-    """Build the registered task `name` around nnet."""
+    """Build the registered task `name` around nnet. task_conf names the
+    loss "objf" (examples/sse/wham/conf/1b_*.yaml), where the task's
+    objf is its objective method: it becomes objf_name, as in aps_tpu."""
+    if "objf" in kwargs:
+        kwargs["objf_name"] = kwargs.pop("objf")
     return _lookup(ApsRegisters.task, TASK_SUBMODULES, name)(nnet, **kwargs)
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""Time-domain Conv-TasNet (port of aps_tpu/sse/bss/tcn.py:
-signal_mix_consistency, GlobalChannelLayerNorm, NormalizeLayer, ScaleLinear,
-Conv1dBlock, Conv1dRepeat, TimeConvTasNet "sse@time_tcn", and the folded
-inference path _fold_eval_block / tcn_fused_eval).
+"""Conv-TasNet in the time and the frequency domain (port of
+aps_tpu/sse/bss/tcn.py: signal_mix_consistency, GlobalChannelLayerNorm,
+NormalizeLayer, ScaleLinear, Conv1dBlock, Conv1dRepeat, TimeConvTasNet
+"sse@time_tcn", the folded inference path _fold_eval_block /
+tcn_fused_eval, and FreqConvTasNet "sse@freq_tcn").
 
 Layout: channel-last N x T x C inside, as in aps_tpu, so the dense layers
 act on the last axis and the fused block kernel reads rows of channels; the
@@ -24,7 +25,8 @@ from torch import nn
 from aps_tpu_torch.asr.base.component import BatchNorm1d
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops.tcn import tcn_block_fused
-from aps_tpu_torch.sse.base import MaskNonLinear, SSEBase, supported_nonlinear
+from aps_tpu_torch.sse.base import (FreqMaskingSSE, MaskNonLinear, SSEBase,
+                                    supported_nonlinear)
 
 
 def signal_mix_consistency(mix: torch.Tensor, sep: List[torch.Tensor],
@@ -362,3 +364,47 @@ def tcn_fused_eval(nnet: TimeConvTasNet) -> Optional[Callable]:
         return bss[0] if spks == 1 else bss
 
     return forward
+
+
+@ApsRegisters.sse.register("sse@freq_tcn")
+class FreqConvTasNet(FreqMaskingSSE):
+    """Frequency-domain Conv-TasNet: TCN masking on the enh transform's
+    features. It runs as the module: aps_tpu folds only sse@time_tcn, so
+    no block kernel launches here."""
+
+    def __init__(self,
+                 enh_transform: Optional[nn.Module] = None,
+                 in_features: int = 257,
+                 B: int = 6,
+                 K: int = 3,
+                 N: int = 3,
+                 conv_channels: int = 512,
+                 proj_channels: int = 256,
+                 norm: str = "BN",
+                 num_spks: int = 2,
+                 num_bins: int = 257,
+                 non_linear: str = "relu",
+                 causal: bool = False,
+                 scaling_param: bool = False,
+                 skip_residual: bool = False,
+                 training_mode: str = "freq"):
+        super(FreqConvTasNet, self).__init__(enh_transform=enh_transform,
+                                             num_spks=num_spks,
+                                             training_mode=training_mode)
+        self.proj = nn.Linear(in_features, proj_channels)
+        # N repeats of B blocks (aps_tpu's "conv")
+        self.tcn = Conv1dRepeat(N, B, in_channels=proj_channels,
+                                conv_channels=conv_channels, kernel_size=K,
+                                causal=causal, scaling_param=scaling_param,
+                                skip_residual=skip_residual, norm=norm)
+        self.mask_prelu = nn.PReLU(init=0.01)
+        self.mask_out = nn.Linear(proj_channels, num_bins * num_spks)
+        self.mask_act = MaskNonLinear(non_linear, enable="common")
+
+    def _tf_mask(self, feats: torch.Tensor) -> List[torch.Tensor]:
+        """feats: N x T x F -> [N x F x T, ...]"""
+        x = self.tcn(self.proj(feats))
+        m = self.mask_out(self.mask_prelu(x))
+        # N x T x S*F -> N x S*F x T
+        masks = self.mask_act(m.transpose(-1, -2))
+        return list(torch.chunk(masks, self.num_spks, dim=-2))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Objective functions of the ASR and separation tasks (port of
-aps_tpu/task/objf.py: ce_objf, ls_objf, ctc_objf; sisnr_objf, multiple_objf,
-permu_invarint_objf, hybrid_permu_objf).
+aps_tpu/task/objf.py: ce_objf, ls_objf, ctc_objf; sisnr_objf, snr_objf,
+multiple_objf, permu_invarint_objf, hybrid_permu_objf).
 
 ctc_objf calls torch.nn.functional.ctc_loss where aps_tpu calls
 optax.ctc_loss (a library call outside any kernel on both sides). optax
@@ -103,6 +103,28 @@ def sisnr_objf(x: torch.Tensor,
     t = (x * s).sum(-1, keepdim=True) * s / (_l2norm(s, keepdim=True)**2 +
                                              eps)
     snr_linear = _l2norm(t) / (_l2norm(x - t) + eps)
+    if non_nagetive:
+        return 10 * torch.log10(1 + snr_linear**2)
+    return 20 * torch.log10(eps + snr_linear)
+
+
+def snr_objf(x: torch.Tensor,
+             s: torch.Tensor,
+             eps: float = EPSILON,
+             snr_max: float = -1,
+             non_nagetive: bool = False) -> torch.Tensor:
+    """Plain SNR in dB (thresholded at snr_max when it is positive).
+    x (estimate), s (reference): N x S -> N."""
+    if x.shape != s.shape:
+        raise RuntimeError(f"Shape mismatch in snr: {tuple(x.shape)} vs "
+                           f"{tuple(s.shape)}")
+    if snr_max > 0:
+        threshold = 10**(-snr_max / 10)
+        s_norm = _l2norm(s)**2
+        x_s_norm = _l2norm(x - s)**2
+        return 10 * torch.log10(s_norm + eps) - 10 * torch.log10(
+            threshold * s_norm + x_s_norm + eps)
+    snr_linear = _l2norm(s) / (_l2norm(x - s) + eps)
     if non_nagetive:
         return 10 * torch.log10(1 + snr_linear**2)
     return 20 * torch.log10(eps + snr_linear)

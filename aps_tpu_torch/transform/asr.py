@@ -1,19 +1,25 @@
 #!/usr/bin/env python
-"""ASR feature transform: waveform -> (normalised) log-mel features.
+"""ASR feature transform: waveform -> (normalised) log-mel or log
+spectrogram features.
 
 Port of aps_tpu/transform/asr.py (FeatureTransform / AsrTransform,
 RescaleTransform, SpeedPerturbTransform, CmvnTransform,
-SpecAugTransform). A feature string whose spectral part is a fusable
-"fbank-log" pair always runs through the fused log-mel kernel
+SpecAugTransform, and the chain SpectrogramTransform, MagnitudeTransform,
+TFTransposeTransform, PowerTransform that the "spectrogram" token stands
+for, with LogTransform for "log"). A feature string whose spectral part is
+a fusable "fbank-log" pair always runs through the fused log-mel kernel
 (aps_tpu_torch.ops.fbank); the JAX package does so only on a TPU and only
 when frame_hop % 8 == 0, a TPU tiling condition that does not apply here.
-"cmvn" keeps the masked statistics, so a padded batch normalises exactly as
-its utterances would alone. audio_norm: false rescales the waveform to the
-int16 range first. "perturb" and "aug" are identities at inference; in
-training they draw from the transform's `generator` (the trainer sets one
-on its device) through perturb.draw and specaug.draw, which a check may
-replace to feed in draws of its own. The other tokens
-(spectrogram, mfcc, delta, splice, ...) and gcmvn raise
+"spectrogram" is the magnitude (use_power: the power) of forward_stft,
+N x (C) x T x F. "cmvn" keeps the masked statistics, so a padded batch
+normalises exactly as its utterances would alone. audio_norm: false
+rescales the waveform to the int16 range first. "perturb" and "aug" are
+identities at inference; in training they draw from the transform's
+`generator` (the trainer sets one on its device) through perturb.draw and
+specaug.draw, which a check may replace to feed in draws of its own.
+forward(..., skip_stft=True) takes an STFT the caller made (the enh
+transform's) through the steps after the spectrogram, as aps_tpu's does.
+The other tokens (mfcc, delta, splice, ...) and gcmvn raise
 NotImplementedError until the port has them."""
 
 from typing import Optional, Tuple
@@ -26,9 +32,9 @@ from aps_tpu_torch.const import EPSILON, MAX_INT16
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops import fbank
 from aps_tpu_torch.transform.augment import perturb_speed, tf_mask
-from aps_tpu_torch.transform.utils import (fft_size_of, make_window,
-                                           mel_filter, num_frames,
-                                           speed_perturb_filter)
+from aps_tpu_torch.transform.utils import (fft_size_of, forward_stft,
+                                           make_window, mel_filter,
+                                           num_frames, speed_perturb_filter)
 
 
 class RescaleTransform(nn.Module):
@@ -257,6 +263,7 @@ class FeatureTransform(nn.Module):
         self.pre_emphasis = pre_emphasis
         self.stft_normalized = stft_normalized
         self.use_power = use_power
+        self.window_name = window
         self.log_lower_bound = log_lower_bound
         self.subsampling_factor = subsampling_factor
         self.eps = eps
@@ -277,10 +284,11 @@ class FeatureTransform(nn.Module):
                 fusable = (i + 1 < len(toks) and toks[i + 1] == "log"
                            and not center and not requires_grad
                            and not mel_matrix and pre_emphasis >= 0)
-                if not fusable:
+                if not fusable or "spectrogram" in self.steps:
                     raise NotImplementedError(
-                        f"{feats}: only a fusable fbank-log pair (no "
-                        "centering, fixed mel matrix) is ported yet")
+                        f"{feats}: only one spectrum, a spectrogram or a "
+                        "fusable fbank-log pair (no centering, fixed mel "
+                        "matrix), is ported yet")
                 self.window = make_window(window, frame_len,
                                           round_pow_of_two, stft_mode)
                 self.mel = mel_filter(frame_len,
@@ -296,7 +304,17 @@ class FeatureTransform(nn.Module):
                 self.steps.append("fbank-log")
                 i += 2
                 continue
-            if tok == "cmvn":
+            if tok == "spectrogram":
+                if "spectrogram" in self.steps or "fbank-log" in self.steps:
+                    raise NotImplementedError(f"{feats}: only one spectrum "
+                                              "is ported yet")
+                self.feats_dim = fft_size_of(
+                    frame_len, round_pow_of_two or stft_mode == "kaldi") \
+                    // 2 + 1
+                self.steps.append(tok)
+            elif tok == "log":
+                self.steps.append(tok)
+            elif tok == "cmvn":
                 if self.cmvn is not None:
                     raise NotImplementedError(f"{feats}: cmvn twice")
                 if gcmvn:
@@ -324,9 +342,11 @@ class FeatureTransform(nn.Module):
                 raise NotImplementedError(
                     f"token {tok} of {feats} is not ported yet")
             i += 1
-        if "fbank-log" not in self.steps:
+        if "fbank-log" not in self.steps and \
+                "spectrogram" not in self.steps:
             raise NotImplementedError(f"{feats}: the port needs an "
-                                      "fbank-log front end")
+                                      "fbank-log or a spectrogram front "
+                                      "end")
 
     @property
     def accept_raw(self) -> bool:
@@ -372,36 +392,67 @@ class FeatureTransform(nn.Module):
             out = out.reshape(shape[:-1] + out.shape[-2:])
         return out
 
+    def _spectrogram(self, stft: torch.Tensor) -> torch.Tensor:
+        """N x (C x) F x T complex -> N x (C x) T x F magnitude (power)."""
+        mag = stft.abs().transpose(-1, -2)
+        return mag**2 if self.use_power else mag
+
     def forward(self, inp_pad: torch.Tensor, inp_len=None,
-                training: bool = False):
+                training: bool = False, skip_stft: bool = False):
         """inp_pad: N x (C x) S waveform, inp_len: N or None ->
         (feats N x (C x) T x F, num_frames N or None). In training the
-        branch and the masks come from perturb.draw and specaug.draw."""
-        choice = None
-        if training and self.perturb is not None:
-            choice = self.perturb.draw(self.generator)
+        branch and the masks come from perturb.draw and specaug.draw.
+        skip_stft: inp_pad is an STFT, N x (C x) F x T complex, that goes
+        through the steps after the spectrogram; cmvn then takes its
+        statistics over every frame and inp_len comes back as it is (as in
+        aps_tpu)."""
+        choice, nf = None, None
         feats = inp_pad
-        if self.rescale is not None:
-            feats = self.rescale(feats)
-        nf = self._num_frames(inp_len, choice)
-        if nf is not None:
-            nf = torch.clamp_max(torch.as_tensor(nf),
-                                 num_frames(inp_pad.shape[-1],
-                                            self.frame_len, self.frame_hop,
-                                            self.round_pow_of_two,
-                                            self.stft_mode, self.center))
-        for step in self.steps:
+        if skip_stft:
+            if "spectrogram" not in self.steps:
+                raise ValueError(f"{self.feats}: skip_stft needs a "
+                                 "spectrogram front end")
+            steps = self.steps[self.steps.index("spectrogram"):]
+        else:
+            steps = self.steps
+            if training and self.perturb is not None:
+                choice = self.perturb.draw(self.generator)
+            if self.rescale is not None:
+                feats = self.rescale(feats)
+            nf = self._num_frames(inp_len, choice)
+            if nf is not None:
+                nf = torch.clamp_max(
+                    torch.as_tensor(nf),
+                    num_frames(inp_pad.shape[-1], self.frame_len,
+                               self.frame_hop, self.round_pow_of_two,
+                               self.stft_mode, self.center))
+        for step in steps:
             if step == "perturb":
                 if choice is not None:
                     feats = self.perturb(feats, choice)
             elif step == "fbank-log":
                 feats = self._fbank_log(feats)
+            elif step == "spectrogram":
+                if not skip_stft:
+                    feats = forward_stft(
+                        feats, self.frame_len, self.frame_hop,
+                        window=self.window_name,
+                        round_pow_of_two=self.round_pow_of_two,
+                        pre_emphasis=self.pre_emphasis,
+                        normalized=self.stft_normalized, center=self.center,
+                        mode=self.stft_mode)
+                feats = self._spectrogram(feats)
+            elif step == "log":
+                if self.log_lower_bound > 0:
+                    feats = torch.log(self.log_lower_bound + feats)
+                else:
+                    feats = torch.log(torch.clamp_min(feats, self.eps))
             elif step == "cmvn":
                 feats = self.cmvn(feats, num_frames=nf)
             elif step == "aug" and training and self.specaug.p > 0:
                 feats = self.specaug(
                     feats, self.specaug.draw(feats, self.generator))
-        return feats, nf
+        return feats, (inp_len if skip_stft else nf)
 
 
 AsrTransform = FeatureTransform

@@ -1,17 +1,25 @@
 #!/usr/bin/env python
 """DSP helpers of the front end: windows, STFT geometry, mel matrix, frame
-counts.
+counts, framing, overlap-add and the STFT and its inverse.
 
 Port of aps_tpu/transform/utils.py (init_window, fft_size_of,
 _stft_geometry, make_window, mel_filter, num_frames,
-speed_perturb_filter). The coefficient tables are made with numpy, as in
-the JAX package, so both packages get the same float32 tables; num_frames
-takes ints or tensors."""
+speed_perturb_filter, frame_signal, overlap_add, forward_stft,
+inverse_stft). The coefficient tables are made with numpy, as in the JAX
+package, so both packages get the same float32 tables; num_frames takes
+ints or tensors. A spectrum is a complex64 tensor N x (C) x F x T: aps_tpu
+packs it as a real ... x 2 pair only because its TPU runtime has no
+complex64."""
 
 import math
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from aps_tpu_torch.const import EPSILON
 
 
 def init_window(wnd: str, frame_len: int) -> np.ndarray:
@@ -132,3 +140,123 @@ def speed_perturb_filter(src_sr: int,
     weight = np.sinc(times * zeros_per_block) * window * \
         zeros_per_block / float(src_sr)
     return weight.astype(np.float32)
+
+
+def frame_signal(wav: torch.Tensor, win_length: int,
+                 frame_hop: int) -> torch.Tensor:
+    """... x S -> ... x T x W strided frames (a view)."""
+    return wav.unfold(-1, win_length, frame_hop)
+
+
+def overlap_add(frames: torch.Tensor, frame_hop: int) -> torch.Tensor:
+    """... x T x W -> ... x S, S = (T - 1) * hop + W: the frames summed at
+    their offsets (the inverse of frame_signal's gather)."""
+    lead, (T, W) = frames.shape[:-2], frames.shape[-2:]
+    S = (T - 1) * frame_hop + W
+    cols = frames.reshape(-1, T, W).transpose(1, 2)
+    out = F.fold(cols, output_size=(1, S), kernel_size=(1, W),
+                 stride=(1, frame_hop))
+    return out.reshape(lead + (S,))
+
+
+@lru_cache(maxsize=16)
+def _window(window: str, frame_len: int, round_pow_of_two: bool, mode: str,
+            device: torch.device) -> torch.Tensor:
+    """make_window's table on a device, copied there once: a copy from
+    pageable host memory in every call would wait for the card's queue."""
+    return torch.from_numpy(
+        make_window(window, frame_len, round_pow_of_two, mode)).to(device)
+
+
+def forward_stft(wav: torch.Tensor,
+                 frame_len: int,
+                 frame_hop: int,
+                 window: str = "sqrthann",
+                 round_pow_of_two: bool = True,
+                 return_polar: bool = False,
+                 pre_emphasis: float = 0,
+                 normalized: bool = False,
+                 onesided: bool = True,
+                 center: bool = False,
+                 mode: str = "librosa",
+                 eps: float = EPSILON) -> torch.Tensor:
+    """STFT: N x (C) x S float32 -> N x (C) x F x T complex64, or with
+    return_polar N x (C) x F x T x 2 float32 holding (magnitude, phase) as
+    aps_tpu packs them (the magnitude sqrt(re^2 + im^2 + eps)).
+
+    An rfft (fft for onesided=False) of the framed, windowed signal; for a
+    frame shorter than fft_size (kaldi mode) the transform's zero-padding is
+    aps_tpu's DFT matrix truncated to win_length rows. torch.fft computes in
+    float32 whatever the TF32 flags say, as aps_tpu forces its DFT products
+    to float32 ("highest")."""
+    fft_size, win_length = _stft_geometry(frame_len, round_pow_of_two, mode)
+    win = _window(window, frame_len, round_pow_of_two, mode, wav.device)
+    if center:
+        pad = win_length // 2
+        shape = wav.shape
+        wav = F.pad(wav.reshape(-1, 1, shape[-1]), (pad, pad),
+                    mode="reflect").reshape(shape[:-1] + (-1,))
+    frames = frame_signal(wav, win_length, frame_hop)
+    if pre_emphasis > 0:
+        frames = torch.cat([
+            frames[..., :1] * (1 - pre_emphasis),
+            frames[..., 1:] - pre_emphasis * frames[..., :-1]
+        ], -1)
+    frames = frames * win
+    if onesided:
+        spec = torch.fft.rfft(frames, n=fft_size)
+    else:
+        spec = torch.fft.fft(frames, n=fft_size)
+    if normalized:
+        spec = spec / math.sqrt(fft_size)
+    # ... x T x F -> ... x F x T
+    spec = spec.transpose(-1, -2)
+    if return_polar:
+        mag = torch.sqrt(spec.real**2 + spec.imag**2 + eps)
+        return torch.stack([mag, torch.angle(spec)], -1)
+    return spec
+
+
+def inverse_stft(transform: torch.Tensor,
+                 frame_len: int,
+                 frame_hop: int,
+                 window: str = "sqrthann",
+                 round_pow_of_two: bool = True,
+                 return_polar: bool = False,
+                 normalized: bool = False,
+                 onesided: bool = True,
+                 center: bool = False,
+                 mode: str = "librosa",
+                 eps: float = EPSILON) -> torch.Tensor:
+    """iSTFT: (N) x F x T complex64 (with return_polar: (N) x F x T x 2
+    magnitude and phase) -> N x S float32.
+
+    The one-sided inverse DFT (irfft, which like aps_tpu's inverse matrix
+    ignores the imaginary parts of the DC and Nyquist bins) cut to
+    win_length samples, windowed, overlap-added and divided by the
+    overlap-added squared window plus eps, as aps_tpu divides; with center
+    win_length // 2 samples are cut from each end, so S = (T - 1) * hop.
+    Not torch.istft: that divides without eps and refuses a window that
+    fails its NOLA check."""
+    if return_polar:
+        transform = torch.polar(transform[..., 0], transform[..., 1])
+    if transform.dim() == 2:
+        transform = transform[None]
+    fft_size, win_length = _stft_geometry(frame_len, round_pow_of_two, mode)
+    win = _window(window, frame_len, round_pow_of_two, mode,
+                  transform.device)
+    # N x F x T -> N x T x F
+    spec = transform.transpose(-1, -2)
+    if not onesided:
+        spec = spec[..., :fft_size // 2 + 1]
+    frames = torch.fft.irfft(spec, n=fft_size)[..., :win_length]
+    if normalized:
+        frames = frames * math.sqrt(fft_size)
+    wav = overlap_add(frames * win, frame_hop)
+    T = frames.shape[-2]
+    denorm = overlap_add((win**2).expand(T, win_length), frame_hop)
+    if center:
+        pad = win_length // 2
+        wav = wav[..., pad:-pad]
+        denorm = denorm[..., pad:-pad]
+    return wav / (denorm + eps)

@@ -131,9 +131,27 @@
    cycle only; finally one training pass with dropouts off and the draws
    fed in, card vs CPU at float32 and TF32 vs float32 on the card (not
    bit-equal, the TF32 flags read inside the pass).
-   (Steps 12 to 15 run where their data is at hand: 12 with the other
+16. The frequency-domain slice, examples/sse/wham/run.sh stages 2 to 4
+   with recipe 1b as written (sse@base_rnn: the enh transform's
+   spectrogram-log-cmvn of 512/256 sqrthann frames, a 4 x 600 BLSTM, relu
+   masks; sse@wa L1; Adam, clip 10, matmul_precision bfloat16 as TF32):
+   train_ss on 32 seeded two-speaker mixtures of 4 s at 16 kHz (the
+   recipe's batch of 32 x 64000 samples), two one-step epochs and timed
+   steps on the same batch, one traced (device time, the kernels with the
+   most of it, peak memory), the loss must fall; the STFT, iSTFT and the
+   enh features on that batch card vs CPU and the round trip; one training
+   pass with dropout off card vs CPU at float32, the TF32 flags read off
+   inside it; the trained checkpoint through separate on 16 mixtures of 4
+   s, batch 1 and batches of 8, and --mode freq on two, card vs CPU on two
+   mixtures (batched, batch 1 and the masks); compute_ss_metric --metric
+   sisnr on the card's output, 16 finite values; then sse@freq_tcn at its
+   default widths under sse@freq_linear_sa (tPSA): one trainer step on the
+   card, one training pass card vs CPU with a float64 referee, and two
+   mixtures separated card vs CPU. No hand-written kernel is on this path:
+   every launch count stays 0.
+   (Steps 12 to 16 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14.)
+   14, 16 last.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -141,6 +159,7 @@ before that line is printed."""
 
 import contextlib
 import copy
+import io
 import json
 import math
 import pickle
@@ -1906,32 +1925,32 @@ def init_tcn(model, gen) -> None:
                 mod.running_var.copy_(1 + 0.2 * torch.rand(C, generator=gen))
 
 
-def write_mixtures(root: Path, count: int, gen):
-    """count seeded two-speaker mixtures of SEP_SECS at SEP_SR (two
-    modulated tones and a little noise) as 16-bit files, with their sources:
-    root/{mix,spk1,spk2}.scp -> {key: mixture samples as the readers give
-    them back}."""
+def write_mixtures(root: Path, count: int, gen, sr=SEP_SR, secs=SEP_SECS,
+                   names=("mix", "spk1", "spk2")):
+    """count seeded two-speaker mixtures of secs at sr (two modulated tones
+    and a little noise) as 16-bit files, with their sources: root/<name>.scp
+    for the mixture and each source (names) -> {key: mixture samples as the
+    readers give them back}."""
     import numpy as np
     import torch
     from scipy.io import wavfile
-    S = SEP_SECS * SEP_SR
-    t = np.arange(S) / SEP_SR
+    S = secs * sr
+    t = np.arange(S) / sr
     mixes = {}
-    scps = {name: open(root / f"{name}.scp", "w")
-            for name in ("mix", "spk1", "spk2")}
+    scps = {name: open(root / f"{name}.scp", "w") for name in names}
     for n in range(count):
         noise = torch.randn(S, generator=gen).numpy()
         a = 0.2 * np.sin(2 * np.pi * (180.0 + 7.0 * n) * t) * \
             (0.5 + 0.5 * np.sin(2 * np.pi * 1.3 * t))
         b = 0.2 * np.sin(2 * np.pi * (520.0 + 11.0 * n) * t) * \
             (0.5 + 0.5 * np.cos(2 * np.pi * 0.9 * t)) + 0.01 * noise
-        for name, sig in (("mix", a + b), ("spk1", a), ("spk2", b)):
+        for name, sig in zip(names, (a + b, a, b)):
             pcm = np.clip(np.round(sig * 32768), -32768, 32767).astype(
                 np.int16)
             path = root / f"{name}{n:02d}.wav"
-            wavfile.write(str(path), SEP_SR, pcm)
+            wavfile.write(str(path), sr, pcm)
             scps[name].write(f"mix{n:02d}\t{path}\n")
-            if name == "mix":
+            if name == names[0]:
                 mixes[f"mix{n:02d}"] = pcm.astype(np.float32) / 32768
     for fd in scps.values():
         fd.close()
@@ -2187,45 +2206,71 @@ SEP_GRADS = ("encoder.weight", "tcn.block_0_0.linear_in.dense.weight",
 
 def sep_step_check(egs, dev):
     """One training-mode pass of sse@sisnr over the first SEP_CHECK_UTTS
-    mixtures of the batch, same seeded weights: in float32 on the CPU and on
-    the card, and in float64 on the card as the referee. The losses must
-    agree; each gradient named in SEP_GRADS is held to the float64 one (see
-    TOL_SEP_GRAD_*)."""
+    mixtures of the batch, same seeded weights, held by step_pass_check
+    with the card's float64 pass as the referee (see TOL_SEP_GRAD_*)."""
     import torch
 
     from aps_tpu_torch.libs import aps_sse_nnet, aps_task
-    from aps_tpu_torch.trainer.dp import to_device
     torch.manual_seed(SEED)
     task = aps_task("sse@sisnr", aps_sse_nnet("sse@time_tcn")(**TCN_CONF),
                     num_spks=2, permute=True)
-    tensors = {"mix": egs["mix"][:SEP_CHECK_UTTS],
-               "ref": [r[:SEP_CHECK_UTTS] for r in egs["ref"]]}
-    outs = {}
-    for name, where, dtype in (("cpu32", "cpu", torch.float32),
-                               ("card32", dev, torch.float32),
-                               ("card64", dev, torch.float64)):
+    return step_pass_check(task, egs, dev, SEP_GRADS, SEP_CHECK_UTTS,
+                           referee=True)
+
+
+def step_pass_check(task, egs, dev, grads, utts: int, referee: bool):
+    """One training-mode pass of a separation `task` (its model without
+    dropout) over the first `utts` mixtures of the batch, float32 on the
+    CPU and on the card (TF32 off, the flags read inside the pass), and
+    with `referee` float64 on the card. The losses must agree within
+    TOL_STEP_LOSS; each gradient named in `grads` within TOL_STEP_GRAD of
+    its largest entry of the CPU's, or with `referee`: at random weights
+    the gradient of a layer in front of a batch norm is a small difference
+    of large terms, so the CPU's float32 gradient must be within
+    TOL_SEP_GRAD_REFEREE of the float64 one and the card's within
+    TOL_STEP_GRAD plus TOL_SEP_GRAD_NOISE times the CPU's distance.
+    -> (loss card, loss CPU, {name: err, or (card, CPU) with referee})."""
+    import torch
+
+    from aps_tpu_torch.trainer.dp import to_device
+    tensors = {"mix": egs["mix"][:utts], "ref": [r[:utts] for r in egs["ref"]]}
+    sides = [("cpu32", "cpu", torch.float32), ("card32", dev, torch.float32)]
+    if referee:
+        sides.append(("card64", dev, torch.float64))
+    outs, seen = {}, []
+    for name, where, dtype in sides:
         side = copy.deepcopy(task).to(where, dtype).train()
+        hook = side.nnet.register_forward_pre_hook(
+            lambda *_: seen.append(tf32_flags()))
         batch = to_device(tensors, torch.device(where))
         batch = {"mix": batch["mix"].to(dtype),
                  "ref": [r.to(dtype) for r in batch["ref"]]}
         stats = side(batch)
         stats["loss"].backward()
+        hook.remove()
         params = dict(side.nnet.named_parameters())
         outs[name] = (stats["loss"].item(),
-                      {k: params[k].grad.double().cpu() for k in SEP_GRADS})
-    loss_c, loss_g, loss_ref = (outs[k][0] for k in ("cpu32", "card32",
-                                                     "card64"))
-    for loss in (loss_g, loss_ref):
+                      {k: params[k].grad.double().cpu() for k in grads})
+    if set(seen) != {(False, False)}:
+        fail(f"the float32 passes ran with TF32 flags {set(seen)}")
+    loss_c = outs["cpu32"][0]
+    for side in outs:
+        loss = outs[side][0]
         if not (math.isfinite(loss) and
                 abs(loss - loss_c) <= TOL_STEP_LOSS * abs(loss_c)):
-            fail(f"sse@sisnr loss: card {loss_g} (float64 {loss_ref}) vs CPU "
+            fail(f"{type(task).__name__} loss: {side} {loss} vs CPU "
                  f"{loss_c}: outside {TOL_STEP_LOSS} relative")
     errs = {}
-    for key in SEP_GRADS:
-        ref = outs["card64"][1][key]
-        scale = ref.abs().max().item()
-        rel = lambda name: ((outs[name][1][key] - ref).abs().max().item()  # noqa
-                            / scale)
+    for key in grads:
+        want = outs["card64" if referee else "cpu32"][1][key]
+        scale = want.abs().max().item()
+        rel = lambda n: (outs[n][1][key] - want).abs().max().item() / scale
+        if not referee:
+            errs[key] = rel("card32")
+            if not (scale > 0 and errs[key] <= TOL_STEP_GRAD):
+                fail(f"gradient of {key}: card vs CPU {errs[key]} of the "
+                     f"largest entry {scale}, over {TOL_STEP_GRAD}")
+            continue
         noise_cpu, noise_card = rel("cpu32"), rel("card32")
         errs[key] = (noise_card, noise_cpu)
         if not (scale > 0 and noise_cpu <= TOL_SEP_GRAD_REFEREE):
@@ -2237,7 +2282,487 @@ def sep_step_check(egs, dev):
             fail(f"gradient of {key}: the card's float32 pass is "
                  f"{noise_card} of the largest entry from the float64 pass, "
                  f"over {bound} (the CPU's float32 pass: {noise_cpu})")
-    return loss_g, loss_c, errs
+    return outs["card32"][0], loss_c, errs
+
+
+# the frequency-domain slice: examples/sse/wham/run.sh stages 2 to 4 with
+# recipe 1b as written (sse@base_rnn, a 4 x 600 BLSTM on the enh
+# transform's spectrogram-log-cmvn, sse@wa L1, matmul_precision bfloat16),
+# then sse@freq_tcn at its default widths. No hand-written kernel is on
+# this path: the STFT is torch.fft, the BLSTM cuDNN's, the TCN the module
+WHAM_YAML = "examples/sse/wham/conf/1b_bss_c_16k_max.yaml"
+WHAM_SR = 16000
+WHAM_SECS = 4  # the recipe's chunk_size of 64000 samples
+WHAM_BATCH = 32  # run.sh's --batch-size
+WHAM_TRAIN_EPOCHS = 2  # one step each: the corpus is one batch
+WHAM_TIMED_STEPS = 3
+WHAM_CHECK_UTTS = 4  # of the batch, in the card-vs-CPU passes
+WHAM_SEP_UTTS = 16
+WHAM_SEP_BATCH = 8
+WHAM_FREQ_UTTS = 2  # separated with --mode freq
+WHAM_NAMES = ("mix", "s1", "s2")
+# the mask estimator's gradients held card vs CPU: the first layer's
+# input weights, the last layer's reverse recurrence, the mask layer
+WHAM_GRADS = ("encoder.layer_0.cells.weight_ih_l0",
+              "encoder.layer_3.cells.weight_hh_l0_reverse",
+              "mask_out.weight")
+FREQ_TCN_GRADS = ("proj.weight", "tcn.block_0_0.linear_in.dense.weight",
+                  "tcn.block_2_5.conv.weight", "mask_out.weight")
+# the STFT card vs CPU: cuFFT against pocketfft, float32 sums of 512 terms
+#   in another order, relative to the largest entry (the parity tests'
+#   bound against aps_tpu); the features after a log and cmvn: O(1)
+TOL_STFT, TOL_FEATS = 1e-5, 1e-4
+
+
+def wham_conf(data: Path) -> dict:
+    """WHAM_YAML as written, its data sections pointed at data/."""
+    from aps_tpu_torch.conf import load_ss_conf
+    conf = load_ss_conf(str(REPO / WHAM_YAML))
+    scps = {"mix_scp": str(data / "mix.scp"),
+            "ref_scp": f"{data / 's1.scp'},{data / 's2.scp'}"}
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = scps
+    return conf
+
+
+def check_stft(egs, enh_conf, dev, card):
+    """forward_stft, inverse_stft and the enh features on the recipe's
+    batch (WHAM_BATCH x 64000 samples), card (cuFFT) against the CPU; the
+    centred round trip's error away from the ends; the times of both."""
+    import torch
+
+    from aps_tpu_torch.libs import aps_transform
+    from aps_tpu_torch.transform.utils import forward_stft, inverse_stft
+    enh = aps_transform("enh")(**enh_conf)
+    ctx = enh.ctx()
+    kw = dict(window=ctx.window, center=ctx.center)
+    wav = torch.from_numpy(egs["mix"])
+    out = {}
+    for where in ("cpu", dev):
+        x = wav.to(where)
+        stft = forward_stft(x, ctx.frame_len, ctx.frame_hop, **kw)
+        out[str(where)] = (stft, inverse_stft(stft, ctx.frame_len,
+                                              ctx.frame_hop, **kw),
+                           enh(stft))
+    torch.cuda.synchronize()
+    # the features after the same STFT (the card's, on both): the log of a
+    # bin at the 16-bit floor, 1e-6 of the largest, turns the transform's
+    # 1e-5 of the largest into percents, so each device's own STFT is held
+    # above and its features are printed, not held
+    same = enh(out[str(dev)][0].cpu())
+    errs = {"features (own STFT)":
+            (out[str(dev)][2].cpu() - out["cpu"][2]).abs().max().item()}
+    for i, name in enumerate(("stft", "istft", "features")):
+        got, want = out[str(dev)][i].cpu(), out["cpu"][i]
+        if name == "features":
+            want = same
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = err
+        bound = TOL_FEATS if name == "features" else TOL_STFT * scale
+        if not (scale > 0 and err <= bound):
+            fail(f"{name} card vs CPU: max abs err {err} over {bound}")
+    back = out[str(dev)][1].cpu()
+    L = ctx.frame_len
+    inner = (back[:, L:-L] - wav[:, L:back.shape[-1] - L]).abs().max()
+    if back.shape != wav.shape or not inner <= TOL_STFT:
+        fail(f"STFT round trip: shape {tuple(back.shape)}, interior error "
+             f"{float(inner)}")
+    x = wav.to(dev)
+    stft = out[str(dev)][0]
+    ms = {"stft": time_ms(lambda: forward_stft(x, ctx.frame_len,
+                                               ctx.frame_hop, **kw)),
+          "istft": time_ms(lambda: inverse_stft(stft, ctx.frame_len,
+                                                ctx.frame_hop, **kw)),
+          "features": time_ms(lambda: enh(stft))}
+    print(f"enh transform ({ctx.frame_len}/{ctx.frame_hop} {ctx.window}, "
+          f"center) on {tuple(wav.shape)} samples, card vs CPU: STFT "
+          f"{errs['stft']:.3e}, iSTFT {errs['istft']:.3e}, features "
+          f"{errs['features']:.3e} of the same STFT "
+          f"({errs['features (own STFT)']:.3e} of each one's own) (max abs "
+          f"err); round trip on the card "
+          f"{float(inner):.3e} away from the ends; device ms: STFT "
+          f"{ms['stft']:.4f}, iSTFT {ms['istft']:.4f}, features "
+          f"{ms['features']:.4f} ({card})", flush=True)
+    return errs, ms
+
+
+def top_kernels(prof, count: int = 6) -> str:
+    """The `count` kernels with the most device time, with their ms."""
+    from aps_tpu_torch.cmd.profile_decode import on_device
+    total = {}
+    for evt in prof.events():
+        if on_device(evt):
+            total[evt.name] = total.get(evt.name, 0.0) + \
+                evt.self_device_time_total / 1e3
+    top = sorted(total.items(), key=lambda kv: -kv[1])[:count]
+    return "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top)
+
+
+def rnn_share(prof, device_ms: float):
+    """Shares of the device time in cuDNN's recurrences (RNN or LSTM in
+    the kernel's name), cuBLAS's products and cuFFT's transforms."""
+    from aps_tpu_torch.cmd.profile_decode import on_device
+    rnn = gemm = fft = 0.0
+    for evt in prof.events():
+        if not on_device(evt):
+            continue
+        name = evt.name.lower()
+        ms = evt.self_device_time_total / 1e3
+        if "rnn" in name or "lstm" in name or "persist" in name:
+            rnn += ms
+        elif "fft" in name or "radix" in name:
+            fft += ms
+        elif "gemm" in name or "nvjet" in name:
+            gemm += ms
+    return rnn / device_ms, gemm / device_ms, fft / device_ms
+
+
+def wham_train_phase(root: Path, gen, dev, card):
+    """WHAM_YAML as written through aps_tpu_torch.cmd.train_ss on
+    WHAM_BATCH seeded mixtures (one batch of the recipe's 32 x 64000
+    samples): WHAM_TRAIN_EPOCHS one-step epochs with the launch counts read
+    over the run (all 0), then WHAM_TIMED_STEPS timed steps on the same
+    batch and one traced. -> (cpt, the batch, launches of the run)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_ss
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.libs import aps_dataloader
+    from aps_tpu_torch.ops import build
+    data = root / "data"
+    data.mkdir()
+    write_mixtures(data, WHAM_BATCH, gen, WHAM_SR, WHAM_SECS, WHAM_NAMES)
+    conf = wham_conf(data)
+    if conf["data_conf"]["loader"]["chunk_size"] != WHAM_SECS * WHAM_SR:
+        fail(f"{WHAM_YAML}: chunk_size {conf['data_conf']['loader']}")
+    (root / "train.yaml").write_text(json.dumps(conf, indent=2))
+    cpt = root / "cpt"
+    argv = ["--conf", str(root / "train.yaml"), "--checkpoint", str(cpt),
+            "--batch-size", str(WHAM_BATCH), "--epochs",
+            str(WHAM_TRAIN_EPOCHS), "--seed", str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_ss.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if trainer.device.type != "cuda" or \
+            trainer.cur_step != WHAM_TRAIN_EPOCHS:
+        fail(f"train_ss took {trainer.cur_step} steps on {trainer.device}")
+    if any(launches.values()):
+        fail(f"train_ss ({WHAM_YAML}) launches {launches}, expected none")
+    if trainer.matmul_precision != "bfloat16":
+        fail(f"the recipe trains at {trainer.matmul_precision}")
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    batches = list(aps_dataloader(fmt="se@chunk", train=False,
+                                  max_batch_size=WHAM_BATCH,
+                                  **conf["data_conf"]["loader"],
+                                  **conf["data_conf"]["valid"]))
+    shape = (WHAM_BATCH, WHAM_SECS * WHAM_SR)
+    if len(batches) != 1 or batches[0]["mix"].shape != shape:
+        fail(f"expected one batch of {shape}, got "
+             f"{[b['mix'].shape for b in batches]}")
+    egs = batches[0]
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for step in range(WHAM_TIMED_STEPS):
+        done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        if not done:
+            fail(f"timed step {step} was skipped (non-finite loss or norm)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, wall, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    rnn, gemm, fft = rnn_share(prof, device_ms)
+    if any(build.LAUNCHES.values()):
+        fail(f"timed steps launch {dict(build.LAUNCHES)}, expected none")
+    losses += [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on the repeated batch: {losses}")
+    print(f"train_ss {WHAM_YAML} as written (4 x 600 BLSTM, sse@wa L1, "
+          f"TF32): {WHAM_BATCH} x {WHAM_SECS} s at {WHAM_SR} Hz, "
+          f"{WHAM_TRAIN_EPOCHS} one-step epochs then {WHAM_TIMED_STEPS + 1} "
+          f"steps on the same batch, no kernel launches; losses "
+          f"{', '.join(f'{v:.2f}' for v in losses)}", flush=True)
+    print(f"wham 1b step: device {device_ms:.3f} ms (traced; cuDNN's "
+          f"recurrences {rnn:.3f}, cuBLAS {gemm:.3f}, cuFFT {fft:.3f} of "
+          f"it), host {statistics.median(secs):.4f} s median of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
+          f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    print(f"wham 1b step, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    return cpt, egs, launches, {"device_ms": device_ms, "rnn_share": rnn,
+                                "host_s": statistics.median(secs),
+                                "peak_gib": peak}
+
+
+def wham_task(conf: dict):
+    """The recipe's task around its model, dropout off, seeded weights."""
+    import torch
+
+    from aps_tpu_torch.libs import aps_sse_nnet, aps_task, aps_transform
+    torch.manual_seed(SEED)
+    nnet = aps_sse_nnet(conf["nnet"])(
+        enh_transform=aps_transform("enh")(**conf["enh_transform"]),
+        **dict(conf["nnet_conf"], dropout=0.0))
+    return aps_task(conf["task"], nnet, **conf["task_conf"])
+
+
+def _wav_dir(sep: Path, keys, length: int):
+    """The separated wavs of every key (spk1, spk2), finite and of the
+    input's length, and both scps."""
+    import numpy as np
+    from scipy.io import wavfile
+    out = {}
+    for spk in ("spk1", "spk2"):
+        lines = (sep / f"{spk}.scp").read_text().splitlines()
+        if sorted(ln.split()[0] for ln in lines) != sorted(keys):
+            fail(f"separate: {spk}.scp of {sep.name} lists {len(lines)}")
+        for key in keys:
+            sr, pcm = wavfile.read(str(sep / spk / f"{key}.wav"))
+            if sr != WHAM_SR or pcm.shape != (length,) or \
+                    not np.isfinite(pcm).all():
+                fail(f"separate: {sep.name}/{spk}/{key}.wav has sr {sr}, "
+                     f"shape {pcm.shape}")
+            out[(spk, key)] = pcm
+    return out
+
+
+def wham_separate_phase(root: Path, cpt: Path, gen, dev, card):
+    """run.sh stage 3: WHAM_SEP_UTTS seeded mixtures of WHAM_SECS through
+    aps_tpu_torch.cmd.separate with the trained checkpoint, batch 1 (as
+    run.sh) and in batches of WHAM_SEP_BATCH, and WHAM_FREQ_UTTS of them
+    with --mode freq, the launch counts reset before and read after each
+    run (all 0); card vs CPU on two mixtures, batched, batch 1 and the
+    masks; one batch traced. -> (sep dir of batch 1, launches)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    data = root / "tt"
+    data.mkdir()
+    mixes = write_mixtures(data, WHAM_SEP_UTTS, gen, WHAM_SR, WHAM_SECS,
+                           WHAM_NAMES)
+    keys = sorted(mixes)
+    lines = (data / "mix.scp").read_text().splitlines()
+    (data / "freq.scp").write_text("\n".join(lines[:WHAM_FREQ_UTTS]) + "\n")
+    runs = {"single": ("mix", []),
+            "batched": ("mix", ["--batch-size", str(WHAM_SEP_BATCH)]),
+            "freq": ("freq", ["--mode", "freq"])}
+    stats, launches = {}, {}
+    for name, (scp, extra) in runs.items():
+        build.reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):
+            stats[name] = separate.main(
+                [str(data / f"{scp}.scp"), str(root / name), "--checkpoint",
+                 str(cpt), "--sr", str(WHAM_SR)] + extra)
+        torch.cuda.synchronize()
+        for kernel, count in build.LAUNCHES.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    if any(launches.values()):
+        fail(f"separate launches {launches}, expected none")
+    length = WHAM_SECS * WHAM_SR
+    single = _wav_dir(root / "single", keys, length)
+    batched = _wav_dir(root / "batched", keys, length)
+    if not max(float(np.abs(v).max()) for v in single.values()) > 0:
+        fail("separate wrote silence")
+    masks = [np.load(root / "freq" / f"{k}.npy")
+             for k in keys[:WHAM_FREQ_UTTS]]
+    T = length // 256 + 1
+    if any(m.shape != (2, 257, T) or not np.isfinite(m).all()
+           for m in masks):
+        fail(f"--mode freq wrote masks of {[m.shape for m in masks]}")
+    # card vs CPU on two mixtures: batched (the same padding), batch 1 and
+    # the masks
+    seps = {where: separate.Separator(str(cpt), device=where)
+            for where in ("cpu", "cuda")}
+    two = [mixes[k] for k in keys[:2]]
+    errs, scale = {}, {}
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: (s.run_batch(two), s.run(two[0]),
+                    s.run(two[0], mode="freq")) for w, s in seps.items()}
+        big = [mixes[k] for k in keys[:WHAM_SEP_BATCH]]
+        seps["cuda"].run_batch(big)
+        batch_ms, batch_wall, batch_launches, prof = profile(
+            lambda: seps["cuda"].run_batch(big))
+    for i, name in enumerate(("batched", "batch 1", "masks")):
+        got = np.concatenate([np.ravel(a) for a in _flat(outs["cuda"][i])])
+        want = np.concatenate([np.ravel(a) for a in _flat(outs["cpu"][i])])
+        scale[name] = float(np.abs(want).max())
+        errs[name] = float(np.abs(got - want).max())
+        if not (scale[name] > 0 and errs[name] <= TOL_SEP_REL * scale[name]):
+            fail(f"separation {name} card vs CPU: max abs err {errs[name]} "
+                 f"over {TOL_SEP_REL} of the largest entry {scale[name]}")
+    rnn, gemm, fft = rnn_share(prof, batch_ms)
+    audio = {n: stats[n]["audio_secs"] for n in ("single", "batched")}
+    rate = {n: audio[n] / stats[n]["sep_secs"] for n in audio}
+    warm = {n: WHAM_SECS * (len(stats[n]["batch_secs"]) - 1) * (
+        WHAM_SEP_BATCH if n == "batched" else 1) / sum(
+        stats[n]["batch_secs"][1:]) for n in audio}
+    print(f"separate (run.sh stage 3) with the trained 1b checkpoint: "
+          f"{WHAM_SEP_UTTS} x {WHAM_SECS} s at {WHAM_SR} Hz, batch 1 "
+          f"{rate['single']:.2f} audio-s/s ({warm['single']:.2f} without "
+          f"the first), batches of {WHAM_SEP_BATCH} {rate['batched']:.2f} "
+          f"audio-s/s ({warm['batched']:.2f} without the first) (host "
+          f"clock around synchronised forwards, transfers included), "
+          f"--mode freq masks {masks[0].shape}; no kernel launches; a "
+          f"batch of {WHAM_SEP_BATCH} traced: device {batch_ms:.3f} ms "
+          f"(cuDNN's recurrences {rnn:.3f}, cuFFT {fft:.3f}), host "
+          f"{batch_wall:.4f} s, {batch_launches} launches ({card})",
+          flush=True)
+    print(f"separation batch, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    print("separation card vs CPU on 2 mixtures, max abs err (largest "
+          "entry): " + ", ".join(f"{k} {errs[k]:.3e} ({scale[k]:.3f})"
+                                 for k in errs), flush=True)
+    return root / "single", launches, {"rate": rate, "warm": warm,
+                                       "batch_ms": batch_ms}
+
+
+def _flat(out):
+    """Nested lists of arrays -> a flat list of arrays."""
+    if isinstance(out, (list, tuple)):
+        return [a for o in out for a in _flat(o)]
+    return [out]
+
+
+def wham_score_phase(root: Path, sep: Path, card):
+    """run.sh stage 4: compute_ss_metric --metric sisnr on the card's
+    separated wavs against the sources; every value finite."""
+    import numpy as np
+
+    from aps_tpu_torch.cmd import compute_ss_metric
+    data = root / "tt"
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        compute_ss_metric.main([
+            f"{sep / 'spk1.scp'},{sep / 'spk2.scp'}",
+            f"{data / 's1.scp'},{data / 's2.scp'}", "--metric", "sisnr",
+            "--sr", str(WHAM_SR), "--per-utt", str(root / "sisnr.txt")])
+    values = [float(ln.split("\t")[1]) for ln in
+              (root / "sisnr.txt").read_text().splitlines()]
+    if len(values) != WHAM_SEP_UTTS or not np.isfinite(values).all():
+        fail(f"compute_ss_metric: {values}")
+    print(f"compute_ss_metric (run.sh stage 4) on the card's output: "
+          f"{' | '.join(report.getvalue().splitlines())}; per mixture "
+          f"{min(values):.2f} to {max(values):.2f} dB (a few steps of "
+          f"training on tones)", flush=True)
+
+
+def freq_tcn_phase(root: Path, conf: dict, egs, gen, dev, card):
+    """sse@freq_tcn at its default widths (6 blocks x 3 repeats, 512/256
+    channels, BatchNorm with running statistics off their initial values)
+    on the recipe's enh transform under sse@freq_linear_sa (tPSA, as wham
+    1a): one trainer step on the card, one training pass card vs CPU (the
+    float64 pass as referee: a gradient in front of a batch norm), written
+    as an aps_tpu checkpoint and two mixtures separated card vs CPU.
+    -> launches of the step and the separation."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.libs import (aps_sse_nnet, aps_task, aps_trainer,
+                                    aps_transform)
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    nnet_conf = {"in_features": 257, "num_bins": 257}
+    task_conf = {"num_spks": 2, "permute": True, "phase_sensitive": True,
+                 "truncated": 1}
+    model = aps_sse_nnet("sse@freq_tcn")(
+        enh_transform=aps_transform("enh")(**conf["enh_transform"]),
+        **nnet_conf)
+    init_tcn(model, gen)
+    task = aps_task("sse@freq_linear_sa", model, **task_conf)
+    loss_g, loss_c, errs = step_pass_check(task, egs, dev, FREQ_TCN_GRADS,
+                                           WHAM_CHECK_UTTS, referee=True)
+    cpt = root / "freq_tcn"
+    cpt.mkdir()
+    full = dict(nnet="sse@freq_tcn", nnet_conf=nnet_conf,
+                enh_transform=conf["enh_transform"],
+                task="sse@freq_linear_sa", task_conf=task_conf,
+                data_conf={}, trainer_conf={})
+    (cpt / "train.yaml").write_text(json.dumps(full, indent=2))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": variables["params"],
+                     "mstate": {"batch_stats": variables["batch_stats"]},
+                     "epoch": 0}, fd)
+    trainer = aps_trainer("dp")(copy.deepcopy(task), device=dev,
+                                checkpoint=root / "freq_tcn_trainer",
+                                optimizer="adam",
+                                optimizer_kwargs={"lr": 1e-3},
+                                clip_gradient=10,
+                                matmul_precision="bfloat16")
+    build.reset_launches()
+    done, step_s = synced(lambda: trainer.train_one_step(egs))
+    seps = {w: separate.Separator(str(cpt), device=w)
+            for w in ("cpu", "cuda")}
+    mix = egs["mix"][:2]
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: s.run_batch(list(mix)) for w, s in seps.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    loss = float(trainer.reporter.stats["loss"][-1]) if done else math.nan
+    if not (done and math.isfinite(loss)):
+        fail(f"sse@freq_tcn step: done {done}, loss {loss}")
+    if any(launches.values()):
+        fail(f"sse@freq_tcn launches {launches}, expected none")
+    got = np.concatenate([np.ravel(a) for a in _flat(outs["cuda"])])
+    want = np.concatenate([np.ravel(a) for a in _flat(outs["cpu"])])
+    scale, err = float(np.abs(want).max()), float(np.abs(got - want).max())
+    if not (scale > 0 and err <= TOL_SEP_REL * scale):
+        fail(f"sse@freq_tcn separation card vs CPU: {err} over "
+             f"{TOL_SEP_REL} of {scale}")
+    print(f"sse@freq_tcn (default widths) under sse@freq_linear_sa: one "
+          f"step on the card of {WHAM_BATCH} x {WHAM_SECS} s, loss "
+          f"{loss:.4f}, {step_s:.4f} s host (the first, with its set-up); "
+          f"training pass on {WHAM_CHECK_UTTS} mixtures: loss card "
+          f"{loss_g:.6f} vs CPU {loss_c:.6f}, gradients' distance (card, "
+          "CPU) from the card's float64 pass relative to the largest entry "
+          + ", ".join(f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in errs.items())
+          + f"; separation of 2 mixtures card vs CPU {err:.3e} (largest "
+          f"sample {scale:.3f}); no kernel launches ({card})", flush=True)
+    return launches
+
+
+def wham_phase(root: Path, gen, dev, card):
+    """The frequency-domain slice: check_stft, wham_train_phase, the
+    recipe's pass card vs CPU, wham_separate_phase, wham_score_phase,
+    freq_tcn_phase. -> (launch counts of training, of separation, of the
+    sse@freq_tcn step and separation, and the numbers for the summary)."""
+    beg = time.perf_counter()
+    root.mkdir()
+    cpt, egs, launches_train, numbers = wham_train_phase(root, gen, dev,
+                                                         card)
+    conf = wham_conf(root / "data")
+    stft_errs, stft_ms = check_stft(egs, conf["enh_transform"], dev, card)
+    loss_g, loss_c, errs = step_pass_check(wham_task(conf), egs, dev,
+                                           WHAM_GRADS, WHAM_CHECK_UTTS,
+                                           referee=False)
+    print(f"wham 1b training pass card vs CPU at float32 (dropout off, "
+          f"TF32 flags read off inside) on {WHAM_CHECK_UTTS} mixtures: loss "
+          f"{loss_g:.6f} vs {loss_c:.6f}; gradient errors relative to the "
+          "largest entry " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in errs.items()),
+          flush=True)
+    sep, launches_sep, sep_numbers = wham_separate_phase(root, cpt, gen,
+                                                         dev, card)
+    wham_score_phase(root, sep, card)
+    launches_tcn = freq_tcn_phase(root, conf, egs, gen, dev, card)
+    numbers.update(sep_numbers, stft_ms=stft_ms,
+                   phase_s=time.perf_counter() - beg)
+    print(f"the frequency-domain phase took {numbers['phase_s']:.1f} s",
+          flush=True)
+    return launches_train, launches_sep, launches_tcn, numbers
 
 
 def write_recipe(root: Path, train: Path) -> Path:
@@ -3234,6 +3759,11 @@ def main() -> None:
               + ", ".join(f"{k} {a:.3e}, {b:.3e}"
                           for k, (a, b) in errs.items()), flush=True)
 
+        # the frequency-domain slice: wham/run.sh stages 2 to 4 with
+        # recipe 1b as written, then sse@freq_tcn
+        launches_wham, launches_wsep, launches_ftcn, _ = wham_phase(
+            root / "wham", gen, dev, card)
+
     kernels = []
     for name, rows in checks.items():
         source, replaces = KERNELS[name]
@@ -3326,6 +3856,9 @@ def main() -> None:
             "launches_decode_lm": launches_lm[name],
             "launches_decode_xfmr_lm": launches_xlm[name],
             "launches_train_lm": launches_tlm[name],
+            "launches_train_ss_wham": launches_wham[name],
+            "launches_separate_wham": launches_wsep[name],
+            "launches_freq_tcn": launches_ftcn[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,

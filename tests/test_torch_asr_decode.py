@@ -302,7 +302,8 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "asr.lm.transformer", "asr.lm.ngram", "asr.base.rnn",
                 "asr.beam_search.lm", "loader.lm.utt", "loader.lm.bptt",
                 "tokenizer.subword", "tokenizer.bpe", "metric.asr",
-                "metric.reporter"):
+                "metric.reporter", "transform.enh", "sse.toy", "metric.sse",
+                "metric.stoi", "cmd.compute_ss_metric"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

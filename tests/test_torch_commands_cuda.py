@@ -212,3 +212,75 @@ def test_trainer_skips_a_batch_on_device_oom(card, tmp_path):
     assert trainer.train_one_step(egs) is True
     assert any(not torch.equal(v, before[k])
                for k, v in trainer.task.state_dict().items())
+
+
+def test_frequency_domain_commands_on_the_card(card, tmp_path, monkeypatch):
+    """wham/run.sh stages 2 to 4 with a toy sse@base_rnn on the card:
+    train_ss takes its steps under the recipe's TF32 (the flags read inside
+    the model) and restores the flags; separate (time, batched and --mode
+    freq) runs at float32 and restores them; compute_ss_metric scores what
+    it wrote."""
+    import yaml
+
+    from aps_tpu_torch.cmd import compute_ss_metric, train_ss
+    from aps_tpu_torch.sse.toy import ToyRNN
+    rng = np.random.default_rng(2)
+    scps = {name: open(tmp_path / f"{name}.scp", "w")
+            for name in ("mix", "s1", "s2")}
+    t = np.arange(12800) / 16000
+    for n in range(4):
+        a = 0.3 * np.sin(2 * np.pi * (300 + 50 * n) * t)
+        b = 0.3 * np.sin(2 * np.pi * (2000 + 70 * n) * t)
+        mix = a + b + 0.01 * rng.standard_normal(t.size)
+        for name, sig in (("mix", mix), ("s1", a), ("s2", b)):
+            path = tmp_path / f"{name}{n}.wav"
+            write_audio(str(path), sig.astype(np.float32), sr=16000)
+            scps[name].write(f"u{n} {path}\n")
+    for fd in scps.values():
+        fd.close()
+    recipe = Path(__file__).resolve().parents[1] / "examples" / "sse" / \
+        "wham" / "conf" / "1b_bss_c_16k_max.yaml"
+    conf = yaml.safe_load(recipe.read_text())
+    conf["nnet_conf"].update(hidden=32, num_layers=2)
+    conf["data_conf"]["loader"]["chunk_size"] = 12800
+    data = {"mix_scp": str(tmp_path / "mix.scp"),
+            "ref_scp": f"{tmp_path / 's1.scp'},{tmp_path / 's2.scp'}"}
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = data
+    (tmp_path / "train.yaml").write_text(json.dumps(conf))
+    seen = []
+    real = ToyRNN.infer_batch
+
+    def recorded(self, *args, **kwargs):
+        seen.append(flags())
+        return real(self, *args, **kwargs)
+
+    monkeypatch.setattr(ToyRNN, "infer_batch", recorded)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = train_ss.main(["--conf", str(tmp_path / "train.yaml"),
+                             "--checkpoint", str(tmp_path / "cpt"),
+                             "--batch-size", "2", "--epochs", "1"])
+    assert trainer.device.type == "cuda" and trainer.cur_step == 2
+    # the recipe's matmul_precision bfloat16: TF32 inside the steps
+    assert set(seen) == {(True, True)}
+    assert flags() == (False, False)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    for name, extra in (("time", []), ("batched", ["--batch-size", "2"]),
+                        ("freq", ["--mode", "freq"])):
+        seen.clear()
+        stats = separate.main([str(tmp_path / "mix.scp"),
+                               str(tmp_path / name), "--checkpoint",
+                               str(tmp_path / "cpt"), "--sr", "16000"]
+                              + extra)
+        assert stats["utts"] == 4 and seen
+        assert set(seen) == {(False, False)} and flags() == (True, True)
+    masks = np.load(tmp_path / "freq" / "u0.npy")
+    assert masks.shape == (2, 257, 51) and np.isfinite(masks).all()
+    compute_ss_metric.main([f"{tmp_path / 'time' / 'spk1.scp'},"
+                            f"{tmp_path / 'time' / 'spk2.scp'}",
+                            f"{tmp_path / 's1.scp'},{tmp_path / 's2.scp'}",
+                            "--per-utt", str(tmp_path / "per_utt")])
+    values = [float(ln.split()[1]) for ln in
+              (tmp_path / "per_utt").read_text().splitlines()]
+    assert len(values) == 4 and np.isfinite(values).all()

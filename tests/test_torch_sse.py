@@ -420,12 +420,20 @@ def test_separate_command_matches_jax_separator(slice_pair, tmp_path):
                                        atol=WAV_ATOL)
 
 
-def test_separate_refuses_what_is_not_ported(tmp_path):
+def test_separate_refuses_what_is_not_ported(slice_pair, tmp_path):
+    """A multi-channel mixture (no multi-channel model is ported) and the
+    TPU's length planner (--max-programs) are refused."""
     from aps_tpu_torch.cmd import separate
+    _, variables, _, _ = slice_pair
+    cpt = tmp_path / "cpt"
+    _write_checkpoint(cpt, variables, NNET_CONF)
+    write_audio(str(tmp_path / "stereo.wav"),
+                np.zeros((2, 4000), dtype=np.float32), sr=8000)
+    (tmp_path / "mix.scp").write_text(f"u0 {tmp_path / 'stereo.wav'}\n")
     argv = [str(tmp_path / "mix.scp"), str(tmp_path / "sep"), "--checkpoint",
-            str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="freq"):
-        separate.main(argv + ["--mode", "freq"])
+            str(cpt), "--device", "cpu", "--sr", "8000"]
+    with pytest.raises(NotImplementedError, match="multi-channel"):
+        separate.main(argv)
     with pytest.raises(SystemExit):
         separate.main(argv + ["--max-programs", "2"])
 
