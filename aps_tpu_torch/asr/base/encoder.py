@@ -1,13 +1,26 @@
 #!/usr/bin/env python
 """ASR encoders (port of aps_tpu/asr/base/encoder.py: Conv1dEncoder,
-Conv2dEncoder)."""
+Conv2dEncoder, RNNEncoderBase and PyTorchRNNEncoder, registered
+"pytorch_rnn" and "rnn" in BaseEncoder). aps_tpu's concat, variant_rnn,
+jit_lstm and fsmn encoders are not ported yet."""
 
-from typing import List, Union
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
 
 from aps_tpu_torch.asr.base.component import Conv1d, Conv2d
+from aps_tpu_torch.asr.base.rnn import StackedRNN
+from aps_tpu_torch.libs import Register
+
+BaseEncoder = Register("base_encoder")
+
+rnn_output_nonlinear = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "none": None,
+}
 
 
 class Conv1dEncoder(nn.Module):
@@ -119,3 +132,66 @@ class Conv2dEncoder(nn.Module):
         if self.outp is not None:
             out = self.outp(out)
         return out, inp_len
+
+
+class RNNEncoderBase(nn.Module):
+    """(Linear + ReLU) -> stacked RNN -> (Linear) -> (non-linearity), on
+    N x T x F with lengths; the modules carry aps_tpu's names (proj, impl,
+    outp). out_features -1: no output layer."""
+
+    def __init__(self,
+                 inp_features: int,
+                 out_features: int = -1,
+                 input_proj: int = -1,
+                 rnn: str = "lstm",
+                 num_layers: int = 3,
+                 hidden: int = 512,
+                 hidden_proj: int = -1,
+                 dropout: float = 0.2,
+                 bidirectional: bool = False,
+                 non_linear: str = "none",
+                 use_ln: bool = False):
+        super(RNNEncoderBase, self).__init__()
+        if non_linear not in rnn_output_nonlinear:
+            raise ValueError(f"Unsupported non-linear: {non_linear}")
+        self.proj = nn.Linear(inp_features, input_proj) \
+            if input_proj > 0 else None
+        self.impl = StackedRNN(input_proj if input_proj > 0 else inp_features,
+                               hidden,
+                               num_layers=num_layers,
+                               rnn_type=rnn,
+                               bidirectional=bidirectional,
+                               dropout=dropout,
+                               hidden_proj=hidden_proj,
+                               layer_norm=use_ln)
+        self.outp = nn.Linear(self.impl.output_size, out_features) \
+            if out_features > 0 else None
+        self.non_linear = rnn_output_nonlinear[non_linear]
+        self.out_features = out_features
+
+    def output_dim(self) -> int:
+        if self.out_features > 0:
+            return self.out_features
+        return self.impl.output_size
+
+    def forward(self, inp: torch.Tensor,
+                inp_len: Optional[torch.Tensor] = None):
+        """inp: N x T x F, inp_len: N or None -> (N x T x D, inp_len);
+        with lengths the frames past each one are not valid output."""
+        if self.proj is not None:
+            inp = torch.relu(self.proj(inp))
+        out = self.impl(inp, inp_len)
+        if self.outp is not None:
+            out = self.outp(out)
+            if self.non_linear is not None:
+                out = self.non_linear(out)
+        return out, inp_len
+
+
+@BaseEncoder.register("pytorch_rnn")
+class PyTorchRNNEncoder(RNNEncoderBase):
+    """The name aps_tpu keeps for configs (a flax RNN there, cuDNN here)."""
+    pass
+
+
+BaseEncoder.register("rnn")(PyTorchRNNEncoder)

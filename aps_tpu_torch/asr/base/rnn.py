@@ -181,7 +181,12 @@ class SingleRNN(nn.Module):
     <cell>_0 and <cell>_1 (aps_tpu creates the forward cell first); the
     torch layer `cells` has no path segment of its own in aps_tpu
     (convert.MODULE_NAMES). Without lengths, as aps_tpu's without
-    seq_lengths, the reverse direction reads the whole padded sequence."""
+    seq_lengths, the reverse direction reads the whole padded sequence.
+    With lengths (inp_len, N) the layer runs on the packed sequence
+    (pack_padded_sequence, the same cuDNN layer): as in aps_tpu, each
+    utterance's reverse direction starts at its last valid frame. The
+    frames past a length come out as zeros, where flax carries its state
+    on; consumers mask them."""
 
     def __init__(self, inp_size: int, hidden: int, rnn_type: str = "lstm",
                  bidirectional: bool = False):
@@ -191,8 +196,17 @@ class SingleRNN(nn.Module):
                                      named_cells=True)
         self.output_size = hidden * (2 if bidirectional else 1)
 
-    def forward(self, inp: torch.Tensor) -> torch.Tensor:
-        return self.cells(inp)[0]
+    def forward(self, inp: torch.Tensor,
+                inp_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if inp_len is None:
+            return self.cells(inp)[0]
+        packed = nn.utils.rnn.pack_padded_sequence(
+            inp, torch.as_tensor(inp_len).cpu(), batch_first=True,
+            enforce_sorted=False)
+        out, _ = nn.utils.rnn.pad_packed_sequence(
+            self.cells(packed)[0], batch_first=True,
+            total_length=inp.shape[1])
+        return out
 
 
 class StackedRNN(nn.Module):
@@ -232,11 +246,12 @@ class StackedRNN(nn.Module):
         self.drop = nn.Dropout(dropout) if dropout > 0 else None
         self.output_size = size
 
-    def forward(self, inp: torch.Tensor) -> torch.Tensor:
-        """N x T x D -> N x T x output_size"""
+    def forward(self, inp: torch.Tensor,
+                inp_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """N x T x D (inp_len N or None) -> N x T x output_size"""
         out = inp if self.input_proj is None else self.input_proj(inp)
         for i in range(self.num_layers):
-            out = getattr(self, f"layer_{i}")(out)
+            out = getattr(self, f"layer_{i}")(out, inp_len)
             if self.hidden_proj > 0:
                 out = torch.tanh(getattr(self, f"proj_{i}")(out))
             if self.layer_norm:

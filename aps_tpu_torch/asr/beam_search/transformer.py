@@ -185,7 +185,8 @@ def beam_search(nnet, x, lm: Optional[LmAdapter] = None, sos: int = -1,
                 eos: int = -1, beam_size: int = 8, nbest: int = 1,
                 max_len: int = -1, dtype: str = "float32", device=None,
                 **kwargs) -> List[Dict]:
-    """Single-utterance beam search. x: a 1-D waveform (numpy or tensor).
+    """Single-utterance beam search. x: a waveform, S samples or C x S for
+    a multi-channel model (numpy or tensor).
     max_len as aps_tpu's: at most min(param.max_len, T) steps when not
     given, else the given number (capped at param.max_len only)."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
@@ -225,7 +226,8 @@ def beam_search_batch(nnet, batch: List, lm: Optional[LmAdapter] = None,
                       **kwargs) -> List[List[Dict]]:
     """Batched transformer-decoder beam search over N*K flat lanes, with
     LM shallow fusion when lm (an adapter on the same device) is given.
-    batch: list of 1-D waveforms (numpy or tensors). Returns one nbest list
+    batch: list of waveforms, S or C x S (numpy; stack_padded pads the
+    sample axis). Returns one nbest list
     per utterance. The models must be in eval mode on `device`."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
     _check_param(dtype, param)

@@ -132,11 +132,20 @@ def extract_nbest(state: BeamState, param: BeamSearchParam, nbest: int,
 
 
 def stack_padded(batch: List, pad_to: int = -1, device=None):
-    """Stack 1-D utterances zero-padded to a common length S ->
-    (x_pad N x S float32 on device, lens list, S)."""
+    """Stack utterances, S or C x S samples, zero-padded on the sample axis
+    to a common length S -> (x_pad N x S or N x C x S float32 on device,
+    lens list, S). aps_tpu's np.pad(x, (0, S - l)) pads every axis of a
+    C x S utterance, the channel axis too, so a batch of multi-channel
+    utterances of unequal lengths reaches its model with C + S - l
+    channels; here only the sample axis is padded."""
     lens = [int(x.shape[-1]) for x in batch]
     S = max(max(lens), pad_to)
-    x_pad = np.zeros((len(batch), S), dtype=np.float32)
+    lead = np.shape(batch[0])[:-1]
+    x_pad = np.zeros((len(batch),) + lead + (S,), dtype=np.float32)
     for i, (x, n) in enumerate(zip(batch, lens)):
-        x_pad[i, :n] = np.asarray(x, dtype=np.float32)
+        x = np.asarray(x, dtype=np.float32)
+        if x.shape[:-1] != lead:
+            raise ValueError(f"utterance {i} has shape {x.shape}, the first "
+                             f"{lead + (lens[0],)}")
+        x_pad[i, ..., :n] = x
     return torch.from_numpy(x_pad).to(device), lens, S

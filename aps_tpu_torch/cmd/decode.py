@@ -23,7 +23,9 @@ ARPA file; a kenlm binary needs kenlm): a wide search without fusion
 x its n-gram log-probability, then sorted again, as aps_tpu does. The body
 runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored after.
 It decodes on the card (--device-id picks which) and raises when torch
-sees none; --device cpu asks for the CPU. A checkpoint that takes
+sees none; --device cpu asks for the CPU. A multi-channel model
+(asr@enh_xfmr) decodes C x S utterances, which --channel -1 (the default,
+as in aps_tpu) reads. A checkpoint that takes
 features rather than waveforms raises NotImplementedError: reading
 feature archives (loader/kaldi_io.py) is not ported yet."""
 
@@ -65,7 +67,7 @@ class FasterDecoder(NnetEvaluator):
                                             device=device,
                                             device_id=device_id)
         name = self.conf["nnet"]
-        if name != "asr@xfmr":
+        if name not in ("asr@xfmr", "asr@enh_xfmr"):
             raise NotImplementedError(f"decoding {name} is not ported yet")
         from aps_tpu_torch.asr.beam_search import transformer
         self.api = transformer
@@ -74,14 +76,16 @@ class FasterDecoder(NnetEvaluator):
         self.eos = self.conf["nnet_conf"].get("eos", -1)
 
     def run(self, src, lm=None, **kwargs) -> List[Dict]:
-        """Decode one 1-D waveform -> its nbest list."""
+        """Decode one waveform (S, or C x S for a multi-channel model) ->
+        its nbest list."""
         fn = self.api.greedy_search if self.function == "greedy_search" \
             else self.api.beam_search
         return fn(self.nnet, src, lm=lm, sos=self.sos, eos=self.eos,
                   device=self.device, **kwargs)
 
     def run_batch(self, batch: List, lm=None, **kwargs) -> List[List[Dict]]:
-        """Decode a list of 1-D waveforms -> one nbest list each."""
+        """Decode a list of waveforms (S or C x S) -> one nbest list
+        each."""
         return self.api.beam_search_batch(self.nnet, batch, lm=lm,
                                           sos=self.sos, eos=self.eos,
                                           device=self.device, **kwargs)

@@ -17,8 +17,11 @@ with aps_tpu_torch.cmd.decode or rescore the nbest with lm_rescore. The
 body runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored
 after. It decodes on the card (--device-id picks which) and raises when
 torch sees none; --device cpu asks for the CPU in so many words, where the
-kernels' plain versions run. The wall time of the decode loop is logged
-with the real-time factor and audio seconds per second."""
+kernels' plain versions run. A multi-channel model (asr@enh_xfmr) decodes
+C x S utterances (--channel -1, the default), padded on the sample axis
+only (aps_tpu's batched search also pads the channel axis of a shorter
+one). The wall time of the decode loop is logged with the real-time factor
+and audio seconds per second."""
 
 import argparse
 import logging

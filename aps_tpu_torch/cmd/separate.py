@@ -20,7 +20,12 @@ A model that can be folded (sse@time_tcn with norm BN) runs its folded
 forward, one fused kernel per TCN block; --fused false runs the module as it
 trains. A frequency-domain model (one with an enh_transform: sse@base_rnn,
 sse@freq_tcn) separates in time mode, STFT -> masks -> iSTFT, in float32
-(--dtype bfloat16 raises: the STFT runs in float32). --pad-grid keeps
+(--dtype bfloat16 raises: the STFT runs in float32). The multi-channel
+sse@rnn_enh_ml (examples/sse/chime4_ml, --channel -1 keeps every channel)
+gives its masks T x F in either mode, as its infer does in aps_tpu; in
+time mode both commands then write them as a WAV file (write_audio takes
+the longer axis for samples and the other for channels), not an enhanced
+signal. --pad-grid keeps
 aps_tpu's meaning and default: whole utterances are zero-padded onto a
 geometric length grid before the forward and the outputs cut back, and
 since the layer norm after the encoder takes its statistics over the padded
@@ -79,6 +84,10 @@ class Separator(NnetEvaluator):
             self.forward = make_fused()
             if self.forward is not None:
                 logger.info("using fused eval forward")
+        if self.forward is None and getattr(self.nnet, "multi_channel",
+                                            False):
+            # sse@rnn_enh_ml: its infer's masks N x T x F
+            self.forward = lambda mix: self.nnet(mix)[1]
         if self.forward is None and freq_domain:
             # waveforms whatever the model's training_mode
             self.forward = functools.partial(self.nnet.infer_batch,
@@ -114,14 +123,16 @@ class Separator(NnetEvaluator):
 
     def run(self, src, chunk_hop=-1, chunk_len=-1, mode="time",
             pad_grid: float = 1.25):
-        """src: S numpy -> separated signal(s). pad_grid > 1 zero-pads the
-        input onto the geometric length grid (outputs cut back to the true
-        length); <= 1 runs the exact length. mode "freq": the model's masks
-        of the exact input (speakers x F x T, as numpy)."""
+        """src: S (C x S for a multi-channel model) numpy -> separated
+        signal(s). pad_grid > 1 zero-pads the input onto the geometric
+        length grid (outputs cut back to the true length on their last
+        axis, as in aps_tpu); <= 1 runs the exact length. mode "freq": the
+        model's masks of the exact input (speakers x F x T, as numpy)."""
         src = np.asarray(src, dtype=np.float32)
-        if src.ndim != 1:
+        if src.ndim != 1 and not getattr(self.nnet, "multi_channel", False):
             raise NotImplementedError(
-                "multi-channel input: no multi-channel model is ported yet")
+                f"multi-channel input {src.shape}: the model takes one "
+                "channel")
         if mode == "freq":
             with torch.inference_mode():
                 return self._to_host(self.nnet.infer(self._to_device(src),
@@ -130,11 +141,15 @@ class Separator(NnetEvaluator):
         if chunk_len <= 0 or N <= chunk_len:
             if pad_grid > 1:
                 S = self.padded_len(N, pad_grid)
-                sep = self._infer_one(np.pad(src, (0, S - N)))
+                pad = [(0, 0)] * (src.ndim - 1) + [(0, S - N)]
+                sep = self._infer_one(np.pad(src, pad))
                 if isinstance(sep, list):
-                    return [s[:N] for s in sep]
-                return sep[:N]
+                    return [s[..., :N] for s in sep]
+                return sep[..., :N]
             return self._infer_one(src)
+        if src.ndim != 1:
+            raise NotImplementedError("chunked separation of multi-channel "
+                                      "input is not ported yet")
         lctx = (chunk_len - chunk_hop) // 2
         rctx = chunk_len - chunk_hop - lctx
         stitcher = ChunkStitcher(chunk_hop, lctx, rctx)

@@ -8,7 +8,10 @@ Takes aps_tpu's training arguments (aps_tpu_torch.opts.TrainParser) and
 YAML configs and writes aps_tpu-format checkpoints, train.yaml and the dict
 into --checkpoint. It trains on the card (--device-id picks which) and
 raises when torch sees none; --device cpu asks for the CPU in so many
-words. The attention kernels have no dropout inside: an encoder whose
+words. A YAML with an enh_transform (examples/asr/chime4/conf/1b.yaml's
+asr@enh_xfmr) builds the multi-channel model on N x C x S batches (the
+loader keeps every channel with channel -1). The attention kernels have no
+dropout inside: an encoder whose
 att_dropout is above 0 trains through the dense attention path, on either
 device, and one with att_dropout: 0 through the flash kernels."""
 
@@ -29,12 +32,13 @@ def run(args):
     conf, vocab = load_am_conf(args.conf, args.dict)
     print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
     print(f"Arguments in yaml:\n{pprint.pformat(conf)}", flush=True)
-    if "enh_transform" in conf:
-        raise NotImplementedError("enh_transform is not ported yet")
     kwargs = dict(conf["nnet_conf"])
     if "asr_transform" in conf:
         kwargs["asr_transform"] = aps_transform("asr")(
             **conf["asr_transform"])
+    if "enh_transform" in conf:
+        kwargs["enh_transform"] = aps_transform("enh")(
+            **conf["enh_transform"])
     nnet = aps_asr_nnet(conf["nnet"])(**kwargs)
     trainer = start_trainer(args.trainer, conf, nnet, args, device,
                             reduction_tag="#tok",

@@ -31,9 +31,19 @@ layout rule of each leaf follows the module that owns it:
                  (its gradient is the leaf's own, so it is not written)
   jax_params     a module's own parameters named in its `jax_params`
                  (gLN gamma/beta, ScaleLinear scale, the rel_u / rel_v of an
-                 xl attention or, when tied, of its encoder) keep name and
-                 shape; one that is None (a ScaleLinear without scale) has
-                 no leaf
+                 xl attention or, when tied, of its encoder; the learned
+                 beamformers' complex weights as their <name>_real and
+                 <name>_imag pairs, their spectra projection proj and the
+                 trainable FixedBeamformer's weight (2, B, C, F, 1)) keep
+                 name and shape; one that is None (a ScaleLinear without
+                 scale) has no leaf
+
+The multi-channel front ends need no rule of their own: an RNN mask
+network (enh_net/mask_net, the encoder's proj, impl and outp) is Linear
+layers and recurrent layers, the MVDR's reference attention
+(enh_net/mvdr_net/ref) the Linear pair linear1 / linear2 <-> Dense_0 /
+Dense_1, ComplexLinear the Dense layers real and imag, and the BatchNorms
+of the learned beamformers bnorm <-> BatchNorm_0.
 
 BatchNorm's num_batches_tracked has no counterpart in aps_tpu and is left
 at 0; the port builds its norms with aps_tpu's epsilons (LayerNorm 1e-6,

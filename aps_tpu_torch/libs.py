@@ -2,23 +2,31 @@
 """Registries of the port, keyed by the same names as aps_tpu/libs.py.
 
 Only what the port has so far is registered: the "asr" and "enh"
-transforms, the "asr@xfmr", "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
-"sse@freq_tcn" and "sse@base_rnn" models, the "asr@ctc_xent", "asr@ctc",
-"asr@lm", "sse@sisnr", "sse@snr", "sse@wa", "sse@freq_linear_sa",
-"sse@freq_mel_sa", "sse@time_linear_sa" and "sse@time_mel_sa" tasks, the
+transforms, the "asr@xfmr", "asr@enh_xfmr", "asr@enh_att" (which raises:
+it needs AttASR), "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
+"sse@freq_tcn", "sse@base_rnn" and "sse@rnn_enh_ml" models, the
+"asr@ctc_xent", "asr@ctc", "asr@lm", "sse@sisnr", "sse@snr", "sse@wa",
+"sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
+"sse@time_mel_sa" and "sse@enh_ml" tasks, the
 "dp" trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and
-the "word", "char" and "subword" tokenizers. Registration happens
+the "word", "char" and "subword" tokenizers; the multi-channel front ends
+"rnn_mask_mvdr", "time_invar", "time_invar_att", "time_variant" and
+"google_clp" are in their own registry, aps_tpu_torch.asr.filter.conv.
+EnhFrontEnds ("enh_filter", as in aps_tpu). Registration happens
 when the defining module is imported; the factory functions import them on
 first use."""
 
 import importlib
 
-ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.lm.rnn",
+ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.enh_att",
+                  "aps_tpu_torch.asr.lm.rnn",
                   "aps_tpu_torch.asr.lm.transformer"]
-SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy"]
+SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
+                  "aps_tpu_torch.sse.unsuper.rnn"]
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr",
                         "aps_tpu_torch.transform.enh"]
-TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse"]
+TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse",
+                   "aps_tpu_torch.task.ml"]
 TRAINER_SUBMODULES = ["aps_tpu_torch.trainer.dp"]
 LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw",
                      "aps_tpu_torch.loader.lm.utt",

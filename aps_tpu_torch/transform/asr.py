@@ -19,7 +19,11 @@ identities at inference; in training they draw from the transform's
 specaug.draw, which a check may replace to feed in draws of its own.
 forward(..., skip_stft=True) takes an STFT the caller made (the enh
 transform's) through the steps after the spectrogram, as aps_tpu's does.
-The other tokens (mfcc, delta, splice, ...) and gcmvn raise
+A string without a spectrum ("abs-mel-log-cmvn", the features of a
+multi-channel front end's enhanced magnitude) takes features N x (C) x T x F
+and their frame counts: "abs" is |x| + eps and "mel" the product with the
+mel filterbank (a fixed one, and on features only: "spectrogram-mel"
+raises). The other tokens (mfcc, delta, splice, ...) and gcmvn raise
 NotImplementedError until the port has them."""
 
 from typing import Optional, Tuple
@@ -312,7 +316,26 @@ class FeatureTransform(nn.Module):
                     frame_len, round_pow_of_two or stft_mode == "kaldi") \
                     // 2 + 1
                 self.steps.append(tok)
-            elif tok == "log":
+            elif tok == "log" or tok == "abs":
+                self.steps.append(tok)
+            elif tok == "mel":
+                if requires_grad or mel_matrix or "spectrogram" in \
+                        self.steps or "fbank-log" in self.steps:
+                    raise NotImplementedError(
+                        f"{feats}: mel is ported on features only (no "
+                        "spectrum before it), with a fixed filterbank")
+                # a buffer outside the state_dict (aps_tpu keeps the
+                # fixed filterbank out of its variables)
+                self.register_buffer("mel_proj", torch.as_tensor(mel_filter(
+                    frame_len,
+                    round_pow_of_two=round_pow_of_two,
+                    sr=sr,
+                    num_mels=num_mels,
+                    fmin=min_freq,
+                    fmax=max_freq,
+                    norm=mel_coeff_norm).T, dtype=torch.float32),
+                    persistent=False)
+                self.feats_dim = num_mels
                 self.steps.append(tok)
             elif tok == "cmvn":
                 if self.cmvn is not None:
@@ -342,11 +365,6 @@ class FeatureTransform(nn.Module):
                 raise NotImplementedError(
                     f"token {tok} of {feats} is not ported yet")
             i += 1
-        if "fbank-log" not in self.steps and \
-                "spectrogram" not in self.steps:
-            raise NotImplementedError(f"{feats}: the port needs an "
-                                      "fbank-log or a spectrogram front "
-                                      "end")
 
     @property
     def accept_raw(self) -> bool:
@@ -359,8 +377,8 @@ class FeatureTransform(nn.Module):
         return self.feats_dim
 
     def _num_frames(self, inp_len, choice: Optional[int] = None):
-        if inp_len is None:
-            return None
+        if inp_len is None or not self.accept_raw:
+            return inp_len
         if self.perturb is not None and choice is not None:
             inp_len = self.perturb.output_length(inp_len, choice)
         nf = num_frames(inp_len, self.frame_len, self.frame_hop,
@@ -425,7 +443,8 @@ class FeatureTransform(nn.Module):
                     torch.as_tensor(nf),
                     num_frames(inp_pad.shape[-1], self.frame_len,
                                self.frame_hop, self.round_pow_of_two,
-                               self.stft_mode, self.center))
+                               self.stft_mode, self.center)
+                    if self.accept_raw else inp_pad.shape[-2])
         for step in steps:
             if step == "perturb":
                 if choice is not None:
@@ -442,6 +461,10 @@ class FeatureTransform(nn.Module):
                         normalized=self.stft_normalized, center=self.center,
                         mode=self.stft_mode)
                 feats = self._spectrogram(feats)
+            elif step == "abs":
+                feats = feats.abs() + self.eps
+            elif step == "mel":
+                feats = feats @ self.mel_proj
             elif step == "log":
                 if self.log_lower_bound > 0:
                     feats = torch.log(self.log_lower_bound + feats)

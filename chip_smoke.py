@@ -149,9 +149,35 @@
    card, one training pass card vs CPU with a float64 referee, and two
    mixtures separated card vs CPU. No hand-written kernel is on this path:
    every launch count stays 0.
-   (Steps 12 to 16 run where their data is at hand: 12 with the other
+17. The multi-channel slice, examples/asr/chime4/run.sh stages 2, 4 and 5
+   with conf/1b.yaml as written but for one change, the asr transform's
+   feats abs-mel-log-cmvn (aps_tpu's fbank-log-cmvn frames the beamformed
+   magnitude as samples and fails): asr@enh_xfmr (the enh transform's
+   spectrogram-log-cmvn, a 3 x 512 BLSTM mask estimator and the MVDR, 12
+   cfmr/rel layers at 256, 6 decoder layers, asr@ctc_xent, AdamW,
+   warmup_noam_lr, TF32) on 32 seeded 5-channel recordings of 8 s through
+   train_am: two one-step epochs (K3's forward 12 a validation pass, no
+   launch in training: att_dropout 0.2 takes the dense path), then timed
+   steps, one traced, the batch's loss with dropouts off must fall over
+   them; a training pass with dropouts off card vs CPU at float32 (K3's
+   forward and backward on the card), held against a float64 pass on the
+   CPU beside two witnesses, the card's pass on the dense path and with
+   the front end in float64; the front end TF32 vs float32 and the times of the covariance, the solve
+   and the beamforming; the trained weights (output layers x 8) through
+   decode_batch with run.sh's stage 4 options and the char RNN LM of
+   conf/nnlm/1a.yaml (seeded), max_len 40: 8 recordings of 8 s in one
+   batch (K3's forward 12 times, K4 once a search step), compute_wer, one
+   batch profiled, two recordings card vs CPU (the same 8-best lists,
+   scores within 1e-3); then examples/sse/chime4_ml/run.sh stages 2 and 3
+   with conf/1a.yaml as written (sse@rnn_enh_ml, spectrogram-log-cmvn-ipd
+   of 1285 features, a 3 x 512 BLSTM, sse@enh_ml) through train_ss on 16
+   recordings of 64000 samples and separate on 4, card vs CPU, no kernel
+   launched; last, K3's forward and K4 (beam 16) at the chime4 decode's
+   shapes and K3's forward and backward kernels at the training pass's
+   against their plain versions.
+   (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14, 16 last.)
+   14, 16 and 17 last.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -566,7 +592,7 @@ def check_rel_attention(dev, gen, T_path=None, k_path=None, H=4,
         lse_want = rel_lse_reference(q_c, q_p, k, pose, **kw)
         torch.cuda.synchronize()
         label = (f"B={B} H={H} D=64 T={T} Hp={Hp} causal={causal} k_len="
-                 + (f"{k_path}" if role == "path" else "1, 2 and T"
+                 + (f"{lens[0]}" if role == "path" else "1, 2 and T"
                     if role == "corner" else f"{lens} ({role})" if role
                     else "ragged with 0"))
         if not torch.isfinite(got).all():
@@ -660,7 +686,8 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
         label = (f"B={B} H={H} D=64 T={T} Hp={Hp} causal={causal} k_len="
                  + (f"{lens[0]}" if len(set(lens)) == 1 else
                     "1, 2 and T" if role == "corner" else
-                    f"{lens} ({role})" if role == "recipe" else "ragged"))
+                    f"{lens} ({role})" if role in ("recipe", "chime4")
+                    else "ragged"))
         out, lse = launch_forward(*args, causal, True)
         delta = torch.full_like(lse, float("nan"))
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
@@ -681,7 +708,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
             fail(f"flash_attention_rel_dq {label}: its delta is "
                  f"{delta_err} from sum(do * out)")
         pairs = H * valid_pairs(T, lens, causal)
-        if role in ("path", "t700", "recipe"):
+        if role in ("path", "t700", "recipe", "chime4"):
             fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
             fwd_plain_ms = time_ms(lambda: rel_mha_reference(
                 *args[:5], k_len=klen, causal=causal))
@@ -1291,10 +1318,11 @@ def _ctc_err(got, want):
     return worst, ok
 
 
-def check_ctc(dev, gen, T, batches=(8, 64)):
+def check_ctc(dev, gen, T, batches=(8, 64), beam=8):
     """K4 at the decode's lanes (8 utterances x beam 8 x ctc beam 12) and
     at the 64-utterance batch of the benchmark shape; for the long-form
-    path at its T and its batch of 4. The parent beams' gammas and scores go
+    path at its T and its batch of 4; for the chime4 decode at its T and
+    beam 16. The parent beams' gammas and scores go
     in unexpanded (beam 8 columns an utterance), as the search step passes
     them; every case launches twice for bit-equal results. The kernel is
     timed on its launch alone, operands and outputs already on the card;
@@ -1308,7 +1336,7 @@ def check_ctc(dev, gen, T, batches=(8, 64)):
     from aps_tpu_torch.ops.ctc_score import (ctc_score_step,
                                              ctc_score_step_plain, launch)
     rows, queued, wrapper = [], {}, {}
-    beam, C = 8, 12
+    C = 12
     for utts in batches:
         L = utts * beam * C
         ops = _ctc_inputs(T, L, utts, utts * beam, dev, gen)
@@ -2218,9 +2246,10 @@ def sep_step_check(egs, dev):
                            referee=True)
 
 
-def step_pass_check(task, egs, dev, grads, utts: int, referee: bool):
-    """One training-mode pass of a separation `task` (its model without
-    dropout) over the first `utts` mixtures of the batch, float32 on the
+def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
+                    referee_on=None, witnesses=None, launched=None):
+    """One training-mode pass of a `task` (its model without dropout) over
+    the first `utts` utterances or mixtures of the batch, float32 on the
     CPU and on the card (TF32 off, the flags read inside the pass), and
     with `referee` float64 on the card. The losses must agree within
     TOL_STEP_LOSS; each gradient named in `grads` within TOL_STEP_GRAD of
@@ -2228,26 +2257,55 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool):
     the gradient of a layer in front of a batch norm is a small difference
     of large terms, so the CPU's float32 gradient must be within
     TOL_SEP_GRAD_REFEREE of the float64 one and the card's within
-    TOL_STEP_GRAD plus TOL_SEP_GRAD_NOISE times the CPU's distance.
-    -> (loss card, loss CPU, {name: err, or (card, CPU) with referee})."""
+    TOL_STEP_GRAD plus TOL_SEP_GRAD_NOISE times the CPU's distance. The
+    float64 pass runs on referee_on ("cpu" for a model whose kernels take
+    float32 only; default the card). witnesses (with referee): {name: fn},
+    each one more float32 pass on the card of the copy after fn(copy),
+    held as the card's is, to tell what part of the card's distance a part
+    of the model accounts for. launched: a dict that gets each pass's
+    kernel launches.
+    -> (loss card, loss CPU, {name: err, or with referee (card, CPU, each
+    witness)})."""
     import torch
 
+    from aps_tpu_torch.ops import build
     from aps_tpu_torch.trainer.dp import to_device
-    tensors = {"mix": egs["mix"][:utts], "ref": [r[:utts] for r in egs["ref"]]}
-    sides = [("cpu32", "cpu", torch.float32), ("card32", dev, torch.float32)]
+
+    def cut(val):
+        return [cut(v) for v in val] if isinstance(val, list) else val[:utts]
+
+    def cast(val, dtype):
+        if isinstance(val, list):
+            return [cast(v, dtype) for v in val]
+        return val.to(dtype) if val.is_floating_point() else val
+
+    # the batch's first utts entries of every tensor (a separation batch's
+    # mix and ref, or an ASR batch's src_pad, src_len, tgt_pad, tgt_len)
+    tensors = {k: cut(v) for k, v in egs.items() if not k.startswith("#")}
+    witnesses = witnesses or {}
+    if witnesses and not referee:
+        fail("step_pass_check: witnesses need the float64 referee")
+    sides = [("cpu32", "cpu", torch.float32, None),
+             ("card32", dev, torch.float32, None)]
+    sides += [(name, dev, torch.float32, fn) for name, fn in witnesses.items()]
     if referee:
-        sides.append(("card64", dev, torch.float64))
+        sides.append(("card64", referee_on or dev, torch.float64, None))
     outs, seen = {}, []
-    for name, where, dtype in sides:
+    for name, where, dtype, witness in sides:
         side = copy.deepcopy(task).to(where, dtype).train()
+        if witness is not None:
+            witness(side)
+        before = dict(build.LAUNCHES)
         hook = side.nnet.register_forward_pre_hook(
             lambda *_: seen.append(tf32_flags()))
-        batch = to_device(tensors, torch.device(where))
-        batch = {"mix": batch["mix"].to(dtype),
-                 "ref": [r.to(dtype) for r in batch["ref"]]}
+        batch = {k: cast(v, dtype) for k, v in
+                 to_device(tensors, torch.device(where)).items()}
         stats = side(batch)
         stats["loss"].backward()
         hook.remove()
+        if launched is not None:
+            launched[name] = {k: n - before[k] for k, n in
+                              build.LAUNCHES.items() if n != before[k]}
         params = dict(side.nnet.named_parameters())
         outs[name] = (stats["loss"].item(),
                       {k: params[k].grad.double().cpu() for k in grads})
@@ -2272,16 +2330,18 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool):
                      f"largest entry {scale}, over {TOL_STEP_GRAD}")
             continue
         noise_cpu, noise_card = rel("cpu32"), rel("card32")
-        errs[key] = (noise_card, noise_cpu)
+        errs[key] = (noise_card, noise_cpu) + tuple(map(rel, witnesses))
         if not (scale > 0 and noise_cpu <= TOL_SEP_GRAD_REFEREE):
             fail(f"gradient of {key}: the CPU's float32 pass is {noise_cpu} "
                  f"of the largest entry {scale} from the card's float64 "
                  f"pass, over {TOL_SEP_GRAD_REFEREE}")
         bound = TOL_STEP_GRAD + TOL_SEP_GRAD_NOISE * noise_cpu
-        if not noise_card <= bound:
-            fail(f"gradient of {key}: the card's float32 pass is "
-                 f"{noise_card} of the largest entry from the float64 pass, "
-                 f"over {bound} (the CPU's float32 pass: {noise_cpu})")
+        for side in ("card32",) + tuple(witnesses):
+            if not rel(side) <= bound:
+                fail(f"gradient of {key}: the card's float32 pass "
+                     f"({side}) is {rel(side)} of the largest entry from the "
+                     f"float64 pass, over {bound} (the CPU's float32 pass: "
+                     f"{noise_cpu})")
     return outs["card32"][0], loss_c, errs
 
 
@@ -3537,6 +3597,675 @@ def precision_phase(root: Path, cpt: Path, sep_root: Path, tcn_cpt: Path,
     return runs
 
 
+# the multi-channel slice: examples/asr/chime4/run.sh stages 2, 4 and 5
+# with conf/1b.yaml (asr@enh_xfmr: a 3 x 512 BLSTM mask estimator and the
+# MVDR, then 12 cfmr/rel layers at 256 and 6 decoder layers) as written
+# but for one change, the asr transform's feats (CHIME4_FEATS: aps_tpu's
+# fbank-log-cmvn frames the beamformed magnitude as samples and fails), on
+# 5-channel audio; then examples/sse/chime4_ml/run.sh stages 2 and 3 with
+# conf/1a.yaml as written (sse@rnn_enh_ml under sse@enh_ml)
+CHIME4_YAML = "examples/asr/chime4/conf/1b.yaml"
+CHIME4_LM_YAML = "examples/asr/chime4/conf/nnlm/1a.yaml"
+CHIME4_ML_YAML = "examples/sse/chime4_ml/conf/1a.yaml"
+CHIME4_FEATS = "abs-mel-log-cmvn"
+CHIME4_CHANNELS = 5  # the recipe's CH1, CH3-CH6
+CHIME4_SECS = 8
+CHIME4_TRAIN_UTTS = 32  # run.sh's --batch-size
+CHIME4_TRAIN_EPOCHS = 2  # one step each: the corpus is one batch
+CHIME4_TIMED_STEPS = 5
+CHIME4_DECODE_UTTS = 8  # one batch of decode_batch's 8
+CHIME4_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU search
+CHIME4_PASS_UTTS = 4  # of the batch, in the card-vs-CPU training pass
+# run.sh stage 4 (beam 16, nbest 8, ctc 0.4, the char RNN LM at 0.2,
+# len_norm true), max_len cut from 200 to CHIME4_MAX_LEN search steps
+CHIME4_MAX_LEN = 40
+CHIME4_STAGE4_ARGS = ["--beam-size", "16", "--nbest", "8", "--ctc-weight",
+                      "0.4", "--lm-weight", "0.2", "--len-norm", "true",
+                      "--max-len", str(CHIME4_MAX_LEN), "--space", "<space>"]
+CHIME4_UNITS = [chr(c) for c in range(ord("a"), ord("z") + 1)] + \
+    ["'", "<space>"]
+# the mask network's first layer, the MVDR's reference attention, the
+# encoder's first in_proj and the CTC head
+CHIME4_GRADS = ("enh_net.mask_net.impl.layer_0.cells.weight_ih_l0",
+                "enh_net.mvdr_net.ref.linear1.weight",
+                "encoder.encoder.layers.0.self_attn.in_proj.weight",
+                "ctc_head.weight")
+ML_SECS = 4  # the recipe's chunk_size of 64000 samples
+ML_UTTS = 16  # run.sh's --batch-size
+ML_EPOCHS = 2  # one step each
+ML_TIMED_STEPS = 3
+ML_SEP_UTTS = 4
+ML_GRADS = ("base_rnn.proj.weight",
+            "base_rnn.impl.layer_0.cells.weight_ih_l0",
+            "base_rnn.impl.layer_2.cells.weight_hh_l0_reverse",
+            "base_rnn.outp.weight")
+# the beamformer's output (the enhanced magnitude) with the TF32 flags
+# set against float32 on the card, relative to its largest entry: the
+# mask network's products and the complex covariances with operands
+# rounded to 10 bits, then the solve
+TOL_TF32_BEAM = 2e-2
+
+
+def write_multichannel(root: Path, prefix: str, count: int, gen, secs,
+                       channels=CHIME4_CHANNELS):
+    """count seeded C-channel recordings of secs: one source (noise under
+    a modulated tone) reaching each microphone 2 samples later than the
+    one before, and noise of each channel's own at a quarter of the
+    source's level, as 16-bit files root/<prefix>NN.wav and root/wav.scp
+    -> {key: C x S samples as the readers give them back}."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    wavs = {}
+    S = int(secs * SR)
+    t = np.arange(S) / SR
+    with open(root / "wav.scp", "w") as scp:
+        for n in range(count):
+            noise = torch.randn((channels + 1, S), generator=gen).numpy()
+            f0 = 150.0 + 20.0 * n
+            src = 0.05 * noise[0] + 0.2 * np.sin(2 * np.pi * f0 * t) * \
+                (0.5 + 0.5 * np.sin(2 * np.pi * 0.7 * t))
+            wav = np.stack([np.roll(src, 2 * c) + 0.05 * noise[c + 1]
+                            for c in range(channels)])
+            pcm = np.clip(np.round(wav * 32768), -32768, 32767).astype(
+                np.int16)
+            path = root / f"{prefix}{n:02d}.wav"
+            wavfile.write(str(path), SR, pcm.T)
+            scp.write(f"{prefix}{n:02d}\t{path}\n")
+            wavs[f"{prefix}{n:02d}"] = pcm.astype(np.float32) / 32768
+    return wavs
+
+
+def chime4_conf(data: Path) -> dict:
+    """CHIME4_YAML as written but for the asr transform's feats, its data
+    sections pointed at data/."""
+    from aps_tpu_torch.conf import load_yaml
+    conf = load_yaml(str(REPO / CHIME4_YAML))
+    if conf["asr_transform"]["feats"] != "fbank-log-cmvn":
+        fail(f"{CHIME4_YAML}: asr_transform {conf['asr_transform']}")
+    conf["asr_transform"]["feats"] = CHIME4_FEATS
+    paths = {name: str(data / name) for name in ("text", "utt2dur")}
+    paths["wav_scp"] = str(data / "wav.scp")
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = paths
+    return conf
+
+
+def write_chime4(root: Path, gen):
+    """root/dict (the char units, <sos>, <eos>, <unk>) and root/train: a
+    corpus of CHIME4_TRAIN_UTTS 5-channel utterances of CHIME4_SECS with
+    TRAIN_LABELS seeded chars each and train.yaml (chime4_conf)."""
+    import torch
+    vocab = ["<unk>"] + CHIME4_UNITS + ["<sos>", "<eos>"]
+    (root / "dict").write_text("".join(f"{u} {i}\n"
+                                       for i, u in enumerate(vocab)))
+    data = root / "train"
+    data.mkdir()
+    keys = sorted(write_multichannel(data, "trn", CHIME4_TRAIN_UTTS, gen,
+                                     CHIME4_SECS))
+    labels = torch.randint(0, len(CHIME4_UNITS),
+                           (CHIME4_TRAIN_UTTS, TRAIN_LABELS),
+                           generator=gen).tolist()
+    with open(data / "text", "w") as text, \
+            open(data / "utt2dur", "w") as dur:
+        for key, toks in zip(keys, labels):
+            text.write(f"{key} {' '.join(CHIME4_UNITS[i] for i in toks)}\n")
+            dur.write(f"{key} {CHIME4_SECS:.2f}\n")
+    (data / "train.yaml").write_text(json.dumps(chime4_conf(data),
+                                                indent=2))
+    return data
+
+
+def chime4_launches(passes: int = 0, steps: int = 0):
+    """The launch counts of `passes` eval-mode forwards (validation or a
+    decode batch: K3's forward once a layer) and `steps` search steps (K4
+    once each) of the chime4 model; its training passes launch nothing
+    (att_dropout 0.2: the dense attention path), nor does its front end
+    (no K1: the features start from the beamformed magnitude)."""
+    from aps_tpu_torch.ops import build
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want.update({"flash_attention_rel": ENC_LAYERS * passes,
+                 "ctc_score_step": steps})
+    return want
+
+
+def no_dropout(module):
+    """module with every dropout off (nn.Dropout and the attention's rate,
+    which also sends training through the flash kernels)."""
+    import torch
+    for mod in module.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+        if isinstance(getattr(mod, "dropout", None), float):
+            mod.dropout = 0.0
+    return module
+
+
+def chime4_train_phase(root: Path, data: Path, dev, card):
+    """train_am (run.sh stage 2) on the corpus: CHIME4_TRAIN_EPOCHS
+    one-step epochs, launch counts over the run; then CHIME4_TIMED_STEPS
+    timed steps on the same batch, each counted (nothing launched), one
+    traced; the batch's loss with dropouts off before and after them must
+    fall. -> (cpt, the batch, launches of the run, numbers)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_am
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.trainer.dp import to_device
+    cpt = root / "exp"
+    argv = ["--conf", str(data / "train.yaml"), "--dict", str(root / "dict"),
+            "--checkpoint", str(cpt), "--batch-size", str(CHIME4_TRAIN_UTTS),
+            "--epochs", str(CHIME4_TRAIN_EPOCHS), "--seed", str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_am.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    model = trainer.task.nnet
+    setup = (trainer.device.type, trainer.cur_step, trainer.matmul_precision,
+             type(trainer.optimizer).__name__, type(model).__name__,
+             type(model.enh_net).__name__, len(model.encoder.encoder.layers),
+             model.asr_transform.feats)
+    if setup != ("cuda", CHIME4_TRAIN_EPOCHS, "bfloat16", "AdamW",
+                 "EnhXfmrASR", "RNNMaskMvdr", ENC_LAYERS, CHIME4_FEATS):
+        fail(f"train_am ({CHIME4_YAML}) is not as written: {setup}")
+    # a validation pass before the first epoch and after each
+    want = chime4_launches(passes=CHIME4_TRAIN_EPOCHS + 1)
+    if launches != want:
+        fail(f"train_am ({CHIME4_YAML}) launches {launches}, expected "
+             f"{want}")
+    egs = first_batch(root, data, CHIME4_TRAIN_UTTS)
+    shape = (CHIME4_TRAIN_UTTS, CHIME4_CHANNELS)
+    if tuple(egs["src_pad"].shape[:2]) != shape:
+        fail(f"the loader's batch is {egs['src_pad'].shape}, not {shape} x S")
+    batch = to_device(egs, dev)
+    probe = no_dropout(copy.deepcopy(trainer.task)).train()
+
+    def loss_now():
+        probe.load_state_dict(trainer.task.state_dict())
+        with torch.no_grad():
+            return probe(batch)["loss"].item()
+
+    before = loss_now()
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for step in range(CHIME4_TIMED_STEPS):
+        build.reset_launches()
+        done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        if not done or any(build.LAUNCHES.values()):
+            fail(f"timed step {step}: done {done}, launches "
+                 f"{dict(build.LAUNCHES)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, wall, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    after = loss_now()
+    losses = _epoch_losses(cpt / "trainer.log", "train") + \
+        [float(v) for v in trainer.reporter.stats["loss"]]
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    if not all(map(math.isfinite, losses + [before, after])):
+        fail(f"non-finite chime4 loss: {losses}, {before}, {after}")
+    if not after < before:
+        fail(f"the loss with dropouts off did not fall over the timed "
+             f"steps: {before} -> {after}")
+    rnn, gemm, fft = rnn_share(prof, device_ms)
+    print(f"train_am {CHIME4_YAML} as written (feats {CHIME4_FEATS}): "
+          f"{CHIME4_TRAIN_UTTS} x {CHIME4_CHANNELS} x {CHIME4_SECS} s, "
+          f"{CHIME4_TRAIN_EPOCHS} one-step epochs, launches {launches}; "
+          f"{CHIME4_TIMED_STEPS + 1} more steps on the same batch (no "
+          f"launches; warmup_noam_lr at {lr:.3e}); training losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; the batch's loss with "
+          f"dropouts off {before:.6f} -> {after:.6f}", flush=True)
+    print(f"chime4 1b step: device {device_ms:.3f} ms (traced; cuDNN's "
+          f"recurrences {rnn:.3f}, cuBLAS {gemm:.3f}, cuFFT {fft:.3f} of "
+          f"it), host {statistics.median(secs):.4f} s median of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
+          f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    print(f"chime4 1b step, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    return cpt, egs, launches, {"device_ms": device_ms, "peak_gib": peak,
+                                "host_s": statistics.median(secs),
+                                "launches": host_launches}
+
+
+def chime4_model(conf: dict, gen):
+    """conf's asr@enh_xfmr (as load_am_conf gives it: the vocabulary's
+    size, sos, eos and blank filled in) with every dropout off and seeded
+    weights, in its task."""
+    from aps_tpu_torch.flagship import init_weights
+    from aps_tpu_torch.libs import aps_asr_nnet, aps_task, aps_transform
+    nnet_conf = dict(conf["nnet_conf"])
+    model = aps_asr_nnet(conf["nnet"])(
+        asr_transform=aps_transform("asr")(**conf["asr_transform"]),
+        enh_transform=aps_transform("enh")(**conf["enh_transform"]),
+        **nnet_conf)
+    init_weights(no_dropout(model), gen)
+    return aps_task(conf["task"], model, **conf["task_conf"])
+
+
+def chime4_beam_check(conf: dict, egs, dev, gen, card):
+    """The front end (enh transform, mask network, MVDR) on the batch:
+    TF32 against float32 on the card; the times of the covariance, the
+    solve and the beamforming at this batch."""
+    import torch
+
+    from aps_tpu_torch.asr.filter.mvdr import beamform, estimate_covar
+    from aps_tpu_torch.cplx import solve_hermitian
+    model = chime4_model(conf, gen).nnet.to(dev).eval()
+    x = torch.from_numpy(egs["src_pad"]).to(dev)
+    x_len = torch.as_tensor(egs["src_len"]).to(dev)
+    outs = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.no_grad():
+            cstft, frames = model.enh_transform.encode(x, x_len)
+            feats = model.enh_transform(cstft)
+            outs[tf32] = model.enh_net(feats, cstft, inp_len=frames).abs()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scale = outs[False].abs().max().item()
+    err = (outs[True] - outs[False]).abs().max().item() / scale
+    if not (math.isfinite(err) and err <= TOL_TF32_BEAM):
+        fail(f"beamformer output TF32 vs float32: {err} of the largest "
+             f"entry, over {TOL_TF32_BEAM}")
+    print(f"chime4 front end on {tuple(cstft.shape)} bins: TF32 vs float32 "
+          f"{err:.3e} of the largest enhanced magnitude ({card})",
+          flush=True)
+    # the MVDR's parts, float32, at the training batch and at a decode
+    # batch's CHIME4_DECODE_UTTS
+    ms = {}
+    for N in (cstft.shape[0], CHIME4_DECODE_UTTS):
+        x_N = cstft[:N]
+        _, C, F, T = x_N.shape
+        mask = torch.rand((N, F, T), generator=gen).to(dev)
+        with torch.no_grad():
+            Rs = estimate_covar(mask, x_N)
+            Rn = estimate_covar(1 - mask, x_N) + \
+                1e-5 * torch.eye(C, device=dev)
+            w = torch.randn((N, C, F), dtype=torch.complex64,
+                            generator=gen).to(dev)
+            ms[N] = {"covariance": time_ms(lambda: estimate_covar(mask, x_N)),
+                     "solve": time_ms(lambda: solve_hermitian(Rn, Rs)),
+                     "beamform": time_ms(lambda: beamform(w, x_N))}
+        print(f"chime4 MVDR at {N} x {C} x {F} x {T} bins, device ms "
+              f"(float32, one call between events): speech covariance "
+              f"{ms[N]['covariance']:.4f}, Hermitian solve "
+              f"{ms[N]['solve']:.4f} (the clamped Cholesky of {C} x {C} and "
+              f"two triangular solves), beamforming {ms[N]['beamform']:.4f} "
+              f"({card})", flush=True)
+    return err, ms
+
+
+def chime4_shapes(model, S):
+    """(T, k_len) of a decode batch of CHIME4_SECS utterances padded to S
+    samples: encoder frames and the valid ones."""
+    import torch
+    frames = model.enh_transform.num_frames(
+        torch.tensor([S, CHIME4_SECS * SR]))
+    T, k_len = model.encoder.num_frames(frames).tolist()
+    return T, k_len
+
+
+def write_decodable(cpt: Path, root: Path) -> Path:
+    """The trained checkpoint with its decoder output and CTC head x 8
+    (peaky: well separated candidates, so the CPU and card searches cannot
+    part on near-ties after a few steps of training) -> root/decode_am."""
+    out = root / "decode_am"
+    out.mkdir()
+    with open(cpt / "last.ckpt", "rb") as fd:
+        state = pickle.load(fd)
+    params = state["params"]
+    params = params.get("nnet", params)
+    params["decoder"]["output"]["kernel"] = \
+        params["decoder"]["output"]["kernel"] * 8.0
+    params["ctc_head"]["kernel"] = params["ctc_head"]["kernel"] * 8.0
+    with open(out / "best.ckpt", "wb") as fd:
+        pickle.dump(state, fd)
+    (out / "train.yaml").write_bytes((cpt / "train.yaml").read_bytes())
+    return out
+
+
+def chime4_decode_phase(root: Path, am: Path, lm_dir: Path, gen, dev,
+                        card):
+    """run.sh stages 4 and 5: CHIME4_DECODE_UTTS 5-channel utterances
+    through decode_batch with CHIME4_STAGE4_ARGS and the char RNN LM
+    (--channel -1), launch counts read (K3's forward 12 a batch, K4 once a
+    search step, nothing else), compute_wer; one batch profiled; the first
+    CHIME4_CHECK_UTTS card vs CPU, n-best equal and scores within 1e-3.
+    -> (launches, (T, k_len), numbers)."""
+    import io
+
+    from aps_tpu_torch.asr.beam_search.lm import lm_adapter
+    from aps_tpu_torch.asr.beam_search.transformer import beam_search_batch
+    import torch
+
+    from aps_tpu_torch.cmd import compute_wer, decode, decode_batch
+    from aps_tpu_torch.cmd.decode_batch import quantize_dur
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.ops import build
+    data = root / "test"
+    data.mkdir()
+    wavs = write_multichannel(data, "tst", CHIME4_DECODE_UTTS, gen,
+                              CHIME4_SECS)
+    # the reference text of stage 5: seeded chars, TRAIN_LABELS an
+    # utterance, words split at <space>
+    labels = torch.randint(0, len(CHIME4_UNITS),
+                           (CHIME4_DECODE_UTTS, TRAIN_LABELS),
+                           generator=gen).tolist()
+    (data / "text").write_text("".join(
+        f"{key} " + "".join(" " if CHIME4_UNITS[i] == "<space>" else
+                            CHIME4_UNITS[i] for i in toks).strip() + "\n"
+        for key, toks in zip(sorted(wavs), labels)))
+    best = root / "test.decode"
+    argv = [str(data / "wav.scp"), str(best), "--am", str(am), "--dict",
+            str(root / "dict"), "--lm", str(lm_dir)] + CHIME4_STAGE4_ARGS
+    build.reset_launches()
+    with scorer_steps() as steps:
+        stats = decode_batch.main(argv)
+    launches = dict(build.LAUNCHES)
+    lines = best.read_text().splitlines()
+    if sorted(ln.split("\t")[0] for ln in lines) != sorted(wavs) or \
+            not all(map(math.isfinite, stats["scores"].values())):
+        fail(f"chime4 decode_batch: {len(lines)} lines, scores "
+             f"{list(stats['scores'].values())}")
+    batches = len(stats["batch_secs"])
+    want = chime4_launches(passes=batches, steps=len(steps))
+    if launches != want or batches != 1:
+        fail(f"chime4 decode launches {launches} in {batches} batches and "
+             f"{len(steps)} search steps, expected {want}")
+    # stage 5: compute_wer against the reference text
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        compute_wer.main([str(best), str(data / "text")])
+    if not re.search(rf"Total \({CHIME4_DECODE_UTTS} utterances\)",
+                     report.getvalue()):
+        fail(f"compute_wer printed {report.getvalue()!r}")
+    kw = decode.search_kwargs(decode_batch.make_parser().parse_args(argv))
+    am_state = load_checkpoint(str(am))
+    nnet = am_state["nnet"]
+    lm = load_checkpoint(str(lm_dir))["nnet"]
+    sos, eos = (am_state["conf"]["nnet_conf"][k] for k in ("sos", "eos"))
+    S = quantize_dur(CHIME4_SECS * SR)
+    shapes = chime4_shapes(nnet, S)
+    keys = sorted(wavs)
+    batch = [wavs[k] for k in keys]
+    search = lambda: beam_search_batch(  # noqa: E731
+        nnet.to(dev), batch, lm=lm_adapter(lm.to(dev), max_len=CHIME4_MAX_LEN,
+                                           sos=sos),
+        sos=sos, eos=eos, device=dev, pad_to=S, **kw)
+    search()
+    build.reset_launches()
+    device_ms, wall, host_launches, _ = profile(search)
+    n_steps = build.LAUNCHES["ctc_score_step"]
+    outs = {}
+    for where in ("cpu", dev):
+        outs[str(where)] = beam_search_batch(
+            nnet.to(where), batch[:CHIME4_CHECK_UTTS],
+            lm=lm_adapter(lm.to(where), max_len=CHIME4_MAX_LEN, sos=sos),
+            sos=sos, eos=eos, device=where, pad_to=S, **kw)
+    score_err = 0.0
+    for key, hc, hg in zip(keys, outs["cpu"], outs[str(dev)]):
+        if [h["trans"] for h in hc] != [h["trans"] for h in hg]:
+            fail(f"{key}: card and CPU n-best lists differ")
+        score_err = max([score_err] + [abs(a["score"] - b["score"])
+                                       for a, b in zip(hc, hg)])
+        if abs(hg[0]["score"] - stats["scores"][key]) > 1e-3:
+            fail(f"{key}: decode_batch score {stats['scores'][key]} != "
+                 f"search score {hg[0]['score']}")
+    if not score_err <= 1e-3:
+        fail(f"chime4 n-best scores card vs CPU differ by {score_err}")
+    print(f"chime4 decode_batch {' '.join(CHIME4_STAGE4_ARGS)} with the char "
+          f"RNN LM: {CHIME4_DECODE_UTTS} x {CHIME4_CHANNELS} x "
+          f"{CHIME4_SECS} s padded to {S} samples (T = {shapes[0]}, "
+          f"{shapes[1]} valid), {stats['batch_secs'][0]:.4f} s (host clock "
+          f"around the synchronised batch), {len(steps)} search steps, "
+          f"launches {launches}; profiled: device {device_ms:.3f} ms in "
+          f"{wall:.4f} s wall, {n_steps} steps, "
+          f"{host_launches / max(n_steps, 1):.1f} host launches a step "
+          f"({card}); compute_wer: "
+          f"{' | '.join(report.getvalue().splitlines())}", flush=True)
+    print(f"chime4 search card vs CPU on {CHIME4_CHECK_UTTS} utterances: "
+          f"n-best of {len(outs['cpu'][0])} equal, largest score diff "
+          f"{score_err:.3e} ({card})", flush=True)
+    return launches, shapes, {"device_ms": device_ms, "wall": wall,
+                              "batch_s": stats["batch_secs"][0],
+                              "score_err": score_err}
+
+
+def chime4_ml_phase(root: Path, gen, dev, card):
+    """examples/sse/chime4_ml/run.sh stages 2 and 3 with CHIME4_ML_YAML as
+    written: train_ss on ML_UTTS 5-channel recordings of ML_SECS (one
+    batch of the recipe's chunks), ML_EPOCHS one-step epochs and timed
+    steps on the same batch, one traced, no kernel launched; one training
+    pass card vs CPU at float32; separate on ML_SEP_UTTS recordings with
+    the trained checkpoint (the masks, written as aps_tpu writes them),
+    card vs CPU on two. -> (launches of training, of separation)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import separate, train_ss
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.flagship import init_weights
+    from aps_tpu_torch.libs import (aps_dataloader, aps_sse_nnet, aps_task,
+                                    aps_transform)
+    from aps_tpu_torch.ops import build
+    beg = time.perf_counter()
+    root.mkdir()
+    trn = root / "trn"
+    trn.mkdir()
+    write_multichannel(trn, "trn", ML_UTTS, gen, ML_SECS)
+    conf = load_ss_conf(str(REPO / CHIME4_ML_YAML))
+    if conf["data_conf"]["loader"]["chunk_size"] != ML_SECS * SR:
+        fail(f"{CHIME4_ML_YAML}: {conf['data_conf']['loader']}")
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = {
+        "mix_scp": str(trn / "wav.scp")}
+    (root / "train.yaml").write_text(json.dumps(conf, indent=2))
+    cpt = root / "exp"
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_ss.main([
+            "--conf", str(root / "train.yaml"), "--checkpoint", str(cpt),
+            "--batch-size", str(ML_UTTS), "--epochs", str(ML_EPOCHS),
+            "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if trainer.device.type != "cuda" or trainer.cur_step != ML_EPOCHS or \
+            any(launches.values()):
+        fail(f"train_ss ({CHIME4_ML_YAML}): {trainer.cur_step} steps on "
+             f"{trainer.device}, launches {launches}")
+    batches = list(aps_dataloader(fmt="se@chunk", train=False,
+                                  max_batch_size=ML_UTTS,
+                                  **conf["data_conf"]["loader"],
+                                  **conf["data_conf"]["valid"]))
+    shape = (ML_UTTS, CHIME4_CHANNELS, ML_SECS * SR)
+    if len(batches) != 1 or batches[0]["mix"].shape != shape:
+        fail(f"expected one batch of {shape}, got "
+             f"{[b['mix'].shape for b in batches]}")
+    egs = batches[0]
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for step in range(ML_TIMED_STEPS):
+        done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        if not done:
+            fail(f"timed step {step} was skipped (non-finite loss or norm)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, wall, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    if any(build.LAUNCHES.values()):
+        fail(f"chime4_ml steps launch {dict(build.LAUNCHES)}")
+    losses = _epoch_losses(cpt / "trainer.log", "train") + \
+        [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite sse@enh_ml loss: {losses}")
+    rnn, gemm, fft = rnn_share(prof, device_ms)
+    print(f"train_ss {CHIME4_ML_YAML} as written (spectrogram-log-cmvn-ipd, "
+          f"input {conf['nnet_conf']['input_size']}, 3 x 512 BLSTM, "
+          f"sse@enh_ml): {ML_UTTS} x {CHIME4_CHANNELS} x {ML_SECS} s, "
+          f"{ML_EPOCHS} one-step epochs then {ML_TIMED_STEPS + 1} steps on "
+          f"the same batch, no kernel launches; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    print(f"chime4_ml step: device {device_ms:.3f} ms (traced; cuDNN's "
+          f"recurrences {rnn:.3f}, cuBLAS {gemm:.3f}, cuFFT {fft:.3f} of "
+          f"it), host {statistics.median(secs):.4f} s median of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
+          f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    print(f"chime4_ml step, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    # one pass card vs CPU at float32, dropout off, seeded weights
+    nnet = aps_sse_nnet(conf["nnet"])(
+        enh_transform=aps_transform("enh")(**conf["enh_transform"]),
+        **dict(conf["nnet_conf"], dropout=0.0))
+    init_weights(nnet, gen)
+    loss_g, loss_c, errs = step_pass_check(
+        aps_task(conf["task"], nnet, **conf["task_conf"]), egs, dev,
+        ML_GRADS, WHAM_CHECK_UTTS, referee=False)
+    print(f"chime4_ml training pass card vs CPU at float32 (dropout off, "
+          f"TF32 flags read off inside) on {WHAM_CHECK_UTTS} recordings: "
+          f"loss {loss_g:.6f} vs {loss_c:.6f}; gradient errors relative to "
+          "the largest entry " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items()) +
+          f" ({card})", flush=True)
+    # run.sh stage 3
+    dev_dir = root / "dev"
+    dev_dir.mkdir()
+    mixes = write_multichannel(dev_dir, "dev", ML_SEP_UTTS, gen, ML_SECS)
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main([str(dev_dir / "wav.scp"), str(root / "enhan"),
+                               "--checkpoint", str(cpt), "--tag", "last",
+                               "--sr", str(SR)])
+    torch.cuda.synchronize()
+    launches_sep = dict(build.LAUNCHES)
+    if any(launches_sep.values()) or stats["utts"] != ML_SEP_UTTS:
+        fail(f"chime4_ml separate: {stats['utts']} utterances, launches "
+             f"{launches_sep}")
+    seps = {w: separate.Separator(str(cpt), cpt_tag="last", device=w)
+            for w in ("cpu", "cuda")}
+    keys = sorted(mixes)[:2]
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: [s.run(mixes[k]) for k in keys] for w, s in seps.items()}
+    got = np.concatenate([np.ravel(a) for a in outs["cuda"]])
+    want = np.concatenate([np.ravel(a) for a in outs["cpu"]])
+    T = (ML_SECS * SR) // 256  # the masks of the padded input's frames
+    scale, err = float(np.abs(want).max()), float(np.abs(got - want).max())
+    if not (scale > 0 and err <= TOL_SEP_REL * scale) or \
+            outs["cuda"][0].shape[1] != 257 or \
+            not outs["cuda"][0].shape[0] >= T:
+        fail(f"chime4_ml masks card vs CPU: {err} over {TOL_SEP_REL} of "
+             f"{scale}, shape {outs['cuda'][0].shape}")
+    rate = stats["audio_secs"] / stats["sep_secs"]
+    print(f"chime4_ml separate (run.sh stage 3, --channel -1): "
+          f"{ML_SEP_UTTS} x {CHIME4_CHANNELS} x {ML_SECS} s, "
+          f"{rate:.2f} audio-s/s (host clock, batch 1), masks "
+          f"{outs['cuda'][0].shape} written as aps_tpu's separate writes "
+          f"them (a WAV file whose channels are the bins); card vs CPU on "
+          f"2 recordings {err:.3e} (largest mask {scale:.3f}); no kernel "
+          f"launches; the phase took {time.perf_counter() - beg:.1f} s "
+          f"({card})", flush=True)
+    return launches, launches_sep, {"device_ms": device_ms, "peak_gib": peak,
+                                    "rate": rate}
+
+
+def dense_attention(task) -> None:
+    """A witness of the chime4 training pass: every attention of `task` on
+    the dense path, so the pass launches no K3 kernel."""
+    from aps_tpu_torch.asr.transformer.impl import ApsMultiheadAttention
+    for module in task.modules():
+        if isinstance(module, ApsMultiheadAttention):
+            module._flash = lambda *args: None
+
+
+def front_end_float64(task) -> None:
+    """A witness of the chime4 training pass: the front end (the mask
+    network and the MVDR) of `task` in float64, its output cast back to
+    complex64; the STFT, the features and the ASR model stay float32."""
+    import torch
+    enh = task.nnet.enh_net.double()
+    forward = enh.forward
+    enh.forward = lambda feats, cstft, inp_len=None: forward(
+        feats.double(), cstft.to(torch.complex128),
+        inp_len=inp_len).to(torch.complex64)
+
+
+# the K3 kernels of a training pass on the flash path (every dropout off)
+K3_TRAIN = ("flash_attention_rel", "flash_attention_rel_dq",
+            "flash_attention_rel_dkv", "flash_attention_rel_dpose")
+
+
+def chime4_pass_check(conf, egs, dev, gen, card):
+    """The 1b training pass card vs CPU at float32, held by the referee
+    rule with the float64 pass on the CPU (K3 takes float32 only): the
+    MVDR's solve passes the gradients of the mask network and of the
+    reference attention through covariances of delayed copies, so a
+    float32 pass on either device lands some 1e-3 from the float64 one.
+    Two witnesses say where the card's distance comes from: the pass on
+    the dense path (no K3) and the pass with the front end in float64.
+    -> (K3's (B, H, T, D, Hp, k_len, causal) in the pass, numbers)"""
+    launched = {}
+    with training_operands() as seen:
+        loss_g, loss_c, errs = step_pass_check(
+            chime4_model(conf, gen), egs, dev, CHIME4_GRADS,
+            CHIME4_PASS_UTTS, referee=True, referee_on="cpu",
+            witnesses={"dense": dense_attention,
+                       "front64": front_end_float64}, launched=launched)
+    for side in ("card32", "front64"):
+        if not all(launched[side].get(k, 0) > 0 for k in K3_TRAIN):
+            fail(f"the chime4 pass {side} launched {launched[side]}, "
+                 f"expected each of {K3_TRAIN}")
+    if any(launched["dense"].get(k, 0) for k in K3_TRAIN):
+        fail(f"the dense chime4 pass launched {launched['dense']}")
+    print(f"chime4 1b training pass at float32 (dropouts off, TF32 flags "
+          f"read off inside) on {CHIME4_PASS_UTTS} utterances: loss card "
+          f"{loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' distance from "
+          "the CPU's float64 pass relative to the largest entry (card with "
+          "K3, CPU, card on the dense path, card with the front end in "
+          "float64) "
+          + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
+                      for k, e in errs.items())
+          + f"; K3 launches in the card's pass {launched['card32']} "
+          f"({card})", flush=True)
+    shapes = sorted(set(seen["rel"]), key=seen["rel"].index)
+    return shapes, {"pass_loss": (loss_g, loss_c), "pass_grads": errs}
+
+
+def chime4_phase(root: Path, gen, dev, card):
+    """The chime4 recipe: write_chime4, chime4_train_phase,
+    chime4_pass_check, chime4_beam_check, the char RNN LM of
+    CHIME4_LM_YAML (seeded), chime4_decode_phase; then chime4_ml_phase.
+    -> (launch counts of each path, the decode's (T, k_len), K3's shapes
+    in the training pass, numbers)."""
+    beg = time.perf_counter()
+    root.mkdir()
+    data = write_chime4(root, gen)
+    cpt, egs, launches_train, numbers = chime4_train_phase(root, data, dev,
+                                                           card)
+    from aps_tpu_torch.conf import load_am_conf
+    conf, _ = load_am_conf(str(data / "train.yaml"), str(root / "dict"))
+    pass_shapes, pass_numbers = chime4_pass_check(conf, egs, dev, gen, card)
+    numbers.update(pass_numbers)
+    numbers["tf32_beam"], numbers["mvdr_ms"] = chime4_beam_check(
+        conf, egs, dev, gen, card)
+    lm_dir, _ = write_lm(root, CHIME4_LM_YAML, gen, "rnn_lm")
+    launches_dec, shapes, dec_numbers = chime4_decode_phase(
+        root, write_decodable(cpt, root), lm_dir, gen, dev, card)
+    numbers.update(decode=dec_numbers, phase_s=time.perf_counter() - beg)
+    print(f"the chime4 phase took {numbers['phase_s']:.1f} s ({card})",
+          flush=True)
+    launches_ml, launches_ml_sep, numbers["ml"] = chime4_ml_phase(
+        root / "ml", gen, dev, card)
+    return launches_train, launches_dec, launches_ml, launches_ml_sep, \
+        shapes, pass_shapes, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3764,6 +4493,35 @@ def main() -> None:
         launches_wham, launches_wsep, launches_ftcn, _ = wham_phase(
             root / "wham", gen, dev, card)
 
+        # the multi-channel slice: chime4 1b (train_am, decode_batch with
+        # the LM, compute_wer) and chime4_ml 1a (train_ss, separate); K3's
+        # forward and K4 at the chime4 decode's shapes
+        (launches_c4, launches_c4dec, launches_ml, launches_mlsep,
+         (T_c4, k_c4), pass_c4, _) = chime4_phase(root / "chime4", gen, dev,
+                                                  card)
+        chime4_rows = {
+            "flash_attention_rel": check_rel_attention(
+                dev, gen, cases=((T_c4, 1, False, [k_c4] * CHIME4_DECODE_UTTS,
+                                  "path"),))[0],
+            "ctc_score_step": check_ctc(dev, gen, T_c4,
+                                        batches=(CHIME4_DECODE_UTTS,),
+                                        beam=16)[0]}
+        # K3's forward with lse and its backward kernels at the training
+        # pass's (B, T, k_len), held twice each
+        heads = {H for _, H, _, _, _, _, _ in pass_c4}
+        if len(heads) != 1 or {D for _, _, _, D, _, _, _ in pass_c4} != {64}:
+            fail(f"the chime4 pass handed K3 {pass_c4}")
+        bwd = check_rel_attention_bwd(
+            dev, gen, H=heads.pop(),
+            cases=[(T, Hp, causal, list(lens), "chime4")
+                   for _, _, T, _, Hp, lens, causal in pass_c4])[0]
+        chime4_rows["flash_attention_rel"] += bwd.pop("fwd")
+        for kernel, rows in bwd.items():
+            chime4_rows[f"flash_attention_rel_{kernel}"] = rows
+        for name, rows in chime4_rows.items():
+            checks[name] += rows
+            print_rows(name, rows, card)
+
     kernels = []
     for name, rows in checks.items():
         source, replaces = KERNELS[name]
@@ -3822,6 +4580,11 @@ def main() -> None:
                 {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
                  "plain_ms": r[3], "bound_ms": r[4]}
                 for r in recipe_rows[name]]
+        if name in chime4_rows:
+            extra["chime4_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
+                for r in chime4_rows[name]]
         if name == "ctc_score_step":
             extra.update(ms_queued=ctc_queued,
                          long_form_ms_queued=long_queued,
@@ -3859,6 +4622,10 @@ def main() -> None:
             "launches_train_ss_wham": launches_wham[name],
             "launches_separate_wham": launches_wsep[name],
             "launches_freq_tcn": launches_ftcn[name],
+            "launches_chime4_train_run": launches_c4[name],
+            "launches_chime4_decode": launches_c4dec[name],
+            "launches_chime4_ml_train": launches_ml[name],
+            "launches_chime4_ml_separate": launches_mlsep[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,

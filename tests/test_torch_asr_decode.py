@@ -303,7 +303,10 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "asr.beam_search.lm", "loader.lm.utt", "loader.lm.bptt",
                 "tokenizer.subword", "tokenizer.bpe", "metric.asr",
                 "metric.reporter", "transform.enh", "sse.toy", "metric.sse",
-                "metric.stoi", "cmd.compute_ss_metric"):
+                "metric.stoi", "cmd.compute_ss_metric", "cplx",
+                "asr.base.encoder", "asr.filter.conv", "asr.filter.google",
+                "asr.filter.mvdr", "asr.enh_att", "sse.unsuper.rnn",
+                "task.ml"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

@@ -204,14 +204,22 @@ def test_enh_transform_matches_jax(conf):
     assert ttr.num_frames(6000) == jax_call(jtr.num_frames, 6000)
 
 
-def test_enh_transform_refuses_the_multi_channel_front_end():
+def test_enh_transform_refuses_the_multi_channel_front_end(tmp_path):
+    """The multi-channel front end is ported (tests/test_torch_multichannel.py
+    holds it against aps_tpu); what aps_tpu refuses of it, the port
+    refuses: IPD features of one channel, an array geometry other than
+    "7@", a beam bank whose file holds another number of beams; and an
+    unknown task context."""
     from aps_tpu_torch.transform import enh
-    with pytest.raises(NotImplementedError, match="item 14"):
-        aps_transform("enh")(feats="spectrogram-log-cmvn-ipd",
-                             ipd_index="1,0")
-    for cls in (enh.DfTransform, enh.FixedBeamformer):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            cls()
+    ipd = aps_transform("enh")(feats="spectrogram-log-cmvn-ipd",
+                               ipd_index="1,0")
+    with pytest.raises(ValueError, match="channel"):
+        ipd(torch.zeros((2, 1, 257, 4), dtype=torch.complex64))
+    with pytest.raises(RuntimeError, match="geometric"):
+        enh.DfTransform(geometric="4@")
+    np.save(tmp_path / "w.npy", np.zeros((2, 3, 4, 257), np.float32))
+    with pytest.raises(RuntimeError, match="Beam number mismatch"):
+        enh.FixedBeamformer(5, 4, 257, weight=str(tmp_path / "w.npy"))
     with pytest.raises(ValueError, match="Unknown task context"):
         aps_transform("enh")().ctx("mvdr")
 
