@@ -144,9 +144,10 @@ class StackedLSTMWithState(nn.Module):
     def output_size(self) -> int:
         return self.proj_size if self.proj_size > 0 else self.hidden
 
-    def init_state(self, batch: int, device=None) -> Tuple:
+    def init_state(self, batch: int, device=None, dtype=None) -> Tuple:
         """Zero carried state (lstm: (c, h) a layer; gru/rnn: h)."""
-        zero = lambda: torch.zeros(batch, self.hidden, device=device)
+        zero = lambda: torch.zeros(batch, self.hidden, device=device,
+                                   dtype=dtype)
         if self.rnn_type == "lstm":
             return tuple((zero(), zero()) for _ in range(self.num_layers))
         return tuple(zero() for _ in range(self.num_layers))
@@ -154,7 +155,8 @@ class StackedLSTMWithState(nn.Module):
     def forward(self, inp: torch.Tensor,
                 state: Optional[Tuple] = None) -> Tuple[torch.Tensor, Tuple]:
         if state is None:
-            state = self.init_state(inp.shape[0], device=inp.device)
+            state = self.init_state(inp.shape[0], device=inp.device,
+                                    dtype=inp.dtype)
         new_state = []
         out = inp
         for i in range(self.num_layers):

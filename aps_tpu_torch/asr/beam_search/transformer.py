@@ -3,13 +3,14 @@
 aps_tpu/asr/beam_search/transformer.py: beam_search, greedy_search,
 beam_search_batch, _search_core), with LM shallow fusion.
 
-One search over N*K flat (utterance x beam) lanes (N = 1 for the
-single-utterance beam_search). With an LM adapter (asr/beam_search/lm.py)
-the LM steps on the previous token every step, lm_weight x its log-softmax
-is added on the candidates (with CTC) or on the whole vocabulary (without),
-and its state is reordered with the parents' lanes and kept on frozen
-ones, as the search's own state is. Differences from the JAX package, all
-deliberate:
+One search over N*K flat (utterance x beam) lanes (N = 1 for the single-
+utterance beam_search): search_one, search_batch and _search_core, which the
+RNN decoder's search (att.py) shares with its own decoder steps. With an LM
+adapter (asr/beam_search/lm.py) the LM steps on the previous token every step,
+lm_weight x its log-softmax is added on the candidates (with CTC) or on the
+whole vocabulary (without), and its state is reordered with the parents' lanes
+and kept on frozen ones, as the search's own state is. Differences from the
+JAX package, all deliberate:
   * the compiled lax.while_loop is a Python loop that stops when every
     utterance is done (or stalled under end detection) or at max_len; the
     stop test reads one flag from the device per step;
@@ -29,13 +30,12 @@ import numpy as np
 import torch
 
 from aps_tpu_torch.const import MIN_F32
-from aps_tpu_torch.asr.beam_search.att import _per_utt, segmented_topk
 from aps_tpu_torch.asr.beam_search.ctc import CtcScorer, CtcScoreState
 from aps_tpu_torch.asr.beam_search.lm import LmAdapter
 from aps_tpu_torch.asr.beam_search.utils import (BeamSearchParam, BeamState,
                                                  apply_eos_threshold,
                                                  disable_unk, extract_nbest,
-                                                 init_beam_state,
+                                                 init_beam_state, map_beam,
                                                  mask_finished_scores,
                                                  stack_padded)
 
@@ -59,26 +59,81 @@ def _select(act_lane: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
     return torch.where(act_lane.reshape(shape), new, old)
 
 
-def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
-                 ctc_out: Optional[torch.Tensor], param: BeamSearchParam,
-                 max_len: int, lm: Optional[LmAdapter] = None) -> BeamState:
-    """enc_out N x T x D, enc_len N, ctc_out N x T x V or None, lm an LM
-    adapter or None -> final BeamState over N*K lanes."""
+class _XfmrSteps(object):
+    """The transformer decoder's side of a search over N*K lanes:
+    incremental steps against per-layer history caches, the encoder's
+    cross-attention K/V projected once an utterance and read beam-shared
+    (the attention folds the K beams). It keeps no alignment for a
+    coverage."""
+    coverage = False
+
+    def __init__(self, nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
+                 K: int, max_len: int):
+        self.nnet, self.enc_out = nnet, enc_out
+        self.enc_len = enc_len.repeat_interleave(K)
+        self.cache = nnet.decode_init_cache(enc_out.shape[0] * K, max_len,
+                                            device=enc_out.device)
+        self.mem_kv = nnet.decode_prep_kv(enc_out)
+
+    def step(self, tok_prev: torch.Tensor, t: int) -> torch.Tensor:
+        pred, self.cache = self.nnet.decode_step_inc(
+            self.enc_out, tok_prev, self.cache, t, enc_len=self.enc_len,
+            mem_kv=self.mem_kv)
+        return pred
+
+    def reorder(self, beam_idx: torch.Tensor) -> None:
+        # a frozen utterance never resumes, so its cache rows (updated in
+        # place at column t) are never read again
+        self.cache = self.cache[:, beam_idx]
+
+
+def segmented_topk(total: torch.Tensor, cand: Optional[torch.Tensor],
+                   num_utts: int, K: int):
+    """Per-utterance top-K beam selection over flat lanes.
+    total: (N*K, C) fused scores; cand: (N*K, C) candidate token ids (or
+    None -> token id = column index). Returns (score, beam_idx, tok,
+    flat_idx), flat (N*K,) each: global lane indices of the parents, the
+    chosen tokens and indices into the per-utterance K*C candidate axis
+    for scorer-state gathers."""
+    N = num_utts
+    C = total.shape[-1]
+    score_u, idx_u = torch.topk(total.reshape(N, K * C), K, dim=-1)
+    base = torch.arange(N, device=total.device)[:, None]
+    beam_idx = (base * K + idx_u // C).reshape(-1)
+    if cand is None:
+        tok = (idx_u % C).reshape(-1)
+    else:
+        tok = torch.gather(cand.reshape(N, K * C), 1, idx_u).reshape(-1)
+    flat_idx = (base * (K * C) + idx_u).reshape(-1)
+    return score_u.reshape(-1), beam_idx, tok, flat_idx
+
+
+def _per_utt(x: torch.Tensor, num_utts: int, reduce) -> torch.Tensor:
+    """Reduce a flat (N*K,) lane vector per utterance -> (N,)."""
+    return reduce(x.reshape(num_utts, -1), dim=1)
+
+
+def _search_core(dec, N: int, T: int, ctc_out: Optional[torch.Tensor],
+                 param: BeamSearchParam, max_len: int,
+                 lm: Optional[LmAdapter] = None,
+                 device=None) -> BeamState:
+    """The search over N*K flat lanes of N utterances of T encoder frames.
+    dec is the decoder's side (_XfmrSteps, att._RnnSteps): step(tok_prev,
+    t) -> logits lanes x V, reorder(beam_idx) to the parents' lanes, and
+    (with `coverage`) alignment(), lanes x T, read after a step for the
+    coverage when cov_penalty > 0. ctc_out N x T x V or None, lm an LM
+    adapter or None -> final BeamState."""
     K = param.beam_size
-    N = enc_out.shape[0]
-    dev = enc_out.device
+    dev = device
     lanes = N * K
-    enc_len_tiled = enc_len.repeat_interleave(K)
     use_ctc = param.ctc_weight > 0 and ctc_out is not None
+    use_cov = param.cov_penalty > 0
     scorer = CtcScorer(ctc_out, eos=param.eos, beam_size=K) \
         if use_ctc else None
-    state = init_beam_state(K, max_len, param.sos, num_utts=N, device=dev)
+    state = init_beam_state(K, max_len, param.sos, num_utts=N, device=dev,
+                            num_frames=T if use_cov else -1)
     ctc_state = scorer.init_state() if use_ctc else None
     lm_state = lm.init_state(lanes, device=dev) if lm is not None else None
-    cache = nnet.decode_init_cache(lanes, max_len, device=dev)
-    # cross-attention K/V projected once per UTTERANCE and read
-    # beam-shared by every step (the attention folds the K beams)
-    mem_kv = nnet.decode_prep_kv(enc_out)
     best_done = torch.full((N,), MIN_F32, device=dev)
     last_improve = torch.zeros(N, dtype=torch.int64, device=dev)
 
@@ -95,9 +150,7 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
         if not bool(act.any()):
             break
         tok_prev = state.tokens[:, t]
-        pred, new_cache = nnet.decode_step_inc(enc_out, tok_prev, cache, t,
-                                               enc_len=enc_len_tiled,
-                                               mem_kv=mem_kv)
+        pred = dec.step(tok_prev, t)
         am_prob = torch.log_softmax(pred.float() / param.temperature, -1)
         V = am_prob.shape[-1]
         new_ctc = new_lm = None
@@ -138,10 +191,17 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
         tokens[:, t + 1] = torch.where(prev_done, tokens[:, t + 1], tok)
         length = state.length[beam_idx] + (~prev_done).to(torch.int32)
         done = prev_done | (tok == param.eos)
+        coverage = None
+        if use_cov:
+            # as aps_tpu: the step's alignment of lane i is added to the
+            # coverage of lane i's parent, beam_idx[i], before the
+            # alignments follow their parents
+            coverage = state.coverage[beam_idx] + torch.where(
+                prev_done[:, None], 0.0, dec.alignment())
         new_state = BeamState(tokens=tokens, score=flat_score, done=done,
-                              length=length)
-        # carry the history of the selected parent beams
-        new_cache = new_cache[:, beam_idx]
+                              length=length, coverage=coverage)
+        # carry the decoder state of the selected parent beams
+        dec.reorder(beam_idx)
         if lm is not None:
             new_lm = lm.reorder(new_lm, beam_idx)
         cur_best = _per_utt(torch.where(done, flat_score, MIN_F32), N,
@@ -151,8 +211,8 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
             # freeze utterances that had already stopped: a stalled
             # utterance still has live beams
             act_lane = act.repeat_interleave(K)
-            new_state = BeamState(*(_select(act_lane, n, o)
-                                    for n, o in zip(new_state, state)))
+            new_state = map_beam(lambda n, o: _select(act_lane, n, o),
+                                 new_state, state)
             if use_ctc:
                 new_ctc = CtcScoreState(
                     _select(act_lane, new_ctc.gamma_n, ctc_state.gamma_n,
@@ -162,75 +222,76 @@ def _search_core(nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
                     _select(act_lane, new_ctc.score, ctc_state.score))
             if lm is not None:
                 new_lm = lm.select(act_lane, new_lm, lm_state)
-            # a frozen utterance never resumes, so its cache rows (updated
-            # in place at column t) are never read again
+            # a frozen utterance never resumes, so the decoder's state of
+            # its lanes is never read again
             improved = improved & act
         best_done = torch.where(improved, torch.maximum(best_done, cur_best),
                                 best_done)
         last_improve = torch.where(improved, t, last_improve)
-        state, ctc_state, cache = new_state, new_ctc, new_cache
+        state, ctc_state = new_state, new_ctc
         lm_state = new_lm
     return state
 
 
-def _check_param(dtype: str, param: BeamSearchParam) -> None:
+def _check_param(dtype: str, param: BeamSearchParam, steps) -> None:
     if dtype != "float32":
         raise NotImplementedError("bfloat16 decoding is not ported yet")
-    if param.cov_penalty > 0:
+    if param.cov_penalty > 0 and not steps.coverage:
         raise NotImplementedError("the transformer search keeps no "
                                   "attention weights for a coverage penalty")
 
 
-def beam_search(nnet, x, lm: Optional[LmAdapter] = None, sos: int = -1,
-                eos: int = -1, beam_size: int = 8, nbest: int = 1,
-                max_len: int = -1, dtype: str = "float32", device=None,
-                **kwargs) -> List[Dict]:
-    """Single-utterance beam search. x: a waveform, S samples or C x S for
-    a multi-channel model (numpy or tensor).
-    max_len as aps_tpu's: at most min(param.max_len, T) steps when not
-    given, else the given number (capped at param.max_len only)."""
+def _nbest_lists(final: BeamState, param: BeamSearchParam, nbest: int,
+                 num_utts: int) -> List[List[Dict]]:
+    final = map_beam(lambda x: x.cpu().numpy(), final)
+    K = param.beam_size
+    return [extract_nbest(map_beam(lambda x: x[b * K:(b + 1) * K], final),
+                          param, nbest, final=True)
+            for b in range(num_utts)]
+
+
+def search_one(steps, nnet, x, lm: Optional[LmAdapter] = None,
+               sos: int = -1, eos: int = -1, beam_size: int = 8,
+               nbest: int = 1, max_len: int = -1, dtype: str = "float32",
+               device=None, **kwargs) -> List[Dict]:
+    """Single-utterance search with the decoder's steps class `steps`
+    (_XfmrSteps, att._RnnSteps). x: a waveform, S samples or C x S for a
+    multi-channel model (numpy or tensor). max_len as aps_tpu's: at most
+    min(param.max_len, T) steps when not given, else the given number
+    (capped at param.max_len only)."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
-    _check_param(dtype, param)
+    _check_param(dtype, param, steps)
     if device is None:
         device = next(nnet.parameters()).device
     with torch.inference_mode():
         x = torch.as_tensor(np.asarray(x, dtype=np.float32),
                             device=device)[None]
-        enc_out, enc_len, ctc_out = nnet.decode_enc(x)
+        enc_out, _, ctc_out = nnet.decode_enc(x)
         T = enc_out.shape[1]
         if max_len <= 0:
             max_len = min(param.max_len, T)
         max_len = min(max_len, param.max_len)
         use_ctc = param.ctc_weight > 0 and ctc_out is not None
         enc_len = torch.full((1,), T, dtype=torch.int64, device=device)
-        final = _search_core(nnet, enc_out, enc_len,
-                             ctc_out if use_ctc else None, param, max_len,
-                             lm=lm)
-    final = BeamState(*(x.cpu().numpy() for x in final))
-    return extract_nbest(final, param, nbest, final=True)
+        final = _search_core(
+            steps(nnet, enc_out, enc_len, beam_size, max_len), 1, T,
+            ctc_out if use_ctc else None, param, max_len, lm=lm,
+            device=device)
+    return _nbest_lists(final, param, nbest, 1)[0]
 
 
-def greedy_search(nnet, x, sos: int = -1, eos: int = -1,
-                  **kwargs) -> List[Dict]:
-    """beam_search with one beam and one hypothesis."""
-    kwargs.pop("beam_size", None)
-    kwargs.pop("nbest", None)
-    return beam_search(nnet, x, sos=sos, eos=eos, beam_size=1, nbest=1,
-                       **kwargs)
-
-
-def beam_search_batch(nnet, batch: List, lm: Optional[LmAdapter] = None,
-                      sos: int = -1, eos: int = -1, beam_size: int = 8,
-                      nbest: int = 1, max_len: int = -1, pad_to: int = -1,
-                      dtype: str = "float32", device=None,
-                      **kwargs) -> List[List[Dict]]:
-    """Batched transformer-decoder beam search over N*K flat lanes, with
-    LM shallow fusion when lm (an adapter on the same device) is given.
-    batch: list of waveforms, S or C x S (numpy; stack_padded pads the
-    sample axis). Returns one nbest list
-    per utterance. The models must be in eval mode on `device`."""
+def search_batch(steps, nnet, batch: List, lm: Optional[LmAdapter] = None,
+                 sos: int = -1, eos: int = -1, beam_size: int = 8,
+                 nbest: int = 1, max_len: int = -1, pad_to: int = -1,
+                 dtype: str = "float32", device=None,
+                 **kwargs) -> List[List[Dict]]:
+    """Batched search over N*K flat lanes with the decoder's steps class
+    `steps`, with LM shallow fusion when lm (an adapter on the same
+    device) is given. batch: list of waveforms, S or C x S (numpy;
+    stack_padded pads the sample axis). Returns one nbest list per
+    utterance. The models must be in eval mode on `device`."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
-    _check_param(dtype, param)
+    _check_param(dtype, param, steps)
     if device is None:
         device = next(nnet.parameters()).device
     with torch.inference_mode():
@@ -251,11 +312,23 @@ def beam_search_batch(nnet, batch: List, lm: Optional[LmAdapter] = None,
             ctc_out = torch.where(tmask[..., None], ctc_out, pad_logits)
         else:
             ctc_out = None
-        final = _search_core(nnet, enc_out, enc_len, ctc_out, param, ml,
-                             lm=lm)
-    final = BeamState(*(x.cpu().numpy() for x in final))
-    K = param.beam_size
-    return [
-        extract_nbest(BeamState(*(x[b * K:(b + 1) * K] for x in final)),
-                      param, nbest, final=True) for b in range(len(batch))
-    ]
+        final = _search_core(steps(nnet, enc_out, enc_len, beam_size, ml),
+                             enc_out.shape[0], T, ctc_out, param, ml, lm=lm,
+                             device=device)
+    return _nbest_lists(final, param, nbest, len(batch))
+
+
+def beam_search(nnet, x, **kwargs) -> List[Dict]:
+    """Single-utterance transformer-decoder beam search (search_one)."""
+    return search_one(_XfmrSteps, nnet, x, **kwargs)
+
+
+def greedy_search(nnet, x, **kwargs) -> List[Dict]:
+    """beam_search with one beam and one hypothesis."""
+    kwargs.update(beam_size=1, nbest=1)
+    return beam_search(nnet, x, **kwargs)
+
+
+def beam_search_batch(nnet, batch: List, **kwargs) -> List[List[Dict]]:
+    """Batched transformer-decoder beam search (search_batch)."""
+    return search_batch(_XfmrSteps, nnet, batch, **kwargs)

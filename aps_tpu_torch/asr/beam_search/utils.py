@@ -8,11 +8,14 @@ lane u*K + k = beam k of utterance u:
   score   lanes          accumulated log-prob (frozen once ended)
   done    lanes          ended-with-eos flags
   length  lanes          emitted tokens (eos included once ended)
+  coverage lanes x T     the attention summed over the steps (the RNN
+                         decoder's search with cov_penalty > 0; zeros
+                         otherwise, None in the transformer search)
 Finished hypotheses stay in the beam with a forced eos-only continuation,
 so the final beam is the nbest list."""
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,8 +28,9 @@ class BeamSearchParam(object):
     """Knobs of the beam search (names match aps_tpu). approx_topk and
     ctc_fused are TPU options kept for config parity: the port always takes
     the exact torch.topk, and on CUDA always the CTC kernel. The coverage
-    knobs (cov_*) belong to attention-weight searches; the transformer
-    search keeps no attention weights and refuses cov_penalty > 0."""
+    knobs (cov_*) belong to the RNN decoder's search (its alignments);
+    the transformer search keeps no attention weights and refuses
+    cov_penalty > 0."""
     beam_size: int = 8
     sos: int = 1
     eos: int = 2
@@ -54,10 +58,20 @@ class BeamState(NamedTuple):
     score: torch.Tensor     # lanes
     done: torch.Tensor      # lanes bool
     length: torch.Tensor    # lanes int32
+    coverage: Optional[torch.Tensor] = None  # lanes x T
+
+
+def map_beam(fn, state: BeamState, *others: BeamState) -> BeamState:
+    """fn over a BeamState's fields (with the same field of each of
+    others); a field that is None stays None."""
+    return BeamState(*(None if x is None else fn(x, *(o[i] for o in others))
+                       for i, x in enumerate(state)))
 
 
 def init_beam_state(beam_size: int, max_len: int, sos: int,
-                    num_utts: int = 1, device=None) -> BeamState:
+                    num_utts: int = 1, device=None,
+                    num_frames: int = -1) -> BeamState:
+    """num_frames >= 0: a zero coverage of that many frames a lane."""
     lanes = num_utts * beam_size
     tokens = torch.full((lanes, max_len + 1), sos, dtype=torch.int64,
                         device=device)
@@ -68,7 +82,9 @@ def init_beam_state(beam_size: int, max_len: int, sos: int,
                      score=score,
                      done=torch.zeros(lanes, dtype=torch.bool, device=device),
                      length=torch.zeros(lanes, dtype=torch.int32,
-                                        device=device))
+                                        device=device),
+                     coverage=None if num_frames < 0 else torch.zeros(
+                         lanes, num_frames, device=device))
 
 
 def mask_finished_scores(fusion: torch.Tensor, done: torch.Tensor,
@@ -102,6 +118,20 @@ def disable_unk(fusion: torch.Tensor, unk: int) -> torch.Tensor:
     return fusion
 
 
+def coverage_score(coverage: np.ndarray, param: BeamSearchParam
+                   ) -> np.ndarray:
+    """The coverage term of each lane (lanes x T coverage): cov_penalty x
+    the count of frames above cov_threshold (v1) or x the sum of
+    log(min(coverage, cov_threshold)) (v2). A frame no step attended to
+    (a padded one) gives log 0 = -inf under v2, as in aps_tpu."""
+    if param.cov_method == "v2":
+        with np.errstate(divide="ignore"):
+            cov = np.log(np.minimum(coverage, param.cov_threshold))
+    else:
+        cov = (coverage > param.cov_threshold).astype(np.float32)
+    return param.cov_penalty * np.sum(cov, -1)
+
+
 def extract_nbest(state: BeamState, param: BeamSearchParam, nbest: int,
                   final: bool = True) -> List[Dict]:
     """nbest hypothesis list from a final beam of host (numpy) arrays."""
@@ -109,6 +139,8 @@ def extract_nbest(state: BeamState, param: BeamSearchParam, nbest: int,
     score = np.asarray(state.score)
     done = np.asarray(state.done)
     length = np.asarray(state.length)
+    cov = coverage_score(np.asarray(state.coverage), param) \
+        if param.cov_penalty > 0 else np.zeros_like(score)
     hyps = []
     for k in range(tokens.shape[0]):
         if score[k] <= MIN_F32 / 2:
@@ -122,7 +154,7 @@ def extract_nbest(state: BeamState, param: BeamSearchParam, nbest: int,
         seq_len = max(len(seq) - 1, 1)
         if seq_len < param.min_len + 1:
             continue
-        s = float(score[k]) + seq_len * param.len_penalty
+        s = float(score[k]) + seq_len * param.len_penalty + float(cov[k])
         hyps.append({
             "score": s / (seq_len if param.len_norm else 1),
             "trans": seq,

@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Multi-channel enhancement front end + attention-based AM (port of
-aps_tpu/asr/enh_att.py: get_enh_net, EnhASRMixin and EnhXfmrASR,
-registered "asr@enh_xfmr"; "asr@enh_att" raises until the port has
-AttASR).
+aps_tpu/asr/enh_att.py: get_enh_net, EnhASRMixin, EnhAttASR registered
+"asr@enh_att" and EnhXfmrASR registered "asr@enh_xfmr").
 
 The enh transform makes the complex64 STFT of the N x C x S waveforms
 (and, for the MVDR front ends, the mask network's features); the front end
@@ -23,7 +22,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from aps_tpu_torch.asr.att import XfmrASR
+from aps_tpu_torch.asr.att import AttASR, XfmrASR
 from aps_tpu_torch.asr.filter.conv import EnhFrontEnds
 # register the mvdr / google front ends
 import aps_tpu_torch.asr.filter.google  # noqa: F401
@@ -114,10 +113,36 @@ class EnhXfmrASR(XfmrASR, EnhASRMixin):
 
 
 @ApsRegisters.asr.register("asr@enh_att")
-class EnhAttASR(nn.Module):
-    """aps_tpu's AttASR behind the front end: not ported yet."""
+class EnhAttASR(AttASR, EnhASRMixin):
+    """AttASR behind a multi-channel enhancement front end: x_pad is
+    N x C x S."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "asr@enh_att needs AttASR (the RNN attention decoder), which "
-            "is not ported yet: ROADMAP.md Queue 1 item 11(b)")
+    def __init__(self,
+                 asr_input_size: int = 80,
+                 enh_input_size: Optional[int] = None,
+                 enh_transform: Optional[nn.Module] = None,
+                 enh_type: str = "google_clp",
+                 enh_kwargs: Optional[Dict] = None,
+                 asr_cpt: str = "",
+                 **kwargs):
+        # asr_input_size and asr_cpt are read by neither package
+        super(EnhAttASR, self).__init__(**kwargs)
+        self._setup_enh(enh_transform, enh_type, enh_kwargs, enh_input_size)
+
+    def forward(self, x_pad, x_len, y_pad, y_len, ssr=0, coins=None):
+        """x_pad: N x C x S -> (dec_out, enc_ctc, enc_len)"""
+        x_enh, x_len = self._enhance(x_pad, x_len)
+        enc_out, enc_len = self.encoder(x_enh, x_len)
+        enc_ctc = self.ctc_head(enc_out) if self.ctc_head is not None \
+            else enc_out
+        dec_out, _ = self.decoder(enc_out, enc_len, y_pad,
+                                  schedule_sampling=ssr, coins=coins)
+        return dec_out, enc_ctc, enc_len
+
+    def decode_enc(self, x, x_len=None):
+        """x: N x C x S -> (enc_out, enc_len, ctc logits or None)"""
+        x_enh, x_len = self._enhance(x, x_len)
+        enc_out, enc_len = self.encoder(x_enh, x_len)
+        ctc_out = self.ctc_head(enc_out) if self.ctc_head is not None \
+            else None
+        return enc_out, enc_len, ctc_out

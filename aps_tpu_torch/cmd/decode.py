@@ -23,10 +23,13 @@ ARPA file; a kenlm binary needs kenlm): a wide search without fusion
 x its n-gram log-probability, then sorted again, as aps_tpu does. The body
 runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored after.
 It decodes on the card (--device-id picks which) and raises when torch
-sees none; --device cpu asks for the CPU. A multi-channel model
-(asr@enh_xfmr) decodes C x S utterances, which --channel -1 (the default,
-as in aps_tpu) reads. A checkpoint that takes
-features rather than waveforms raises NotImplementedError: reading
+sees none; --device cpu asks for the CPU. asr@att and asr@enh_att decode
+through the RNN decoder's search (asr/beam_search/att.py), asr@xfmr and
+asr@enh_xfmr through the transformer's; asr@ctc (aps_tpu's CtcApi prefix
+search) is not ported yet. A multi-channel model (asr@enh_xfmr,
+asr@enh_att) decodes C x S utterances, which --channel -1 (the default,
+as in aps_tpu) reads. A checkpoint that takes features rather than
+waveforms raises NotImplementedError: reading
 feature archives (loader/kaldi_io.py) is not ported yet."""
 
 import argparse
@@ -67,10 +70,13 @@ class FasterDecoder(NnetEvaluator):
                                             device=device,
                                             device_id=device_id)
         name = self.conf["nnet"]
-        if name not in ("asr@xfmr", "asr@enh_xfmr"):
+        if name in ("asr@att", "asr@enh_att"):
+            from aps_tpu_torch.asr.beam_search import att as api
+        elif name in ("asr@xfmr", "asr@enh_xfmr"):
+            from aps_tpu_torch.asr.beam_search import transformer as api
+        else:
             raise NotImplementedError(f"decoding {name} is not ported yet")
-        from aps_tpu_torch.asr.beam_search import transformer
-        self.api = transformer
+        self.api = api
         self.function = function
         self.sos = self.conf["nnet_conf"].get("sos", -1)
         self.eos = self.conf["nnet_conf"].get("eos", -1)

@@ -38,6 +38,13 @@ layout rule of each leaf follows the module that owns it:
                  name and shape; one that is None (a ScaleLinear without
                  scale) has no leaf
 
+The RNN attention model needs no rule of its own either: its encoders'
+layers keep aps_tpu's names (enc_list_<i>, layer_<i>, fsmn_<i> with
+inp_proj, the depthwise ctx_conv (P, 1, W) <-> (W, 1, P) and out_proj),
+its decoder's too (vocab_embed, decoder, att_net, proj, pred), a location
+filter F is a Conv1d (the grouped one of mhloc too) and the multi-head
+score weight w (H, D) a jax_params leaf.
+
 The multi-channel front ends need no rule of their own: an RNN mask
 network (enh_net/mask_net, the encoder's proj, impl and outp) is Linear
 layers and recurrent layers, the MVDR's reference attention
@@ -61,7 +68,7 @@ from torch import nn
 MODULE_NAMES = {
     "conv_encoder": "Conv2dEncoder_0",
     "conv": "Conv_0",
-    "norm2d": "Normalize2d_0/BatchNorm_0",
+    "norm2d": "Normalize2d_0",
     "linear1": "Dense_0",
     "linear2": "Dense_1",
     "embed": "Embed_0",
@@ -86,6 +93,8 @@ MODULE_NAMES = {
     # a SingleRNN's torch layer: its flax cells are the SingleRNN's own
     # children (aps_tpu_torch/asr/base/rnn.py)
     "cells": "",
+    # a VariantRNN's recurrent layer (aps_tpu: an unnamed SingleRNN)
+    "single_rnn": "SingleRNN_0",
 }
 _BN = (nn.BatchNorm1d, nn.BatchNorm2d)
 

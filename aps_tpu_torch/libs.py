@@ -2,8 +2,8 @@
 """Registries of the port, keyed by the same names as aps_tpu/libs.py.
 
 Only what the port has so far is registered: the "asr" and "enh"
-transforms, the "asr@xfmr", "asr@enh_xfmr", "asr@enh_att" (which raises:
-it needs AttASR), "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
+transforms, the "asr@xfmr", "asr@att", "asr@ctc", "asr@enh_xfmr",
+"asr@enh_att", "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
 "sse@freq_tcn", "sse@base_rnn" and "sse@rnn_enh_ml" models, the
 "asr@ctc_xent", "asr@ctc", "asr@lm", "sse@sisnr", "sse@snr", "sse@wa",
 "sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
@@ -12,13 +12,17 @@ it needs AttASR), "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
 the "word", "char" and "subword" tokenizers; the multi-channel front ends
 "rnn_mask_mvdr", "time_invar", "time_invar_att", "time_variant" and
 "google_clp" are in their own registry, aps_tpu_torch.asr.filter.conv.
-EnhFrontEnds ("enh_filter", as in aps_tpu). Registration happens
+EnhFrontEnds ("enh_filter", as in aps_tpu), the encoders in
+aps_tpu_torch.asr.base.encoder.BaseEncoder, the decoder attentions in
+aps_tpu_torch.asr.base.attention.AsrAtt and the schedule-sampling
+schedulers in aps_tpu_torch.trainer.ss.SsScheduler. Registration happens
 when the defining module is imported; the factory functions import them on
 first use."""
 
 import importlib
 
-ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.enh_att",
+ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.ctc",
+                  "aps_tpu_torch.asr.enh_att",
                   "aps_tpu_torch.asr.lm.rnn",
                   "aps_tpu_torch.asr.lm.transformer"]
 SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",

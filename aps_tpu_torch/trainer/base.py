@@ -28,11 +28,18 @@ not read it.
 
 The trainer owns a torch.Generator on its device, seeded from `seed`, and
 hands it to every module of the task with a `generator` attribute (the
-feature transform's speed perturbation and SpecAugment draw from it).
+feature transform's speed perturbation and SpecAugment draw from it, and
+the RNN decoder its schedule-sampling coins).
 
-Not ported yet, and refused when asked for: schedule sampling, weight
-noise, tensorboard, profiling, tensor/sequence parallelism and a pipeline
-depth."""
+Schedule sampling (ss_scheduler with ss_scheduler_kwargs, the schedulers
+of aps_tpu_torch/trainer/ss.py) as in aps_tpu: the rate ssr starts at 0,
+after each validation it becomes the scheduler's step(epoch, accu) (accu
+in percent, as the reporter gives it), and the training steps hand it to
+the task as egs["#ssr"]. It is not kept in a checkpoint, so a resumed run
+trains at 0 until its first validation, as aps_tpu's does.
+
+Not ported yet, and refused when asked for: weight noise, tensorboard,
+profiling, tensor/sequence parallelism and a pipeline depth."""
 
 import math
 import pickle
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from aps_tpu_torch.trainer.lr import LrScheduler
+from aps_tpu_torch.trainer.ss import SsScheduler
 from aps_tpu_torch.utils import (TF32_PRECISIONS, SimpleTimer, get_logger,
                                  matmul_precision)
 
@@ -234,7 +242,6 @@ class ErrorDetector(object):
 # trainer_conf keys of aps_tpu that the port refuses unless left at the
 # value that turns them off
 _UNPORTED = {
-    "ss_scheduler_kwargs": None,
     "weight_noise_std": None,
     "tensorboard": False,
     "profile": "",
@@ -243,7 +250,7 @@ _UNPORTED = {
     "pipeline_depth": 1,
 }
 # accepted without effect: they only tune options refused above
-_TUNES_UNPORTED = ("ss_scheduler", "weight_noise_cfg", "profile_steps")
+_TUNES_UNPORTED = ("weight_noise_cfg", "profile_steps")
 class Trainer(object):
     """Owns the scheduler, reporter, checkpoint IO and the epoch loops; the
     step is the subclass's (train_one_step / valid_one_step)."""
@@ -257,6 +264,8 @@ class Trainer(object):
                  lr_scheduler: str = "reduce_lr",
                  lr_scheduler_kwargs: Optional[Dict] = None,
                  lr_scheduler_period: str = "epoch",
+                 ss_scheduler: str = "const",
+                 ss_scheduler_kwargs: Optional[Dict] = None,
                  clip_gradient: Optional[float] = None,
                  acmu_gradient: int = 1,
                  prog_interval: int = 100,
@@ -304,6 +313,7 @@ class Trainer(object):
         self.acmu_gradient = acmu_gradient
         self.cur_epoch = 0
         self.cur_step = 0
+        self.ssr = 0
         self.save_interval = 1 if average_checkpoint > 1 else save_interval
         self.seed = int(seed)
         self.generator = torch.Generator(device=self.device)
@@ -336,6 +346,16 @@ class Trainer(object):
             raise ValueError(f"Unsupported lr scheduler: {lr_scheduler}")
         self.lr_scheduler = LrScheduler[lr_scheduler](lr=lr0, **lr_kwargs)
         self.lr_scheduler_period = lr_scheduler_period
+
+        self.ss_scheduler = None
+        if ss_scheduler_kwargs:
+            if ss_scheduler not in SsScheduler:
+                raise ValueError(f"Unsupported ss scheduler: {ss_scheduler}")
+            if "accu" not in report_metrics:
+                raise ValueError("schedule sampling requires tracking accu")
+            self.ss_scheduler = SsScheduler[ss_scheduler](
+                **ss_scheduler_kwargs)
+            self.reporter.log(f"Using schedule sampling: {ss_scheduler}")
 
         # the checkpoint to resume or warm start from (applied by the
         # subclass): "resume" restores everything, "init" the weights only
@@ -429,6 +449,9 @@ class Trainer(object):
         better = self.stop_detector.step(value)
         if self.lr_scheduler_period == "epoch":
             self.lr_scheduler.step(value)
+        if self.ss_scheduler is not None:
+            self.ssr = self.ss_scheduler.step(self.cur_epoch,
+                                              reports.get("accu", 0))
         logstr += " | best" if better else \
             f" | no impr {self.stop_detector.no_impr:d}, " \
             f"best = {self.stop_detector.best:.4f}"

@@ -278,6 +278,7 @@ class DataParallelTrainer(Trainer):
 
     def train_one_step(self, egs: Dict) -> bool:
         host, dev = self._split_egs(egs)
+        dev["#ssr"] = self.ssr
         self.task.train()
         buffers = [b for b in self.task.buffers()]
         saved = [b.clone() for b in buffers]

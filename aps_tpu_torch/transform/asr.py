@@ -23,8 +23,13 @@ A string without a spectrum ("abs-mel-log-cmvn", the features of a
 multi-channel front end's enhanced magnitude) takes features N x (C) x T x F
 and their frame counts: "abs" is |x| + eps and "mel" the product with the
 mel filterbank (a fixed one, and on features only: "spectrogram-mel"
-raises). The other tokens (mfcc, delta, splice, ...) and gcmvn raise
-NotImplementedError until the port has them."""
+raises). "delta" appends delta_order orders of deltas over delta_ctx
+frames each side (edges clamped at the padded batch's ends, as in
+aps_tpu), concatenated on the feature axis, N x T x F*(order+1), or with
+delta_as_channel stacked on a new axis 1, N x (order+1) x T x F, the layout
+a channel-first conv2d encoder reads as its in_channels. feats_dim grows
+by (order+1) either way, as in aps_tpu. The other tokens (mfcc, splice,
+...) and gcmvn raise NotImplementedError until the port has them."""
 
 from typing import Optional, Tuple
 
@@ -38,7 +43,8 @@ from aps_tpu_torch.ops import fbank
 from aps_tpu_torch.transform.augment import perturb_speed, tf_mask
 from aps_tpu_torch.transform.utils import (fft_size_of, forward_stft,
                                            make_window, mel_filter,
-                                           num_frames, speed_perturb_filter)
+                                           num_frames, speed_perturb_filter,
+                                           splice_feature)
 
 
 class RescaleTransform(nn.Module):
@@ -159,6 +165,32 @@ class SpecAugTransform(nn.Module):
         return torch.where(mask == 0, x.mean(), x)
 
 
+class DeltaTransform(nn.Module):
+    """Delta features: each order is the regression over ctx frames each
+    side of the order before it."""
+
+    def __init__(self, ctx: int = 2, order: int = 2,
+                 delta_as_channel: bool = False):
+        super(DeltaTransform, self).__init__()
+        scale = torch.arange(-ctx, ctx + 1, dtype=torch.float32)
+        self.register_buffer("scale", scale / (scale**2).sum(),
+                             persistent=False)
+        self.ctx = ctx
+        self.order = order
+        self.delta_as_channel = delta_as_channel
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        """N x T x F -> N x T x F*(order+1), or N x (order+1) x T x F."""
+        delta = [feats]
+        for _ in range(self.order):
+            splice = splice_feature(delta[-1], lctx=self.ctx, rctx=self.ctx,
+                                    op="stack")
+            delta.append((splice * self.scale).sum(-1))
+        if self.delta_as_channel:
+            return torch.stack(delta, 1)
+        return torch.cat(delta, -1)
+
+
 class CmvnTransform(nn.Module):
     """Utterance-level mean/variance normalisation over time."""
 
@@ -275,6 +307,7 @@ class FeatureTransform(nn.Module):
         self.cmvn = None
         self.perturb = None
         self.specaug = None
+        self.delta = None
         # the training draws' generator (the trainer sets one on its
         # device); None draws from torch's default generator
         self.generator = None
@@ -360,6 +393,13 @@ class FeatureTransform(nn.Module):
                     freq_args=aug_freq_args,
                     maxp_time=aug_maxp_time,
                     mask_zero=aug_mask_zero)
+                self.steps.append(tok)
+            elif tok == "delta":
+                if self.delta is not None:
+                    raise NotImplementedError(f"{feats}: delta twice")
+                self.delta = DeltaTransform(ctx=delta_ctx, order=delta_order,
+                                            delta_as_channel=delta_as_channel)
+                self.feats_dim *= 1 + delta_order
                 self.steps.append(tok)
             else:
                 raise NotImplementedError(
@@ -472,6 +512,8 @@ class FeatureTransform(nn.Module):
                     feats = torch.log(torch.clamp_min(feats, self.eps))
             elif step == "cmvn":
                 feats = self.cmvn(feats, num_frames=nf)
+            elif step == "delta":
+                feats = self.delta(feats)
             elif step == "aug" and training and self.specaug.p > 0:
                 feats = self.specaug(
                     feats, self.specaug.draw(feats, self.generator))

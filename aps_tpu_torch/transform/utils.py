@@ -2,14 +2,13 @@
 """DSP helpers of the front end: windows, STFT geometry, mel matrix, frame
 counts, framing, overlap-add and the STFT and its inverse.
 
-Port of aps_tpu/transform/utils.py (init_window, fft_size_of,
-_stft_geometry, make_window, mel_filter, num_frames,
-speed_perturb_filter, frame_signal, overlap_add, forward_stft,
-inverse_stft). The coefficient tables are made with numpy, as in the JAX
-package, so both packages get the same float32 tables; num_frames takes
-ints or tensors. A spectrum is a complex64 tensor N x (C) x F x T: aps_tpu
-packs it as a real ... x 2 pair only because its TPU runtime has no
-complex64."""
+Port of aps_tpu/transform/utils.py (init_window, fft_size_of, _stft_geometry,
+make_window, mel_filter, num_frames, speed_perturb_filter, frame_signal,
+overlap_add, forward_stft, inverse_stft, splice_feature). The coefficient
+tables are made with numpy, as in the JAX package, so both packages get the
+same float32 tables; num_frames takes ints or tensors. A spectrum is a
+complex64 tensor N x (C) x F x T: aps_tpu packs it as a real ... x 2 pair only
+because its TPU runtime has no complex64."""
 
 import math
 from functools import lru_cache
@@ -140,6 +139,22 @@ def speed_perturb_filter(src_sr: int,
     weight = np.sinc(times * zeros_per_block) * window * \
         zeros_per_block / float(src_sr)
     return weight.astype(np.float32)
+
+
+def splice_feature(feats: torch.Tensor, lctx: int = 1, rctx: int = 1,
+                   op: str = "cat") -> torch.Tensor:
+    """Splice left/right context frames, the edges clamped: ... x T x F ->
+    ... x T x F*(lctx + rctx + 1) (op "cat") or ... x T x F x (lctx + rctx
+    + 1) (op "stack")."""
+    if lctx + rctx == 0:
+        return feats
+    if op not in ("cat", "stack"):
+        raise ValueError(f"Unknown op for feature splicing: {op}")
+    T = feats.shape[-2]
+    ctx = [feats.index_select(-2, torch.arange(c, c + T, device=feats.device
+                                               ).clamp(0, T - 1))
+           for c in range(-lctx, rctx + 1)]
+    return torch.cat(ctx, -1) if op == "cat" else torch.stack(ctx, -1)
 
 
 def frame_signal(wav: torch.Tensor, win_length: int,

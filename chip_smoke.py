@@ -175,9 +175,26 @@
    launched; last, K3's forward and K4 (beam 16) at the chime4 decode's
    shapes and K3's forward and backward kernels at the training pass's
    against their plain versions.
+18. The RNN attention slice (`att_phase`), examples/asr/wsj/run.sh and
+   examples/asr/timit/run.sh stages 2 and 4 with conf/1a.yaml of each as
+   written (TIMIT's schedule-sampling window patched from [10, 26] to
+   [0, 4], so that its second epoch trains at ssr 0.2): asr@att through
+   train_am on 32 seeded utterances (WSJ 8 s with 96 chars each, TIMIT
+   3 s with 36 phones) at TF32, two one-step epochs (K1 once a pass, the
+   rate of each training pass read), timed steps, one traced (K1's kernel
+   named in the trace, the TF32 flags read inside), a training pass with
+   dropouts off and the draws fed in card vs CPU with a float64 referee on
+   the CPU; decode_batch on 8 utterances of 8 s with run.sh's stage 4
+   options (WSJ: beam 16, nbest 8, ctc 0.4, the seeded char RNN LM of
+   conf/nnlm/1a.yaml at 0.6, max_len 220; TIMIT: beam 8, nbest 4, ctc 0.4,
+   max_len 80): K1 once a batch and K4 once a search step, one batch
+   traced (both kernels named), two utterances card vs CPU; K1 at the
+   decode's and a training pass's batch and K4 at the decode's T and lanes
+   (TIMIT also at T = 300) against their plain versions.
    (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14, 16 and 17 last.)
+   14, 16 and 17 last; step 18 runs first, after the builds, since its
+   traces name the kernels.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -478,7 +495,7 @@ def check_fbank(dev, model, batches):
     for path, wav in batches:
         wav = torch.as_tensor(wav).to(dev)
         N, S = wav.shape
-        label = f"N={N} S={S} M={tf.feats_dim} ({path})"
+        label = f"N={N} S={S} M={tf.mel.shape[-1]} ({path})"
         args = (wav, ops, tf.frame_hop)
         plain_args = (wav, tf.window, tf.fft_size, tf.frame_hop)
         got = fbank.fused_logmel(*args, **kw)
@@ -491,7 +508,24 @@ def check_fbank(dev, model, batches):
             fail(f"fused_logmel {label}: two launches differ")
         err = (got - want).abs().max().item()
         if not err <= TOL_LOGMEL:
-            fail(f"fused_logmel {label}: max abs err {err} > {TOL_LOGMEL}")
+            # the plain version's float32 DFT can lose a low mel band of
+            # int16-scale audio after pre-emphasis (its power lies orders
+            # below the frame's), where the kernel's float64 stages keep
+            # it: the function in float64 referees, and the kernel must be
+            # within the tolerance of it and nearer to it than the plain
+            # version
+            ref64 = fbank.fused_logmel_plain(wav.double(), *plain_args[1:],
+                                             **plain_kw).float()
+            plain_err = (want - ref64).abs().max().item()
+            err = (got - ref64).abs().max().item()
+            if not (err <= TOL_LOGMEL and err < plain_err):
+                fail(f"fused_logmel {label}: max abs err {err} from the "
+                     f"float64 function (the plain version's {plain_err}), "
+                     f"over {TOL_LOGMEL}")
+            print(f"fused_logmel [{label}]: the float32 plain version is "
+                  f"{plain_err:.3e} from the function in float64, the kernel "
+                  f"{err:.3e}", flush=True)
+            label += ", against float64"
         ms = time_ms(lambda: fbank.fused_logmel(*args, **kw))
         plain_ms = time_ms(
             lambda: fbank.fused_logmel_plain(*plain_args, **plain_kw))
@@ -4266,6 +4300,467 @@ def chime4_phase(root: Path, gen, dev, card):
         shapes, pass_shapes, numbers
 
 
+# the RNN attention slice: examples/asr/wsj/run.sh stages 2 and 4 with
+# conf/1a.yaml as written (asr@att: conv2d on the three delta orders as
+# channels -> 3 x 512 BLSTM, ctx attention, a 2 x 512 input-feeding LSTM
+# decoder, asr@ctc_xent, Adam, clip 5, TF32) and the char RNN LM of
+# conf/nnlm/1a.yaml (seeded) at 0.6; examples/asr/timit/run.sh stages 2
+# and 4 with conf/1a.yaml as written but for one patch, its schedule
+# sampling's window (variant_rnn 3 x 320 BLSTM with projections, loc
+# attention of 201 taps, linear schedule sampling). K1 and K4 are the
+# path's kernels: the fbank-log pair of both transforms, and the CTC
+# fusion of every search step
+WSJ_YAML = "examples/asr/wsj/conf/1a.yaml"
+WSJ_LM_YAML = "examples/asr/wsj/conf/nnlm/1a.yaml"
+TIMIT_YAML = "examples/asr/timit/conf/1a.yaml"
+ATT_TRAIN_UTTS = 32  # WSJ's and TIMIT's batch of 32 (WSJ's run.sh: 64)
+ATT_EPOCHS = 2  # one step each: the corpus is one batch
+ATT_TIMED_STEPS = 3
+ATT_DECODE_UTTS = 8  # one batch of decode_batch's 8
+ATT_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU search
+ATT_PASS_UTTS = 4  # of the batch, in the card-vs-CPU training pass
+# the card-vs-CPU search runs ATT_CHECK_LEN steps and keeps the unfinished
+# hypotheses (allow_partial): with CTC fusion the seeded model ends no
+# hypothesis, and once one outgrows the valid frames (WSJ: 200 of run.sh's
+# 220 steps) every prefix's CTC score sits at the float32 floor, where the
+# beams tie exactly and either device's top-k may keep any of them
+ATT_CHECK_LEN = 40
+ATT_SECS = 8  # the decoded utterances
+TIMIT_UNITS = [f"p{i}" for i in range(61)]  # TIMIT's 61 phones
+ATT_RECIPES = {
+    # WSJ: 8 s of read speech with 96 chars (12 a second; at most the
+    # loader's adapt_token_num of 100, so the batch of 32 stays whole);
+    # run.sh stage 4: beam 16, nbest 8, ctc 0.4, the LM at 0.6, len_norm
+    # true, max_len 220
+    "wsj": dict(yaml=WSJ_YAML, units=CHIME4_UNITS, secs=8, labels=96,
+                lm=WSJ_LM_YAML,
+                stage4=["--beam-size", "16", "--nbest", "8", "--ctc-weight",
+                        "0.4", "--lm-weight", "0.6", "--len-norm", "true",
+                        "--max-len", "220", "--space", "<space>"],
+                beam=16,
+                grads=("encoder.enc_list_0.conv_0.conv.weight",
+                       "encoder.enc_list_1.impl.layer_0.cells.weight_ih_l0",
+                       "decoder.att_net.enc_proj.weight",
+                       "decoder.decoder.OptimizedLSTMCell_1.weight_hh_l0",
+                       "ctc_head.weight")),
+    # TIMIT: utterances of 3 s with 36 phones; run.sh stage 4: beam 8,
+    # nbest 4, ctc 0.4, len_norm true, max_len 80. The patch: the linear
+    # schedule's window [10, 26] becomes [0, 4], so that the second epoch
+    # trains at ssr 0.2 (the scheduler's value after epoch 1)
+    "timit": dict(yaml=TIMIT_YAML, units=TIMIT_UNITS, secs=3, labels=36,
+                  lm=None, ss_epochs=[0, 4],
+                  stage4=["--beam-size", "8", "--nbest", "4", "--ctc-weight",
+                          "0.4", "--len-norm", "true", "--max-len", "80"],
+                  beam=8,
+                  grads=("encoder.layer_0.single_rnn.cells.weight_ih_l0",
+                         "encoder.layer_2.dense.weight",
+                         "decoder.att_net.F.weight",
+                         "decoder.decoder.OptimizedLSTMCell_0.weight_ih_l0",
+                         "ctc_head.weight")),
+}
+# the device kernels of K1 and K4, as the profiler names them
+ATT_KERNEL_NAMES = {"fused_logmel": "fbank_fft_kernel",
+                    "ctc_score_step": "ctc_score_kernel"}
+
+
+def att_launches(passes: int = 0, steps: int = 0):
+    """The launch counts of `passes` passes of the RNN attention model (K1
+    once each; no other kernel: the encoders and the decoder are cuDNN and
+    cuBLAS) and `steps` search steps (K4 once each)."""
+    from aps_tpu_torch.ops import build
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want.update({"fused_logmel": passes, "ctc_score_step": steps})
+    return want
+
+
+def att_kernels_ran(fn, what: str, names) -> None:
+    """Trace one call of fn() and fail unless the trace names each of
+    `names`' device kernels (by its events or by its averages: a kernel
+    launched through ctypes has no PyTorch operator around it). main()
+    runs the phases that call it first (see there)."""
+    import torch
+
+    from aps_tpu_torch.cmd.profile_decode import on_device
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = {evt.name for evt in prof.events() if on_device(evt)} | {
+        evt.key for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA}
+    for kernel in names:
+        if not any(ATT_KERNEL_NAMES[kernel] in s for s in seen):
+            fail(f"{what}: the profile shows no {ATT_KERNEL_NAMES[kernel]} "
+                 f"({kernel}) among its {len(seen)} device kernels: "
+                 f"{sorted(n[:40] for n in seen)}")
+
+
+def write_att_recipe(root: Path, name: str, gen) -> Path:
+    """root/dict (the recipe's units, <sos>, <eos>, <unk>) and root/train:
+    ATT_TRAIN_UTTS seeded utterances with the recipe's label count each
+    (wav.scp, text, utt2dur) and train.yaml: the recipe's YAML with its
+    data sections pointed there (and TIMIT's patch)."""
+    import torch
+
+    from aps_tpu_torch.conf import load_yaml
+    spec = ATT_RECIPES[name]
+    units = spec["units"]
+    vocab = ["<unk>"] + units + ["<sos>", "<eos>"]
+    (root / "dict").write_text("".join(f"{u} {i}\n"
+                                       for i, u in enumerate(vocab)))
+    data = root / "train"
+    data.mkdir()
+    keys = sorted(write_wavs(data, "trn", ATT_TRAIN_UTTS, gen, spec["secs"]))
+    labels = torch.randint(0, len(units), (ATT_TRAIN_UTTS, spec["labels"]),
+                           generator=gen).tolist()
+    with open(data / "text", "w") as text, \
+            open(data / "utt2dur", "w") as dur:
+        for key, toks in zip(keys, labels):
+            text.write(f"{key} {' '.join(units[i] for i in toks)}\n")
+            dur.write(f"{key} {spec['secs']:.2f}\n")
+    conf = load_yaml(str(REPO / spec["yaml"]))
+    if "ss_epochs" in spec:
+        conf["trainer_conf"]["ss_scheduler_kwargs"]["epochs"] = \
+            spec["ss_epochs"]
+    paths = {key: str(data / key) for key in ("text", "utt2dur")}
+    paths["wav_scp"] = str(data / "wav.scp")
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = paths
+    (data / "train.yaml").write_text(json.dumps(conf, indent=2))
+    return data
+
+
+def att_train_phase(root: Path, name: str, data: Path, dev, card):
+    """train_am (run.sh stage 2) on the corpus: ATT_EPOCHS one-step epochs
+    with the launch counts over the run and the schedule-sampling rate of
+    each training pass; then ATT_TIMED_STEPS timed steps on the same batch,
+    each counted, one traced (its kernels named, the TF32 flags read
+    inside it), and one more traced for K1's kernel name. -> (cpt, the
+    batch, launches of the run, numbers, the waveform a training pass
+    handed K1)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_am
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.task.asr import CtcXentHybridTask
+    spec = ATT_RECIPES[name]
+    cpt = root / "exp"
+    argv = ["--conf", str(data / "train.yaml"), "--dict", str(root / "dict"),
+            "--checkpoint", str(cpt), "--batch-size", str(ATT_TRAIN_UTTS),
+            "--epochs", str(ATT_EPOCHS), "--seed", str(SEED)]
+    rates = []
+    forward = CtcXentHybridTask.forward
+
+    def record(task, egs):
+        if task.training:
+            rates.append(egs.get("#ssr"))
+        return forward(task, egs)
+
+    CtcXentHybridTask.forward = record
+    build.reset_launches()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = train_am.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        CtcXentHybridTask.forward = forward
+    launches = dict(build.LAUNCHES)
+    model = trainer.task.nnet
+    setup = (trainer.device.type, trainer.cur_step, trainer.matmul_precision,
+             type(trainer.optimizer).__name__, type(model).__name__,
+             type(model.encoder).__name__, model.asr_transform.feats,
+             trainer.ss_scheduler is not None)
+    want_setup = ("cuda", ATT_EPOCHS, "bfloat16", "Adam", "AttASR",
+                  {"wsj": "ConcatEncoder", "timit": "VariantRNNEncoder"}[name],
+                  {"wsj": "perturb-fbank-log-aug-delta",
+                   "timit": "perturb-fbank-log-cmvn-delta"}[name],
+                  name == "timit")
+    if setup != want_setup:
+        fail(f"train_am ({spec['yaml']}) is not as written: {setup}")
+    # a validation pass before the first epoch and after each
+    want = att_launches(passes=2 * ATT_EPOCHS + 1)
+    if launches != want:
+        fail(f"train_am ({spec['yaml']}) launches {launches}, expected "
+             f"{want}")
+    want_rates = [0] + ([0.2] if name == "timit" else [0]) * \
+        (ATT_EPOCHS - 1)
+    if len(rates) != ATT_EPOCHS or any(
+            abs(a - b) > 1e-9 for a, b in zip(rates, want_rates)):
+        fail(f"{name}: the training passes ran at ssr {rates}, expected "
+             f"{want_rates}")
+    egs = first_batch(root, data, ATT_TRAIN_UTTS)
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, per_step = [], []
+    flags = []
+    hook = model.register_forward_pre_hook(
+        lambda *_: flags.append(tf32_flags()))
+    for step in range(ATT_TIMED_STEPS):
+        build.reset_launches()
+        with training_operands() as seen:
+            done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        per_step.append(dict(build.LAUNCHES))
+        if not done or per_step[-1] != att_launches(passes=1):
+            fail(f"{name} timed step {step}: done {done}, launches "
+                 f"{per_step[-1]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, wall, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    att_kernels_ran(lambda: trainer.train_one_step(egs),
+                    f"{name} training step", ("fused_logmel",))
+    hook.remove()
+    if set(flags) != {(True, True)} or tf32_flags() != (False, False):
+        fail(f"{name} steps at matmul_precision bfloat16: TF32 flags "
+             f"(cuBLAS, cuDNN) {set(flags)} inside, {tf32_flags()} after")
+    losses = _epoch_losses(cpt / "trainer.log", "train") + \
+        [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite {name} loss: {losses}")
+    rnn, gemm, _ = rnn_share(prof, device_ms)
+    T_max = int(egs["tgt_len"].max()) + 1
+    patch = f" (ss epochs {spec['ss_epochs']})" if "ss_epochs" in spec \
+        else ""
+    print(f"train_am {spec['yaml']} as written{patch}: {ATT_TRAIN_UTTS} x "
+          f"{spec['secs']} s, {T_max} decoder steps, "
+          f"{ATT_EPOCHS} one-step epochs at ssr {rates}, launches "
+          f"{launches}; {ATT_TIMED_STEPS + 2} more steps on the same batch "
+          f"(K1 once each), TF32 flags (cuBLAS, cuDNN) {flags[0]} inside "
+          f"them; losses {', '.join(f'{v:.4f}' for v in losses)}",
+          flush=True)
+    print(f"{name} step: device {device_ms:.3f} ms (traced; cuDNN's "
+          f"recurrences {rnn:.3f}, cuBLAS {gemm:.3f} of it), host "
+          f"{statistics.median(secs):.4f} s median of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
+          f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    print(f"{name} step, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    return cpt, egs, launches, {
+        "device_ms": device_ms, "peak_gib": peak,
+        "host_s": statistics.median(secs), "launches": host_launches,
+        "traced_s": wall}, seen["wav"]
+
+
+def att_pass_check(root: Path, name: str, data: Path, egs, dev, gen, card):
+    """The recipe's training pass with every dropout off and the draws fed
+    in (the identity branch of the speed perturbation, one seeded
+    SpecAugment mask for WSJ), float32 on the card and on the CPU, held by
+    the referee rule with a float64 pass on the CPU."""
+    import torch
+
+    from aps_tpu_torch.conf import load_am_conf
+    from aps_tpu_torch.flagship import init_weights
+    from aps_tpu_torch.libs import aps_asr_nnet, aps_task, aps_transform
+    from aps_tpu_torch.transform.augment import tf_mask
+    conf, _ = load_am_conf(str(data / "train.yaml"), str(root / "dict"))
+    model = aps_asr_nnet(conf["nnet"])(
+        asr_transform=aps_transform("asr")(**conf["asr_transform"]),
+        **conf["nnet_conf"])
+    init_weights(no_dropout(model), gen)
+    task = aps_task(conf["task"], model, **conf["task_conf"])
+    tf = model.asr_transform
+    tf.perturb.draw = lambda generator: tf.perturb.identity
+    if tf.specaug is not None:
+        frames = int(tf._num_frames(torch.tensor(egs["src_pad"].shape[-1])))
+        aug = tf.specaug
+        # SpecAugment masks the log-mel's bins, ahead of the deltas
+        mask = tf_mask(ATT_PASS_UTTS, (frames, tf.mel.shape[-1]), pm=aug.pm,
+                       ps=aug.ps, max_bands=aug.freq_args[0],
+                       max_frame=aug.time_args[0],
+                       num_freq_masks=aug.freq_args[1],
+                       num_time_masks=aug.time_args[1], generator=gen)
+        tf.specaug.draw = lambda x, generator: (
+            mask.to(x.device), torch.ones(x.shape[0], dtype=torch.bool,
+                                          device=x.device))
+    loss_g, loss_c, errs = step_pass_check(
+        task, egs, dev, ATT_RECIPES[name]["grads"], ATT_PASS_UTTS,
+        referee=True, referee_on="cpu")
+    print(f"{name} training pass at float32 (dropouts off, draws fed in, "
+          f"TF32 flags read off inside) on {ATT_PASS_UTTS} utterances: loss "
+          f"card {loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' distance "
+          "from the CPU's float64 pass relative to the largest entry (card, "
+          "CPU) " + ", ".join(f"{k} {a:.3e}, {b:.3e}"
+                             for k, (a, b) in errs.items()) + f" ({card})",
+          flush=True)
+    return {"pass_loss": (loss_g, loss_c), "pass_grads": errs}
+
+
+def write_att_decodable(cpt: Path, root: Path) -> Path:
+    """The trained checkpoint with its decoder output and CTC head x 8
+    (peaky: well separated candidates, so that the CPU and card searches
+    cannot part on near-ties) -> root/decode_am."""
+    out = root / "decode_am"
+    out.mkdir()
+    with open(cpt / "last.ckpt", "rb") as fd:
+        state = pickle.load(fd)
+    params = state["params"]
+    params = params.get("nnet", params)
+    params["decoder"]["pred"]["kernel"] = \
+        params["decoder"]["pred"]["kernel"] * 8.0
+    params["ctc_head"]["kernel"] = params["ctc_head"]["kernel"] * 8.0
+    with open(out / "best.ckpt", "wb") as fd:
+        pickle.dump(state, fd)
+    (out / "train.yaml").write_bytes((cpt / "train.yaml").read_bytes())
+    return out
+
+
+def att_decode_phase(root: Path, name: str, am: Path, lm_dir, gen, dev,
+                     card):
+    """run.sh stage 4: ATT_DECODE_UTTS utterances of ATT_SECS through
+    decode_batch with the recipe's options (and WSJ's LM), launch counts
+    read (K1 once a batch, K4 once a search step, nothing else); one batch
+    profiled (K1's and K4's kernels named in it); the first ATT_CHECK_UTTS
+    card vs CPU, n-best equal and scores within 1e-3. -> (launches,
+    (S, T, k_len), numbers)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.asr.beam_search.att import beam_search_batch
+    from aps_tpu_torch.asr.beam_search.lm import lm_adapter
+    from aps_tpu_torch.cmd import decode, decode_batch
+    from aps_tpu_torch.cmd.decode_batch import quantize_dur
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.ops import build
+    spec = ATT_RECIPES[name]
+    data = root / "test"
+    data.mkdir()
+    wavs = write_wavs(data, "tst", ATT_DECODE_UTTS, gen, ATT_SECS)
+    best = root / "test.decode"
+    argv = [str(data / "wav.scp"), str(best), "--am", str(am), "--dict",
+            str(root / "dict")] + spec["stage4"]
+    if lm_dir is not None:
+        argv += ["--lm", str(lm_dir)]
+    build.reset_launches()
+    with scorer_steps() as steps:
+        stats = decode_batch.main(argv)
+    launches = dict(build.LAUNCHES)
+    lines = best.read_text().splitlines()
+    if sorted(ln.split("\t")[0] for ln in lines) != sorted(wavs) or \
+            not all(map(math.isfinite, stats["scores"].values())):
+        fail(f"{name} decode_batch: {len(lines)} lines, scores "
+             f"{list(stats['scores'].values())}")
+    batches = len(stats["batch_secs"])
+    want = att_launches(passes=batches, steps=len(steps))
+    if launches != want or batches != 1:
+        fail(f"{name} decode launches {launches} in {batches} batches and "
+             f"{len(steps)} search steps, expected {want}")
+    kw = decode.search_kwargs(decode_batch.make_parser().parse_args(argv))
+    am_state = load_checkpoint(str(am))
+    nnet = am_state["nnet"].to(dev)
+    lm = load_checkpoint(str(lm_dir))["nnet"] if lm_dir else None
+    sos, eos = (am_state["conf"]["nnet_conf"][k] for k in ("sos", "eos"))
+    S = quantize_dur(ATT_SECS * SR)
+    keys = sorted(wavs)
+    batch = [wavs[k] for k in keys]
+    x = torch.from_numpy(np.stack([np.pad(w, (0, S - len(w)))
+                                   for w in batch])).to(dev)
+    with torch.no_grad():
+        enc, enc_len, _ = nnet.decode_enc(x, torch.tensor(
+            [len(w) for w in batch], device=dev))
+    shapes = (S, enc.shape[1], int(enc_len.max()))
+    max_len = int(spec["stage4"][spec["stage4"].index("--max-len") + 1])
+
+    def adapter(where):
+        return None if lm is None else lm_adapter(
+            lm.to(where), max_len=max_len, sos=sos)
+
+    search = lambda: beam_search_batch(  # noqa: E731
+        nnet.to(dev), batch, lm=adapter(dev), sos=sos, eos=eos, device=dev,
+        pad_to=S, **kw)
+    for key, hyps in zip(keys, search()):
+        if abs(hyps[0]["score"] - stats["scores"][key]) > 1e-3:
+            fail(f"{name} {key}: decode_batch score {stats['scores'][key]} "
+                 f"!= search score {hyps[0]['score']}")
+    build.reset_launches()
+    device_ms, wall, host_launches, prof = profile(search)
+    n_steps = build.LAUNCHES["ctc_score_step"]
+    att_kernels_ran(search, f"{name} decode batch",
+                    ("fused_logmel", "ctc_score_step"))
+    outs = {}
+    check_kw = dict(kw, max_len=ATT_CHECK_LEN, allow_partial=True)
+    for where in ("cpu", dev):
+        outs[str(where)] = beam_search_batch(
+            nnet.to(where), batch[:ATT_CHECK_UTTS], lm=adapter(where),
+            sos=sos, eos=eos, device=where, pad_to=S, **check_kw)
+    score_err = 0.0
+    for key, hc, hg in zip(keys, outs["cpu"], outs[str(dev)]):
+        if [h["trans"] for h in hc] != [h["trans"] for h in hg]:
+            for side, hyps in (("CPU", hc), ("card", hg)):
+                print(f"{name} {key} {side}: " + "; ".join(
+                    f"{h['score']:.6f} ({len(h['trans'])}) "
+                    f"{' '.join(map(str, h['trans']))}" for h in hyps),
+                    flush=True)
+            fail(f"{name} {key}: card and CPU n-best lists differ")
+        score_err = max([score_err] + [abs(a["score"] - b["score"])
+                                       for a, b in zip(hc, hg)])
+    if not (score_err <= 1e-3 and len(outs["cpu"][0]) > 1):
+        fail(f"{name} n-best scores card vs CPU differ by {score_err}")
+    print(f"{name} decode_batch {' '.join(spec['stage4'])}"
+          f"{' with the char RNN LM' if lm_dir else ''}: "
+          f"{ATT_DECODE_UTTS} x {ATT_SECS} s padded to {S} samples (T = "
+          f"{shapes[1]}, {shapes[2]} valid), {stats['batch_secs'][0]:.4f} s "
+          f"(host clock around the synchronised batch), {len(steps)} search "
+          f"steps over {steps[0][0]} K4 lanes, launches {launches}; "
+          f"profiled: device {device_ms:.3f} ms in {wall:.4f} s wall, "
+          f"{n_steps} steps, {host_launches / max(n_steps, 1):.1f} host "
+          f"launches a step ({card})", flush=True)
+    print(f"{name} search card vs CPU on {ATT_CHECK_UTTS} utterances, "
+          f"{ATT_CHECK_LEN} steps with allow_partial: n-best of "
+          f"{len(outs['cpu'][0])} equal, largest score diff {score_err:.3e}, "
+          f"the best of {[len(h[0]['trans']) for h in outs['cpu']]} ids "
+          f"({card})", flush=True)
+    return launches, shapes, {"device_ms": device_ms, "wall": wall,
+                              "batch_s": stats["batch_secs"][0],
+                              "steps": len(steps), "score_err": score_err,
+                              "decode_wav": x}
+
+
+def att_phase(root: Path, name: str, gen, dev, card):
+    """One RNN attention recipe: write_att_recipe, att_train_phase,
+    att_pass_check, WSJ's LM (seeded), att_decode_phase; then K1 at the
+    decode's and the training pass's batches and K4 at the decode's T and
+    lanes. -> (launches of training, of the decode, {kernel: rows},
+    numbers)."""
+    from types import SimpleNamespace
+
+    from aps_tpu_torch.libs import aps_transform
+    beg = time.perf_counter()
+    root.mkdir()
+    spec = ATT_RECIPES[name]
+    data = write_att_recipe(root, name, gen)
+    cpt, egs, launches_train, numbers, trn_wav = att_train_phase(
+        root, name, data, dev, card)
+    numbers.update(att_pass_check(root, name, data, egs, dev, gen, card))
+    lm_dir = write_lm(root, spec["lm"], gen, "rnn_lm")[0] \
+        if spec["lm"] else None
+    launches_dec, (S, T, k_len), dec_numbers = att_decode_phase(
+        root, name, write_att_decodable(cpt, root), lm_dir, gen, dev, card)
+    numbers["decode"] = dec_numbers
+    # K1 with the recipe transform's options on the decode batch (int16
+    # scale) and on the rescaled, perturbed batch a training pass handed
+    # it; K4 at the decode's T and lanes, and TIMIT's at a 3 s
+    # utterance's T too
+    from aps_tpu_torch.conf import load_yaml
+    tf = aps_transform("asr")(**load_yaml(str(REPO / spec["yaml"]))[
+        "asr_transform"])
+    rows = {"fused_logmel": check_fbank(
+        dev, SimpleNamespace(asr_transform=tf),
+        ((f"{name} decode", tf.rescale(dec_numbers.pop("decode_wav"))),
+         (f"{name} training", trn_wav)))[0]}
+    rows["ctc_score_step"] = check_ctc(dev, gen, T, batches=(ATT_DECODE_UTTS,),
+                                       beam=spec["beam"])[0]
+    if name == "timit":
+        rows["ctc_score_step"] += check_ctc(
+            dev, gen, 300, batches=(ATT_DECODE_UTTS,), beam=spec["beam"])[0]
+    numbers["phase_s"] = time.perf_counter() - beg
+    print(f"the {name} phase took {numbers['phase_s']:.1f} s ({card})",
+          flush=True)
+    return launches_train, launches_dec, rows, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4295,6 +4790,20 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
+        # the RNN attention slice first: WSJ 1a (with its char RNN LM) and
+        # TIMIT 1a through train_am and decode_batch, K1 and K4 at their
+        # shapes. Their traces name K1's and K4's kernels; late in this
+        # process the profiler has listed none of the ctypes-launched
+        # kernels in such a trace (PERF.md section 6), where a trace early
+        # in a process names them
+        att_launches_of, att_rows = {}, {}
+        for recipe in ATT_RECIPES:
+            launches_trn_att, launches_dec_att, rows_att, _ = att_phase(
+                root / recipe, recipe, gen, dev, card)
+            att_launches_of[recipe] = (launches_trn_att, launches_dec_att)
+            for name, rows in rows_att.items():
+                att_rows.setdefault(name, {})[recipe] = rows
+                print_rows(name, rows, card)
         cpt, wavs, model = write_checkpoint(root, gen)
         shapes = S, T, k_len = path_shapes(model)
         print(f"decode path: batches of 8 x {S} samples, encoder T = {T} "
@@ -4522,6 +5031,11 @@ def main() -> None:
             checks[name] += rows
             print_rows(name, rows, card)
 
+        # the RNN attention slice's rows of K1 and K4
+        for name, per_recipe in att_rows.items():
+            for rows in per_recipe.values():
+                checks[name] += rows
+
     kernels = []
     for name, rows in checks.items():
         source, replaces = KERNELS[name]
@@ -4585,6 +5099,14 @@ def main() -> None:
                 {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
                  "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
                 for r in chime4_rows[name]]
+        for recipe, rows in att_rows.get(name, {}).items():
+            extra[f"{recipe}_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
+                for r in rows]
+        for recipe, (trn, dec) in att_launches_of.items():
+            extra[f"launches_{recipe}_train_run"] = trn[name]
+            extra[f"launches_{recipe}_decode"] = dec[name]
         if name == "ctc_score_step":
             extra.update(ms_queued=ctc_queued,
                          long_form_ms_queued=long_queued,

@@ -306,7 +306,9 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "metric.stoi", "cmd.compute_ss_metric", "cplx",
                 "asr.base.encoder", "asr.filter.conv", "asr.filter.google",
                 "asr.filter.mvdr", "asr.enh_att", "sse.unsuper.rnn",
-                "task.ml"):
+                "task.ml", "asr.att", "asr.ctc", "asr.base.attention",
+                "asr.base.decoder", "asr.base.component",
+                "asr.beam_search.att", "trainer.ss"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

@@ -34,6 +34,8 @@ from aps_tpu_torch.io import write_audio  # noqa: E402
 from aps_tpu_torch.libs import (aps_asr_nnet, aps_sse_nnet,  # noqa: E402
                                 aps_task, aps_transform)
 
+from test_torch_train import assert_trees_close  # noqa: E402
+
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000
 C = 3
@@ -67,12 +69,6 @@ OUT_RTOL = 1e-4
 # relative to its own largest entry
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 2e-3
-# a leaf whose exact gradient is 0 (its float64 gradient is below ZERO_F64
-# of the model's largest entry: a bias that feeds a batch norm in training
-# mode, or a softmax over the channels) has float32 values that are
-# rounding noise; both packages' must stay below ZERO_F32 of that entry
-ZERO_F64 = 1e-12
-ZERO_F32 = 1e-5
 # beam scores: length-normalised sums of log-probs
 SCORE_ATOL = 1e-3
 # output layers scaled so that candidates stand apart (no near-ties)
@@ -109,32 +105,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(val, path)
         else:
             yield path, np.asarray(val)
-
-
-def _grads_close(got, want, rtol, exact=None):
-    """Each leaf within rtol of its own largest entry. With exact (the
-    port's float64 gradients), a leaf that is 0 there is held to the
-    rounding noise of the model's largest entry instead; returns the paths
-    of those leaves."""
-    got, want = dict(_leaves(got)), dict(_leaves(want))
-    assert sorted(got) == sorted(want)
-    zeros = []
-    if exact is not None:
-        exact = dict(_leaves(exact))
-        assert sorted(exact) == sorted(want)
-        top = max(float(np.abs(v).max()) for v in exact.values())
-        zeros = sorted(p for p, v in exact.items()
-                       if np.abs(v).max() <= ZERO_F64 * top)
-        for path in zeros:
-            for side in (got[path], want[path]):
-                assert np.abs(side).max() <= ZERO_F32 * top, \
-                    (path, float(np.abs(side).max()), top)
-    for path, w in want.items():
-        if path not in zeros:
-            np.testing.assert_allclose(
-                got[path], w, atol=rtol * float(np.abs(w).max()), rtol=0,
-                err_msg=path)
-    return zeros
 
 
 def _multichannel(seed, lens, C=C):
@@ -279,7 +249,7 @@ def test_ctc_xent_step_matches_jax(enh_pair):
     exact({k: torch.from_numpy(v.astype(np.float64) if v.dtype == np.float32
                                else v) for k, v in egs.items()}
           )["loss"].backward()
-    zeros = _grads_close(got_grads, grads["nnet"], GRAD_RTOL,
+    zeros = assert_trees_close(got_grads, grads["nnet"], GRAD_RTOL,
                          exact=to_gradients(exact.nnet))
     # the conv biases before a batch norm, the reference attention's
     # channel-constant bias under its softmax
@@ -289,7 +259,7 @@ def test_ctc_xent_step_matches_jax(enh_pair):
         "encoder/proj_layer/Conv2dEncoder_0/conv_0/Conv_0/bias",
         "encoder/proj_layer/Conv2dEncoder_0/conv_1/Conv_0/bias",
         "enh_net/mvdr_net/ref/Dense_1/bias"], zeros
-    _grads_close(to_variables(task.nnet)["batch_stats"],
+    assert_trees_close(to_variables(task.nnet)["batch_stats"],
                  state["batch_stats"]["nnet"], 1e-5)
 
 
@@ -311,8 +281,14 @@ def test_1b_fbank_log_cmvn_fails_in_both_packages():
 
 
 def test_enh_att_raises_until_attasr_is_ported():
-    with pytest.raises(NotImplementedError, match=r"11\(b\)"):
-        aps_asr_nnet("asr@enh_att")(**NNET)
+    """AttASR is ported: asr@enh_att builds behind the same front end
+    (tests/test_torch_att.py holds its forward against aps_tpu's)."""
+    nnet = aps_asr_nnet("asr@enh_att")(
+        asr_transform=aps_transform("asr")(**ASR),
+        enh_transform=aps_transform("enh")(**ENH),
+        **dict(NNET, dec_kwargs=dict(num_layers=1, hidden=8)))
+    assert type(nnet).__name__ == "EnhAttASR"
+    assert type(nnet.decoder).__name__ == "TorchRNNDecoder"
 
 
 def test_stack_padded_pads_the_sample_axis_only():
@@ -444,7 +420,7 @@ def test_ml_task_loss_and_gradients_match_jax():
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
     np.testing.assert_allclose(stats["loss"].item(), float(loss),
                                rtol=LOSS_RTOL)
-    _grads_close(to_gradients(task.nnet), grads["nnet"], GRAD_RTOL)
+    assert_trees_close(to_gradients(task.nnet), grads["nnet"], GRAD_RTOL)
     with torch.no_grad():
         obs, masks = task.nnet.eval()(torch.from_numpy(mix))
     jobs, jmasks = jtask.nnet.apply({"params": variables["params"]["nnet"]},

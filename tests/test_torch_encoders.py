@@ -25,6 +25,8 @@ from aps_tpu_torch.asr.transformer import impl, pose, proj, utils  # noqa
 from aps_tpu_torch.asr.transformer.encoder import TransformerEncoder  # noqa
 from aps_tpu_torch.convert import to_gradients, to_state_dict  # noqa: E402
 
+from test_torch_train import assert_trees_close  # noqa: E402
+
 REPO = Path(__file__).resolve().parents[1]
 # one layer or projection in float32: the same sums in another order
 LAYER_ATOL = 1e-4
@@ -49,15 +51,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(val, path)
         else:
             yield path, np.asarray(val)
-
-
-def assert_trees_close(got, want, rtol=0.0, atol=0.0):
-    got, want = dict(_leaves(got)), dict(_leaves(want))
-    assert sorted(got) == sorted(want)
-    for path, w in want.items():
-        bound = atol + rtol * max(1.0, np.abs(w).max())
-        np.testing.assert_allclose(got[path], w, atol=bound, rtol=0,
-                                   err_msg=path)
 
 
 def _numpy_variables(variables, seed=5):

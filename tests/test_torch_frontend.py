@@ -113,7 +113,7 @@ def test_fbank_log_cmvn_transform_matches_jax(norm_mean, norm_var,
 
 
 def test_transform_refuses_what_is_not_ported():
-    for feats in ("spectrogram-mel-log", "fbank-log-delta", "mfcc",
+    for feats in ("spectrogram-mel-log", "fbank-log-splice", "mfcc",
                   "fbank-cmvn", "spectrogram-fbank-log"):
         with pytest.raises(NotImplementedError):
             AsrTransform(feats=feats)

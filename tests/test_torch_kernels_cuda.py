@@ -38,6 +38,9 @@ from aps_tpu_torch.transform.utils import make_window, mel_filter  # noqa
 # 512-term DFT sums in another order; O(1) attention outputs; CTC values
 # up to ~1e3 after 233 steps of the same recursion
 LOGMEL_ATOL = 1e-3
+# a log-mel band below this share of its frame's largest band is at float32
+# resolution (the frame's sums carry errors of ~1e-6 of their largest term)
+LOGMEL_FLOOR = 1e-5
 ATT_ATOL = 1e-3
 # attention gradients: dq/dk/dv entries are O(1) sums of T float32 terms;
 # a dpose row sums up to T * B (* H for a shared table) terms, in another
@@ -347,6 +350,47 @@ def test_fused_logmel_kernel_at_path_shapes_and_block_edges(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["wsj", "timit"])
+@pytest.mark.parametrize("N,S", [(8, 149003), (32, 128000)])
+def test_fused_logmel_kernel_on_the_delta_recipes(cuda_device, recipe, N, S):
+    """K1 through the asr transform of examples/asr/{wsj,timit}/conf/
+    1a.yaml (int16 rescale, pre-emphasis 0.97 and 0.96, 80 mel bins; the
+    deltas follow the kernel) at a decode batch of 8 x 8 s padded to its
+    bucket and a training batch of 32 x 8 s: == the function in float64,
+    one launch each, two launches give the same bits."""
+    from pathlib import Path
+
+    from aps_tpu_torch.conf import load_yaml
+    from aps_tpu_torch.transform.asr import AsrTransform
+    conf = load_yaml(str(Path(__file__).resolve().parents[1] / "examples" /
+                         "asr" / recipe / "conf" / "1a.yaml"))
+    tf = AsrTransform(**conf["asr_transform"])
+    assert "delta" in tf.steps and tf.rescale is not None
+    gen = torch.Generator().manual_seed(N + S)
+    wav = tf.rescale(0.1 * torch.randn((N, S), generator=gen)).to(cuda_device)
+    build.reset_launches()
+    got = tf._fbank_log(wav)
+    assert build.LAUNCHES["fused_logmel"] == 1
+    want = _logmel_float64(wav, tf.window, tf.fft_size, tf.frame_hop,
+                           mel=tf.mel, pre_emphasis=tf.pre_emphasis,
+                           use_power=tf.use_power,
+                           log_lower_bound=tf.log_lower_bound, log_eps=tf.eps)
+    assert got.shape == (N, (S - len(tf.window)) // tf.frame_hop + 1, 80)
+    # a band whose magnitude lies at float32's resolution of its frame (the
+    # kernel takes the frame in float32, pre-emphasis and window included)
+    # is held by its magnitude, relative to the frame's largest band (seen:
+    # 2.0e-3 in the log of a band 1.6e-6 of its frame's largest, at the
+    # lowest band of int16-scale noise after pre-emphasis); the others in
+    # the log
+    mag, ref = got.exp(), want.exp()
+    peak = ref.amax(-1, keepdim=True)
+    floor = ref <= LOGMEL_FLOOR * peak
+    assert ((got - want).abs() <= LOGMEL_ATOL)[~floor].all()
+    assert ((mag - ref).abs() <= LOGMEL_FLOOR * peak)[floor].all()
+    assert torch.equal(got, tf._fbank_log(wav))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fft_size", [256, 400, 1024])
 @pytest.mark.parametrize("full_window", [True, False])
 @pytest.mark.parametrize("with_mel", [True, False])
@@ -465,6 +509,24 @@ def test_ctc_score_step_kernel_matches_plain(cuda_device, T, L, compact,
         build.reset_launches()
         got = ctc_score_step(*ops, is_first)
         assert build.LAUNCHES["ctc_score_step"] == 1
+        _assert_ctc_close(got, ctc_score_step_plain(*ops, is_first))
+        for g, a in zip(got, ctc_score_step(*ops, is_first)):
+            assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,L", [(801, 768), (929, 768), (300, 768),
+                                 (233, 1536)])
+def test_ctc_score_step_kernel_at_the_att_paths(cuda_device, T, L):
+    """K4 at the RNN attention recipes' searches: TIMIT's encoder does not
+    subsample (8 s: 801 frames, 929 padded to the decode's bucket; 3 s:
+    300) at 8 utterances x beam 8 x ctc beam 12; WSJ's 8 s (233 frames
+    padded) at beam 16. The parents' operands in place, one blank column an
+    utterance; == the plain version, two launches give the same bits."""
+    N = 8
+    ops = [t.to(cuda_device) for t in _ctc_args(T, L, N, L // 12)]
+    for is_first in (True, False):
+        got = ctc_score_step(*ops, is_first)
         _assert_ctc_close(got, ctc_score_step_plain(*ops, is_first))
         for g, a in zip(got, ctc_score_step(*ops, is_first)):
             assert torch.equal(g, a)

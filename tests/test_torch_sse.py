@@ -33,6 +33,9 @@ from aps_tpu_torch.libs import (aps_dataloader, aps_sse_nnet,  # noqa: E402
                                 aps_task, aps_trainer)
 from aps_tpu_torch.task import objf  # noqa: E402
 
+from test_torch_train import (ZERO_F32, assert_trees_close,  # noqa: E402
+                              float64_gradients)
+
 REPO = Path(__file__).resolve().parents[1]
 NNET_CONF = dict(L=20, N=32, X=2, R=2, B=32, H=64, num_spks=2)
 # SiSNR in dB of O(1) random signals: float32 sums of 4000 terms, then log10
@@ -56,15 +59,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(val, path)
         else:
             yield path, np.asarray(val)
-
-
-def assert_trees_close(got, want, rtol=0.0, atol=0.0):
-    got, want = dict(_leaves(got)), dict(_leaves(want))
-    assert sorted(got) == sorted(want)
-    for path, w in want.items():
-        bound = atol + rtol * max(1.0, np.abs(w).max())
-        np.testing.assert_allclose(got[path], w, atol=bound, rtol=0,
-                                   err_msg=path)
 
 
 @pytest.mark.parametrize("zero_mean,non_nagetive", [(True, False),
@@ -207,8 +201,26 @@ def test_sisnr_task_step_matches_jax(slice_pair):
     assert sorted(stats) == ["loss"]
     np.testing.assert_allclose(stats["loss"].item(), float(loss),
                                rtol=LOSS_RTOL)
-    assert_trees_close(to_gradients(task.nnet), want_grads["nnet"],
-                       rtol=GRAD_RTOL)
+    # a leaf whose float64 gradient is below ZERO_F32 of the model's
+    # largest entry sits at float32's resolution (its entries sum terms as
+    # large as that entry): the ScaleLinear scales that feed a batch norm
+    # (cancelled but for its eps: 2e-11 to 3e-9 of the largest entry in
+    # float64), three batch norms' scales behind them (up to 2e-6) and the
+    # decoder's bias before the SiSNR (4.5e-16). Against the float64 pass
+    # both packages' float32 gradients lie 2e-3 to 8e2 of such a leaf's own
+    # largest entry away, the other leaves' within GRAD_RTOL
+    zeros = assert_trees_close(to_gradients(task.nnet), want_grads["nnet"],
+                               rtol=GRAD_RTOL,
+                               exact=float64_gradients(slice_pair[2], egs),
+                               zero=ZERO_F32)
+    assert zeros == [
+        "conv/block_0_0/ScaleLinear_0/scale",
+        "conv/block_0_1/NormalizeLayer_0/BatchNorm_0/scale",
+        "conv/block_0_1/ScaleLinear_0/scale",
+        "conv/block_1_0/NormalizeLayer_0/BatchNorm_0/scale",
+        "conv/block_1_0/ScaleLinear_0/scale",
+        "conv/block_1_1/NormalizeLayer_0/BatchNorm_0/scale",
+        "conv/block_1_1/ScaleLinear_0/scale", "decoder/bias"], zeros
     assert_trees_close(to_variables(task.nnet)["batch_stats"],
                        want_stats["nnet"], rtol=STATS_RTOL)
     before = dict(_leaves(variables["batch_stats"]["nnet"]))

@@ -27,6 +27,9 @@ from aps_tpu_torch.convert import (to_gradients, to_state_dict,  # noqa: E402
 from aps_tpu_torch.io import read_audio, write_audio  # noqa: E402
 from aps_tpu_torch.libs import aps_sse_nnet, aps_task, aps_transform  # noqa
 
+from test_torch_train import (ZERO_F32, assert_trees_close,  # noqa: E402
+                              float64_gradients)
+
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000
 ENH = dict(feats="spectrogram-log-cmvn", frame_len=64, frame_hop=32,
@@ -43,10 +46,13 @@ MODELS = {
 # recurrent or TCN layers, an STFT and its inverse; relative to the largest
 # entry where that is above 1
 OUT_ATOL = 1e-5
-# the loss relative to itself; each gradient leaf relative to its largest
-# entry (at least 1)
+# the loss relative to itself; each gradient leaf relative to its own
+# largest entry. A PReLU slope's gradient is a scalar summed over every
+# position: against a float64 pass of the port, the float32 passes land
+# up to 1.5e-4 (port) and 1.7e-4 (aps_tpu) of it away (sse@time_mel_sa on
+# sse@freq_tcn); the other leaves within 7e-6
 LOSS_RTOL = 1e-5
-GRAD_RTOL = 1e-4
+GRAD_RTOL = 5e-4
 # waveforms written as 16-bit files: one quantisation step
 WAV_ATOL = 1e-5 + 1.0 / 32768
 
@@ -70,15 +76,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(val, path)
         else:
             yield path, np.asarray(val)
-
-
-def assert_trees_close(got, want, rtol=0.0, atol=0.0):
-    got, want = dict(_leaves(got)), dict(_leaves(want))
-    assert sorted(got) == sorted(want)
-    for path, w in want.items():
-        bound = atol + rtol * max(1.0, np.abs(w).max())
-        np.testing.assert_allclose(got[path], w, atol=bound, rtol=0,
-                                   err_msg=path)
 
 
 def _mixtures(seed, N=3, S=800):
@@ -220,6 +217,7 @@ def test_task_loss_and_gradients_match_jax(task_name, name, mode,
         return out["loss"], new
 
     (loss, new), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    exact = float64_gradients(task, egs)
     task.train()
     out = task({"mix": torch.from_numpy(egs["mix"]),
                 "ref": [torch.from_numpy(r) for r in egs["ref"]]})
@@ -227,7 +225,15 @@ def test_task_loss_and_gradients_match_jax(task_name, name, mode,
     out["loss"].backward()
     np.testing.assert_allclose(out["loss"].item(), float(loss),
                                rtol=LOSS_RTOL)
-    assert_trees_close(to_gradients(net), grads["nnet"], rtol=GRAD_RTOL)
+    # a leaf whose float64 gradient is below ZERO_F32 of the model's
+    # largest entry sits at float32's resolution: freq_tcn's ScaleLinear
+    # scales, which feed a batch norm (cancelled but for its eps: 3e-8 to
+    # 1.6e-6 of the largest entry in float64), where both packages'
+    # float32 gradients lie 1e-2 to 2.3 of the leaf's own largest entry
+    # from the float64 pass; every other leaf within 7e-6
+    zeros = assert_trees_close(to_gradients(net), grads["nnet"],
+                               rtol=GRAD_RTOL, exact=exact, zero=ZERO_F32)
+    assert all(z.endswith("ScaleLinear_0/scale") for z in zeros), zeros
     if "batch_stats" in variables:
         assert_trees_close(to_variables(net)["batch_stats"],
                            new["batch_stats"]["nnet"], rtol=1e-5)

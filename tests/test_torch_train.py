@@ -41,6 +41,12 @@ LOSS_RTOL = 1e-5
 # a gradient leaf sums the batch's contributions in another order; its
 # bound is relative to the leaf's largest entry (at least 1)
 GRAD_RTOL = 2e-4
+# a leaf whose exact gradient is 0 (its float64 gradient below ZERO_F64 of
+# the model's largest entry: a bias that feeds a batch norm in training
+# mode, or a softmax over the channels) has float32 values that are
+# rounding noise; both packages' must stay below ZERO_F32 of that entry
+ZERO_F64 = 1e-12
+ZERO_F32 = 1e-5
 # running statistics: 0.9 old + 0.1 batch statistic; the conv front end's
 # variances reach ~1e2, so the bound is relative to the leaf's largest entry
 STATS_RTOL = 1e-5
@@ -83,13 +89,52 @@ def _leaves(tree, prefix=""):
             yield path, np.asarray(val)
 
 
-def assert_trees_close(got, want, rtol=0.0, atol=0.0):
+def assert_trees_close(got, want, rtol=0.0, atol=0.0, exact=None,
+                       zero=None):
+    """Each leaf of got within atol + rtol x its own largest entry of
+    want's (a leaf's bound does not borrow from another leaf's scale).
+    With exact (the tree of a float64 pass), a leaf that is 0 there (below
+    `zero`, default ZERO_F64, of that tree's largest entry) is held to
+    ZERO_F32 of it in both trees instead, its float32 values being
+    rounding noise; returns the paths of those leaves."""
+    zero = ZERO_F64 if zero is None else zero
     got, want = dict(_leaves(got)), dict(_leaves(want))
     assert sorted(got) == sorted(want)
+    zeros = []
+    if exact is not None:
+        exact = dict(_leaves(exact))
+        assert sorted(exact) == sorted(want)
+        top = max(float(np.abs(v).max()) for v in exact.values())
+        zeros = sorted(p for p, v in exact.items()
+                       if np.abs(v).max() <= zero * top)
+        for path in zeros:
+            for side in (got[path], want[path]):
+                assert np.abs(side).max() <= ZERO_F32 * top, \
+                    (path, float(np.abs(side).max()), top)
     for path, w in want.items():
-        bound = atol + rtol * max(1.0, np.abs(w).max())
-        np.testing.assert_allclose(got[path], w, atol=bound, rtol=0,
-                                   err_msg=path)
+        if path not in zeros:
+            bound = atol + rtol * float(np.abs(w).max())
+            np.testing.assert_allclose(got[path], w, atol=bound, rtol=0,
+                                       err_msg=path)
+    return zeros
+
+
+def float64_gradients(task, egs):
+    """The gradients of one training-mode pass of a float64 copy of the
+    port's task on the batch (its float arrays in float64), as aps_tpu's
+    tree: the referee that tells a leaf whose exact gradient is 0."""
+    exact = copy.deepcopy(task).double().train()
+    exact.zero_grad(set_to_none=True)
+
+    def cast(v):
+        if isinstance(v, list):
+            return [cast(x) for x in v]
+        v = np.asarray(v)
+        return torch.from_numpy(v.astype(np.float64)
+                                if v.dtype == np.float32 else v)
+
+    exact({k: cast(v) for k, v in egs.items()})["loss"].backward()
+    return to_gradients(exact.nnet)
 
 
 @pytest.fixture(scope="module")
@@ -146,8 +191,15 @@ def test_ctc_xent_step_matches_jax(slice_pair):
     for key in want:
         np.testing.assert_allclose(stats[key].item(), float(want[key]),
                                    rtol=LOSS_RTOL, err_msg=key)
-    assert_trees_close(to_gradients(task.nnet), want_grads["nnet"],
-                       rtol=GRAD_RTOL)
+    zeros = assert_trees_close(to_gradients(task.nnet), want_grads["nnet"],
+                               rtol=GRAD_RTOL,
+                               exact=float64_gradients(slice_pair[2], egs))
+    # the conv biases before a batch norm in training mode
+    assert zeros == [
+        "encoder/encoder/layer_0/dconv/bias",
+        "encoder/encoder/layer_1/dconv/bias",
+        "encoder/proj_layer/Conv2dEncoder_0/conv_0/Conv_0/bias",
+        "encoder/proj_layer/Conv2dEncoder_0/conv_1/Conv_0/bias"], zeros
     assert_trees_close(to_variables(task.nnet)["batch_stats"],
                        want_stats["nnet"], rtol=STATS_RTOL)
     # the statistics did move, and by the biased batch variance
@@ -477,17 +529,21 @@ def test_trainer_refuses_what_is_not_ported(slice_pair, tmp_path):
         DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
                             matmul_precision="float16")
     for key, value in (("weight_noise_std", 0.01), ("tensorboard", True),
-                       ("profile", "trace"), ("ss_scheduler_kwargs",
-                                              {"ssr": 0.1}),
-                       ("tensor_parallel", 2), ("sequence_parallel", True),
-                       ("pipeline_depth", 2)):
+                       ("profile", "trace"), ("tensor_parallel", 2),
+                       ("sequence_parallel", True), ("pipeline_depth", 2)):
         with pytest.raises(NotImplementedError, match=key):
             DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
                                 **{key: value})
-    # the values that turn those options off pass
+    # the values that turn those options off pass; schedule sampling is
+    # ported (tests/test_torch_att_decode.py holds it)
     DataParallelTrainer(copy.deepcopy(task), device="cpu",
                         checkpoint=tmp_path, matmul_precision="float32",
                         tensor_parallel=1, pipeline_depth=1)
+    trainer = DataParallelTrainer(
+        copy.deepcopy(task), device="cpu", checkpoint=tmp_path,
+        ss_scheduler="linear", ss_scheduler_kwargs={"ssr": 0.1},
+        report_metrics=["loss", "accu"])
+    assert trainer.ss_scheduler is not None and trainer.ssr == 0
     with pytest.raises(ValueError, match="Unknown trainer option"):
         DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
                             bogus=1)
