@@ -30,10 +30,12 @@ class SinPosEncoding(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def _sin_enc(self, position: torch.Tensor) -> torch.Tensor:
+        # the frequencies in float64, rounded once to the positions' type:
+        # in float32 the exponent's own rounding puts them up to 7 ulps off
         div_term = torch.exp(
-            -math.log(10000.0) *
-            torch.arange(0, self.embed_dim, 2.0, device=position.device) /
-            self.embed_dim)
+            -math.log(10000.0) * torch.arange(
+                0, self.embed_dim, 2, dtype=torch.float64,
+                device=position.device) / self.embed_dim).to(position.dtype)
         sequence = position[:, None] * div_term
         sin_enc = torch.stack([torch.sin(sequence), torch.cos(sequence)], -1)
         return sin_enc.reshape(position.shape[0], -1)

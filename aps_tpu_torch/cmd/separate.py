@@ -18,9 +18,18 @@ for the CPU in so many words, where the block kernel's plain version runs.
 
 A model that can be folded (sse@time_tcn with norm BN) runs its folded
 forward, one fused kernel per TCN block; --fused false runs the module as it
-trains. A frequency-domain model (one with an enh_transform: sse@base_rnn,
-sse@freq_tcn) separates in time mode, STFT -> masks -> iSTFT, in float32
-(--dtype bfloat16 raises: the STFT runs in float32). The multi-channel
+trains. The other time-domain models (sse@time_dprnn, sse@time_sepformer)
+run their forward, sse@demucs its infer_batch, which zero-pads the input to
+the length its U-net gives back whole (aps_tpu's infer; aps_tpu's batched
+path calls the model without that padding and loses the tail). A
+frequency-domain model (one with an enh_transform: sse@base_rnn,
+sse@freq_tcn, sse@freq_dprnn, sse@freq_sepformer, sse@freq_xfmr,
+sse@dfsmn, sse@chimera++, sse@dcunet, sse@dccrn, sse@dense_unet,
+sse@phasen) separates in time mode through its infer_batch, STFT -> masks
+or spectra -> iSTFT, in float32 (--dtype bfloat16 raises: the STFT runs
+in float32); --mode freq writes what its infer gives in mode "freq" (the
+masks; complex ones, and phasen's enhanced spectrum, as complex64). The
+multi-channel
 sse@rnn_enh_ml (examples/sse/chime4_ml, --channel -1 keeps every channel)
 gives its masks T x F in either mode, as its infer does in aps_tpu; in
 time mode both commands then write them as a WAV file (write_audio takes
@@ -88,8 +97,10 @@ class Separator(NnetEvaluator):
                                             False):
             # sse@rnn_enh_ml: its infer's masks N x T x F
             self.forward = lambda mix: self.nnet(mix)[1]
-        if self.forward is None and freq_domain:
-            # waveforms whatever the model's training_mode
+        if self.forward is None and callable(getattr(self.nnet,
+                                                     "infer_batch", None)):
+            # waveforms whatever the model's training_mode (and DEMUCS's
+            # padding to the length its U-net gives back whole)
             self.forward = functools.partial(self.nnet.infer_batch,
                                              mode="time")
         if self.forward is None:

@@ -11,8 +11,12 @@ YAML configs and writes aps_tpu-format checkpoints and train.yaml into
 load. It trains on the card (--device-id picks which) and raises when torch
 sees none; --device cpu asks for the CPU in so many words. A
 frequency-domain model gets the enh_transform of its YAML
-(aps_tpu_torch.transform.enh). Training reaches no hand-written kernel:
-the fused TCN block is an inference-only fold."""
+(aps_tpu_torch.transform.enh). The fused TCN block is an inference-only
+fold; sse@freq_xfmr with the rel pose trains through the rel attention's
+forward and backward kernels (csrc/rel_attention*.cu) when its attention
+dropout is 0, and a sepformer through the flash attention's
+(csrc/attention*.cu) likewise; every other model reaches no hand-written
+kernel."""
 
 import argparse
 import pprint

@@ -20,6 +20,10 @@ layout rule of each leaf follows the module that owns it:
                  reversed: flax's ConvTranspose (transpose_kernel=False)
                  correlates the dilated input with the kernel as stored,
                  where PyTorch scatters it, i.e. applies it flipped
+  nn.ConvTranspose2d  weight (I, O, H, W) <-> kernel (H, W, O, I), no
+                 reversal: the U-nets' ConvTranspose with
+                 transpose_kernel=True is the gradient of a conv, as
+                 PyTorch's is, with the in/out axes of its kernel swapped
   nn.PReLU       weight (1,)           <-> negative_slope ()
   nn.LSTM/GRU/RNN  weight_ih/hh, bias_ih/hh (G*H, ...), and their _reverse
                  twins of a bidirectional layer <-> one flax Dense a
@@ -34,9 +38,10 @@ layout rule of each leaf follows the module that owns it:
                  xl attention or, when tied, of its encoder; the learned
                  beamformers' complex weights as their <name>_real and
                  <name>_imag pairs, their spectra projection proj and the
-                 trainable FixedBeamformer's weight (2, B, C, F, 1)) keep
-                 name and shape; one that is None (a ScaleLinear without
-                 scale) has no leaf
+                 trainable FixedBeamformer's weight (2, B, C, F, 1);
+                 PHASEN's GlobalNorm gamma / beta and frequency map
+                 freq_linear (F, F)) keep name and shape; one that is None
+                 (a ScaleLinear without scale) has no leaf
 
 The RNN attention model needs no rule of its own either: its encoders'
 layers keep aps_tpu's names (enc_list_<i>, layer_<i>, fsmn_<i> with
@@ -44,6 +49,14 @@ inp_proj, the depthwise ctx_conv (P, 1, W) <-> (W, 1, P) and out_proj),
 its decoder's too (vocab_embed, decoder, att_net, proj, pred), a location
 filter F is a Conv1d (the grouped one of mhloc too) and the multi-head
 score weight w (H, D) a jax_params leaf.
+
+The SSE zoo's U-nets name their conv pairs real_conv / imag_conv /
+plain_conv (transposed: *_convt) around a conv (conv_t), which map onto
+aps_tpu's wrapper modules real / imag / conv around Conv_0 /
+ConvTranspose_0; DCCRN's bottleneck is stacked_rnn / cplx_lstmp / lstmp
+<-> StackedRNN_0 / ComplexLSTMP_0 / LSTMP_0, the dual-path separators'
+head prelu <-> PReLU_0, SepFormer's chunk_xfmr <-> TransformerEncoder_0
+and its third dense layer linear3 <-> Dense_2.
 
 The multi-channel front ends need no rule of their own: an RNN mask
 network (enh_net/mask_net, the encoder's proj, impl and outp) is Linear
@@ -95,6 +108,24 @@ MODULE_NAMES = {
     "cells": "",
     # a VariantRNN's recurrent layer (aps_tpu: an unnamed SingleRNN)
     "single_rnn": "SingleRNN_0",
+    # the dual-path separators' mask head (sse/bss/dprnn.py, sepformer.py)
+    "prelu": "PReLU_0",
+    # SepFormer's third dense layer and its chunk transformers' encoder
+    "linear3": "Dense_2",
+    "chunk_xfmr": "TransformerEncoder_0",
+    # the U-nets' (complex) conv pairs (sse/enh/dcunet.py): aps_tpu's
+    # wrapper modules real / imag / conv around Conv_0 / ConvTranspose_0
+    "real_conv": "real",
+    "imag_conv": "imag",
+    "plain_conv": "conv",
+    "real_convt": "real",
+    "imag_convt": "imag",
+    "plain_convt": "conv",
+    "conv_t": "ConvTranspose_0",
+    # DCCRN's bottleneck (sse/bss/dccrn.py)
+    "stacked_rnn": "StackedRNN_0",
+    "cplx_lstmp": "ComplexLSTMP_0",
+    "lstmp": "LSTMP_0",
 }
 _BN = (nn.BatchNorm1d, nn.BatchNorm2d)
 
@@ -138,6 +169,10 @@ def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str, object]]:
             out[prefix + "weight"] = ("params", pfx + "kernel", "conv_t")
             if mod.bias is not None:
                 out[prefix + "bias"] = ("params", pfx + "bias", None)
+        elif isinstance(mod, nn.ConvTranspose2d):
+            out[prefix + "weight"] = ("params", pfx + "kernel", "conv_t2d")
+            if mod.bias is not None:
+                out[prefix + "bias"] = ("params", pfx + "bias", None)
         elif isinstance(mod, nn.PReLU):
             out[prefix + "weight"] = ("params", pfx + "negative_slope",
                                       "scalar")
@@ -163,6 +198,9 @@ def _to_port(value: np.ndarray, rule) -> np.ndarray:
     if rule == "conv_t":
         # (W, I, O) -> (I, O, W), W reversed
         return np.transpose(value, (1, 2, 0))[..., ::-1]
+    if rule == "conv_t2d":
+        # (H, W, O, I) -> (I, O, H, W), no reversal
+        return np.transpose(value, (3, 2, 0, 1))
     if rule == "scalar":
         return value.reshape(1)
     return value
@@ -178,6 +216,9 @@ def _to_jax(value: np.ndarray, rule) -> np.ndarray:
     if rule == "conv_t":
         # (I, O, W) -> (W, I, O), W reversed
         return np.transpose(value[..., ::-1], (2, 0, 1))
+    if rule == "conv_t2d":
+        # (I, O, H, W) -> (H, W, O, I)
+        return np.transpose(value, (2, 3, 1, 0))
     if rule == "scalar":
         return value.reshape(())
     return value

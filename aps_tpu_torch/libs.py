@@ -4,10 +4,14 @@
 Only what the port has so far is registered: the "asr" and "enh"
 transforms, the "asr@xfmr", "asr@att", "asr@ctc", "asr@enh_xfmr",
 "asr@enh_att", "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
-"sse@freq_tcn", "sse@base_rnn" and "sse@rnn_enh_ml" models, the
+"sse@freq_tcn", "sse@base_rnn", "sse@rnn_enh_ml", "sse@time_dprnn",
+"sse@freq_dprnn", "sse@demucs", "sse@dcunet", "sse@dccrn",
+"sse@dense_unet", "sse@time_sepformer", "sse@freq_sepformer",
+"sse@freq_xfmr", "sse@dfsmn", "sse@phasen" and "sse@chimera++" models, the
 "asr@ctc_xent", "asr@ctc", "asr@lm", "sse@sisnr", "sse@snr", "sse@wa",
 "sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
-"sse@time_mel_sa" and "sse@enh_ml" tasks, the
+"sse@time_mel_sa", "sse@complex_mapping", "sse@complex_masking" and
+"sse@enh_ml" tasks, the
 "dp" trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and
 the "word", "char" and "subword" tokenizers; the multi-channel front ends
 "rnn_mask_mvdr", "time_invar", "time_invar_att", "time_variant" and
@@ -26,7 +30,17 @@ ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.ctc",
                   "aps_tpu_torch.asr.lm.rnn",
                   "aps_tpu_torch.asr.lm.transformer"]
 SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
-                  "aps_tpu_torch.sse.unsuper.rnn"]
+                  "aps_tpu_torch.sse.unsuper.rnn",
+                  "aps_tpu_torch.sse.bss.dprnn",
+                  "aps_tpu_torch.sse.bss.sepformer",
+                  "aps_tpu_torch.sse.bss.transformer",
+                  "aps_tpu_torch.sse.bss.dccrn",
+                  "aps_tpu_torch.sse.bss.dense_unet",
+                  "aps_tpu_torch.sse.bss.chimera",
+                  "aps_tpu_torch.sse.enh.demucs",
+                  "aps_tpu_torch.sse.enh.dcunet",
+                  "aps_tpu_torch.sse.enh.dfsmn",
+                  "aps_tpu_torch.sse.enh.phasen"]
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr",
                         "aps_tpu_torch.transform.enh"]
 TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Objective functions of the ASR and separation tasks (port of
 aps_tpu/task/objf.py: ce_objf, ls_objf, ctc_objf; sisnr_objf, snr_objf,
-multiple_objf, permu_invarint_objf, hybrid_permu_objf).
+dpcl_objf and DpclObjfComputer, multiple_objf, permu_invarint_objf,
+hybrid_permu_objf).
 
 ctc_objf calls torch.nn.functional.ctc_loss where aps_tpu calls
 optax.ctc_loss (a library call outside any kernel on both sides). optax
@@ -128,6 +129,45 @@ def snr_objf(x: torch.Tensor,
     if non_nagetive:
         return 10 * torch.log10(1 + snr_linear**2)
     return 20 * torch.log10(eps + snr_linear)
+
+
+def dpcl_objf(net_embed: torch.Tensor,
+              classes: torch.Tensor,
+              weights: torch.Tensor,
+              num_spks: int = 2) -> torch.Tensor:
+    """Deep clustering loss. net_embed: N x FT x D, classes / weights:
+    N x F x T -> N (divided by the number of frames)."""
+    N, F, T = classes.shape
+    ref_embed = tf.one_hot(classes.reshape(N, F * T),
+                           num_spks).to(net_embed.dtype)
+
+    def affinity(v, y):
+        return (torch.einsum("nid,nie->nde", v, y)**2).sum((1, 2))
+
+    w = torch.sqrt(weights.reshape(N, F * T, 1))
+    out = net_embed * w
+    ref = ref_embed * w
+    loss = affinity(out, out) + affinity(ref, ref) - 2 * affinity(out, ref)
+    return loss / T
+
+
+class DpclObjfComputer(object):
+    """DPCL loss from the embeddings and the sources' magnitudes: each TF
+    bin belongs to its loudest source and weighs its share of the
+    mixture's magnitude."""
+
+    def __call__(self,
+                 embedding: torch.Tensor,
+                 magnitude_ref: torch.Tensor,
+                 magnitude_mix: torch.Tensor,
+                 mean: bool = True) -> torch.Tensor:
+        """embedding: N x FT x D, magnitude_ref: N x F x T x S,
+        magnitude_mix: N x F x T."""
+        classes = torch.argmax(magnitude_ref, -1)
+        weights = magnitude_mix / magnitude_mix.sum((-1, -2), keepdim=True)
+        loss = dpcl_objf(embedding, classes, weights,
+                         num_spks=magnitude_ref.shape[-1])
+        return loss.mean() if mean else loss
 
 
 def multiple_objf(inp: List[Any],

@@ -3,18 +3,25 @@
 TimeDomainTask, SisnrTask "sse@sisnr", SnrTask "sse@snr", WaTask
 "sse@wa", FreqSaTask with LinearFreqSaTask "sse@freq_linear_sa" and
 MelFreqSaTask "sse@freq_mel_sa", TimeSaTask with LinearTimeSaTask
-"sse@time_linear_sa" and MelTimeSaTask "sse@time_mel_sa").
+"sse@time_linear_sa" and MelTimeSaTask "sse@time_mel_sa",
+ComplexMappingTask "sse@complex_mapping" and ComplexMaskingTask
+"sse@complex_masking").
 
 The spectra are complex64 (aps_tpu_torch.transform.enh.StftCtx); the
 phase-sensitive target's cos(ref phase - mix phase) is Re(ref conj(mix))
 over the product of the magnitudes, the value aps_tpu forms by the trig
 identity from its packed pairs. Every magnitude is sqrt(re^2 + im^2 +
-EPSILON), as aps_tpu's. The deep-clustering branch of the spectral
-approximation needs a model with dpcl_embed (chimera++), which the port
-does not have yet: with such a model and dpcl_weight > 0 it raises.
-sse@complex_mapping and sse@complex_masking wait for the complex models."""
+EPSILON), as aps_tpu's. With dpcl_weight > 0, a model with dpcl_embed
+(chimera++) and more than one speaker, the spectral approximation adds
+the deep-clustering loss: dpcl_weight x DPCL + (1 - dpcl_weight) x the
+mask loss, reported as "loss", "dpcl" and "mask".
 
-from typing import Dict, Optional
+The complex tasks reduce the real and the imaginary parts of the
+complex64 spectra or masks as aps_tpu reduces its packed N x F x T x 2
+pairs: the distance of each part (and of the magnitudes, when asked) per
+bin, averaged over T and summed over F."""
+
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,13 +29,15 @@ from torch import nn
 from aps_tpu_torch.const import EPSILON
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.task.base import Task
-from aps_tpu_torch.task.objf import hybrid_permu_objf, sisnr_objf, snr_objf
+from aps_tpu_torch.task.objf import (DpclObjfComputer, hybrid_permu_objf,
+                                     sisnr_objf, snr_objf)
 from aps_tpu_torch.transform.enh import StftCtx
 from aps_tpu_torch.transform.utils import mel_filter
 
 __all__ = [
     "SisnrTask", "SnrTask", "WaTask", "LinearFreqSaTask", "MelFreqSaTask",
-    "LinearTimeSaTask", "MelTimeSaTask"
+    "LinearTimeSaTask", "MelTimeSaTask", "ComplexMappingTask",
+    "ComplexMaskingTask"
 ]
 
 
@@ -197,9 +206,6 @@ class FreqSaTask(SepTask):
     def forward(self, egs: Dict) -> Dict:
         if not self.masking and self.truncated > 0:
             raise ValueError("masking = False conflicts with truncated > 0")
-        if self.dpcl_weight > 0 and hasattr(self.nnet, "dpcl_embed"):
-            raise NotImplementedError("the deep-clustering objective comes "
-                                      "with chimera++, not ported yet")
         mix, ref = egs["mix"], egs["ref"]
         mask = self.nnet(mix)
         ctx = self.nnet.enh_transform.ctx("forward_stft")
@@ -207,15 +213,27 @@ class FreqSaTask(SepTask):
         mix_mag = _magnitude(mix_stft)
         if not isinstance(mask, (list, tuple)):
             mask, ref = [mask], [ref]
-        ref_mag = [self._ref_mag(mix_stft, mix_mag, ctx.forward(r))
-                   for r in ref]
+        ref_stft = [ctx.forward(r) for r in ref]
+        ref_mag = [self._ref_mag(mix_stft, mix_mag, r) for r in ref_stft]
         out = [m * mix_mag for m in mask] if self.masking else list(mask)
         loss = hybrid_permu_objf(out, ref_mag, self.objf,
                                  transform=self.transform,
                                  weight=self.branch_weight(),
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        return {"loss": loss.mean()}
+        mask_loss = loss.mean()
+        if self.dpcl_weight > 0 and hasattr(self.nnet, "dpcl_embed") \
+                and self.num_spks > 1:
+            raw_mag = torch.stack([_magnitude(r) for r in ref_stft], -1)
+            dpcl_loss = DpclObjfComputer()(self.nnet.dpcl_embed(mix),
+                                           raw_mag, mix_mag, mean=True)
+            return {
+                "loss": self.dpcl_weight * dpcl_loss +
+                (1 - self.dpcl_weight) * mask_loss,
+                "dpcl": dpcl_loss,
+                "mask": mask_loss
+            }
+        return {"loss": mask_loss}
 
 
 @ApsRegisters.task.register("sse@freq_linear_sa")
@@ -331,3 +349,91 @@ class MelTimeSaTask(_MelMixin, TimeSaTask):
         super(MelTimeSaTask, self).__init__(nnet, **kwargs)
         self._init_mel(power_mag, num_bins, num_mels, mel_log, mel_scale,
                        mel_norm, sr, fmax)
+
+
+@ApsRegisters.task.register("sse@complex_mapping")
+class ComplexMappingTask(SepTask):
+    """Complex spectral mapping: the model's complex spectra against the
+    references' STFT, L1 or L2 on the real and the imaginary parts (and on
+    the magnitudes, add_magnitude_loss)."""
+
+    def __init__(self, nnet: nn.Module, num_spks: int = 2,
+                 permute: bool = True, objf_name: str = "L1",
+                 add_magnitude_loss: bool = True, **kwargs):
+        super(ComplexMappingTask, self).__init__(nnet, **kwargs)
+        self.num_spks = num_spks
+        self.permute = permute
+        self.objf_name = objf_name
+        self.add_magnitude_loss = add_magnitude_loss
+
+    def _ctx(self) -> StftCtx:
+        return self.nnet.enh_transform.ctx("forward_stft")
+
+    def objf(self, out, ref):
+        """out, ref: N x F x T complex -> N"""
+        fn = _l1 if self.objf_name == "L1" else _l2
+        loss = fn(out.real, ref.real) + fn(out.imag, ref.imag)
+        if self.add_magnitude_loss:
+            loss = loss + fn(_magnitude(out), _magnitude(ref))
+        return loss.mean(-1).sum(-1)
+
+    def _loss(self, out, ref) -> Dict:
+        loss = hybrid_permu_objf(out, ref, self.objf,
+                                 weight=self.branch_weight(),
+                                 permute=self.permute,
+                                 permu_num_spks=self.num_spks)
+        return {"loss": loss.mean()}
+
+    def forward(self, egs: Dict) -> Dict:
+        mix, ref = egs["mix"], egs["ref"]
+        out = self.nnet(mix)
+        if not isinstance(out, (list, tuple)):
+            out, ref = [out], [ref]
+        ctx = self._ctx()
+        return self._loss(list(out), [ctx.forward(r) for r in ref])
+
+
+@ApsRegisters.task.register("sse@complex_masking")
+class ComplexMaskingTask(ComplexMappingTask):
+    """Complex ratio masks: the masked mixture against the references'
+    STFT, or (compress_masks) the masks against the references' cIRM
+    compressed as k (1 - e) / (1 + e), e = exp(-c max(crm, lower_bound)),
+    each part on its own."""
+
+    def __init__(self, nnet: nn.Module,
+                 compress_param: Tuple[float, float, float] = (10, 0.1, -100),
+                 compress_masks: bool = False, objf_name: str = "L2",
+                 add_magnitude_loss: bool = False, **kwargs):
+        super(ComplexMaskingTask, self).__init__(
+            nnet, objf_name=objf_name,
+            add_magnitude_loss=add_magnitude_loss, **kwargs)
+        self.compress_param = tuple(compress_param)
+        self.compress_masks = compress_masks
+
+    def _compress_mask(self, mix_stft: torch.Tensor,
+                       ref: torch.Tensor) -> torch.Tensor:
+        k, c, lower_bound = self.compress_param
+        ref_stft = self._ctx().forward(ref)
+        denominator = mix_stft.real**2 + mix_stft.imag**2 + EPSILON
+        crm = mix_stft.conj() * ref_stft
+
+        def compress(part):
+            exp = torch.exp(-c * torch.clamp_min(part / denominator,
+                                                 lower_bound))
+            return k * (1 - exp) / (1 + exp)
+
+        return torch.complex(compress(crm.real), compress(crm.imag))
+
+    def forward(self, egs: Dict) -> Dict:
+        ref = egs["ref"]
+        out = self.nnet(egs["mix"])
+        if not isinstance(out, (list, tuple)):
+            out, ref = [out], [ref]
+        mix = self._ctx().forward(egs["mix"])
+        if self.compress_masks:
+            ref = [self._compress_mask(mix, r) for r in ref]
+            out = list(out)
+        else:
+            ref = [self._ctx().forward(r) for r in ref]
+            out = [mix * o for o in out]
+        return self._loss(out, ref)

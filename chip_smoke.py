@@ -191,10 +191,29 @@
    traced (both kernels named), two utterances card vs CPU; K1 at the
    decode's and a training pass's batch and K4 at the decode's T and lanes
    (TIMIT also at T = 300) against their plain versions.
+19. The rest of the SSE zoo: examples/sse/wsj0_2mix/conf/1b.yaml
+   (sse@time_dprnn, sse@sisnr; 32 x 32000 samples at 8 kHz),
+   examples/sse/dns_is2020/conf/1a.yaml (sse@demucs, sse@wa L1; 32 x
+   32085 at 16 kHz) and examples/sse/export_dcunet/conf/1a.yaml (the
+   complex sse@dcunet, sse@sisnr; 16 x 64000 at 16 kHz; its 7 stride-2
+   layers cut to 6 with the output padding 257 bins need, since as
+   written the 7th leaves no bins and neither package builds it) as
+   their run.sh stages 2 and 3 run them: train_ss on run.sh's batch of
+   seeded mixtures of the loader's chunk (two one-step epochs, timed
+   steps), a training pass card vs CPU on two chunks (the float64
+   referee for DCUNet's batch norms), separate on four mixtures at batch
+   1 and card vs CPU on two; no hand-written kernel launches. Then
+   sse@freq_xfmr (6 rel-pose layers of 512, 8 heads, 257 bins, wham 1a's
+   transform and task) through train_ss on 16 x 4 s (K3's forward once a
+   layer a pass, each backward kernel once a layer a step, counted
+   exactly), a training pass card vs CPU (a float64 referee on the CPU),
+   separate on four mixtures (K3's
+   forward once a layer each) and card vs CPU, and K3's four kernels
+   against their plain versions at the shapes those runs handed them.
    (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14, 16 and 17 last; step 18 runs first, after the builds, since its
-   traces name the kernels.)
+   14, 16, 17 and 19 last; step 18 runs first, after the builds, since
+   its traces name the kernels.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -398,6 +417,31 @@ LM_GRADS = ("lm_embed.weight", "pred.OptimizedLSTMCell_0.weight_hh_l0",
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def nbest_error(cpu, card, tol: float = 1e-3):
+    """The card's n-best list against the CPU's (lists of {"trans",
+    "score"}): the scores rank by rank within tol, and the hypotheses rank
+    by rank the same but where a rank sits in a near-tie, another entry of
+    either list scored within tol of it. On seeded weights the searches
+    are full of such near-ties, which float32 rounding orders, and prunes,
+    either way (an NVIDIA H100 80GB HBM3, 700.00 W, against the CPU):
+    wsj 1a's 2nd and 3rd hypotheses scored 3e-6 apart and the card ranked
+    them the other way; in TIMIT 1a's the four best lay within 5e-4 of
+    each other and each device kept one the other had pruned.
+    -> the largest score difference, or None when the lists disagree."""
+    if len(cpu) != len(card) or not cpu:
+        return None
+    err = max(abs(a["score"] - b["score"]) for a, b in zip(cpu, card))
+    if err > tol:
+        return None
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        if a["trans"] != b["trans"] and not any(
+                abs(h["score"] - a["score"]) <= tol
+                for side in (cpu, card)
+                for j, h in enumerate(side) if j != i):
+            return None
+    return err
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, calls: int = 1) -> float:
@@ -720,7 +764,8 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
         label = (f"B={B} H={H} D=64 T={T} Hp={Hp} causal={causal} k_len="
                  + (f"{lens[0]}" if len(set(lens)) == 1 else
                     "1, 2 and T" if role == "corner" else
-                    f"{lens} ({role})" if role in ("recipe", "chime4")
+                    f"{lens} ({role})" if role in ("recipe", "chime4",
+                                                   "freq_xfmr")
                     else "ragged"))
         out, lse = launch_forward(*args, causal, True)
         delta = torch.full_like(lse, float("nan"))
@@ -742,7 +787,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
             fail(f"flash_attention_rel_dq {label}: its delta is "
                  f"{delta_err} from sum(do * out)")
         pairs = H * valid_pairs(T, lens, causal)
-        if role in ("path", "t700", "recipe", "chime4"):
+        if role in ("path", "t700", "recipe", "chime4", "freq_xfmr"):
             fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
             fwd_plain_ms = time_ms(lambda: rel_mha_reference(
                 *args[:5], k_len=klen, causal=causal))
@@ -1996,7 +2041,7 @@ def write_mixtures(root: Path, count: int, gen, sr=SEP_SR, secs=SEP_SECS,
     import numpy as np
     import torch
     from scipy.io import wavfile
-    S = secs * sr
+    S = int(round(secs * sr))
     t = np.arange(S) / sr
     mixes = {}
     scps = {name: open(root / f"{name}.scp", "w") for name in names}
@@ -2857,6 +2902,437 @@ def wham_phase(root: Path, gen, dev, card):
     print(f"the frequency-domain phase took {numbers['phase_s']:.1f} s",
           flush=True)
     return launches_train, launches_sep, launches_tcn, numbers
+
+
+# the rest of the SSE zoo: three recipes as their run.sh stages 2 and 3 run
+# them, at their published widths (the batch, the loader's chunk and sample
+# rate of each YAML), and sse@freq_xfmr through K3. wsj0_2mix/1b: a
+# time-domain DPRNN (12 LSTM blocks, 128 units, sse@sisnr); dns_is2020/1a:
+# DEMUCS (resampling 4, 5 layers of 64 to 1024 channels, a 2 x 1024 LSTM,
+# sse@wa L1); export_dcunet/1a: the complex DCUNet (sse@sisnr, 512-point
+# STFT), its 7 stride-2 layers cut to 6 with the output padding the 257
+# bins need: as written the 7th layer takes each half's 2 bins to 0 and
+# neither package builds it. None of the three reaches a hand-written
+# kernel (cuDNN's LSTMs and convolutions, cuBLAS, cuFFT)
+ZOO_DCUNET_CUT = dict(K="7,5;7,5;7,5;5,3;5,3;5,3",
+                      S="2,1;2,1;2,1;2,1;2,1;2,1", C="32,32,64,64,64,64",
+                      P="1,1,1,1,1,1", O="0,0,1,0,1,1")
+ZOO_RECIPES = {
+    # recipe -> run.sh's batch, the files written (mixture first), the
+    # gradients held card vs CPU, the float64 referee (a batch norm in the
+    # model), the change to nnet_conf
+    "wsj0_2mix/1b": dict(
+        batch=32, names=("mix", "spk1", "spk2"), referee=False, patch={},
+        grads=("encoder.weight",
+               "separator.block_0.single_rnn.cells.weight_ih_l0",
+               "separator.block_11.single_rnn.cells.weight_hh_l0_reverse",
+               "separator.dense.weight", "decoder.weight")),
+    "dns_is2020/1a": dict(
+        batch=32, names=("mix", "spk1"), referee=False, patch={},
+        grads=("enc_conv_0.weight", "enc_pw_4.weight",
+               "lstm.layer_1.cells.weight_hh_l0", "dec_pw_0.weight",
+               "dec_conv_4.weight")),
+    "export_dcunet/1a": dict(
+        batch=16, names=("mix", "spk1"), referee=True,
+        patch=ZOO_DCUNET_CUT,
+        grads=("enc.enc_0.real_conv.conv.weight",
+               "enc.enc_5.imag_conv.conv.weight",
+               "dec.dec_0.real_convt.conv_t.weight",
+               "dec.dec_5.imag_convt.conv_t.weight")),
+}
+ZOO_TRAIN_EPOCHS = 2  # one step each: the corpus is one batch
+ZOO_TIMED_STEPS = 2
+ZOO_CHECK_UTTS = 2  # of the batch, in the card-vs-CPU training pass
+ZOO_SEP_UTTS = 4  # separated as run.sh stage 3 does, batch 1
+ZOO_SEP_CHECK = 2  # of them, card vs CPU
+# sse@freq_xfmr: no recipe; the class's 257 bins and 6 layers, the
+# encoders' width 512 with 8 heads of 64 and feed-forward 2048, the rel
+# pose, every dropout 0 (an active attention dropout takes the dense path);
+# wham 1a's enh transform (512/256 sqrthann frames, spectrogram-log-cmvn)
+# and task (tPSA), 16 mixtures of 4 s at 16 kHz, 251 frames each
+FREQ_XFMR_CONF = dict(input_size=257, num_bins=257, num_spks=2, arch="xfmr",
+                      pose="rel", num_layers=6,
+                      arch_kwargs=dict(att_dim=512, nhead=8,
+                                       feedforward_dim=2048,
+                                       att_dropout=0.0, ffn_dropout=0.0))
+FREQ_XFMR_YAML = "examples/sse/wham/conf/1a_bss_c_16k_max.yaml"
+FREQ_XFMR_BATCH = 16
+FREQ_XFMR_SECS = 4
+FREQ_XFMR_HEADS = 8
+FREQ_XFMR_GRADS = ("xfmr.proj_layer.dense.weight",
+                   "xfmr.encoder.layers.0.self_attn.in_proj.weight",
+                   "xfmr.encoder.layers.5.self_attn.in_proj.weight",
+                   "xfmr.pose_layer.embed.weight", "xfmr.outp.weight")
+REL_KERNELS = ("flash_attention_rel",) + tuple(
+    f"flash_attention_rel_{k}" for k in BACKWARD)
+
+
+def _sep_files(sep: Path, keys, names, sr: int, length: int):
+    """The separated wavs of every key (spk<i>/<key>.wav for two streams,
+    <key>.wav for one), finite, at sr and of the input's length."""
+    import numpy as np
+    from scipy.io import wavfile
+    streams = [f"spk{i}/" for i in range(1, len(names))] \
+        if len(names) > 2 else [""]
+    for key in keys:
+        for stream in streams:
+            sr_got, pcm = wavfile.read(str(sep / f"{stream}{key}.wav"))
+            if sr_got != sr or pcm.shape != (length,) or \
+                    not np.isfinite(pcm).all():
+                fail(f"separate: {sep.name}/{stream}{key}.wav has sr "
+                     f"{sr_got}, shape {pcm.shape}")
+
+
+def _card_vs_cpu_separation(cpt: Path, mixes, dev, label: str):
+    """ZOO_SEP_CHECK mixtures through Separator.run (batch 1 on the length
+    grid, as separate runs it) on the CPU and on the card: the largest
+    difference within TOL_SEP_REL of the largest sample. -> (err, scale)."""
+    import numpy as np
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    keys = sorted(mixes)[:ZOO_SEP_CHECK]
+    seps = {w: separate.Separator(str(cpt), device=w)
+            for w in ("cpu", "cuda")}
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: [s.run(mixes[k]) for k in keys] for w, s in seps.items()}
+    got = np.concatenate([np.ravel(a) for a in _flat(outs["cuda"])])
+    want = np.concatenate([np.ravel(a) for a in _flat(outs["cpu"])])
+    scale, err = float(np.abs(want).max()), float(np.abs(got - want).max())
+    if not (scale > 0 and np.isfinite(got).all() and
+            err <= TOL_SEP_REL * scale):
+        fail(f"{label} separation card vs CPU: max abs err {err} over "
+             f"{TOL_SEP_REL} of the largest sample {scale}")
+    return err, scale
+
+
+def _train_ss_run(root: Path, conf: dict, batch: int, dev):
+    """conf (written as root/train.yaml) through aps_tpu_torch.cmd.train_ss,
+    ZOO_TRAIN_EPOCHS one-step epochs on the one batch of its data, the
+    launch counts reset before and read after; then ZOO_TIMED_STEPS timed
+    steps on that batch and one traced. -> (trainer, checkpoint, the
+    batch, launches of the run, the losses, validation passes, numbers of
+    the step: median host s, peak GiB, device ms, host launches, the
+    kernels with the most device time)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_ss
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.libs import aps_dataloader
+    from aps_tpu_torch.ops import build
+    (root / "train.yaml").write_text(json.dumps(conf, indent=2))
+    cpt = root / "cpt"
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_ss.main([
+            "--conf", str(root / "train.yaml"), "--checkpoint", str(cpt),
+            "--batch-size", str(batch), "--epochs", str(ZOO_TRAIN_EPOCHS),
+            "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if trainer.device.type != "cuda" or \
+            trainer.cur_step != ZOO_TRAIN_EPOCHS:
+        fail(f"train_ss took {trainer.cur_step} steps on {trainer.device}")
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    valid = _epoch_losses(cpt / "trainer.log", "valid")
+    loader = conf["data_conf"]["loader"]
+    batches = list(aps_dataloader(fmt="se@chunk", train=False,
+                                  max_batch_size=batch, **loader,
+                                  **conf["data_conf"]["valid"]))
+    shape = (batch, loader["chunk_size"])
+    if len(batches) != 1 or batches[0]["mix"].shape != shape:
+        fail(f"expected one batch of {shape}, got "
+             f"{[b['mix'].shape for b in batches]}")
+    egs = batches[0]
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for step in range(ZOO_TIMED_STEPS):
+        done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        if not done:
+            fail(f"timed step {step} was skipped (non-finite loss or norm)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, _, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    losses += [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses + valid)):
+        fail(f"non-finite loss: training {losses}, validation {valid}")
+    step = {"host_s": statistics.median(secs), "peak_gib": peak,
+            "device_ms": device_ms, "host_launches": host_launches,
+            "top": top_kernels(prof, 4)}
+    return trainer, cpt, egs, launches, losses, len(valid), step
+
+
+def _traced_separation_ms(cpt: Path, mix) -> float:
+    """Device ms of one traced Separator.run of mix on the card (batch 1 on
+    the length grid), after one untraced run."""
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.cmd.profile_decode import profile
+    sep = separate.Separator(str(cpt), device="cuda")
+    sep.run(mix)
+    return profile(lambda: sep.run(mix))[0]
+
+
+def _seeded_task(conf: dict):
+    """The YAML's task around its model with seeded weights."""
+    import torch
+
+    from aps_tpu_torch.libs import aps_sse_nnet, aps_task, aps_transform
+    torch.manual_seed(SEED)
+    kwargs = dict(conf["nnet_conf"])
+    if "enh_transform" in conf:
+        kwargs["enh_transform"] = aps_transform("enh")(
+            **conf["enh_transform"])
+    return aps_task(conf["task"], aps_sse_nnet(conf["nnet"])(**kwargs),
+                    **conf["task_conf"])
+
+
+def zoo_recipe_phase(root: Path, recipe: str, gen, dev, card):
+    """examples/sse/<recipe>.yaml as written (nnet_conf patched as
+    ZOO_RECIPES says) through train_ss on run.sh's batch of seeded
+    mixtures of the loader's chunk, no kernel launched; one training pass
+    card vs CPU on ZOO_CHECK_UTTS of them (PERF.md section 2's gate, the
+    float64 referee where a batch norm is in the model); the trained
+    checkpoint through separate as run.sh stage 3 (batch 1) on
+    ZOO_SEP_UTTS mixtures, no kernel launched, and card vs CPU on
+    ZOO_SEP_CHECK. -> (launches of training, of separation, numbers)."""
+    import torch
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    beg = time.perf_counter()
+    spec = ZOO_RECIPES[recipe]
+    exp, name = recipe.split("/")
+    root.mkdir()
+    conf = load_ss_conf(str(REPO / "examples/sse" / exp / "conf" /
+                            f"{name}.yaml"))
+    conf["nnet_conf"].update(spec["patch"])
+    loader = conf["data_conf"]["loader"]
+    sr, S, names = loader["sr"], loader["chunk_size"], spec["names"]
+    # se@chunk's training offset is drawn from [0, length mod hop], hop =
+    # chunk // 2: with an odd chunk (dns's 32085) an utterance of the
+    # chunk's length loses its chunk half the time, so the training
+    # mixtures are longer by what makes the offset 0 (one chunk each)
+    hop = S // 2
+    data = root / "data"
+    data.mkdir()
+    write_mixtures(data, spec["batch"], gen, sr, (S + (-S) % hop) / sr,
+                   names)
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = {
+        "mix_scp": str(data / "mix.scp"),
+        "ref_scp": ",".join(str(data / f"{n}.scp") for n in names[1:])}
+    trainer, cpt, egs, launches_train, losses, _, step = \
+        _train_ss_run(root, conf, spec["batch"], dev)
+    if any(launches_train.values()):
+        fail(f"train_ss ({recipe}) launches {launches_train}, expected none")
+    if trainer.matmul_precision != "bfloat16":
+        fail(f"{recipe} trains at {trainer.matmul_precision}")
+    params = sum(p.numel() for p in trainer.task.nnet.parameters())
+    del trainer
+    loss_g, loss_c, errs = step_pass_check(
+        _seeded_task(conf), egs, dev, spec["grads"], ZOO_CHECK_UTTS,
+        referee=spec["referee"])
+    tt = root / "tt"
+    tt.mkdir()
+    mixes = write_mixtures(tt, ZOO_SEP_UTTS, gen, sr, S / sr, names)
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main([str(tt / "mix.scp"), str(root / "sep"),
+                               "--checkpoint", str(cpt), "--sr", str(sr)])
+    torch.cuda.synchronize()
+    launches_sep = dict(build.LAUNCHES)
+    if any(launches_sep.values()):
+        fail(f"separate ({recipe}) launches {launches_sep}, expected none")
+    _sep_files(root / "sep", sorted(mixes), names, sr, S)
+    err, scale = _card_vs_cpu_separation(cpt, mixes, dev, recipe)
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        sep_ms = _traced_separation_ms(cpt, mixes[sorted(mixes)[0]])
+    rate = stats["audio_secs"] / stats["sep_secs"]
+    numbers = dict(step, sep_rate=rate, sep_device_ms=sep_ms, params=params,
+                   phase_s=time.perf_counter() - beg)
+    cut = f", nnet_conf {spec['patch']}" if spec["patch"] else " as written"
+    print(f"{recipe}{cut} ({conf['nnet']}, {params} parameters, "
+          f"{conf['task']}): train_ss on {spec['batch']} x {S} samples at "
+          f"{sr} Hz, {ZOO_TRAIN_EPOCHS} one-step epochs then "
+          f"{ZOO_TIMED_STEPS} timed steps, no kernel launches; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step: device "
+          f"{step['device_ms']:.3f} ms (traced; {step['host_launches']} "
+          f"launches), host {step['host_s']:.4f} s median (host clock around "
+          f"a synchronised step, TF32), peak memory {step['peak_gib']:.3f} "
+          f"GiB ({card})", flush=True)
+    print(f"{recipe} step, the kernels with the most device time (ms): "
+          f"{step['top']}", flush=True)
+    print(f"{recipe} training pass card vs CPU at float32 on "
+          f"{ZOO_CHECK_UTTS} chunks: loss {loss_g:.6f} vs {loss_c:.6f}; "
+          + ("gradients' distance (card, CPU) from the card's float64 pass "
+             "relative to the largest entry " + ", ".join(
+                 f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in errs.items())
+             if spec["referee"] else
+             "gradient errors relative to the largest entry " + ", ".join(
+                 f"{k} {v:.3e}" for k, v in errs.items())), flush=True)
+    print(f"{recipe} separate (run.sh stage 3, batch 1): {ZOO_SEP_UTTS} x "
+          f"{S} samples, {rate:.2f} audio-s/s (host clock around "
+          f"synchronised forwards, the first included), a mixture's forward "
+          f"{sep_ms:.3f} ms of device time (traced), no kernel launches; "
+          f"card vs CPU on {ZOO_SEP_CHECK} mixtures: max abs err {err:.3e} "
+          f"(largest sample {scale:.3f}); the phase took "
+          f"{numbers['phase_s']:.1f} s", flush=True)
+    return launches_train, launches_sep, numbers
+
+
+@contextlib.contextmanager
+def rel_calls():
+    """Record (B, H, T, D, Hp, k_len, causal, grad enabled) of every call
+    that reaches flash_attention_rel through the attention modules."""
+    import torch
+
+    from aps_tpu_torch.asr.transformer import impl
+    real = impl.flash_attention_rel
+    seen = []
+
+    def record(q_c, q_p, k, v, pose, k_len=None, causal=False):
+        B, _, T, _ = q_c.shape
+        lens = (T,) * B if k_len is None else tuple(k_len.tolist())
+        seen.append((*q_c.shape, pose.shape[0], lens, causal,
+                     torch.is_grad_enabled()))
+        return real(q_c, q_p, k, v, pose, k_len=k_len, causal=causal)
+
+    impl.flash_attention_rel = record
+    try:
+        yield seen
+    finally:
+        impl.flash_attention_rel = real
+
+
+def freq_xfmr_phase(root: Path, gen, dev, card):
+    """sse@freq_xfmr (FREQ_XFMR_CONF) under wham 1a's transform and task
+    through train_ss on FREQ_XFMR_BATCH mixtures of FREQ_XFMR_SECS s: K3's
+    forward once a layer a pass (training and validation), each backward
+    kernel once a layer a step, counted exactly; a training pass card vs
+    CPU (K3's four kernels on the card, launched once a layer); separate on
+    ZOO_SEP_UTTS mixtures, batch 1 (K3's forward once a layer each), card vs
+    CPU on ZOO_SEP_CHECK; then K3's forward and backward kernels against
+    their plain versions at the shapes the runs handed them.
+    -> (launches of training, of separation, rows by kernel, numbers)."""
+    import torch
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    beg = time.perf_counter()
+    root.mkdir()
+    wham = load_ss_conf(str(REPO / FREQ_XFMR_YAML))
+    data = root / "data"
+    data.mkdir()
+    write_mixtures(data, FREQ_XFMR_BATCH, gen, WHAM_SR, FREQ_XFMR_SECS,
+                   WHAM_NAMES)
+    scps = {"mix_scp": str(data / "mix.scp"),
+            "ref_scp": f"{data / 's1.scp'},{data / 's2.scp'}"}
+    conf = dict(nnet="sse@freq_xfmr", nnet_conf=FREQ_XFMR_CONF,
+                enh_transform=wham["enh_transform"], task=wham["task"],
+                task_conf=wham["task_conf"],
+                trainer_conf=wham["trainer_conf"],
+                data_conf={"fmt": "se@chunk",
+                           "loader": {"chunk_size": FREQ_XFMR_SECS * WHAM_SR,
+                                      "sr": WHAM_SR},
+                           "train": scps, "valid": scps})
+    layers = FREQ_XFMR_CONF["num_layers"]
+    with rel_calls() as seen_train:
+        _, cpt, egs, launches_train, losses, valid, step = \
+            _train_ss_run(root, conf, FREQ_XFMR_BATCH, dev)
+    passes = ZOO_TRAIN_EPOCHS + valid
+    want = {"flash_attention_rel": layers * passes}
+    want.update({k: layers * ZOO_TRAIN_EPOCHS for k in REL_KERNELS[1:]})
+    got = {k: launches_train[k] for k in REL_KERNELS}
+    others = {k: n for k, n in launches_train.items()
+              if k not in REL_KERNELS and n}
+    if got != want or others:
+        fail(f"train_ss (sse@freq_xfmr) launches {launches_train}, expected "
+             f"{want} ({ZOO_TRAIN_EPOCHS} steps, {valid} validation passes)")
+    # the float64 referee on the CPU (K3 takes float32 only): the card's and
+    # the CPU's float32 gradients of the input projection, under 6 layers,
+    # parted by 1.0e-3 and 1.6e-3 of its largest entry in two runs on an
+    # NVIDIA H100 80GB HBM3, 700.00 W
+    launched = {}
+    loss_g, loss_c, errs = step_pass_check(
+        _seeded_task(conf), egs, dev, FREQ_XFMR_GRADS, ZOO_CHECK_UTTS,
+        referee=True, referee_on="cpu", launched=launched)
+    if {k: launched["card32"].get(k, 0) for k in REL_KERNELS} != \
+            {k: layers for k in REL_KERNELS}:
+        fail(f"the sse@freq_xfmr pass launched {launched['card32']}")
+    tt = root / "tt"
+    tt.mkdir()
+    mixes = write_mixtures(tt, ZOO_SEP_UTTS, gen, WHAM_SR, FREQ_XFMR_SECS,
+                           WHAM_NAMES)
+    build.reset_launches()
+    with rel_calls() as seen_sep, contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main([str(tt / "mix.scp"), str(root / "sep"),
+                               "--checkpoint", str(cpt), "--sr",
+                               str(WHAM_SR)])
+    torch.cuda.synchronize()
+    launches_sep = dict(build.LAUNCHES)
+    want_sep = {k: 0 for k in launches_sep}
+    want_sep["flash_attention_rel"] = layers * ZOO_SEP_UTTS
+    if launches_sep != want_sep:
+        fail(f"separate (sse@freq_xfmr) launches {launches_sep}, expected "
+             f"{want_sep}")
+    _sep_files(root / "sep", sorted(mixes), WHAM_NAMES, WHAM_SR,
+               FREQ_XFMR_SECS * WHAM_SR)
+    err, scale = _card_vs_cpu_separation(cpt, mixes, dev, "sse@freq_xfmr")
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        sep_ms = _traced_separation_ms(cpt, mixes[sorted(mixes)[0]])
+    # the shapes the runs handed K3: (B, H, T, D, Hp, k_len, causal)
+    trn = {c[:7] for c in seen_train if c[7]}
+    sep = {c[:7] for c in seen_sep}
+    if len(trn) != 1 or len(sep) != 1:
+        fail(f"sse@freq_xfmr handed K3 {trn} in training, {sep} in "
+             "separation")
+    (B, H, T, D, Hp, lens, causal), = trn
+    (B_s, _, T_s, _, Hp_s, lens_s, causal_s), = sep
+    if (H, D, Hp, causal, causal_s) != (FREQ_XFMR_HEADS, 64, 1, False,
+                                        False) or B != FREQ_XFMR_BATCH:
+        fail(f"sse@freq_xfmr's K3 calls: {trn}, {sep}")
+    rows = {"flash_attention_rel": check_rel_attention(
+        dev, gen, H=H, cases=((T_s, Hp_s, causal_s, list(lens_s),
+                               "path"),))[0]}
+    bwd = check_rel_attention_bwd(dev, gen, H=H, cases=[
+        (T, Hp, causal, list(lens), "freq_xfmr")])[0]
+    rows["flash_attention_rel"] += bwd.pop("fwd")
+    for kernel, krows in bwd.items():
+        rows[f"flash_attention_rel_{kernel}"] = krows
+    rate = stats["audio_secs"] / stats["sep_secs"]
+    numbers = dict(step, sep_rate=rate, sep_device_ms=sep_ms,
+                   train_shape=(B, H, T), separate_shape=(B_s, H, T_s),
+                   phase_s=time.perf_counter() - beg)
+    print(f"sse@freq_xfmr (6 x 512 rel, 8 heads) under {conf['task']}: "
+          f"train_ss on {FREQ_XFMR_BATCH} x {FREQ_XFMR_SECS} s at {WHAM_SR} "
+          f"Hz (K3 at B = {B}, H = {H}, T = {T}), {ZOO_TRAIN_EPOCHS} "
+          f"one-step epochs and {valid} validation passes then "
+          f"{ZOO_TIMED_STEPS} timed steps; launches of the run {got}; "
+          f"losses {', '.join(f'{v:.4f}' for v in losses)}; step: device "
+          f"{step['device_ms']:.3f} ms (traced; {step['host_launches']} "
+          f"launches), host {step['host_s']:.4f} s median, peak memory "
+          f"{step['peak_gib']:.3f} GiB ({card})", flush=True)
+    print(f"sse@freq_xfmr step, the kernels with the most device time (ms): "
+          f"{step['top']}", flush=True)
+    print(f"sse@freq_xfmr training pass card vs CPU at float32 on "
+          f"{ZOO_CHECK_UTTS} mixtures (K3's four kernels once a layer on the "
+          f"card): loss {loss_g:.6f} vs {loss_c:.6f}; gradients' distance "
+          "(card, CPU) from the CPU's float64 pass relative to the largest "
+          "entry " + ", ".join(f"{k} {a:.3e}, {b:.3e}"
+                               for k, (a, b) in errs.items()), flush=True)
+    print(f"sse@freq_xfmr separate, batch 1: {ZOO_SEP_UTTS} mixtures (K3 at "
+          f"B = {B_s}, T = {T_s}), {rate:.2f} audio-s/s, a mixture's "
+          f"forward {sep_ms:.3f} ms of device time (traced), launches "
+          f"{launches_sep['flash_attention_rel']} of K3's forward; card vs "
+          f"CPU on {ZOO_SEP_CHECK}: max abs err {err:.3e} (largest sample "
+          f"{scale:.3f}); the phase took {numbers['phase_s']:.1f} s",
+          flush=True)
+    return launches_train, launches_sep, rows, numbers
 
 
 def write_recipe(root: Path, train: Path) -> Path:
@@ -4043,10 +4519,10 @@ def chime4_decode_phase(root: Path, am: Path, lm_dir: Path, gen, dev,
             sos=sos, eos=eos, device=where, pad_to=S, **kw)
     score_err = 0.0
     for key, hc, hg in zip(keys, outs["cpu"], outs[str(dev)]):
-        if [h["trans"] for h in hc] != [h["trans"] for h in hg]:
+        err = nbest_error(hc, hg)
+        if err is None:
             fail(f"{key}: card and CPU n-best lists differ")
-        score_err = max([score_err] + [abs(a["score"] - b["score"])
-                                       for a, b in zip(hc, hg)])
+        score_err = max(score_err, err)
         if abs(hg[0]["score"] - stats["scores"][key]) > 1e-3:
             fail(f"{key}: decode_batch score {stats['scores'][key]} != "
                  f"search score {hg[0]['score']}")
@@ -4687,15 +5163,15 @@ def att_decode_phase(root: Path, name: str, am: Path, lm_dir, gen, dev,
             sos=sos, eos=eos, device=where, pad_to=S, **check_kw)
     score_err = 0.0
     for key, hc, hg in zip(keys, outs["cpu"], outs[str(dev)]):
-        if [h["trans"] for h in hc] != [h["trans"] for h in hg]:
+        err = nbest_error(hc, hg)
+        if err is None:
             for side, hyps in (("CPU", hc), ("card", hg)):
                 print(f"{name} {key} {side}: " + "; ".join(
                     f"{h['score']:.6f} ({len(h['trans'])}) "
                     f"{' '.join(map(str, h['trans']))}" for h in hyps),
                     flush=True)
             fail(f"{name} {key}: card and CPU n-best lists differ")
-        score_err = max([score_err] + [abs(a["score"] - b["score"])
-                                       for a, b in zip(hc, hg)])
+        score_err = max(score_err, err)
     if not (score_err <= 1e-3 and len(outs["cpu"][0]) > 1):
         fail(f"{name} n-best scores card vs CPU differ by {score_err}")
     print(f"{name} decode_batch {' '.join(spec['stage4'])}"
@@ -5031,6 +5507,21 @@ def main() -> None:
             checks[name] += rows
             print_rows(name, rows, card)
 
+        # the rest of the SSE zoo: wsj0_2mix/1b, dns_is2020/1a and
+        # export_dcunet/1a through train_ss and separate (no kernel on
+        # their path), then sse@freq_xfmr through K3's four kernels
+        zoo_root = root / "zoo"
+        zoo_root.mkdir()
+        zoo_launches = {
+            recipe: zoo_recipe_phase(zoo_root / recipe.replace("/", "_"),
+                                     recipe, gen, dev, card)[:2]
+            for recipe in ZOO_RECIPES}
+        launches_fx, launches_fxsep, fx_rows, _ = freq_xfmr_phase(
+            zoo_root / "freq_xfmr", gen, dev, card)
+        for name, rows in fx_rows.items():
+            checks[name] += rows
+            print_rows(name, rows, card)
+
         # the RNN attention slice's rows of K1 and K4
         for name, per_recipe in att_rows.items():
             for rows in per_recipe.values():
@@ -5099,6 +5590,14 @@ def main() -> None:
                 {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
                  "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
                 for r in chime4_rows[name]]
+        if name in fx_rows:
+            extra["freq_xfmr_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
+                for r in fx_rows[name]]
+        for recipe, (trn, sep) in zoo_launches.items():
+            extra[f"launches_{recipe}_train_run"] = trn[name]
+            extra[f"launches_{recipe}_separate"] = sep[name]
         for recipe, rows in att_rows.get(name, {}).items():
             extra[f"{recipe}_rows"] = [
                 {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
@@ -5148,6 +5647,8 @@ def main() -> None:
             "launches_chime4_decode": launches_c4dec[name],
             "launches_chime4_ml_train": launches_ml[name],
             "launches_chime4_ml_separate": launches_mlsep[name],
+            "launches_freq_xfmr_train_run": launches_fx[name],
+            "launches_freq_xfmr_separate": launches_fxsep[name],
             "max_abs_err": max(r[1] for r in rows
                                if "bfloat16" not in r[0]),
             "ms": ms,

@@ -308,7 +308,10 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "asr.filter.mvdr", "asr.enh_att", "sse.unsuper.rnn",
                 "task.ml", "asr.att", "asr.ctc", "asr.base.attention",
                 "asr.base.decoder", "asr.base.component",
-                "asr.beam_search.att", "trainer.ss"):
+                "asr.beam_search.att", "trainer.ss", "sse.bss.dprnn",
+                "sse.bss.dccrn", "sse.bss.dense_unet", "sse.bss.sepformer",
+                "sse.bss.transformer", "sse.bss.chimera", "sse.enh.demucs",
+                "sse.enh.dcunet", "sse.enh.dfsmn", "sse.enh.phasen"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

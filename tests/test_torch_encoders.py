@@ -35,9 +35,23 @@ ENC_ATOL = 2e-4
 # a gradient leaf sums its contributions in another order; its bound is
 # relative to the leaf's largest entry (at least 1)
 GRAD_RTOL = 2e-4
-# sin/cos of positions up to a few hundred in float32: jnp and torch agree
-# to ~1e-6 there
-POSE_ATOL = 5e-6
+# The sinusoids sin/cos(p * div_k), div_k = exp(-ln(1e4) k / E), held
+# against a float64 evaluation of the formula with a bound derived from
+# float32 rounding (u = 2^-24, half an ulp of 1):
+#   * aps_tpu forms the exponent in float32 with three roundings (the
+#     constant, the product, the quotient), so |d exponent| <= 3u |a_k|,
+#     and exp adds an ulp: |d div_k| <= 3u |a_k| div_k + ulp(div_k)
+#     (measured: 7 ulps of div_k off, 2.3e-8, in jnp and torch alike);
+#   * the port forms div_k in float64 and rounds it once:
+#     |d div_k| <= ulp(div_k) / 2;
+#   * the argument p * div_k is rounded once (half an ulp of it) and sin or
+#     cos adds up to POSE_SIN_ULPS ulps of a value below 1.
+# So |d enc| <= |p| |d div_k| + ulp(p div_k) / 2 + POSE_SIN_ULPS u, and the
+# two packages agree to the sum of their bounds. Up to p = 598 the bounds
+# reach 1.0e-4 (aps_tpu) and 6.6e-5 (the port), where the errors measured
+# 2.0e-5 and 1.8e-5 (0.40 and 0.92 of their bounds); jnp's and torch's
+# float32 exponents once left the packages 3.05e-5 apart there
+POSE_SIN_ULPS = 2
 
 
 def _suffix_mask(lens, T):
@@ -138,6 +152,39 @@ def test_conv1d_proj_matches_flax(norm, four_d):
         np.asarray(want_len))
 
 
+def _sin_reference(position, E):
+    """The sinusoids of `position` (float32) in float64, and the float32
+    bounds of aps_tpu and of the port around them (see POSE_SIN_ULPS), all
+    P x E with sin and cos interleaved."""
+    u = 2.0**-24
+    a = np.log(10000.0) * np.arange(0, E, 2.0) / E
+    div = np.exp(-a)
+    pos = np.asarray(position, dtype=np.float64)[:, None]
+    arg = pos * div
+    ref = np.stack([np.sin(arg), np.cos(arg)], -1).reshape(len(pos), E)
+    ulp_div = np.spacing(div.astype(np.float32)).astype(np.float64)
+    rest = np.spacing(np.abs(arg).astype(np.float32)).astype(
+        np.float64) / 2 + POSE_SIN_ULPS * u
+    bound = {
+        "aps_tpu": np.abs(pos) * (3 * u * a * div + ulp_div) + rest,
+        "port": np.abs(pos) * ulp_div / 2 + rest,
+    }
+    return ref, {k: np.repeat(v, 2, -1) for k, v in bound.items()}
+
+
+def _assert_sin_close(got, want, position, E):
+    """Each package within its bound of the float64 sinusoids, and the two
+    within the sum of the bounds of each other."""
+    ref, bound = _sin_reference(position, E)
+    got = np.asarray(got, dtype=np.float64).reshape(ref.shape)
+    want = np.asarray(want, dtype=np.float64).reshape(ref.shape)
+    for side, val in (("port", got), ("aps_tpu", want)):
+        err = np.abs(val - ref)
+        assert np.all(err <= bound[side]), \
+            (side, float(err.max()), float((err / bound[side]).max()))
+    assert np.all(np.abs(got - want) <= bound["port"] + bound["aps_tpu"])
+
+
 def test_xl_pose_matches_flax():
     """The "xl" pose: sinusoids of the positions 0 .. 2T-2."""
     T, E = 300, 64
@@ -147,7 +194,8 @@ def test_xl_pose_matches_flax():
     tmod = pose.get_xfmr_pose("xl", E, dropout=0.2).eval()
     assert not list(tmod.parameters())
     got = tmod(torch.from_numpy(position))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=POSE_ATOL)
+    assert got.shape == (2 * T - 1, E) and got.dtype == torch.float32
+    _assert_sin_close(got.numpy(), want, position, E)
 
 
 def test_abs_pose_matches_flax_at_long_positions():
@@ -156,8 +204,8 @@ def test_abs_pose_matches_flax_at_long_positions():
     x = np.zeros((N, T, E), dtype=np.float32)
     want = jax_pose.get_xfmr_pose("abs", E).apply({}, jnp.asarray(x))
     got = pose.get_xfmr_pose("abs", E).eval()(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               atol=20 * POSE_ATOL)
+    assert got.shape == (N, T, E)
+    _assert_sin_close(got.numpy(), want, np.arange(T, dtype=np.float32), E)
 
 
 def test_conv1d_pose_matches_flax():
