@@ -1,15 +1,21 @@
 #!/usr/bin/env python
-"""CTC prefix scorer for joint CTC/attention beam search (port of
-aps_tpu/asr/beam_search/ctc.py::CtcScorer, the eq. 51-53 gamma recursions
-of "Hybrid CTC/Attention Architecture for End-to-End Speech Recognition").
+"""CTC scoring and decoding (port of aps_tpu/asr/beam_search/ctc.py:
+CtcScorer, the prefix scorer for joint CTC/attention beam search, the eq.
+51-53 gamma recursions of "Hybrid CTC/Attention Architecture for End-to-End
+Speech Recognition"; and CtcApi, the prefix beam search and the Viterbi
+alignment of a CTC model).
 
-Every step runs through ctc_score_step (aps_tpu_torch.ops.ctc_score): the
-CUDA kernel for CUDA tensors, its plain version for CPU tensors. The
-bookkeeping around it (initial state, candidate gathers, beam reorder) is
-plain PyTorch."""
+Every CtcScorer step runs through ctc_score_step (aps_tpu_torch.ops.
+ctc_score): the CUDA kernel for CUDA tensors, its plain version for CPU
+tensors. The bookkeeping around it (initial state, candidate gathers, beam
+reorder) is plain PyTorch. CtcApi is aps_tpu's host loop in numpy, over the
+log-softmax of the logits, formed where the logits are (on the card) and
+read back once an utterance."""
 
-from typing import NamedTuple, Tuple
+from collections import defaultdict
+from typing import Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from aps_tpu_torch.const import MIN_F32
@@ -87,3 +93,106 @@ class CtcScorer(object):
         return CtcScoreState(state.gamma_n[:, flat_index],
                              state.gamma_b[:, flat_index],
                              state.score[flat_index])
+
+
+def _host_log_softmax(logits) -> np.ndarray:
+    """T x V logits (a tensor on any device, or an array) -> float32 numpy
+    log-probs."""
+    logits = torch.as_tensor(logits)
+    return torch.log_softmax(logits.float(), -1).cpu().numpy()
+
+
+class CtcApi(object):
+    """Standalone CTC decoding: prefix beam search and Viterbi alignment,
+    blank = `blank`."""
+
+    def __init__(self, blank: int):
+        if blank < 0:
+            raise ValueError(f"CtcApi: blank must be >= 0, got {blank}")
+        self.blank = blank
+
+    def beam_search(self,
+                    ctc_prob,
+                    beam_size: int = 8,
+                    nbest: int = 1,
+                    sos: int = -1,
+                    eos: int = -1,
+                    len_norm: bool = True,
+                    **kwargs) -> List[Dict]:
+        """Prefix beam search over T x V logits (host loop) -> nbest list,
+        each trans sos-prefixed and eos-suffixed."""
+        logp = _host_log_softmax(ctc_prob)
+        T, V = logp.shape
+        k = min(beam_size, V)
+        topk_token = np.argpartition(-logp, k - 1, axis=-1)[:, :k]
+        neg_inf = MIN_F32
+        # prefix -> (log_pb, log_pn)
+        prev_beam = {(sos,): (0.0, neg_inf)}
+        for t in range(T):
+            next_beam = defaultdict(lambda: [neg_inf, neg_inf])
+            for prefix, (pb, pn) in prev_beam.items():
+                total = np.logaddexp(pb, pn)
+                for symb in topk_token[t]:
+                    logp_t = logp[t, symb]
+                    if symb == self.blank:
+                        entry = next_beam[prefix]
+                        entry[0] = np.logaddexp(entry[0], total + logp_t)
+                    else:
+                        new_prefix = prefix + (int(symb),)
+                        entry = next_beam[new_prefix]
+                        if prefix[-1] == symb:
+                            entry[1] = np.logaddexp(entry[1], pb + logp_t)
+                            # a repeated symbol also merges into the prefix
+                            same = next_beam[prefix]
+                            same[1] = np.logaddexp(same[1], pn + logp_t)
+                        else:
+                            entry[1] = np.logaddexp(entry[1], total + logp_t)
+            ranked = sorted(next_beam.items(),
+                            key=lambda kv: np.logaddexp(kv[1][0], kv[1][1]),
+                            reverse=True)[:beam_size]
+            prev_beam = dict(ranked)
+        hyps = [{
+            "score": float(np.logaddexp(pb, pn)) /
+                     (max(len(p) - 1, 1) if len_norm else 1),
+            "trans": list(p) + [eos],
+        } for p, (pb, pn) in prev_beam.items()]
+        return sorted(hyps, key=lambda h: h["score"], reverse=True)[:nbest]
+
+    def viterbi_align(self, ctc_enc, dec_seq) -> Dict:
+        """Forced alignment: T x V logits + a label sequence of U ids ->
+        {score, align (T frame labels, blank = self.blank)}."""
+        logp = _host_log_softmax(ctc_enc)
+        seq = [int(t) for t in np.asarray(dec_seq)]
+        T = logp.shape[0]
+        U = len(seq)
+        if U * 2 + 1 > T:
+            raise ValueError(f"Invalid target length: {U}")
+        # the extended sequence: blank t1 blank t2 ... blank
+        ext = [self.blank]
+        for s in seq:
+            ext += [s, self.blank]
+        L = len(ext)
+        score = np.full((T, L), MIN_F32)
+        back = np.zeros((T, L), dtype=np.int64)
+        score[0, 0] = logp[0, ext[0]]
+        if L > 1:
+            score[0, 1] = logp[0, ext[1]]
+        for t in range(1, T):
+            for l in range(L):
+                cands = [score[t - 1, l]]
+                if l > 0:
+                    cands.append(score[t - 1, l - 1])
+                if l > 1 and ext[l] != self.blank and ext[l] != ext[l - 2]:
+                    cands.append(score[t - 1, l - 2])
+                best = int(np.argmax(cands))
+                score[t, l] = cands[best] + logp[t, ext[l]]
+                back[t, l] = l - best
+        # the final state: L-1 (blank) or L-2 (the last label)
+        ends = [L - 1, L - 2] if L > 1 else [0]
+        end = max(ends, key=lambda l: score[T - 1, l])
+        align = []
+        l = end
+        for t in range(T - 1, -1, -1):
+            align.append(ext[l])
+            l = back[t, l]
+        return {"score": float(score[T - 1, end]), "align": align[::-1]}

@@ -25,8 +25,17 @@ runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored after.
 It decodes on the card (--device-id picks which) and raises when torch
 sees none; --device cpu asks for the CPU. asr@att and asr@enh_att decode
 through the RNN decoder's search (asr/beam_search/att.py), asr@xfmr and
-asr@enh_xfmr through the transformer's; asr@ctc (aps_tpu's CtcApi prefix
-search) is not ported yet. A multi-channel model (asr@enh_xfmr,
+asr@enh_xfmr through the transformer's, asr@transducer and
+asr@xfmr_transducer through the frame-synchronous transducer search
+(asr/beam_search/transducer.py, which reads beam_size, nbest, len_norm and
+lm_weight and ignores the other options; aps_tpu's decode drops lm_weight
+there, so its transducer search fuses no LM, where the port fuses one as
+its decode_batch does) and asr@ctc through CtcApi's prefix search on the
+host, the wave padded onto aps_tpu's length grid (quantize_len(S,
+floor=16000)) with its true length passed. A transducer's RNN LM must hold
+the blank id (an LM of the AM's dictionary does not): the command raises a
+ValueError before the first utterance, and before it opens its outputs,
+otherwise. A multi-channel model (asr@enh_xfmr,
 asr@enh_att) decodes C x S utterances, which --channel -1 (the default,
 as in aps_tpu) reads. A checkpoint that takes features rather than
 waveforms raises NotImplementedError: reading
@@ -39,6 +48,7 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from aps_tpu_torch.conf import load_dict
@@ -74,16 +84,48 @@ class FasterDecoder(NnetEvaluator):
             from aps_tpu_torch.asr.beam_search import att as api
         elif name in ("asr@xfmr", "asr@enh_xfmr"):
             from aps_tpu_torch.asr.beam_search import transformer as api
+        elif "transducer" in name:
+            from aps_tpu_torch.asr.beam_search import transducer as api
+        elif name == "asr@ctc":
+            api = None
         else:
             raise NotImplementedError(f"decoding {name} is not ported yet")
         self.api = api
         self.function = function
         self.sos = self.conf["nnet_conf"].get("sos", -1)
         self.eos = self.conf["nnet_conf"].get("eos", -1)
+        self.vocab_size = self.conf["nnet_conf"]["vocab_size"]
+
+    def check_lm(self, lm, lm_weight: float) -> None:
+        """Raise before anything is decoded or written where the search
+        cannot fuse lm (a transducer's LM must hold the blank id)."""
+        if "transducer" in self.conf["nnet"]:
+            self.api.check_lm(self.nnet, lm, lm_weight)
+
+    def _ctc(self, src, **kwargs) -> List[Dict]:
+        """CtcApi's prefix search on one waveform, padded onto aps_tpu's
+        length grid."""
+        from aps_tpu_torch.asr.beam_search.ctc import CtcApi
+        from aps_tpu_torch.loader.utils import quantize_len
+        src = np.asarray(src, dtype=np.float32)
+        if src.ndim != 1:
+            raise NotImplementedError("asr@ctc decodes single-channel "
+                                      "waveforms (S samples)")
+        S = src.shape[-1]
+        src_pad = np.pad(src, (0, quantize_len(S, floor=16000) - S))
+        with torch.inference_mode():
+            logits, n_frames = self.nnet.ctc_logits(
+                torch.from_numpy(src_pad)[None].to(self.device),
+                torch.tensor([S], device=self.device))
+            logits = logits[0, :int(n_frames[0])]
+        return CtcApi(self.vocab_size - 1).beam_search(
+            logits, sos=self.sos, eos=self.eos, **kwargs)
 
     def run(self, src, lm=None, **kwargs) -> List[Dict]:
         """Decode one waveform (S, or C x S for a multi-channel model) ->
         its nbest list."""
+        if self.api is None:
+            return self._ctc(src, **kwargs)
         fn = self.api.greedy_search if self.function == "greedy_search" \
             else self.api.beam_search
         return fn(self.nnet, src, lm=lm, sos=self.sos, eos=self.eos,
@@ -91,7 +133,10 @@ class FasterDecoder(NnetEvaluator):
 
     def run_batch(self, batch: List, lm=None, **kwargs) -> List[List[Dict]]:
         """Decode a list of waveforms (S or C x S) -> one nbest list
-        each."""
+        each (asr@ctc: one utterance after another, as in aps_tpu)."""
+        if self.api is None:
+            kwargs.pop("pad_to", None)
+            return [self._ctc(src, **kwargs) for src in batch]
         return self.api.beam_search_batch(self.nnet, batch, lm=lm,
                                           sos=self.sos, eos=self.eos,
                                           device=self.device, **kwargs)
@@ -161,6 +206,7 @@ def _decode(args, decoder: FasterDecoder) -> dict:
                         f"weight {args.lm_weight})")
         else:
             lm = load_nn_lm(args, decoder.sos)
+            decoder.check_lm(lm, args.lm_weight)
     processor = TextPostProcessor(args.dict, space=args.space,
                                   show_unk=args.show_unk, spm=args.spm)
     kwargs = search_kwargs(args)

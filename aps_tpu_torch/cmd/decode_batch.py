@@ -20,7 +20,10 @@ torch sees none; --device cpu asks for the CPU in so many words, where the
 kernels' plain versions run. A multi-channel model (asr@enh_xfmr) decodes
 C x S utterances (--channel -1, the default), padded on the sample axis
 only (aps_tpu's batched search also pads the channel axis of a shorter
-one). The wall time of the decode loop is logged with the real-time factor
+one). A transducer decodes through its batched frame-synchronous search
+(with the LM, which must hold the blank id, or the command raises before
+the first batch); asr@ctc one utterance after another through CtcApi, as
+in aps_tpu. The wall time of the decode loop is logged with the real-time factor
 and audio seconds per second."""
 
 import argparse
@@ -72,6 +75,7 @@ def _decode(args, decoder: FasterDecoder) -> dict:
     src_reader = AudioReader(args.feats_or_wav_scp, sr=args.sr,
                              channel=args.channel)
     lm = load_nn_lm(args, decoder.sos) if args.lm else None
+    decoder.check_lm(lm, args.lm_weight)
     processor = TextPostProcessor(args.dict, space=args.space,
                                   show_unk=args.show_unk, spm=args.spm)
     kwargs = search_kwargs(args)

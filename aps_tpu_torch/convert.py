@@ -132,9 +132,12 @@ _BN = (nn.BatchNorm1d, nn.BatchNorm2d)
 
 def jax_module_path(torch_path: str) -> str:
     """'encoder.encoder.layers.3.self_attn' -> 'encoder/encoder/attn_3'."""
-    # aps_tpu's encoder layers get their attentions as siblings
-    path = re.sub(r"(^|\.)encoder\.layers\.(\d+)\.self_attn(?=\.|$)",
-                  r"\1encoder.attn_\2", torch_path)
+    # aps_tpu's encoder layers get their attentions as siblings: an
+    # encoder's, and the transducer's transformer prediction net's
+    # (decoder.decoder, an ApsTransformerEncoder too)
+    path = re.sub(
+        r"(^|\.)(encoder|decoder\.decoder)\.layers\.(\d+)\.self_attn"
+        r"(?=\.|$)", r"\1\2.attn_\3", torch_path)
     path = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layer_\2", path)
     return "/".join(name for name in (MODULE_NAMES.get(seg, seg)
                                       for seg in path.split(".")) if name)

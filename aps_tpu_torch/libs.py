@@ -3,13 +3,14 @@
 
 Only what the port has so far is registered: the "asr" and "enh"
 transforms, the "asr@xfmr", "asr@att", "asr@ctc", "asr@enh_xfmr",
-"asr@enh_att", "asr@rnn_lm", "asr@xfmr_lm", "sse@time_tcn",
+"asr@enh_att", "asr@transducer", "asr@xfmr_transducer", "asr@rnn_lm",
+"asr@xfmr_lm", "sse@time_tcn",
 "sse@freq_tcn", "sse@base_rnn", "sse@rnn_enh_ml", "sse@time_dprnn",
 "sse@freq_dprnn", "sse@demucs", "sse@dcunet", "sse@dccrn",
 "sse@dense_unet", "sse@time_sepformer", "sse@freq_sepformer",
 "sse@freq_xfmr", "sse@dfsmn", "sse@phasen" and "sse@chimera++" models, the
-"asr@ctc_xent", "asr@ctc", "asr@lm", "sse@sisnr", "sse@snr", "sse@wa",
-"sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
+"asr@ctc_xent", "asr@ctc", "asr@transducer", "asr@lm", "sse@sisnr",
+"sse@snr", "sse@wa", "sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
 "sse@time_mel_sa", "sse@complex_mapping", "sse@complex_masking" and
 "sse@enh_ml" tasks, the
 "dp" trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and
@@ -28,7 +29,8 @@ import importlib
 ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.ctc",
                   "aps_tpu_torch.asr.enh_att",
                   "aps_tpu_torch.asr.lm.rnn",
-                  "aps_tpu_torch.asr.lm.transformer"]
+                  "aps_tpu_torch.asr.lm.transformer",
+                  "aps_tpu_torch.asr.transducers"]
 SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
                   "aps_tpu_torch.sse.unsuper.rnn",
                   "aps_tpu_torch.sse.bss.dprnn",

@@ -5,7 +5,8 @@ recurrent trunk (port of aps_tpu/sse/bss/chimera.py, Chimera
 
 dpcl_embed(mix) recomputes the trunk from the mixture, as aps_tpu does,
 with the trunk's dropout off and the transform in inference mode (aps_tpu
-calls it with training False); the task "sse@freq_linear_sa" or
+calls it with training False; the trunk stays in training mode, so that
+cuDNN's recurrences take a backward on the card); the task "sse@freq_linear_sa" or
 "sse@freq_mel_sa" with dpcl_weight > 0 adds its deep-clustering loss."""
 
 from typing import List, Optional
@@ -66,12 +67,13 @@ class Chimera(FreqMaskingSSE):
         """mix: N x S -> sigmoid of the unit-norm embeddings N x FT x D."""
         stft, _ = self.enh_transform.encode(mix, None)
         feats = self.enh_transform(stft, training=False)
-        mode = self.encoder.training
-        self.encoder.train(False)
+        # the trunk's dropout off by taking its dropout layer out, not by
+        # eval mode: cuDNN's recurrences refuse a backward in eval mode
+        drop, self.encoder.drop = self.encoder.drop, None
         try:
             rnn_out = self.encoder(feats)
         finally:
-            self.encoder.train(mode)
+            self.encoder.drop = drop
         N, T, _ = rnn_out.shape
         embed = self.dpcl_proj(rnn_out).reshape(N, T, -1,
                                                 self.dpcl_embed_size)

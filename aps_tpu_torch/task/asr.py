@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """ASR tasks (port of aps_tpu/task/asr.py: CtcTask "asr@ctc",
-CtcXentHybridTask "asr@ctc_xent", LmXentTask "asr@lm", compute_accu,
-prep_asr_label, load_label_count)."""
+CtcXentHybridTask "asr@ctc_xent", TransducerTask "asr@transducer",
+LmXentTask "asr@lm", compute_accu, prep_asr_label, load_label_count)."""
 
 import warnings
 from typing import Dict, Optional
@@ -13,10 +13,11 @@ from torch import nn
 
 from aps_tpu_torch.const import IGNORE_ID
 from aps_tpu_torch.libs import ApsRegisters
+from aps_tpu_torch.ops.rnnt import rnnt_loss
 from aps_tpu_torch.task.base import Task
 from aps_tpu_torch.task.objf import ce_objf, ctc_objf, ls_objf
 
-__all__ = ["CtcTask", "CtcXentHybridTask", "LmXentTask"]
+__all__ = ["CtcTask", "CtcXentHybridTask", "TransducerTask", "LmXentTask"]
 
 
 def compute_accu(dec_out: torch.Tensor, tgt_pad: torch.Tensor):
@@ -139,6 +140,35 @@ class CtcXentHybridTask(ASRTask):
         stats["loss"] = self.ctc_weight * ctc_loss + \
             (1 - self.ctc_weight) * att_loss
         return stats
+
+
+@ApsRegisters.task.register("asr@transducer")
+class TransducerTask(ASRTask):
+    """The RNN-T objective (aps_tpu_torch/ops/rnnt.py) of a transducer
+    model: its blank (vocab_size - 1, injected by load_am_conf) prefixes
+    the targets, which stand in for <ignore> too; the loss summed over the
+    batch, divided by the target tokens (mean) or the utterances
+    (batchmean)."""
+
+    def __init__(self, nnet: nn.Module, blank: int = 0,
+                 interface: str = "torch", **kwargs):
+        # interface names aps_tpu's loss implementation; there is one here
+        super(TransducerTask, self).__init__(nnet, **kwargs)
+        self.blank = blank
+
+    def forward(self, egs: Dict) -> Dict:
+        tgt_infer, _ = prep_asr_label(egs["tgt_pad"], egs["tgt_len"],
+                                      self.blank, sos_value=self.blank,
+                                      eos_value=self.blank)
+        _, dec_out, enc_len = self.nnet(egs["src_pad"], egs["src_len"],
+                                        tgt_infer, egs["tgt_len"] + 1)
+        tgts = egs["tgt_pad"].masked_fill(egs["tgt_pad"] == IGNORE_ID,
+                                          self.blank)
+        loss = rnnt_loss(dec_out, tgts, enc_len, egs["tgt_len"],
+                         blank=self.blank, reduction="sum")
+        denorm = egs["tgt_len"].sum() if self.reduction == "mean" else \
+            dec_out.shape[0]
+        return {"loss": loss / denorm}
 
 
 @ApsRegisters.task.register("asr@lm")

@@ -210,10 +210,34 @@
    separate on four mixtures (K3's
    forward once a layer each) and card vs CPU, and K3's four kernels
    against their plain versions at the shapes those runs handed them.
+20. The transducer slice (`transducer_phase`), examples/asr/aishell_v1/
+   run.sh stages 2 and 4 with conf/1f.yaml as written (asr@transducer: 12
+   conformer layers of 256 with rel pose, a 3 x 512 LSTM prediction net,
+   joint 512, task asr@transducer, AdamW, TF32) on a synthetic character
+   dictionary of 4231 units (V = 4233 with <unk> and the blank): train_am
+   on 16 seeded utterances of 8 s with 40 characters each (two one-step
+   epochs; K1 once a pass, K3's forward once a layer a pass, each backward
+   kernel once a layer a step), timed steps, one traced; a training pass
+   with dropouts off and the draws fed in card vs CPU with a float64
+   referee on the CPU; rnnt_loss at the step's shape card vs CPU (its
+   gradient 0 past every length); decode_batch on 8 utterances of 8 s with
+   run.sh's beam 16, nbest 8 and no LM (K1 once, K3's forward once a
+   layer), one batch profiled (device ms, host launches a frame), two
+   utterances card vs CPU, also fused with a seeded RNN LM of V ids, and
+   an LM of V - 1 ids refused; K1 and K3's four kernels at the shapes the
+   step and the decode handed them.
+21. The eight sse@ models that no other step runs (`sse8_phase`:
+   sse@time_sepformer, sse@freq_sepformer, sse@freq_dprnn, sse@dccrn,
+   sse@dense_unet, sse@phasen, sse@dfsmn, sse@chimera++) at the CPU tests'
+   depth: one training pass each card vs CPU (referee rule, float64 on the
+   CPU; K2's forward, dq and dk/dv once a layer in the sepformers') and one
+   mixture separated card vs CPU; then K2's forward, dq and dk/dv at the
+   chunk shapes the sepformers handed it and at a SepFormer recipe's (128
+   sequences of 250 frames and 1000 of 32, 8 heads of 32).
    (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14, 16, 17 and 19 last; step 18 runs first, after the builds, since
-   its traces name the kernels.)
+   14, 16, 17, 19 and 21 last; step 18 runs first, after the builds,
+   since its traces name the kernels, and step 20 right after it.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -481,10 +505,12 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32_PER_S):
 def print_rows(name, rows, card):
     """One line per check row of a kernel; a time below the row's bound
     means that the bound or the clock is wrong, and fails."""
-    for label, err, ms, plain_ms, bound, bound_by in rows:
+    for label, err, ms, plain_ms, bound, bound_by, *more in rows:
         print(f"{name} [{label}]: max abs err {err:.3e}, kernel {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms by "
-              f"{bound_by} ({card})", flush=True)
+              f"{bound_by}" + "".join(f", {k} {v}" for k, v in
+                                      (more[0].items() if more else ()))
+              + f" ({card})", flush=True)
         if not ms >= bound:
             fail(f"{name} [{label}]: {ms} ms reads below its bound {bound}")
 
@@ -765,7 +791,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
                  + (f"{lens[0]}" if len(set(lens)) == 1 else
                     "1, 2 and T" if role == "corner" else
                     f"{lens} ({role})" if role in ("recipe", "chime4",
-                                                   "freq_xfmr")
+                                                   "freq_xfmr", "1f")
                     else "ragged"))
         out, lse = launch_forward(*args, causal, True)
         delta = torch.full_like(lse, float("nan"))
@@ -787,7 +813,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
             fail(f"flash_attention_rel_dq {label}: its delta is "
                  f"{delta_err} from sum(do * out)")
         pairs = H * valid_pairs(T, lens, causal)
-        if role in ("path", "t700", "recipe", "chime4", "freq_xfmr"):
+        if role in ("path", "t700", "recipe", "chime4", "freq_xfmr", "1f"):
             fwd_ms = time_ms(lambda: launch_forward(*args, causal, True))
             fwd_plain_ms = time_ms(lambda: rel_mha_reference(
                 *args[:5], k_len=klen, causal=causal))
@@ -795,15 +821,19 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
                                 fwd_plain_ms) + bound_ms(
                 4 * (5 * B * H * T * D + B * H * T + Hp * (2 * T - 1) * D
                      + B), 3 * 2 * D * pairs))
-            if role == "path":
+            if role in ("path", "1f"):
                 tensor_ms = tensor_core_ms(3 * 2 * D * pairs)
                 queued = time_ms(lambda: launch_forward(*args, causal, True),
                                  calls=QUEUED_CALLS)
                 if not queued >= tensor_ms:
                     fail(f"flash_attention_rel with lse {label}: {queued} ms "
                          f"reads below the tensor cores' bound {tensor_ms}")
-                more["fwd_train_tensor_core_bound_ms"] = tensor_ms
-                more["fwd_train_ms_queued"] = queued
+                if role == "path":
+                    more["fwd_train_tensor_core_bound_ms"] = tensor_ms
+                    more["fwd_train_ms_queued"] = queued
+                else:
+                    more[f"fwd_{role}"] = {"ms_queued": queued,
+                                           "tensor_core_bound_ms": tensor_ms}
                 print(f"flash_attention_rel with lse [{label}]: {fwd_ms:.4f} "
                       f"ms one launch, {queued:.4f} ms with {QUEUED_CALLS} "
                       f"queued; TF32/3 bound {tensor_ms:.5f} ms", flush=True)
@@ -882,7 +912,7 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
             more[names[1]]["one_key_corner_float64"] = corner_referee(
                 "flash_attention_rel_dkv", label, got["dkv"],
                 want[2:4], ref64[2:4], T)
-        if role not in ("path", "t700"):
+        if role not in ("path", "t700", "1f"):
             continue
         # once more with launches queued, which hides the host's share
         for name, kernel in zip(names, BACKWARD):
@@ -896,11 +926,11 @@ def check_rel_attention_bwd(dev, gen, T_path=None, lens_path=None, H=4,
             if role == "path":
                 more[name].update(entry)
             else:
-                more[name]["t700"] = {
+                more[name][role] = {
                     "shape": label, "ms": rows[kernel][-1][2],
                     "bound_ms": bounds[kernel][0], **entry}
         queued = {kernel: (more[name] if role == "path" else
-                           more[name]["t700"])["ms_queued"]
+                           more[name][role])["ms_queued"]
                   for name, kernel in zip(names, BACKWARD)}
         print(f"flash_attention_rel backward [{label}]: with "
               f"{QUEUED_CALLS} launches queued: "
@@ -5237,6 +5267,754 @@ def att_phase(root: Path, name: str, gen, dev, card):
     return launches_train, launches_dec, rows, numbers
 
 
+# the transducer slice: examples/asr/aishell_v1/run.sh stages 2 and 4 with
+# conf/1f.yaml as written (asr@transducer: 12 conformer layers of 256 with
+# rel pose, 4 heads, feed-forward 2048, kernel 15, a 3-layer conv2d front
+# end; a 3 x 512 LSTM prediction net, joint 512; asr@transducer's RNN-T
+# loss, AdamW, warmup_linear_decay_lr, matmul_precision bfloat16 as TF32)
+TRD_YAML = "examples/asr/aishell_v1/conf/1f.yaml"
+TRD_LM_YAML = "examples/asr/aishell_v1/conf/nnlm/1a.yaml"
+# a synthetic character dictionary of AISHELL-1's order: <unk> and 4231
+# characters, so the model's vocabulary with the blank is 4233
+TRD_UNITS = [f"c{i}" for i in range(4231)]
+TRD_TRAIN_UTTS = 16  # one batch: 8 s utterances, adapt_dur 5 halves 32
+TRD_BATCH_SIZE = 32  # train_am's --batch-size (run.sh: 64)
+TRD_LABELS = 40  # characters in 8 s of read Mandarin
+TRD_EPOCHS = 2  # one step each: the corpus is one batch
+TRD_TIMED_STEPS = 2
+TRD_PASS_UTTS = 2  # of the batch, in the card-vs-CPU training pass
+TRD_DECODE_UTTS = 8  # one batch of decode_batch's 8
+TRD_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU searches
+TRD_SECS = 8
+# run.sh's stage 4 (beam 16, nbest 8, len_norm false); no LM: the weight 0
+TRD_STAGE4 = ["--beam-size", "16", "--nbest", "8", "--len-norm", "false",
+              "--lm-weight", "0"]
+TRD_LM_WEIGHT = 0.2  # run.sh's lm_weight, in the fused search
+TRD_GRADS = ("encoder.pose_layer.embed.weight",
+             "encoder.encoder.layers.0.self_attn.in_proj.weight",
+             "decoder.decoder.OptimizedLSTMCell_0.weight_hh_l0",
+             "decoder.enc_proj.weight", "decoder.output.weight")
+# rnnt_loss at the step's shape, card vs CPU: float32 log-softmax over V =
+# 4233 and a T'-step recursion of log-sum-exps; the loss relative, the
+# gradient relative to its largest entry: PERF.md section 2's training
+# bounds (an occupancy is exp(alpha + beta - log p), the three ~1e3 in
+# size, so float32 leaves ~1e-4 of it: the card read 2.9e-4 from the CPU
+# on an NVIDIA H100 80GB HBM3, 700.00 W; each float32 pass's distance
+# from a float64 pass on the CPU is printed beside it)
+TOL_RNNT_LOSS, TOL_RNNT_GRAD = TOL_STEP_LOSS, TOL_STEP_GRAD
+
+
+def trd_launches(passes: int = 0, steps: int = 0):
+    """The launch counts of `passes` passes of 1f's model (K1 once, K3's
+    forward once a layer) of which `steps` train (each K3 backward kernel
+    once a layer); no other kernel: the prediction net is cuDNN's LSTM, the
+    joint cuBLAS, the loss plain PyTorch."""
+    from aps_tpu_torch.ops import build
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want.update({"fused_logmel": passes,
+                 "flash_attention_rel": ENC_LAYERS * passes})
+    want.update({f"flash_attention_rel_{k}": ENC_LAYERS * steps
+                 for k in BACKWARD})
+    return want
+
+
+def write_trd_recipe(root: Path, gen) -> Path:
+    """root/dict (<unk> and TRD_UNITS) and root/train: TRD_TRAIN_UTTS
+    seeded utterances of TRD_SECS with TRD_LABELS characters each and
+    train.yaml, TRD_YAML with its data sections pointed there."""
+    import torch
+
+    from aps_tpu_torch.conf import load_yaml
+    vocab = ["<unk>"] + TRD_UNITS
+    (root / "dict").write_text("".join(f"{u} {i}\n"
+                                       for i, u in enumerate(vocab)))
+    data = root / "train"
+    data.mkdir()
+    keys = sorted(write_wavs(data, "trn", TRD_TRAIN_UTTS, gen, TRD_SECS))
+    labels = torch.randint(0, len(TRD_UNITS), (TRD_TRAIN_UTTS, TRD_LABELS),
+                           generator=gen).tolist()
+    with open(data / "text", "w") as text, \
+            open(data / "utt2dur", "w") as dur:
+        for key, toks in zip(keys, labels):
+            text.write(f"{key} {' '.join(TRD_UNITS[i] for i in toks)}\n")
+            dur.write(f"{key} {TRD_SECS:.2f}\n")
+    conf = load_yaml(str(REPO / TRD_YAML))
+    paths = {key: str(data / key) for key in ("text", "utt2dur")}
+    paths["wav_scp"] = str(data / "wav.scp")
+    conf["data_conf"]["train"] = conf["data_conf"]["valid"] = paths
+    (data / "train.yaml").write_text(json.dumps(conf, indent=2))
+    return data
+
+
+def trd_batch(root: Path, data: Path):
+    """The corpus's one batch as train_am's loader collates it at
+    --batch-size TRD_BATCH_SIZE (the recipe's adapt_dur halves it)."""
+    from aps_tpu_torch.conf import load_am_conf
+    from aps_tpu_torch.libs import aps_dataloader
+    conf, vocab = load_am_conf(str(data / "train.yaml"), str(root / "dict"))
+    data_conf = conf["data_conf"]
+    batches = list(aps_dataloader(fmt=data_conf["fmt"], train=False,
+                                  vocab_dict=vocab,
+                                  max_batch_size=TRD_BATCH_SIZE,
+                                  **data_conf["loader"],
+                                  **data_conf["valid"]))
+    if len(batches) != 1 or batches[0]["src_pad"].shape[0] != TRD_TRAIN_UTTS:
+        fail(f"expected one batch of {TRD_TRAIN_UTTS} utterances, got "
+             f"{[b['src_pad'].shape for b in batches]}")
+    return batches[0]
+
+
+def trd_train_phase(root: Path, data: Path, dev, card):
+    """train_am (run.sh stage 2): TRD_EPOCHS one-step epochs with the
+    launch counts over the run; TRD_TIMED_STEPS timed steps on the same
+    batch, each counted, with what they hand K1 and K3 recorded; one
+    traced. -> (checkpoint, the batch, launches of the run, numbers, the
+    training operands)."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_am
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.ops import build
+    cpt = root / "exp"
+    argv = ["--conf", str(data / "train.yaml"), "--dict", str(root / "dict"),
+            "--checkpoint", str(cpt), "--batch-size", str(TRD_BATCH_SIZE),
+            "--epochs", str(TRD_EPOCHS), "--seed", str(SEED)]
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_am.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    model = trainer.task.nnet
+    setup = (trainer.device.type, trainer.cur_step, trainer.matmul_precision,
+             type(trainer.optimizer).__name__, type(model).__name__,
+             type(trainer.task).__name__, model.asr_transform.feats,
+             model.vocab_size)
+    want_setup = ("cuda", TRD_EPOCHS, "bfloat16", "AdamW", "TransducerASR",
+                  "TransducerTask", "perturb-fbank-log-cmvn-aug",
+                  len(TRD_UNITS) + 2)
+    if setup != want_setup:
+        fail(f"train_am ({TRD_YAML}) is not as written: {setup}")
+    # a validation pass before the first epoch and after each
+    want = trd_launches(passes=2 * TRD_EPOCHS + 1, steps=TRD_EPOCHS)
+    if launches != want:
+        fail(f"train_am ({TRD_YAML}) launches {launches}, expected {want}")
+    egs = trd_batch(root, data)
+    trainer.reporter.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, flags = [], []
+    hook = model.register_forward_pre_hook(
+        lambda *_: flags.append(tf32_flags()))
+    for step in range(TRD_TIMED_STEPS):
+        build.reset_launches()
+        with training_operands() as seen:
+            done, sec = synced(lambda: trainer.train_one_step(egs))
+        secs.append(sec)
+        got = dict(build.LAUNCHES)
+        if not done or got != trd_launches(passes=1, steps=1):
+            fail(f"1f timed step {step}: done {done}, launches {got}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    device_ms, wall, host_launches, prof = profile(
+        lambda: trainer.train_one_step(egs))
+    hook.remove()
+    if set(flags) != {(True, True)} or tf32_flags() != (False, False):
+        fail(f"1f steps at matmul_precision bfloat16: TF32 flags (cuBLAS, "
+             f"cuDNN) {set(flags)} inside, {tf32_flags()} after")
+    losses = _epoch_losses(cpt / "trainer.log", "train") + \
+        [float(v) for v in trainer.reporter.stats["loss"]]
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite 1f loss: {losses}")
+    _, T, _ = train_shapes(model, egs)
+    U1 = int(egs["tgt_len"].max()) + 1
+    V = model.vocab_size
+    joint_gib = len(egs["src_len"]) * T * U1 * V * 4 / 2**30
+    print(f"train_am {TRD_YAML} as written: {TRD_TRAIN_UTTS} x {TRD_SECS} s "
+          f"(one batch; --batch-size {TRD_BATCH_SIZE}, halved by adapt_dur), "
+          f"{TRD_LABELS} labels, V = {V} ({len(TRD_UNITS)} characters, "
+          f"<unk>, the blank), the joint's logits N x T' x (U+1) x V = "
+          f"{len(egs['src_len'])} x {T} x {U1} x {V} ({joint_gib:.2f} GiB "
+          f"in float32); {TRD_EPOCHS} one-step epochs, launches {launches}; "
+          f"{TRD_TIMED_STEPS + 1} more steps on the same batch, TF32 flags "
+          f"(cuBLAS, cuDNN) {flags[0]} inside them; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    print(f"1f step: device {device_ms:.3f} ms (traced), host "
+          f"{statistics.median(secs):.4f} s median of "
+          f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
+          f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
+          flush=True)
+    print(f"1f step, the kernels with the most device time (ms): "
+          f"{top_kernels(prof)}", flush=True)
+    return cpt, egs, launches, {
+        "device_ms": device_ms, "peak_gib": peak, "launches": host_launches,
+        "host_s": statistics.median(secs), "traced_s": wall,
+        "shape": (len(egs["src_len"]), T, U1, V)}, seen
+
+
+def trd_pass_check(root: Path, data: Path, egs, dev, gen, card):
+    """1f's training pass with every dropout off and the draws fed in (the
+    identity branch of the speed perturbation, one seeded SpecAugment
+    mask) on TRD_PASS_UTTS utterances, float32 on the card and on the CPU,
+    held by the referee rule with a float64 pass on the CPU (K3 takes
+    float32 only)."""
+    import torch
+
+    from aps_tpu_torch.conf import load_am_conf
+    from aps_tpu_torch.flagship import init_weights
+    from aps_tpu_torch.libs import aps_asr_nnet, aps_task, aps_transform
+    from aps_tpu_torch.transform.augment import tf_mask
+    conf, _ = load_am_conf(str(data / "train.yaml"), str(root / "dict"))
+    model = aps_asr_nnet(conf["nnet"])(
+        asr_transform=aps_transform("asr")(**conf["asr_transform"]),
+        **conf["nnet_conf"])
+    init_weights(no_dropout(model), gen)
+    task = aps_task(conf["task"], model, **conf["task_conf"])
+    tf = model.asr_transform
+    tf.perturb.draw = lambda generator: tf.perturb.identity
+    frames = int(tf._num_frames(torch.tensor(egs["src_pad"].shape[-1])))
+    aug = tf.specaug
+    mask = tf_mask(TRD_PASS_UTTS, (frames, tf.mel.shape[-1]), pm=aug.pm,
+                   ps=aug.ps, max_bands=aug.freq_args[0],
+                   max_frame=aug.time_args[0],
+                   num_freq_masks=aug.freq_args[1],
+                   num_time_masks=aug.time_args[1], generator=gen)
+    tf.specaug.draw = lambda x, generator: (
+        mask.to(x.device), torch.ones(x.shape[0], dtype=torch.bool,
+                                      device=x.device))
+    launched = {}
+    loss_g, loss_c, errs = step_pass_check(
+        task, egs, dev, TRD_GRADS, TRD_PASS_UTTS, referee=True,
+        referee_on="cpu", launched=launched)
+    if launched["card32"] != {k: v for k, v in trd_launches(1, 1).items()
+                              if v}:
+        fail(f"the 1f pass launched {launched['card32']}")
+    print(f"1f training pass at float32 (dropouts off, draws fed in, TF32 "
+          f"flags read off inside) on {TRD_PASS_UTTS} utterances: loss card "
+          f"{loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' distance from "
+          "the CPU's float64 pass relative to the largest entry (card, CPU) "
+          + ", ".join(f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in errs.items())
+          + f" ({card})", flush=True)
+    return {"pass_loss": (loss_g, loss_c), "pass_grads": errs}
+
+
+def trd_loss_check(egs, shape, dev, gen, card):
+    """rnnt_loss at the step's shape (N x T' x (U+1) x V seeded logits, the
+    batch's label lengths, frame lengths ragged below T'), card vs CPU: the
+    loss and the gradient (finite, 0 past each utterance's frames and
+    labels on the card); the card's forward and backward timed."""
+    import torch
+
+    from aps_tpu_torch.ops.rnnt import rnnt_loss
+    N, T, U1, V = shape
+    logits = 2 * torch.randn((N, T, U1, V), generator=gen)
+    labels = torch.as_tensor(egs["tgt_pad"]).clamp(min=0)
+    lab_len = torch.as_tensor(egs["tgt_len"])
+    frames = torch.tensor([T - (n % 4) * 7 for n in range(N)])
+    out = []
+    for where, dtype in (("cpu", torch.float32), (dev, torch.float32),
+                         ("cpu", torch.float64)):
+        x = logits.to(where, dtype, copy=True).requires_grad_()
+        loss = rnnt_loss(x, labels.to(where), frames.to(where),
+                         lab_len.to(where), blank=V - 1, reduction="none")
+        loss.sum().backward()
+        out.append((loss.detach().cpu().double(), x.grad.cpu().double()))
+        del x, loss
+    (lc, gc), (lg, gg), (_, g64) = out
+    loss_err = float(((lg - lc).abs() / lc.abs()).max())
+    grad_err = float((gg - gc).abs().max() / gc.abs().max())
+    grad64 = [float((g - g64).abs().max() / g64.abs().max())
+              for g in (gg, gc)]
+    past = [float(gg[n, frames[n]:].abs().max()) if frames[n] < T else 0.0
+            for n in range(N)] + \
+        [float(gg[n, :, lab_len[n] + 1:].abs().max())
+         if lab_len[n] + 1 < U1 else 0.0 for n in range(N)]
+    if not (torch.isfinite(gg).all() and max(past) == 0.0 and
+            loss_err <= TOL_RNNT_LOSS and grad_err <= TOL_RNNT_GRAD):
+        fail(f"rnnt_loss card vs CPU at {shape}: loss {loss_err}, gradient "
+             f"{grad_err}, past the lengths {max(past)}")
+    x = logits.to(dev, copy=True).requires_grad_()
+    args = (labels.to(dev), frames.to(dev), lab_len.to(dev))
+
+    def fwd_bwd():
+        x.grad = None
+        rnnt_loss(x, *args, blank=V - 1).backward()
+
+    fwd_ms = time_ms(lambda: rnnt_loss(x.detach(), *args, blank=V - 1),
+                     iters=5, warmup=1)
+    both_ms = time_ms(fwd_bwd, iters=5, warmup=1)
+    print(f"rnnt_loss at the step's shape {N} x {T} x {U1} x {V} (frames "
+          f"{sorted(set(frames.tolist()))}): card vs CPU loss {loss_err:.3e} "
+          f"relative, gradient {grad_err:.3e} of its largest entry (card "
+          f"{grad64[0]:.3e}, CPU {grad64[1]:.3e} from float64), 0 past "
+          f"every length; the card's forward {fwd_ms:.3f} ms, forward and "
+          f"backward {both_ms:.3f} ms ({card})", flush=True)
+    del x
+    return {"loss_err": loss_err, "grad_err": grad_err,
+            "grad_err_float64": grad64, "fwd_ms": fwd_ms,
+            "fwd_bwd_ms": both_ms}
+
+
+def write_trd_decodable(cpt: Path, root: Path) -> Path:
+    """The trained checkpoint with its joint output layer x 8 (peaky: well
+    separated candidates, so the CPU and card searches cannot part on
+    near-ties) -> root/decode_am."""
+    out = root / "decode_am"
+    out.mkdir()
+    with open(cpt / "last.ckpt", "rb") as fd:
+        state = pickle.load(fd)
+    params = state["params"]
+    params = params.get("nnet", params)
+    params["decoder"]["output"]["kernel"] = \
+        params["decoder"]["output"]["kernel"] * 8.0
+    with open(out / "best.ckpt", "wb") as fd:
+        pickle.dump(state, fd)
+    (out / "train.yaml").write_bytes((cpt / "train.yaml").read_bytes())
+    return out
+
+
+def trd_decode_phase(root: Path, am: Path, gen, dev, card):
+    """run.sh stage 4: TRD_DECODE_UTTS utterances of TRD_SECS through
+    decode_batch with TRD_STAGE4, launch counts read (K1 once a batch, K3's
+    forward once a layer, nothing else), what the encoder hands K3
+    recorded; one batch profiled (device ms, host launches a frame); the
+    first TRD_CHECK_UTTS card vs CPU (nbest_error, len_norm true); one
+    search fused with a seeded RNN LM of the AM's vocabulary (TRD_LM_YAML's
+    structure), card vs CPU; an LM of the dictionary's raises. -> (launches,
+    the recorded K3 calls, numbers)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.asr.beam_search.lm import lm_adapter
+    from aps_tpu_torch.asr.beam_search.transducer import (beam_search_batch,
+                                                          check_lm)
+    from aps_tpu_torch.cmd import decode_batch
+    from aps_tpu_torch.cmd.decode_batch import quantize_dur
+    from aps_tpu_torch.cmd.profile_decode import profile
+    from aps_tpu_torch.conf import load_yaml
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.libs import aps_asr_nnet
+    from aps_tpu_torch.ops import build
+    data = root / "test"
+    data.mkdir()
+    wavs = write_wavs(data, "tst", TRD_DECODE_UTTS, gen, TRD_SECS)
+    best = root / "test.decode"
+    argv = [str(data / "wav.scp"), str(best), "--am", str(am), "--dict",
+            str(root / "dict")] + TRD_STAGE4
+    build.reset_launches()
+    with rel_calls() as seen:
+        stats = decode_batch.main(argv)
+    launches = dict(build.LAUNCHES)
+    lines = best.read_text().splitlines()
+    if sorted(ln.split("\t")[0] for ln in lines) != sorted(wavs) or \
+            not all(map(math.isfinite, stats["scores"].values())):
+        fail(f"1f decode_batch: {len(lines)} lines, scores "
+             f"{list(stats['scores'].values())}")
+    batches = len(stats["batch_secs"])
+    if launches != trd_launches(passes=batches) or batches != 1:
+        fail(f"1f decode launches {launches} in {batches} batches")
+    model = load_checkpoint(str(am))["nnet"].to(dev)
+    S = quantize_dur(TRD_SECS * SR)
+    keys = sorted(wavs)
+    batch = [wavs[k] for k in keys]
+    kw = dict(beam_size=16, nbest=8, len_norm=False)
+    search = lambda: beam_search_batch(  # noqa: E731
+        model.to(dev), batch, device=dev, pad_to=S, **kw)
+    for key, hyps in zip(keys, search()):
+        if abs(hyps[0]["score"] - stats["scores"][key]) > 1e-3:
+            fail(f"1f {key}: decode_batch score {stats['scores'][key]} != "
+                 f"search score {hyps[0]['score']}")
+    device_ms, wall, host_launches, _ = profile(search)
+    x = torch.from_numpy(np.stack([np.pad(w, (0, S - len(w)))
+                                   for w in batch])).to(dev)
+    with torch.no_grad():
+        enc, enc_len = model.decode_enc(x, torch.tensor(
+            [len(w) for w in batch], device=dev))
+    T = enc.shape[1]
+    # the seeded RNN LM of the AM's vocabulary (it holds the blank id its
+    # fusion starts from), TRD_LM_YAML's structure
+    lm_conf = load_yaml(str(REPO / TRD_LM_YAML))
+    lm = aps_asr_nnet(lm_conf["nnet"])(**dict(
+        lm_conf["nnet_conf"], vocab_size=model.vocab_size))
+    init_lm(lm, gen)
+    lm.eval()
+    small = aps_asr_nnet(lm_conf["nnet"])(**dict(
+        lm_conf["nnet_conf"], vocab_size=model.vocab_size - 1))
+    try:
+        check_lm(model, lm_adapter(small), TRD_LM_WEIGHT)
+        fail("an LM without the blank id did not raise")
+    except ValueError as err:
+        refused = str(err)
+    check = {"plain": (None, dict(kw, len_norm=True)),
+             "lm": (lm, dict(kw, len_norm=True, lm_weight=TRD_LM_WEIGHT))}
+    errs, outs = {}, {}
+    for name, (lm_model, ckw) in check.items():
+        for where in ("cpu", dev):
+            adapter = None if lm_model is None else \
+                lm_adapter(lm_model.to(where))
+            outs[(name, str(where))] = beam_search_batch(
+                model.to(where), batch[:TRD_CHECK_UTTS], lm=adapter,
+                device=where, pad_to=S, **ckw)
+        errs[name] = 0.0
+        for key, hc, hg in zip(keys, outs[(name, "cpu")],
+                               outs[(name, str(dev))]):
+            err = nbest_error(hc, hg)
+            if err is None:
+                for side, hyps in (("CPU", hc), ("card", hg)):
+                    print(f"1f {name} {key} {side}: " + "; ".join(
+                        f"{h['score']:.6f} ({len(h['trans'])})"
+                        for h in hyps), flush=True)
+                fail(f"1f {name} search {key}: card and CPU n-best lists "
+                     "differ")
+            errs[name] = max(errs[name], err)
+    fused = [h[0]["trans"] for h in outs[("lm", "cpu")]]
+    plain = [h[0]["trans"] for h in outs[("plain", "cpu")]]
+    model.to(dev)
+    print(f"1f decode_batch {' '.join(TRD_STAGE4)}: {TRD_DECODE_UTTS} x "
+          f"{TRD_SECS} s padded to {S} samples (T' = {T}, "
+          f"{int(enc_len.max())} valid), {stats['batch_secs'][0]:.4f} s (host "
+          f"clock around the synchronised batch), launches {launches}; "
+          f"profiled search: device {device_ms:.3f} ms in {wall:.4f} s wall, "
+          f"{host_launches / T:.1f} host launches a frame ({card})",
+          flush=True)
+    print(f"1f search card vs CPU on {TRD_CHECK_UTTS} utterances (beam 16, "
+          f"len_norm true): n-best of {len(outs[('plain', 'cpu')][0])} equal, "
+          f"largest score diff {errs['plain']:.3e}; fused with the RNN LM of "
+          f"vocabulary {model.vocab_size} at {TRD_LM_WEIGHT}: "
+          f"{errs['lm']:.3e}, best hypotheses of "
+          f"{[len(t) - 2 for t in fused]} tokens (without the LM "
+          f"{[len(t) - 2 for t in plain]}); an LM of "
+          f"{model.vocab_size - 1} ids refused: {refused[:80]}... ({card})",
+          flush=True)
+    return launches, seen, {"device_ms": device_ms, "wall": wall,
+                            "batch_s": stats["batch_secs"][0], "frames": T,
+                            "host_launches_a_frame": host_launches / T,
+                            "score_err": errs, "decode_wav": x}
+
+
+def transducer_phase(root: Path, gen, dev, card):
+    """aishell_v1/1f: write_trd_recipe, trd_train_phase, trd_pass_check,
+    trd_loss_check, trd_decode_phase; then K1 at the decode's and the
+    training step's batches and K3's forward and backward kernels at the
+    shapes the step and the decode handed them. -> (launches of training,
+    of the decode, {kernel: rows}, numbers)."""
+    from types import SimpleNamespace
+
+    from aps_tpu_torch.conf import load_yaml
+    from aps_tpu_torch.libs import aps_transform
+    beg = time.perf_counter()
+    root.mkdir()
+    data = write_trd_recipe(root, gen)
+    cpt, egs, launches_train, numbers, seen = trd_train_phase(
+        root, data, dev, card)
+    numbers.update(trd_pass_check(root, data, egs, dev, gen, card))
+    numbers["loss"] = trd_loss_check(egs, numbers["shape"], dev, gen, card)
+    launches_dec, calls, dec_numbers = trd_decode_phase(
+        root, write_trd_decodable(cpt, root), gen, dev, card)
+    numbers["decode"] = dec_numbers
+    tf = aps_transform("asr")(**load_yaml(str(REPO / TRD_YAML))[
+        "asr_transform"])
+    rows = {"fused_logmel": check_fbank(
+        dev, SimpleNamespace(asr_transform=tf),
+        (("1f decode", dec_numbers.pop("decode_wav")),
+         ("1f training", seen["wav"])))[0]}
+    # K3: the decode's forward, and the training step's forward with lse
+    # and backward kernels, at the (B, T, k_len) they were handed
+    dec = {c[:7] for c in calls}
+    trn = set(seen["rel"])
+    if len(dec) != 1 or len(trn) != 1:
+        fail(f"1f handed K3 {dec} in the decode, {trn} in training")
+    (B_d, H, T_d, D, Hp_d, lens_d, causal_d), = dec
+    (_, H_t, T_t, D_t, Hp_t, lens_t, causal_t), = trn
+    if (H, D, H_t, D_t, causal_d, causal_t) != (4, 64, 4, 64, False, False):
+        fail(f"1f's K3 calls: {dec}, {trn}")
+    # each row with its queued time and the tensor cores' bound; no one
+    # PyTorch call forms the relative term, so no library time
+    fwd, fwd_more = check_rel_attention(
+        dev, gen, H=H, cases=((T_d, Hp_d, False, list(lens_d), "path"),))
+    rows["flash_attention_rel"] = [fwd[0] + ({
+        "ms_queued": fwd_more["ms_queued"],
+        "tensor_core_bound_ms": fwd_more["tensor_core_bound_ms"],
+        "library_ms": None},)]
+    bwd, bwd_more = check_rel_attention_bwd(dev, gen, H=H, cases=[
+        (T_t, Hp_t, False, list(lens_t), "1f")])
+    rows["flash_attention_rel"].append(bwd.pop("fwd")[0] + (dict(
+        bwd_more["fwd_1f"], library_ms=None),))
+    for kernel, (row,) in bwd.items():
+        name = f"flash_attention_rel_{kernel}"
+        rows[name] = [row + ({
+            "ms_queued": bwd_more[name]["1f"]["ms_queued"],
+            "tensor_core_bound_ms": bwd_more[name]["1f"][
+                "tensor_core_bound_ms"], "library_ms": None},)]
+    numbers["phase_s"] = time.perf_counter() - beg
+    print(f"the transducer phase took {numbers['phase_s']:.1f} s ({card})",
+          flush=True)
+    return launches_train, launches_dec, rows, numbers
+
+
+# the eight sse@ models that no other phase runs, at the depth of the CPU
+# tests (tests/test_torch_sse_{time,cplx,zoo}.py): one training pass and
+# one separation each, card vs CPU. The sepformers' attention is 32 wide
+# with 2 heads (the tests' 16 gives heads of 8, which K2 does not take:
+# it takes heads of 16, 32 and 64)
+SSE8_ENH = dict(feats="spectrogram-log-cmvn", frame_len=64, frame_hop=32,
+                window="sqrthann", center=True)
+SSE8_ENH_CPLX = dict(feats="spectrogram", frame_len=128, frame_hop=64,
+                     window="sqrthann", center=True)
+SSE8_XFMR = dict(att_dim=32, nhead=2, feedforward_dim=48, att_dropout=0.0,
+                 ffn_dropout=0.0)
+SSE8_UNET = dict(K="5,3;3,3", S="2,1;2,1", C="4,6", P="1,1", O="0,1")
+# name: (model conf, enh transform, task, task conf, samples)
+SSE8_MODELS = {
+    "sse@time_sepformer": (dict(num_bins=8, kernel=8, stride=4,
+                                num_blocks=1, num_layers=1, chunk_size=16,
+                                arch_kwargs=SSE8_XFMR), None, "sse@sisnr",
+                           {"num_spks": 2}, 1200),
+    "sse@freq_sepformer": (dict(num_bins=33, num_blocks=1, num_layers=1,
+                                chunk_size=8, arch_kwargs=SSE8_XFMR),
+                           SSE8_ENH, "sse@freq_linear_sa", {"num_spks": 2},
+                           1200),
+    "sse@freq_dprnn": (dict(num_spks=2, num_bins=33, chunk_size=6,
+                            num_layers=1, rnn_hidden=6,
+                            bidirectional=False), SSE8_ENH,
+                       "sse@freq_linear_sa",
+                       {"num_spks": 2, "phase_sensitive": True,
+                        "truncated": 1}, 1200),
+    "sse@dccrn": (dict(SSE8_UNET, cplx=True, num_spks=2, rnn_hidden=8,
+                       rnn_layers=2, rnn_resize=192, training_mode="freq"),
+                  SSE8_ENH_CPLX, "sse@complex_masking", {"num_spks": 2},
+                  1600),
+    "sse@dense_unet": (dict(K="3,3;3,3;3,3", S="1,1;2,1;2,1",
+                            P="0,1;0,1;0,1", O="0,0,0",
+                            enc_channel="4,8,12", dec_channel="4,6,8",
+                            num_dense_blocks=2, norm="BN", num_spks=2,
+                            rnn_hidden=8, rnn_layers=1, rnn_resize=180,
+                            training_mode="time"),
+                       dict(SSE8_ENH_CPLX, feats="spectrogram-log-cmvn"),
+                       "sse@snr", {"num_spks": 2}, 1600),
+    "sse@phasen": (dict(channel_amp=4, channel_pha=3, num_tsbs=2,
+                        num_bins=33, channel_r=2, conv1d_kernel=3,
+                        lstm_hidden=6, linear_size=8), SSE8_ENH,
+                   "sse@complex_mapping", {"num_spks": 1, "permute": False},
+                   1216),
+    "sse@dfsmn": (dict(dim=16, num_bins=33, num_branchs=2, num_layers=2,
+                       project=8, lctx=2, rctx=1, complex_mask=True),
+                  SSE8_ENH, "sse@complex_masking", {"num_spks": 2}, 1216),
+    "sse@chimera++": (dict(input_size=33, num_bins=33, hidden=8,
+                           num_layers=2, dropout=0.0, dpcl_embed_size=4,
+                           bidirectional=True, mask_non_linear="relu"),
+                      SSE8_ENH, "sse@freq_linear_sa",
+                      {"num_spks": 2, "dpcl_weight": 0.3,
+                       "phase_sensitive": True}, 1216),
+}
+SSE8_UTTS = 4
+# SepFormer's chunk attention at a recipe's size (the SepFormer paper's:
+# chunks of 250 frames, 8 heads of 32): 4 mixtures of 4 s at 8 kHz, kernel
+# 16 and stride 8, give 32 chunks of 250 frames: the intra-chunk attention
+# over 128 sequences of 250, the inter-chunk one over 1000 of 32
+SSE8_K2_CASES = ((128, 8, 250, 32), (1000, 8, 32, 32))
+
+
+@contextlib.contextmanager
+def abs_calls():
+    """Record (B, H, T, D, k_len) of every call that reaches
+    flash_attention through the attention modules."""
+    from aps_tpu_torch.asr.transformer import impl
+    real = impl.flash_attention
+    seen = []
+
+    def record(q, k, v, bias=None, k_len=None, causal=False,
+               softmax_scale=None):
+        B, H, T, D = q.shape
+        seen.append((B, H, T, D, None if k_len is None else
+                     tuple(k_len.tolist()), causal))
+        return real(q, k, v, bias=bias, k_len=k_len, causal=causal,
+                    softmax_scale=softmax_scale)
+
+    impl.flash_attention = record
+    try:
+        yield seen
+    finally:
+        impl.flash_attention = real
+
+
+def sse8_mixtures(N: int, S: int, spks: int, gen):
+    """`spks` modulated tones with noise and their sum, N x S each."""
+    import torch
+    t = torch.arange(S) / SEP_SR
+    ref = []
+    for spk in range(spks):
+        f0 = (150 + 300 * torch.rand((N, 1), generator=gen)) * (1 + 2 * spk)
+        ref.append(0.3 * torch.sin(2 * math.pi * f0 * t) *
+                   (0.6 + 0.4 * torch.sin(2 * math.pi * 7 * t)) +
+                   0.02 * torch.randn((N, S), generator=gen))
+    return {"mix": sum(ref), "ref": ref if spks > 1 else ref[0]}
+
+
+def check_k2_cases(dev, gen, cases):
+    """K2's forward, dq and dk/dv at (B, H, T, D, k_len or None) each,
+    against mha_reference and mha_backward_reference, timed beside the
+    plain versions; each once more with launches queued, against the
+    tensor cores' bound. Where every batch entry has a key (no bias), the
+    library's scaled_dot_product_attention computes the same function
+    (without a mask where every key is valid): its forward, and autograd
+    through it for dq, dk and dv together, are held against the kernels
+    and timed. -> {"fwd" | "dq" | "dkv": rows},
+    each row carrying those numbers in a dict after the bound."""
+    import torch
+
+    from aps_tpu_torch.ops.attention import (flash_attention,
+                                             launch_backward_kernel,
+                                             launch_forward,
+                                             mha_backward_reference,
+                                             mha_reference)
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    for B, H, T, D, lens in cases:
+        lens = list(lens) if lens else [T] * B
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                       for _ in range(4))
+        klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D**-0.5
+        label = (f"B={B} H={H} D={D} T={T} k_len="
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+        got = flash_attention(q, k, v, k_len=klen)
+        want = mha_reference(q, k, v, k_len=klen)
+        out, lse = launch_forward(q, k, v, None, klen, scale, False, True)
+        delta = torch.full_like(lse, float("nan"))
+        run = lambda kernel: launch_backward_kernel(  # noqa: E731
+            kernel, q, k, v, None, klen, do, lse, out, delta, scale, False)
+        dq, (dk, dv) = run("dq"), run("dkv")
+        ref = mha_backward_reference(q, k, v, do, k_len=klen)
+        torch.cuda.synchronize()
+        errs = {"fwd": (got - want).abs().max().item(),
+                "dq": (dq - ref[0]).abs().max().item(),
+                "dkv": max((dk - ref[1]).abs().max().item(),
+                           (dv - ref[2]).abs().max().item())}
+        for name, tol in (("fwd", TOL_ATT), ("dq", TOL_GRAD),
+                          ("dkv", TOL_GRAD)):
+            if not errs[name] <= tol:
+                fail(f"flash_attention {name} [{label}]: max abs err "
+                     f"{errs[name]} > {tol}")
+        pairs = H * valid_pairs(T, lens, False)
+        qsize = B * H * T * D
+        reads = 4 * (4 * qsize + 2 * B * H * T + B)
+        plain_bwd = time_ms(lambda: mha_backward_reference(
+            q, k, v, do, k_len=klen), iters=5, warmup=1)
+        fwd = lambda: flash_attention(q, k, v, k_len=klen)  # noqa: E731
+        calls = {"fwd": fwd, "dq": lambda: run("dq"),
+                 "dkv": lambda: run("dkv")}
+        ops = {"fwd": 2 * 2 * D * pairs, "dq": 3 * 2 * D * pairs,
+               "dkv": 4 * 2 * D * pairs}
+        bounds = {"fwd": bound_ms(4 * (4 * qsize + B), ops["fwd"]),
+                  "dq": bound_ms(reads + 4 * qsize, ops["dq"]),
+                  "dkv": bound_ms(reads + 8 * qsize, ops["dkv"])}
+        plain = {"fwd": time_ms(lambda: mha_reference(q, k, v, k_len=klen)),
+                 "dq": plain_bwd, "dkv": plain_bwd}
+        library = {"fwd": None, "dq": None, "dkv": None}
+        if min(lens) >= 1:
+            # every key valid: the call as a user would write it, no mask
+            sdpa = torch.nn.functional.scaled_dot_product_attention \
+                if min(lens) == T else \
+                lambda *qkv: _sdpa(*qkv, klen)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            lib_out = sdpa(*leaves)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lib_out, leaves, do, retain_graph=True)
+            lib_errs = ((lib_out.detach() - got).abs().max().item(),
+                        max((g - mine).abs().max().item() for g, mine in
+                            zip(lib_bwd(), (dq, dk, dv))))
+            if not (lib_errs[0] <= TOL_ATT and lib_errs[1] <= TOL_GRAD):
+                fail(f"flash_attention [{label}]: forward {lib_errs[0]} and "
+                     f"backward {lib_errs[1]} from the library's "
+                     "scaled_dot_product_attention")
+            with torch.no_grad():
+                library["fwd"] = time_ms(lambda: sdpa(q, k, v))
+            library["dq"] = library["dkv"] = time_ms(lib_bwd)
+        for kernel in rows:
+            queued = time_ms(calls[kernel], calls=QUEUED_CALLS)
+            tensor_ms = tensor_core_ms(ops[kernel])
+            if not queued >= tensor_ms:
+                fail(f"flash_attention {kernel} [{label}]: {queued} ms reads "
+                     f"below the tensor cores' bound {tensor_ms}")
+            rows[kernel].append(
+                (label, errs[kernel], time_ms(calls[kernel]), plain[kernel])
+                + bounds[kernel] + ({"ms_queued": queued,
+                                     "tensor_core_bound_ms": tensor_ms,
+                                     "library_ms": library[kernel]},))
+    return rows
+
+
+def sse8_phase(gen, dev, card):
+    """For each of SSE8_MODELS: the model with seeded weights under its
+    task, one training pass on SSE8_UTTS mixtures card vs CPU (every
+    weight matrix's gradient held by the referee rule, float64 on the CPU:
+    PHASEN's float32 passes drift from float64 more than the devices
+    differ, and the rule holds the others as tightly as the plain one
+    where they do not), and one mixture separated on both; the sepformers'
+    K2 calls recorded; then K2's forward, dq and dk/dv at those shapes and
+    at SSE8_K2_CASES against their plain versions. -> ({model: launches of
+    its pass}, K2's rows by kernel, numbers)."""
+    import torch
+
+    from aps_tpu_torch.flagship import init_weights
+    from aps_tpu_torch.libs import aps_sse_nnet, aps_task, aps_transform
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    beg = time.perf_counter()
+    launched_of, numbers, shapes = {}, {}, set()
+    for name, (conf, enh, task_name, task_conf, S) in SSE8_MODELS.items():
+        kwargs = dict(conf)
+        if enh is not None:
+            kwargs["enh_transform"] = aps_transform("enh")(**enh)
+        net = aps_sse_nnet(name)(**kwargs)
+        init_weights(net, gen)
+        task = aps_task(task_name, net, **task_conf)
+        egs = sse8_mixtures(SSE8_UTTS, S, task_conf["num_spks"], gen)
+        weights = [k for k, p in net.named_parameters()
+                   if p.requires_grad and p.dim() >= 2]
+        grads = tuple(weights[i] for i in sorted(
+            {0, len(weights) // 2, len(weights) - 1}))
+        launched = {}
+        with abs_calls() as seen:
+            loss_g, loss_c, errs = step_pass_check(
+                task, egs, dev, grads, SSE8_UTTS, referee=True,
+                referee_on="cpu", launched=launched)
+        shapes |= {c[:5] for c in seen}
+        k2 = {"flash_attention", "flash_attention_dq",
+              "flash_attention_dkv"} if "sepformer" in name else set()
+        if set(launched["card32"]) != k2:
+            fail(f"{name}'s pass launched {launched['card32']}")
+        net.eval()
+        outs = {}
+        for where in ("cpu", dev):
+            with torch.no_grad(), matmul_precision(INFERENCE_PRECISION,
+                                                   torch.device(where)):
+                sep = net.to(where).infer(egs["mix"][0].to(where))
+            sep = sep if isinstance(sep, (list, tuple)) else [sep]
+            outs[str(where)] = [s.float().cpu() for s in sep]
+        scale = max(float(s.abs().max()) for s in outs["cpu"])
+        sep_err = max(float((a - b).abs().max()) for a, b in
+                      zip(outs["cpu"], outs[str(dev)]))
+        if not (len(outs["cpu"]) == len(outs[str(dev)]) and
+                all(torch.isfinite(s).all() for s in outs[str(dev)]) and
+                sep_err <= TOL_SEP_REL * scale):
+            fail(f"{name} separation card vs CPU: {sep_err} (largest sample "
+                 f"{scale})")
+        launched_of[name] = launched["card32"]
+        numbers[name] = {"loss": (loss_g, loss_c), "grads": errs,
+                         "sep_err": sep_err}
+        print(f"{name} under {task_name} ({SSE8_UTTS} x {S} samples): "
+              f"training pass loss card {loss_g:.6f} vs CPU {loss_c:.6f}, "
+              "the gradients' distance (card, CPU) from the CPU's float64 "
+              "pass relative to the largest entry " + ", ".join(
+                  f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in errs.items())
+              + f"; launches {launched['card32']}; one mixture separated "
+              f"card vs CPU {sep_err:.3e} (largest sample {scale:.3f}) "
+              f"({card})", flush=True)
+    cases = sorted(shapes, key=str) + [c + (None,) for c in SSE8_K2_CASES]
+    rows = check_k2_cases(dev, gen, cases)
+    numbers["phase_s"] = time.perf_counter() - beg
+    print(f"the eight sse@ models' phase took {numbers['phase_s']:.1f} s "
+          f"({card})", flush=True)
+    return launched_of, rows, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5280,6 +6058,15 @@ def main() -> None:
             for name, rows in rows_att.items():
                 att_rows.setdefault(name, {})[recipe] = rows
                 print_rows(name, rows, card)
+        # the transducer slice, early too: its step and decode batch are
+        # traced for their device time. It and sse8_phase draw from
+        # generators of their own, so the phases after them see the inputs
+        # they saw before these two phases were added
+        trd_train, trd_dec, trd_rows, _ = transducer_phase(
+            root / "transducer", torch.Generator().manual_seed(SEED + 1),
+            dev, card)
+        for name, rows in trd_rows.items():
+            print_rows(name, rows, card)
         cpt, wavs, model = write_checkpoint(root, gen)
         shapes = S, T, k_len = path_shapes(model)
         print(f"decode path: batches of 8 x {S} samples, encoder T = {T} "
@@ -5522,6 +6309,19 @@ def main() -> None:
             checks[name] += rows
             print_rows(name, rows, card)
 
+        # the eight sse@ models that no phase above runs, and K2 at
+        # SepFormer's chunk shapes
+        sse8_launched, sse8_rows, _ = sse8_phase(
+            torch.Generator().manual_seed(SEED + 2), dev, card)
+        sse8_rows = {f"flash_attention{'' if k == 'fwd' else '_' + k}": r
+                     for k, r in sse8_rows.items()}
+        for name, rows in sse8_rows.items():
+            checks[name] += rows
+            print_rows(name, rows, card)
+        # the transducer slice's rows of K1 and K3
+        for name, rows in trd_rows.items():
+            checks[name] += rows
+
         # the RNN attention slice's rows of K1 and K4
         for name, per_recipe in att_rows.items():
             for rows in per_recipe.values():
@@ -5606,6 +6406,18 @@ def main() -> None:
         for recipe, (trn, dec) in att_launches_of.items():
             extra[f"launches_{recipe}_train_run"] = trn[name]
             extra[f"launches_{recipe}_decode"] = dec[name]
+        for key, table in (("transducer_rows", trd_rows),
+                           ("sepformer_rows", sse8_rows)):
+            if name in table:
+                extra[key] = [
+                    {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                     "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5],
+                     **(r[6] if len(r) > 6 else {})}
+                    for r in table[name]]
+        extra["launches_transducer_train_run"] = trd_train[name]
+        extra["launches_transducer_decode"] = trd_dec[name]
+        for model_name, counts in sse8_launched.items():
+            extra[f"launches_{model_name}_pass"] = counts.get(name, 0)
         if name == "ctc_score_step":
             extra.update(ms_queued=ctc_queued,
                          long_form_ms_queued=long_queued,
