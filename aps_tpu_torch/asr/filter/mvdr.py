@@ -9,7 +9,8 @@ diagonal with eps, is solved against the speech covariance through the
 port's clamped Hermitian Cholesky (aps_tpu_torch.cplx), as aps_tpu solves
 it through the real embedding; the covariances, the solve and the
 beamforming are torch.einsum and torch.linalg on complex64, outside any
-hand-written kernel (none of them is a Pallas kernel in aps_tpu)."""
+hand-written kernel (none of them is a Pallas kernel in aps_tpu); the
+covariances' sums over frames are real products, as aps_tpu's are."""
 
 from typing import Optional
 
@@ -32,10 +33,20 @@ def beamform(weight: torch.Tensor, spectrogram: torch.Tensor
 def estimate_covar(mask: torch.Tensor, spectrogram: torch.Tensor,
                    eps: float = EPSILON) -> torch.Tensor:
     """mask: N x F x T, spectrogram: N x C x F x T complex -> the masked
-    PSD N x F x C x C (the mask's sum over frames at least eps)."""
+    PSD N x F x C x C (the mask's sum over frames at least eps).
+
+    The sum over frames is four real products of the real and imaginary
+    parts, as aps_tpu forms it, not one complex product: on the card
+    cuBLAS's complex GEMM lost about ten times more digits in these
+    covariances than the real products, and the MVDR's solve passes that
+    on to the gradients of the mask network (PERF.md, PR 17)."""
     spec = spectrogram.transpose(1, 2)  # N x F x C x T
     mask = mask[:, :, None, :]
-    nominator = torch.einsum("...it,...jt->...ij", spec * mask, spec.conj())
+    masked = spec * mask
+    prod = lambda a, b: torch.einsum("...it,...jt->...ij", a, b)  # noqa
+    nominator = torch.complex(
+        prod(masked.real, spec.real) + prod(masked.imag, spec.imag),
+        prod(masked.imag, spec.real) - prod(masked.real, spec.imag))
     denominator = torch.clamp_min(mask.sum(-1, keepdim=True), eps)
     return nominator / denominator
 

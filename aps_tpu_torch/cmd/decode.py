@@ -25,12 +25,14 @@ runs with cuBLAS's and cuDNN's TF32 flags off (float32), restored after.
 It decodes on the card (--device-id picks which) and raises when torch
 sees none; --device cpu asks for the CPU. asr@att and asr@enh_att decode
 through the RNN decoder's search (asr/beam_search/att.py), asr@xfmr and
-asr@enh_xfmr through the transformer's, asr@transducer and
-asr@xfmr_transducer through the frame-synchronous transducer search
+asr@enh_xfmr through the transformer's, asr@transducer,
+asr@xfmr_transducer and streaming_asr@transducer through the
+frame-synchronous transducer search
 (asr/beam_search/transducer.py, which reads beam_size, nbest, len_norm and
 lm_weight and ignores the other options; aps_tpu's decode drops lm_weight
 there, so its transducer search fuses no LM, where the port fuses one as
-its decode_batch does) and asr@ctc through CtcApi's prefix search on the
+its decode_batch does) and asr@ctc and streaming_asr@ctc (its offline
+pass, under the chunk-context mask) through CtcApi's prefix search on the
 host, the wave padded onto aps_tpu's length grid (quantize_len(S,
 floor=16000)) with its true length passed. A transducer's RNN LM must hold
 the blank id (an LM of the AM's dictionary does not): the command raises a
@@ -86,7 +88,7 @@ class FasterDecoder(NnetEvaluator):
             from aps_tpu_torch.asr.beam_search import transformer as api
         elif "transducer" in name:
             from aps_tpu_torch.asr.beam_search import transducer as api
-        elif name == "asr@ctc":
+        elif name in ("asr@ctc", "streaming_asr@ctc"):
             api = None
         else:
             raise NotImplementedError(f"decoding {name} is not ported yet")

@@ -22,8 +22,8 @@ C x S utterances (--channel -1, the default), padded on the sample axis
 only (aps_tpu's batched search also pads the channel axis of a shorter
 one). A transducer decodes through its batched frame-synchronous search
 (with the LM, which must hold the blank id, or the command raises before
-the first batch); asr@ctc one utterance after another through CtcApi, as
-in aps_tpu. The wall time of the decode loop is logged with the real-time factor
+the first batch); asr@ctc and streaming_asr@ctc one utterance after
+another through CtcApi, as in aps_tpu. The wall time of the decode loop is logged with the real-time factor
 and audio seconds per second."""
 
 import argparse

@@ -58,6 +58,12 @@ ConvTranspose_0; DCCRN's bottleneck is stacked_rnn / cplx_lstmp / lstmp
 head prelu <-> PReLU_0, SepFormer's chunk_xfmr <-> TransformerEncoder_0
 and its third dense layer linear3 <-> Dense_2.
 
+The streaming models need no rule of their own either: the chunked
+encoder's layers are layer_<i> modules with their self_attn inside, as in
+aps_tpu (not a `layers` list, whose self_attn the rule above moves to an
+attn_<i> sibling), the conformer's causal depthwise conv dconv and its
+batch norm bn; an rt_sse@dfsmn's encoder is dfsmn/impl/fsmn_<i>.
+
 The multi-channel front ends need no rule of their own: an RNN mask
 network (enh_net/mask_net, the encoder's proj, impl and outp) is Linear
 layers and recurrent layers, the MVDR's reference attention

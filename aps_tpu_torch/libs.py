@@ -8,7 +8,9 @@ transforms, the "asr@xfmr", "asr@att", "asr@ctc", "asr@enh_xfmr",
 "sse@freq_tcn", "sse@base_rnn", "sse@rnn_enh_ml", "sse@time_dprnn",
 "sse@freq_dprnn", "sse@demucs", "sse@dcunet", "sse@dccrn",
 "sse@dense_unet", "sse@time_sepformer", "sse@freq_sepformer",
-"sse@freq_xfmr", "sse@dfsmn", "sse@phasen" and "sse@chimera++" models, the
+"sse@freq_xfmr", "sse@dfsmn", "sse@phasen", "sse@chimera++",
+"streaming_asr@ctc", "streaming_asr@transducer", "rt_sse@dfsmn" and
+"rt_sse@freq_xfmr" models, the
 "asr@ctc_xent", "asr@ctc", "asr@transducer", "asr@lm", "sse@sisnr",
 "sse@snr", "sse@wa", "sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
 "sse@time_mel_sa", "sse@complex_mapping", "sse@complex_masking" and
@@ -30,7 +32,9 @@ ASR_SUBMODULES = ["aps_tpu_torch.asr.att", "aps_tpu_torch.asr.ctc",
                   "aps_tpu_torch.asr.enh_att",
                   "aps_tpu_torch.asr.lm.rnn",
                   "aps_tpu_torch.asr.lm.transformer",
-                  "aps_tpu_torch.asr.transducers"]
+                  "aps_tpu_torch.asr.transducers",
+                  "aps_tpu_torch.streaming_asr.ctc",
+                  "aps_tpu_torch.streaming_asr.transducers"]
 SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
                   "aps_tpu_torch.sse.unsuper.rnn",
                   "aps_tpu_torch.sse.bss.dprnn",
@@ -42,7 +46,9 @@ SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
                   "aps_tpu_torch.sse.enh.demucs",
                   "aps_tpu_torch.sse.enh.dcunet",
                   "aps_tpu_torch.sse.enh.dfsmn",
-                  "aps_tpu_torch.sse.enh.phasen"]
+                  "aps_tpu_torch.sse.enh.phasen",
+                  "aps_tpu_torch.rt_sse.enh.dfsmn",
+                  "aps_tpu_torch.rt_sse.enh.transformer"]
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr",
                         "aps_tpu_torch.transform.enh"]
 TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse",

@@ -25,7 +25,11 @@ others, so dq is launched first. dbias (one block per tile, the batch
 summed in order; no model passes a bias) is as first ported. Every kernel
 owns its reduction: outputs and gradients repeat bit for bit from run to
 run. The kernels copy rows 16 bytes at a time, so an operand at an odd
-storage offset is copied first (`_aligned`).
+storage offset is copied first (`_aligned`). They are built for head
+widths 16, 32 and 64: a narrower head is zero-padded up to the next of
+them (`with_padded_heads`, shared with the relative-position kernels),
+which leaves every score unchanged, runs at the true scale and gives zero
+columns that the slice back drops; a head wider than 64 raises.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -36,7 +40,10 @@ import torch
 
 from aps_tpu_torch.ops import build
 
-__all__ = ["flash_attention", "mha_reference", "mha_backward_reference"]
+__all__ = [
+    "flash_attention", "mha_reference", "mha_backward_reference",
+    "with_padded_heads"
+]
 
 _NEG_INF = -1.0e30
 
@@ -117,6 +124,26 @@ def mha_backward_reference(
 
 
 _HEAD_DIMS = (16, 32, 64)
+
+
+def with_padded_heads(fn, name: str, padded, *args, **kwargs
+                      ) -> torch.Tensor:
+    """fn(*padded, *args, **kwargs) with each tensor of `padded` zero-padded
+    on its last (head) axis from D up to the next width the kernels are
+    built for, and the output sliced back to D. Zero columns change no
+    q . k product, no relative term and no gradient of the true columns,
+    and the padded columns of v give output columns that the slice drops;
+    the caller passes the true scale D**-0.5 in kwargs. A D over 64 raises
+    as a kernel given it would."""
+    D = padded[0].shape[-1]
+    width = next((w for w in _HEAD_DIMS if w >= D), None)
+    if width is None:
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    out = fn(*(torch.nn.functional.pad(t, (0, width - D)) for t in padded),
+             *args, **kwargs)
+    return out[..., :D]
+
+
 _IN = [build.P] * 5  # q k v bias k_len
 _DIMS = [build.I] * 5 + [build.F, build.I]  # B H Tq Tk D scale causal
 _FWD_ARGTYPES = _IN + _DIMS + [build.P] * 3  # out lse stream
@@ -259,7 +286,8 @@ def flash_attention(q: torch.Tensor,
     B x H x Tq x D; gradients flow to q, k, v and bias.
     CPU tensors take mha_reference (and autograd through it); CUDA tensors
     launch the kernels of csrc/attention.cu and, for the gradient,
-    csrc/attention_bwd.cu (D in {16, 32, 64})."""
+    csrc/attention_bwd.cu (D in {16, 32, 64}; a D below 64 between them
+    zero-padded up by with_padded_heads)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q is {tuple(q.shape)}, expected "
                          "B x H x Tq x D")
@@ -279,8 +307,10 @@ def flash_attention(q: torch.Tensor,
         return mha_reference(q, k, v, bias=bias, k_len=k_len, causal=causal,
                              softmax_scale=softmax_scale)
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"{_HEAD_DIMS}")
+        return with_padded_heads(
+            flash_attention, "flash_attention", (q, k, v), bias, k_len,
+            causal, softmax_scale=softmax_scale
+            if softmax_scale is not None else D**-0.5)
     if Tq == 0 or Tk == 0:
         raise ValueError(f"flash_attention: empty sequence (Tq {Tq}, "
                          f"Tk {Tk})")

@@ -14,7 +14,9 @@ On CUDA tensors the forward is csrc/rel_attention.cu and the backward
 csrc/rel_attention_bwd.cu (dq_c/dq_p, dk/dv and dpose kernels), joined by
 the autograd Function `_FlashRel`; a failed build or launch raises. The
 kernels copy rows 16 bytes at a time, so an operand at an odd storage
-offset is copied first.
+offset is copied first. A head narrower than 64 and not 16 or 32 wide is
+zero-padded up, table included, and runs at its true scale
+(attention.with_padded_heads).
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
 its gradient), and both are held against the kernels on the card, as is
@@ -26,7 +28,8 @@ import torch
 
 from aps_tpu_torch.asr.transformer.utils import digit_shift
 from aps_tpu_torch.ops import build
-from aps_tpu_torch.ops.attention import _OCCUPANCY_KEYS, _aligned
+from aps_tpu_torch.ops.attention import (_OCCUPANCY_KEYS, _aligned,
+                                         with_padded_heads)
 
 __all__ = [
     "flash_attention_rel", "rel_mha_reference", "rel_lse_reference",
@@ -47,14 +50,18 @@ def _attn_mask(T: int, k_len: Optional[torch.Tensor], causal: bool,
     return mask
 
 
-def _rel_scores(q_c, q_p, k, pose, k_len, causal):
+def _scale(D: int, softmax_scale: Optional[float]) -> float:
+    return float(softmax_scale) if softmax_scale is not None else D**-0.5
+
+
+def _rel_scores(q_c, q_p, k, pose, k_len, causal, softmax_scale=None):
     """Masked scaled scores, B x H x T x T (the dtype's minimum where a key
     is not visible), and the mask."""
     B, H, T, D = q_c.shape
     s = torch.einsum("bhld,bhsd->bhls", q_c, k)
     g = torch.einsum("bhld,hpd->bhlp", q_p,
                      pose.expand((H,) + tuple(pose.shape[1:])))
-    s = (s + digit_shift(g)) * D**-0.5
+    s = (s + digit_shift(g)) * _scale(D, softmax_scale)
     mask = _attn_mask(T, k_len, causal, q_c.device)
     return torch.where(mask, s, torch.finfo(s.dtype).min), mask
 
@@ -79,10 +86,11 @@ def rel_mha_reference(q_c: torch.Tensor,
                       v: torch.Tensor,
                       pose: torch.Tensor,
                       k_len: Optional[torch.Tensor] = None,
-                      causal: bool = False) -> torch.Tensor:
+                      causal: bool = False,
+                      softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Dense plain-PyTorch version. q_c/q_p/k/v: B x H x T x D,
-    pose: Hp x 2T-1 x D, k_len: B."""
-    s, mask = _rel_scores(q_c, q_p, k, pose, k_len, causal)
+    pose: Hp x 2T-1 x D, k_len: B; softmax_scale defaults to D**-0.5."""
+    s, mask = _rel_scores(q_c, q_p, k, pose, k_len, causal, softmax_scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m) * mask
     l = p.sum(-1, keepdim=True)
@@ -151,11 +159,12 @@ _DQ_ARGTYPES = _BWD_ARGTYPES[:-1] + [build.P] * 2
 BACKWARD_KERNELS = ("dq", "dkv", "dpose")
 
 
-def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool):
+def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool,
+                   scale: Optional[float] = None):
     """Launch the forward kernel on checked, 16-byte aligned CUDA tensors
-    (klen int32) -> (out, lse or None). flash_attention_rel is the public
-    entry; this one and launch_backward_kernel let a check time each kernel
-    alone."""
+    (klen int32; scale D**-0.5 unless given) -> (out, lse or None).
+    flash_attention_rel is the public entry; this one and
+    launch_backward_kernel let a check time each kernel alone."""
     B, H, T, D = q_c.shape
     out = torch.empty_like(q_c)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q_c.device) \
@@ -164,7 +173,7 @@ def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool):
     rc = lib.aps_rel_attention_fwd(
         q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
         pose.data_ptr(), klen.data_ptr(), B, H, pose.shape[0], T, D,
-        float(D**-0.5), int(causal), out.data_ptr(),
+        _scale(D, scale), int(causal), out.data_ptr(),
         lse.data_ptr() if want_lse else None, build.stream_ptr(q_c.device))
     build.check(lib, rc, "flash_attention_rel")
     build.count_launch("flash_attention_rel")
@@ -172,7 +181,8 @@ def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool):
 
 
 def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
-                           out, delta, causal: bool
+                           out, delta, causal: bool,
+                           scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one of BACKWARD_KERNELS on checked, 16-byte aligned CUDA
     tensors: "dq" -> (dq_c, dq_p), "dkv" -> (dk, dv), "dpose" -> (dpose,
@@ -193,7 +203,7 @@ def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
     rc = getattr(lib, entry)(
         q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
         pose.data_ptr(), klen.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), B, H, pose.shape[0], T, D, float(D**-0.5),
+        delta.data_ptr(), B, H, pose.shape[0], T, D, _scale(D, scale),
         int(causal), outs[0].data_ptr(), outs[1].data_ptr(), *extra,
         build.stream_ptr(q_c.device))
     build.check(lib, rc, f"flash_attention_rel_{kernel}")
@@ -230,10 +240,11 @@ class _FlashRel(torch.autograd.Function):
     forms delta), then dk/dv and dpose (k_len gets no gradient)."""
 
     @staticmethod
-    def forward(ctx, q_c, q_p, k, v, pose, klen, causal):
-        out, lse = launch_forward(q_c, q_p, k, v, pose, klen, causal, True)
+    def forward(ctx, q_c, q_p, k, v, pose, klen, causal, scale):
+        out, lse = launch_forward(q_c, q_p, k, v, pose, klen, causal, True,
+                                  scale)
         ctx.save_for_backward(q_c, q_p, k, v, pose, klen, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
@@ -243,9 +254,9 @@ class _FlashRel(torch.autograd.Function):
         build.require_cuda("flash_attention_rel backward", {"do": do})
         delta = torch.empty_like(lse)
         grads = [launch_backward_kernel(kernel, *args, do, lse, out, delta,
-                                        ctx.causal)
+                                        ctx.causal, ctx.scale)
                  for kernel in BACKWARD_KERNELS]
-        return (*grads[0], *grads[1], grads[2][0], None, None)
+        return (*grads[0], *grads[1], grads[2][0], None, None, None)
 
 
 def flash_attention_rel(q_c: torch.Tensor,
@@ -254,16 +265,19 @@ def flash_attention_rel(q_c: torch.Tensor,
                         v: torch.Tensor,
                         pose: torch.Tensor,
                         k_len: Optional[torch.Tensor] = None,
-                        causal: bool = False) -> torch.Tensor:
+                        causal: bool = False,
+                        softmax_scale: Optional[float] = None
+                        ) -> torch.Tensor:
     """Blocked softmax attention with in-kernel relative-position scores.
 
     q_c/q_p/k/v: B x H x T x D float32, pose: Hp x (2T-1) x D with Hp in
     {1, H}, k_len: optional B valid key lengths. Scores are scaled by
-    D**-0.5. Returns B x H x T x D; gradients flow to q_c, q_p, k, v and
-    pose.
+    softmax_scale, D**-0.5 by default. Returns B x H x T x D; gradients
+    flow to q_c, q_p, k, v and pose.
     CPU tensors take rel_mha_reference (and autograd through it); CUDA
     tensors launch the kernels of csrc/rel_attention.cu and, for the
-    gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64})."""
+    gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64}; a D below 64
+    between them zero-padded up by with_padded_heads)."""
     tensors = {"q_c": q_c, "q_p": q_p, "k": k, "v": v, "pose": pose}
     B, H, T, D = q_c.shape
     for key, t in tensors.items():
@@ -279,10 +293,12 @@ def flash_attention_rel(q_c: torch.Tensor,
                          f"for T={T}")
     if q_c.device.type == "cpu":
         return rel_mha_reference(q_c, q_p, k, v, pose, k_len=k_len,
-                                 causal=causal)
+                                 causal=causal, softmax_scale=softmax_scale)
+    scale = _scale(D, softmax_scale)
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_rel: head dim {D} not in "
-                         f"{_HEAD_DIMS}")
+        return with_padded_heads(flash_attention_rel, "flash_attention_rel",
+                                 (q_c, q_p, k, v, pose), k_len, causal,
+                                 softmax_scale=scale)
     build.require_cuda("flash_attention_rel", tensors)
     dev = q_c.device
     if k_len is None:
@@ -295,6 +311,6 @@ def flash_attention_rel(q_c: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in tensors.values()):
         return _FlashRel.apply(*map(_aligned, (q_c, q_p, k, v, pose)), klen,
-                               bool(causal))
+                               bool(causal), scale)
     return launch_forward(*map(_aligned, (q_c, q_p, k, v, pose)), klen,
-                          bool(causal), False)[0]
+                          bool(causal), False, scale)[0]

@@ -234,9 +234,29 @@
    mixture separated card vs CPU; then K2's forward, dq and dk/dv at the
    chunk shapes the sepformers handed it and at a SepFormer recipe's (128
    sequences of 250 frames and 1000 of 32, 8 heads of 32).
+22. The streaming slice (`streaming_asr_phase`): examples/asr/aishell_v1/
+   conf/1f.yaml's transform and nnet_conf as streaming_asr@transducer with
+   chunks of 4 encoder frames and 3 chunks of left context: train_am on
+   the corpus of step 20 (K1 once a pass, nothing else: the streaming
+   attention is dense), timed steps, one traced; a training pass card vs
+   CPU with the draws fed in and a float64 referee; decode_batch with
+   run.sh's stage 4 and the searches card vs CPU; then streaming_asr@ctc
+   on the same encoder: train_am one step, decode_batch through CtcApi,
+   ctc_logits card vs CPU, rt_ctc chunk by chunk with its step logits
+   card vs CPU; K1 at the decode's and the step's batches. Then
+   (`rt_sse_phase`) rt_sse@dfsmn at its documented defaults and
+   rt_sse@freq_xfmr at step 19's widths (chunk 4, lctx 3), one source
+   under sse@snr with wham 1a's transform: train_ss on 16 x 4 s, a pass
+   card vs CPU, separate and card vs CPU, step chunk by chunk against the
+   offline masks and the CPU, export's torch.export program through
+   RtExported against RtModel (card and CPU), rt_enh frame by frame card
+   vs CPU; no kernel launched. Step 17's training pass runs at two more
+   seeds (other weights and utterances), and witnesses put one part of
+   the front end at a time in float64; step 21 runs SepFormer once more
+   at heads of 8 (K2 zero-padded to 16, its separation launching K2).
    (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
-   14, 16, 17, 19 and 21 last; step 18 runs first, after the builds,
+   14, 16, 17, 19, 21 and 22 last; step 18 runs first, after the builds,
    since its traces name the kernels, and step 20 right after it.)
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -3013,16 +3033,18 @@ def _sep_files(sep: Path, keys, names, sr: int, length: int):
                      f"{sr_got}, shape {pcm.shape}")
 
 
-def _card_vs_cpu_separation(cpt: Path, mixes, dev, label: str):
+def _card_vs_cpu_separation(cpt: Path, mixes, dev, label: str,
+                            tag: str = "best"):
     """ZOO_SEP_CHECK mixtures through Separator.run (batch 1 on the length
-    grid, as separate runs it) on the CPU and on the card: the largest
-    difference within TOL_SEP_REL of the largest sample. -> (err, scale)."""
+    grid, as separate runs it) on the CPU and on the card, the checkpoint
+    of `tag`: the largest difference within TOL_SEP_REL of the largest
+    sample. -> (err, scale)."""
     import numpy as np
 
     from aps_tpu_torch.cmd import separate
     from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
     keys = sorted(mixes)[:ZOO_SEP_CHECK]
-    seps = {w: separate.Separator(str(cpt), device=w)
+    seps = {w: separate.Separator(str(cpt), cpt_tag=tag, device=w)
             for w in ("cpu", "cuda")}
     with matmul_precision(INFERENCE_PRECISION, dev):
         outs = {w: [s.run(mixes[k]) for k in keys] for w, s in seps.items()}
@@ -4736,6 +4758,69 @@ def front_end_float64(task) -> None:
         inp_len=inp_len).to(torch.complex64)
 
 
+def mask_net_float64(task) -> None:
+    """Witness: the front end's mask network (its cuDNN BLSTM and output
+    layer) in float64, the MVDR in complex64."""
+    net = task.nnet.enh_net.mask_net.double()
+    forward = net.forward
+    net.forward = lambda feats, inp_len=None: (
+        forward(feats.double(), inp_len)[0].float(), inp_len)
+
+
+def mvdr_float64(part: str):
+    """Witness: one op of the MVDR in float64, the rest of the front end in
+    float32: "covar" the masked covariances (complex einsum: cuBLAS's
+    batched cgemm), "solve" the loaded noise covariance's clamped Cholesky
+    and the solve against the speech covariance with the trace and the
+    reference vector's product, "beamform" the weighted sum over the
+    channels."""
+    import torch
+
+    from aps_tpu_torch.asr.filter import mvdr
+
+    def up(t):
+        return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+    def witness(task) -> None:
+        bf = task.nnet.enh_net.mvdr_net
+
+        def forward(mask_s, x, mask_n=None, x_len=None):
+            mask_s = bf._process_mask(mask_s, x_len)
+            mask_n = bf._process_mask(mask_n, x_len)
+            mask_n = 1 - mask_s if mask_n is None else mask_n
+            if part == "covar":
+                Rs, Rn = (mvdr.estimate_covar(up(m), up(x)).to(x.dtype)
+                          for m in (mask_s, mask_n))
+            else:
+                Rs, Rn = (mvdr.estimate_covar(m, x) for m in (mask_s, mask_n))
+            u = bf.ref(Rs)
+            if part == "solve":
+                weight = bf._derive_weight(up(Rs), up(Rn), up(u),
+                                           eps=bf.eps).to(x.dtype)
+            else:
+                weight = bf._derive_weight(Rs, Rn, u, eps=bf.eps)
+            if part == "beamform":
+                return mvdr.beamform(up(weight).transpose(1, 2), up(
+                    x)).transpose(1, 2).to(x.dtype)
+            return mvdr.beamform(weight.transpose(1, 2), x).transpose(1, 2)
+
+        bf.forward = forward
+    return witness
+
+
+# the witnesses of the chime4 pass: where the card's float32 distance from
+# float64 comes from, one part of the front end in float64 at a time
+CHIME4_WITNESSES = {"dense": dense_attention, "front64": front_end_float64,
+                    "mask64": mask_net_float64,
+                    "covar64": mvdr_float64("covar"),
+                    "solve64": mvdr_float64("solve"),
+                    "beamform64": mvdr_float64("beamform")}
+# the pass at more weights and utterances than the phase's own: each seed
+# seeds the model's weights, and the i-th takes utterances 4i to 4i + 3 of
+# the batch
+CHIME4_PASS_SEEDS = (SEED + 11, SEED + 12)
+
+
 # the K3 kernels of a training pass on the flash path (every dropout off)
 K3_TRAIN = ("flash_attention_rel", "flash_attention_rel_dq",
             "flash_attention_rel_dkv", "flash_attention_rel_dpose")
@@ -4747,34 +4832,50 @@ def chime4_pass_check(conf, egs, dev, gen, card):
     MVDR's solve passes the gradients of the mask network and of the
     reference attention through covariances of delayed copies, so a
     float32 pass on either device lands some 1e-3 from the float64 one.
-    Two witnesses say where the card's distance comes from: the pass on
-    the dense path (no K3) and the pass with the front end in float64.
+    Witnesses (CHIME4_WITNESSES) say where the card's distance comes
+    from: the pass on the dense path (no K3), with the whole front end in
+    float64, and with one part of it at a time in float64. The pass runs
+    at the phase's own weights (drawn from gen) on the batch's first
+    utterances, then at each of CHIME4_PASS_SEEDS on other utterances.
     -> (K3's (B, H, T, D, Hp, k_len, causal) in the pass, numbers)"""
-    launched = {}
-    with training_operands() as seen:
-        loss_g, loss_c, errs = step_pass_check(
-            chime4_model(conf, gen), egs, dev, CHIME4_GRADS,
-            CHIME4_PASS_UTTS, referee=True, referee_on="cpu",
-            witnesses={"dense": dense_attention,
-                       "front64": front_end_float64}, launched=launched)
-    for side in ("card32", "front64"):
-        if not all(launched[side].get(k, 0) > 0 for k in K3_TRAIN):
-            fail(f"the chime4 pass {side} launched {launched[side]}, "
-                 f"expected each of {K3_TRAIN}")
-    if any(launched["dense"].get(k, 0) for k in K3_TRAIN):
-        fail(f"the dense chime4 pass launched {launched['dense']}")
-    print(f"chime4 1b training pass at float32 (dropouts off, TF32 flags "
-          f"read off inside) on {CHIME4_PASS_UTTS} utterances: loss card "
-          f"{loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' distance from "
-          "the CPU's float64 pass relative to the largest entry (card with "
-          "K3, CPU, card on the dense path, card with the front end in "
-          "float64) "
-          + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
-                      for k, e in errs.items())
-          + f"; K3 launches in the card's pass {launched['card32']} "
-          f"({card})", flush=True)
-    shapes = sorted(set(seen["rel"]), key=seen["rel"].index)
-    return shapes, {"pass_loss": (loss_g, loss_c), "pass_grads": errs}
+    import torch
+    numbers = {"pass_loss": {}, "pass_grads": {}}
+    runs = [("phase", gen, egs)]
+    for i, seed in enumerate(CHIME4_PASS_SEEDS, 1):
+        rows = slice(i * CHIME4_PASS_UTTS, (i + 1) * CHIME4_PASS_UTTS)
+        runs.append((seed, torch.Generator().manual_seed(seed),
+                     {k: v[rows] for k, v in egs.items()
+                      if not k.startswith("#")}))
+    for label, weights, batch in runs:
+        launched = {}
+        with training_operands() as seen:
+            loss_g, loss_c, errs = step_pass_check(
+                chime4_model(conf, weights), batch, dev, CHIME4_GRADS,
+                CHIME4_PASS_UTTS, referee=True, referee_on="cpu",
+                witnesses=CHIME4_WITNESSES, launched=launched)
+        for side in ("card32", "front64"):
+            if not all(launched[side].get(k, 0) > 0 for k in K3_TRAIN):
+                fail(f"the chime4 pass {side} launched {launched[side]}, "
+                     f"expected each of {K3_TRAIN}")
+        if any(launched["dense"].get(k, 0) for k in K3_TRAIN):
+            fail(f"the dense chime4 pass launched {launched['dense']}")
+        print(f"chime4 1b training pass at float32 (dropouts off, TF32 "
+              f"flags read off inside; float32 matmul precision "
+              f"{torch.get_float32_matmul_precision()}) on "
+              f"{CHIME4_PASS_UTTS} utterances, weights of seed {label}: "
+              f"loss card {loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' "
+              "distance from the CPU's float64 pass relative to the "
+              "largest entry (card with K3, CPU, then the card's witnesses "
+              + ", ".join(CHIME4_WITNESSES) + ") "
+              + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
+                          for k, e in errs.items())
+              + f"; K3 launches in the card's pass {launched['card32']} "
+              f"({card})", flush=True)
+        if label == "phase":
+            shapes = sorted(set(seen["rel"]), key=seen["rel"].index)
+        numbers["pass_loss"][label] = (loss_g, loss_c)
+        numbers["pass_grads"][label] = errs
+    return shapes, numbers
 
 
 def chime4_phase(root: Path, gen, dev, card):
@@ -5364,17 +5465,20 @@ def trd_batch(root: Path, data: Path):
     return batches[0]
 
 
-def trd_train_phase(root: Path, data: Path, dev, card):
+def trd_train_phase(root: Path, data: Path, dev, card, label="1f",
+                    launches_of=None):
     """train_am (run.sh stage 2): TRD_EPOCHS one-step epochs with the
     launch counts over the run; TRD_TIMED_STEPS timed steps on the same
     batch, each counted, with what they hand K1 and K3 recorded; one
-    traced. -> (checkpoint, the batch, launches of the run, numbers, the
-    training operands)."""
+    traced. label names the model in the lines printed, launches_of(passes,
+    steps) its launch counts (trd_launches: 1f's). -> (checkpoint, the
+    batch, launches of the run, numbers, the training operands)."""
     import torch
 
     from aps_tpu_torch.cmd import train_am
     from aps_tpu_torch.cmd.profile_decode import profile
     from aps_tpu_torch.ops import build
+    launches_of = launches_of or trd_launches
     cpt = root / "exp"
     argv = ["--conf", str(data / "train.yaml"), "--dict", str(root / "dict"),
             "--checkpoint", str(cpt), "--batch-size", str(TRD_BATCH_SIZE),
@@ -5393,11 +5497,11 @@ def trd_train_phase(root: Path, data: Path, dev, card):
                   "TransducerTask", "perturb-fbank-log-cmvn-aug",
                   len(TRD_UNITS) + 2)
     if setup != want_setup:
-        fail(f"train_am ({TRD_YAML}) is not as written: {setup}")
+        fail(f"train_am ({label}) is not as written: {setup}")
     # a validation pass before the first epoch and after each
-    want = trd_launches(passes=2 * TRD_EPOCHS + 1, steps=TRD_EPOCHS)
+    want = launches_of(passes=2 * TRD_EPOCHS + 1, steps=TRD_EPOCHS)
     if launches != want:
-        fail(f"train_am ({TRD_YAML}) launches {launches}, expected {want}")
+        fail(f"train_am ({label}) launches {launches}, expected {want}")
     egs = trd_batch(root, data)
     trainer.reporter.train()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5410,24 +5514,24 @@ def trd_train_phase(root: Path, data: Path, dev, card):
             done, sec = synced(lambda: trainer.train_one_step(egs))
         secs.append(sec)
         got = dict(build.LAUNCHES)
-        if not done or got != trd_launches(passes=1, steps=1):
-            fail(f"1f timed step {step}: done {done}, launches {got}")
+        if not done or got != launches_of(passes=1, steps=1):
+            fail(f"{label} timed step {step}: done {done}, launches {got}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     device_ms, wall, host_launches, prof = profile(
         lambda: trainer.train_one_step(egs))
     hook.remove()
     if set(flags) != {(True, True)} or tf32_flags() != (False, False):
-        fail(f"1f steps at matmul_precision bfloat16: TF32 flags (cuBLAS, "
+        fail(f"{label} steps at matmul_precision bfloat16: TF32 flags (cuBLAS, "
              f"cuDNN) {set(flags)} inside, {tf32_flags()} after")
     losses = _epoch_losses(cpt / "trainer.log", "train") + \
         [float(v) for v in trainer.reporter.stats["loss"]]
     if not all(map(math.isfinite, losses)):
-        fail(f"non-finite 1f loss: {losses}")
+        fail(f"non-finite {label} loss: {losses}")
     _, T, _ = train_shapes(model, egs)
     U1 = int(egs["tgt_len"].max()) + 1
     V = model.vocab_size
     joint_gib = len(egs["src_len"]) * T * U1 * V * 4 / 2**30
-    print(f"train_am {TRD_YAML} as written: {TRD_TRAIN_UTTS} x {TRD_SECS} s "
+    print(f"train_am {label}: {TRD_TRAIN_UTTS} x {TRD_SECS} s "
           f"(one batch; --batch-size {TRD_BATCH_SIZE}, halved by adapt_dur), "
           f"{TRD_LABELS} labels, V = {V} ({len(TRD_UNITS)} characters, "
           f"<unk>, the blank), the joint's logits N x T' x (U+1) x V = "
@@ -5436,12 +5540,12 @@ def trd_train_phase(root: Path, data: Path, dev, card):
           f"{TRD_TIMED_STEPS + 1} more steps on the same batch, TF32 flags "
           f"(cuBLAS, cuDNN) {flags[0]} inside them; losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
-    print(f"1f step: device {device_ms:.3f} ms (traced), host "
+    print(f"{label} step: device {device_ms:.3f} ms (traced), host "
           f"{statistics.median(secs):.4f} s median of "
           f"{', '.join(f'{v:.4f}' for v in secs)} (traced {wall:.4f} s, "
           f"{host_launches} launches), peak memory {peak:.3f} GiB ({card})",
           flush=True)
-    print(f"1f step, the kernels with the most device time (ms): "
+    print(f"{label} step, the kernels with the most device time (ms): "
           f"{top_kernels(prof)}", flush=True)
     return cpt, egs, launches, {
         "device_ms": device_ms, "peak_gib": peak, "launches": host_launches,
@@ -5449,12 +5553,14 @@ def trd_train_phase(root: Path, data: Path, dev, card):
         "shape": (len(egs["src_len"]), T, U1, V)}, seen
 
 
-def trd_pass_check(root: Path, data: Path, egs, dev, gen, card):
+def trd_pass_check(root: Path, data: Path, egs, dev, gen, card, label="1f",
+                   launches_of=None, grads=TRD_GRADS):
     """1f's training pass with every dropout off and the draws fed in (the
     identity branch of the speed perturbation, one seeded SpecAugment
     mask) on TRD_PASS_UTTS utterances, float32 on the card and on the CPU,
     held by the referee rule with a float64 pass on the CPU (K3 takes
-    float32 only)."""
+    float32 only); label, launches_of as trd_train_phase's, grads the
+    gradients held."""
     import torch
 
     from aps_tpu_torch.conf import load_am_conf
@@ -5481,12 +5587,12 @@ def trd_pass_check(root: Path, data: Path, egs, dev, gen, card):
                                       device=x.device))
     launched = {}
     loss_g, loss_c, errs = step_pass_check(
-        task, egs, dev, TRD_GRADS, TRD_PASS_UTTS, referee=True,
+        task, egs, dev, grads, TRD_PASS_UTTS, referee=True,
         referee_on="cpu", launched=launched)
-    if launched["card32"] != {k: v for k, v in trd_launches(1, 1).items()
-                              if v}:
-        fail(f"the 1f pass launched {launched['card32']}")
-    print(f"1f training pass at float32 (dropouts off, draws fed in, TF32 "
+    if launched["card32"] != {k: v for k, v in (
+            launches_of or trd_launches)(1, 1).items() if v}:
+        fail(f"the {label} pass launched {launched['card32']}")
+    print(f"{label} training pass at float32 (dropouts off, draws fed in, TF32 "
           f"flags read off inside) on {TRD_PASS_UTTS} utterances: loss card "
           f"{loss_g:.6f} vs CPU {loss_c:.6f}; the gradients' distance from "
           "the CPU's float64 pass relative to the largest entry (card, CPU) "
@@ -5570,15 +5676,17 @@ def write_trd_decodable(cpt: Path, root: Path) -> Path:
     return out
 
 
-def trd_decode_phase(root: Path, am: Path, gen, dev, card):
+def trd_decode_phase(root: Path, am: Path, gen, dev, card, label="1f",
+                     launches_of=None, with_lm=True):
     """run.sh stage 4: TRD_DECODE_UTTS utterances of TRD_SECS through
     decode_batch with TRD_STAGE4, launch counts read (K1 once a batch, K3's
     forward once a layer, nothing else), what the encoder hands K3
     recorded; one batch profiled (device ms, host launches a frame); the
     first TRD_CHECK_UTTS card vs CPU (nbest_error, len_norm true); one
     search fused with a seeded RNN LM of the AM's vocabulary (TRD_LM_YAML's
-    structure), card vs CPU; an LM of the dictionary's raises. -> (launches,
-    the recorded K3 calls, numbers)."""
+    structure), card vs CPU; an LM of the dictionary's raises (not
+    without with_lm). label, launches_of as trd_train_phase's. ->
+    (launches, the recorded K3 calls, numbers)."""
     import numpy as np
     import torch
 
@@ -5592,6 +5700,7 @@ def trd_decode_phase(root: Path, am: Path, gen, dev, card):
     from aps_tpu_torch.eval.wrapper import load_checkpoint
     from aps_tpu_torch.libs import aps_asr_nnet
     from aps_tpu_torch.ops import build
+    launches_of = launches_of or trd_launches
     data = root / "test"
     data.mkdir()
     wavs = write_wavs(data, "tst", TRD_DECODE_UTTS, gen, TRD_SECS)
@@ -5605,11 +5714,11 @@ def trd_decode_phase(root: Path, am: Path, gen, dev, card):
     lines = best.read_text().splitlines()
     if sorted(ln.split("\t")[0] for ln in lines) != sorted(wavs) or \
             not all(map(math.isfinite, stats["scores"].values())):
-        fail(f"1f decode_batch: {len(lines)} lines, scores "
+        fail(f"{label} decode_batch: {len(lines)} lines, scores "
              f"{list(stats['scores'].values())}")
     batches = len(stats["batch_secs"])
-    if launches != trd_launches(passes=batches) or batches != 1:
-        fail(f"1f decode launches {launches} in {batches} batches")
+    if launches != launches_of(passes=batches) or batches != 1:
+        fail(f"{label} decode launches {launches} in {batches} batches")
     model = load_checkpoint(str(am))["nnet"].to(dev)
     S = quantize_dur(TRD_SECS * SR)
     keys = sorted(wavs)
@@ -5619,7 +5728,7 @@ def trd_decode_phase(root: Path, am: Path, gen, dev, card):
         model.to(dev), batch, device=dev, pad_to=S, **kw)
     for key, hyps in zip(keys, search()):
         if abs(hyps[0]["score"] - stats["scores"][key]) > 1e-3:
-            fail(f"1f {key}: decode_batch score {stats['scores'][key]} != "
+            fail(f"{label} {key}: decode_batch score {stats['scores'][key]} != "
                  f"search score {hyps[0]['score']}")
     device_ms, wall, host_launches, _ = profile(search)
     x = torch.from_numpy(np.stack([np.pad(w, (0, S - len(w)))
@@ -5628,22 +5737,24 @@ def trd_decode_phase(root: Path, am: Path, gen, dev, card):
         enc, enc_len = model.decode_enc(x, torch.tensor(
             [len(w) for w in batch], device=dev))
     T = enc.shape[1]
-    # the seeded RNN LM of the AM's vocabulary (it holds the blank id its
-    # fusion starts from), TRD_LM_YAML's structure
-    lm_conf = load_yaml(str(REPO / TRD_LM_YAML))
-    lm = aps_asr_nnet(lm_conf["nnet"])(**dict(
-        lm_conf["nnet_conf"], vocab_size=model.vocab_size))
-    init_lm(lm, gen)
-    lm.eval()
-    small = aps_asr_nnet(lm_conf["nnet"])(**dict(
-        lm_conf["nnet_conf"], vocab_size=model.vocab_size - 1))
-    try:
-        check_lm(model, lm_adapter(small), TRD_LM_WEIGHT)
-        fail("an LM without the blank id did not raise")
-    except ValueError as err:
-        refused = str(err)
-    check = {"plain": (None, dict(kw, len_norm=True)),
-             "lm": (lm, dict(kw, len_norm=True, lm_weight=TRD_LM_WEIGHT))}
+    check = {"plain": (None, dict(kw, len_norm=True))}
+    if with_lm:
+        # the seeded RNN LM of the AM's vocabulary (it holds the blank id
+        # its fusion starts from), TRD_LM_YAML's structure
+        lm_conf = load_yaml(str(REPO / TRD_LM_YAML))
+        lm = aps_asr_nnet(lm_conf["nnet"])(**dict(
+            lm_conf["nnet_conf"], vocab_size=model.vocab_size))
+        init_lm(lm, gen)
+        lm.eval()
+        small = aps_asr_nnet(lm_conf["nnet"])(**dict(
+            lm_conf["nnet_conf"], vocab_size=model.vocab_size - 1))
+        try:
+            check_lm(model, lm_adapter(small), TRD_LM_WEIGHT)
+            fail("an LM without the blank id did not raise")
+        except ValueError as err:
+            refused = str(err)
+        check["lm"] = (lm, dict(kw, len_norm=True,
+                                lm_weight=TRD_LM_WEIGHT))
     errs, outs = {}, {}
     for name, (lm_model, ckw) in check.items():
         for where in ("cpu", dev):
@@ -5658,30 +5769,30 @@ def trd_decode_phase(root: Path, am: Path, gen, dev, card):
             err = nbest_error(hc, hg)
             if err is None:
                 for side, hyps in (("CPU", hc), ("card", hg)):
-                    print(f"1f {name} {key} {side}: " + "; ".join(
+                    print(f"{label} {name} {key} {side}: " + "; ".join(
                         f"{h['score']:.6f} ({len(h['trans'])})"
                         for h in hyps), flush=True)
-                fail(f"1f {name} search {key}: card and CPU n-best lists "
+                fail(f"{label} {name} search {key}: card and CPU n-best lists "
                      "differ")
             errs[name] = max(errs[name], err)
-    fused = [h[0]["trans"] for h in outs[("lm", "cpu")]]
     plain = [h[0]["trans"] for h in outs[("plain", "cpu")]]
     model.to(dev)
-    print(f"1f decode_batch {' '.join(TRD_STAGE4)}: {TRD_DECODE_UTTS} x "
+    print(f"{label} decode_batch {' '.join(TRD_STAGE4)}: {TRD_DECODE_UTTS} x "
           f"{TRD_SECS} s padded to {S} samples (T' = {T}, "
           f"{int(enc_len.max())} valid), {stats['batch_secs'][0]:.4f} s (host "
           f"clock around the synchronised batch), launches {launches}; "
           f"profiled search: device {device_ms:.3f} ms in {wall:.4f} s wall, "
           f"{host_launches / T:.1f} host launches a frame ({card})",
           flush=True)
-    print(f"1f search card vs CPU on {TRD_CHECK_UTTS} utterances (beam 16, "
-          f"len_norm true): n-best of {len(outs[('plain', 'cpu')][0])} equal, "
-          f"largest score diff {errs['plain']:.3e}; fused with the RNN LM of "
-          f"vocabulary {model.vocab_size} at {TRD_LM_WEIGHT}: "
-          f"{errs['lm']:.3e}, best hypotheses of "
-          f"{[len(t) - 2 for t in fused]} tokens (without the LM "
-          f"{[len(t) - 2 for t in plain]}); an LM of "
-          f"{model.vocab_size - 1} ids refused: {refused[:80]}... ({card})",
+    fused = "" if not with_lm else (
+        f"; fused with the RNN LM of vocabulary {model.vocab_size} at "
+        f"{TRD_LM_WEIGHT}: {errs['lm']:.3e}, best hypotheses of "
+        f"{[len(h[0]['trans']) - 2 for h in outs[('lm', 'cpu')]]} tokens; "
+        f"an LM of {model.vocab_size - 1} ids refused: {refused[:80]}...")
+    print(f"{label} search card vs CPU on {TRD_CHECK_UTTS} utterances (beam "
+          f"16, len_norm true): n-best of {len(outs[('plain', 'cpu')][0])} "
+          f"equal, largest score diff {errs['plain']:.3e}, best hypotheses of "
+          f"{[len(t) - 2 for t in plain]} tokens{fused} ({card})",
           flush=True)
     return launches, seen, {"device_ms": device_ms, "wall": wall,
                             "batch_s": stats["batch_secs"][0], "frames": T,
@@ -5752,8 +5863,8 @@ def transducer_phase(root: Path, gen, dev, card):
 # the eight sse@ models that no other phase runs, at the depth of the CPU
 # tests (tests/test_torch_sse_{time,cplx,zoo}.py): one training pass and
 # one separation each, card vs CPU. The sepformers' attention is 32 wide
-# with 2 heads (the tests' 16 gives heads of 8, which K2 does not take:
-# it takes heads of 16, 32 and 64)
+# with 2 heads, and once more at the tests' 16 (heads of 8, which K2 takes
+# zero-padded to 16)
 SSE8_ENH = dict(feats="spectrogram-log-cmvn", frame_len=64, frame_hop=32,
                 window="sqrthann", center=True)
 SSE8_ENH_CPLX = dict(feats="spectrogram", frame_len=128, frame_hop=64,
@@ -5761,12 +5872,20 @@ SSE8_ENH_CPLX = dict(feats="spectrogram", frame_len=128, frame_hop=64,
 SSE8_XFMR = dict(att_dim=32, nhead=2, feedforward_dim=48, att_dropout=0.0,
                  ffn_dropout=0.0)
 SSE8_UNET = dict(K="5,3;3,3", S="2,1;2,1", C="4,6", P="1,1", O="0,1")
-# name: (model conf, enh transform, task, task conf, samples)
+# the CPU tests' SepFormer width: 2 heads of 8, which K2 takes zero-padded
+# to 16 at the true scale
+SSE8_XFMR8 = dict(SSE8_XFMR, att_dim=16, feedforward_dim=24)
+# name (a label after "#"): (model conf, enh transform, task, task conf,
+# samples)
 SSE8_MODELS = {
     "sse@time_sepformer": (dict(num_bins=8, kernel=8, stride=4,
                                 num_blocks=1, num_layers=1, chunk_size=16,
                                 arch_kwargs=SSE8_XFMR), None, "sse@sisnr",
                            {"num_spks": 2}, 1200),
+    "sse@time_sepformer#heads_of_8": (
+        dict(num_bins=8, kernel=8, stride=4, num_blocks=1, num_layers=1,
+             chunk_size=16, arch_kwargs=SSE8_XFMR8), None, "sse@sisnr",
+        {"num_spks": 2}, 1200),
     "sse@freq_sepformer": (dict(num_bins=33, num_blocks=1, num_layers=1,
                                 chunk_size=8, arch_kwargs=SSE8_XFMR),
                            SSE8_ENH, "sse@freq_linear_sa", {"num_spks": 2},
@@ -5856,8 +5975,11 @@ def check_k2_cases(dev, gen, cases):
     library's scaled_dot_product_attention computes the same function
     (without a mask where every key is valid): its forward, and autograd
     through it for dq, dk and dv together, are held against the kernels
-    and timed. -> {"fwd" | "dq" | "dkv": rows},
-    each row carrying those numbers in a dict after the bound."""
+    and timed. A head width the kernels are not built for (8: the CPU
+    tests' SepFormer) is launched zero-padded to the next of 16, 32 and 64
+    at its true scale, as flash_attention pads it. -> {"fwd" | "dq" |
+    "dkv": rows}, each row carrying those numbers in a dict after the
+    bound."""
     import torch
 
     from aps_tpu_torch.ops.attention import (flash_attention,
@@ -5876,11 +5998,16 @@ def check_k2_cases(dev, gen, cases):
                  + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
         got = flash_attention(q, k, v, k_len=klen)
         want = mha_reference(q, k, v, k_len=klen)
-        out, lse = launch_forward(q, k, v, None, klen, scale, False, True)
+        width = next(w for w in (16, 32, 64) if w >= D)
+        qw, kw, vw, dow = (torch.nn.functional.pad(t, (0, width - D))
+                           for t in (q, k, v, do))
+        out, lse = launch_forward(qw, kw, vw, None, klen, scale, False, True)
         delta = torch.full_like(lse, float("nan"))
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
-            kernel, q, k, v, None, klen, do, lse, out, delta, scale, False)
-        dq, (dk, dv) = run("dq"), run("dkv")
+            kernel, qw, kw, vw, None, klen, dow, lse, out, delta, scale,
+            False)
+        dq, (dk, dv) = run("dq")[..., :D], run("dkv")
+        dk, dv = dk[..., :D], dv[..., :D]
         ref = mha_backward_reference(q, k, v, do, k_len=klen)
         torch.cuda.synchronize()
         errs = {"fwd": (got - want).abs().max().item(),
@@ -5948,7 +6075,9 @@ def sse8_phase(gen, dev, card):
     PHASEN's float32 passes drift from float64 more than the devices
     differ, and the rule holds the others as tightly as the plain one
     where they do not), and one mixture separated on both; the sepformers'
-    K2 calls recorded; then K2's forward, dq and dk/dv at those shapes and
+    K2 calls recorded, and on the card their separation must launch K2's
+    forward (the heads of 8 of the CPU tests' SepFormer too, padded to 16);
+    then K2's forward, dq and dk/dv at those shapes and
     at SSE8_K2_CASES against their plain versions. -> ({model: launches of
     its pass}, K2's rows by kernel, numbers)."""
     import torch
@@ -5958,11 +6087,12 @@ def sse8_phase(gen, dev, card):
     from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
     beg = time.perf_counter()
     launched_of, numbers, shapes = {}, {}, set()
+    from aps_tpu_torch.ops import build
     for name, (conf, enh, task_name, task_conf, S) in SSE8_MODELS.items():
         kwargs = dict(conf)
         if enh is not None:
             kwargs["enh_transform"] = aps_transform("enh")(**enh)
-        net = aps_sse_nnet(name)(**kwargs)
+        net = aps_sse_nnet(name.split("#")[0])(**kwargs)
         init_weights(net, gen)
         task = aps_task(task_name, net, **task_conf)
         egs = sse8_mixtures(SSE8_UTTS, S, task_conf["num_spks"], gen)
@@ -5983,11 +6113,18 @@ def sse8_phase(gen, dev, card):
         net.eval()
         outs = {}
         for where in ("cpu", dev):
+            build.reset_launches()
             with torch.no_grad(), matmul_precision(INFERENCE_PRECISION,
                                                    torch.device(where)):
                 sep = net.to(where).infer(egs["mix"][0].to(where))
             sep = sep if isinstance(sep, (list, tuple)) else [sep]
             outs[str(where)] = [s.float().cpu() for s in sep]
+            sep_launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            want = {"flash_attention"} if "sepformer" in name and \
+                where == dev else set()
+            if set(sep_launched) != want:
+                fail(f"{name}'s separation on {where} launched "
+                     f"{sep_launched}")
         scale = max(float(s.abs().max()) for s in outs["cpu"])
         sep_err = max(float((a - b).abs().max()) for a, b in
                       zip(outs["cpu"], outs[str(dev)]))
@@ -6013,6 +6150,446 @@ def sse8_phase(gen, dev, card):
     print(f"the eight sse@ models' phase took {numbers['phase_s']:.1f} s "
           f"({card})", flush=True)
     return launched_of, rows, numbers
+
+
+# streaming: aishell_v1/1f's transform and nnet_conf as
+# streaming_asr@transducer (and, with the same encoder, streaming_asr@ctc)
+# with chunks of 4 encoder frames and 3 chunks of left context (the
+# encoder sets its relative-position radii from them); rt_sse@dfsmn at its
+# documented defaults (docs/instruction.md: dim 1024, project 512, 4 layers,
+# lctx and rctx 3, 257 bins) and rt_sse@freq_xfmr at freq_xfmr_phase's
+# widths (6 rel-pose layers of 512, 8 heads, 257 bins) with chunk 4 and
+# lctx 3, both under wham 1a's transform, as one-branch enhancers (the
+# first source the reference) trained in time mode under sse@snr (the
+# SiSNR of a seeded model's output, near -20 dB, is a small difference of
+# large sums: its float32 gradient lies some 1e-3 from float64). No
+# attention kernel is on these paths: the streaming attention is dense
+# (chunk-context mask offline, the per-layer caches in a step); K1 is the
+# ASR path's front end
+STREAM_ENC = {"chunk": 4, "lctx": 3}
+STREAM_GRADS = ("encoder.pose_layer.embed.weight",
+                "encoder.encoder.layer_0.self_attn.in_proj.weight",
+                "decoder.decoder.OptimizedLSTMCell_0.weight_hh_l0",
+                "decoder.enc_proj.weight", "decoder.output.weight")
+# rt_ctc's chunk: 32 feature frames, one chunk of 4 frames after the
+# conv2d projection's 8x subsampling
+STREAM_CTC_FRAMES = 32
+STREAM_CTC_BEAM = ["--beam-size", "4", "--batch-size", "8"]
+RT_SSE_CONFS = {
+    "rt_sse@dfsmn": dict(dim=1024, num_bins=257, num_layers=4, project=512,
+                         lctx=3, rctx=3, training_mode="time"),
+    "rt_sse@freq_xfmr": dict(num_bins=257, num_layers=6, chunk=4, lctx=3,
+                             training_mode="time",
+                             arch_kwargs=dict(att_dim=512, nhead=8,
+                                              feedforward_dim=2048,
+                                              att_dropout=0.0,
+                                              ffn_dropout=0.0)),
+}
+RT_SSE_BATCH = 16
+RT_SSE_SECS = 4
+RT_ENH_SECS = 1  # the frame-by-frame loop of rt_enh, card vs CPU
+# step vs the offline pass of the same model on the same device, and the
+# exported program vs the module: float32 sums of the same terms in
+# another order, relative to the largest mask entry
+TOL_STREAM = 1e-4
+
+
+def enh_transform_float64(parts=("stft", "features", "istft")):
+    """Witness: the enh transform's STFT, features and iSTFT (those of
+    `parts`) in float64 and rounded back to complex64 / float32, the
+    network in float32."""
+    import torch
+
+    def witness(task) -> None:
+        tf = task.nnet.enh_transform.double()
+        encode, features, decode = tf.encode, tf.forward, tf.decode
+        if "stft" in parts:
+            tf.encode = lambda wav, wav_len=None: (
+                encode(wav.double(), wav_len)[0].to(torch.complex64),
+                tf.num_frames(wav_len))
+        if "features" in parts:
+            tf.forward = lambda stft, training=False: features(
+                stft.to(torch.complex128), training=training).float()
+        if "istft" in parts:
+            tf.decode = lambda stfts: [w.float() for w in decode(
+                [s.to(torch.complex128) for s in stfts])]
+    return witness
+
+
+def rt_network_float64(task) -> None:
+    """Witness: the rt_sse model's network (dfsmn or xfmr) in float64,
+    the enh transform and the masking in float32."""
+    nnet = task.nnet
+    net = nnet.dfsmn if hasattr(nnet, "dfsmn") else nnet.xfmr
+    net.double()
+    forward = nnet._network
+    nnet._network = lambda feats: forward(feats.double()).float()
+
+
+RT_SSE_WITNESSES = {"transform64": enh_transform_float64(),
+                    "stft64": enh_transform_float64(("stft",)),
+                    "features64": enh_transform_float64(("features",)),
+                    "istft64": enh_transform_float64(("istft",)),
+                    "network64": rt_network_float64}
+
+
+def stream_launches(passes: int = 0, steps: int = 0):
+    """The launch counts of `passes` passes of a streaming ASR model: K1
+    once each, nothing else (the streaming attention is dense, outside any
+    kernel; the prediction net cuDNN's LSTM, the joint cuBLAS)."""
+    from aps_tpu_torch.ops import build
+    want = {kernel: 0 for kernel in build.LAUNCHES}
+    want["fused_logmel"] = passes
+    return want
+
+
+def _streaming_conf(data: Path, nnet: str) -> dict:
+    """data/train.yaml (TRD_YAML with the corpus) as `nnet`: the encoder
+    chunked by STREAM_ENC; streaming_asr@ctc without the prediction net,
+    under asr@ctc."""
+    conf = json.loads((data / "train.yaml").read_text())
+    conf["nnet"] = nnet
+    conf["nnet_conf"]["enc_kwargs"].update(STREAM_ENC)
+    if nnet == "streaming_asr@ctc":
+        conf["nnet_conf"].pop("dec_kwargs")
+        conf["task"], conf["task_conf"] = "asr@ctc", {}
+    return conf
+
+
+def streaming_ctc_check(root: Path, data: Path, dev, card):
+    """streaming_asr@ctc with the transducer's encoder: train_am, one
+    one-step epoch (K1 once a pass); decode_batch on the decode set through
+    CtcApi (one utterance after another: K1 once each); ctc_logits card vs
+    CPU on TRD_CHECK_UTTS of them; rt_ctc on one, chunk by chunk on the
+    card, its step logits held against the same steps on the CPU. ->
+    (launches of training, of the decode, numbers)."""
+    import torch
+
+    from aps_tpu_torch.cmd import decode_batch, rt_ctc, train_am
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.io import read_audio
+    from aps_tpu_torch.libs import aps_transform
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    (data / "ctc.yaml").write_text(json.dumps(
+        _streaming_conf(data, "streaming_asr@ctc"), indent=2))
+    cpt = root / "ctc"
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_am.main([
+            "--conf", str(data / "ctc.yaml"), "--dict", str(root / "dict"),
+            "--checkpoint", str(cpt), "--batch-size", str(TRD_BATCH_SIZE),
+            "--epochs", "1", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches_train = dict(build.LAUNCHES)
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    if launches_train != stream_launches(passes=3) or \
+            type(trainer.task.nnet).__name__ != "CtcASR" or \
+            not all(map(math.isfinite, losses)):
+        fail(f"train_am (streaming_asr@ctc): launches {launches_train}, "
+             f"losses {losses}")
+    scp = root / "test" / "wav.scp"
+    keys = [ln.split()[0] for ln in scp.read_text().splitlines()]
+    best = root / "ctc.decode"
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = decode_batch.main([str(scp), str(best), "--am", str(cpt),
+                                   "--am-tag", "last", "--dict",
+                                   str(root / "dict")] + STREAM_CTC_BEAM)
+    launches_dec = dict(build.LAUNCHES)
+    lines = best.read_text().splitlines()
+    if len(lines) != len(keys) or \
+            launches_dec != stream_launches(passes=len(keys)) or \
+            not all(map(math.isfinite, stats["scores"].values())):
+        fail(f"decode_batch (streaming_asr@ctc): {len(lines)} lines, "
+             f"launches {launches_dec}")
+    wavs = {ln.split()[0]: read_audio(ln.split()[1])
+            for ln in scp.read_text().splitlines()[:TRD_CHECK_UTTS]}
+    models = {w: load_checkpoint(str(cpt), "last")["nnet"].to(w)
+              for w in ("cpu", dev)}
+    logits = {}
+    for where, model in models.items():
+        with torch.no_grad(), matmul_precision(INFERENCE_PRECISION,
+                                               torch.device(where)):
+            logits[str(where)] = [model.ctc_logits(torch.from_numpy(
+                w)[None].to(where))[0][0].cpu() for w in wavs.values()]
+    scale = max(float(x.abs().max()) for x in logits["cpu"])
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(logits["cpu"], logits[str(dev)]))
+    if not err <= TOL_ATT * max(scale, 1.0):
+        fail(f"streaming_asr@ctc ctc_logits card vs CPU: {err} (largest "
+             f"{scale})")
+    # rt_ctc on the card, then the same chunks through step on the CPU
+    key, wav = next(iter(wavs.items()))
+    build.reset_launches()
+    beg = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        hyp = rt_ctc.main([str(root / "test" / f"{key}.wav"), "--checkpoint",
+                           str(cpt), "--tag", "last", "--chunk-frames",
+                           str(STREAM_CTC_FRAMES)])
+    rt_secs = time.perf_counter() - beg
+    if build.LAUNCHES["fused_logmel"] != 1:
+        fail(f"rt_ctc launched {dict(build.LAUNCHES)}")
+    conf = json.loads((cpt / "train.yaml").read_text())
+    steps = {}
+    for where, model in models.items():
+        tf = aps_transform("asr")(**conf["asr_transform"]).to(where).eval()
+        with torch.no_grad(), matmul_precision(INFERENCE_PRECISION,
+                                               torch.device(where)):
+            feats, _ = tf(torch.from_numpy(wav)[None].to(where), None)
+            state, outs = None, []
+            for t in range(0, feats.shape[1], STREAM_CTC_FRAMES):
+                out, state = model.step(feats[:, t:t + STREAM_CTC_FRAMES],
+                                        state)
+                outs.append(out[0].cpu())
+        steps[str(where)] = torch.cat(outs)
+    step_err = float((steps["cpu"] - steps[str(dev)]).abs().max())
+    toks, prev = [], conf["nnet_conf"]["vocab_size"] - 1
+    for tok in steps[str(dev)].argmax(-1).tolist():
+        if tok != prev and tok != conf["nnet_conf"]["vocab_size"] - 1:
+            toks.append(tok)
+        prev = tok
+    scale = float(steps["cpu"].abs().max())
+    if not (step_err <= TOL_ATT * max(scale, 1.0) and toks == hyp):
+        fail(f"rt_ctc: step logits card vs CPU {step_err} (largest {scale}),"
+             f" tokens {hyp} vs the card's steps {toks}")
+    dur = len(wav) / SR
+    print(f"streaming_asr@ctc (the same chunked encoder, CTC output layer): "
+          f"train_am one step, launches {launches_train}, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; decode_batch "
+          f"{' '.join(STREAM_CTC_BEAM)} through CtcApi: {len(keys)} x "
+          f"{TRD_SECS} s in {stats['decode_secs']:.4f} s, launches "
+          f"{launches_dec}; ctc_logits card vs CPU on {len(wavs)} "
+          f"utterances {err:.3e} (largest {scale:.3f}); rt_ctc on {dur:.1f} "
+          f"s in chunks of {STREAM_CTC_FRAMES} frames: {len(hyp)} tokens, "
+          f"{rt_secs:.3f} s with the checkpoint's loading, step logits card "
+          f"vs CPU {step_err:.3e} ({card})", flush=True)
+    return launches_train, launches_dec, {
+        "logits_err": err, "step_err": step_err, "rt_ctc_s": rt_secs,
+        "decode_s": stats["decode_secs"]}
+
+
+def streaming_asr_phase(root: Path, gen, dev, card):
+    """aishell_v1/1f as streaming_asr@transducer with the chunked conformer
+    (STREAM_ENC): train_am and the timed steps (trd_train_phase: K1 once a
+    pass, nothing else), the training pass card vs CPU (trd_pass_check),
+    decode_batch with run.sh's stage 4 and the searches card vs CPU
+    (trd_decode_phase, no LM); then streaming_asr@ctc on the same encoder
+    (streaming_ctc_check); K1 at the decode's and the step's batches.
+    -> (launches by path, K1's rows, numbers)."""
+    from types import SimpleNamespace
+
+    from aps_tpu_torch.libs import aps_transform
+    beg = time.perf_counter()
+    root.mkdir()
+    data = write_trd_recipe(root, gen)
+    conf = _streaming_conf(data, "streaming_asr@transducer")
+    (data / "train.yaml").write_text(json.dumps(conf, indent=2))
+    label = "streaming 1f"
+    cpt, egs, launches_train, numbers, seen = trd_train_phase(
+        root, data, dev, card, label=label, launches_of=stream_launches)
+    numbers.update(trd_pass_check(root, data, egs, dev, gen, card,
+                                  label=label, launches_of=stream_launches,
+                                  grads=STREAM_GRADS))
+    launches_dec, _, dec = trd_decode_phase(
+        root, write_trd_decodable(cpt, root), gen, dev, card, label=label,
+        launches_of=stream_launches, with_lm=False)
+    numbers["decode"] = dec
+    launches_ctc, launches_ctc_dec, numbers["ctc"] = streaming_ctc_check(
+        root, data, dev, card)
+    tf = aps_transform("asr")(**conf["asr_transform"])
+    rows = {"fused_logmel": check_fbank(
+        dev, SimpleNamespace(asr_transform=tf),
+        (("streaming 1f decode", dec.pop("decode_wav")),
+         ("streaming 1f training", seen["wav"])))[0]}
+    numbers["phase_s"] = time.perf_counter() - beg
+    print(f"the streaming ASR phase took {numbers['phase_s']:.1f} s "
+          f"({card})", flush=True)
+    launches = {"streaming_transducer_train_run": launches_train,
+                "streaming_transducer_decode": launches_dec,
+                "streaming_ctc_train_run": launches_ctc,
+                "streaming_ctc_decode": launches_ctc_dec}
+    return launches, rows, numbers
+
+
+def rt_sse_phase(root: Path, name: str, gen, dev, card):
+    """RT_SSE_CONFS[name] under wham 1a's transform, sse@snr with one
+    source: train_ss on RT_SSE_BATCH seeded mixtures of RT_SSE_SECS s
+    (_train_ss_run; no kernel launched), a training pass card vs CPU
+    (referee rule, float64 on the card); separate on ZOO_SEP_UTTS
+    mixtures, card vs CPU on ZOO_SEP_CHECK; step chunk by chunk on one
+    mixture's features against the offline masks on the card and against
+    the CPU's steps; export of mask_predict on the card, RtExported
+    against RtModel on the card and RtModel on the CPU; rt_enh frame by
+    frame on RT_ENH_SECS s card vs CPU. -> (launches of training, of
+    separation, numbers). Every entry reads last.ckpt: best.ckpt is
+    written only when a validation improves on the first."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch import deploy
+    from aps_tpu_torch.cmd import export, rt_enh, separate
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    beg = time.perf_counter()
+    root.mkdir()
+    wham = load_ss_conf(str(REPO / FREQ_XFMR_YAML))
+    names = ("mix", "s1")
+    data = root / "data"
+    data.mkdir()
+    write_mixtures(data, RT_SSE_BATCH, gen, WHAM_SR, RT_SSE_SECS, names)
+    scps = {"mix_scp": str(data / "mix.scp"),
+            "ref_scp": str(data / "s1.scp")}
+    conf = dict(nnet=name, nnet_conf=RT_SSE_CONFS[name],
+                enh_transform=wham["enh_transform"], task="sse@snr",
+                task_conf={"num_spks": 1, "permute": False},
+                trainer_conf=wham["trainer_conf"],
+                data_conf={"fmt": "se@chunk",
+                           "loader": {"chunk_size": RT_SSE_SECS * WHAM_SR,
+                                      "sr": WHAM_SR},
+                           "train": scps, "valid": scps})
+    _, cpt, egs, launches_train, losses, valid, step = _train_ss_run(
+        root, conf, RT_SSE_BATCH, dev)
+    if any(launches_train.values()):
+        fail(f"train_ss ({name}) launched {launches_train}")
+    task = _seeded_task(conf)
+    weights = [k for k, p in task.nnet.named_parameters() if p.dim() >= 2]
+    grads = tuple(weights[i] for i in sorted(
+        {0, len(weights) // 2, len(weights) - 1}))
+    loss_g, loss_c, errs = step_pass_check(task, egs, dev, grads,
+                                           ZOO_CHECK_UTTS, referee=True,
+                                           witnesses=RT_SSE_WITNESSES)
+    tt = root / "tt"
+    tt.mkdir()
+    mixes = write_mixtures(tt, ZOO_SEP_UTTS, gen, WHAM_SR, RT_SSE_SECS,
+                           names)
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main([str(tt / "mix.scp"), str(root / "sep"),
+                               "--checkpoint", str(cpt), "--tag", "last",
+                               "--sr", str(WHAM_SR)])
+    torch.cuda.synchronize()
+    launches_sep = dict(build.LAUNCHES)
+    if any(launches_sep.values()):
+        fail(f"separate ({name}) launched {launches_sep}")
+    _sep_files(root / "sep", sorted(mixes), names, WHAM_SR,
+               RT_SSE_SECS * WHAM_SR)
+    sep_err, sep_scale = _card_vs_cpu_separation(cpt, mixes, dev, name,
+                                                 tag="last")
+    # the streaming entry: chunk by chunk against the offline masks
+    models = {w: load_checkpoint(str(cpt), "last")["nnet"].to(w)
+              for w in ("cpu", dev)}
+    mix = mixes[sorted(mixes)[0]]
+    chunk = 4
+    steps, offline, step_ms = {}, None, []
+    for where, model in models.items():
+        with torch.no_grad(), matmul_precision(INFERENCE_PRECISION,
+                                               torch.device(where)):
+            stft, _ = model.enh_transform.encode(
+                torch.from_numpy(mix)[None].to(where), None)
+            feats = model.enh_transform(stft)
+            T = feats.shape[1] - feats.shape[1] % chunk
+            if name == "rt_sse@dfsmn":
+                padded = model._context_pad(feats)
+                ctx = model.lctx_total + model.rctx_total
+                blocks = [padded[:, t:t + chunk + ctx]
+                          for t in range(0, T, chunk)]
+            else:
+                blocks = [feats[:, t:t + chunk] for t in range(0, T, chunk)]
+            state, outs = None, []
+            for block in blocks:
+                t0 = time.perf_counter()
+                mask, state = model.step(block, state)
+                if where != "cpu":
+                    torch.cuda.synchronize()
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+                outs.append(mask.cpu())
+            steps[str(where)] = torch.cat(outs, -1)
+            if where != "cpu":
+                offline = model._mask_post(model._network(
+                    model._context_pad(feats)))[0][..., :T].cpu()
+    scale = float(offline.abs().max())
+    errs_step = (float((steps[str(dev)] - offline).abs().max()),
+                 float((steps[str(dev)] - steps["cpu"]).abs().max()))
+    if not max(errs_step) <= TOL_STREAM * max(scale, 1.0):
+        fail(f"{name} step: card vs offline {errs_step[0]}, card vs CPU "
+             f"{errs_step[1]} (largest mask entry {scale})")
+    # mask_predict through torch.export on the card
+    W = models["cpu"].lctx_total + 1 + models["cpu"].rctx_total \
+        if name == "rt_sse@dfsmn" else 4 * chunk
+    block = np.random.default_rng(SEED).standard_normal(
+        (1, W, 257)).astype(np.float32)
+    with contextlib.redirect_stdout(sys.stderr):
+        t0 = time.perf_counter()
+        export.main([str(cpt), str(root / "export"), "--tag", "last",
+                     "--num-frames", str(W), "--num-bins", "257"])
+        export_s = time.perf_counter() - t0
+    outs = {"exported": deploy.RtExported(str(root / "export")),
+            "card": deploy.RtModel(str(cpt), cpt_tag="last"),
+            "cpu": deploy.RtModel(str(cpt), cpt_tag="last", device="cpu")}
+    outs = {k: np.frombuffer(r.forward_bytes(block.tobytes(), W, 257)[0],
+                             dtype=np.float32) for k, r in outs.items()}
+    scale = float(np.abs(outs["cpu"]).max())
+    export_errs = (float(np.abs(outs["exported"] - outs["card"]).max()),
+                   float(np.abs(outs["card"] - outs["cpu"]).max()))
+    if not max(export_errs) <= TOL_STREAM * max(scale, 1.0):
+        fail(f"{name} export: exported vs RtModel {export_errs[0]}, card vs "
+             f"CPU {export_errs[1]} (largest {scale})")
+    # rt_enh, frame by frame, card vs CPU
+    key = sorted(mixes)[1]
+    short = tt / "short.wav"
+    from aps_tpu_torch.io import write_audio
+    write_audio(str(short), mixes[key][:RT_ENH_SECS * WHAM_SR], sr=WHAM_SR)
+    enh, rt_s = {}, 0.0
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            enh[where] = rt_enh.main([str(short), str(root / f"{where}.wav"),
+                                      "--checkpoint", str(cpt), "--tag",
+                                      "last", "--device", where])
+        if where == "cuda":
+            rt_s = time.perf_counter() - t0
+    scale = float(np.abs(enh["cpu"]).max())
+    rt_err = float(np.abs(enh["cuda"] - enh["cpu"]).max())
+    if not (np.isfinite(enh["cuda"]).all() and
+            rt_err <= TOL_SEP_REL * max(scale, 1e-3)):
+        fail(f"{name} rt_enh card vs CPU: {rt_err} (largest {scale})")
+    rate = stats["audio_secs"] / stats["sep_secs"]
+    numbers = dict(step, sep_rate=rate, step_ms=statistics.median(step_ms),
+                   phase_s=time.perf_counter() - beg)
+    hop = wham["enh_transform"]["frame_hop"]
+    print(f"{name} under sse@snr (one source): train_ss on {RT_SSE_BATCH} "
+          f"x {RT_SSE_SECS} s at {WHAM_SR} Hz, {ZOO_TRAIN_EPOCHS} one-step "
+          f"epochs and {valid} validation passes then {ZOO_TIMED_STEPS} timed "
+          f"steps, no kernel launched; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step: device "
+          f"{step['device_ms']:.3f} ms (traced; {step['host_launches']} "
+          f"launches), host {step['host_s']:.4f} s median, peak memory "
+          f"{step['peak_gib']:.3f} GiB; the kernels with the most device "
+          f"time (ms): {step['top']} ({card})", flush=True)
+    print(f"{name} training pass card vs CPU on {ZOO_CHECK_UTTS} mixtures: "
+          f"loss {loss_g:.6f} vs {loss_c:.6f}; gradients' distance (card, "
+          "CPU, then the card's witnesses " + ", ".join(RT_SSE_WITNESSES)
+          + ") from the card's float64 pass relative to the largest entry "
+          + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
+                      for k, e in errs.items())
+          + f"; separate, batch 1: {ZOO_SEP_UTTS} mixtures at {rate:.2f} "
+          f"audio-s/s, card vs CPU {sep_err:.3e} (largest sample "
+          f"{sep_scale:.3f}) ({card})", flush=True)
+    print(f"{name} step on one mixture in chunks of {chunk} frames "
+          f"({1e3 * chunk * hop / WHAM_SR:.0f} ms of audio): card vs the "
+          f"offline masks {errs_step[0]:.3e}, card vs CPU {errs_step[1]:.3e}; "
+          f"a step {numbers['step_ms']:.3f} ms median on the card (host "
+          f"clock, synchronised); export of mask_predict at 1 x {W} x 257 in "
+          f"{export_s:.2f} s, RtExported vs RtModel {export_errs[0]:.3e}, "
+          f"card vs CPU {export_errs[1]:.3e}; rt_enh on {RT_ENH_SECS} s "
+          f"frame by frame: card vs CPU {rt_err:.3e} (largest sample "
+          f"{scale:.3f}), {rt_s:.3f} s on the card with the checkpoint's "
+          f"loading; the phase took {numbers['phase_s']:.1f} s ({card})",
+          flush=True)
+    return launches_train, launches_sep, numbers
 
 
 def main() -> None:
@@ -6318,6 +6895,22 @@ def main() -> None:
         for name, rows in sse8_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
+        # the streaming slice: streaming_asr@transducer and @ctc at 1f's
+        # width, rt_sse@dfsmn and rt_sse@freq_xfmr; K1 at the ASR path's
+        # shapes
+        stream_launches_of, stream_rows, _ = streaming_asr_phase(
+            root / "streaming", torch.Generator().manual_seed(SEED + 3),
+            dev, card)
+        for name, rows in stream_rows.items():
+            checks[name] += rows
+            print_rows(name, rows, card)
+        for rt_name in RT_SSE_CONFS:
+            trn, sep, _ = rt_sse_phase(
+                root / rt_name.split("@")[1], rt_name,
+                torch.Generator().manual_seed(SEED + 4), dev, card)
+            label = rt_name.replace("@", "_")
+            stream_launches_of[f"{label}_train_run"] = trn
+            stream_launches_of[f"{label}_separate"] = sep
         # the transducer slice's rows of K1 and K3
         for name, rows in trd_rows.items():
             checks[name] += rows
@@ -6407,7 +7000,8 @@ def main() -> None:
             extra[f"launches_{recipe}_train_run"] = trn[name]
             extra[f"launches_{recipe}_decode"] = dec[name]
         for key, table in (("transducer_rows", trd_rows),
-                           ("sepformer_rows", sse8_rows)):
+                           ("sepformer_rows", sse8_rows),
+                           ("streaming_rows", stream_rows)):
             if name in table:
                 extra[key] = [
                     {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
@@ -6416,6 +7010,8 @@ def main() -> None:
                     for r in table[name]]
         extra["launches_transducer_train_run"] = trd_train[name]
         extra["launches_transducer_decode"] = trd_dec[name]
+        for path, counts in stream_launches_of.items():
+            extra[f"launches_{path}"] = counts[name]
         for model_name, counts in sse8_launched.items():
             extra[f"launches_{model_name}_pass"] = counts.get(name, 0)
         if name == "ctc_score_step":

@@ -311,7 +311,14 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "asr.beam_search.att", "trainer.ss", "sse.bss.dprnn",
                 "sse.bss.dccrn", "sse.bss.dense_unet", "sse.bss.sepformer",
                 "sse.bss.transformer", "sse.bss.chimera", "sse.enh.demucs",
-                "sse.enh.dcunet", "sse.enh.dfsmn", "sse.enh.phasen"):
+                "sse.enh.dcunet", "sse.enh.dfsmn", "sse.enh.phasen",
+                "transform.streaming", "streaming_asr.utils",
+                "streaming_asr.base.encoder",
+                "streaming_asr.transformer.impl",
+                "streaming_asr.transformer.encoder", "streaming_asr.ctc",
+                "streaming_asr.transducers", "rt_sse.base",
+                "rt_sse.enh.dfsmn", "rt_sse.enh.transformer", "deploy",
+                "cmd.export", "cmd.rt_ctc", "cmd.rt_enh"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -345,8 +352,9 @@ def test_port_sources_name_no_aps_tpu_import():
 def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     """The default device is the card and raises when torch sees none; the
     CPU only on explicit request."""
-    from aps_tpu_torch.cmd import (decode, decode_batch, lm_rescore,
-                                   separate, train_am, train_lm, train_ss)
+    from aps_tpu_torch.cmd import (decode, decode_batch, export,
+                                   lm_rescore, rt_ctc, rt_enh, separate,
+                                   train_am, train_lm, train_ss)
     from aps_tpu_torch.eval.wrapper import pick_device
     assert pick_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -362,7 +370,8 @@ def test_pick_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     for parser in (decode_batch.make_parser(), train_am.make_parser(),
                    separate.make_parser(), train_ss.make_parser(),
                    decode.make_parser(), lm_rescore.make_parser(),
-                   train_lm.make_parser()):
+                   train_lm.make_parser(), export.make_parser(),
+                   rt_ctc.make_parser(), rt_enh.make_parser()):
         assert parser.get_default("device") == "cuda"
 
 

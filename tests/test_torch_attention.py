@@ -477,3 +477,31 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="toy.cu: bad"):
         build.build("toy")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("D", [8, 40])
+def test_padded_heads_match_plain(D):
+    """The card's route for a head width the kernels are not built for:
+    q, k, v zero-padded to the next of 16, 32 and 64, attention at the true
+    scale D**-0.5, the output sliced back. Held here through the plain
+    version, forward and gradients, against the plain version at D."""
+    from aps_tpu_torch.ops.attention import with_padded_heads
+    gen = torch.Generator().manual_seed(D)
+    B, H, Tq, Tk = 3, 2, 33, 47
+    leaves = [torch.randn((B, H, T, D), generator=gen).requires_grad_()
+              for T in (Tq, Tk, Tk)]
+    bias = torch.randn((H, Tq, Tk), generator=gen).requires_grad_()
+    k_len = torch.tensor([Tk, 20, 1], dtype=torch.int32)
+    do = torch.randn((B, H, Tq, D), generator=gen)
+    kw = dict(k_len=k_len, causal=True)
+    got = with_padded_heads(mha_reference, "mha_reference", leaves, bias,
+                            softmax_scale=D**-0.5, **kw)
+    want = mha_reference(*leaves, bias, **kw)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    for g, w in zip(torch.autograd.grad(got, leaves + [bias], do),
+                    torch.autograd.grad(want, leaves + [bias], do)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="head dim 80"):
+        with_padded_heads(mha_reference, "mha_reference",
+                          [torch.zeros((1, 1, 4, 80))] * 3)

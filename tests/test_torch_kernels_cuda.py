@@ -477,6 +477,30 @@ def test_rel_attention_kernel_matches_plain(cuda_device, B, T, D, Hp, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,D,Hp,causal", [(129, 8, 1, True),
+                                           (65, 40, 2, False)])
+def test_rel_attention_kernel_pads_other_heads(cuda_device, T, D, Hp,
+                                               causal):
+    """A head of 8 or 40 runs through the kernel zero-padded to 16 or 64
+    (table too) at its own scale D**-0.5: one launch, the plain version's
+    output, and at another scale too."""
+    rel, k_len = _rel_args(4, 2, T, D, Hp)
+    rel = [t.to(cuda_device) for t in rel]
+    k_len = k_len.to(cuda_device)
+    build.reset_launches()
+    got = flash_attention_rel(*rel, k_len=k_len, causal=causal)
+    assert build.LAUNCHES["flash_attention_rel"] == 1
+    assert got.shape == rel[0].shape
+    want = rel_mha_reference(*rel, k_len=k_len, causal=causal)
+    torch.testing.assert_close(got, want, atol=ATT_ATOL, rtol=0)
+    scaled = flash_attention_rel(*rel, k_len=k_len, causal=causal,
+                                 softmax_scale=0.05)
+    torch.testing.assert_close(
+        scaled, rel_mha_reference(*rel, k_len=k_len, causal=causal,
+                                  softmax_scale=0.05), atol=ATT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
 def test_rel_attention_kernel_rejects_bad_input(cuda_device):
     rel, _ = _rel_args(4, 2, 40, 16, 1)
     rel = [t.to(cuda_device) for t in rel]
@@ -484,8 +508,8 @@ def test_rel_attention_kernel_rejects_bad_input(cuda_device):
         flash_attention_rel(rel[0].transpose(2, 3).contiguous().transpose(
             2, 3), *rel[1:])
     with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros((1, 1, 8, 48), device=cuda_device)] * 4
-        flash_attention_rel(*wide, torch.zeros((1, 15, 48),
+        wide = [torch.zeros((1, 1, 8, 80), device=cuda_device)] * 4
+        flash_attention_rel(*wide, torch.zeros((1, 15, 80),
                                                device=cuda_device))
 
 
@@ -582,6 +606,9 @@ GRAD_NAMES = ("dq_c", "dq_p", "dk", "dv", "dpose")
     (4, 4, 129, 32, 4, False),
     (8, 4, 231, 64, 1, False),
     (4, 4, 700, 64, 4, False),
+    # heads the kernels are not built for, zero-padded to 16 and 64
+    (4, 2, 65, 8, 1, True),
+    (4, 2, 129, 40, 2, False),
 ])
 def test_rel_attention_backward_kernels_match_plain(cuda_device, B, H, T, D,
                                                     Hp, causal):
@@ -765,6 +792,9 @@ ATT_GRAD_NAMES = ("dq", "dk", "dv", "dbias")
     (5, 2, 300, 200, 16, True, False),
     (16, 4, 1024, 1024, 64, False, False),
     (4, 1, 1, 37, 64, False, True),
+    # heads the kernel is not built for, zero-padded to 16 and 64
+    (4, 2, 250, 250, 8, False, False),
+    (5, 2, 77, 130, 40, True, True),
 ])
 def test_attention_kernel_matches_plain(cuda_device, B, H, Tq, Tk, D, causal,
                                         with_bias):
@@ -876,7 +906,7 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros((1, 1, 8, 48), device=cuda_device)] * 3
+        wide = [torch.zeros((1, 1, 8, 80), device=cuda_device)] * 3
         flash_attention(*wide)
     with pytest.raises(ValueError, match="not CUDA"):
         flash_attention(q, k, v, bias=bias)
@@ -918,6 +948,9 @@ def test_attention_backward_takes_an_unaligned_view(cuda_device):
     (5, 2, 64, 129, 64, True, False),
     (5, 2, 129, 64, 16, False, False),
     (5, 4, 129, 129, 64, True, False),
+    # heads the kernels are not built for, zero-padded to 16 and 64
+    (4, 2, 250, 250, 8, False, False),
+    (5, 2, 65, 129, 40, True, True),
 ])
 def test_attention_backward_kernels_match_plain(cuda_device, B, H, Tq, Tk, D,
                                                 causal, with_bias):

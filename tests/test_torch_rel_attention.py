@@ -294,3 +294,30 @@ def test_conformer_layer_matches_flax(pre_norm, macaron, casual_conv1d):
                    src_key_padding_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=LAYER_ATOL)
+
+
+@pytest.mark.parametrize("D,Hp", [(8, 1), (40, 2)])
+def test_padded_heads_match_plain(D, Hp):
+    """The card's route for a head width K3 is not built for: q_c, q_p, k,
+    v and the pose table zero-padded to the next of 16, 32 and 64, scores
+    at the true scale D**-0.5, the output sliced back. Held here through
+    the plain version, forward and gradients (the table's too), against
+    the plain version at D."""
+    from aps_tpu_torch.ops.attention import with_padded_heads
+    from aps_tpu_torch.ops.rel_attention import rel_mha_reference
+    gen = torch.Generator().manual_seed(D)
+    B, H, T = 3, 2, 37
+    leaves = [torch.randn((B, H, T, D), generator=gen).requires_grad_()
+              for _ in range(4)]
+    leaves.append((0.3 * torch.randn((Hp, 2 * T - 1, D), generator=gen)
+                   ).requires_grad_())
+    k_len = torch.tensor([T, 20, 1], dtype=torch.int32)
+    do = torch.randn((B, H, T, D), generator=gen)
+    got = with_padded_heads(rel_mha_reference, "rel_mha_reference", leaves,
+                            k_len, True, softmax_scale=D**-0.5)
+    want = rel_mha_reference(*leaves, k_len=k_len, causal=True)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    for g, w in zip(torch.autograd.grad(got, leaves, do),
+                    torch.autograd.grad(want, leaves, do)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)

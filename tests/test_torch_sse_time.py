@@ -4,8 +4,9 @@ sse@time_dprnn and sse@freq_dprnn, sse@demucs (the sinc resampler, infer's
 padding), sse@time_sepformer and sse@freq_sepformer against aps_tpu with
 converted weights (eval and training-mode outputs, a task's loss and every
 gradient against jax.value_and_grad, the batch statistics, the converter's
-round trip), and the recipes wsj0_2mix/1b and dns_is2020/1a from their
-YAML through train_ss and separate against cmd/separate.py's Separator.
+round trip), and the recipes wsj0_2mix/1b and dns_is2020/1a, and the
+Conv-TasNet recipes wsj0_2mix/1a and librimix/1a and 1b, from their YAML
+through train_ss and separate against cmd/separate.py's Separator.
 
 The helpers here (zoo_pair, check_model, check_task, ...) serve the other
 two files of the zoo, test_torch_sse_cplx.py and test_torch_sse_zoo.py."""
@@ -389,8 +390,8 @@ def test_models_refuse_what_aps_tpu_refuses():
 
 
 # ---------------------------------------------------------------------------
-# wsj0_2mix/1b and dns_is2020/1a: train_ss from the YAML, separate against
-# cmd/separate.py
+# wsj0_2mix/1b, dns_is2020/1a and the Conv-TasNet recipes: train_ss from the
+# YAML, separate against cmd/separate.py
 # ---------------------------------------------------------------------------
 NUM_UTTS = 4
 RECIPES = {
@@ -400,7 +401,18 @@ RECIPES = {
     "wsj0_2mix/1b": (8000, 2, dict(num_bins=8, chunk_size=10, num_layers=1,
                                    rnn_hidden=6), 3200),
     "dns_is2020/1a": (16000, 1, dict(channel=4, num_layers=3), 6405),
+    # sse@time_tcn (IN, scaling_param) at one repeat of two blocks, L as
+    # written (librimix: 40 samples; 1a also sets matmul_precision
+    # bfloat16, TF32 on a card and nothing on the CPU)
+    "wsj0_2mix/1a": (8000, 2, dict(N=8, B=8, H=12, X=2, R=1), 3200),
+    "librimix/1a": (16000, 2, dict(N=8, B=8, H=12, X=2, R=1), 6400),
+    "librimix/1b": (16000, 2, dict(N=8, B=8, H=12, X=2, R=1), 6400),
 }
+# the model each recipe's checkpoint builds in aps_tpu
+RECIPE_MODELS = {"wsj0_2mix/1b": "TimeDPRNN", "dns_is2020/1a": "DEMUCS",
+                 "wsj0_2mix/1a": "TimeConvTasNet",
+                 "librimix/1a": "TimeConvTasNet",
+                 "librimix/1b": "TimeConvTasNet"}
 
 
 def write_corpus(root: Path, sr: int, spks: int, num_utts=NUM_UTTS):
@@ -517,8 +529,9 @@ def test_recipe_trains_and_separates(recipe, tmp_path):
     precision through train_ss (finite losses, a checkpoint aps_tpu
     loads), then separate against aps_tpu's Separator on that checkpoint:
     batch 1 as run.sh stage 3 runs it (DEMUCS through infer, which pads
-    the input to workout_train_chunk_length), and batched: TimeDPRNN as
-    aps_tpu's run_batch, DEMUCS through infer on each padded row (aps_tpu's
+    the input to workout_train_chunk_length), and batched: TimeDPRNN and
+    TimeConvTasNet as aps_tpu's run_batch, DEMUCS through infer on each
+    padded row (aps_tpu's
     run_batch calls the model without infer's padding, which loses the
     tail: the port pads)."""
     from aps_tpu.eval.wrapper import load_checkpoint as jax_load
@@ -537,7 +550,7 @@ def test_recipe_trains_and_separates(recipe, tmp_path):
     assert trainer.cur_step >= 2
     assert all(np.isfinite(float(v)) for v in trainer.reporter.stats["loss"])
     nnet = jax_load(str(cpt))["nnet"]
-    assert type(nnet).__name__ == ("TimeDPRNN" if spks == 2 else "DEMUCS")
+    assert type(nnet).__name__ == RECIPE_MODELS[recipe]
 
     def batch_check(jsep, srcs):
         if spks == 2:
