@@ -35,11 +35,12 @@ def _gather(tree, idx: torch.Tensor):
 
 class _RnnSteps(object):
     """The RNN decoder's side of a search over N*K lanes (max_len: the
-    transformer decoder's cache length, unused here)."""
+    transformer decoder's cache length, unused here; dtype is dropped, as
+    aps_tpu's RNN search drops it)."""
     coverage = True
 
     def __init__(self, nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
-                 K: int, max_len: int = 0):
+                 K: int, max_len: int = 0, dtype: str = "float32"):
         self.nnet = nnet
         self.enc_out = enc_out.repeat_interleave(K, 0)
         self.enc_len = enc_len.repeat_interleave(K)

@@ -21,8 +21,28 @@ JAX package, all deliberate:
     topk_candidates only adds the TPU's approx_max_k option);
   * the single-utterance search runs on the encoder output as it is, where
     aps_tpu pads it to a frame bucket (blank-certain CTC rows, masked
-    encoder rows) to limit its compiles;
-  * no bfloat16 decoding yet."""
+    encoder rows) to limit its compiles.
+
+dtype "bfloat16" (the batched search, as in aps_tpu's beam_search_batch;
+its single-utterance search drops the key, and so does search_one): the
+encoder runs in float32 and its CTC table stays float32 (K4 sees
+float32); the transformer decoder's weights and the encoder output are
+cast to bfloat16. aps_tpu then computes by JAX's type promotion: the
+token embedding in bfloat16, the float32 positional encoding added to it
+gives float32, and from there every product of a float32 activation with
+a bfloat16 weight is float32; only the cross-attention keys and values,
+products of the bfloat16 encoder output with bfloat16 weights, are
+bfloat16. The port reproduces that with the weights and the encoder
+output rounded to bfloat16 and held as float32, and the keys and values
+rounded to bfloat16 after their products; the logits are float32 before
+the log-softmax. It saves no bytes here: it gives aps_tpu's numbers.
+The RNN decoder's search (att.py) drops the key, as aps_tpu's does.
+
+cov_penalty > 0 in the transformer search: aps_tpu's gathers a coverage
+of zeros that never grows (its decoder keeps no alignment), so the
+penalty is 0 under cov_method v1 and log 0 = -inf on every hypothesis
+under v2 (every score -inf, the hypotheses in lane order); the port's
+does the same."""
 
 from typing import Dict, List, Optional
 
@@ -38,6 +58,7 @@ from aps_tpu_torch.asr.beam_search.utils import (BeamSearchParam, BeamState,
                                                  init_beam_state, map_beam,
                                                  mask_finished_scores,
                                                  stack_padded)
+from aps_tpu_torch.utils import bf16_rounded, bf16_rounded_copy
 
 # espnet-style end detection: stop an utterance once a finished hypothesis
 # exists and none better has finished for this many steps
@@ -63,20 +84,30 @@ class _XfmrSteps(object):
     """The transformer decoder's side of a search over N*K lanes:
     incremental steps against per-layer history caches, the encoder's
     cross-attention K/V projected once an utterance and read beam-shared
-    (the attention folds the K beams). It keeps no alignment for a
-    coverage."""
+    (the attention folds the K beams). It keeps no alignment: a coverage
+    stays zero. dtype "bfloat16": aps_tpu's cast, reproduced as the module
+    docstring says."""
     coverage = False
 
     def __init__(self, nnet, enc_out: torch.Tensor, enc_len: torch.Tensor,
-                 K: int, max_len: int):
-        self.nnet, self.enc_out = nnet, enc_out
+                 K: int, max_len: int, dtype: str = "float32"):
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported decoding dtype: {dtype}")
+        self.decoder = nnet.decoder
+        if dtype == "bfloat16":
+            self.decoder = bf16_rounded_copy(nnet.decoder)
+            enc_out = bf16_rounded(enc_out)
+        self.enc_out = enc_out
         self.enc_len = enc_len.repeat_interleave(K)
-        self.cache = nnet.decode_init_cache(enc_out.shape[0] * K, max_len,
-                                            device=enc_out.device)
-        self.mem_kv = nnet.decode_prep_kv(enc_out)
+        self.cache = self.decoder.init_cache(enc_out.shape[0] * K, max_len,
+                                             device=enc_out.device)
+        self.mem_kv = self.decoder.prep_memory_kv(enc_out)
+        if dtype == "bfloat16":
+            self.mem_kv = [tuple(map(bf16_rounded, kv))
+                           for kv in self.mem_kv]
 
     def step(self, tok_prev: torch.Tensor, t: int) -> torch.Tensor:
-        pred, self.cache = self.nnet.decode_step_inc(
+        pred, self.cache = self.decoder.step_inc(
             self.enc_out, tok_prev, self.cache, t, enc_len=self.enc_len,
             mem_kv=self.mem_kv)
         return pred
@@ -121,7 +152,8 @@ def _search_core(dec, N: int, T: int, ctc_out: Optional[torch.Tensor],
     dec is the decoder's side (_XfmrSteps, att._RnnSteps): step(tok_prev,
     t) -> logits lanes x V, reorder(beam_idx) to the parents' lanes, and
     (with `coverage`) alignment(), lanes x T, read after a step for the
-    coverage when cov_penalty > 0. ctc_out N x T x V or None, lm an LM
+    coverage when cov_penalty > 0 (without it the coverage stays zero, as
+    in aps_tpu's transformer search). ctc_out N x T x V or None, lm an LM
     adapter or None -> final BeamState."""
     K = param.beam_size
     dev = device
@@ -196,8 +228,10 @@ def _search_core(dec, N: int, T: int, ctc_out: Optional[torch.Tensor],
             # as aps_tpu: the step's alignment of lane i is added to the
             # coverage of lane i's parent, beam_idx[i], before the
             # alignments follow their parents
-            coverage = state.coverage[beam_idx] + torch.where(
-                prev_done[:, None], 0.0, dec.alignment())
+            coverage = state.coverage[beam_idx]
+            if dec.coverage:
+                coverage = coverage + torch.where(prev_done[:, None], 0.0,
+                                                  dec.alignment())
         new_state = BeamState(tokens=tokens, score=flat_score, done=done,
                               length=length, coverage=coverage)
         # carry the decoder state of the selected parent beams
@@ -233,14 +267,6 @@ def _search_core(dec, N: int, T: int, ctc_out: Optional[torch.Tensor],
     return state
 
 
-def _check_param(dtype: str, param: BeamSearchParam, steps) -> None:
-    if dtype != "float32":
-        raise NotImplementedError("bfloat16 decoding is not ported yet")
-    if param.cov_penalty > 0 and not steps.coverage:
-        raise NotImplementedError("the transformer search keeps no "
-                                  "attention weights for a coverage penalty")
-
-
 def _nbest_lists(final: BeamState, param: BeamSearchParam, nbest: int,
                  num_utts: int) -> List[List[Dict]]:
     final = map_beam(lambda x: x.cpu().numpy(), final)
@@ -256,11 +282,11 @@ def search_one(steps, nnet, x, lm: Optional[LmAdapter] = None,
                device=None, **kwargs) -> List[Dict]:
     """Single-utterance search with the decoder's steps class `steps`
     (_XfmrSteps, att._RnnSteps). x: a waveform, S samples or C x S for a
-    multi-channel model (numpy or tensor). max_len as aps_tpu's: at most
-    min(param.max_len, T) steps when not given, else the given number
-    (capped at param.max_len only)."""
+    multi-channel model, or T x F features (numpy or tensor). max_len as
+    aps_tpu's: at most min(param.max_len, T) steps when not given, else the
+    given number (capped at param.max_len only). dtype is read as
+    aps_tpu's single search reads it: not at all (float32)."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
-    _check_param(dtype, param, steps)
     if device is None:
         device = next(nnet.parameters()).device
     with torch.inference_mode():
@@ -289,9 +315,9 @@ def search_batch(steps, nnet, batch: List, lm: Optional[LmAdapter] = None,
     `steps`, with LM shallow fusion when lm (an adapter on the same
     device) is given. batch: list of waveforms, S or C x S (numpy;
     stack_padded pads the sample axis). Returns one nbest list per
-    utterance. The models must be in eval mode on `device`."""
+    utterance. The models must be in eval mode on `device`. dtype
+    "bfloat16" goes to the decoder's steps (the module docstring)."""
     param = _param_from_kwargs(sos, eos, beam_size=beam_size, **kwargs)
-    _check_param(dtype, param, steps)
     if device is None:
         device = next(nnet.parameters()).device
     with torch.inference_mode():
@@ -312,7 +338,8 @@ def search_batch(steps, nnet, batch: List, lm: Optional[LmAdapter] = None,
             ctc_out = torch.where(tmask[..., None], ctc_out, pad_logits)
         else:
             ctc_out = None
-        final = _search_core(steps(nnet, enc_out, enc_len, beam_size, ml),
+        final = _search_core(steps(nnet, enc_out, enc_len, beam_size, ml,
+                                   dtype=dtype),
                              enc_out.shape[0], T, ctc_out, param, ml, lm=lm,
                              device=device)
     return _nbest_lists(final, param, nbest, len(batch))

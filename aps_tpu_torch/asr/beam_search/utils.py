@@ -8,9 +8,9 @@ lane u*K + k = beam k of utterance u:
   score   lanes          accumulated log-prob (frozen once ended)
   done    lanes          ended-with-eos flags
   length  lanes          emitted tokens (eos included once ended)
-  coverage lanes x T     the attention summed over the steps (the RNN
-                         decoder's search with cov_penalty > 0; zeros
-                         otherwise, None in the transformer search)
+  coverage lanes x T     the attention summed over the steps with
+                         cov_penalty > 0 (zeros in the transformer
+                         search, which keeps no alignment), else None
 Finished hypotheses stay in the beam with a forced eos-only continuation,
 so the final beam is the nbest list."""
 
@@ -28,9 +28,8 @@ class BeamSearchParam(object):
     """Knobs of the beam search (names match aps_tpu). approx_topk and
     ctc_fused are TPU options kept for config parity: the port always takes
     the exact torch.topk, and on CUDA always the CTC kernel. The coverage
-    knobs (cov_*) belong to the RNN decoder's search (its alignments);
-    the transformer search keeps no attention weights and refuses
-    cov_penalty > 0."""
+    knobs (cov_*) read the RNN decoder's alignments; the transformer
+    search keeps none, and its coverage stays zero, as aps_tpu's."""
     beam_size: int = 8
     sos: int = 1
     eos: int = 2

@@ -27,7 +27,10 @@ bands, an older one the dense DFT's cos/sin tables and the mel matrix.
 The versions run in the order given, so pass them as parent, change,
 change, parent. A version is any file: the parent's source from `git
 archive`, or an edited copy (one constant changed, or K4's serial walk).
-Each result is also checked against the plain version.
+Each result is also checked against the plain version. `--occupancy`
+prints, for K2's and K3's kernels as the repository builds them, at every
+head width they are built for, the registers and bytes of local memory
+(spills) a thread, the shared memory a block and the blocks an SM.
 
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --attention parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
@@ -38,6 +41,7 @@ Each result is also checked against the plain version.
         aps_tpu_torch/csrc/rel_attention.cu \\
         --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu \\
         --fbank parent/fbank.cu aps_tpu_torch/csrc/fbank.cu
+    python -m aps_tpu_torch.cmd.compare_kernels --occupancy
 """
 
 import argparse
@@ -396,6 +400,21 @@ def compare_fbank(sources, dev, gen):
                   f"{err:.3e}", flush=True)
 
 
+def print_occupancy() -> None:
+    """Registers, local bytes, shared memory and blocks an SM of K2's and
+    K3's kernels (the repository's sources) at each head width."""
+    from aps_tpu_torch.ops import attention, rel_attention
+    for D in attention._HEAD_DIMS:
+        rows = {"K2 forward": attention.forward_occupancy(D),
+                "K2 dq": attention.backward_occupancy(D, "dq"),
+                "K2 dk/dv": attention.backward_occupancy(D, "dkv")}
+        for kernel in ("fwd",) + rel_attention.BACKWARD_KERNELS:
+            rows[f"K3 {kernel}"] = rel_attention.occupancy(D, kernel)
+        for name, info in rows.items():
+            print(f"occupancy D={D} {name}: " + ", ".join(
+                f"{key} {value}" for key, value in info.items()), flush=True)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time versions of the K2 forward, K5, K3 backward, K3 "
@@ -413,6 +432,9 @@ def main(argv=None) -> None:
                         help="versions of csrc/ctc_score.cu")
     parser.add_argument("--fbank", nargs="*", default=[],
                         help="versions of csrc/fbank.cu")
+    parser.add_argument("--occupancy", action="store_true",
+                        help="print how K2's and K3's kernels sit on an SM "
+                        "at each head width")
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -425,6 +447,8 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
+    if args.occupancy:
+        print_occupancy()
     if args.attention:
         compare_attention(args.attention, dev, gen)
     if args.tcn:

@@ -40,8 +40,12 @@ ValueError before the first utterance, and before it opens its outputs,
 otherwise. A multi-channel model (asr@enh_xfmr,
 asr@enh_att) decodes C x S utterances, which --channel -1 (the default,
 as in aps_tpu) reads. A checkpoint that takes features rather than
-waveforms raises NotImplementedError: reading
-feature archives (loader/kaldi_io.py) is not ported yet."""
+waveforms (its asr_transform starts from no spectrum: accept_raw false)
+reads feats_or_wav_scp as a kaldi feats.scp (loader/kaldi_io.py), T x F
+matrices, as aps_tpu does; its transform then runs no K1. --dtype
+bfloat16 is read as aps_tpu's single-utterance search reads it: not at
+all (its search drops the key), so the utterance decodes in float32;
+decode_batch's batched search takes it."""
 
 import argparse
 import logging
@@ -58,6 +62,7 @@ from aps_tpu_torch.const import UNK_TOKEN
 from aps_tpu_torch.eval.asr import TextPostProcessor
 from aps_tpu_torch.eval.wrapper import NnetEvaluator
 from aps_tpu_torch.io import AudioReader, SegmentAudioReader, io_wrapper
+from aps_tpu_torch.loader.kaldi_io import ScriptReader
 from aps_tpu_torch.opts import DecodingParser
 from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
 
@@ -105,16 +110,22 @@ class FasterDecoder(NnetEvaluator):
             self.api.check_lm(self.nnet, lm, lm_weight)
 
     def _ctc(self, src, **kwargs) -> List[Dict]:
-        """CtcApi's prefix search on one waveform, padded onto aps_tpu's
-        length grid."""
+        """CtcApi's prefix search on one waveform (S samples, padded onto
+        aps_tpu's length grid with floor 16000) or feature matrix (T x F,
+        its frames padded with floor 100), as aps_tpu's decode does."""
         from aps_tpu_torch.asr.beam_search.ctc import CtcApi
         from aps_tpu_torch.loader.utils import quantize_len
         src = np.asarray(src, dtype=np.float32)
-        if src.ndim != 1:
+        if src.ndim == 1:
+            S = src.shape[-1]
+            src_pad = np.pad(src, (0, quantize_len(S, floor=16000) - S))
+        elif not self.accept_raw:
+            S = src.shape[0]
+            src_pad = np.pad(src, ((0, quantize_len(S, floor=100) - S),
+                                   (0, 0)))
+        else:
             raise NotImplementedError("asr@ctc decodes single-channel "
-                                      "waveforms (S samples)")
-        S = src.shape[-1]
-        src_pad = np.pad(src, (0, quantize_len(S, floor=16000) - S))
+                                      "waveforms (S samples) or features")
         with torch.inference_mode():
             logits, n_frames = self.nnet.ctc_logits(
                 torch.from_numpy(src_pad)[None].to(self.device),
@@ -188,10 +199,8 @@ def _decode(args, decoder: FasterDecoder) -> dict:
     logger.info(f"Loaded {args.am} (epoch {decoder.epoch}) on "
                 f"{decoder.device}")
     if not decoder.accept_raw:
-        raise NotImplementedError(
-            f"{args.am} takes features, not waveforms: reading feature "
-            "archives (loader/kaldi_io.py) is not ported yet")
-    if args.segment:
+        src_reader = ScriptReader(args.feats_or_wav_scp)
+    elif args.segment:
         src_reader = SegmentAudioReader(args.feats_or_wav_scp, args.segment,
                                         sr=args.sr, channel=args.channel)
     else:
@@ -248,7 +257,8 @@ def _decode(args, decoder: FasterDecoder) -> dict:
         if args.dump_nbest:
             nbest_fd.write("".join(nbest))
         stats["utts"] += 1
-        stats["audio_secs"] += src.shape[-1] / args.sr
+        if decoder.accept_raw:
+            stats["audio_secs"] += src.shape[-1] / args.sr
         if stats["utts"] % 50 == 0:
             top.flush()
             logger.info(f"Processed {stats['utts']} utterances...")

@@ -26,15 +26,27 @@ frequency-domain model (one with an enh_transform: sse@base_rnn,
 sse@freq_tcn, sse@freq_dprnn, sse@freq_sepformer, sse@freq_xfmr,
 sse@dfsmn, sse@chimera++, sse@dcunet, sse@dccrn, sse@dense_unet,
 sse@phasen) separates in time mode through its infer_batch, STFT -> masks
-or spectra -> iSTFT, in float32 (--dtype bfloat16 raises: the STFT runs
-in float32); --mode freq writes what its infer gives in mode "freq" (the
-masks; complex ones, and phasen's enhanced spectrum, as complex64). The
+or spectra -> iSTFT, in float32; --mode freq writes what its infer gives in
+mode "freq" (the masks; complex ones, and phasen's enhanced spectrum, as
+complex64). --dtype bfloat16 with such a model gives aps_tpu's numbers:
+aps_tpu casts every float32 variable and the input to bfloat16, and its
+forward_stft multiplies the bfloat16 frames by float32 DFT matrices, so
+JAX's type promotion runs the STFT and everything after it in float32
+with bfloat16 weights; the port rounds the weights, the buffers (batch
+statistics) and the input to bfloat16 and computes in float32 (a
+time-domain model runs in bfloat16 itself, as before). The
 multi-channel
 sse@rnn_enh_ml (examples/sse/chime4_ml, --channel -1 keeps every channel)
 gives its masks T x F in either mode, as its infer does in aps_tpu; in
 time mode both commands then write them as a WAV file (write_audio takes
 the longer axis for samples and the other for channels), not an enhanced
-signal. --pad-grid keeps
+signal. A model that takes C x S input and gives waveforms (a
+frequency-domain model whose enh_transform reads several channels, such as
+the ipd features) separates a long utterance in chunks with
+--chunk-len/--chunk-hop over the sample axis, as aps_tpu's does;
+sse@rnn_enh_ml's chunks give masks, which have no sample axis to stitch
+(aps_tpu's ChunkStitcher fails on them with a broadcasting error), and the
+port raises a ValueError there. --pad-grid keeps
 aps_tpu's meaning and default: whole utterances are zero-padded onto a
 geometric length grid before the forward and the outputs cut back, and
 since the layer norm after the encoder takes its statistics over the padded
@@ -67,7 +79,8 @@ from aps_tpu_torch.eval.wrapper import NnetEvaluator
 from aps_tpu_torch.io import AudioReader, write_audio
 from aps_tpu_torch.loader.utils import quantize_len
 from aps_tpu_torch.opts import add_device_args
-from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+from aps_tpu_torch.utils import (INFERENCE_PRECISION, bf16_rounded,
+                                 bf16_rounded_copy, matmul_precision)
 
 logger = logging.getLogger("aps_tpu_torch.separate")
 
@@ -81,11 +94,16 @@ class Separator(NnetEvaluator):
         super(Separator, self).__init__(cpt_dir, cpt_tag=cpt_tag,
                                         device=device, device_id=device_id)
         self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-        freq_domain = getattr(self.nnet, "enh_transform", None) is not None
-        if freq_domain and self.dtype != torch.float32:
-            raise NotImplementedError(
-                "--dtype bfloat16 with a frequency-domain model: the STFT "
-                "runs in float32")
+        # a frequency-domain model under --dtype bfloat16: the weights and
+        # the input rounded to bfloat16, float32 arithmetic (the module
+        # docstring); _round_input says where the input is rounded
+        self.freq_domain = getattr(self.nnet, "enh_transform",
+                                   None) is not None
+        self._round_input = self.freq_domain and \
+            self.dtype == torch.bfloat16
+        if self._round_input:
+            self.dtype = torch.float32
+            self.nnet = bf16_rounded_copy(self.nnet)
         self.nnet = self.nnet.to(self.dtype).eval()
         self.forward = None
         make_fused = getattr(self.nnet, "make_fused_eval", None)
@@ -115,7 +133,8 @@ class Separator(NnetEvaluator):
                             factor=pad_grid if pad_grid > 1 else 1.0)
 
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(batch).to(self.device, self.dtype)
+        x = torch.from_numpy(batch).to(self.device, self.dtype)
+        return bf16_rounded(x) if self._round_input else x
 
     @staticmethod
     def _to_host(sep):
@@ -140,7 +159,8 @@ class Separator(NnetEvaluator):
         axis, as in aps_tpu); <= 1 runs the exact length. mode "freq": the
         model's masks of the exact input (speakers x F x T, as numpy)."""
         src = np.asarray(src, dtype=np.float32)
-        if src.ndim != 1 and not getattr(self.nnet, "multi_channel", False):
+        multi_channel = getattr(self.nnet, "multi_channel", False)
+        if src.ndim != 1 and not (multi_channel or self.freq_domain):
             raise NotImplementedError(
                 f"multi-channel input {src.shape}: the model takes one "
                 "channel")
@@ -158,9 +178,10 @@ class Separator(NnetEvaluator):
                     return [s[..., :N] for s in sep]
                 return sep[..., :N]
             return self._infer_one(src)
-        if src.ndim != 1:
-            raise NotImplementedError("chunked separation of multi-channel "
-                                      "input is not ported yet")
+        if multi_channel:
+            raise ValueError(
+                "chunked separation: the model's chunks give masks (T x F), "
+                "which have no sample axis to stitch")
         lctx = (chunk_len - chunk_hop) // 2
         rctx = chunk_len - chunk_hop - lctx
         stitcher = ChunkStitcher(chunk_hop, lctx, rctx)
@@ -168,8 +189,9 @@ class Separator(NnetEvaluator):
         beg = 0
         while beg < N:
             end = min(beg + chunk_len, N)
-            seg = np.pad(src[beg:end], (0, chunk_len - (end - beg)))
-            chunks.append(self._infer_one(seg))
+            # (C x) chunk_len samples, the last chunk zero-padded
+            pad = [(0, 0)] * (src.ndim - 1) + [(0, chunk_len - (end - beg))]
+            chunks.append(self._infer_one(np.pad(src[..., beg:end], pad)))
             beg += chunk_hop
         return stitcher.stitch(chunks, N)
 

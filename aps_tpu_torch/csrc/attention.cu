@@ -57,11 +57,13 @@ namespace {
 
 // A block of kWarps warps owns kQRows query rows and streams the keys in
 // tiles of kKRows. At D = 64 it takes 175 registers and 52 KB: two blocks
-// an SM. 32-row blocks (two warps) measured 1-2% slower at the long-form
-// decode shape (B = 4, H = 4, T = 710: 368 blocks against 192 of 64 rows),
-// 10% at the training shape and 2-7% at B = 16, T = 1024 (PERF.md): the
-// grid's extra blocks buy less than the K and V tiles staged twice as often
-// cost.
+// an SM. At D = 128 the same tiles take 99 KB (Q and two stages of K and V
+// at a stride of 132 floats); the register count decides how many blocks
+// share an SM (compare_kernels reads it). 32-row blocks (two warps)
+// measured 1-2% slower at the long-form decode shape (B = 4, H = 4, T =
+// 710: 368 blocks against 192 of 64 rows), 10% at the training shape and
+// 2-7% at B = 16, T = 1024 (PERF.md): the grid's extra blocks buy less than
+// the K and V tiles staged twice as often cost.
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kQRows = 16 * kWarps;
@@ -307,13 +309,14 @@ extern "C" const char* aps_cuda_error_string(int code) {
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
+    case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
 // q, out: B x H x Tq x D; k, v: B x H x Tk x D; bias: H x Tq x Tk or null;
 // k_len: B int32; lse: B x H x Tq or null (inference). All float32 (k_len
 // int32), contiguous, on the device; q, k and v 16-byte aligned. D in {16,
-// 32, 64}.
+// 32, 64, 128}.
 extern "C" int aps_attention_fwd(const float* q, const float* k,
                                  const float* v, const float* bias,
                                  const int* k_len, int B, int H, int Tq,

@@ -100,9 +100,19 @@ constexpr float kLseDead = attn_tiles::kLseDead;
 // faster at B = 16, T = 1024. Both kernels are bound by the schedulers'
 // rate (about one instruction a cycle and scheduler, a fifth of them mma), so
 // what pays is fewer instructions, not more blocks.
+//
+// At D = 128 the same tiles take 135 KB of shared memory, one block an SM,
+// so the kernels are held to no register count below the 255 a thread may
+// have (what spills is read through compare_kernels and kept in PERF.md).
 constexpr int kOwnRows = 64;
 constexpr int kStreamRows = 32;
 constexpr int kBlocksPerSM = 3;
+
+// blocks an SM that the register count is held to at head dim D
+template <int D>
+constexpr int blocks_per_sm() {
+  return D <= 64 ? kBlocksPerSM : 1;
+}
 constexpr int kWarpRows = kOwnRows / (kThreads / 32);
 static_assert(kWarpRows == 16, "a warp owns one 16-row fragment");
 static_assert(kStreamRows % 8 == 0 && 2 * kStreamRows <= kThreads,
@@ -183,7 +193,7 @@ constexpr int tiles_smem_floats() {
 // do, lse and delta; its tile is the transposed s[s,l] with s owned. g1 = dk,
 // g2 = dv.
 template <int D, bool kDKV>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<D>())
 attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
                       float* __restrict__ delta_out, float* __restrict__ g1,
                       float* __restrict__ g2) {
@@ -426,17 +436,26 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
   }
 }
 
+// floats of the dbias kernel's shared memory: q and do of the tile's rows,
+// k and v of its columns (rows of D + 1 floats), lse and delta. Dynamic:
+// at D = 128 it is more than the 48 KB a block may declare statically
+template <int D>
+constexpr int dbias_smem_floats() {
+  return (2 * kBQ + 2 * kBK) * (D + 1) + 2 * kBQ;
+}
+
 // dbias: H x Tq x Tk; this block owns tile (rows l0.., columns s0..) of
 // head h and sums it over the batch in order
 template <int D>
 __global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias) {
   constexpr int DP = D + 1;
-  __shared__ float sq[kBQ][DP];
-  __shared__ float sdo[kBQ][DP];
-  __shared__ float sk[kBK][DP];
-  __shared__ float sv[kBK][DP];
-  __shared__ float slse[kBQ];
-  __shared__ float sdelta[kBQ];
+  extern __shared__ float sbias_smem[];
+  auto sq = reinterpret_cast<float (*)[DP]>(sbias_smem);
+  auto sdo = sq + kBQ;
+  auto sk = sdo + kBQ;
+  auto sv = sk + kBK;
+  float* slse = reinterpret_cast<float*>(sv + kBK);
+  float* sdelta = slse + kBQ;
 
   const int h = blockIdx.z;
   const int l0 = blockIdx.y * kBQ;
@@ -564,9 +583,29 @@ cudaError_t occupancy(int dkv, int* info) {
 }
 
 template <int D>
+cudaError_t dbias_attributes() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  rc = cudaFuncSetAttribute(
+      attn_dbias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dbias_smem_floats<D>() * static_cast<int>(sizeof(float)));
+  if (rc == cudaSuccess && known) {
+    done[dev].store(true, std::memory_order_release);
+  }
+  return rc;
+}
+
+template <int D>
 cudaError_t launch_dbias(const Args& a, float* dbias, cudaStream_t s) {
+  constexpr int kBytes = dbias_smem_floats<D>() * sizeof(float);
+  const cudaError_t rc = dbias_attributes<D>();
+  if (rc != cudaSuccess) return rc;
   dim3 grid((a.Tk + kBK - 1) / kBK, (a.Tq + kBQ - 1) / kBQ, a.H);
-  attn_dbias_kernel<D><<<grid, kThreads, 0, s>>>(a, dbias);
+  attn_dbias_kernel<D><<<grid, kThreads, kBytes, s>>>(a, dbias);
   return cudaGetLastError();
 }
 
@@ -585,13 +624,14 @@ extern "C" const char* aps_cuda_error_string(int code) {
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
+    case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
 // Shapes as in the forward: q, dout, out, dq B x H x Tq x D; k, v, dk, dv B
 // x H x Tk x D; bias H x Tq x Tk or null; k_len B int32; lse, delta B x H x
 // Tq. All float32 (k_len int32), contiguous, on the device. D in {16, 32,
-// 64}. The three entries take the same list of pointers. dq reads the
+// 64, 128}. The three entries take the same list of pointers. dq reads the
 // forward's output `out` and WRITES delta = sum(dout * out, -1); dk/dv and
 // dbias read that delta, so dq is launched first.
 extern "C" int aps_attention_dq(

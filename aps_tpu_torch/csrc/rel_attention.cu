@@ -51,7 +51,9 @@
 //
 // Sizes at D = 64: q_c and q_p (34 KB), two stages of 32 keys of K and V
 // and 96 band rows (87 KB), a skew tile a warp (14 KB): 133 KB, one block
-// an SM.
+// an SM. At D = 128 (Tiles<128>): q_c and q_p (66 KB), two stages of 16
+// keys of K and V and 80 band rows (116 KB), a skew tile a warp (14 KB):
+// 196 KB.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,31 +65,43 @@
 namespace {
 
 // A block of kWarps warps owns kQRows query rows and streams the keys in
-// tiles of kKeys with the kBand pose rows a tile meets (one spare). A warp's
-// relative term covers kWarpBand band rows (one spare) in a skew tile of
-// kSkewLd floats a row. 32-row blocks (two warps, 92 KB, two blocks an SM)
-// measured 8-15% slower at the decode shape (B = 8, T = 233: 256 blocks
-// against 128) and 8-12% at the training step's (PERF.md).
+// tiles of Tiles<D>::kKeys with the kBand pose rows a tile meets (one
+// spare). A warp's relative term covers kWarpBand band rows (one spare) in a
+// skew tile of kSkewLd floats a row. 32-row blocks (two warps, 92 KB, two
+// blocks an SM) measured 8-15% slower at the decode shape (B = 8, T = 233:
+// 256 blocks against 128) and 8-12% at the training step's (PERF.md).
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kQRows = 16 * kWarps;
-constexpr int kKeys = 32;
-constexpr int kBand = kQRows + kKeys;
-constexpr int kStage = 2 * kKeys + kBand;  // K, V and band rows
-constexpr int kWarpBand = 16 + kKeys;
-constexpr int kSkewLd = attn_tiles::skew_ld(kWarpBand);
 constexpr float kLseDead = attn_tiles::kLseDead;
-static_assert(kKeys % 8 == 0, "key tiles are whole 8-row fragments");
+
+// The tiles at head dim D. Up to D = 64: 32-key tiles, q_c's fragments
+// split once and held in registers. At D = 128 32-key tiles would take
+// 250,880 bytes of shared memory, more than a block may have (232,448), so
+// the key tiles are 16 rows (200,192 bytes), and q_c's fragments, 128
+// registers a thread there, are split from shared memory at every tile as
+// q_p's are.
+template <int D>
+struct Tiles {
+  static constexpr int kKeys = D <= 64 ? 32 : 16;
+  static constexpr bool kHoldQ = D <= 64;
+  static constexpr int kBand = kQRows + kKeys;
+  static constexpr int kStage = 2 * kKeys + kBand;  // K, V and band rows
+  static constexpr int kWarpBand = 16 + kKeys;
+  static constexpr int kSkewLd = attn_tiles::skew_ld(kWarpBand);
+  static_assert(kKeys % 8 == 0, "key tiles are whole 8-row fragments");
+};
 
 // floats of dynamic shared memory: q_c and q_p, two ring stages, a skew
 // tile a warp
 template <int D>
 constexpr int smem_floats() {
-  return (2 * kQRows + 2 * kStage) * attn_tiles::tile_ld(D) +
-         kWarps * 16 * kSkewLd;
+  return (2 * kQRows + 2 * Tiles<D>::kStage) * attn_tiles::tile_ld(D) +
+         kWarps * 16 * Tiles<D>::kSkewLd;
 }
 
-static_assert(smem_floats<64>() * 4 <= 232448,
+static_assert(smem_floats<64>() * 4 <= 232448 &&
+                  smem_floats<128>() * 4 <= 232448,
               "a block fits in the SM's shared memory");
 
 template <int D>
@@ -100,6 +114,11 @@ rel_attn_fwd_kernel(const float* __restrict__ q_c,
                     float scale, int causal, float* __restrict__ out,
                     float* __restrict__ lse) {
   using namespace attn_tiles;
+  constexpr int kKeys = Tiles<D>::kKeys;
+  constexpr int kBand = Tiles<D>::kBand;
+  constexpr int kStage = Tiles<D>::kStage;
+  constexpr int kWarpBand = Tiles<D>::kWarpBand;
+  constexpr int kSkewLd = Tiles<D>::kSkewLd;
   constexpr int LD = tile_ld(D);
   constexpr int NT = kKeys / 8;     // 8-wide fragments across a key tile
   constexpr int NG = kWarpBand / 8;  // ... across a warp's pose band
@@ -152,9 +171,14 @@ rel_attn_fwd_kernel(const float* __restrict__ q_c,
   cp_async_wait<0>();
   __syncthreads();
 
-  FragA qa[ND];
+  // q_c's fragments, held where they fit (kHoldQ); else split at each tile
+  FragA qa[Tiles<D>::kHoldQ ? ND : 1];
+  if constexpr (Tiles<D>::kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < ND; ++kk) load_a<LD>(qa[kk], sqc, wrow, 8 * kk, g, t);
+    for (int kk = 0; kk < ND; ++kk) {
+      load_a<LD>(qa[kk], sqc, wrow, 8 * kk, g, t);
+    }
+  }
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -194,7 +218,12 @@ rel_attn_fwd_kernel(const float* __restrict__ q_c,
       for (int j = 0; j < NT; ++j) {
         load_b_rows_n<LD>(bk[j], tk, 8 * j, 8 * kk, g, t);
       }
-      mma_f32<NT>(s, qa[kk], bk);
+      if constexpr (Tiles<D>::kHoldQ) {
+        mma_f32<NT>(s, qa[kk], bk);
+      } else {
+        load_a<LD>(qa[0], sqc, wrow, 8 * kk, g, t);
+        mma_f32<NT>(s, qa[0], bk);
+      }
     }
 
     // the relative term: g = q_p . band^T over the warp's pose rows, then
@@ -371,12 +400,13 @@ extern "C" const char* aps_cuda_error_string(int code) {
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
+    case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
 // q_c, q_p, k, v, out: B x H x T x D; pose: Hp x (2T-1) x D; k_len: B int32;
 // lse: B x H x T or null (inference). All float32 (k_len int32), contiguous,
-// on the device, 16-byte aligned. D in {16, 32, 64}.
+// on the device, 16-byte aligned. D in {16, 32, 64, 128}.
 extern "C" int aps_rel_attention_fwd(const float* q_c, const float* q_p,
                                      const float* k, const float* v,
                                      const float* pose, const int* k_len,

@@ -64,8 +64,8 @@
 // tile in shared memory:
 //
 //   dq: a warp owns 16 query rows l = row0 + li and meets, for a key tile
-//     s = s0 + sj, the 16 + kDqKeys - 1 pose rows s0 - row0 + T - 16 + j.
-//     It computes g = q_p . band^T (16 x (kDqKeys + 16), 1.25 times the
+//     s = s0 + sj, the 16 + kKeys - 1 pose rows s0 - row0 + T - 16 + j.
+//     It computes g = q_p . band^T (16 x (kKeys + 16), 1.25 times the
 //     entries it needs with 64-key tiles), writes g to its skew tile and
 //     reads it back skewed, score(li, sj) += g[li][sj - li + 15]. For
 //     dq_p it writes ds un-skewed into the same tile, dg[li][sj - li + 15]
@@ -118,6 +118,11 @@
 // SM; 512 blocks at the flagship step. Measured there: 0.158 ms against
 // the CUDA-core loop's 0.50, and 0.228 ms with a skew tile a warp instead
 // of the shared G (117 KB: one block an SM).
+//
+// Sizes at D = 128, one block an SM each: dq with 16-key tiles (DqTiles)
+// 229,888 bytes; dk/dv 208,640 bytes; dpose 163,584 bytes. The
+// accumulators and held fragments double with D, so registers, not shared
+// memory, decide what spills there (compare_kernels reads it).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,16 +139,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kLseDead = attn_tiles::kLseDead;
 
 // dq: a block of kWarps warps owns kDqRows query rows, 16 a warp, and
-// streams kDqKeys keys a tile with the kDqBand pose rows the tile meets
-// (one spare row). A warp's relative term covers kDqWarpBand pose rows
-// (one spare) in a skew tile of kDqSkewLd floats a row.
+// streams DqTiles<D>::kKeys keys a tile with the kBand pose rows the tile
+// meets (one spare row). A warp's relative term covers kWarpBand pose rows
+// (one spare) in a skew tile of kSkewLd floats a row. At D = 128 64-key
+// tiles would take 394,240 bytes of shared memory, more than a block may
+// have (232,448): the key tiles are 16 rows there, and the skew tile's
+// stride is 40 floats (8 modulo 32: two-way bank conflicts on its pair
+// writes) instead of skew_ld's 56, which would take 233,984 bytes.
 constexpr int kDqRows = 16 * kWarps;
-constexpr int kDqKeys = 64;
-constexpr int kDqBand = kDqRows + kDqKeys;
-constexpr int kDqStage = 2 * kDqKeys + kDqBand;  // K, V and band rows
-constexpr int kDqWarpBand = 16 + kDqKeys;
-constexpr int kDqSkewLd = attn_tiles::skew_ld(kDqWarpBand);
-static_assert(kDqKeys % 8 == 0, "key tiles are whole 8-row fragments");
+
+template <int D>
+struct DqTiles {
+  static constexpr int kKeys = D <= 64 ? 64 : 16;
+  static constexpr int kBand = kDqRows + kKeys;
+  static constexpr int kStage = 2 * kKeys + kBand;  // K, V and band rows
+  static constexpr int kWarpBand = 16 + kKeys;
+  static constexpr int kSkewLd =
+      D <= 64 ? attn_tiles::skew_ld(kWarpBand) : kWarpBand + 8;
+  static_assert(kKeys % 8 == 0, "key tiles are whole 8-row fragments");
+};
 
 // dpose: a block of kPoseWarps warps owns kPoseRows table rows, 16 a warp;
 // a query tile of 16 rows meets kPoseKeys keys (one spare), which a ring
@@ -184,8 +198,8 @@ struct Args {
 // do, two ring stages of K, V and the pose band, a skew tile a warp
 template <int D>
 constexpr int dq_smem_floats() {
-  return (3 * kDqRows + 2 * kDqStage) * attn_tiles::tile_ld(D) +
-         kWarps * 16 * kDqSkewLd;
+  return (3 * kDqRows + 2 * DqTiles<D>::kStage) * attn_tiles::tile_ld(D) +
+         kWarps * 16 * DqTiles<D>::kSkewLd;
 }
 
 // the dpose kernel's: two stages of q_c, q_p, do (16 rows each), lse and
@@ -211,9 +225,17 @@ constexpr int dkv_smem_floats() {
 
 constexpr int kMaxSmemBytes = 232448;  // a block's limit on sm_90
 static_assert(dq_smem_floats<64>() * 4 <= kMaxSmemBytes &&
-                  dpose_smem_floats<64>() * 4 <= kMaxSmemBytes,
+                  dpose_smem_floats<64>() * 4 <= kMaxSmemBytes &&
+                  dq_smem_floats<128>() * 4 <= kMaxSmemBytes &&
+                  dpose_smem_floats<128>() * 4 <= kMaxSmemBytes &&
+                  dkv_smem_floats<128>() * 4 <= kMaxSmemBytes,
               "a block fits in the SM's shared memory");
-// two dk/dv blocks share an SM (233472 bytes, 1 KB of it reserved a block)
+// up to D = 64 two dk/dv blocks share an SM (233472 bytes, 1 KB of it
+// reserved a block); at D = 128 one does (208,640 bytes)
+template <int D>
+constexpr int dkv_blocks_per_sm() {
+  return D <= 64 ? 2 : 1;
+}
 static_assert(2 * (dkv_smem_floats<64>() * 4 + 1024) <= 233472,
               "two dk/dv blocks fit in an SM's shared memory");
 
@@ -225,7 +247,11 @@ rel_attn_dq_kernel(Args a, const float* __restrict__ out,
                    float* __restrict__ delta_out, float* __restrict__ dq_c,
                    float* __restrict__ dq_p) {
   using namespace attn_tiles;
-  constexpr int BS = kDqKeys;
+  constexpr int BS = DqTiles<D>::kKeys;
+  constexpr int kDqBand = DqTiles<D>::kBand;
+  constexpr int kDqStage = DqTiles<D>::kStage;
+  constexpr int kDqWarpBand = DqTiles<D>::kWarpBand;
+  constexpr int kDqSkewLd = DqTiles<D>::kSkewLd;
   constexpr int LD = tile_ld(D);
   constexpr int NT = BS / 8;            // 8-wide fragments across a key tile
   constexpr int NG = kDqWarpBand / 8;   // ... across a warp's pose band
@@ -495,7 +521,7 @@ rel_attn_dq_kernel(Args a, const float* __restrict__ out,
 // dk and dv of the block's key rows own0 .. own0 + kDkvKeys (zeros for keys
 // past k_len)
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, dkv_blocks_per_sm<D>())
 rel_attn_dkv_kernel(Args a, float* __restrict__ dk, float* __restrict__ dv) {
   using namespace attn_tiles;
   constexpr int LD = tile_ld(D);
@@ -1083,6 +1109,8 @@ cudaError_t tiles_occupancy(int* info) {
 
 template <int D>
 cudaError_t occupancy(int kernel, int* info) {
+  info[4] = kernel == kDq ? DqTiles<D>::kKeys
+                          : kernel == kDkv ? kDkvQ : kPoseRows;
   switch (kernel) {
     case kDq: return tiles_occupancy<D, kDq>(info);
     case kDkv: return tiles_occupancy<D, kDkv>(info);
@@ -1106,13 +1134,14 @@ extern "C" const char* aps_cuda_error_string(int code) {
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
+    case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
 // Shapes as in the forward: q_c, q_p, k, v, dout, out and the outputs B x H
 // x T x D; pose Hp x (2T-1) x D; k_len B int32; lse, delta B x H x T. All
 // float32 (k_len int32), contiguous, on the device, 16-byte aligned. D in
-// {16, 32, 64}. dq reads the forward's output `out` and WRITES delta =
+// {16, 32, 64, 128}. dq reads the forward's output `out` and WRITES delta =
 // sum(dout * out, -1); dk/dv and dpose read that delta, so dq is launched
 // first.
 extern "C" int aps_rel_attention_dq(
@@ -1158,6 +1187,5 @@ extern "C" int aps_rel_attention_dpose(
 // bytes of dynamic shared memory a block, resident blocks an SM, key rows of
 // a dq tile, query rows of a dk/dv tile or table rows of a dpose block}.
 extern "C" int aps_rel_attention_bwd_occupancy(int D, int kernel, int* info) {
-  info[4] = kernel == kDq ? kDqKeys : kernel == kDkv ? kDkvQ : kPoseRows;
   APS_DISPATCH_D(D, occupancy, kernel, info);
 }

@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Audio IO: wav read/write and the kaldi-style wav.scp reader (the port's
-own copy of what it needs from aps_tpu/io/audio.py: read_audio,
-write_audio, AudioReader, group_segments, SegmentAudioReader). The wav.scp value grammar is the same: plain
-paths, "cmd ... |" pipes and "file.ark:offset" archives."""
+"""Audio IO: wav read/write, the kaldi-style wav.scp reader and RIR
+convolution (the port's own copy of what it needs from
+aps_tpu/io/audio.py: read_audio, write_audio, add_room_response,
+AudioReader, group_segments, SegmentAudioReader). The wav.scp value grammar
+is the same: plain paths, "cmd ... |" pipes and "file.ark:offset"
+archives."""
 
 import io
 import os
@@ -12,13 +14,14 @@ from collections import defaultdict
 from typing import IO, Any, Dict, Optional, Union
 
 import numpy as np
+import scipy.signal as ss
 
 from aps_tpu_torch.io.base import BaseReader
 from aps_tpu_torch.io.wav import wav_read, wav_read_header, wav_write
 
 __all__ = [
-    "read_audio", "write_audio", "AudioReader", "SegmentAudioReader",
-    "group_segments"
+    "read_audio", "write_audio", "add_room_response", "AudioReader",
+    "SegmentAudioReader", "group_segments"
 ]
 
 
@@ -50,6 +53,42 @@ def write_audio(fname: Union[str, IO[Any]],
         if parent:
             os.makedirs(parent, exist_ok=True)
     wav_write(fname, samps, sr=sr, norm=norm)
+
+
+def _direct_path_rir(rir_ch0: np.ndarray, sr: int,
+                     keep_duration: float) -> np.ndarray:
+    """Zero the RIR tail: keep [peak - 1ms, peak + keep_duration) around
+    the direct-path arrival, so convolving with it yields the early
+    (non-reverberant) image."""
+    peak = int(np.argmax(rir_ch0))
+    lo = max(0, peak - int(0.001 * sr))
+    hi = min(rir_ch0.size, peak + int(keep_duration * sr))
+    kept = np.zeros_like(rir_ch0)
+    kept[lo:hi] = rir_ch0[lo:hi]
+    return kept
+
+
+def add_room_response(spk: np.ndarray,
+                      rir: np.ndarray,
+                      early_energy: bool = False,
+                      early_revb_duration: float = 0.05,
+                      sr: int = 16000):
+    """Convolve a close-talk signal with (multi-channel) RIRs.
+    spk: S; rir: N x R -> (revb N x S, early_revb or None, power).
+    Power is the channel-0 mean square — of the early image when
+    early_energy is set, of the full reverberant image otherwise."""
+    spk = np.asarray(spk)
+    if spk.ndim != 1:
+        raise RuntimeError(f"Can not convolve rir with {spk.ndim}D signals")
+    rir = np.atleast_2d(np.asarray(rir))
+    # FFT convolution: all channels at once, O(R log R) per sample block
+    wet = ss.fftconvolve(rir, spk[None, :], axes=-1)[:, :spk.size]
+    wet = np.ascontiguousarray(wet)
+    if not early_energy:
+        return wet, None, float(np.mean(wet[0]**2))
+    early = ss.fftconvolve(_direct_path_rir(rir[0], sr, early_revb_duration),
+                           spk)[:spk.size]
+    return wet, early, float(np.mean(early**2))
 
 
 class AudioReader(BaseReader):

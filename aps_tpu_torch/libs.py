@@ -13,9 +13,10 @@ transforms, the "asr@xfmr", "asr@att", "asr@ctc", "asr@enh_xfmr",
 "rt_sse@freq_xfmr" models, the
 "asr@ctc_xent", "asr@ctc", "asr@transducer", "asr@lm", "sse@sisnr",
 "sse@snr", "sse@wa", "sse@freq_linear_sa", "sse@freq_mel_sa", "sse@time_linear_sa",
-"sse@time_mel_sa", "sse@complex_mapping", "sse@complex_masking" and
-"sse@enh_ml" tasks, the
-"dp" trainer, the "am@raw", "lm@utt", "lm@bptt" and "se@chunk" loaders and
+"sse@time_mel_sa", "sse@complex_mapping", "sse@complex_masking",
+"sse@enh_ml" and "sse@ts" tasks, the
+"dp" trainer, the "am@raw", "am@kaldi", "am@simu_cmd", "lm@utt",
+"lm@bptt", "se@chunk", "se@simu_cmd" and "se@config" loaders and
 the "word", "char" and "subword" tokenizers; the multi-channel front ends
 "rnn_mask_mvdr", "time_invar", "time_invar_att", "time_variant" and
 "google_clp" are in their own registry, aps_tpu_torch.asr.filter.conv.
@@ -52,12 +53,16 @@ SSE_SUBMODULES = ["aps_tpu_torch.sse.bss.tcn", "aps_tpu_torch.sse.toy",
 TRANSFORM_SUBMODULES = ["aps_tpu_torch.transform.asr",
                         "aps_tpu_torch.transform.enh"]
 TASK_SUBMODULES = ["aps_tpu_torch.task.asr", "aps_tpu_torch.task.sse",
-                   "aps_tpu_torch.task.ml"]
+                   "aps_tpu_torch.task.ml", "aps_tpu_torch.task.ts"]
 TRAINER_SUBMODULES = ["aps_tpu_torch.trainer.dp"]
 LOADER_SUBMODULES = ["aps_tpu_torch.loader.am.raw",
+                     "aps_tpu_torch.loader.am.kaldi",
+                     "aps_tpu_torch.loader.am.simu_cmd",
                      "aps_tpu_torch.loader.lm.utt",
                      "aps_tpu_torch.loader.lm.bptt",
-                     "aps_tpu_torch.loader.se.chunk"]
+                     "aps_tpu_torch.loader.se.chunk",
+                     "aps_tpu_torch.loader.se.simu_cmd",
+                     "aps_tpu_torch.loader.se.config"]
 TOKENIZER_SUBMODULES = ["aps_tpu_torch.tokenizer.word",
                         "aps_tpu_torch.tokenizer.subword"]
 

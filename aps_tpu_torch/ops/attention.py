@@ -26,10 +26,11 @@ summed in order; no model passes a bias) is as first ported. Every kernel
 owns its reduction: outputs and gradients repeat bit for bit from run to
 run. The kernels copy rows 16 bytes at a time, so an operand at an odd
 storage offset is copied first (`_aligned`). They are built for head
-widths 16, 32 and 64: a narrower head is zero-padded up to the next of
-them (`with_padded_heads`, shared with the relative-position kernels),
-which leaves every score unchanged, runs at the true scale and gives zero
-columns that the slice back drops; a head wider than 64 raises.
+widths 16, 32, 64 and 128: any other head up to 128 is zero-padded up to
+the next of them (`with_padded_heads`, shared with the relative-position
+kernels), which leaves every score unchanged, runs at the true scale and
+gives zero columns that the slice back drops; a head wider than 128
+raises.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -123,7 +124,7 @@ def mha_backward_reference(
     return dq, dk, dv, dbias
 
 
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def with_padded_heads(fn, name: str, padded, *args, **kwargs
@@ -133,12 +134,14 @@ def with_padded_heads(fn, name: str, padded, *args, **kwargs
     built for, and the output sliced back to D. Zero columns change no
     q . k product, no relative term and no gradient of the true columns,
     and the padded columns of v give output columns that the slice drops;
-    the caller passes the true scale D**-0.5 in kwargs. A D over 64 raises
-    as a kernel given it would."""
+    the caller passes the true scale D**-0.5 in kwargs. A D over 128
+    raises: the kernels are built for no wider head."""
     D = padded[0].shape[-1]
     width = next((w for w in _HEAD_DIMS if w >= D), None)
     if width is None:
-        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} is over {_HEAD_DIMS[-1]}, "
+                         f"the widest the kernels are built for "
+                         f"({_HEAD_DIMS})")
     out = fn(*(torch.nn.functional.pad(t, (0, width - D)) for t in padded),
              *args, **kwargs)
     return out[..., :D]
@@ -286,7 +289,7 @@ def flash_attention(q: torch.Tensor,
     B x H x Tq x D; gradients flow to q, k, v and bias.
     CPU tensors take mha_reference (and autograd through it); CUDA tensors
     launch the kernels of csrc/attention.cu and, for the gradient,
-    csrc/attention_bwd.cu (D in {16, 32, 64}; a D below 64 between them
+    csrc/attention_bwd.cu (D in {16, 32, 64, 128}; any other D up to 128
     zero-padded up by with_padded_heads)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q is {tuple(q.shape)}, expected "

@@ -14,9 +14,9 @@ On CUDA tensors the forward is csrc/rel_attention.cu and the backward
 csrc/rel_attention_bwd.cu (dq_c/dq_p, dk/dv and dpose kernels), joined by
 the autograd Function `_FlashRel`; a failed build or launch raises. The
 kernels copy rows 16 bytes at a time, so an operand at an odd storage
-offset is copied first. A head narrower than 64 and not 16 or 32 wide is
-zero-padded up, table included, and runs at its true scale
-(attention.with_padded_heads).
+offset is copied first. A head up to 128 wide and not 16, 32, 64 or 128
+is zero-padded up, table included, and runs at its true scale
+(attention.with_padded_heads); a wider one raises.
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
 its gradient), and both are held against the kernels on the card, as is
@@ -146,7 +146,7 @@ def rel_mha_backward_reference(
     return dq_c, dq_p, dk, dv, dpose
 
 
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 32, 64, 128)
 _IN = [build.P] * 6  # q_c q_p k v pose k_len
 _DIMS = [build.I] * 5 + [build.F, build.I]  # B H Hp T D scale causal
 _FWD_ARGTYPES = _IN + _DIMS + [build.P] * 3  # out lse stream
@@ -276,8 +276,8 @@ def flash_attention_rel(q_c: torch.Tensor,
     flow to q_c, q_p, k, v and pose.
     CPU tensors take rel_mha_reference (and autograd through it); CUDA
     tensors launch the kernels of csrc/rel_attention.cu and, for the
-    gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64}; a D below 64
-    between them zero-padded up by with_padded_heads)."""
+    gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64, 128}; any
+    other D up to 128 zero-padded up by with_padded_heads)."""
     tensors = {"q_c": q_c, "q_p": q_p, "k": k, "v": v, "pose": pose}
     B, H, T, D = q_c.shape
     for key, t in tensors.items():

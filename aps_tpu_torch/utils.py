@@ -6,6 +6,7 @@ flags of cuBLAS and cuDNN around a body of work (the trainer's steps and
 the inference commands)."""
 
 import contextlib
+import copy
 import logging
 import random
 import sys
@@ -82,3 +83,21 @@ def matmul_precision(precision: str, device: torch.device):
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even), in t's own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_rounded_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of module whose floating tensors of its state_dict (the
+    parameters and the persistent buffers: what aps_tpu keeps as its
+    variables and casts) are rounded to bfloat16 and kept in their own
+    dtype."""
+    module = copy.deepcopy(module)
+    with torch.no_grad():
+        for t in module.state_dict(keep_vars=True).values():
+            if t.is_floating_point():
+                t.copy_(bf16_rounded(t))
+    return module

@@ -2375,8 +2375,78 @@ def sep_step_check(egs, dev):
                            referee=True)
 
 
+# the float32 STFT and a first layer's gradient (step_pass_check's
+# stft_first). A first layer on the enh transform's features carries the
+# STFT's float32 rounding through a log, where a quiet bin's relative error
+# can reach order 1; the card's cuFFT and the CPU's pocketfft round
+# differently, and the CPU's own distance from float64 changes by 100x from
+# machine to machine, so it cannot set the card's bound there. The
+# rounding is bounded where it happens: a framed DFT of N points in
+# float32 (the window's product, then the FFT's log2 N stages, each of
+# which rounds its sums and reads rounded twiddles) lies, by Higham's
+# bound for the Cooley-Tukey FFT (Accuracy and Stability of Numerical
+# Algorithms, 2nd ed., Thm. 24.2), frame by frame within
+#     ||X32_t - X_t||_2 <= (log2(N) * eta + 1) * u * ||X_t||_2,
+#     eta = mu + 4 (sqrt 2 + mu) ~ 6.7 for twiddles good to mu = u,
+# u = 2^-24, ||X_t||_2 the whole spectrum's (the onesided bins counted
+# twice but for DC and Nyquist), the 1 for the window's product. Its
+# effect on the gradient is then computed, not bounded bin by bin at its
+# worst: one more float64 pass ("stft32_64") reads the card's own float32
+# spectrum, each frame held to the bound above, in place of its float64
+# STFT (a teacher's too). A float32 pass on the card that reads that
+# spectrum (the card's, and each witness that keeps the float32 STFT) must
+# lie within TOL_STEP_GRAD, §2's bound for the network's own rounding, of
+# that pass on the first layer; a witness with the STFT in float64 (its
+# `stft64` attribute) within TOL_STEP_GRAD of the float64 pass. A missing
+# term in the network moves the gradient by order 1 from either.
+STFT_ETA = 6.7
+F32_UNIT = 2.0**-24
+
+
+def stft_rounding(x32, x64) -> float:
+    """The largest ratio, over the frames of STFTs N x (C) x F x T, of
+    ||x32_t - x64_t||_2 to the bound on it in the comment above; fails
+    past 1."""
+    import torch
+    weight = torch.full_like(x64.real[..., :1, :], 2.0).expand(
+        x64.shape).clone()
+    weight[..., 0, :] = weight[..., -1, :] = 1.0
+    norm = lambda x: (weight * x.abs()**2).sum(-2).sqrt()  # noqa: E731
+    N = 2 * (x64.shape[-2] - 1)
+    bound = (math.log2(N) * STFT_ETA + 1) * F32_UNIT * norm(x64)
+    err = norm(x32 - x64)
+    if not bool((err <= bound).all()):
+        fail(f"the float32 STFT lies {(err - bound).max().item()} over "
+             "Higham's bound in a frame")
+    return (err / bound.clamp(min=1e-300)).max().item()
+
+
+def stft32_of(dev, ratios: list):
+    """Patch for a float64 model: every enh transform's encode (the
+    network's and a teacher's) returns the card's float32 STFT of its
+    input, cast to complex128, after holding each frame to Higham's bound
+    on the float64 STFT (the ratio goes to `ratios`)."""
+    import torch
+
+    def patch(task) -> None:
+        for nnet in (task.nnet, getattr(task, "teacher_nnet", None)):
+            if nnet is None:
+                continue
+            encode = nnet.enh_transform.encode
+
+            def encode32(wav, wav_len=None, encode=encode):
+                x64, frames = encode(wav, wav_len)
+                x32 = encode(wav.to(dev, torch.float32), wav_len)[0].to(
+                    x64.device, x64.dtype)
+                ratios.append(stft_rounding(x32, x64))
+                return x32, frames
+            nnet.enh_transform.encode = encode32
+    return patch
+
+
 def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
-                    referee_on=None, witnesses=None, launched=None):
+                    referee_on=None, witnesses=None, launched=None,
+                    stft_first=None):
     """One training-mode pass of a `task` (its model without dropout) over
     the first `utts` utterances or mixtures of the batch, float32 on the
     CPU and on the card (TF32 off, the flags read inside the pass), and
@@ -2392,7 +2462,10 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
     each one more float32 pass on the card of the copy after fn(copy),
     held as the card's is, to tell what part of the card's distance a part
     of the model accounts for. launched: a dict that gets each pass's
-    kernel launches.
+    kernel launches. stft_first (with referee): the name of the first
+    layer's weight, a layer on the enh transform's features; its gradient
+    is held by the rule of stft32_of's comment instead of by the CPU's
+    distance, against one more float64 pass on the card's float32 STFT.
     -> (loss card, loss CPU, {name: err, or with referee (card, CPU, each
     witness)})."""
     import torch
@@ -2417,8 +2490,12 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
     sides = [("cpu32", "cpu", torch.float32, None),
              ("card32", dev, torch.float32, None)]
     sides += [(name, dev, torch.float32, fn) for name, fn in witnesses.items()]
+    ratios = []
     if referee:
         sides.append(("card64", referee_on or dev, torch.float64, None))
+    if referee and stft_first is not None:
+        sides.append(("stft32_64", referee_on or dev, torch.float64,
+                      stft32_of(dev, ratios)))
     outs, seen = {}, []
     for name, where, dtype, witness in sides:
         side = copy.deepcopy(task).to(where, dtype).train()
@@ -2451,7 +2528,10 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
     for key in grads:
         want = outs["card64" if referee else "cpu32"][1][key]
         scale = want.abs().max().item()
-        rel = lambda n: (outs[n][1][key] - want).abs().max().item() / scale
+
+        def rel(n, ref="card64" if referee else "cpu32"):
+            return (outs[n][1][key] -
+                    outs[ref][1][key]).abs().max().item() / scale
         if not referee:
             errs[key] = rel("card32")
             if not (scale > 0 and errs[key] <= TOL_STEP_GRAD):
@@ -2464,6 +2544,24 @@ def step_pass_check(task, egs, dev, grads, utts: int, referee: bool,
             fail(f"gradient of {key}: the CPU's float32 pass is {noise_cpu} "
                  f"of the largest entry {scale} from the card's float64 "
                  f"pass, over {TOL_SEP_GRAD_REFEREE}")
+        if key == stft_first:
+            held = {side: rel(side, "card64" if getattr(
+                witnesses.get(side), "stft64", False) else "stft32_64")
+                for side in ("card32",) + tuple(witnesses)}
+            print(f"{key}: each float32 pass from the float64 pass on the "
+                  "same STFT (the card's float32 one, each frame within "
+                  f"{max(ratios):.3e} of Higham's bound, or float64) "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in held.items())
+                  + f"; the float32 STFT's share {rel('stft32_64'):.3e}; "
+                  f"card {noise_card:.3e}, CPU {noise_cpu:.3e} from float64",
+                  flush=True)
+            for side, err in held.items():
+                if not err <= TOL_STEP_GRAD:
+                    fail(f"gradient of {key}: the card's float32 pass "
+                         f"({side}) is {err} of the largest entry from the "
+                         "float64 pass on the same STFT, over "
+                         f"{TOL_STEP_GRAD}")
+            continue
         bound = TOL_STEP_GRAD + TOL_SEP_GRAD_NOISE * noise_cpu
         for side in ("card32",) + tuple(witnesses):
             if not rel(side) <= bound:
@@ -3312,7 +3410,9 @@ def freq_xfmr_phase(root: Path, gen, dev, card):
     launched = {}
     loss_g, loss_c, errs = step_pass_check(
         _seeded_task(conf), egs, dev, FREQ_XFMR_GRADS, ZOO_CHECK_UTTS,
-        referee=True, referee_on="cpu", launched=launched)
+        referee=True, referee_on="cpu", launched=launched,
+        witnesses={"stft64": enh_transform_float64(("stft",))},
+        stft_first=FREQ_XFMR_GRADS[0])
     if {k: launched["card32"].get(k, 0) for k in REL_KERNELS} != \
             {k: layers for k in REL_KERNELS}:
         fail(f"the sse@freq_xfmr pass launched {launched['card32']}")
@@ -3374,9 +3474,10 @@ def freq_xfmr_phase(root: Path, gen, dev, card):
     print(f"sse@freq_xfmr training pass card vs CPU at float32 on "
           f"{ZOO_CHECK_UTTS} mixtures (K3's four kernels once a layer on the "
           f"card): loss {loss_g:.6f} vs {loss_c:.6f}; gradients' distance "
-          "(card, CPU) from the CPU's float64 pass relative to the largest "
-          "entry " + ", ".join(f"{k} {a:.3e}, {b:.3e}"
-                               for k, (a, b) in errs.items()), flush=True)
+          "(card, CPU, the card with the STFT in float64) from the CPU's "
+          "float64 pass relative to the largest entry "
+          + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
+                      for k, e in errs.items()), flush=True)
     print(f"sse@freq_xfmr separate, batch 1: {ZOO_SEP_UTTS} mixtures (K3 at "
           f"B = {B_s}, T = {T_s}), {rate:.2f} audio-s/s, a mixture's "
           f"forward {sep_ms:.3f} ms of device time (traced), launches "
@@ -6197,22 +6298,29 @@ TOL_STREAM = 1e-4
 def enh_transform_float64(parts=("stft", "features", "istft")):
     """Witness: the enh transform's STFT, features and iSTFT (those of
     `parts`) in float64 and rounded back to complex64 / float32, the
-    network in float32."""
+    network in float32; a teacher's transform too. Its `stft64` attribute
+    says whether the STFT is among them."""
     import torch
 
     def witness(task) -> None:
-        tf = task.nnet.enh_transform.double()
-        encode, features, decode = tf.encode, tf.forward, tf.decode
-        if "stft" in parts:
-            tf.encode = lambda wav, wav_len=None: (
-                encode(wav.double(), wav_len)[0].to(torch.complex64),
-                tf.num_frames(wav_len))
-        if "features" in parts:
-            tf.forward = lambda stft, training=False: features(
-                stft.to(torch.complex128), training=training).float()
-        if "istft" in parts:
-            tf.decode = lambda stfts: [w.float() for w in decode(
-                [s.to(torch.complex128) for s in stfts])]
+        for nnet in (task.nnet, getattr(task, "teacher_nnet", None)):
+            if nnet is None:
+                continue
+            tf = nnet.enh_transform.double()
+            encode, features, decode = tf.encode, tf.forward, tf.decode
+            if "stft" in parts:
+                tf.encode = lambda wav, wav_len=None, encode=encode, tf=tf: (
+                    encode(wav.double(), wav_len)[0].to(torch.complex64),
+                    tf.num_frames(wav_len))
+            if "features" in parts:
+                tf.forward = lambda stft, training=False, features=features: \
+                    features(stft.to(torch.complex128),
+                             training=training).float()
+            if "istft" in parts:
+                tf.decode = lambda stfts, decode=decode: [
+                    w.float() for w in decode(
+                        [s.to(torch.complex128) for s in stfts])]
+    witness.stft64 = "stft" in parts
     return witness
 
 
@@ -6460,7 +6568,8 @@ def rt_sse_phase(root: Path, name: str, gen, dev, card):
         {0, len(weights) // 2, len(weights) - 1}))
     loss_g, loss_c, errs = step_pass_check(task, egs, dev, grads,
                                            ZOO_CHECK_UTTS, referee=True,
-                                           witnesses=RT_SSE_WITNESSES)
+                                           witnesses=RT_SSE_WITNESSES,
+                                           stft_first=grads[0])
     tt = root / "tt"
     tt.mkdir()
     mixes = write_mixtures(tt, ZOO_SEP_UTTS, gen, WHAM_SR, RT_SSE_SECS,
@@ -6592,6 +6701,784 @@ def rt_sse_phase(root: Path, name: str, gen, dev, card):
     return launches_train, launches_sep, numbers
 
 
+# ---------------------------------------------------------------------------
+# kaldi feature archives, the decoding options, sse@ts, chunked separation
+# of multi-channel input, and K2 and K3 at heads of 96 and 128
+# ---------------------------------------------------------------------------
+KALDI_UTTS = 32  # the flagship's training batch, one step an epoch
+KALDI_EPOCHS = 2
+KALDI_DECODE_UTTS = 8
+KALDI_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU search
+KALDI_PASS_UTTS = 4  # of the batch, in the card-vs-CPU training pass
+KALDI_ARGS = ["--beam-size", "8", "--ctc-weight", "0.4", "--max-len", "40",
+              "--allow-partial", "true"]
+KALDI_SEARCH = dict(sos=VOCAB - 3, eos=VOCAB - 2, beam_size=8, nbest=1,
+                    max_len=40, ctc_weight=0.4, allow_partial=True)
+# bfloat16 decoding, card vs CPU: both round the same weights and the
+# same encoder output to bfloat16 and compute in float32 from there, so
+# they part only as float32 sums in another order do, and where an entry
+# both round lies within that of a rounding boundary and goes to the next
+# bfloat16 value on one side (some 1e-5 of a score). A float32-sized gate,
+# a fifth of TOL_SCORE (tests/test_torch_decode_opts.py holds the port
+# against aps_tpu by the same gate); the float32 search must fail it
+# the float32 decode's gate, card vs CPU (§2 of PERF.md): a best score
+# within TOL_SCORE
+TOL_SCORE = 1e-3
+TOL_BF16_SCORE = 2e-4
+# (the commands take --cov-penalty and keep cov_method v1, as aps_tpu's;
+# v2 is the search's keyword)
+DECODE_OPTIONS = {"float32": [], "bfloat16": ["--dtype", "bfloat16"],
+                  "cov_v1": ["--cov-penalty", "0.5"]}
+TS_UTTS = 16  # FREQ_XFMR_BATCH mixtures of FREQ_XFMR_SECS, one step
+TS_SEP_UTTS = 4
+MC_SECS = 8  # the 5-channel mixture separated in chunks
+MC_CHUNK, MC_HOP = 4 * SR, 3 * SR
+MC_CONF = dict(input_size=1285, num_bins=257, num_spks=1, hidden=512,
+               num_layers=3, dropout=0.0, bidirectional=True)
+WIDE_HEADS = (96, 128)
+# K3 at the flagship step's (B, H, T, k_len) with 128-wide heads (a 512-wide
+# encoder of 4 heads) and at the one-key corner; K2 at the long-form step's
+WIDE_REL_CASES = ((TRAIN_UTTS, 4, 231, [200] * TRAIN_UTTS, False, 1, "step"),
+                  (8, 4, 640, [1, 1, 640, 2, 1, 1, 640, 2], True, 4,
+                   "corner"))
+WIDE_ABS_CASES = ((8, 4, 690, [600] * 8, False, "step"),
+                  (8, 4, 640, [1, 1, 640, 2, 1, 1, 640, 2], True, "corner"))
+# the 2-layer conformer of width 512 with 4 heads (head dim 128)
+WIDE_CONF = dict(att_dim=512, nhead=4, feedforward_dim=2048)
+WIDE_PASS_UTTS = 4
+
+
+def _features_model(gen, peaky: bool):
+    """The full-width flagship fed with 80-dim features (no asr_transform),
+    seeded weights (output layers x 8 with peaky) -> (conf, model)."""
+    import torch
+
+    from aps_tpu_torch.flagship import flagship_train_conf, init_weights
+    from aps_tpu_torch.libs import aps_asr_nnet
+    conf = flagship_train_conf(VOCAB)
+    del conf["asr_transform"]
+    nnet_conf = conf["nnet_conf"]
+    nnet_conf["enc_kwargs"]["arch_kwargs"]["ffn_dropout"] = 0.0
+    nnet_conf["dec_kwargs"]["arch_kwargs"].update(att_dropout=0.0,
+                                                  ffn_dropout=0.0)
+    model = aps_asr_nnet(conf["nnet"])(**nnet_conf)
+    init_weights(model, gen)
+    if peaky:
+        with torch.no_grad():
+            model.decoder.output.weight.mul_(8.0)
+            model.ctc_head.weight.mul_(8.0)
+    return conf, model
+
+
+def kaldi_phase(root: Path, dict_path: Path, gen, dev, card):
+    """am@kaldi and decode from a feats.scp at full width: the flagship's
+    80-dim log-mel features (its front end without the cmvn, K1 on the
+    card) of KALDI_UTTS seeded 8 s utterances through the port's
+    ArchiveWriter, one archive plain and one compressed (CM), read back;
+    train_am of the flagship fed with features from the compressed archive,
+    KALDI_EPOCHS one-step epochs (K3's forward and backward counted
+    exactly, no K1); one training pass card vs CPU on KALDI_PASS_UTTS
+    (PERF.md section 2's bounds); cmd.decode of KALDI_DECODE_UTTS from the
+    plain feats.scp with peaky seeded weights (K3's forward 12 times an
+    utterance, K4 once a search step, no K1), and the search card vs CPU on
+    KALDI_CHECK_UTTS. -> (launches of training, of the decode)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import decode, train_am
+    from aps_tpu_torch.conf import load_am_conf
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.flagship import flagship_conf
+    from aps_tpu_torch.libs import aps_dataloader, aps_task, aps_transform
+    from aps_tpu_torch.loader.kaldi_io import ArchiveWriter, ScriptReader
+    from aps_tpu_torch.ops import build
+    beg = time.perf_counter()
+    root.mkdir()
+    wavs = write_wavs(root, "kal", KALDI_UTTS, gen)
+    front = dict(flagship_conf(VOCAB, small=False)["asr_transform"],
+                 feats="fbank-log")
+    tf = aps_transform("asr")(**front).to(dev)
+    build.reset_launches()
+    feats = {}
+    with torch.no_grad():
+        for key in sorted(wavs):
+            x = torch.from_numpy(wavs[key])[None].to(dev)
+            feats[key] = tf(x)[0][0].cpu().numpy()
+    if build.LAUNCHES["fused_logmel"] != KALDI_UTTS or any(
+            f.shape[1] != 80 for f in feats.values()):
+        fail(f"the features: {build.LAUNCHES}, shapes "
+             f"{sorted({f.shape for f in feats.values()})}")
+    for name, compress in (("feats", ""), ("feats_cm", "CM")):
+        with ArchiveWriter(str(root / f"{name}.ark"),
+                           str(root / f"{name}.scp"),
+                           compress=compress) as writer:
+            for key in sorted(feats):
+                writer.write(key, feats[key])
+    plain = ScriptReader(str(root / "feats.scp"))
+    packed = ScriptReader(str(root / "feats_cm.scp"))
+    cm_err = 0.0
+    for key, mat in feats.items():
+        if not np.array_equal(plain[key], mat):
+            fail(f"{key}: the plain archive reads back other values")
+        span = float(mat.max() - mat.min())
+        cm_err = max(cm_err, float(np.abs(packed[key] - mat).max()) / span)
+    if not cm_err <= 1.0 / 63:
+        fail(f"the compressed archive reads back {cm_err} of a matrix's "
+             "range off (its coarsest step is 1/63)")
+    labels = torch.randint(1, VOCAB - 3, (KALDI_UTTS, TRAIN_LABELS),
+                           generator=gen).tolist()
+    with open(root / "text", "w") as text, \
+            open(root / "utt2num_frames", "w") as dur:
+        for key, toks in zip(sorted(feats), labels):
+            text.write(f"{key} {' '.join(f't{i}' for i in toks)}\n")
+            dur.write(f"{key} {feats[key].shape[0]}\n")
+    conf, model = _features_model(gen, peaky=False)
+    for key in ("vocab_size", "sos", "eos", "ctc"):
+        conf["nnet_conf"].pop(key)
+    data = {"feats_scp": str(root / "feats_cm.scp"),
+            "text": str(root / "text"),
+            "utt2num_frames": str(root / "utt2num_frames")}
+    conf["data_conf"] = {"fmt": "am@kaldi",
+                         "loader": {"adapt_dur": 5000, "tokenizer": "word"},
+                         "train": data, "valid": data}
+    (root / "train.yaml").write_text(json.dumps(conf, indent=2))
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_am.main([
+            "--conf", str(root / "train.yaml"), "--dict", str(dict_path),
+            "--checkpoint", str(root / "exp"), "--batch-size",
+            str(KALDI_UTTS), "--epochs", str(KALDI_EPOCHS), "--seed",
+            str(SEED)])
+    torch.cuda.synchronize()
+    launches_train = dict(build.LAUNCHES)
+    log = root / "exp" / "trainer.log"
+    losses = _epoch_losses(log, "train") + _epoch_losses(log, "valid")
+    passes = KALDI_EPOCHS + len(_epoch_losses(log, "valid"))
+    want = {k: 0 for k in build.LAUNCHES}
+    want["flash_attention_rel"] = ENC_LAYERS * passes
+    want.update({f"flash_attention_rel_{k}": ENC_LAYERS * KALDI_EPOCHS
+                 for k in BACKWARD})
+    if trainer.device.type != "cuda" or trainer.cur_step != KALDI_EPOCHS \
+            or launches_train != want or not all(map(math.isfinite, losses)):
+        fail(f"train_am from am@kaldi: {trainer.cur_step} steps on "
+             f"{trainer.device}, losses {losses}, launches "
+             f"{launches_train}, expected {want}")
+    del trainer
+    _, vocab = load_am_conf(str(root / "train.yaml"), str(dict_path))
+    egs = next(iter(aps_dataloader(
+        fmt="am@kaldi", train=False, vocab_dict=vocab,
+        max_batch_size=KALDI_UTTS, **conf["data_conf"]["loader"], **data)))
+    task = aps_task(conf["task"], model, blank=VOCAB - 1,
+                    **conf["task_conf"])
+    loss_g, loss_c, errs = step_pass_check(
+        task, egs, dev, STEP_GRADS["flagship"], KALDI_PASS_UTTS,
+        referee=False)
+    # the decode: peaky seeded weights, the plain archive
+    conf, model = _features_model(gen, peaky=True)
+    cpt = root / "cpt"
+    cpt.mkdir()
+    (cpt / "train.yaml").write_text(json.dumps(
+        dict(conf, data_conf={}), indent=2))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": variables["params"],
+                     "mstate": {"batch_stats": variables["batch_stats"]}},
+                    fd)
+    keys = sorted(feats)[:KALDI_DECODE_UTTS]
+    lines = (root / "feats.scp").read_text().splitlines()
+    (root / "decode.scp").write_text(
+        "".join(ln + "\n" for ln in lines if ln.split()[0] in keys))
+    build.reset_launches()
+    with scorer_steps() as steps, \
+            contextlib.redirect_stdout(sys.stderr):
+        stats = decode.main([str(root / "decode.scp"),
+                             str(root / "best.txt"), "--am", str(cpt),
+                             "--dict", str(dict_path)] + KALDI_ARGS)
+    launches_dec = dict(build.LAUNCHES)
+    want = {k: 0 for k in build.LAUNCHES}
+    want.update({"flash_attention_rel": ENC_LAYERS * KALDI_DECODE_UTTS,
+                 "ctc_score_step": len(steps)})
+    if stats["utts"] != KALDI_DECODE_UTTS or launches_dec != want or \
+            not all(map(math.isfinite, stats["scores"].values())):
+        fail(f"decode from feats.scp: {stats['utts']} utterances, scores "
+             f"{stats['scores']}, launches {launches_dec}, expected {want}")
+    nnet = load_checkpoint(str(cpt))["nnet"]
+    from aps_tpu_torch.asr.beam_search.transformer import beam_search
+    score_err = 0.0
+    for key in keys[:KALDI_CHECK_UTTS]:
+        hyps = {str(w): beam_search(nnet.to(w), feats[key], device=w,
+                                    **KALDI_SEARCH) for w in ("cpu", dev)}
+        err = nbest_error(hyps["cpu"], hyps[str(dev)], TOL_SCORE)
+        if err is None or abs(hyps[str(dev)][0]["score"] -
+                              stats["scores"][key]) > TOL_SCORE:
+            fail(f"{key}: decode from feats.scp card vs CPU {hyps} (the "
+                 f"command's score {stats['scores'][key]})")
+        score_err = max(score_err, err)
+    print(f"kaldi: {KALDI_UTTS} utterances of the flagship's 80-dim log-mel "
+          f"features written as a plain and a compressed (CM) archive "
+          f"(read back: plain equal, CM within {cm_err:.3e} of a matrix's "
+          f"range); train_am from am@kaldi (the compressed archive), "
+          f"{KALDI_EPOCHS} one-step epochs of {KALDI_UTTS} utterances, "
+          f"launches {launches_train}, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; its pass card vs CPU "
+          f"on {KALDI_PASS_UTTS}: loss {loss_g:.6f} vs {loss_c:.6f}, "
+          "gradients relative to the largest entry "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; decode of {KALDI_DECODE_UTTS} from the feats.scp in "
+          f"{stats['decode_secs']:.3f} s, launches {launches_dec}, card vs "
+          f"CPU on {KALDI_CHECK_UTTS}: best scores within {score_err:.3e}; "
+          f"the phase took {time.perf_counter() - beg:.1f} s ({card})",
+          flush=True)
+    return launches_train, launches_dec
+
+
+def decode_options_phase(root: Path, cpt: Path, wavs, shapes, dev, card):
+    """decode_batch (DECODE_ARGS) of the first 8 utterances with each of
+    DECODE_OPTIONS: float32, --dtype bfloat16 (the decoder's weights and
+    the encoder output rounded to bfloat16, the encoder and the CTC table
+    float32), and --cov-penalty 0.5 (cov_method v1: the scores of float32,
+    the transformer search's coverage never grows); launch counts exact
+    (K1 and K3 as float32's: no kernel runs in bfloat16). The batched
+    search on the card with cov_method v2 (every score -inf), and the
+    bfloat16 search card vs CPU on 2 utterances within TOL_BF16_SCORE,
+    where the card's float32 search must lie outside it. -> launches by
+    option."""
+    from aps_tpu_torch.asr.beam_search.transformer import beam_search_batch
+    from aps_tpu_torch.cmd import decode_batch
+    from aps_tpu_torch.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.ops import build
+    S = shapes[0]
+    keys = sorted(wavs)[:8]
+    lines = (root / "wav.scp").read_text().splitlines()
+    scp = root / "wav8.scp"
+    scp.write_text("".join(ln + "\n" for ln in lines
+                           if ln.split()[0] in keys))
+    stats, launches = {}, {}
+    for option, extra in DECODE_OPTIONS.items():
+        build.reset_launches()
+        with scorer_steps() as steps, \
+                contextlib.redirect_stdout(sys.stderr):
+            stats[option] = decode_batch.main(
+                [str(scp), str(root / f"best.{option}"), "--am", str(cpt),
+                 "--dict", str(root / "dict")] + DECODE_ARGS + extra)
+        launches[option] = dict(build.LAUNCHES)
+        want = decode_launches("flagship", 1, len(steps))
+        if launches[option] != want:
+            fail(f"decode_batch {option}: launches {launches[option]}, "
+                 f"expected {want}")
+    base = stats["float32"]["scores"]
+    if any(abs(stats["cov_v1"]["scores"][k] - base[k]) > 1e-6
+           for k in keys):
+        fail(f"cov_penalty v1 moved the scores: {stats['cov_v1']['scores']}"
+             f" against {base}")
+    nnet = load_checkpoint(str(cpt))["nnet"]
+    kw = dict(sos=VOCAB - 3, eos=VOCAB - 2, beam_size=8, nbest=1, max_len=40,
+              ctc_weight=0.4, allow_partial=True, pad_to=S)
+    v2 = beam_search_batch(nnet.to(dev), [wavs[k] for k in keys],
+                           device=dev, cov_penalty=0.5, cov_method="v2",
+                           **kw)
+    if any(h["score"] != -math.inf for hyps in v2 for h in hyps):
+        fail(f"cov_penalty v2: scores {[h['score'] for h in v2[0]]}, "
+             "expected -inf on every hypothesis")
+    batch = [wavs[k] for k in keys[:2]]
+    hyps = {}
+    for where in ("cpu", dev):
+        model = nnet.to(where)
+        for dtype in ("float32", "bfloat16"):
+            hyps[(str(where), dtype)] = beam_search_batch(
+                model, batch, dtype=dtype, device=where, **kw)
+    moved, err, cmd_err = [], 0.0, 0.0
+    for i, key in enumerate(keys[:2]):
+        c16 = hyps[("cpu", "bfloat16")][i][0]
+        g32 = hyps[(str(dev), "float32")][i][0]
+        g16 = hyps[(str(dev), "bfloat16")][i][0]
+        moved.append(abs(c16["score"] - g32["score"]))
+        err = max(err, abs(g16["score"] - c16["score"]))
+        cmd_err = max(cmd_err, abs(stats["bfloat16"]["scores"][key] -
+                                   g16["score"]))
+        if g16["trans"] != c16["trans"] or err > TOL_BF16_SCORE or \
+                cmd_err > TOL_BF16_SCORE or moved[-1] <= TOL_BF16_SCORE:
+            fail(f"{key}: bfloat16 search card {g16['score']} vs CPU "
+                 f"{c16['score']} (the card's float32 {g32['score']}, gate "
+                 f"{TOL_BF16_SCORE}; the command's "
+                 f"{stats['bfloat16']['scores'][key]})")
+    secs = {k: v["decode_secs"] for k, v in stats.items()}
+    print(f"decode options on 8 x {UTT_SECS} s (decode_batch, "
+          f"{' '.join(DECODE_ARGS)}): seconds {secs}; --cov-penalty (v1) = "
+          "the float32 scores, v2 (the search) -inf on every hypothesis; "
+          "the card's float32 best scores lie "
+          + ", ".join(f"{m:.3e}" for m in moved) + " from the CPU's "
+          f"bfloat16 search, the card's bfloat16 search {err:.3e} and the "
+          f"command's {cmd_err:.3e} (gate {TOL_BF16_SCORE}); "
+          f"launches {launches['bfloat16']} ({card})", flush=True)
+    return launches
+
+
+def _write_simu_inputs(data: Path, gen, count: int):
+    """count pairs of seeded speakers (write_mixtures' sources), a seeded
+    noise and a synthetic room response as wav files, and simu.cfg lines
+    of loader/simu.py's options that mix them -> simu.cfg."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    write_mixtures(data, count, gen, WHAM_SR, FREQ_XFMR_SECS, WHAM_NAMES)
+    S = FREQ_XFMR_SECS * WHAM_SR
+    noise = 0.1 * torch.randn(S, generator=gen).numpy()
+    taps = int(0.25 * WHAM_SR)
+    rir = torch.randn(taps, generator=gen).numpy() * np.exp(
+        -np.arange(taps) / (0.04 * WHAM_SR)) * 0.3
+    rir[10] += 1.0
+    for name, sig in (("noise", noise), ("rir", rir)):
+        pcm = np.clip(np.round(sig * 32767), -32768, 32767).astype(np.int16)
+        wavfile.write(str(data / f"{name}.wav"), WHAM_SR, pcm)
+    with open(data / "simu.cfg", "w") as cfg:
+        for n in range(count):
+            s1, s2 = (data / f"{k}{n:02d}.wav" for k in WHAM_NAMES[1:])
+            rir_path = data / "rir.wav"
+            cfg.write(f"mix{n:02d} --sr {WHAM_SR} --src-spk {s1},{s2} "
+                      f"--src-sdr {n % 5 - 2} --src-rir {rir_path},"
+                      f"{rir_path} --point-noise {data / 'noise.wav'} "
+                      f"--point-noise-snr {10 + n % 7}\n")
+    return data / "simu.cfg"
+
+
+def ts_phase(root: Path, teacher: Path, gen, dev, card):
+    """sse@ts: a student sse@freq_xfmr (FREQ_XFMR_CONF) distilled from
+    freq_xfmr_phase's checkpoint (last.ckpt, frozen, eval mode) through
+    train_ss on se@simu_cmd mixtures of seeded speakers, a noise and a
+    room response written as files, ZOO_TRAIN_EPOCHS one-step epochs of
+    TS_UTTS: K3's forward once a layer for the teacher and once for the
+    student a pass, its backward kernels once a layer a step, counted
+    exactly; a training pass card vs CPU on 2 mixtures (the float64
+    referee on the CPU, the first layer's gradient held to the float32
+    STFT's derived hold, both STFTs, teacher's and student's, moved);
+    separate --dtype bfloat16 of the student on TS_SEP_UTTS mixtures (K3's
+    forward once a layer each), card vs CPU. -> (launches of training, of
+    separation)."""
+    import torch
+
+    from aps_tpu_torch.cmd import separate, train_ss
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.libs import aps_dataloader, aps_sse_nnet, aps_task
+    from aps_tpu_torch.libs import aps_transform
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    beg = time.perf_counter()
+    root.mkdir()
+    wham = load_ss_conf(str(REPO / FREQ_XFMR_YAML))
+    data = root / "data"
+    data.mkdir()
+    cfg = _write_simu_inputs(data, gen, TS_UTTS)
+    # permute false: at random weights the two permutations of PIT lie
+    # close, and a rounding can flip the choice (and the gradient with it)
+    task_conf = {"teacher": str(teacher), "teacher_tag": "last",
+                 "objf_name": "L2", "permute": False}
+    loader = {"sr": WHAM_SR, "chunk_size": FREQ_XFMR_SECS * WHAM_SR}
+    conf = dict(nnet="sse@freq_xfmr", nnet_conf=FREQ_XFMR_CONF,
+                enh_transform=wham["enh_transform"], task="sse@ts",
+                task_conf=task_conf, trainer_conf=wham["trainer_conf"],
+                data_conf={"fmt": "se@simu_cmd", "loader": loader,
+                           "train": {"simu_cfg": str(cfg)},
+                           "valid": {"simu_cfg": str(cfg)}})
+    (root / "train.yaml").write_text(json.dumps(conf, indent=2))
+    cpt = root / "cpt"
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_ss.main([
+            "--conf", str(root / "train.yaml"), "--checkpoint", str(cpt),
+            "--batch-size", str(TS_UTTS), "--epochs", str(ZOO_TRAIN_EPOCHS),
+            "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches_train = dict(build.LAUNCHES)
+    valid = len(_epoch_losses(cpt / "trainer.log", "valid"))
+    losses = _epoch_losses(cpt / "trainer.log", "train")
+    layers = FREQ_XFMR_CONF["num_layers"]
+    want = {k: 0 for k in build.LAUNCHES}
+    want["flash_attention_rel"] = 2 * layers * (ZOO_TRAIN_EPOCHS + valid)
+    want.update({f"flash_attention_rel_{k}": layers * ZOO_TRAIN_EPOCHS
+                 for k in BACKWARD})
+    if trainer.device.type != "cuda" or \
+            trainer.cur_step != ZOO_TRAIN_EPOCHS or \
+            launches_train != want or not all(map(math.isfinite, losses)):
+        fail(f"train_ss (sse@ts): {trainer.cur_step} steps on "
+             f"{trainer.device}, losses {losses}, launches {launches_train},"
+             f" expected {want}")
+    if any(p.requires_grad for p in trainer.task.teacher_nnet.parameters()):
+        fail("sse@ts: the teacher takes gradients")
+    del trainer
+    egs = next(iter(aps_dataloader(fmt="se@simu_cmd", train=False,
+                                   max_batch_size=TS_UTTS, simu_cfg=str(cfg),
+                                   num_workers=0, **loader)))
+    torch.manual_seed(SEED)
+    student = aps_sse_nnet("sse@freq_xfmr")(
+        enh_transform=aps_transform("enh")(**wham["enh_transform"]),
+        **FREQ_XFMR_CONF)
+    task = aps_task("sse@ts", student, **task_conf)
+    weights = [k for k, p in student.named_parameters() if p.dim() >= 2]
+    grads = tuple(weights[i] for i in sorted(
+        {0, len(weights) // 2, len(weights) - 1}))
+    loss_g, loss_c, errs = step_pass_check(task, egs, dev, grads, 2,
+                                           referee=True, referee_on="cpu",
+                                           witnesses={"stft64":
+                                                      enh_transform_float64(
+                                                          ("stft",))},
+                                           stft_first=grads[0])
+    tt = root / "tt"
+    tt.mkdir()
+    mixes = write_mixtures(tt, TS_SEP_UTTS, gen, WHAM_SR, FREQ_XFMR_SECS,
+                           WHAM_NAMES)
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = separate.main([str(tt / "mix.scp"), str(root / "sep"),
+                               "--checkpoint", str(cpt), "--tag", "last",
+                               "--sr", str(WHAM_SR), "--dtype", "bfloat16"])
+    launches_sep = dict(build.LAUNCHES)
+    want = {k: 0 for k in build.LAUNCHES}
+    want["flash_attention_rel"] = layers * TS_SEP_UTTS
+    if stats["utts"] != TS_SEP_UTTS or launches_sep != want:
+        fail(f"separate --dtype bfloat16 (sse@ts student): "
+             f"{stats['utts']} mixtures, launches {launches_sep}, expected "
+             f"{want}")
+    import numpy as np
+    seps = {w: separate.Separator(str(cpt), cpt_tag="last", device=w,
+                                  dtype="bfloat16") for w in ("cpu", "cuda")}
+    f32 = separate.Separator(str(cpt), cpt_tag="last", device="cuda")
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: [s.run(mixes[k]) for k in sorted(mixes)]
+                for w, s in seps.items()}
+        plain = [f32.run(mixes[k]) for k in sorted(mixes)]
+    got = np.concatenate([np.ravel(a) for a in _flat(outs["cuda"])])
+    ref = np.concatenate([np.ravel(a) for a in _flat(outs["cpu"])])
+    full = np.concatenate([np.ravel(a) for a in _flat(plain)])
+    scale, err = float(np.abs(ref).max()), float(np.abs(got - ref).max())
+    moved = float(np.abs(got - full).max())
+    if not (scale > 0 and np.isfinite(got).all() and
+            err <= TOL_SEP_REL * scale and moved > err):
+        fail(f"sse@ts student, separate --dtype bfloat16 card vs CPU: max "
+             f"abs err {err} (largest sample {scale}; bfloat16 against "
+             f"float32 on the card {moved})")
+    print(f"sse@ts: a student sse@freq_xfmr distilled from the freq_xfmr "
+          f"phase's checkpoint on {TS_UTTS} se@simu_cmd mixtures of "
+          f"{FREQ_XFMR_SECS} s (two speakers through a room response, a "
+          f"point noise), {ZOO_TRAIN_EPOCHS} one-step epochs, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, launches "
+          f"{launches_train}; its pass card vs CPU on 2 mixtures: loss "
+          f"{loss_g:.6f} vs {loss_c:.6f}, gradients' distance (card, CPU, "
+          "the card with the STFT in float64) from the CPU's float64 pass "
+          "relative to the largest entry "
+          + ", ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in e)
+                      for k, e in errs.items())
+          + f"; separate --dtype bfloat16 on {TS_SEP_UTTS}: launches "
+          f"{launches_sep}, card vs CPU {err:.3e} (largest sample "
+          f"{scale:.3f}), bfloat16 against float32 {moved:.3e}; the phase "
+          f"took {time.perf_counter() - beg:.1f} s ({card})", flush=True)
+    return launches_train, launches_sep
+
+
+def mc_chunk_phase(root: Path, gen, dev, card):
+    """Chunked separation of multi-channel input: sse@base_rnn (MC_CONF)
+    behind chime4_ml 1a's enh transform (the log spectrogram and the
+    cos-IPD of 4 pairs of its 5 channels), seeded weights; one 5-channel
+    mixture of MC_SECS through `separate --chunk-len MC_CHUNK --chunk-hop
+    MC_HOP` on the card (chunks of C x MC_CHUNK samples stitched on the
+    sample axis), and Separator.run card vs CPU within TOL_SEP_REL of the
+    largest sample. No kernel is on this path. -> launches."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import separate
+    from aps_tpu_torch.conf import load_ss_conf
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.io import read_audio
+    from aps_tpu_torch.libs import aps_sse_nnet, aps_transform
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
+    root.mkdir()
+    enh = load_ss_conf(str(REPO / CHIME4_ML_YAML))["enh_transform"]
+    torch.manual_seed(SEED)
+    model = aps_sse_nnet("sse@base_rnn")(
+        enh_transform=aps_transform("enh")(**enh), **MC_CONF)
+    cpt = root / "cpt"
+    cpt.mkdir()
+    (cpt / "train.yaml").write_text(json.dumps(dict(
+        nnet="sse@base_rnn", nnet_conf=MC_CONF, enh_transform=enh,
+        task="sse@sisnr", task_conf={}, data_conf={}, trainer_conf={}),
+        indent=2))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": {"nnet": variables["params"]}}, fd)
+    mixes = write_multichannel(root, "mc", 1, gen, MC_SECS)
+    key, mix = next(iter(mixes.items()))
+    build.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        separate.main([str(root / "wav.scp"), str(root / "sep"),
+                       "--checkpoint", str(cpt), "--sr", str(SR),
+                       "--chunk-len", str(MC_CHUNK), "--chunk-hop",
+                       str(MC_HOP)])
+    launches = dict(build.LAUNCHES)
+    written = read_audio(str(root / "sep" / f"{key}.wav"), sr=SR)
+    if any(launches.values()) or written.shape != (MC_SECS * SR,):
+        fail(f"chunked separate of {mix.shape}: launches {launches}, wrote "
+             f"{written.shape}")
+    seps = {w: separate.Separator(str(cpt), device=w) for w in ("cpu", "cuda")}
+    with matmul_precision(INFERENCE_PRECISION, dev):
+        outs = {w: s.run(mix, chunk_len=MC_CHUNK, chunk_hop=MC_HOP)
+                for w, s in seps.items()}
+    scale = float(np.abs(outs["cpu"]).max())
+    err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    if not (scale > 0 and np.isfinite(outs["cuda"]).all() and
+            err <= TOL_SEP_REL * scale):
+        fail(f"chunked separation card vs CPU: max abs err {err} (largest "
+             f"sample {scale})")
+    print(f"chunked separation of a {mix.shape[0]}-channel mixture of "
+          f"{MC_SECS} s (sse@base_rnn, {MC_CONF['num_layers']} x "
+          f"{MC_CONF['hidden']} BLSTM behind chime4_ml's IPD features): "
+          f"chunks of {MC_CHUNK} samples every {MC_HOP}, card vs CPU "
+          f"{err:.3e} (largest sample {scale:.3f}), no kernel launched "
+          f"({card})", flush=True)
+    return launches
+
+
+def _wide_row(name, label, got, want, launch, plain_ms, bound, ops,
+              **more):
+    """A check row, failing past the kernel tolerance (TOL_ATT for the
+    forward, TOL_GRAD (+ TOL_DPOSE_REL of the largest entry for dpose)
+    for the gradients); launch() is timed alone and QUEUED_CALLS queued,
+    and the queued time fails below the tensor cores' bound of the `ops`
+    of its products (TF32/3), as the other K2 and K3 rows do. `more`
+    joins the row's numbers."""
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    tol = TOL_ATT if name in ("flash_attention", "flash_attention_rel") \
+        else TOL_GRAD + (TOL_DPOSE_REL * want[0].abs().max().item()
+                         if name.endswith("dpose") else 0.0)
+    if not err <= tol:
+        fail(f"{name} [{label}]: max abs err {err} > {tol}")
+    queued = time_ms(launch, calls=QUEUED_CALLS)
+    tensor_ms = tensor_core_ms(ops)
+    if not queued >= tensor_ms:
+        fail(f"{name} [{label}]: {queued} ms queued reads below the tensor "
+             f"cores' bound {tensor_ms}")
+    return (label, err, time_ms(launch), plain_ms) + bound + (
+        {"ms_queued": queued, "tensor_core_bound_ms": tensor_ms, **more},)
+
+
+def wrapper_ms(fn, args, do, **kw) -> dict:
+    """The wrapper fn (flash_attention or flash_attention_rel) timed as the
+    model calls it, its pads and slices included at a head of 96: the
+    forward alone ("wrapper_ms") and the forward with the backward of
+    every input ("wrapper_train_ms")."""
+    import torch
+    leaves = [a.clone().requires_grad_() for a in args]
+
+    def train():
+        torch.autograd.grad(fn(*leaves, **kw), leaves, do)
+    with torch.no_grad():
+        forward = time_ms(lambda: fn(*args, **kw))
+    return {"wrapper_ms": forward,
+            "wrapper_train_ms": time_ms(train, iters=10, warmup=2)}
+
+
+def _padded(tensors, width=128):
+    """The tensors zero-padded on their last (head) axis to width, as the
+    wrappers pad a head the kernels are not built for."""
+    import torch
+    return [torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
+def wide_head_phase(dev, gen, card, egs):
+    """K2's and K3's kernels at heads of 96 (zero-padded to 128 by the
+    wrappers) and 128: at the steps' shapes (WIDE_REL_CASES,
+    WIDE_ABS_CASES) and the one-key corner, forward and every backward
+    kernel through the autograd Functions twice for bit-equal results and
+    against the plain versions; each kernel also launched alone on the
+    operands padded to 128 (at 96: what the wrapper launches) and timed,
+    alone and queued, beside its plain version at the true width, its
+    bound and the tensor cores' bound (_wide_row); each forward also
+    through its wrapper, alone and with the backward (pads and slices
+    included at 96); K2's forward at 128 beside the library's call; K2's
+    dbias with a bias. Then one
+    training pass of the flagship cut to 2 conformer layers of width 512
+    with 4 heads (head dim 128) card vs CPU on WIDE_PASS_UTTS of the
+    training batch, K3 at 128 counted. -> (rows by kernel, launches of the
+    pass on the card, numbers)."""
+    import torch
+
+    from aps_tpu_torch.flagship import (build_flagship, flagship_train_conf,
+                                        init_weights)
+    from aps_tpu_torch.libs import aps_task
+    from aps_tpu_torch.ops import attention as k2
+    from aps_tpu_torch.ops import rel_attention as k3
+    beg = time.perf_counter()
+    rows = {name: [] for name in KERNELS if name.startswith(
+        "flash_attention")}
+    more = {}
+    for D in WIDE_HEADS:
+        scale = D**-0.5
+        for B, H, T, lens, causal, Hp, role in WIDE_REL_CASES:
+            args = [torch.randn((B, H, T, D), generator=gen).to(dev)
+                    for _ in range(4)]
+            args.append((0.3 * torch.randn((Hp, 2 * T - 1, D),
+                                           generator=gen)).to(dev))
+            klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            do = torch.randn((B, H, T, D), generator=gen).to(dev)
+            label = (f"B={B} H={H} D={D} T={T} Hp={Hp} causal={causal} "
+                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}")
+            runs = []
+            for _ in range(2):
+                leaves = [a.clone().requires_grad_() for a in args]
+                out = k3.flash_attention_rel(*leaves, k_len=klen,
+                                             causal=causal)
+                runs.append([out.detach()] + list(
+                    torch.autograd.grad(out, leaves, do)))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash_attention_rel [{label}]: two runs differ")
+            want_out = k3.rel_mha_reference(*args, k_len=klen, causal=causal)
+            want = k3.rel_mha_backward_reference(*args, do, k_len=klen,
+                                                 causal=causal)
+            padded = _padded(args)
+            out_p, lse = k3.launch_forward(*padded, klen, causal, True,
+                                           scale)
+            bwd = (*padded, klen, *_padded([do]), lse, out_p,
+                   torch.empty_like(lse), causal, scale)
+            k3.launch_backward_kernel("dq", *bwd)  # forms delta
+            plain_ms = time_ms(lambda: k3.rel_mha_reference(
+                *args, k_len=klen, causal=causal))
+            bwd_plain = time_ms(lambda: k3.rel_mha_backward_reference(
+                *args, do, k_len=klen, causal=causal), iters=5, warmup=1)
+            flops = 2 * D * H * valid_pairs(T, lens, causal)
+            size, table = B * H * T * D, Hp * (2 * T - 1) * D
+            rows["flash_attention_rel"].append(_wide_row(
+                "flash_attention_rel", label + " with lse", runs[0][:1],
+                [want_out], lambda: k3.launch_forward(
+                    *padded, klen, causal, True, scale), plain_ms,
+                bound_ms(4 * (5 * size + B * H * T + table + B), 3 * flops),
+                3 * flops, **wrapper_ms(k3.flash_attention_rel, args, do,
+                                        k_len=klen, causal=causal)))
+            reads = 4 * (5 * size + table + 2 * B * H * T + B)
+            for kernel, idx, ops, written in (
+                    ("dq", (0, 1), 5 * flops, 8 * size),
+                    ("dkv", (2, 3), 5 * flops, 8 * size),
+                    ("dpose", (4,), 4 * flops, 4 * table)):
+                rows[f"flash_attention_rel_{kernel}"].append(_wide_row(
+                    f"flash_attention_rel_{kernel}", label,
+                    [runs[0][1 + i] for i in idx], [want[i] for i in idx],
+                    lambda: k3.launch_backward_kernel(kernel, *bwd),
+                    bwd_plain, bound_ms(reads + written, ops), ops))
+        for B, H, T, lens, causal, role in WIDE_ABS_CASES:
+            q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                           for _ in range(4))
+            klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = (f"B={B} H={H} D={D} T={T} causal={causal} "
+                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}")
+            runs = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = k2.flash_attention(*leaves, k_len=klen, causal=causal)
+                runs.append([out.detach()] + list(
+                    torch.autograd.grad(out, leaves, do)))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash_attention [{label}]: two runs differ")
+            want_out = k2.mha_reference(q, k, v, k_len=klen, causal=causal)
+            want = k2.mha_backward_reference(q, k, v, do, k_len=klen,
+                                             causal=causal)
+            qp, kp, vp, dop = _padded((q, k, v, do))
+            out_p, lse = k2.launch_forward(qp, kp, vp, None, klen, scale,
+                                           causal, True)
+            bwd = (qp, kp, vp, None, klen, dop, lse, out_p,
+                   torch.empty_like(lse), scale, causal)
+            k2.launch_backward_kernel("dq", *bwd)  # forms delta
+            plain_ms = time_ms(lambda: k2.mha_reference(
+                q, k, v, k_len=klen, causal=causal))
+            bwd_plain = time_ms(lambda: k2.mha_backward_reference(
+                q, k, v, do, k_len=klen, causal=causal), iters=5, warmup=1)
+            if D == 128 and role == "step":
+                more["library_ms_D128"] = time_ms(
+                    lambda: _sdpa(q, k, v, klen))
+            flops = 2 * D * H * valid_pairs(T, lens, causal)
+            size = B * H * T * D
+            rows["flash_attention"].append(_wide_row(
+                "flash_attention", label, runs[0][:1], [want_out],
+                lambda: k2.launch_forward(qp, kp, vp, None, klen, scale,
+                                          causal, False),
+                plain_ms, bound_ms(4 * (4 * size + B), 2 * flops),
+                2 * flops, **wrapper_ms(k2.flash_attention, (q, k, v), do,
+                                        k_len=klen, causal=causal)))
+            for kernel, idx, ops in (("dq", (0,), 3 * flops),
+                                     ("dkv", (1, 2), 4 * flops)):
+                rows[f"flash_attention_{kernel}"].append(_wide_row(
+                    f"flash_attention_{kernel}", label,
+                    [runs[0][1 + i] for i in idx], [want[i] for i in idx],
+                    lambda: k2.launch_backward_kernel(kernel, *bwd),
+                    bwd_plain,
+                    bound_ms(4 * (4 * size + 2 * B * H * T + B) +
+                             4 * len(idx) * size, ops), ops))
+        # dbias (no model passes a bias): once with one, twice
+        B, H, T = 4, 4, 129
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                       for _ in range(4))
+        bias = torch.randn((H, T, T), generator=gen).to(dev)
+        klen = torch.tensor([T, 70, 1, 0], dtype=torch.int32, device=dev)
+        got = []
+        for _ in range(2):
+            leaf = bias.clone().requires_grad_()
+            out = k2.flash_attention(q, k, v, bias=leaf, k_len=klen)
+            got.append(torch.autograd.grad(out, leaf, do)[0])
+        if not torch.equal(*got):
+            fail(f"flash_attention_dbias D={D}: two runs differ")
+        want = k2.mha_backward_reference(q, k, v, do, bias=bias,
+                                         k_len=klen)[3]
+        qp, kp, vp, dop = _padded((q, k, v, do))
+        out_p, lse = k2.launch_forward(qp, kp, vp, bias, klen, scale, False,
+                                       True)
+        bwd = (qp, kp, vp, bias, klen, dop, lse, out_p,
+               torch.empty_like(lse), scale, False)
+        k2.launch_backward_kernel("dq", *bwd)  # forms delta
+        ops = 3 * 2 * D * H * valid_pairs(T, klen.tolist(), False)
+        rows["flash_attention_dbias"].append(_wide_row(
+            "flash_attention_dbias", f"B={B} H={H} D={D} T={T} k_len "
+            "ragged with 0", [got[0]], [want],
+            lambda: k2.launch_backward_kernel("dbias", *bwd),
+            time_ms(lambda: k2.mha_backward_reference(
+                q, k, v, do, bias=bias, k_len=klen), iters=5, warmup=1),
+            bound_ms(4 * (4 * B * H * T * D + 2 * H * T * T), ops), ops))
+    # the training pass of a 512-wide conformer of 4 heads
+    conf = flagship_train_conf(VOCAB)
+    nnet_conf = conf["nnet_conf"]
+    nnet_conf["enc_kwargs"]["num_layers"] = 2
+    nnet_conf["enc_kwargs"]["arch_kwargs"].update(WIDE_CONF, ffn_dropout=0.0)
+    nnet_conf["dec_kwargs"]["num_layers"] = 1
+    nnet_conf["dec_kwargs"]["arch_kwargs"].update(WIDE_CONF, att_dropout=0.0,
+                                                  ffn_dropout=0.0)
+    model = build_flagship(conf)
+    init_weights(model, gen)
+    task = aps_task(conf["task"], model, blank=VOCAB - 1,
+                    **conf["task_conf"])
+    launched = {}
+    loss_g, loss_c, errs = step_pass_check(
+        task, egs, dev, STEP_GRADS["flagship"], WIDE_PASS_UTTS,
+        referee=False, launched=launched)
+    want = {"fused_logmel": 1, "flash_attention_rel": 2,
+            **{f"flash_attention_rel_{k}": 2 for k in BACKWARD}}
+    if launched["card32"] != want:
+        fail(f"the 512-wide conformer's pass launched {launched['card32']},"
+             f" expected {want}")
+    more["pass"] = {"loss": (loss_g, loss_c), "errs": errs}
+    print(f"wide heads: K2 and K3 at D = {WIDE_HEADS} (96 zero-padded to "
+          "128) at the steps' shapes and the one-key corner, twice each "
+          "for bit-equal results; a training pass of the flagship cut to 2 "
+          f"conformer layers of width 512 with 4 heads card vs CPU on "
+          f"{WIDE_PASS_UTTS} utterances: loss {loss_g:.6f} vs {loss_c:.6f}, "
+          "gradients relative to the largest entry "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f", launches {launched['card32']}; the library's forward at "
+          f"D = 128: {more['library_ms_D128']:.4f} ms; "
+          f"the phase took {time.perf_counter() - beg:.1f} s ({card})",
+          flush=True)
+    return rows, launched["card32"], more
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6702,6 +7589,11 @@ def main() -> None:
             print_rows(name, rows, card)
         print("the plain time beside a backward kernel is that of the whole "
               "plain backward, which gives all of its gradients", flush=True)
+        # K2 and K3 at heads of 96 and 128, and a 512-wide conformer's pass
+        wide_rows, launches_wide, wide_more = wide_head_phase(
+            dev, torch.Generator().manual_seed(SEED + 6), card, egs)
+        for name, rows in wide_rows.items():
+            print_rows(name, rows, card)
 
         best = root / "best.txt"
         argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
@@ -6738,6 +7630,14 @@ def main() -> None:
         enc_err, score_err = reference_check(cpt, wavs, dev, stats, shapes)
         print(f"card vs CPU on 2 utterances: encoder max abs err "
               f"{enc_err:.3e}, best-score diff {score_err:.3e}", flush=True)
+        # the decoding options on the same checkpoint, then kaldi feature
+        # archives (am@kaldi, decode from a feats.scp); a generator of its
+        # own, so the phases after it see the inputs they saw before
+        launches_opt = decode_options_phase(root, cpt, wavs, shapes, dev,
+                                            card)
+        launches_kal, launches_kal_dec = kaldi_phase(
+            root / "kaldi", root / "dict",
+            torch.Generator().manual_seed(SEED + 5), dev, card)
 
         # the LM slice: run.sh stage 4 with the RNN LM and stage 5, the
         # Transformer LM in the single-utterance search, lm_rescore on its
@@ -6870,6 +7770,10 @@ def main() -> None:
         for name, rows in chime4_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
+        # chunked separation of a 5-channel mixture
+        launches_mc = mc_chunk_phase(root / "mc_chunk",
+                                     torch.Generator().manual_seed(SEED + 7),
+                                     dev, card)
 
         # the rest of the SSE zoo: wsj0_2mix/1b, dns_is2020/1a and
         # export_dcunet/1a through train_ss and separate (no kernel on
@@ -6885,6 +7789,11 @@ def main() -> None:
         for name, rows in fx_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
+        # sse@ts: a student distilled from that checkpoint on se@simu_cmd
+        # mixtures, and its separation in bfloat16
+        launches_ts, launches_tssep = ts_phase(
+            zoo_root / "ts", zoo_root / "freq_xfmr" / "cpt",
+            torch.Generator().manual_seed(SEED + 8), dev, card)
 
         # the eight sse@ models that no phase above runs, and K2 at
         # SepFormer's chunk shapes
@@ -7008,6 +7917,22 @@ def main() -> None:
                      "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5],
                      **(r[6] if len(r) > 6 else {})}
                     for r in table[name]]
+        for option, counts in launches_opt.items():
+            extra[f"launches_decode_{option}"] = counts[name]
+        extra.update(launches_kaldi_train_run=launches_kal[name],
+                     launches_kaldi_decode=launches_kal_dec[name],
+                     launches_ts_train_run=launches_ts[name],
+                     launches_ts_separate_bfloat16=launches_tssep[name],
+                     launches_chunked_separate_multichannel=launches_mc[
+                         name],
+                     launches_wide_head_pass=launches_wide.get(name, 0))
+        if name in wide_rows:
+            extra["wide_head_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5],
+                 **r[6]} for r in wide_rows[name]]
+        if name == "flash_attention":
+            extra["library_ms_D128"] = wide_more["library_ms_D128"]
         extra["launches_transducer_train_run"] = trd_train[name]
         extra["launches_transducer_decode"] = trd_dec[name]
         for path, counts in stream_launches_of.items():

@@ -90,6 +90,23 @@ def test_attention_plain_matches_jax(B, Tq, Tk, causal, with_bias, dead):
         assert torch.count_nonzero(got[0]) > 0
 
 
+@pytest.mark.parametrize("D,causal,with_bias", [(96, True, False),
+                                               (128, False, True)])
+def test_attention_wide_heads_match_jax(D, causal, with_bias):
+    """Heads of 96 (the card zero-pads them to 128) and 128: the plain
+    version == aps_tpu's reference and its Pallas kernel in interpret
+    mode, across 64-row tiles with ragged k_len."""
+    q, k, v, bias, k_len = _inputs(D, 3, 2, 70, 65, D, with_bias, True)
+    got = flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
+                          k_len=_t(k_len), causal=causal)
+    kw = dict(bias=_j(bias), k_len=_j(k_len), causal=causal)
+    ref = jax_att.mha_reference(_j(q), _j(k), _j(v), **kw)
+    want = jax_att.flash_attention(_j(q), _j(k), _j(v), interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATT_ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATT_ATOL)
+    assert torch.count_nonzero(got[-1]) == 0
+
+
 def test_attention_softmax_scale_and_defaults():
     """softmax_scale replaces D**-0.5; without k_len every key is visible."""
     q, k, v, _, _ = _inputs(1, 2, 2, 40, 50, 16, False, False)
@@ -139,6 +156,9 @@ GRAD_CASES = [
     (3, 64, 65, 32, True, False, False),
     (3, 65, 129, 16, False, True, True),
     (3, 129, 64, 32, True, True, False),
+    # heads of 96 (zero-padded to 128 on the card) and 128
+    (2, 65, 70, 96, True, False, True),
+    (2, 70, 65, 128, False, True, False),
 ]
 
 
@@ -479,12 +499,13 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
-@pytest.mark.parametrize("D", [8, 40])
+@pytest.mark.parametrize("D", [8, 40, 80])
 def test_padded_heads_match_plain(D):
     """The card's route for a head width the kernels are not built for:
-    q, k, v zero-padded to the next of 16, 32 and 64, attention at the true
-    scale D**-0.5, the output sliced back. Held here through the plain
-    version, forward and gradients, against the plain version at D."""
+    q, k, v zero-padded to the next of 16, 32, 64 and 128, attention at the
+    true scale D**-0.5, the output sliced back. Held here through the plain
+    version, forward and gradients, against the plain version at D. A head
+    over 128 raises, naming the limit."""
     from aps_tpu_torch.ops.attention import with_padded_heads
     gen = torch.Generator().manual_seed(D)
     B, H, Tq, Tk = 3, 2, 33, 47
@@ -502,6 +523,6 @@ def test_padded_heads_match_plain(D):
     for g, w in zip(torch.autograd.grad(got, leaves + [bias], do),
                     torch.autograd.grad(want, leaves + [bias], do)):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
-    with pytest.raises(ValueError, match="head dim 80"):
+    with pytest.raises(ValueError, match="head dim 160 is over 128"):
         with_padded_heads(mha_reference, "mha_reference",
-                          [torch.zeros((1, 1, 4, 80))] * 3)
+                          [torch.zeros((1, 1, 4, 160))] * 3)

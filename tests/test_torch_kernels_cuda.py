@@ -221,6 +221,35 @@ def test_kernel_sources_use_the_tensor_cores(source, product):
     assert "fmaf(" not in text
 
 
+@pytest.mark.parametrize("source", ["attention.cu", "attention_bwd.cu",
+                                    "rel_attention.cu",
+                                    "rel_attention_bwd.cu"])
+def test_attention_kernels_are_built_for_heads_of_128(source):
+    """K2's and K3's kernels are instantiated for heads of 128 (the
+    wrappers pad 65-127 up to it). K3's tiles at 128 keep every product on
+    the tensor cores: the forward streams 16-key tiles and splits q_c's
+    fragments at every tile, dq streams 16-key tiles, and the sizes that
+    decide it are checked against a block's shared memory at compile time."""
+    text = (build.CSRC / source).read_text()
+    assert "case 128: return static_cast<int>(fn<128>(__VA_ARGS__));" in text
+    if source == "rel_attention.cu":
+        tiles = re.search(r"struct Tiles \{(.*?)\};", text, re.S).group(1)
+        assert "kKeys = D <= 64 ? 32 : 16;" in tiles
+        assert "kHoldQ = D <= 64;" in tiles
+        assert "smem_floats<128>() * 4 <= 232448" in text
+        body = _kernel_body(text, "rel_attn_fwd_kernel")
+        assert body.count("mma_f32<NT>(s, qa[") == 2
+    if source == "rel_attention_bwd.cu":
+        tiles = re.search(r"struct DqTiles \{(.*?)\};", text, re.S).group(1)
+        assert "kKeys = D <= 64 ? 64 : 16;" in tiles
+        for kernel in ("dq", "dpose", "dkv"):
+            assert f"{kernel}_smem_floats<128>() * 4 <= kMaxSmemBytes" in text
+        assert "__launch_bounds__(kThreads, dkv_blocks_per_sm<D>())" in text
+    if source == "attention_bwd.cu":
+        assert "__launch_bounds__(kThreads, blocks_per_sm<D>())" in text
+        assert "extern __shared__ float sbias_smem[];" in text
+
+
 def test_ctc_score_kernel_scans_over_chunks():
     """csrc/ctc_score.cu solves the recursions as a chunked scan over T (32
     chunks a block, the maps scanned with warp shuffles) and reads the
@@ -507,9 +536,15 @@ def test_rel_attention_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_rel(rel[0].transpose(2, 3).contiguous().transpose(
             2, 3), *rel[1:])
-    with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros((1, 1, 8, 80), device=cuda_device)] * 4
-        flash_attention_rel(*wide, torch.zeros((1, 15, 80),
+    # a head of 80 runs zero-padded to 128; one over 128 raises
+    padded = [torch.ones((1, 1, 8, 80), device=cuda_device)] * 4
+    table = torch.zeros((1, 15, 80), device=cuda_device)
+    torch.testing.assert_close(flash_attention_rel(*padded, table),
+                               rel_mha_reference(*padded, table),
+                               atol=ATT_ATOL, rtol=0)
+    with pytest.raises(ValueError, match="head dim 160 is over 128"):
+        wide = [torch.zeros((1, 1, 8, 160), device=cuda_device)] * 4
+        flash_attention_rel(*wide, torch.zeros((1, 15, 160),
                                                device=cuda_device))
 
 
@@ -905,8 +940,13 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     q, k, v = [t.to(cuda_device) for t in att]
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
-    with pytest.raises(ValueError, match="head dim"):
-        wide = [torch.zeros((1, 1, 8, 80), device=cuda_device)] * 3
+    # a head of 80 runs zero-padded to 128; one over 128 raises
+    padded = [torch.ones((1, 1, 8, 80), device=cuda_device)] * 3
+    torch.testing.assert_close(flash_attention(*padded),
+                               mha_reference(*padded), atol=ATT_ATOL,
+                               rtol=0)
+    with pytest.raises(ValueError, match="head dim 160 is over 128"):
+        wide = [torch.zeros((1, 1, 8, 160), device=cuda_device)] * 3
         flash_attention(*wide)
     with pytest.raises(ValueError, match="not CUDA"):
         flash_attention(q, k, v, bias=bias)
@@ -1084,6 +1124,121 @@ def test_attention_gradcheck_style(cuda_device):
 
     numeric = (f64(1) - f64(-1)) / (2 * eps)
     assert abs(numeric - want) <= 1e-3 * max(1.0, abs(numeric))
+
+
+WIDE_LENGTHS = [(63, 63), (64, 64), (65, 129), (129, 65), (300, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("Tq,Tk", WIDE_LENGTHS)
+def test_attention_kernels_at_wide_heads(cuda_device, D, Tq, Tk):
+    """K2's forward, dq, dk/dv and dbias at heads of 96 (zero-padded to
+    128) and 128, at lengths around their 64-row tiles and over several
+    blocks (T = 300), causal where Tq <= Tk, a bias, k_len including 1 and
+    0: each == the plain version, and two runs give the same bits."""
+    att, bias, k_len = _att_args(4, 2, Tq, Tk, D)
+    causal = Tq <= Tk
+    leaves = [t.to(cuda_device).requires_grad_() for t in att]
+    leaves.append(bias.to(cuda_device).requires_grad_())
+    k_len = k_len.to(cuda_device)
+    do = torch.randn(leaves[0].shape, generator=torch.Generator()
+                     .manual_seed(D + Tq)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        build.reset_launches()
+        out = flash_attention(*leaves[:3], bias=leaves[3], k_len=k_len,
+                              causal=causal)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+        for name in ("", "_dq", "_dkv", "_dbias"):
+            assert build.LAUNCHES["flash_attention" + name] == 1, name
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = [t.detach() for t in leaves]
+    want = mha_reference(*plain[:3], bias=plain[3], k_len=k_len,
+                         causal=causal)
+    torch.testing.assert_close(runs[0][0], want, atol=ATT_ATOL, rtol=0)
+    grads = mha_backward_reference(*plain[:3], do, bias=plain[3],
+                                   k_len=k_len, causal=causal)
+    for name, g, w in zip(ATT_GRAD_NAMES, runs[0][1:], grads):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=0, msg=name)
+    assert torch.count_nonzero(runs[0][0][3]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("T,Hp,causal", [(63, 2, False), (64, 1, True),
+                                         (65, 2, True), (129, 1, False),
+                                         (300, 2, True)])
+def test_rel_attention_kernels_at_wide_heads(cuda_device, D, T, Hp, causal):
+    """K3's forward (and its lse), dq, dk/dv and dpose at heads of 96
+    (zero-padded to 128, table too) and 128, at lengths around the tiles
+    (64 query rows, 16 keys a forward and a dq tile at 128) and over
+    several blocks: each == the plain version, and two runs give the same
+    bits."""
+    rel, k_len = _rel_args(4, 2, T, D, Hp)
+    leaves = [t.to(cuda_device).requires_grad_() for t in rel]
+    k_len = k_len.to(cuda_device)
+    do = torch.randn(leaves[0].shape, generator=torch.Generator()
+                     .manual_seed(D + T)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        build.reset_launches()
+        out = flash_attention_rel(*leaves, k_len=k_len, causal=causal)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+        for name in ("", "_dq", "_dkv", "_dpose"):
+            assert build.LAUNCHES["flash_attention_rel" + name] == 1, name
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = [t.detach() for t in leaves]
+    want = rel_mha_reference(*plain, k_len=k_len, causal=causal)
+    torch.testing.assert_close(runs[0][0], want, atol=ATT_ATOL, rtol=0)
+    if D == 128:
+        _, lse = launch_forward(*plain, k_len, causal, True)
+        torch.testing.assert_close(
+            lse, rel_lse_reference(*plain[:3], plain[4], k_len=k_len,
+                                   causal=causal), atol=ATT_ATOL, rtol=0)
+    grads = rel_mha_backward_reference(*plain, do, k_len=k_len,
+                                       causal=causal)
+    for name, g, w in zip(GRAD_NAMES, runs[0][1:], grads):
+        assert torch.isfinite(g).all(), name
+        atol = GRAD_ATOL if name != "dpose" else \
+            GRAD_ATOL + DPOSE_RTOL * w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol, rtol=0, msg=name)
+    assert torch.count_nonzero(runs[0][0][3]) == 0
+
+
+@pytest.mark.cuda
+def test_wide_head_kernels_one_key_corner(cuda_device):
+    """Heads of 128 where entries see one key under a long causal mask:
+    K2's and K3's outputs and gradients against the plain versions, the
+    errors printed."""
+    T = 640
+    k_len = torch.tensor([1, 1, T, 2], dtype=torch.int32, device=cuda_device)
+    att, _, _ = _att_args(4, 2, T, T, 128)
+    rel, _ = _rel_args(4, 2, T, 128, 2)
+    for name, fn, ref, bwd, args in (
+            ("K2", flash_attention, mha_reference, mha_backward_reference,
+             att),
+            ("K3", flash_attention_rel, rel_mha_reference,
+             rel_mha_backward_reference, rel)):
+        leaves = [t.to(cuda_device).requires_grad_() for t in args]
+        out = fn(*leaves, k_len=k_len, causal=True)
+        do = torch.ones_like(out)
+        got = torch.autograd.grad(out, leaves, do)
+        plain = [t.detach() for t in leaves]
+        want = ref(*plain, k_len=k_len, causal=True)
+        grads = bwd(*plain, do, k_len=k_len, causal=True)
+        errs = [(out - want).abs().max().item()] + [
+            (g - w).abs().max().item() for g, w in zip(got, grads)]
+        print(f"{name} one-key corner at D = 128: max abs err out and each "
+              f"gradient {['%.3e' % e for e in errs]}")
+        torch.testing.assert_close(out, want, atol=ATT_ATOL, rtol=0)
+        for g, w in zip(got, grads):
+            torch.testing.assert_close(
+                g, w, atol=GRAD_ATOL + DPOSE_RTOL * w.abs().max().item(),
+                rtol=0)
 
 
 @pytest.mark.cuda

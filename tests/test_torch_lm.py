@@ -508,8 +508,9 @@ def test_decode_batch_with_lm_matches_jax(am, lms, workspace, tmp_path):
 def test_decode_commands_refuse_an_ngram_batch_and_features(workspace,
                                                             tmp_path):
     """decode_batch has no batched n-gram path (it names decode and
-    lm_rescore); decode refuses a checkpoint that takes features (reading
-    feature archives is not ported)."""
+    lm_rescore); decode reads a feats.scp for a checkpoint that takes
+    features, and writes what the search gives on those features (the
+    comparison with aps_tpu's command is tests/test_torch_kaldi.py's)."""
     with pytest.raises(NotImplementedError, match="lm_rescore"):
         decode_batch.main([workspace["scp"], str(tmp_path / "best"), "--am",
                            workspace["am"], "--lm", workspace["arpa"],
@@ -527,9 +528,29 @@ def test_decode_commands_refuse_an_ngram_batch_and_features(workspace,
         pickle.dump({"params": variables["params"],
                      "mstate": {"batch_stats": variables["batch_stats"]}},
                     fd)
-    with pytest.raises(NotImplementedError, match="features"):
-        decode.main([workspace["scp"], str(tmp_path / "best"), "--am",
-                     str(cpt), "--device", "cpu"])
+    from aps_tpu_torch.loader.kaldi_io import ArchiveWriter
+    rng = np.random.default_rng(4)
+    feats = {f"f{i}": rng.standard_normal((70 + 30 * i, 80)).astype(
+        np.float32) for i in range(2)}
+    with ArchiveWriter(str(tmp_path / "feats.ark"),
+                       str(tmp_path / "feats.scp")) as writer:
+        for key, mat in feats.items():
+            writer.write(key, mat)
+    argv = [str(tmp_path / "feats.scp"), str(tmp_path / "best"), "--am",
+            str(cpt), "--beam-size", "3", "--max-len", "6",
+            "--allow-partial", "true", "--device", "cpu"]
+    stats = decode.main(argv)
+    assert stats["utts"] == 2
+    feats_model.eval()
+    lines = dict(ln.split("\t") for ln in
+                 (tmp_path / "best").read_text().splitlines())
+    kwargs = decode.search_kwargs(decode.make_parser().parse_args(argv))
+    for key, mat in feats.items():
+        hyps = search.beam_search(feats_model, mat, sos=SOS, eos=EOS,
+                                  **kwargs)
+        assert stats["scores"][key] == pytest.approx(hyps[0]["score"],
+                                                     abs=1e-5)
+        assert len(lines[key].split()) == len(hyps[0]["trans"]) - 2
 
 
 @pytest.mark.parametrize("lm,len_norm", [("lstm", None), ("xfmr", "false"),

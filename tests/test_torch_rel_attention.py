@@ -60,6 +60,47 @@ def test_rel_attention_plain_matches_jax(Hp, T, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATT_ATOL)
 
 
+@pytest.mark.parametrize("D,Hp,causal", [(96, 2, True), (128, 1, False)])
+def test_rel_attention_wide_heads_match_jax(D, Hp, causal):
+    """Heads of 96 (the card zero-pads them, table too, to 128) and 128:
+    the plain version's output, and its backward and autograd's gradients,
+    == aps_tpu's Pallas kernel in interpret mode and its dense reference,
+    over two 64-row tiles with ragged k_len."""
+    B, H, T = 2, 2, 70
+    q_c, q_p, k, v, pose, k_len = _inputs(T + D, B, H, T, D, Hp)
+    k_len[1] = 1
+    do = np.random.default_rng(D).standard_normal((B, H, T, D)).astype(
+        np.float32)
+    targs = [torch.from_numpy(a).requires_grad_()
+             for a in (q_c, q_p, k, v, pose)]
+    klen_t = torch.from_numpy(k_len)
+    out = flash_attention_rel(*targs, k_len=klen_t, causal=causal)
+    auto = [g.numpy() for g in
+            torch.autograd.grad(out, targs, torch.from_numpy(do))]
+    plain = [g.numpy() for g in rel_mha_backward_reference(
+        *[a.detach() for a in targs], torch.from_numpy(do), k_len=klen_t,
+        causal=causal)]
+    jargs = tuple(map(jnp.asarray, (q_c, q_p, k, v, pose)))
+    kw = dict(k_len=jnp.asarray(k_len), causal=causal)
+    want = jax_rel.flash_attention_rel(*jargs, interpret=True, **kw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=ATT_ATOL)
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(jax_rel.rel_mha_reference(*jargs, **kw)), atol=ATT_ATOL)
+
+    def loss(fn, **extra):
+        return lambda *a: jnp.sum(fn(*a, **kw, **extra) * do)
+
+    want_kernel = jax.grad(loss(jax_rel.flash_attention_rel, interpret=True),
+                           argnums=(0, 1, 2, 3, 4))(*jargs)
+    want_dense = jax.grad(loss(jax_rel.rel_mha_reference),
+                          argnums=(0, 1, 2, 3, 4))(*jargs)
+    _assert_grads_close(plain, want_kernel, "plain backward vs Pallas")
+    _assert_grads_close(plain, want_dense, "plain backward vs dense JAX")
+    _assert_grads_close(auto, plain, "autograd vs plain backward")
+
+
 def test_rel_attention_fully_masked_rows_are_zero():
     q_c, q_p, k, v, pose, _ = _inputs(0, 2, 2, 40, 16, 1)
     out = flash_attention_rel(*map(torch.from_numpy, (q_c, q_p, k, v, pose)),
@@ -296,10 +337,10 @@ def test_conformer_layer_matches_flax(pre_norm, macaron, casual_conv1d):
                                atol=LAYER_ATOL)
 
 
-@pytest.mark.parametrize("D,Hp", [(8, 1), (40, 2)])
+@pytest.mark.parametrize("D,Hp", [(8, 1), (40, 2), (96, 2)])
 def test_padded_heads_match_plain(D, Hp):
     """The card's route for a head width K3 is not built for: q_c, q_p, k,
-    v and the pose table zero-padded to the next of 16, 32 and 64, scores
+    v and the pose table zero-padded to the next of 16, 32, 64 and 128, scores
     at the true scale D**-0.5, the output sliced back. Held here through
     the plain version, forward and gradients (the table's too), against
     the plain version at D."""

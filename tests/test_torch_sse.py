@@ -337,8 +337,19 @@ def test_se_chunk_loader_matches_jax_package(tmp_path):
                 np.testing.assert_array_equal(g, w)
         num_batches += len(ours)
     assert num_batches >= 6
-    with pytest.raises(NotImplementedError, match="emb_scp"):
-        aps_dataloader(emb_scp="emb.scp", **kwargs)
+    # an embedding a mixture rides along with its chunks, as in aps_tpu
+    with open(tmp_path / "emb.scp", "w") as scp:
+        for key in [ln.split()[0] for ln in
+                    (tmp_path / "mix.scp").read_text().splitlines()]:
+            np.save(tmp_path / f"{key}.npy",
+                    np.full(4, len(key), dtype=np.float32))
+            scp.write(f"{key} {tmp_path / f'{key}.npy'}\n")
+    kwargs["emb_scp"] = str(tmp_path / "emb.scp")
+    got = next(iter(aps_dataloader(train=False, **kwargs)))
+    want = next(iter(jax_libs.aps_dataloader(train=False, **kwargs)))
+    assert sorted(got) == sorted(want) == ["#utt", "emb", "mix", "ref"]
+    np.testing.assert_array_equal(got["emb"], want["emb"])
+    assert got["emb"].shape == (3, 4)
     with pytest.raises(RuntimeError, match="mix_scp"):
         aps_dataloader(fmt="se@chunk")
 
