@@ -29,8 +29,9 @@ change, parent. A version is any file: the parent's source from `git
 archive`, or an edited copy (one constant changed, or K4's serial walk).
 Each result is also checked against the plain version. `--occupancy`
 prints, for K2's and K3's kernels as the repository builds them, at every
-head width they are built for, the registers and bytes of local memory
-(spills) a thread, the shared memory a block and the blocks an SM.
+head width they are built for and for the wide kernels of heads over 128,
+the registers and bytes of local memory (spills) a thread, the shared
+memory a block and the blocks an SM.
 
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --attention parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
@@ -413,6 +414,9 @@ def print_occupancy() -> None:
         for name, info in rows.items():
             print(f"occupancy D={D} {name}: " + ", ".join(
                 f"{key} {value}" for key, value in info.items()), flush=True)
+    for name, info in attention.wide_occupancy().items():
+        print(f"occupancy D>128 {name}: " + ", ".join(
+            f"{key} {value}" for key, value in info.items()), flush=True)
 
 
 def main(argv=None) -> None:

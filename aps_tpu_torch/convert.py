@@ -71,6 +71,16 @@ layers and recurrent layers, the MVDR's reference attention
 Dense_1, ComplexLinear the Dense layers real and imag, and the BatchNorms
 of the learned beamformers bnorm <-> BatchNorm_0.
 
+The ASR feature transform's layers carry aps_tpu's names (layers_<i>), so
+a learnable mel filterbank's `filters` (MelTransform's jax_params) is
+asr_transform/layers_<i>/filters, as in aps_tpu. A global CMVN's mean and
+standard deviation (gmean, gstd) are no variable of aps_tpu, which reads
+them from its gcmvn file whenever it builds the model; the port keeps them
+in its state and writes them to a collection of their own, "constants"
+(a checkpoint's mstate), which aps_tpu's apply does not read. A tree
+without them (an aps_tpu checkpoint) leaves the model's own, read from its
+gcmvn file.
+
 BatchNorm's num_batches_tracked has no counterpart in aps_tpu and is left
 at 0; the port builds its norms with aps_tpu's epsilons (LayerNorm 1e-6,
 BatchNorm 1e-5). Module paths map segment by segment (MODULE_NAMES); an
@@ -194,6 +204,8 @@ def _leaves(module: nn.Module) -> Dict[str, Tuple[str, str, object]]:
         for leaf in getattr(mod, "jax_params", ()):
             if getattr(mod, leaf) is not None:
                 out[prefix + leaf] = ("params", pfx + leaf, None)
+        for leaf in getattr(mod, "port_constants", ()):
+            out[prefix + leaf] = ("constants", pfx + leaf, "constant")
     return out
 
 
@@ -271,6 +283,10 @@ def to_state_dict(variables: Dict, model: nn.Module, strict: bool = True
             src = _gates_in(flat, col, path, ref)
         else:
             src = flat.pop(f"{col}/{path}", None)
+        if src is None and rule == "constant":
+            # aps_tpu's trees have no such leaf: the model's own stays
+            state[key] = ref.clone()
+            continue
         if src is None:
             if not strict:
                 continue

@@ -29,8 +29,10 @@ storage offset is copied first (`_aligned`). They are built for head
 widths 16, 32, 64 and 128: any other head up to 128 is zero-padded up to
 the next of them (`with_padded_heads`, shared with the relative-position
 kernels), which leaves every score unchanged, runs at the true scale and
-gives zero columns that the slice back drops; a head wider than 128
-raises.
+gives zero columns that the slice back drops. A head wider than 128 runs
+the wide kernels of csrc/wide_attention.cu (forward, dq, dk/dv and dbias
+with the same arguments: a warp a row, the head in passes of 256
+columns, any width), counted under the same names.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -134,14 +136,10 @@ def with_padded_heads(fn, name: str, padded, *args, **kwargs
     built for, and the output sliced back to D. Zero columns change no
     q . k product, no relative term and no gradient of the true columns,
     and the padded columns of v give output columns that the slice drops;
-    the caller passes the true scale D**-0.5 in kwargs. A D over 128
-    raises: the kernels are built for no wider head."""
+    the caller passes the true scale D**-0.5 in kwargs. A D over 128 is
+    passed as it is: the wide kernels take every width."""
     D = padded[0].shape[-1]
-    width = next((w for w in _HEAD_DIMS if w >= D), None)
-    if width is None:
-        raise ValueError(f"{name}: head dim {D} is over {_HEAD_DIMS[-1]}, "
-                         f"the widest the kernels are built for "
-                         f"({_HEAD_DIMS})")
+    width = next((w for w in _HEAD_DIMS if w >= D), D)
     out = fn(*(torch.nn.functional.pad(t, (0, width - D)) for t in padded),
              *args, **kwargs)
     return out[..., :D]
@@ -157,6 +155,21 @@ _BWD_ARGTYPES = _IN + [build.P] * 3 + _DIMS + [build.P] * 3
 BACKWARD_KERNELS = ("dq", "dkv", "dbias")
 
 
+def is_wide(D: int) -> bool:
+    """True when a head of width D runs the wide kernels
+    (csrc/wide_attention.cu) instead of the tensor-core tiles."""
+    return D > _HEAD_DIMS[-1]
+
+
+def _source(D: int, name: str, entry: str):
+    """(source, entry point) of kernel `entry` of csrc/<name>.cu at head
+    width D: the wide kernels' twin for D over 128."""
+    if is_wide(D):
+        return "wide_attention", entry.replace("_attention_",
+                                               "_attention_wide_", 1)
+    return name, entry
+
+
 def launch_forward(q, k, v, bias, klen, scale: float, causal: bool,
                    want_lse: bool):
     """Launch the forward kernel on checked CUDA tensors (bias or None, klen
@@ -166,8 +179,9 @@ def launch_forward(q, k, v, bias, klen, scale: float, causal: bool,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) \
         if want_lse else None
-    lib = build.load("attention", "aps_attention_fwd", _FWD_ARGTYPES)
-    rc = lib.aps_attention_fwd(
+    src, entry = _source(D, "attention", "aps_attention_fwd")
+    lib = build.load(src, entry, _FWD_ARGTYPES)
+    rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), klen.data_ptr(), B, H, Tq,
         k.shape[2], D, float(scale), int(causal), out.data_ptr(),
@@ -195,8 +209,8 @@ def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, out,
             raise ValueError("flash_attention_dbias needs a bias")
         outs = (torch.empty((H, Tq, Tk), dtype=torch.float32,
                             device=q.device), None)
-    entry = f"aps_attention_{kernel}"
-    lib = build.load("attention_bwd", entry, _BWD_ARGTYPES)
+    src, entry = _source(D, "attention_bwd", f"aps_attention_{kernel}")
+    lib = build.load(src, entry, _BWD_ARGTYPES)
     rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), klen.data_ptr(),
@@ -238,6 +252,27 @@ def backward_occupancy(D: int, kernel: str):
     rc = lib.aps_attention_bwd_occupancy(D, int(kernel == "dkv"), info)
     build.check(lib, rc, "flash_attention backward occupancy")
     return dict(zip(_OCCUPANCY_KEYS + ("stream_rows",), info))
+
+
+WIDE_KERNELS = ("K2 forward", "K2 dq", "K2 dk/dv", "K2 dbias", "K3 forward",
+                "K3 dq", "K3 dk/dv", "K3 dpose")
+
+
+def wide_occupancy():
+    """How each wide kernel (heads over 128, csrc/wide_attention.cu) sits
+    on an SM of the current card: registers and bytes of local memory
+    (spills) a thread, static shared memory a block, resident blocks an SM
+    and head columns a pass, by WIDE_KERNELS name."""
+    import ctypes
+    lib = build.load("wide_attention", "aps_wide_attention_occupancy",
+                     [build.I, build.P])
+    out = {}
+    for index, name in enumerate(WIDE_KERNELS):
+        info = (ctypes.c_int * 5)()
+        rc = lib.aps_wide_attention_occupancy(index, info)
+        build.check(lib, rc, f"wide {name} occupancy")
+        out[name] = dict(zip(_OCCUPANCY_KEYS + ("columns_a_pass",), info))
+    return out
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -290,7 +325,8 @@ def flash_attention(q: torch.Tensor,
     CPU tensors take mha_reference (and autograd through it); CUDA tensors
     launch the kernels of csrc/attention.cu and, for the gradient,
     csrc/attention_bwd.cu (D in {16, 32, 64, 128}; any other D up to 128
-    zero-padded up by with_padded_heads)."""
+    zero-padded up by with_padded_heads; a wider one those of
+    csrc/wide_attention.cu)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q is {tuple(q.shape)}, expected "
                          "B x H x Tq x D")
@@ -309,7 +345,7 @@ def flash_attention(q: torch.Tensor,
     if q.device.type == "cpu":
         return mha_reference(q, k, v, bias=bias, k_len=k_len, causal=causal,
                              softmax_scale=softmax_scale)
-    if D not in _HEAD_DIMS:
+    if D not in _HEAD_DIMS and not is_wide(D):
         return with_padded_heads(
             flash_attention, "flash_attention", (q, k, v), bias, k_len,
             causal, softmax_scale=softmax_scale

@@ -16,7 +16,9 @@ the autograd Function `_FlashRel`; a failed build or launch raises. The
 kernels copy rows 16 bytes at a time, so an operand at an odd storage
 offset is copied first. A head up to 128 wide and not 16, 32, 64 or 128
 is zero-padded up, table included, and runs at its true scale
-(attention.with_padded_heads); a wider one raises.
+(attention.with_padded_heads); a wider one runs the wide kernels of
+csrc/wide_attention.cu (forward with lse, dq, dk/dv and dpose with the
+same arguments, any width), counted under the same names.
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
 its gradient), and both are held against the kernels on the card, as is
@@ -29,7 +31,7 @@ import torch
 from aps_tpu_torch.asr.transformer.utils import digit_shift
 from aps_tpu_torch.ops import build
 from aps_tpu_torch.ops.attention import (_OCCUPANCY_KEYS, _aligned,
-                                         with_padded_heads)
+                                         _source, is_wide, with_padded_heads)
 
 __all__ = [
     "flash_attention_rel", "rel_mha_reference", "rel_lse_reference",
@@ -169,8 +171,9 @@ def launch_forward(q_c, q_p, k, v, pose, klen, causal: bool, want_lse: bool,
     out = torch.empty_like(q_c)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q_c.device) \
         if want_lse else None
-    lib = build.load("rel_attention", "aps_rel_attention_fwd", _FWD_ARGTYPES)
-    rc = lib.aps_rel_attention_fwd(
+    src, entry = _source(D, "rel_attention", "aps_rel_attention_fwd")
+    lib = build.load(src, entry, _FWD_ARGTYPES)
+    rc = getattr(lib, entry)(
         q_c.data_ptr(), q_p.data_ptr(), k.data_ptr(), v.data_ptr(),
         pose.data_ptr(), klen.data_ptr(), B, H, pose.shape[0], T, D,
         _scale(D, scale), int(causal), out.data_ptr(),
@@ -196,8 +199,9 @@ def launch_backward_kernel(kernel: str, q_c, q_p, k, v, pose, klen, do, lse,
                             device=q_c.device), torch.empty_like(pose))
     else:
         outs = (torch.empty_like(q_c), torch.empty_like(q_c))
-    entry = f"aps_rel_attention_{kernel}"
-    lib = build.load("rel_attention_bwd", entry,
+    src, entry = _source(D, "rel_attention_bwd",
+                         f"aps_rel_attention_{kernel}")
+    lib = build.load(src, entry,
                      _DQ_ARGTYPES if kernel == "dq" else _BWD_ARGTYPES)
     extra = [out.data_ptr()] if kernel == "dq" else []
     rc = getattr(lib, entry)(
@@ -277,7 +281,8 @@ def flash_attention_rel(q_c: torch.Tensor,
     CPU tensors take rel_mha_reference (and autograd through it); CUDA
     tensors launch the kernels of csrc/rel_attention.cu and, for the
     gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64, 128}; any
-    other D up to 128 zero-padded up by with_padded_heads)."""
+    other D up to 128 zero-padded up by with_padded_heads; a wider one
+    those of csrc/wide_attention.cu)."""
     tensors = {"q_c": q_c, "q_p": q_p, "k": k, "v": v, "pose": pose}
     B, H, T, D = q_c.shape
     for key, t in tensors.items():
@@ -295,7 +300,7 @@ def flash_attention_rel(q_c: torch.Tensor,
         return rel_mha_reference(q_c, q_p, k, v, pose, k_len=k_len,
                                  causal=causal, softmax_scale=softmax_scale)
     scale = _scale(D, softmax_scale)
-    if D not in _HEAD_DIMS:
+    if D not in _HEAD_DIMS and not is_wide(D):
         return with_padded_heads(flash_attention_rel, "flash_attention_rel",
                                  (q_c, q_p, k, v, pose), k_len, causal,
                                  softmax_scale=scale)

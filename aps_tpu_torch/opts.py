@@ -121,3 +121,18 @@ class DecodingParser(object):
     parser.add_argument("--spm", type=str, default="",
                         help="sentencepiece model for subword detok")
     parser.add_argument("--text-norm", type=str, default="")
+
+
+class AlignmentParser(object):
+    """aps_tpu's AlignmentParser; --device and --device-id come from
+    add_device_args."""
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("wav_scp", type=str)
+    parser.add_argument("text", type=str)
+    parser.add_argument("alignment", type=str)
+    parser.add_argument("--am", type=str, required=True)
+    parser.add_argument("--am-tag", type=str, default="best")
+    parser.add_argument("--dict", type=str, default="")
+    parser.add_argument("--channel", type=int, default=-1)
+    parser.add_argument("--word-boundary", type=str, default="")
+    add_device_args(parser)

@@ -38,14 +38,28 @@ in percent, as the reporter gives it), and the training steps hand it to
 the task as egs["#ssr"]. It is not kept in a checkpoint, so a resumed run
 trains at 0 until its first validation, as aps_tpu's does.
 
-Not ported yet, and refused when asked for: weight noise, tensorboard,
-profiling, tensor/sequence parallelism and a pipeline depth."""
+Weight noise (weight_noise_std, on the steps weight_noise_cfg = [beg,
+step, end] picks: every step-th step from beg, up to end unless it is -1)
+is added to the parameters by the dp trainer's step. profile names a
+directory: torch.profiler traces the training steps [profile_steps[0],
+profile_steps[1]) (the CPU and, on a card, its kernels) and writes one
+Chrome trace a window, trace.<beg>-<end>.json, logging the two lines
+aps_tpu logs; a window still open when training ends is closed and
+written then. tensorboard: true writes the reports' scalars
+(<mode>/<metric> by epoch, as aps_tpu) through
+torch.utils.tensorboard.SummaryWriter into the checkpoint directory, and
+warns and goes on without it where that does not import.
+
+Refused when asked for (a ValueError), because the port runs on one card:
+tensor/sequence parallelism and a pipeline depth (aps_tpu's device
+mesh)."""
 
 import math
 import pickle
+import warnings
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -92,6 +106,7 @@ class ProgressReporter(object):
                  checkpoint: Path,
                  metrics: List[str],
                  period: int = 100,
+                 tensorboard: bool = False,
                  reduction_tag: str = "none") -> None:
         self.period = period
         self.reduction_tag = reduction_tag
@@ -99,6 +114,13 @@ class ProgressReporter(object):
         self.logger = get_logger((checkpoint / "trainer.log").as_posix(),
                                  file=True)
         self.header = "Trainer"
+        self.board_writer = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.board_writer = SummaryWriter(checkpoint)
+            except ImportError:
+                warnings.warn("tensorboard not installed, disabling it...")
         self.metrics = metrics
         self.mode = "train"
         self.reset()
@@ -165,6 +187,11 @@ class ProgressReporter(object):
         if N == 0:
             raise RuntimeError("No statistics to report")
         reports = {m: self._report_metric(m) for m in self.metrics}
+        if self.board_writer:
+            for name, value in reports.items():
+                self.board_writer.add_scalar(f"{self.mode}/{name}", value,
+                                             epoch)
+            self.board_writer.flush()
         cost = self.timer.elapsed()
         header = "/".join(self.metrics)
         values = "/".join(f"{reports[m]:.4f}" for m in self.metrics)
@@ -239,18 +266,15 @@ class ErrorDetector(object):
         return self.counter >= self.stop_on_errors
 
 
-# trainer_conf keys of aps_tpu that the port refuses unless left at the
-# value that turns them off
+# trainer_conf keys of aps_tpu's device mesh, which the one-card port
+# leaves out for good: refused unless left at the value that turns them off
 _UNPORTED = {
-    "weight_noise_std": None,
-    "tensorboard": False,
-    "profile": "",
     "tensor_parallel": 1,
     "sequence_parallel": False,
     "pipeline_depth": 1,
 }
-# accepted without effect: they only tune options refused above
-_TUNES_UNPORTED = ("weight_noise_cfg", "profile_steps")
+
+
 class Trainer(object):
     """Owns the scheduler, reporter, checkpoint IO and the epoch loops; the
     step is the subclass's (train_one_step / valid_one_step)."""
@@ -281,15 +305,19 @@ class Trainer(object):
                  stop_on_errors: int = 32,
                  seed: int = 777,
                  matmul_precision: str = "float32",
+                 weight_noise_std: Optional[float] = None,
+                 weight_noise_cfg: Sequence[int] = (0, 1, -1),
+                 tensorboard: bool = False,
+                 profile: str = "",
+                 profile_steps: Sequence[int] = (10, 15),
                  **kwargs) -> None:
         for key, value in kwargs.items():
-            if key in _TUNES_UNPORTED:
-                continue
             if key not in _UNPORTED:
                 raise ValueError(f"Unknown trainer option: {key}")
             if value != _UNPORTED[key] and value:
-                raise NotImplementedError(
-                    f"trainer option {key}={value!r} is not ported yet")
+                raise ValueError(
+                    f"trainer option {key}={value!r}: aps_tpu's device mesh "
+                    "is not part of the one-card port")
         if lr_scheduler_period not in ["epoch", "step"]:
             raise ValueError(
                 f"Unsupported lr_scheduler_period: {lr_scheduler_period}")
@@ -308,7 +336,14 @@ class Trainer(object):
             resume = last_checkpoint.as_posix()  # auto-resume
         self.reporter = ProgressReporter(self.checkpoint, report_metrics,
                                          period=prog_interval,
+                                         tensorboard=tensorboard,
                                          reduction_tag=reduction_tag)
+        self.weight_noise_std = weight_noise_std
+        self.weight_noise_cfg = tuple(weight_noise_cfg)
+        # trace the training steps [profile_steps) into `profile`
+        self.profile_dir = profile
+        self.profile_steps = tuple(profile_steps)
+        self._profiler, self._profile_beg = None, 0
         self.clip_gradient = clip_gradient
         self.acmu_gradient = acmu_gradient
         self.cur_epoch = 0
@@ -435,7 +470,50 @@ class Trainer(object):
         for egs in data_loader:
             self.valid_one_step(egs)
 
+    def weight_noise_now(self) -> bool:
+        """Whether this step adds weight noise (aps_tpu's schedule,
+        weight_noise_cfg = [beg, step, end]: every step-th step from beg,
+        up to end unless it is -1 or below)."""
+        if not self.weight_noise_std:
+            return False
+        beg, step, end = self.weight_noise_cfg
+        if self.cur_step < beg or (end > 0 and self.cur_step > end):
+            return False
+        return (self.cur_step - beg) % max(step, 1) == 0
+
+    def _profile_tick(self) -> None:
+        """Start the profiler at step profile_steps[0], stop it (and write
+        the window's trace) once profile_steps[1] is reached."""
+        if not self.profile_dir:
+            return
+        beg, end = self.profile_steps
+        if self._profiler is None and self.cur_step == beg:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+            self._profile_beg = self.cur_step
+            self.reporter.log(f"Profiler: tracing steps [{beg}, {end}) "
+                              f"into {self.profile_dir}")
+        elif self._profiler is not None and self.cur_step >= end:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        self._profiler.export_chrome_trace(
+            (out / f"trace.{self._profile_beg}-{self.cur_step}.json"
+             ).as_posix())
+        self._profiler = None
+        self.reporter.log(f"Profiler: trace saved to {self.profile_dir}")
+
     def _train_step(self, egs: Dict) -> None:
+        self._profile_tick()
         self._breaker(self.train_one_step(egs))
         self.cur_step += 1
         if self.lr_scheduler_period == "step":
@@ -476,6 +554,8 @@ class Trainer(object):
                                eval_interval)
         else:
             self._run_in_epoch(trn_loader, dev_loader, num_epochs)
+        if self._profiler is not None:
+            self._stop_profile()
         self.reporter.log(
             f"Training for {self.cur_epoch:d}/{num_epochs:d} epochs done "
             f"(best = {self.stop_detector.best:.4f}, "

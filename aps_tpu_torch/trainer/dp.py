@@ -18,8 +18,14 @@ out-of-memory error in the forward or backward skips the batch as aps_tpu
 does when its train state survives: the step's tensors are freed, the
 parameters, optimizer state and batch-norm statistics stay, the trainer
 logs "Step N: device OOM on batch <shapes>, skipped" and the step counts
-as failed for the error breaker. aps_tpu's pipelined dispatch and weight
-noise are not ported."""
+as failed for the error breaker. Weight noise, on the steps the base
+trainer's weight_noise_now picks: before the forward, weight_noise_std
+times a standard normal draw (draw_weight_noise, from the trainer's
+generator on its device) is added to every trainable parameter for good,
+as aps_tpu adds it: the gradient is taken at the noised parameters, the
+optimizer updates them, and a non-finite step keeps them noised; a device
+OOM, where aps_tpu's step leaves its state as it was, takes the noise back
+off. aps_tpu's pipelined dispatch is not ported."""
 
 from typing import Dict, List, Tuple
 
@@ -276,12 +282,26 @@ class DataParallelTrainer(Trainer):
             group["lr"] = self.lr_scheduler.get_lr()
         self.optimizer.step()
 
+    def draw_weight_noise(self) -> List[torch.Tensor]:
+        """A standard normal draw of each trainable parameter's shape, from
+        the trainer's generator on its device (a check may replace this to
+        feed in draws of its own)."""
+        return [torch.randn(p.shape, generator=self.generator,
+                            device=p.device, dtype=p.dtype)
+                for p in self.params]
+
     def train_one_step(self, egs: Dict) -> bool:
         host, dev = self._split_egs(egs)
         dev["#ssr"] = self.ssr
         self.task.train()
         buffers = [b for b in self.task.buffers()]
         saved = [b.clone() for b in buffers]
+        clean = None
+        if self.weight_noise_now():
+            clean = [p.detach().clone() for p in self.params]
+            with torch.no_grad():
+                for p, draw in zip(self.params, self.draw_weight_noise()):
+                    p.add_(draw * self.weight_noise_std)
         self.optimizer.zero_grad(set_to_none=True)
         try:
             with matmul_precision(self.matmul_precision, self.device):
@@ -296,6 +316,8 @@ class DataParallelTrainer(Trainer):
             with torch.no_grad():
                 for b, old in zip(buffers, saved):
                     b.copy_(old)
+                for p, old in zip(self.params, clean or []):
+                    p.copy_(old)
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
             self.reporter.log(f"Step {self.cur_step}: device OOM on batch "

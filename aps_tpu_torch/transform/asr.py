@@ -1,38 +1,55 @@
 #!/usr/bin/env python
-"""ASR feature transform: waveform -> (normalised) log-mel or log
-spectrogram features.
+"""ASR feature transform: waveform -> (normalised) features, programmed by a
+string of tokens such as "perturb-fbank-log-cmvn-aug".
 
-Port of aps_tpu/transform/asr.py (FeatureTransform / AsrTransform,
-RescaleTransform, SpeedPerturbTransform, CmvnTransform,
-SpecAugTransform, and the chain SpectrogramTransform, MagnitudeTransform,
-TFTransposeTransform, PowerTransform that the "spectrogram" token stands
-for, with LogTransform for "log"). A feature string whose spectral part is
-a fusable "fbank-log" pair always runs through the fused log-mel kernel
-(aps_tpu_torch.ops.fbank); the JAX package does so only on a TPU and only
-when frame_hop % 8 == 0, a TPU tiling condition that does not apply here.
-"spectrogram" is the magnitude (use_power: the power) of forward_stft,
-N x (C) x T x F. "cmvn" keeps the masked statistics, so a padded batch
-normalises exactly as its utterances would alone. audio_norm: false
-rescales the waveform to the int16 range first. "perturb" and "aug" are
-identities at inference; in training they draw from the transform's
-`generator` (the trainer sets one on its device) through perturb.draw and
-specaug.draw, which a check may replace to feed in draws of its own.
-forward(..., skip_stft=True) takes an STFT the caller made (the enh
-transform's) through the steps after the spectrogram, as aps_tpu's does.
-A string without a spectrum ("abs-mel-log-cmvn", the features of a
-multi-channel front end's enhanced magnitude) takes features N x (C) x T x F
-and their frame counts: "abs" is |x| + eps and "mel" the product with the
-mel filterbank (a fixed one, and on features only: "spectrogram-mel"
-raises). "delta" appends delta_order orders of deltas over delta_ctx
-frames each side (edges clamped at the padded batch's ends, as in
-aps_tpu), concatenated on the feature axis, N x T x F*(order+1), or with
-delta_as_channel stacked on a new axis 1, N x (order+1) x T x F, the layout
-a channel-first conv2d encoder reads as its in_channels. feats_dim grows
-by (order+1) either way, as in aps_tpu. The other tokens (mfcc, splice,
-...) and gcmvn raise NotImplementedError until the port has them."""
+Port of aps_tpu/transform/asr.py: FeatureTransform / AsrTransform and its
+layers RescaleTransform, PreEmphasisTransform ("emph"),
+SpeedPerturbTransform ("perturb"), SpectrogramTransform (the STFT, with
+center, normalized and both modes), MagnitudeTransform,
+TFTransposeTransform ("trans"), PowerTransform ("pow"), MelTransform
+("mel", with mel_matrix and a learnable filterbank), LogTransform ("log",
+with lower_bound), AbsTransform ("abs"), DiscreteCosineTransform ("dct",
+with num_ceps and lifter), CmvnTransform ("cmvn", utterance-level or
+global from gcmvn), SpecAugTransform ("aug"), SpliceTransform ("splice",
+with subsampling) and DeltaTransform ("delta"). A spectral token stands for
+a chain, as in aps_tpu: "spectrogram" is STFT -> magnitude -> transpose ->
+power (squared with use_power), N x (C) x T x F; "fbank" adds the mel
+filterbank and "mfcc" the log and the DCT after it.
 
-from typing import Optional, Tuple
+An "fbank" followed by "log" without centering, a learnable filterbank or a
+mel_matrix runs through the fused log-mel kernel K1 (aps_tpu_torch.ops.
+fbank); the JAX package does so only on a TPU and only when frame_hop % 8
+== 0, a TPU tiling condition that does not apply here. Every other chain
+is the layers above in plain PyTorch (aps_tpu runs no kernel there
+either); its STFT is torch.fft on complex64 (transform/utils.py).
 
+The layers carry aps_tpu's module names (layers_<i>, the index of the
+layer in aps_tpu's list), so that a learnable filterbank's `filters` maps
+onto aps_tpu's parameter (convert.py). A global CMVN keeps its mean and
+standard deviation as buffers of the module's state, read from a (2, D)
+.npy or a Kaldi .ark of statistics (loader/kaldi_io.py); a missing file
+warns and leaves zeros and ones, as in aps_tpu. "cmvn" otherwise keeps the
+masked statistics, so a padded batch normalises exactly as its utterances
+would alone. audio_norm: false rescales the waveform to the int16 range
+first. "perturb" and "aug" are identities at inference; in training they
+draw from the transform's `generator` (the trainer sets one on its device)
+through perturb.draw and specaug.draw, which a check may replace to feed
+in draws of its own. forward(..., skip_stft=True) takes an STFT the caller
+made (the enh transform's) through the steps after the STFT, as aps_tpu's
+does. A string without a spectrum ("abs-mel-log-cmvn", the features of a
+multi-channel front end's enhanced magnitude) takes features N x (C) x T x
+F and their frame counts. "delta" appends delta_order orders of deltas
+over delta_ctx frames each side (edges clamped at the padded batch's
+ends), on the feature axis or, with delta_as_channel, on a new axis 1;
+feats_dim grows by (order+1) either way, as in aps_tpu. "splice" stacks
+lctx and rctx neighbours on the feature axis and keeps every
+subsampling_factor-th frame; the frame counts are divided by
+subsampling_factor whatever the tokens, as in aps_tpu."""
+
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -41,9 +58,10 @@ from aps_tpu_torch.const import EPSILON, MAX_INT16
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops import fbank
 from aps_tpu_torch.transform.augment import perturb_speed, tf_mask
-from aps_tpu_torch.transform.utils import (fft_size_of, forward_stft,
-                                           make_window, mel_filter,
-                                           num_frames, speed_perturb_filter,
+from aps_tpu_torch.transform.utils import (dct_matrix, fft_size_of,
+                                           forward_stft, make_window,
+                                           mel_filter, num_frames,
+                                           speed_perturb_filter,
                                            splice_feature)
 
 
@@ -191,25 +209,277 @@ class DeltaTransform(nn.Module):
         return torch.cat(delta, -1)
 
 
+class PreEmphasisTransform(nn.Module):
+    """Utterance-level pre-emphasis of the waveform ("emph"; the STFT's own
+    is per frame)."""
+
+    def __init__(self, pre_emphasis: float = 0):
+        super(PreEmphasisTransform, self).__init__()
+        self.pre_emphasis = pre_emphasis
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.pre_emphasis <= 0:
+            return wav
+        rest = wav[..., 1:] - self.pre_emphasis * wav[..., :-1]
+        return torch.cat([wav[..., :1], rest], -1)
+
+
+class SpectrogramTransform(nn.Module):
+    """STFT: N x (C) x S -> N x (C) x F x T complex64 (forward_stft)."""
+
+    def __init__(self,
+                 frame_len: int,
+                 frame_hop: int,
+                 window: str = "hamm",
+                 round_pow_of_two: bool = True,
+                 normalized: bool = False,
+                 pre_emphasis: float = 0.97,
+                 onesided: bool = True,
+                 center: bool = False,
+                 mode: str = "librosa"):
+        super(SpectrogramTransform, self).__init__()
+        self.frame_len = frame_len
+        self.frame_hop = frame_hop
+        self.window = window
+        self.round_pow_of_two = round_pow_of_two
+        self.normalized = normalized
+        self.pre_emphasis = pre_emphasis
+        self.onesided = onesided
+        self.center = center
+        self.mode = mode
+
+    def dim(self) -> int:
+        return fft_size_of(self.frame_len, self.round_pow_of_two
+                           or self.mode == "kaldi") // 2 + 1
+
+    def num_frames(self, wav_len):
+        return num_frames(wav_len, self.frame_len, self.frame_hop,
+                          self.round_pow_of_two, self.mode, self.center)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        return forward_stft(wav,
+                            self.frame_len,
+                            self.frame_hop,
+                            window=self.window,
+                            round_pow_of_two=self.round_pow_of_two,
+                            pre_emphasis=self.pre_emphasis,
+                            normalized=self.normalized,
+                            onesided=self.onesided,
+                            center=self.center,
+                            mode=self.mode)
+
+
+class MagnitudeTransform(nn.Module):
+    """|x| of a complex spectrum (sqrt(|x|^2 + eps) with eps > 0)."""
+
+    def __init__(self, eps: float = 0):
+        super(MagnitudeTransform, self).__init__()
+        self.eps = eps
+
+    def forward(self, spec: torch.Tensor) -> torch.Tensor:
+        if self.eps > 0:
+            return torch.sqrt(spec.real**2 + spec.imag**2 + self.eps)
+        return spec.abs()
+
+
+class TFTransposeTransform(nn.Module):
+    """Swap two axes (time and frequency by default)."""
+
+    def __init__(self, axis1: int = -1, axis2: int = -2):
+        super(TFTransposeTransform, self).__init__()
+        self.axis1, self.axis2 = axis1, axis2
+
+    def forward(self, tensor: torch.Tensor) -> torch.Tensor:
+        return tensor.transpose(self.axis1, self.axis2)
+
+
+class AbsTransform(nn.Module):
+    """|x| + eps."""
+
+    def __init__(self, eps: float = 1e-6):
+        super(AbsTransform, self).__init__()
+        self.eps = eps
+
+    def forward(self, tensor: torch.Tensor) -> torch.Tensor:
+        return tensor.abs() + self.eps
+
+
+class PowerTransform(nn.Module):
+    """x ** power (the identity at power 1)."""
+
+    def __init__(self, power: float = 2):
+        super(PowerTransform, self).__init__()
+        self.power = power
+
+    def forward(self, tensor: torch.Tensor) -> torch.Tensor:
+        return tensor if self.power == 1 else tensor**self.power
+
+
+class MelTransform(nn.Module):
+    """Mel filterbank projection: ... x F -> ... x num_mels. The filters
+    (num_mels x F) are mel_filter's or a mel_matrix .npy's; with
+    requires_grad they are a parameter named `filters`, as aps_tpu's
+    (convert.py maps it through jax_params), else a buffer outside the
+    state (aps_tpu keeps the fixed filterbank out of its variables)."""
+
+    def __init__(self,
+                 frame_len: int,
+                 round_pow_of_two: bool = True,
+                 sr: int = 16000,
+                 num_mels: int = 80,
+                 fmin: float = 0.0,
+                 fmax: Optional[float] = None,
+                 coeff_norm: bool = False,
+                 mel_matrix: str = "",
+                 requires_grad: bool = False):
+        super(MelTransform, self).__init__()
+        if mel_matrix:
+            filters = np.load(mel_matrix)
+        else:
+            filters = mel_filter(frame_len,
+                                 round_pow_of_two=round_pow_of_two,
+                                 sr=sr,
+                                 num_mels=num_mels,
+                                 fmin=fmin,
+                                 fmax=fmax,
+                                 norm=coeff_norm)
+        filters = torch.as_tensor(np.asarray(filters), dtype=torch.float32)
+        self.num_mels = num_mels
+        self.requires_grad = requires_grad
+        if requires_grad:
+            self.filters = nn.Parameter(filters)
+            self.jax_params = ("filters",)
+        else:
+            # F x M, made contiguous once
+            self.register_buffer("proj", filters.t().contiguous(),
+                                 persistent=False)
+
+    def dim(self) -> int:
+        return self.num_mels
+
+    def forward(self, linear: torch.Tensor) -> torch.Tensor:
+        if self.requires_grad:
+            return linear @ self.filters.t()
+        return linear @ self.proj
+
+
+class LogTransform(nn.Module):
+    """log(max(x, eps)), or log(lower_bound + x) with lower_bound > 0."""
+
+    def __init__(self, eps: float = 1e-5, lower_bound: float = 0.0):
+        super(LogTransform, self).__init__()
+        self.eps = eps
+        self.lower_bound = lower_bound
+
+    def forward(self, linear: torch.Tensor) -> torch.Tensor:
+        if self.lower_bound > 0:
+            return torch.log(self.lower_bound + linear)
+        return torch.log(torch.clamp_min(linear, self.eps))
+
+
+class DiscreteCosineTransform(nn.Module):
+    """log-mel -> MFCC: the orthonormal DCT-II (dct_matrix, with the
+    lifter), ... x num_mels -> ... x num_ceps."""
+
+    def __init__(self, num_ceps: int = 13, num_mels: int = 80,
+                 lifter: float = 0):
+        super(DiscreteCosineTransform, self).__init__()
+        self.num_ceps = num_ceps
+        self.register_buffer(
+            "proj", torch.from_numpy(np.ascontiguousarray(
+                dct_matrix(num_ceps, num_mels, lifter=lifter).T)),
+            persistent=False)
+
+    def dim(self) -> int:
+        return self.num_ceps
+
+    def forward(self, log_mel: torch.Tensor) -> torch.Tensor:
+        return log_mel @ self.proj
+
+
+class SpliceTransform(nn.Module):
+    """Splice lctx and rctx neighbouring frames (edges clamped) onto the
+    feature axis, then keep every subsampling_factor-th frame of the
+    whole ones."""
+
+    def __init__(self, lctx: int = 0, rctx: int = 0,
+                 subsampling_factor: int = 1):
+        super(SpliceTransform, self).__init__()
+        self.lctx = max(lctx, 0)
+        self.rctx = max(rctx, 0)
+        self.subsampling_factor = subsampling_factor
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        feats = splice_feature(feats, lctx=self.lctx, rctx=self.rctx)
+        sf = self.subsampling_factor
+        if sf != 1:
+            end = (feats.shape[-2] // sf) * sf
+            feats = feats[..., :end:sf, :]
+        return feats
+
+
+def load_gcmvn(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(mean, std) of global CMVN statistics: a (2, D) .npy of [mean; std],
+    or a Kaldi .ark holding a 2 x (D + 1) matrix of sums, squares and the
+    frame count (in float64, as aps_tpu)."""
+    if path.endswith(".ark"):
+        from aps_tpu_torch.loader.kaldi_io import read_kaldi_mat
+        stats = read_kaldi_mat(path).astype(np.float64)
+        cnt = stats[0, -1]
+        mean = stats[0, :-1] / cnt
+        std = np.sqrt(stats[1, :-1] / cnt - mean**2)
+        return mean, std
+    stats = np.load(path)
+    return stats[0], stats[1]
+
+
 class CmvnTransform(nn.Module):
-    """Utterance-level mean/variance normalisation over time."""
+    """Mean/variance normalisation over time: utterance-level, or global
+    with gcmvn, a (2, D) .npy of [mean; std] or a Kaldi .ark of CMVN
+    statistics (sums, squares and the count). The global statistics are
+    buffers of the module's state, gmean and gstd; a missing file warns
+    and leaves zeros and ones of `dim`, as aps_tpu does."""
 
     def __init__(self,
                  norm_mean: bool = True,
                  norm_var: bool = True,
                  per_band: bool = True,
+                 gcmvn: str = "",
+                 dim: int = 1,
                  eps: float = 1e-5):
         super(CmvnTransform, self).__init__()
         self.norm_mean = norm_mean
         self.norm_var = norm_var
         self.per_band = per_band
         self.eps = eps
+        self.gcmvn = gcmvn
+        if gcmvn:
+            try:
+                mean, std = load_gcmvn(gcmvn)
+            except FileNotFoundError:
+                warnings.warn(f"{gcmvn} not found (no impact when loading "
+                              "from checkpoint later) ...")
+                mean, std = np.zeros(dim), np.ones(dim)
+            self.register_buffer("gmean", torch.as_tensor(
+                np.asarray(mean), dtype=torch.float32))
+            self.register_buffer("gstd", torch.as_tensor(
+                np.asarray(std), dtype=torch.float32))
+            # aps_tpu keeps no variable for them: convert.py carries them
+            # in a collection of their own
+            self.port_constants = ("gmean", "gstd")
 
     def forward(self, feats: torch.Tensor,
                 num_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats: N x (C) x T x F, normalised over T (per band) or T and F;
-        num_frames (N) restricts the statistics to the valid frames."""
+        num_frames (N) restricts the statistics to the valid frames. With
+        global statistics every frame is normalised by them."""
         if not self.norm_mean and not self.norm_var:
+            return feats
+        if self.gcmvn:
+            if self.norm_mean:
+                feats = feats - self.gmean
+            if self.norm_var:
+                feats = feats / self.gstd
             return feats
         axes = (-2,) if self.per_band else (-1, -2)
         if num_frames is None:
@@ -240,10 +510,13 @@ class CmvnTransform(nn.Module):
         return feats
 
 
+
+
 @ApsRegisters.transform.register("asr")
 class FeatureTransform(nn.Module):
-    """String-programmed ASR feature pipeline, e.g. "fbank-log-cmvn".
-    Takes the keyword arguments of aps_tpu's FeatureTransform."""
+    """String-programmed ASR feature pipeline, e.g. "fbank-log-cmvn" (see
+    the module docstring). Takes the keyword arguments of aps_tpu's
+    FeatureTransform."""
 
     def __init__(self,
                  feats: str = "fbank-log-cmvn",
@@ -303,108 +576,140 @@ class FeatureTransform(nn.Module):
         self.log_lower_bound = log_lower_bound
         self.subsampling_factor = subsampling_factor
         self.eps = eps
-        self.steps = []
-        self.cmvn = None
-        self.perturb = None
-        self.specaug = None
-        self.delta = None
         # the training draws' generator (the trainer sets one on its
         # device); None draws from torch's default generator
         self.generator = None
         self.feats_dim = 0
+        # step names and their layers, in order; `fused` is the span of
+        # steps that K1 replaces (the fbank chain and the log after it)
+        self.steps: List[str] = []
+        self._layers: List[nn.Module] = []
+        self.fused = None
+        self.spectra_index = -1
         self._fbank_ops = {}  # device -> fbank.Operands, made at its first use
+        stft_kwargs = dict(window=window,
+                           round_pow_of_two=round_pow_of_two,
+                           normalized=stft_normalized,
+                           pre_emphasis=pre_emphasis,
+                           center=center,
+                           mode=stft_mode)
+        mel_kwargs = dict(round_pow_of_two=round_pow_of_two,
+                          sr=sr,
+                          fmin=min_freq,
+                          fmax=max_freq,
+                          num_mels=num_mels,
+                          coeff_norm=mel_coeff_norm,
+                          mel_matrix=mel_matrix,
+                          requires_grad=requires_grad)
+        # aps_tpu's list of layers starts with its RescaleTransform
+        index = [0 if audio_norm else 1]
+
+        def add(name: str, layer: nn.Module) -> nn.Module:
+            self.add_module(f"layers_{index[0]}", layer)
+            index[0] += 1
+            self.steps.append(name)
+            self._layers.append(layer)
+            return layer
+
         toks = feats.split("-")
-        i = 0
-        while i < len(toks):
-            tok = toks[i]
-            if tok == "fbank":
-                fusable = (i + 1 < len(toks) and toks[i + 1] == "log"
-                           and not center and not requires_grad
-                           and not mel_matrix and pre_emphasis >= 0)
-                if not fusable or "spectrogram" in self.steps:
-                    raise NotImplementedError(
-                        f"{feats}: only one spectrum, a spectrogram or a "
-                        "fusable fbank-log pair (no centering, fixed mel "
-                        "matrix), is ported yet")
-                self.window = make_window(window, frame_len,
-                                          round_pow_of_two, stft_mode)
-                self.mel = mel_filter(frame_len,
-                                      round_pow_of_two=round_pow_of_two,
-                                      sr=sr,
-                                      num_mels=num_mels,
-                                      fmin=min_freq,
-                                      fmax=max_freq,
-                                      norm=mel_coeff_norm).T
-                self.fft_size = fft_size_of(
-                    frame_len, round_pow_of_two or stft_mode == "kaldi")
-                self.feats_dim = num_mels
-                self.steps.append("fbank-log")
-                i += 2
-                continue
-            if tok == "spectrogram":
-                if "spectrogram" in self.steps or "fbank-log" in self.steps:
-                    raise NotImplementedError(f"{feats}: only one spectrum "
-                                              "is ported yet")
-                self.feats_dim = fft_size_of(
-                    frame_len, round_pow_of_two or stft_mode == "kaldi") \
-                    // 2 + 1
-                self.steps.append(tok)
-            elif tok == "log" or tok == "abs":
-                self.steps.append(tok)
+        for i, tok in enumerate(toks):
+            if tok == "perturb":
+                add(tok, SpeedPerturbTransform(sr=sr, perturb=speed_perturb))
+            elif tok == "emph":
+                add(tok, PreEmphasisTransform(pre_emphasis=pre_emphasis))
+            elif tok in ("spectrogram", "fbank", "mfcc"):
+                first = self.spectra_index = len(self.steps)
+                stft = add("spectrogram", SpectrogramTransform(
+                    frame_len, frame_hop, **stft_kwargs))
+                add("magnitude", MagnitudeTransform())
+                add("trans", TFTransposeTransform())
+                add("pow", PowerTransform(power=2 if use_power else 1))
+                self.feats_dim = stft.dim()
+                if tok != "spectrogram":
+                    self.feats_dim = add("mel", MelTransform(
+                        frame_len, **mel_kwargs)).dim()
+                if tok == "mfcc":
+                    add("log", LogTransform(eps=eps,
+                                            lower_bound=log_lower_bound))
+                    self.feats_dim = add("dct", DiscreteCosineTransform(
+                        num_ceps=num_ceps, num_mels=num_mels,
+                        lifter=lifter)).dim()
+                if (tok == "fbank" and self.fused is None
+                        and toks[i + 1:i + 2] == ["log"] and not center
+                        and not requires_grad and not mel_matrix
+                        and pre_emphasis >= 0):
+                    self.fused = (first, first + 6)
+                    self.window = make_window(window, frame_len,
+                                              round_pow_of_two, stft_mode)
+                    self.mel = mel_filter(frame_len,
+                                          round_pow_of_two=round_pow_of_two,
+                                          sr=sr,
+                                          num_mels=num_mels,
+                                          fmin=min_freq,
+                                          fmax=max_freq,
+                                          norm=mel_coeff_norm).T
+                    self.fft_size = fft_size_of(
+                        frame_len, round_pow_of_two or stft_mode == "kaldi")
+            elif tok == "trans":
+                add(tok, TFTransposeTransform())
+            elif tok == "pow":
+                add(tok, PowerTransform())
             elif tok == "mel":
-                if requires_grad or mel_matrix or "spectrogram" in \
-                        self.steps or "fbank-log" in self.steps:
-                    raise NotImplementedError(
-                        f"{feats}: mel is ported on features only (no "
-                        "spectrum before it), with a fixed filterbank")
-                # a buffer outside the state_dict (aps_tpu keeps the
-                # fixed filterbank out of its variables)
-                self.register_buffer("mel_proj", torch.as_tensor(mel_filter(
-                    frame_len,
-                    round_pow_of_two=round_pow_of_two,
-                    sr=sr,
-                    num_mels=num_mels,
-                    fmin=min_freq,
-                    fmax=max_freq,
-                    norm=mel_coeff_norm).T, dtype=torch.float32),
-                    persistent=False)
-                self.feats_dim = num_mels
-                self.steps.append(tok)
+                self.feats_dim = add(tok, MelTransform(frame_len,
+                                                       **mel_kwargs)).dim()
+            elif tok == "log":
+                add(tok, LogTransform(eps=eps, lower_bound=log_lower_bound))
+            elif tok == "abs":
+                add(tok, AbsTransform(eps=eps))
+            elif tok == "dct":
+                self.feats_dim = add(tok, DiscreteCosineTransform(
+                    num_ceps=num_ceps, num_mels=num_mels,
+                    lifter=lifter)).dim()
             elif tok == "cmvn":
-                if self.cmvn is not None:
-                    raise NotImplementedError(f"{feats}: cmvn twice")
-                if gcmvn:
-                    raise NotImplementedError("global cmvn (gcmvn) is not "
-                                              "ported yet")
-                self.cmvn = CmvnTransform(norm_mean=norm_mean,
-                                          norm_var=norm_var,
-                                          per_band=norm_per_band,
-                                          eps=eps)
-                self.steps.append("cmvn")
-            elif tok == "perturb":
-                self.perturb = SpeedPerturbTransform(sr=sr,
-                                                     perturb=speed_perturb)
-                self.steps.append(tok)
+                add(tok, CmvnTransform(norm_mean=norm_mean,
+                                       norm_var=norm_var,
+                                       per_band=norm_per_band,
+                                       gcmvn=gcmvn,
+                                       dim=self.feats_dim,
+                                       eps=eps))
             elif tok == "aug":
-                self.specaug = SpecAugTransform(
-                    p=aug_prob,
-                    adaptive_args=aug_adaptive_args,
-                    time_args=aug_time_args,
-                    freq_args=aug_freq_args,
-                    maxp_time=aug_maxp_time,
-                    mask_zero=aug_mask_zero)
-                self.steps.append(tok)
+                add(tok, SpecAugTransform(p=aug_prob,
+                                          adaptive_args=aug_adaptive_args,
+                                          time_args=aug_time_args,
+                                          freq_args=aug_freq_args,
+                                          maxp_time=aug_maxp_time,
+                                          mask_zero=aug_mask_zero))
+            elif tok == "splice":
+                add(tok, SpliceTransform(
+                    lctx=lctx, rctx=rctx,
+                    subsampling_factor=subsampling_factor))
+                self.feats_dim *= 1 + lctx + rctx
             elif tok == "delta":
-                if self.delta is not None:
-                    raise NotImplementedError(f"{feats}: delta twice")
-                self.delta = DeltaTransform(ctx=delta_ctx, order=delta_order,
-                                            delta_as_channel=delta_as_channel)
+                add(tok, DeltaTransform(ctx=delta_ctx, order=delta_order,
+                                        delta_as_channel=delta_as_channel))
                 self.feats_dim *= 1 + delta_order
-                self.steps.append(tok)
             else:
-                raise NotImplementedError(
-                    f"token {tok} of {feats} is not ported yet")
-            i += 1
+                raise RuntimeError(f"Unknown token {tok} in {feats}")
+
+    def _first(self, kind):
+        return next((layer for layer in self._layers
+                     if isinstance(layer, kind)), None)
+
+    @property
+    def perturb(self) -> Optional[SpeedPerturbTransform]:
+        return self._first(SpeedPerturbTransform)
+
+    @property
+    def specaug(self) -> Optional[SpecAugTransform]:
+        return self._first(SpecAugTransform)
+
+    @property
+    def cmvn(self) -> Optional[CmvnTransform]:
+        return self._first(CmvnTransform)
+
+    @property
+    def delta(self) -> Optional[DeltaTransform]:
+        return self._first(DeltaTransform)
 
     @property
     def accept_raw(self) -> bool:
@@ -424,6 +729,19 @@ class FeatureTransform(nn.Module):
         nf = num_frames(inp_len, self.frame_len, self.frame_hop,
                         self.round_pow_of_two, self.stft_mode, self.center)
         return nf // self.subsampling_factor
+
+    def _frames(self, inp_pad: torch.Tensor, inp_len,
+                choice: Optional[int]):
+        """Valid frames of each utterance, at most those of the padded
+        batch (None without lengths)."""
+        nf = self._num_frames(inp_len, choice)
+        if nf is None:
+            return None
+        return torch.clamp_max(
+            torch.as_tensor(nf),
+            num_frames(inp_pad.shape[-1], self.frame_len, self.frame_hop,
+                       self.round_pow_of_two, self.stft_mode, self.center)
+            if self.accept_raw else inp_pad.shape[-2])
 
     def fbank_operands(self, device: torch.device) -> fbank.Operands:
         """The window, the mel matrix and the kernel's tables on a device,
@@ -450,74 +768,48 @@ class FeatureTransform(nn.Module):
             out = out.reshape(shape[:-1] + out.shape[-2:])
         return out
 
-    def _spectrogram(self, stft: torch.Tensor) -> torch.Tensor:
-        """N x (C x) F x T complex -> N x (C x) T x F magnitude (power)."""
-        mag = stft.abs().transpose(-1, -2)
-        return mag**2 if self.use_power else mag
-
     def forward(self, inp_pad: torch.Tensor, inp_len=None,
                 training: bool = False, skip_stft: bool = False):
         """inp_pad: N x (C x) S waveform, inp_len: N or None ->
         (feats N x (C x) T x F, num_frames N or None). In training the
         branch and the masks come from perturb.draw and specaug.draw.
         skip_stft: inp_pad is an STFT, N x (C x) F x T complex, that goes
-        through the steps after the spectrogram; cmvn then takes its
-        statistics over every frame and inp_len comes back as it is (as in
-        aps_tpu)."""
-        choice, nf = None, None
+        through the steps after the STFT (the layered chain, also where K1
+        would run); cmvn then takes its statistics over every frame and
+        inp_len comes back as it is (as in aps_tpu)."""
+        choice = None
         feats = inp_pad
         if skip_stft:
-            if "spectrogram" not in self.steps:
+            if self.spectra_index < 0:
                 raise ValueError(f"{self.feats}: skip_stft needs a "
-                                 "spectrogram front end")
-            steps = self.steps[self.steps.index("spectrogram"):]
+                                 "spectral front end")
+            first = self.spectra_index + 1
         else:
-            steps = self.steps
-            if training and self.perturb is not None:
-                choice = self.perturb.draw(self.generator)
+            first = 0
             if self.rescale is not None:
                 feats = self.rescale(feats)
-            nf = self._num_frames(inp_len, choice)
-            if nf is not None:
-                nf = torch.clamp_max(
-                    torch.as_tensor(nf),
-                    num_frames(inp_pad.shape[-1], self.frame_len,
-                               self.frame_hop, self.round_pow_of_two,
-                               self.stft_mode, self.center)
-                    if self.accept_raw else inp_pad.shape[-2])
-        for step in steps:
+        for i in range(first, len(self.steps)):
+            if self.fused is not None and not skip_stft and \
+                    self.fused[0] <= i < self.fused[1]:
+                if i == self.fused[0]:
+                    feats = self._fbank_log(feats)
+                continue
+            step, layer = self.steps[i], self._layers[i]
             if step == "perturb":
-                if choice is not None:
-                    feats = self.perturb(feats, choice)
-            elif step == "fbank-log":
-                feats = self._fbank_log(feats)
-            elif step == "spectrogram":
-                if not skip_stft:
-                    feats = forward_stft(
-                        feats, self.frame_len, self.frame_hop,
-                        window=self.window_name,
-                        round_pow_of_two=self.round_pow_of_two,
-                        pre_emphasis=self.pre_emphasis,
-                        normalized=self.stft_normalized, center=self.center,
-                        mode=self.stft_mode)
-                feats = self._spectrogram(feats)
-            elif step == "abs":
-                feats = feats.abs() + self.eps
-            elif step == "mel":
-                feats = feats @ self.mel_proj
-            elif step == "log":
-                if self.log_lower_bound > 0:
-                    feats = torch.log(self.log_lower_bound + feats)
-                else:
-                    feats = torch.log(torch.clamp_min(feats, self.eps))
+                if training:
+                    choice = layer.draw(self.generator)
+                    feats = layer(feats, choice)
             elif step == "cmvn":
-                feats = self.cmvn(feats, num_frames=nf)
-            elif step == "delta":
-                feats = self.delta(feats)
-            elif step == "aug" and training and self.specaug.p > 0:
-                feats = self.specaug(
-                    feats, self.specaug.draw(feats, self.generator))
-        return feats, (inp_len if skip_stft else nf)
+                feats = layer(feats, num_frames=None if skip_stft else
+                              self._frames(inp_pad, inp_len, choice))
+            elif step == "aug":
+                if training and layer.p > 0:
+                    feats = layer(feats, layer.draw(feats, self.generator))
+            else:
+                feats = layer(feats)
+        if skip_stft:
+            return feats, inp_len
+        return feats, self._frames(inp_pad, inp_len, choice)
 
 
 AsrTransform = FeatureTransform

@@ -3,8 +3,8 @@
 counts, framing, overlap-add and the STFT and its inverse.
 
 Port of aps_tpu/transform/utils.py (init_window, fft_size_of, _stft_geometry,
-make_window, mel_filter, num_frames, speed_perturb_filter, frame_signal,
-overlap_add, forward_stft, inverse_stft, splice_feature). The coefficient
+make_window, mel_filter, dct_matrix, num_frames, speed_perturb_filter,
+frame_signal, overlap_add, forward_stft, inverse_stft, splice_feature). The coefficient
 tables are made with numpy, as in the JAX package, so both packages get the
 same float32 tables; num_frames takes ints or tensors. A spectrum is a
 complex64 tensor N x (C) x F x T: aps_tpu packs it as a real ... x 2 pair only
@@ -104,6 +104,20 @@ def mel_filter(frame_len: int,
         enorm = 2.0 / (mel_pts[2:num_mels + 2] - mel_pts[:num_mels])
         weights *= enorm[:, None]
     return weights.astype(np.float32)
+
+
+def dct_matrix(num_ceps: int, num_mels: int, lifter: float = 0) -> np.ndarray:
+    """Orthonormal DCT-II matrix (num_ceps x num_mels), rows scaled by the
+    sinusoidal lifter 1 + lifter / 2 * sin(pi k / lifter) when lifter > 0."""
+    n = np.arange(num_mels)
+    k = np.arange(num_ceps)[:, None]
+    dct = np.cos(np.pi * k * (2 * n + 1) / (2 * num_mels))
+    dct[0] *= 1.0 / math.sqrt(num_mels)
+    dct[1:] *= math.sqrt(2.0 / num_mels)
+    if lifter > 0:
+        cepw = 1 + 0.5 * lifter * np.sin(np.pi * np.arange(num_ceps) / lifter)
+        dct *= cepw[:, None]
+    return dct.astype(np.float32)
 
 
 def num_frames(wav_len, frame_len: int, frame_hop: int,

@@ -275,6 +275,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 SEED = 777
@@ -5086,17 +5087,7 @@ def att_kernels_ran(fn, what: str, names) -> None:
     `names`' device kernels (by its events or by its averages: a kernel
     launched through ctypes has no PyTorch operator around it). main()
     runs the phases that call it first (see there)."""
-    import torch
-
-    from aps_tpu_torch.cmd.profile_decode import on_device
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    seen = {evt.name for evt in prof.events() if on_device(evt)} | {
-        evt.key for evt in prof.key_averages()
-        if evt.device_type == torch.autograd.DeviceType.CUDA}
+    seen = traced_kernel_names(fn)
     for kernel in names:
         if not any(ATT_KERNEL_NAMES[kernel] in s for s in seen):
             fail(f"{what}: the profile shows no {ATT_KERNEL_NAMES[kernel]} "
@@ -7479,6 +7470,744 @@ def wide_head_phase(dev, gen, card, egs):
     return rows, launched["card32"], more
 
 
+# the last of the JAX package: CTC forced alignment (cmd.align on asr@ctc
+# with the flagship's encoder), the feature grammar (compute_gmvn, a global
+# CMVN, mfcc with splice, a learnable filterbank), the trainer's options
+# (weight noise, profile, tensorboard) and K2 / K3 at heads over 128 (the
+# wide kernels of csrc/wide_attention.cu)
+ALIGN_UTTS = 8
+ALIGN_LABELS = 24  # tokens a transcript of 8 s
+# card vs CPU: the log-probabilities of an alignment's lattice (the
+# encoder's float32 output through log-softmax); a score sums T of them
+TOL_ALIGN_LOGP = 1e-3
+TOL_GMVN = 1e-4  # relative, card vs CPU statistics
+FEATURE_PASS_UTTS = 4  # of the training batch, in each card-vs-CPU pass
+FEATURE_PASSES = {
+    # name -> (asr_transform changes, nnet input size, the learnable
+    # filterbank's gradient held by filterbank_check, float64 referee on
+    # the CPU). The mfcc pass's first layers lay 1.4e-3 to 1.5e-3 of their
+    # largest entry from the CPU's on one batch (an NVIDIA H100 80GB HBM3
+    # against its host; PERF.md section 6), near TOL_STEP_GRAD: the float64
+    # pass tells the float32 rounding of both devices apart, as for the
+    # long-form model's pass
+    "gcmvn": (dict(feats="fbank-log-cmvn"), 80, None, False),
+    "mfcc": (dict(feats="perturb-mfcc-cmvn-splice", subsampling_factor=1),
+             39, None, True),
+    "learnable fbank": (dict(feats="fbank-log-cmvn", requires_grad=True,
+                             center=True), 80,
+                        "asr_transform.layers_4.filters", False),
+}
+OPTS_UTTS = 10  # the trainer options' corpus: one batch of 10 x 8 s (the
+# loader's floor)
+OPTS_EPOCHS = 4  # one step each
+OPTS_NOISE = dict(weight_noise_std=0.01, weight_noise_cfg=[1, 2, -1])
+OPTS_PROFILE_STEPS = [1, 3]
+K3_KERNEL_NAMES = ("rel_attn_fwd_kernel", "rel_attn_dq_kernel",
+                   "rel_attn_dkv_kernel", "rel_attn_dpose_kernel")
+# heads over 128 (the wide kernels): 160 and 256 at the steps' shapes and
+# the one-key corner, 1100 (five passes of 256 columns) at a smaller one
+WIDE_OVER = (160, 256, 1100)
+WIDE_OVER_SMALL = ((4, 2, 129, [129, 70, 1, 0], False, 2, "ragged"),)
+WIDE_OVER_ABS_SMALL = ((4, 2, 129, [129, 70, 1, 0], True, "ragged"),)
+TOL_WIDE = 1e-3  # of the largest entry of the plain version's result
+
+
+def align_conf() -> dict:
+    """asr@ctc with the flagship's encoder at full width (conv2d
+    subsampling, 12 conformer layers of 256 with 4 heads, rel pose) and
+    its fbank-log-cmvn transform."""
+    from aps_tpu_torch.flagship import flagship_conf
+    conf = flagship_conf(VOCAB, small=False)
+    nnet_conf = {k: conf["nnet_conf"][k] for k in (
+        "input_size", "vocab_size", "enc_type", "enc_kwargs")}
+    return {"nnet": "asr@ctc", "nnet_conf": nnet_conf,
+            "asr_transform": conf["asr_transform"], "task": "asr@ctc",
+            "task_conf": {"blank": VOCAB - 1}, "data_conf": {},
+            "trainer_conf": {}}
+
+
+def viterbi_margins(logits, seq, blank: int):
+    """For CtcApi.viterbi_align's path over T x V logits: the gap between
+    the chosen and the next candidate at each cell of the path (and at the
+    choice of the final state), in float64 as the alignment sums; and the
+    log-probabilities of the path's lattice (the blank and the labels),
+    T x (U + 1)."""
+    import numpy as np
+    import torch
+    logp = torch.log_softmax(torch.as_tensor(logits).float(), -1).numpy()
+    ext = [blank]
+    for s in seq:
+        ext += [s, blank]
+    T, L = logp.shape[0], len(ext)
+    score = np.full((T, L), -np.inf)
+    gap = np.full((T, L), np.inf)
+    back = np.zeros((T, L), dtype=np.int64)
+    score[0, 0] = logp[0, ext[0]]
+    if L > 1:
+        score[0, 1] = logp[0, ext[1]]
+    for t in range(1, T):
+        for l in range(L):
+            cands = [score[t - 1, l]]
+            if l > 0:
+                cands.append(score[t - 1, l - 1])
+            if l > 1 and ext[l] != blank and ext[l] != ext[l - 2]:
+                cands.append(score[t - 1, l - 2])
+            order = np.argsort(cands)[::-1]
+            best = int(np.argmax(cands))
+            score[t, l] = cands[best] + logp[t, ext[l]]
+            back[t, l] = l - best
+            if len(cands) > 1 and np.isfinite(cands[order[1]]):
+                gap[t, l] = cands[order[0]] - cands[order[1]]
+    ends = [L - 1, L - 2] if L > 1 else [0]
+    end = max(ends, key=lambda l: score[T - 1, l])
+    gaps = [abs(score[T - 1, L - 1] - score[T - 1, L - 2])] if L > 1 else []
+    l = end
+    for t in range(T - 1, -1, -1):
+        gaps.append(gap[t, l])
+        l = back[t, l]
+    return gaps, logp[:, sorted(set(ext))].astype(np.float64)
+
+
+def traced_kernel_names(fn):
+    """The device kernels a trace of one call of fn() names (by its events
+    and by its averages: a kernel launched through ctypes has no PyTorch
+    operator around it)."""
+    import torch
+
+    from aps_tpu_torch.cmd.profile_decode import on_device
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.name for evt in prof.events() if on_device(evt)} | {
+        evt.key for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def align_phase(root: Path, gen, dev, card):
+    """cmd.align on the card over ALIGN_UTTS utterances of 8 s and their
+    transcripts with asr@ctc at the flagship encoder's full width (seeded
+    weights, the output layer scaled up): K1 and K3's forward launched (by
+    the counts and by name in a trace of the run), held against their
+    plain versions at the path's operands. Card vs CPU (cmd.align --device
+    cpu), each utterance: the log-probabilities of the path's lattice
+    within TOL_ALIGN_LOGP (delta, their largest difference); the score, a
+    sum over the T frames, within T * delta (no path's sum moves more);
+    the alignment equal, but where a choice on either device's path lies
+    within 2 T delta of the next candidate (viterbi_margins), so that the
+    devices' logits may order it either way: such utterances are counted
+    and printed, never passed silently. -> (launches of the run, rows by
+    kernel)."""
+    import torch
+
+    from aps_tpu_torch.cmd import align
+    from aps_tpu_torch.convert import to_variables
+    from aps_tpu_torch.flagship import build_flagship, init_weights
+    from aps_tpu_torch.loader.utils import quantize_len
+    from aps_tpu_torch.ops import build
+    beg = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    conf = align_conf()
+    model = build_flagship(conf)
+    init_weights(model, gen)
+    with torch.no_grad():
+        model.encoder.outp.weight.mul_(8.0)
+    cpt = root / "cpt"
+    cpt.mkdir()
+    (cpt / "train.yaml").write_text(json.dumps(conf, indent=2))
+    variables = to_variables(model)
+    with open(cpt / "best.ckpt", "wb") as fd:
+        pickle.dump({"params": variables["params"],
+                     "mstate": {"batch_stats": variables["batch_stats"]},
+                     "epoch": 0}, fd)
+    with open(root / "dict", "w") as fd:
+        fd.write("<unk> 0\n")
+        for i in range(1, VOCAB - 1):
+            fd.write(f"t{i} {i}\n")
+    wavs = write_wavs(root, "ali", ALIGN_UTTS, gen)
+    labels = torch.randint(1, VOCAB - 1, (ALIGN_UTTS, ALIGN_LABELS),
+                           generator=gen).tolist()
+    with open(root / "text", "w") as fd:
+        for key, toks in zip(sorted(wavs), labels):
+            fd.write(f"{key} {' '.join(f't{i}' for i in toks)}\n")
+    logits = {"cpu": [], "cuda": []}
+
+    class Recorded(align.CtcApi):
+        def viterbi_align(self, ctc_enc, dec_seq):
+            logits[side].append((ctc_enc.float().cpu(), list(dec_seq)))
+            return super(Recorded, self).viterbi_align(ctc_enc, dec_seq)
+
+    def run(side: str, out: str):
+        # the command prints its arguments: to stderr, so that every "{"
+        # line of this script's stdout is one of its own
+        with contextlib.redirect_stdout(sys.stderr):
+            return align.main([str(root / "wav.scp"), str(root / "text"),
+                               str(root / out), "--am", str(cpt), "--dict",
+                               str(root / "dict"), "--device", side])
+
+    outs = {}
+    real = align.CtcApi
+    align.CtcApi = Recorded
+    try:
+        side = "cpu"
+        outs[side] = run(side, "ali.cpu")
+        side = "cuda"
+        build.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs[side] = run(side, "ali.cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        launches = dict(build.LAUNCHES)
+    finally:
+        align.CtcApi = real
+    want = {k: 0 for k in build.LAUNCHES}
+    want.update(fused_logmel=ALIGN_UTTS,
+                flash_attention_rel=ENC_LAYERS * ALIGN_UTTS)
+    if launches != want:
+        fail(f"align launched {launches}, expected {want}")
+    lines = (root / "ali.cuda").read_text().splitlines()
+    if len(lines) != ALIGN_UTTS or sorted(ln.split()[0] for ln in lines) \
+            != sorted(wavs):
+        fail(f"align wrote {len(lines)} lines for {ALIGN_UTTS} utterances")
+    ties, checked = [], []
+    for n, key in enumerate(sorted(wavs)):
+        cpu, gpu = outs["cpu"][key], outs["cuda"][key]
+        T_utt = len(cpu["align"])
+        if not (math.isfinite(gpu["score"]) and len(gpu["align"]) == T_utt):
+            fail(f"align {key}: card {gpu['score']}, "
+                 f"{len(gpu['align'])} frames vs CPU {T_utt}")
+        gaps_c, logp_c = viterbi_margins(*logits["cpu"][n], VOCAB - 1)
+        gaps_g, logp_g = viterbi_margins(*logits["cuda"][n], VOCAB - 1)
+        delta = float(abs(logp_g - logp_c).max())
+        if not delta <= TOL_ALIGN_LOGP:
+            fail(f"align {key}: the card's log-probabilities of the path's "
+                 f"lattice lie {delta} from the CPU's, over "
+                 f"{TOL_ALIGN_LOGP}")
+        err = abs(gpu["score"] - cpu["score"])
+        if not err <= T_utt * delta + 1e-9 * abs(cpu["score"]):
+            fail(f"align {key}: score {gpu['score']} vs {cpu['score']}, "
+                 f"more apart than {T_utt} frames x {delta}")
+        checked.append((err, delta, T_utt))
+        if gpu["align"] != cpu["align"]:
+            near = sum(g <= 2 * T_utt * delta for g in gaps_c + gaps_g)
+            if not near:
+                fail(f"align {key}: the card's alignment differs from the "
+                     f"CPU's with no choice on either path within "
+                     f"{2 * T_utt * delta} of the next candidate")
+            ties.append((key, near, min(gaps_c + gaps_g)))
+    # the path's operands: one utterance padded onto the length grid, its
+    # encoder frames
+    S = quantize_len(UTT_SECS * SR, floor=16000)
+    frames = model.asr_transform._num_frames(
+        torch.tensor([S, UTT_SECS * SR]))
+    T, k_len = model.encoder.num_frames(frames).tolist()
+    key0 = sorted(wavs)[0]
+    wav = torch.zeros((1, S))
+    wav[0, :len(wavs[key0])] = torch.from_numpy(wavs[key0])
+    rows = {"fused_logmel": check_fbank(dev, model, (("align", wav),))[0],
+            "flash_attention_rel": check_rel_attention(
+                dev, gen, cases=((T, 1, False, [k_len], "align"),))[0]}
+    # by name: a trace of one more run on the card
+    seen = traced_kernel_names(lambda: run("cuda", "ali.trace"))
+    for kernel in ("fbank_fft_kernel", "rel_attn_fwd_kernel"):
+        if not any(kernel in s for s in seen):
+            fail(f"align: the trace shows no {kernel} among its "
+                 f"{len(seen)} device kernels: {sorted(n[:40] for n in seen)}")
+    print(f"align: asr@ctc at the flagship encoder's width, {ALIGN_UTTS} x "
+          f"{UTT_SECS} s (S = {S} padded, T = {T}, {k_len} valid) with "
+          f"transcripts of {ALIGN_LABELS} tokens through cmd.align on the "
+          f"card in {secs:.3f} s, launches {launches}; card vs CPU: "
+          f"lattice log-probabilities within "
+          f"{max(d for _, d, _ in checked):.3e}, scores within "
+          f"{max(e for e, _, _ in checked):.3e} (bound T x delta, T = "
+          f"{checked[0][2]}), {ALIGN_UTTS - len(ties)} alignments equal, "
+          f"{len(ties)} apart at near-ties (key, choices within 2 T delta, "
+          f"the closest gap) {ties}; the trace names fbank_fft_kernel and "
+          f"rel_attn_fwd_kernel; the phase took "
+          f"{time.perf_counter() - beg:.1f} s ({card})", flush=True)
+    return launches, rows
+
+
+def perturb_float64(task) -> None:
+    """A witness: the speed perturbation's resampling (a conv1d on the
+    card's cuDNN) in float64, the rest of the pass as it was."""
+    layer = task.nnet.asr_transform.perturb
+    real = layer.forward
+    layer.forward = lambda wav, choice: real(wav.double(), choice).float()
+
+
+def filterbank_check(task, egs, dev, leaf: str, utts: int):
+    """The learnable filterbank's gradient, sum over the frames of
+    dL/dlog-mel / mel times the magnitude spectrum: a frame whose bin the
+    window and pre-emphasis nearly cancel has a mel energy that float32
+    rounding of the STFT moves by a large share, and 1 / mel carries it
+    into the sum. Both float32 devices round the frames' elementwise steps
+    alike, so they agree with each other and lie 0.2 of the largest entry
+    from a float64 pass (an NVIDIA H100 80GB HBM3 and its host; PERF.md
+    section 6). Held as a first layer on an enh transform's STFT is held
+    (stft32_of): the card's float32 pass within TOL_STEP_GRAD of a float64
+    pass that reads the card's own float32 spectrum (each frame within
+    Higham's bound on the float64 one, stft_rounding), both on the card
+    with the attention dense for the float64 copy (the kernels take
+    float32). -> (that distance, the plain float64 pass's distance, the
+    frames' largest share of the bound)."""
+    import torch
+
+    from aps_tpu_torch.trainer.dp import to_device
+    tensors = {k: v[:utts] for k, v in egs.items() if not k.startswith("#")}
+    ratios = []
+
+    def stft32(side) -> None:
+        tf = side.nnet.asr_transform
+        layer = tf._layers[tf.spectra_index]
+        real = layer.forward
+
+        def forward(wav):
+            x64 = real(wav)
+            x32 = real(wav.float()).to(x64.dtype)
+            ratios.append(stft_rounding(x32, x64))
+            return x32
+        layer.forward = forward
+
+    grads = {}
+    for name, dtype, patch in (("card32", torch.float32, None),
+                               ("card64", torch.float64, None),
+                               ("stft32_64", torch.float64, stft32)):
+        side = copy.deepcopy(task).to(dev, dtype).train()
+        if dtype == torch.float64:
+            dense_attention(side)
+        if patch is not None:
+            patch(side)
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in to_device(tensors, dev).items()}
+        side(batch)["loss"].backward()
+        grads[name] = dict(side.nnet.named_parameters())[leaf].grad.double()
+    scale = grads["stft32_64"].abs().max().item()
+    err = (grads["card32"] - grads["stft32_64"]).abs().max().item() / scale
+    share = (grads["card32"] - grads["card64"]).abs().max().item() / \
+        grads["card64"].abs().max().item()
+    if not (scale > 0 and err <= TOL_STEP_GRAD):
+        fail(f"gradient of {leaf}: the card's float32 pass is {err} of the "
+             "largest entry from the float64 pass on its own float32 "
+             f"spectrum, over {TOL_STEP_GRAD}")
+    return err, share, max(ratios)
+
+
+def feature_conf(change: dict, input_size: int, gcmvn: str = "") -> dict:
+    """The flagship's training config at full width with every dropout
+    off, its asr_transform changed and the encoder's input size set."""
+    from aps_tpu_torch.flagship import flagship_train_conf
+    conf = flagship_train_conf(VOCAB)
+    conf["asr_transform"] = dict(conf["asr_transform"], **change)
+    if gcmvn:
+        conf["asr_transform"]["gcmvn"] = gcmvn
+    nnet_conf = conf["nnet_conf"]
+    nnet_conf["input_size"] = input_size
+    nnet_conf["enc_kwargs"]["arch_kwargs"]["ffn_dropout"] = 0.0
+    nnet_conf["dec_kwargs"]["arch_kwargs"].update(att_dropout=0.0,
+                                                  ffn_dropout=0.0)
+    return conf
+
+
+def features_phase(root: Path, train: Path, egs, gen, dev, card):
+    """compute_gmvn over the training corpus (fbank-log, K1 once an
+    utterance) on the card and on the CPU, the statistics within TOL_GMVN
+    relative; then one training pass of the flagship at full width card vs
+    CPU (step_pass_check, the training bounds of PERF.md section 2) on
+    FEATURE_PASS_UTTS utterances for each of FEATURE_PASSES: gcmvn from
+    that file, perturb-mfcc-cmvn-splice (the speed perturbation's branch
+    fixed to 0.9 on both sides; a witness with the resampling in float64)
+    by the float64 referee's rule, and a learnable, centred filterbank
+    (its own gradient held by filterbank_check). -> (launches of
+    compute_gmvn on the card, of each pass on the card)."""
+    import numpy as np
+    import torch
+
+    from aps_tpu_torch.cmd import compute_gmvn
+    from aps_tpu_torch.flagship import build_flagship, init_weights
+    from aps_tpu_torch.libs import aps_task
+    from aps_tpu_torch.ops import build
+    beg = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    stats = {}
+    for side in ("cpu", "cuda"):
+        argv = [str(train / "wav.scp"), str(root / f"gmvn.{side}.npy"),
+                "--conf", str(train / "train.yaml"), "--device", side]
+        build.reset_launches()
+        start = time.perf_counter()
+        stats[side] = compute_gmvn.main(argv)
+        took = time.perf_counter() - start
+        if side == "cuda":
+            gmvn_launches, gmvn_secs = dict(build.LAUNCHES), took
+    utts = len((train / "wav.scp").read_text().splitlines())
+    if gmvn_launches["fused_logmel"] != utts or \
+            sum(gmvn_launches.values()) != utts:
+        fail(f"compute_gmvn launched {gmvn_launches} over {utts} utterances")
+    cpu, gpu = stats["cpu"], stats["cuda"]
+    gmvn_err = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    if not (gpu.shape == (2, 80) and np.isfinite(gpu).all()
+            and gmvn_err <= TOL_GMVN):
+        fail(f"compute_gmvn: the card's statistics are {gmvn_err} of the "
+             f"largest entry from the CPU's, over {TOL_GMVN}")
+    passes = {}
+    for name, (change, input_size, extra, referee) in \
+            FEATURE_PASSES.items():
+        conf = feature_conf(change, input_size,
+                            str(root / "gmvn.cuda.npy")
+                            if name == "gcmvn" else "")
+        model = build_flagship(conf)
+        # seeded weights, the filterbank kept where it is learnable
+        front = {k: p.detach().clone()
+                 for k, p in model.asr_transform.named_parameters()}
+        init_weights(model, gen)
+        tf = model.asr_transform
+        with torch.no_grad():
+            for k, p in tf.named_parameters():
+                p.copy_(front[k])
+        if tf.perturb is not None:
+            tf.perturb.draw = lambda generator: 0
+        task = aps_task(conf["task"], model, blank=VOCAB - 1,
+                        **conf["task_conf"])
+        grads = STEP_GRADS["flagship"]
+        launched = {}
+        loss_g, loss_c, errs = step_pass_check(
+            task, egs, dev, grads, FEATURE_PASS_UTTS, referee=referee,
+            referee_on="cpu", launched=launched,
+            witnesses={"perturb64": perturb_float64}
+            if tf.perturb is not None else None)
+        fused = tf.fused is not None
+        want = {"fused_logmel": int(fused),
+                "flash_attention_rel": ENC_LAYERS,
+                **{f"flash_attention_rel_{k}": ENC_LAYERS for k in BACKWARD}}
+        if launched["card32"] != {k: v for k, v in want.items() if v}:
+            fail(f"the {name} pass launched {launched['card32']}, expected "
+                 f"{want}")
+        passes[name] = launched["card32"]
+        held = ""
+        if extra:
+            err, share, ratio = filterbank_check(task, egs, dev, extra,
+                                                 FEATURE_PASS_UTTS)
+            held = (f"; {extra}: the card's float32 pass {err:.3e} of the "
+                    "largest entry from the float64 pass on its own float32 "
+                    f"spectrum (frames at {ratio:.3e} of Higham's bound), "
+                    f"{share:.3e} from the plain float64 pass")
+        print(f"features [{name}]: {conf['asr_transform']['feats']} "
+              f"({'K1' if fused else 'layered, no K1'}), feats dim "
+              f"{tf.dim()}; training pass card vs CPU on {FEATURE_PASS_UTTS} "
+              f"utterances: loss {loss_g:.6f} vs {loss_c:.6f}, gradients "
+              "relative to the largest entry "
+              + ("(card, CPU" + (", the card with the perturbation in "
+                                  "float64" if tf.perturb is not None else "")
+                 + " from the CPU's float64 pass) " if referee
+                 else "") + ", ".join(
+                  f"{k} " + (", ".join(f"{e:.3e}" for e in v) if referee
+                             else f"{v:.3e}") for k, v in errs.items())
+              + f", launches {launched['card32']}{held}", flush=True)
+    print(f"features: compute_gmvn over {utts} x {UTT_SECS} s on the card "
+          f"in {gmvn_secs:.3f} s (K1 {gmvn_launches['fused_logmel']} "
+          f"launches), card vs CPU {gmvn_err:.3e} of the largest entry; the "
+          f"phase took {time.perf_counter() - beg:.1f} s ({card})",
+          flush=True)
+    return gmvn_launches, passes
+
+
+def trainer_opts_phase(root: Path, gen, dev, card):
+    """A train_am run of OPTS_EPOCHS one-step epochs of the flagship at full
+    width on OPTS_UTTS utterances with weight noise (OPTS_NOISE), profile
+    over steps OPTS_PROFILE_STEPS and tensorboard on: the noise lands on
+    the schedule's steps, its draws (recorded on the card) have mean 0 and
+    standard deviation 1 by their statistics, read on the card; the one
+    Chrome trace names K3's four kernels; tensorboard wrote its events
+    file, or warned where the package is missing. -> launches of the
+    run."""
+    import torch
+
+    from aps_tpu_torch.cmd import train_am
+    from aps_tpu_torch.ops import build
+    from aps_tpu_torch.trainer.dp import DataParallelTrainer
+    beg = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    train = write_corpus(root, gen, utts=OPTS_UTTS)
+    conf = json.loads((train / "train.yaml").read_text())
+    prof = root / "profile"
+    conf["trainer_conf"].update(OPTS_NOISE, tensorboard=True,
+                                profile=str(prof),
+                                profile_steps=OPTS_PROFILE_STEPS)
+    (train / "train.yaml").write_text(json.dumps(conf, indent=2))
+    noised = []
+    real = DataParallelTrainer.draw_weight_noise
+
+    def recorded(self):
+        draws = real(self)
+        flat = torch.cat([d.reshape(-1) for d in draws])
+        noised.append((self.cur_step, flat.device.type, flat.numel(),
+                       flat.mean().item(), flat.std().item()))
+        return draws
+
+    cpt = root / "cpt"
+    argv = ["--conf", str(train / "train.yaml"), "--dict",
+            str(root / "dict"), "--checkpoint", str(cpt), "--batch-size",
+            str(OPTS_UTTS), "--epochs", str(OPTS_EPOCHS), "--seed",
+            str(SEED)]
+    with open(root / "dict", "w") as fd:
+        fd.write("<unk> 0\n")
+        for i in range(1, VOCAB - 3):
+            fd.write(f"t{i} {i}\n")
+        fd.write(f"<sos> {VOCAB - 3}\n<eos> {VOCAB - 2}\n")
+    DataParallelTrainer.draw_weight_noise = recorded
+    build.reset_launches()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(sys.stderr):
+            warnings.simplefilter("always")
+            trainer = train_am.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        DataParallelTrainer.draw_weight_noise = real
+    launches = dict(build.LAUNCHES)
+    want = step_launches("flagship", 2 * OPTS_EPOCHS + 1, OPTS_EPOCHS)
+    if trainer.device.type != "cuda" or launches != want:
+        fail(f"train_am with the options launched {launches} on "
+             f"{trainer.device}, expected {want}")
+    beg_n, every, end_n = OPTS_NOISE["weight_noise_cfg"]
+    steps = [s for s in range(OPTS_EPOCHS) if s >= beg_n and
+             (end_n <= 0 or s <= end_n) and (s - beg_n) % every == 0]
+    if [n[0] for n in noised] != steps:
+        fail(f"weight noise on steps {[n[0] for n in noised]}, expected "
+             f"{steps}")
+    for step, where, n, mean, std in noised:
+        if where != "cuda" or not (abs(mean) < 5 / n**0.5 and
+                                   abs(std - 1) < 5 / (2 * n)**0.5):
+            fail(f"weight noise of step {step} on {where}: {n} draws of "
+                 f"mean {mean} and standard deviation {std}")
+    traces = sorted(prof.glob("trace.*.json"))
+    if [p.name for p in traces] != ["trace.{}-{}.json".format(
+            *OPTS_PROFILE_STEPS)]:
+        fail(f"profile wrote {[p.name for p in traces]}")
+    names = {evt.get("name", "") for evt in json.loads(
+        traces[0].read_text())["traceEvents"]
+        if evt.get("cat") == "kernel"}
+    missing = [k for k in K3_KERNEL_NAMES if not any(k in n for n in names)]
+    if missing:
+        fail(f"the profile's trace names no {missing} among its "
+             f"{len(names)} kernels")
+    log = (cpt / "trainer.log").read_text()
+    if f"Profiler: tracing steps [{OPTS_PROFILE_STEPS[0]}, " \
+            f"{OPTS_PROFILE_STEPS[1]})" not in log or \
+            "Profiler: trace saved to" not in log:
+        fail("trainer.log lacks the profiler's two lines")
+    events = sorted(cpt.glob("events.out.tfevents.*"))
+    board = [str(w.message) for w in caught
+             if "tensorboard not installed" in str(w.message)]
+    if not events and not board:
+        fail("tensorboard: true wrote no events file and gave no warning")
+    print(f"trainer options: train_am of the flagship, {OPTS_EPOCHS} "
+          f"one-step epochs of {OPTS_UTTS} x {UTT_SECS} s, launches "
+          f"{launches}; weight noise {OPTS_NOISE}: steps "
+          f"{[n[0] for n in noised]}, draws (count, mean, std on the card) "
+          + ", ".join(f"{n} {m:.3e} {s:.6f}" for _, _, n, m, s in noised)
+          + f"; profile: {traces[0].name} names {list(K3_KERNEL_NAMES)} "
+          f"among {len(names)} kernels; tensorboard: "
+          + (f"{len(events)} events file(s)" if events else
+             "the package is missing (warned, disabled)")
+          + f"; the phase took {time.perf_counter() - beg:.1f} s ({card})",
+          flush=True)
+    return launches
+
+
+def _over_row(name, label, got, want, launch, plain_ms, bound, ops,
+              **more):
+    """A check row of a wide kernel: within TOL_WIDE of the largest entry
+    of the plain version's result; launch() timed alone and QUEUED_CALLS
+    queued (5 samples each: these kernels take milliseconds), the queued
+    time not below the tensor cores' bound of its products."""
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not err <= TOL_WIDE * scale:
+        fail(f"{name} [{label}]: max abs err {err} > {TOL_WIDE} of the "
+             f"largest entry {scale}")
+    queued = time_ms(launch, iters=5, warmup=1, calls=QUEUED_CALLS)
+    tensor_ms = tensor_core_ms(ops)
+    if not queued >= tensor_ms:
+        fail(f"{name} [{label}]: {queued} ms queued reads below the tensor "
+             f"cores' bound {tensor_ms}")
+    return (label, err, time_ms(launch, iters=5, warmup=1), plain_ms) + \
+        bound + ({"ms_queued": queued, "tensor_core_bound_ms": tensor_ms,
+                  "rel_err": err / scale,
+                  "source": "aps_tpu_torch/csrc/wide_attention.cu",
+                  **more},)
+
+
+def wide_heads_phase(dev, gen, card):
+    """K2's and K3's wide kernels (csrc/wide_attention.cu) at heads of
+    WIDE_OVER: 160 and 256 at the steps' shapes (WIDE_REL_CASES,
+    WIDE_ABS_CASES: K3 B = 32, H = 4, T = 231; K2 B = 8, H = 4, T = 690)
+    and the one-key corner, 1100 at WIDE_OVER_SMALL; forward and every
+    backward kernel through the autograd Functions twice for bit-equal
+    results, each within TOL_WIDE of the largest entry of the plain
+    versions' results; each kernel launched alone and timed, alone and
+    queued, beside the plain version, its bound, the tensor cores' bound
+    and, for K2 at the step's shape, the library's call (forward, and the
+    backward of its three inputs); dbias with a bias. No model has such a
+    head: no path launches them. -> rows by kernel."""
+    import torch
+
+    from aps_tpu_torch.ops import attention as k2
+    from aps_tpu_torch.ops import rel_attention as k3
+    beg = time.perf_counter()
+    rows = {name: [] for name in KERNELS if name.startswith(
+        "flash_attention")}
+    for D in WIDE_OVER:
+        scale = D**-0.5
+        rel_cases = WIDE_REL_CASES if D <= 256 else WIDE_OVER_SMALL
+        abs_cases = WIDE_ABS_CASES if D <= 256 else WIDE_OVER_ABS_SMALL
+        for B, H, T, lens, causal, Hp, role in rel_cases:
+            args = [torch.randn((B, H, T, D), generator=gen).to(dev)
+                    for _ in range(4)]
+            args.append((0.3 * torch.randn((Hp, 2 * T - 1, D),
+                                           generator=gen)).to(dev))
+            klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            do = torch.randn((B, H, T, D), generator=gen).to(dev)
+            label = (f"B={B} H={H} D={D} T={T} Hp={Hp} causal={causal} "
+                     f"k_len {role}")
+            runs = []
+            for _ in range(2):
+                leaves = [a.clone().requires_grad_() for a in args]
+                out = k3.flash_attention_rel(*leaves, k_len=klen,
+                                             causal=causal)
+                runs.append([out.detach()] + list(
+                    torch.autograd.grad(out, leaves, do)))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash_attention_rel [{label}]: two runs differ")
+            want_out = k3.rel_mha_reference(*args, k_len=klen, causal=causal)
+            want = k3.rel_mha_backward_reference(*args, do, k_len=klen,
+                                                 causal=causal)
+            out_w, lse = k3.launch_forward(*args, klen, causal, True, scale)
+            lse_err = (lse - k3.rel_lse_reference(
+                *args[:3], args[4], k_len=klen, causal=causal)).abs()
+            if not lse_err[lse < 1e29].max().item() <= TOL_ATT:
+                fail(f"flash_attention_rel [{label}]: lse off by "
+                     f"{lse_err.max().item()}")
+            bwd = (*args, klen, do, lse, out_w, torch.empty_like(lse),
+                   causal, scale)
+            k3.launch_backward_kernel("dq", *bwd)  # forms delta
+            plain_ms = time_ms(lambda: k3.rel_mha_reference(
+                *args, k_len=klen, causal=causal), iters=5, warmup=1)
+            bwd_plain = time_ms(lambda: k3.rel_mha_backward_reference(
+                *args, do, k_len=klen, causal=causal), iters=3, warmup=1)
+            flops = 2 * D * H * valid_pairs(T, lens, causal)
+            size, table = B * H * T * D, Hp * (2 * T - 1) * D
+            rows["flash_attention_rel"].append(_over_row(
+                "flash_attention_rel", label + " with lse", runs[0][:1],
+                [want_out], lambda: k3.launch_forward(
+                    *args, klen, causal, True, scale), plain_ms,
+                bound_ms(4 * (5 * size + B * H * T + table + B), 3 * flops),
+                3 * flops))
+            reads = 4 * (5 * size + table + 2 * B * H * T + B)
+            for kernel, idx, ops, written in (
+                    ("dq", (0, 1), 5 * flops, 8 * size),
+                    ("dkv", (2, 3), 5 * flops, 8 * size),
+                    ("dpose", (4,), 4 * flops, 4 * table)):
+                rows[f"flash_attention_rel_{kernel}"].append(_over_row(
+                    f"flash_attention_rel_{kernel}", label,
+                    [runs[0][1 + i] for i in idx], [want[i] for i in idx],
+                    lambda: k3.launch_backward_kernel(kernel, *bwd),
+                    bwd_plain, bound_ms(reads + written, ops), ops))
+        for B, H, T, lens, causal, role in abs_cases:
+            q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                           for _ in range(4))
+            klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = f"B={B} H={H} D={D} T={T} causal={causal} k_len {role}"
+            runs = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = k2.flash_attention(*leaves, k_len=klen, causal=causal)
+                runs.append([out.detach()] + list(
+                    torch.autograd.grad(out, leaves, do)))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"flash_attention [{label}]: two runs differ")
+            want_out = k2.mha_reference(q, k, v, k_len=klen, causal=causal)
+            want = k2.mha_backward_reference(q, k, v, do, k_len=klen,
+                                             causal=causal)
+            out_w, lse = k2.launch_forward(q, k, v, None, klen, scale,
+                                           causal, True)
+            bwd = (q, k, v, None, klen, do, lse, out_w,
+                   torch.empty_like(lse), scale, causal)
+            k2.launch_backward_kernel("dq", *bwd)  # forms delta
+            plain_ms = time_ms(lambda: k2.mha_reference(
+                q, k, v, k_len=klen, causal=causal), iters=5, warmup=1)
+            bwd_plain = time_ms(lambda: k2.mha_backward_reference(
+                q, k, v, do, k_len=klen, causal=causal), iters=3, warmup=1)
+            lib = {}
+            if role == "step" and not causal:
+                lib = {"library_ms": time_ms(lambda: _sdpa(q, k, v, klen),
+                                             iters=5, warmup=1)}
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+                def sdpa_train():
+                    torch.autograd.grad(_sdpa(*leaves, klen), leaves, do)
+                lib_bwd = {"library_train_ms": time_ms(sdpa_train, iters=5,
+                                                       warmup=1)}
+            flops = 2 * D * H * valid_pairs(T, lens, causal)
+            size = B * H * T * D
+            rows["flash_attention"].append(_over_row(
+                "flash_attention", label, runs[0][:1], [want_out],
+                lambda: k2.launch_forward(q, k, v, None, klen, scale,
+                                          causal, False),
+                plain_ms, bound_ms(4 * (4 * size + B), 2 * flops),
+                2 * flops, **lib))
+            for kernel, idx, ops in (("dq", (0,), 3 * flops),
+                                     ("dkv", (1, 2), 4 * flops)):
+                rows[f"flash_attention_{kernel}"].append(_over_row(
+                    f"flash_attention_{kernel}", label,
+                    [runs[0][1 + i] for i in idx], [want[i] for i in idx],
+                    lambda: k2.launch_backward_kernel(kernel, *bwd),
+                    bwd_plain,
+                    bound_ms(4 * (4 * size + 2 * B * H * T + B) +
+                             4 * len(idx) * size, ops), ops,
+                    **(lib_bwd if lib else {})))
+        # dbias (no model passes a bias): once with one, twice
+        B, H, T = 4, 4, 129
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                       for _ in range(4))
+        bias = torch.randn((H, T, T), generator=gen).to(dev)
+        klen = torch.tensor([T, 70, 1, 0], dtype=torch.int32, device=dev)
+        got = []
+        for _ in range(2):
+            leaf = bias.clone().requires_grad_()
+            out = k2.flash_attention(q, k, v, bias=leaf, k_len=klen)
+            got.append(torch.autograd.grad(out, leaf, do)[0])
+        if not torch.equal(*got):
+            fail(f"flash_attention_dbias D={D}: two runs differ")
+        want = k2.mha_backward_reference(q, k, v, do, bias=bias,
+                                         k_len=klen)[3]
+        out_w, lse = k2.launch_forward(q, k, v, bias, klen, scale, False,
+                                       True)
+        bwd = (q, k, v, bias, klen, do, lse, out_w, torch.empty_like(lse),
+               scale, False)
+        k2.launch_backward_kernel("dq", *bwd)  # forms delta
+        ops = 3 * 2 * D * H * valid_pairs(T, klen.tolist(), False)
+        rows["flash_attention_dbias"].append(_over_row(
+            "flash_attention_dbias", f"B={B} H={H} D={D} T={T} k_len "
+            "ragged with 0", [got[0]], [want],
+            lambda: k2.launch_backward_kernel("dbias", *bwd),
+            time_ms(lambda: k2.mha_backward_reference(
+                q, k, v, do, bias=bias, k_len=klen), iters=3, warmup=1),
+            bound_ms(4 * (4 * B * H * T * D + 2 * H * T * T), ops), ops))
+    for kernel, info in k2.wide_occupancy().items():
+        print(f"wide kernel occupancy, {kernel}: " + ", ".join(
+            f"{key} {value}" for key, value in info.items()), flush=True)
+    print(f"wide heads over 128: K2 and K3 at D = {WIDE_OVER} on the wide "
+          "kernels (csrc/wide_attention.cu; 1100 in five passes of 256 "
+          "columns), forward and every backward kernel twice each for "
+          f"bit-equal results, within {TOL_WIDE} of the largest entry of "
+          f"the plain versions; the phase took "
+          f"{time.perf_counter() - beg:.1f} s ({card})", flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -7531,6 +8260,17 @@ def main() -> None:
             dev, card)
         for name, rows in trd_rows.items():
             print_rows(name, rows, card)
+        # this slice's paths early too, each from a generator of its own:
+        # their traces name K1's and K3's kernels (align) and K3's four
+        # (the trainer's profile)
+        launches_align, align_rows = align_phase(
+            root / "align", torch.Generator().manual_seed(SEED + 9), dev,
+            card)
+        for name, rows in align_rows.items():
+            print_rows(name, rows, card)
+        launches_opts = trainer_opts_phase(
+            root / "trainer_opts", torch.Generator().manual_seed(SEED + 10),
+            dev, card)
         cpt, wavs, model = write_checkpoint(root, gen)
         shapes = S, T, k_len = path_shapes(model)
         print(f"decode path: batches of 8 x {S} samples, encoder T = {T} "
@@ -7594,6 +8334,15 @@ def main() -> None:
             dev, torch.Generator().manual_seed(SEED + 6), card, egs)
         for name, rows in wide_rows.items():
             print_rows(name, rows, card)
+        # heads over 128 on the wide kernels, and the feature grammar
+        over_rows = wide_heads_phase(
+            dev, torch.Generator().manual_seed(SEED + 11), card)
+        for name, rows in over_rows.items():
+            print_rows(name, rows, card)
+            wide_rows[name] += rows
+        launches_gmvn, launches_feat = features_phase(
+            root / "features", train, egs,
+            torch.Generator().manual_seed(SEED + 12), dev, card)
 
         best = root / "best.txt"
         argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
@@ -7820,8 +8569,10 @@ def main() -> None:
             label = rt_name.replace("@", "_")
             stream_launches_of[f"{label}_train_run"] = trn
             stream_launches_of[f"{label}_separate"] = sep
-        # the transducer slice's rows of K1 and K3
+        # the transducer slice's rows of K1 and K3, the alignment's
         for name, rows in trd_rows.items():
+            checks[name] += rows
+        for name, rows in align_rows.items():
             checks[name] += rows
 
         # the RNN attention slice's rows of K1 and K4
@@ -7926,6 +8677,21 @@ def main() -> None:
                      launches_chunked_separate_multichannel=launches_mc[
                          name],
                      launches_wide_head_pass=launches_wide.get(name, 0))
+        extra.update(
+            launches_align=launches_align[name],
+            launches_train_options_run=launches_opts[name],
+            launches_compute_gmvn=launches_gmvn[name],
+            **{f"launches_features_{k.replace(' ', '_')}_pass":
+               counts.get(name, 0) for k, counts in launches_feat.items()})
+        if name in align_rows:
+            extra["align_rows"] = [
+                {"shape": r[0], "max_abs_err": r[1], "ms": r[2],
+                 "plain_ms": r[3], "bound_ms": r[4], "bound_by": r[5]}
+                for r in align_rows[name]]
+        if name.startswith("flash_attention"):
+            # heads over 128: the rows of wide_head_rows whose "source"
+            # says so
+            extra["wide_source"] = "aps_tpu_torch/csrc/wide_attention.cu"
         if name in wide_rows:
             extra["wide_head_rows"] = [
                 {"shape": r[0], "max_abs_err": r[1], "ms": r[2],

@@ -91,11 +91,14 @@ def test_attention_plain_matches_jax(B, Tq, Tk, causal, with_bias, dead):
 
 
 @pytest.mark.parametrize("D,causal,with_bias", [(96, True, False),
-                                               (128, False, True)])
+                                               (128, False, True),
+                                               (160, True, True),
+                                               (256, False, False)])
 def test_attention_wide_heads_match_jax(D, causal, with_bias):
-    """Heads of 96 (the card zero-pads them to 128) and 128: the plain
-    version == aps_tpu's reference and its Pallas kernel in interpret
-    mode, across 64-row tiles with ragged k_len."""
+    """Heads of 96 (the card zero-pads them to 128), 128, and 160 and 256
+    (the card's wide kernels): the plain version == aps_tpu's reference
+    and its Pallas kernel in interpret mode, across 64-row tiles with
+    ragged k_len."""
     q, k, v, bias, k_len = _inputs(D, 3, 2, 70, 65, D, with_bias, True)
     got = flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
                           k_len=_t(k_len), causal=causal)
@@ -156,9 +159,12 @@ GRAD_CASES = [
     (3, 64, 65, 32, True, False, False),
     (3, 65, 129, 16, False, True, True),
     (3, 129, 64, 32, True, True, False),
-    # heads of 96 (zero-padded to 128 on the card) and 128
+    # heads of 96 (zero-padded to 128 on the card) and 128, and of 160 and
+    # 256 (the card's wide kernels)
     (2, 65, 70, 96, True, False, True),
     (2, 70, 65, 128, False, True, False),
+    (2, 63, 65, 160, True, True, True),
+    (2, 65, 64, 256, False, False, False),
 ]
 
 
@@ -505,7 +511,7 @@ def test_padded_heads_match_plain(D):
     q, k, v zero-padded to the next of 16, 32, 64 and 128, attention at the
     true scale D**-0.5, the output sliced back. Held here through the plain
     version, forward and gradients, against the plain version at D. A head
-    over 128 raises, naming the limit."""
+    over 128 is passed on unpadded (the wide kernels take every width)."""
     from aps_tpu_torch.ops.attention import with_padded_heads
     gen = torch.Generator().manual_seed(D)
     B, H, Tq, Tk = 3, 2, 33, 47
@@ -523,6 +529,9 @@ def test_padded_heads_match_plain(D):
     for g, w in zip(torch.autograd.grad(got, leaves + [bias], do),
                     torch.autograd.grad(want, leaves + [bias], do)):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
-    with pytest.raises(ValueError, match="head dim 160 is over 128"):
-        with_padded_heads(mha_reference, "mha_reference",
-                          [torch.zeros((1, 1, 4, 160))] * 3)
+    wide = [torch.randn((1, 2, 5, 160), generator=gen) for _ in range(3)]
+    seen = []
+    got = with_padded_heads(lambda *t: seen.append(t[0].shape[-1]) or
+                            mha_reference(*t), "mha_reference", wide)
+    assert seen == [160]
+    torch.testing.assert_close(got, mha_reference(*wide), atol=0, rtol=0)

@@ -113,12 +113,32 @@ def test_fbank_log_cmvn_transform_matches_jax(norm_mean, norm_var,
 
 
 def test_transform_refuses_what_is_not_ported():
+    """Every pipeline the port once refused now builds and equals
+    aps_tpu's on the same waveforms (LOGMEL_ATOL; mfcc's DCT mixes the
+    bands, splice repeats them); a missing gcmvn file warns and normalises
+    by zeros and ones, as in aps_tpu; an unknown token raises as there."""
+    rng = np.random.default_rng(11)
+    wav = (0.1 * rng.standard_normal((2, 4000))).astype(np.float32)
+    lens = np.array([4000, 3100], dtype=np.int32)
     for feats in ("spectrogram-mel-log", "fbank-log-splice", "mfcc",
-                  "fbank-cmvn", "spectrogram-fbank-log"):
-        with pytest.raises(NotImplementedError):
-            AsrTransform(feats=feats)
-    with pytest.raises(NotImplementedError, match="gcmvn"):
-        AsrTransform(feats="fbank-log-cmvn", gcmvn="gcmvn.npy")
+                  "fbank-cmvn", "emph-spectrogram-trans-trans-pow-log"):
+        jtf = JaxAsrTransform(feats=feats)
+        variables = jtf.init({"params": jax.random.PRNGKey(0)},
+                             jnp.asarray(wav), jnp.asarray(lens))
+        want, want_nf = jtf.apply(variables, jnp.asarray(wav),
+                                  jnp.asarray(lens))
+        tf = AsrTransform(feats=feats)
+        got, got_nf = tf(torch.from_numpy(wav), torch.from_numpy(lens))
+        assert tf.dim() == jtf.bind(variables).dim() == got.shape[-1]
+        np.testing.assert_array_equal(got_nf.numpy(), np.asarray(want_nf))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGMEL_ATOL, err_msg=feats)
+    with pytest.warns(UserWarning, match="gcmvn.npy not found"):
+        tf = AsrTransform(feats="fbank-log-cmvn", gcmvn="gcmvn.npy")
+    assert torch.equal(tf.cmvn.gmean, torch.zeros(80))
+    assert torch.equal(tf.cmvn.gstd, torch.ones(80))
+    with pytest.raises(RuntimeError, match="Unknown token"):
+        AsrTransform(feats="fbank-log-cepstrum")
     # perturb and aug are identities at inference and run in training
     tf = AsrTransform(feats="perturb-fbank-log-cmvn-aug")
     wav = torch.zeros((1, 4000))

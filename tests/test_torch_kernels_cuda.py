@@ -536,16 +536,18 @@ def test_rel_attention_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_rel(rel[0].transpose(2, 3).contiguous().transpose(
             2, 3), *rel[1:])
-    # a head of 80 runs zero-padded to 128; one over 128 raises
+    # a head of 80 runs zero-padded to 128; one over 128 runs the wide
+    # kernels
     padded = [torch.ones((1, 1, 8, 80), device=cuda_device)] * 4
     table = torch.zeros((1, 15, 80), device=cuda_device)
     torch.testing.assert_close(flash_attention_rel(*padded, table),
                                rel_mha_reference(*padded, table),
                                atol=ATT_ATOL, rtol=0)
-    with pytest.raises(ValueError, match="head dim 160 is over 128"):
-        wide = [torch.zeros((1, 1, 8, 160), device=cuda_device)] * 4
-        flash_attention_rel(*wide, torch.zeros((1, 15, 160),
-                                               device=cuda_device))
+    wide = [torch.ones((1, 1, 8, 160), device=cuda_device)] * 4
+    table = torch.zeros((1, 15, 160), device=cuda_device)
+    torch.testing.assert_close(flash_attention_rel(*wide, table),
+                               rel_mha_reference(*wide, table),
+                               atol=ATT_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
@@ -940,14 +942,15 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     q, k, v = [t.to(cuda_device) for t in att]
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
-    # a head of 80 runs zero-padded to 128; one over 128 raises
+    # a head of 80 runs zero-padded to 128; one over 128 runs the wide
+    # kernels
     padded = [torch.ones((1, 1, 8, 80), device=cuda_device)] * 3
     torch.testing.assert_close(flash_attention(*padded),
                                mha_reference(*padded), atol=ATT_ATOL,
                                rtol=0)
-    with pytest.raises(ValueError, match="head dim 160 is over 128"):
-        wide = [torch.zeros((1, 1, 8, 160), device=cuda_device)] * 3
-        flash_attention(*wide)
+    wide = [torch.ones((1, 1, 8, 160), device=cuda_device)] * 3
+    torch.testing.assert_close(flash_attention(*wide), mha_reference(*wide),
+                               atol=ATT_ATOL, rtol=0)
     with pytest.raises(ValueError, match="not CUDA"):
         flash_attention(q, k, v, bias=bias)
     with pytest.raises(TypeError, match="dtype"):
@@ -1129,14 +1132,20 @@ def test_attention_gradcheck_style(cuda_device):
 WIDE_LENGTHS = [(63, 63), (64, 64), (65, 129), (129, 65), (300, 300)]
 
 
+# 96 zero-padded to 128, 128 on the tensor cores; 160, 256 and 1100 on the
+# wide kernels (csrc/wide_attention.cu: 1100 in five passes of 256 columns)
+WIDE_DIMS = [96, 128, 160, 256, 1100]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("D", WIDE_DIMS)
 @pytest.mark.parametrize("Tq,Tk", WIDE_LENGTHS)
 def test_attention_kernels_at_wide_heads(cuda_device, D, Tq, Tk):
     """K2's forward, dq, dk/dv and dbias at heads of 96 (zero-padded to
-    128) and 128, at lengths around their 64-row tiles and over several
-    blocks (T = 300), causal where Tq <= Tk, a bias, k_len including 1 and
-    0: each == the plain version, and two runs give the same bits."""
+    128), 128 and the wide kernels' 160, 256 and 1100, at lengths around
+    the 64-row tiles and over several blocks (T = 300), causal where Tq <=
+    Tk, a bias, k_len including 1 and 0: each == the plain version, and two
+    runs give the same bits."""
     att, bias, k_len = _att_args(4, 2, Tq, Tk, D)
     causal = Tq <= Tk
     leaves = [t.to(cuda_device).requires_grad_() for t in att]
@@ -1167,16 +1176,16 @@ def test_attention_kernels_at_wide_heads(cuda_device, D, Tq, Tk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("D", WIDE_DIMS)
 @pytest.mark.parametrize("T,Hp,causal", [(63, 2, False), (64, 1, True),
                                          (65, 2, True), (129, 1, False),
                                          (300, 2, True)])
 def test_rel_attention_kernels_at_wide_heads(cuda_device, D, T, Hp, causal):
     """K3's forward (and its lse), dq, dk/dv and dpose at heads of 96
-    (zero-padded to 128, table too) and 128, at lengths around the tiles
-    (64 query rows, 16 keys a forward and a dq tile at 128) and over
-    several blocks: each == the plain version, and two runs give the same
-    bits."""
+    (zero-padded to 128, table too), 128 and the wide kernels' 160, 256
+    and 1100, at lengths around the tiles (64 query rows, 16 keys a
+    forward and a dq tile at 128) and over several blocks: each == the
+    plain version, and two runs give the same bits."""
     rel, k_len = _rel_args(4, 2, T, D, Hp)
     leaves = [t.to(cuda_device).requires_grad_() for t in rel]
     k_len = k_len.to(cuda_device)
@@ -1194,7 +1203,7 @@ def test_rel_attention_kernels_at_wide_heads(cuda_device, D, T, Hp, causal):
     plain = [t.detach() for t in leaves]
     want = rel_mha_reference(*plain, k_len=k_len, causal=causal)
     torch.testing.assert_close(runs[0][0], want, atol=ATT_ATOL, rtol=0)
-    if D == 128:
+    if D >= 128:
         _, lse = launch_forward(*plain, k_len, causal, True)
         torch.testing.assert_close(
             lse, rel_lse_reference(*plain[:3], plain[4], k_len=k_len,

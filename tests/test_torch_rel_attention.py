@@ -60,9 +60,11 @@ def test_rel_attention_plain_matches_jax(Hp, T, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATT_ATOL)
 
 
-@pytest.mark.parametrize("D,Hp,causal", [(96, 2, True), (128, 1, False)])
+@pytest.mark.parametrize("D,Hp,causal", [(96, 2, True), (128, 1, False),
+                                         (160, 2, False), (256, 1, True)])
 def test_rel_attention_wide_heads_match_jax(D, Hp, causal):
-    """Heads of 96 (the card zero-pads them, table too, to 128) and 128:
+    """Heads of 96 (the card zero-pads them, table too, to 128), 128, and
+    160 and 256 (the card's wide kernels):
     the plain version's output, and its backward and autograd's gradients,
     == aps_tpu's Pallas kernel in interpret mode and its dense reference,
     over two 64-row tiles with ragged k_len."""
