@@ -30,9 +30,12 @@ widths 16, 32, 64 and 128: any other head up to 128 is zero-padded up to
 the next of them (`with_padded_heads`, shared with the relative-position
 kernels), which leaves every score unchanged, runs at the true scale and
 gives zero columns that the slice back drops. A head wider than 128 runs
-the wide kernels of csrc/wide_attention.cu (forward, dq, dk/dv and dbias
-with the same arguments: a warp a row, the head in passes of 256
-columns, any width), counted under the same names.
+the wide kernels of csrc/wide_attention.cu with the same arguments,
+counted under the same names: the forward, dq and dk/dv on the tensor
+cores as above, each block's head split between two warpgroups that add
+their partial scores through shared memory, and a head over 256 in
+passes of 256 columns; dbias a warp an entry on the CUDA cores. They take
+every width, a ragged one without a padded copy.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -157,7 +160,8 @@ BACKWARD_KERNELS = ("dq", "dkv", "dbias")
 
 def is_wide(D: int) -> bool:
     """True when a head of width D runs the wide kernels
-    (csrc/wide_attention.cu) instead of the tensor-core tiles."""
+    (csrc/wide_attention.cu) instead of those built for 16, 32, 64 and
+    128."""
     return D > _HEAD_DIMS[-1]
 
 
@@ -255,23 +259,27 @@ def backward_occupancy(D: int, kernel: str):
 
 
 WIDE_KERNELS = ("K2 forward", "K2 dq", "K2 dk/dv", "K2 dbias", "K3 forward",
-                "K3 dq", "K3 dk/dv", "K3 dpose")
+                "K3 dq", "K3 dk/dv", "K3 dpose", "K2 forward, D > 256",
+                "K2 dq, D > 256", "K2 dk/dv, D > 256")
 
 
 def wide_occupancy():
     """How each wide kernel (heads over 128, csrc/wide_attention.cu) sits
     on an SM of the current card: registers and bytes of local memory
-    (spills) a thread, static shared memory a block, resident blocks an SM
-    and head columns a pass, by WIDE_KERNELS name."""
+    (spills) a thread, shared memory a block (static and dynamic), resident
+    blocks an SM, head columns a pass and threads a block, by WIDE_KERNELS
+    name (K2's forward, dq and dk/dv: the tiles that hold a head up to 256
+    whole, and those that run a wider one in passes)."""
     import ctypes
     lib = build.load("wide_attention", "aps_wide_attention_occupancy",
                      [build.I, build.P])
     out = {}
     for index, name in enumerate(WIDE_KERNELS):
-        info = (ctypes.c_int * 5)()
+        info = (ctypes.c_int * 6)()
         rc = lib.aps_wide_attention_occupancy(index, info)
         build.check(lib, rc, f"wide {name} occupancy")
-        out[name] = dict(zip(_OCCUPANCY_KEYS + ("columns_a_pass",), info))
+        out[name] = dict(zip(_OCCUPANCY_KEYS + ("columns_a_pass", "threads"),
+                             info))
     return out
 
 

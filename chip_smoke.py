@@ -973,6 +973,16 @@ def _sdpa(q, k, v, k_len):
         q, k, v, attn_mask=mask)
 
 
+def _sdpa_train_ms(q, k, v, k_len, do, iters=20, warmup=3):
+    """Device ms of the library's forward and the backward of q, k and v
+    through it (_sdpa, autograd), on leaves made from q, k, v."""
+    import torch
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    return time_ms(lambda: torch.autograd.grad(_sdpa(*leaves, k_len),
+                                               leaves, do),
+                   iters=iters, warmup=warmup)
+
+
 def _device_kernel_names(fn):
     """The names of the device kernels one call of fn() runs, longest
     first (what the profiler tells of the library's choice of backend)."""
@@ -7288,8 +7298,9 @@ def wide_head_phase(dev, gen, card, egs):
     alone and queued, beside its plain version at the true width, its
     bound and the tensor cores' bound (_wide_row); each forward also
     through its wrapper, alone and with the backward (pads and slices
-    included at 96); K2's forward at 128 beside the library's call; K2's
-    dbias with a bias. Then one
+    included at 96); K2's forward at 128 beside the library's call, and
+    the library's forward with the backward of q, k and v; K2's dbias with
+    a bias. Then one
     training pass of the flagship cut to 2 conformer layers of width 512
     with 4 heads (head dim 128) card vs CPU on WIDE_PASS_UTTS of the
     training batch, K3 at 128 counted. -> (rows by kernel, launches of the
@@ -7387,6 +7398,8 @@ def wide_head_phase(dev, gen, card, egs):
             if D == 128 and role == "step":
                 more["library_ms_D128"] = time_ms(
                     lambda: _sdpa(q, k, v, klen))
+                more["library_train_ms_D128"] = _sdpa_train_ms(q, k, v,
+                                                               klen, do)
             flops = 2 * D * H * valid_pairs(T, lens, causal)
             size = B * H * T * D
             rows["flash_attention"].append(_wide_row(
@@ -7464,7 +7477,8 @@ def wide_head_phase(dev, gen, card, egs):
           "gradients relative to the largest entry "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f", launches {launched['card32']}; the library's forward at "
-          f"D = 128: {more['library_ms_D128']:.4f} ms; "
+          f"D = 128: {more['library_ms_D128']:.4f} ms, its forward and the "
+          f"backward of q, k, v: {more['library_train_ms_D128']:.4f} ms; "
           f"the phase took {time.perf_counter() - beg:.1f} s ({card})",
           flush=True)
     return rows, launched["card32"], more
@@ -8040,6 +8054,33 @@ def _over_row(name, label, got, want, launch, plain_ms, bound, ops,
                   **more},)
 
 
+def _k2_over_library(rows, label, card):
+    """K2's newest forward, dq and dk/dv rows of wide_heads_phase (one
+    shape, `label`): each kernel's time over its tensor cores' bound
+    (queued) and over the library's call (one launch), the three together
+    over the library's forward with the backward of q, k and v; the ratios
+    go into the rows and a line is printed."""
+    names = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+    fwd, dq, dkv = (rows[name][-1][6] for name in names)
+    ms = [rows[name][-1][2] for name in names]
+    for more in (fwd, dq, dkv):
+        more["over_tensor_core_bound"] = more["ms_queued"] / more[
+            "tensor_core_bound_ms"]
+    fwd["over_library"] = ms[0] / fwd["library_ms"]
+    train = sum(ms)
+    for more in (dq, dkv):
+        more["train_ms"] = train
+        more["train_over_library"] = train / more["library_train_ms"]
+    print(f"K2 on the wide tiles [{label}]: forward {ms[0]:.4f} ms, dq "
+          f"{ms[1]:.4f}, dk/dv {ms[2]:.4f} (queued over the TF32/3 bound "
+          + ", ".join(f"{m['over_tensor_core_bound']:.2f}x"
+                      for m in (fwd, dq, dkv))
+          + f"); the forward {fwd['over_library']:.3f}x the library's "
+          f"{fwd['library_ms']:.4f} ms; forward + dq + dk/dv {train:.4f} ms, "
+          f"{dq['train_over_library']:.3f}x the library's forward and "
+          f"backward {dq['library_train_ms']:.4f} ms ({card})", flush=True)
+
+
 def wide_heads_phase(dev, gen, card):
     """K2's and K3's wide kernels (csrc/wide_attention.cu) at heads of
     WIDE_OVER: 160 and 256 at the steps' shapes (WIDE_REL_CASES,
@@ -8050,8 +8091,9 @@ def wide_heads_phase(dev, gen, card):
     versions' results; each kernel launched alone and timed, alone and
     queued, beside the plain version, its bound, the tensor cores' bound
     and, for K2 at the step's shape, the library's call (forward, and the
-    backward of its three inputs); dbias with a bias. No model has such a
-    head: no path launches them. -> rows by kernel."""
+    backward of its three inputs) with each K2 kernel's time over both
+    (_k2_over_library); dbias with a bias. No model has such a head: no
+    path launches them. -> rows by kernel."""
     import torch
 
     from aps_tpu_torch.ops import attention as k2
@@ -8144,12 +8186,8 @@ def wide_heads_phase(dev, gen, card):
             if role == "step" and not causal:
                 lib = {"library_ms": time_ms(lambda: _sdpa(q, k, v, klen),
                                              iters=5, warmup=1)}
-                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-                def sdpa_train():
-                    torch.autograd.grad(_sdpa(*leaves, klen), leaves, do)
-                lib_bwd = {"library_train_ms": time_ms(sdpa_train, iters=5,
-                                                       warmup=1)}
+                lib_bwd = {"library_train_ms": _sdpa_train_ms(
+                    q, k, v, klen, do, iters=5, warmup=1)}
             flops = 2 * D * H * valid_pairs(T, lens, causal)
             size = B * H * T * D
             rows["flash_attention"].append(_over_row(
@@ -8168,6 +8206,8 @@ def wide_heads_phase(dev, gen, card):
                     bound_ms(4 * (4 * size + 2 * B * H * T + B) +
                              4 * len(idx) * size, ops), ops,
                     **(lib_bwd if lib else {})))
+            if lib:
+                _k2_over_library(rows, label, card)
         # dbias (no model passes a bias): once with one, twice
         B, H, T = 4, 4, 129
         q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
@@ -8200,8 +8240,10 @@ def wide_heads_phase(dev, gen, card):
         print(f"wide kernel occupancy, {kernel}: " + ", ".join(
             f"{key} {value}" for key, value in info.items()), flush=True)
     print(f"wide heads over 128: K2 and K3 at D = {WIDE_OVER} on the wide "
-          "kernels (csrc/wide_attention.cu; 1100 in five passes of 256 "
-          "columns), forward and every backward kernel twice each for "
+          "kernels (csrc/wide_attention.cu: K2's forward, dq and dk/dv on "
+          "the tensor cores, each block's head split between two warpgroups; "
+          "1100 in five passes of 256 columns), forward and every backward "
+          "kernel twice each for "
           f"bit-equal results, within {TOL_WIDE} of the largest entry of "
           f"the plain versions; the phase took "
           f"{time.perf_counter() - beg:.1f} s ({card})", flush=True)
@@ -8699,6 +8741,10 @@ def main() -> None:
                  **r[6]} for r in wide_rows[name]]
         if name == "flash_attention":
             extra["library_ms_D128"] = wide_more["library_ms_D128"]
+        if name in ("flash_attention", "flash_attention_dq",
+                    "flash_attention_dkv"):
+            extra["library_train_ms_D128"] = wide_more[
+                "library_train_ms_D128"]
         extra["launches_transducer_train_run"] = trd_train[name]
         extra["launches_transducer_decode"] = trd_dec[name]
         for path, counts in stream_launches_of.items():

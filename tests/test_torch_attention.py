@@ -93,12 +93,18 @@ def test_attention_plain_matches_jax(B, Tq, Tk, causal, with_bias, dead):
 @pytest.mark.parametrize("D,causal,with_bias", [(96, True, False),
                                                (128, False, True),
                                                (160, True, True),
-                                               (256, False, False)])
+                                               (256, False, False),
+                                               (130, True, True),
+                                               (192, False, True),
+                                               (257, True, False),
+                                               (384, False, True)])
 def test_attention_wide_heads_match_jax(D, causal, with_bias):
-    """Heads of 96 (the card zero-pads them to 128), 128, and 160 and 256
-    (the card's wide kernels): the plain version == aps_tpu's reference
-    and its Pallas kernel in interpret mode, across 64-row tiles with
-    ragged k_len."""
+    """Heads of 96 (the card zero-pads them to 128), 128, and 160, 256 and
+    the edges of the split of a head between two warps, 130 (off the
+    16-byte grid), 192, 257 (one column into a second pass of 256) and 384
+    (the card's wide kernels): the plain version == aps_tpu's reference and
+    its Pallas kernel in interpret mode, across 64-row tiles with ragged
+    k_len."""
     q, k, v, bias, k_len = _inputs(D, 3, 2, 70, 65, D, with_bias, True)
     got = flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
                           k_len=_t(k_len), causal=causal)

@@ -250,6 +250,45 @@ def test_attention_kernels_are_built_for_heads_of_128(source):
         assert "extern __shared__ float sbias_smem[];" in text
 
 
+def test_wide_attention_k2_kernels_use_the_tensor_cores():
+    """K2's forward, dq and dk/dv at heads over 128 (csrc/wide_attention.cu)
+    run on the tensor cores: the partial scores of a warp's half of the
+    head through `partial` (mma_f32, the three-pass TF32 split), the output
+    and gradient products through `accumulate`, the operands staged by
+    cp.async (16 bytes a copy, 4 off the 16-byte grid), the two warps of a
+    row group adding their partials through shared memory; the entry points
+    launch these tiles, and the CUDA-core loops (a warp a row) are left to
+    K3 and dbias. A later edit that takes K2 back to them fails here."""
+    text = (build.CSRC / "wide_attention.cu").read_text()
+    assert '#include "attn_tiles.cuh"' in text
+    assert "mma_f32<NT>(s, fa1, fb1);" in text
+    assert "mma_f32<NT>(dp, fa2, fb2);" in text
+    assert "mma_tf32(acc[n0 + i], a.big, b[i].big);" in text
+    assert "cp_async_16(tile + r * kLd + c," in text
+    assert "cp_async_4(tile + r * kLd + c," in text
+    assert "kFwdSmemFloats * 4 <= kMaxSmemBytes" in text
+    fwd = _kernel_body(text, "k2_fwd_kernel")
+    bwd = _kernel_body(text, "k2_bwd_kernel")
+    assert fwd.count("partial<NT, false>(") == 2
+    assert "accumulate(o, ap, tv," in fwd
+    assert bwd.count("partial<NT, true>(") == 2
+    assert "accumulate(acc1, ads, ty1," in bwd
+    assert "accumulate(acc2, ap, ty2," in bwd
+    for body in (fwd, bwd):
+        assert "pair_sync(rg);" in body
+        assert "cp_async_commit();" in body and "cp_async_wait<0>();" in body
+        for loop in ("score<", "dot(", "p_ds<", "__ldg"):
+            assert loop not in body, loop
+    for entry, launch in (("fwd", "launch_fwd<"), ("dq", "launch_bwd<false, "),
+                          ("dkv", "launch_bwd<true, ")):
+        beg = text.index(f'extern "C" int aps_attention_wide_{entry}(')
+        body = text[beg:text.index("\n}\n", beg)]
+        assert body.count(f"k2tc::{launch}") == 2, entry
+    for kernel in ("fwd_kernel<false>", "dq_kernel<false>",
+                   "dkv_kernel<false>"):
+        assert kernel not in text
+
+
 def test_ctc_score_kernel_scans_over_chunks():
     """csrc/ctc_score.cu solves the recursions as a chunked scan over T (32
     chunks a block, the maps scanned with warp shuffles) and reads the
@@ -1132,9 +1171,12 @@ def test_attention_gradcheck_style(cuda_device):
 WIDE_LENGTHS = [(63, 63), (64, 64), (65, 129), (129, 65), (300, 300)]
 
 
-# 96 zero-padded to 128, 128 on the tensor cores; 160, 256 and 1100 on the
-# wide kernels (csrc/wide_attention.cu: 1100 in five passes of 256 columns)
-WIDE_DIMS = [96, 128, 160, 256, 1100]
+# 96 zero-padded to 128, 128 on the tensor cores; the wide kernels
+# (csrc/wide_attention.cu) at 160, 256 and 1100 (K2 in five passes of 256
+# columns) and at the edges of K2's split of the head between two warps:
+# 130 (off the 16-byte grid: 4-byte copies), 192, 257 (one column into a
+# second pass) and 384
+WIDE_DIMS = [96, 128, 160, 256, 1100, 130, 192, 257, 384]
 
 
 @pytest.mark.cuda
@@ -1248,6 +1290,45 @@ def test_wide_head_kernels_one_key_corner(cuda_device):
             torch.testing.assert_close(
                 g, w, atol=GRAD_ATOL + DPOSE_RTOL * w.abs().max().item(),
                 rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [160, 257])
+def test_wide_attention_one_key_corner(cuda_device, D):
+    """K2 on the wide tiles where entries see one key (and one sees all)
+    under a long causal mask, over passes at 257: the output, its lse
+    (kLseDead on no row: every row sees a key) and the gradients against
+    the plain versions, the errors printed, and two runs bit-equal."""
+    from aps_tpu_torch.ops.attention import launch_forward as k2_forward
+    T = 640
+    k_len = torch.tensor([1, 1, T, 2], dtype=torch.int32, device=cuda_device)
+    att, _, _ = _att_args(4, 2, T, T, D)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att]
+    do = torch.randn(leaves[0].shape, generator=torch.Generator()
+                     .manual_seed(D)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        out = flash_attention(*leaves, k_len=k_len, causal=True)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = [t.detach() for t in leaves]
+    want = mha_reference(*plain, k_len=k_len, causal=True)
+    grads = mha_backward_reference(*plain, do, k_len=k_len, causal=True)
+    errs = [(runs[0][0] - want).abs().max().item()] + [
+        (g - w).abs().max().item() for g, w in zip(runs[0][1:], grads)]
+    print(f"K2 one-key corner at D = {D}: max abs err out and each gradient "
+          f"{['%.3e' % e for e in errs]}")
+    torch.testing.assert_close(runs[0][0], want, atol=ATT_ATOL, rtol=0)
+    for name, g, w in zip(ATT_GRAD_NAMES, runs[0][1:], grads):
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=0, msg=name)
+    _, lse = k2_forward(*plain, None, k_len, D**-0.5, True, True)
+    scores = torch.einsum("bhqd,bhkd->bhqk", plain[0], plain[1]) * D**-0.5
+    cols = torch.arange(T, device=cuda_device)
+    mask = (cols[None, None, None, :] < k_len[:, None, None, None]) & \
+        (cols[None, None, None, :] <= cols[None, None, :, None])
+    want_lse = torch.logsumexp(scores.masked_fill(~mask, -torch.inf), -1)
+    torch.testing.assert_close(lse, want_lse, atol=ATT_ATOL, rtol=0)
 
 
 @pytest.mark.cuda
