@@ -31,7 +31,13 @@ Each result is also checked against the plain version. `--occupancy`
 prints, for K2's and K3's kernels as the repository builds them, at every
 head width they are built for and for the wide kernels of heads over 128,
 the registers and bytes of local memory (spills) a thread, the shared
-memory a block and the blocks an SM.
+memory a block and the blocks an SM. `--sass OLD NEW` (given once for
+each pair) compiles both versions of a source to sm_90a machine code and
+compares, instruction for instruction (cuobjdump -sass), every kernel
+instantiation the old version has with the new version's instantiation of
+the same template arguments (a trailing `false` the new template added,
+such as K2's kRagged, left out): it prints each pair as identical or by
+its first differing instruction, and the kernels only the new version has.
 
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --attention parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
@@ -43,6 +49,9 @@ memory a block and the blocks an SM.
         --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu \\
         --fbank parent/fbank.cu aps_tpu_torch/csrc/fbank.cu
     python -m aps_tpu_torch.cmd.compare_kernels --occupancy
+    python -m aps_tpu_torch.cmd.compare_kernels \\
+        --sass parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
+        --sass parent/attention_bwd.cu aps_tpu_torch/csrc/attention_bwd.cu
 """
 
 import argparse
@@ -401,6 +410,87 @@ def compare_fbank(sources, dev, gen):
                   f"{err:.3e}", flush=True)
 
 
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+_TEMPLATE_ARGS = re.compile(r"I((?:L[ib]\d+E)+)E")
+
+
+def kernel_key(mangled: str):
+    """(the last name of a mangled _ZN...E nested name, its template
+    arguments as mangled): the anonymous namespace's name differs from
+    file to file, the kernel's does not."""
+    pos, last = 3, mangled
+    while mangled.startswith("_ZN") and pos < len(mangled) and \
+            mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group(0)
+        pos += len(digits)
+        last = mangled[pos:pos + int(digits)]
+        pos += int(digits)
+    args = _TEMPLATE_ARGS.match(mangled, pos)
+    return last, args.group(1) if args else ""
+
+
+def sass_kernels(src: Path, out_dir: Path):
+    """{(kernel, template arguments): its sm_90a instructions} of a source,
+    compiled with the port's flags (its own directory's headers first)."""
+    cubin = out_dir / f"{src.stem}-{abs(hash(str(src)))}.cubin"
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run(
+        [build.nvcc_path(), *flags, "-cubin", f"-I{src.parent}",
+         f"-I{build.CSRC}", "-o", str(cubin), str(src)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, key = {}, None
+    for line in text.splitlines():
+        head = _SASS_FUNCTION.search(line)
+        if head:
+            key = kernel_key(head.group(1))
+            kernels[key] = []
+        elif key is not None:
+            op = _SASS_INSTRUCTION.search(line)
+            if op:
+                kernels[key].append(op.group(1))
+    return kernels
+
+
+def compare_sass(pairs) -> None:
+    """Print, for each (old, new) pair of sources, whether every kernel of
+    the old one compiles to the same instructions in the new one."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for old_src, new_src in pairs:
+            old = sass_kernels(Path(old_src), Path(tmp))
+            new = sass_kernels(Path(new_src), Path(tmp))
+            matched = set()
+            for (name, args), code in sorted(old.items()):
+                twin = next((k for k in ((name, args + "Lb0E"), (name, args))
+                             if k in new), None)
+                if twin is None:
+                    print(f"sass {Path(new_src).name}: {name}<{args}> is "
+                          "gone", flush=True)
+                    continue
+                matched.add(twin)
+                other = new[twin]
+                if other == code:
+                    print(f"sass {Path(new_src).name}: {name}<{args}> "
+                          f"identical ({len(code)} instructions)", flush=True)
+                    continue
+                at = next((i for i, (a, b) in enumerate(zip(code, other))
+                           if a != b), min(len(code), len(other)))
+                print(f"sass {Path(new_src).name}: {name}<{args}> DIFFERS "
+                      f"({len(code)} against {len(other)} instructions; "
+                      f"first at {at}: {code[at] if at < len(code) else '-'}"
+                      f" | {other[at] if at < len(other) else '-'})",
+                      flush=True)
+            for name, args in sorted(set(new) - matched):
+                print(f"sass {Path(new_src).name}: {name}<{args}> is new "
+                      f"({len(new[(name, args)])} instructions)", flush=True)
+
+
 def print_occupancy() -> None:
     """Registers, local bytes, shared memory and blocks an SM of K2's and
     K3's kernels (the repository's sources) at each head width."""
@@ -439,6 +529,10 @@ def main(argv=None) -> None:
     parser.add_argument("--occupancy", action="store_true",
                         help="print how K2's and K3's kernels sit on an SM "
                         "at each head width")
+    parser.add_argument("--sass", nargs=2, action="append", default=[],
+                        metavar=("OLD", "NEW"),
+                        help="compare the machine code of two versions of a "
+                        "source, kernel by kernel")
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -451,6 +545,8 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip(), flush=True)
+    if args.sass:
+        compare_sass(args.sass)
     if args.occupancy:
         print_occupancy()
     if args.attention:

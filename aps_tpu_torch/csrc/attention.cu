@@ -45,6 +45,18 @@
 //   - a warp whose 16 x kKRows tile lies wholly inside the mask (and has no
 //     bias) skips the tests; a warp with nothing visible in a tile skips it;
 //   - no atomics: two launches give the same bits.
+//
+// A head of another width up to 128 (8 in the tests' SepFormer, 96) runs the
+// tiles of the next built width (a head of 65 to 96 those of 96, a width
+// the ragged variant alone is built for), without a padded copy: its
+// rows are staged at their own stride and zero-filled to the tile's width
+// (attn_tiles::stage_rows_ragged, 16 bytes a copy where the width is a
+// multiple of 4, else 4), q . k^T skips the 8-column fragments past the
+// width (all zeros), and only the true columns of the output are written.
+// (p . v runs over all of the tile's fragments: skipped behind a runtime
+// bound, its 16 accumulators at D = 128 spilled 448 bytes and the kernel
+// ran twice as long.) That variant is selected at
+// compile time (kRagged), so the built widths compile to the code they had.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,15 +88,20 @@ constexpr int smem_floats() {
   return (kQRows + 4 * kKRows) * attn_tiles::tile_ld(D);
 }
 
-template <int D>
+// kRagged: a head of dim < D columns (rows dim floats apart in device
+// memory; vec: 16-byte copies); else dim == D and both are unused
+template <int D, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ bias,
                 const int* __restrict__ k_len, int H, int Tq, int Tk,
                 float scale, int causal, float* __restrict__ out,
-                float* __restrict__ lse) {
+                float* __restrict__ lse, int dim, bool vec) {
   using namespace attn_tiles;
   constexpr int LD = tile_ld(D);
+  const int W = kRagged ? dim : D;  // row stride in device memory
+  // 8-column fragments that hold the head's columns (the rest are zeros)
+  const int nd = kRagged ? (dim + 7) / 8 : D / 8;
   constexpr int NT = kKRows / 8;  // 8-wide fragments across a key tile
   constexpr int ND = D / 8;       // 8-wide fragments across the head dim
   extern __shared__ __align__(16) float smem[];
@@ -99,9 +116,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane / 4;
   const int t = lane % 4;
   const int row0 = l0 + (tid / 32) * 16;  // this warp's first row
-  const float* q_h = q + static_cast<size_t>(bh) * Tq * D;
-  const float* k_h = k + static_cast<size_t>(bh) * Tk * D;
-  const float* v_h = v + static_cast<size_t>(bh) * Tk * D;
+  const float* q_h = q + static_cast<size_t>(bh) * Tq * W;
+  const float* k_h = k + static_cast<size_t>(bh) * Tk * W;
+  const float* v_h = v + static_cast<size_t>(bh) * Tk * W;
   // the bias is indexed by the head alone: every batch entry reads the same
   const float* bias_h =
       bias == nullptr ? nullptr
@@ -117,11 +134,12 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto stage = [&](int tile, int st) {
     float* dst = skv + st * 2 * kKRows * LD;
-    stage_rows_async<D, kKRows, kThreads>(dst, k_h, tile * kKRows, Tk, tid);
-    stage_rows_async<D, kKRows, kThreads>(dst + kKRows * LD, v_h,
-                                          tile * kKRows, Tk, tid);
+    stage_rows_of<kRagged, D, kKRows, kThreads>(dst, k_h, tile * kKRows, Tk,
+                                                dim, vec, tid);
+    stage_rows_of<kRagged, D, kKRows, kThreads>(
+        dst + kKRows * LD, v_h, tile * kKRows, Tk, dim, vec, tid);
   };
-  stage_rows_async<D, kQRows, kThreads>(sq, q_h, l0, Tq, tid);
+  stage_rows_of<kRagged, D, kQRows, kThreads>(sq, q_h, l0, Tq, dim, vec, tid);
   if (nt > 0) stage(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -130,6 +148,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   FragA qa[ND];
 #pragma unroll
   for (int kk = 0; kk < ND; ++kk) {
+    if (kRagged && kk >= nd) break;
     load_a<LD>(qa[kk], sq, row0 - l0, 8 * kk, g, t);
   }
   float o[ND][4];
@@ -165,6 +184,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < ND; ++kk) {
+      if (kRagged && kk >= nd) break;
       FragB bk[NT];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -225,11 +245,20 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int l = row0 + g + 8 * h;
     if (l >= Tq) continue;
     const float inv = sum[h] > 0.f ? 1.f / sum[h] : 0.f;
-    float* at = out + (static_cast<size_t>(bh) * Tq + l) * D + 2 * t;
+    float* at = out + (static_cast<size_t>(bh) * Tq + l) * W + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(at + 8 * n) =
-          make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+      if constexpr (kRagged) {
+        // the true columns only, a float at a time (rows may leave the
+        // 8-byte grid)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * n + 2 * t + e < dim) at[8 * n + e] = o[n][2 * h + e] * inv;
+        }
+      } else {
+        *reinterpret_cast<float2*>(at + 8 * n) =
+            make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+      }
     }
     if (lse != nullptr && t == 0) {
       lse[static_cast<size_t>(bh) * Tq + l] =
@@ -244,7 +273,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // at its first launch or query there (setting them twice does no harm)
 constexpr int kMaxDevices = 64;
 
-template <int D>
+template <int D, bool kRagged>
 cudaError_t fwd_attributes() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -252,7 +281,7 @@ cudaError_t fwd_attributes() {
   if (rc != cudaSuccess) return rc;
   const bool known = dev >= 0 && dev < kMaxDevices;
   if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  auto kernel = attn_fwd_kernel<D>;
+  auto kernel = attn_fwd_kernel<D, kRagged>;
   rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_floats<D>() * static_cast<int>(sizeof(float)));
@@ -266,27 +295,28 @@ cudaError_t fwd_attributes() {
   return rc;
 }
 
-template <int D>
+// kRagged: a head of dim < D columns in the tiles built for D
+template <int D, bool kRagged = false>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* bias, const int* k_len, int B, int H, int Tq,
                    int Tk, float scale, int causal, float* out, float* lse,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int dim, bool vec) {
   constexpr int kBytes = smem_floats<D>() * sizeof(float);
-  const cudaError_t rc = fwd_attributes<D>();
+  const cudaError_t rc = fwd_attributes<D, kRagged>();
   if (rc != cudaSuccess) return rc;
   dim3 grid((Tq + kQRows - 1) / kQRows, B * H);
-  attn_fwd_kernel<D><<<grid, kThreads, kBytes, stream>>>(
-      q, k, v, bias, k_len, H, Tq, Tk, scale, causal, out, lse);
+  attn_fwd_kernel<D, kRagged><<<grid, kThreads, kBytes, stream>>>(
+      q, k, v, bias, k_len, H, Tq, Tk, scale, causal, out, lse, dim, vec);
   return cudaGetLastError();
 }
 
 // registers a thread, bytes of local memory a thread (spills), bytes of
 // dynamic shared memory and resident blocks an SM
-template <int D>
+template <int D, bool kRagged = false>
 cudaError_t occupancy(int* info) {
-  auto kernel = attn_fwd_kernel<D>;
+  auto kernel = attn_fwd_kernel<D, kRagged>;
   constexpr int kBytes = smem_floats<D>() * sizeof(float);
-  cudaError_t rc = fwd_attributes<D>();
+  cudaError_t rc = fwd_attributes<D, kRagged>();
   if (rc != cudaSuccess) return rc;
   cudaFuncAttributes attr;
   rc = cudaFuncGetAttributes(&attr, kernel);
@@ -304,19 +334,34 @@ extern "C" const char* aps_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// the built widths as they are; any other D up to 128 in the ragged tiles
+// of attn_tiles::tile_width(D) (kRagged)
 #define APS_DISPATCH_D(D, fn, ...)                                \
   switch (D) {                                                    \
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
     case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
+    default: break;                                               \
+  }                                                               \
+  switch (D < 1 || D > 128 ? 0 : attn_tiles::tile_width(D)) {    \
+    case 16: return static_cast<int>(fn<16, true>(__VA_ARGS__));  \
+    case 32: return static_cast<int>(fn<32, true>(__VA_ARGS__));  \
+    case 64: return static_cast<int>(fn<64, true>(__VA_ARGS__));  \
+    case 96: return static_cast<int>(fn<96, true>(__VA_ARGS__));  \
+    case 128: return static_cast<int>(fn<128, true>(__VA_ARGS__)); \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // q, out: B x H x Tq x D; k, v: B x H x Tk x D; bias: H x Tq x Tk or null;
 // k_len: B int32; lse: B x H x Tq or null (inference). All float32 (k_len
-// int32), contiguous, on the device; q, k and v 16-byte aligned. D in {16,
-// 32, 64, 128}.
+// int32), contiguous, on the device. 1 <= D <= 128; at D in {16, 32, 64,
+// 128} q, k and v are 16-byte aligned (rows of another width are copied 4
+// bytes at a time where they leave the 16-byte grid).
 extern "C" int aps_attention_fwd(const float* q, const float* k,
                                  const float* v, const float* bias,
                                  const int* k_len, int B, int H, int Tq,
@@ -325,13 +370,15 @@ extern "C" int aps_attention_fwd(const float* q, const float* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   APS_DISPATCH_D(D, launch, q, k, v, bias, k_len, B, H, Tq, Tk, scale, causal,
-                 out, lse, static_cast<cudaStream_t>(stream));
+                 out, lse, static_cast<cudaStream_t>(stream), D, vec);
 }
 
-// How the forward sits on an SM at head dim D: info = {registers a thread,
-// bytes of local memory a thread, bytes of dynamic shared memory a block,
-// resident blocks an SM, query rows a block}.
+// How the forward sits on an SM at head dim D (another width than 16, 32, 64
+// and 128: the ragged tiles it runs): info = {registers a thread, bytes of
+// local memory a thread, bytes of dynamic shared memory a block, resident
+// blocks an SM, query rows a block}.
 extern "C" int aps_attention_fwd_occupancy(int D, int* info) {
   info[4] = kQRows;
   APS_DISPATCH_D(D, occupancy, info);

@@ -70,6 +70,15 @@
 //
 // They still recompute s and dp in both kernels (14 Tq Tk D in all where a
 // fused pass needs 10); dbias is as it was (no model passes a bias).
+//
+// A head of another width up to 128 runs the tiles of the next built width
+// (65 to 96: those of 96) without a padded copy, as the forward does
+// (attention.cu): rows staged at
+// their own stride and zero-filled to the tile's width, s and dp over the
+// fragments that hold the true columns (the gradient products over all of
+// the tile's, as the forward's p . v), those columns written, dbias's dot
+// products over the true width. The variant is chosen
+// at compile time (kRagged); the built widths compile to the code they had.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,18 +128,19 @@ static_assert(kStreamRows % 8 == 0 && 2 * kStreamRows <= kThreads,
               "streamed tiles are whole 8-row fragments; one thread stages "
               "one row statistic");
 
-// rows [first, first + rows) of a (limit x D) matrix -> dst, zeros outside
+// rows [first, first + rows) of a (limit x W) matrix -> columns [0, W) of
+// dst (W <= D), zeros outside
 template <int D>
 __device__ __forceinline__ void stage_rows(float (*dst)[D + 1],
                                            const float* __restrict__ src,
                                            int first, int rows, int limit,
-                                           int tid) {
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
+                                           int W, int tid) {
+  for (int i = tid; i < rows * W; i += kThreads) {
+    const int r = i / W;
+    const int d = i - r * W;
     const int g = first + r;
     dst[r][d] = (g >= 0 && g < limit)
-                    ? src[static_cast<size_t>(g) * D + d]
+                    ? src[static_cast<size_t>(g) * W + d]
                     : 0.f;
   }
 }
@@ -156,17 +166,18 @@ struct Args {
 };
 
 // p[l,s] and dp[l,s] - delta[l] of tile entry (li, sj): the score is
-// recomputed from the staged rows, the bias (if any) read from device memory
+// recomputed from the staged rows (W <= D columns), the bias (if any) read
+// from device memory
 template <int D>
 __device__ __forceinline__ void tile_entry(
     float (*sq)[D + 1], float (*sdo)[D + 1], float (*sk)[D + 1],
     float (*sv)[D + 1], const float* slse,
     const float* sdelta, const float* __restrict__ bias_h, int li, int sj,
-    int l, int s, int Tq, int Tk, int klen, float scale, int causal, float* p,
-    float* dpd) {
+    int l, int s, int Tq, int Tk, int klen, float scale, int causal, int W,
+    float* p, float* dpd) {
   float a = 0.f, dp = 0.f;
 #pragma unroll 16
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < W; ++d) {
     a = fmaf(sq[li][d], sk[sj][d], a);
     dp = fmaf(sdo[li][d], sv[sj][d], dp);
   }
@@ -192,13 +203,18 @@ constexpr int tiles_smem_floats() {
 // dk/dv (kDKV true): the block owns key rows own0.. of k and v and streams q,
 // do, lse and delta; its tile is the transposed s[s,l] with s owned. g1 = dk,
 // g2 = dv.
-template <int D, bool kDKV>
+// kRagged: a head of dim < D columns (rows dim floats apart in device
+// memory; vec: 16-byte copies); else dim == D and both are unused.
+template <int D, bool kDKV, bool kRagged>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm<D>())
 attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
                       float* __restrict__ delta_out, float* __restrict__ g1,
-                      float* __restrict__ g2) {
+                      float* __restrict__ g2, int dim, bool vec) {
   using namespace attn_tiles;
   constexpr int BS = kStreamRows;
+  const int W = kRagged ? dim : D;  // row stride in device memory
+  // 8-column fragments that hold the head's columns (the rest are zeros)
+  const int nd = kRagged ? (dim + 7) / 8 : D / 8;
   constexpr int LD = tile_ld(D);
   constexpr int NT = BS / 8;  // 8-wide fragments across the streamed rows
   constexpr int ND = D / 8;   // 8-wide fragments across the head dim
@@ -216,8 +232,8 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
   const int g = lane / 4;
   const int t = lane % 4;
   const int wrow = (tid / 32) * kWarpRows;
-  const size_t qhead = static_cast<size_t>(bh) * a.Tq * D;
-  const size_t khead = static_cast<size_t>(bh) * a.Tk * D;
+  const size_t qhead = static_cast<size_t>(bh) * a.Tq * W;
+  const size_t khead = static_cast<size_t>(bh) * a.Tk * W;
   const size_t shead = static_cast<size_t>(bh) * a.Tq;
   const float* bias_h =
       a.bias == nullptr
@@ -249,8 +265,10 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
   auto stage_stream = [&](int tile, int stage) {
     const int r0 = beg + tile * BS;
     float* dst = sy + stage * 2 * BS * LD;
-    stage_rows_async<D, BS, kThreads>(dst, y1, r0, t_str, tid);
-    stage_rows_async<D, BS, kThreads>(dst + BS * LD, y2, r0, t_str, tid);
+    stage_rows_of<kRagged, D, BS, kThreads>(dst, y1, r0, t_str, dim, vec,
+                                            tid);
+    stage_rows_of<kRagged, D, BS, kThreads>(dst + BS * LD, y2, r0, t_str,
+                                            dim, vec, tid);
     if (kDKV && tid < 2 * BS) {
       const int which = tid / BS;  // 0 lse, 1 delta
       const int l = r0 + tid - which * BS;
@@ -260,8 +278,10 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
     }
   };
 
-  stage_rows_async<D, kOwnRows, kThreads>(sx1, x1, own0, t_own, tid);
-  stage_rows_async<D, kOwnRows, kThreads>(sx2, x2, own0, t_own, tid);
+  stage_rows_of<kRagged, D, kOwnRows, kThreads>(sx1, x1, own0, t_own, dim,
+                                                vec, tid);
+  stage_rows_of<kRagged, D, kOwnRows, kThreads>(sx2, x2, own0, t_own, dim,
+                                                vec, tid);
   if (nt > 0) stage_stream(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -276,9 +296,9 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
       const int l = own0 + row;
       float part = 0.f;
       if (l < a.Tq) {
-        for (int d = lane; d < D; d += 32) {
+        for (int d = lane; d < W; d += 32) {
           part = fmaf(sx2[row * LD + d],
-                      out[qhead + static_cast<size_t>(l) * D + d], part);
+                      out[qhead + static_cast<size_t>(l) * W + d], part);
         }
       }
 #pragma unroll
@@ -337,7 +357,7 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
       }
     }
 #pragma unroll 2
-    for (int k0 = 0; k0 < D; k0 += 8) {
+    for (int k0 = 0; k0 < 8 * nd; k0 += 8) {
       FragA a1, a2;
       FragB b1[NT], b2[NT];
       load_a<LD>(a1, sx1, wrow, k0, g, t);
@@ -423,14 +443,24 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
   for (int h = 0; h < 2; ++h) {
     const int row = own0 + wrow + g + 8 * h;
     if (row >= t_own) continue;
-    const size_t at = ohead + static_cast<size_t>(row) * D + 2 * t;
+    const size_t at = ohead + static_cast<size_t>(row) * W + 2 * t;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(g1 + at + 8 * n) =
-          make_float2(acc1[n][2 * h], acc1[n][2 * h + 1]);
-      if constexpr (kDKV) {
-        *reinterpret_cast<float2*>(g2 + at + 8 * n) =
-            make_float2(acc2[n][2 * h], acc2[n][2 * h + 1]);
+      if constexpr (kRagged) {
+        // the true columns only, a float at a time
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * n + 2 * t + e >= dim) continue;
+          g1[at + 8 * n + e] = acc1[n][2 * h + e];
+          if constexpr (kDKV) g2[at + 8 * n + e] = acc2[n][2 * h + e];
+        }
+      } else {
+        *reinterpret_cast<float2*>(g1 + at + 8 * n) =
+            make_float2(acc1[n][2 * h], acc1[n][2 * h + 1]);
+        if constexpr (kDKV) {
+          *reinterpret_cast<float2*>(g2 + at + 8 * n) =
+              make_float2(acc2[n][2 * h], acc2[n][2 * h + 1]);
+        }
       }
     }
   }
@@ -445,10 +475,13 @@ constexpr int dbias_smem_floats() {
 }
 
 // dbias: H x Tq x Tk; this block owns tile (rows l0.., columns s0..) of
-// head h and sums it over the batch in order
-template <int D>
-__global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias) {
+// head h and sums it over the batch in order. kRagged: a head of dim < D
+// columns, its dot products over dim; else dim == D and unused.
+template <int D, bool kRagged>
+__global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias,
+                                  int dim) {
   constexpr int DP = D + 1;
+  const int W = kRagged ? dim : D;  // columns of a row
   extern __shared__ float sbias_smem[];
   auto sq = reinterpret_cast<float (*)[DP]>(sbias_smem);
   auto sdo = sq + kBQ;
@@ -473,15 +506,15 @@ __global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias) {
     const int klen = min(a.Tk, a.k_len[b]);
     if (s0 >= klen) continue;  // the same for every thread of the block
     const int bh = b * a.H + h;
-    const size_t qhead = static_cast<size_t>(bh) * a.Tq * D;
-    const size_t khead = static_cast<size_t>(bh) * a.Tk * D;
+    const size_t qhead = static_cast<size_t>(bh) * a.Tq * W;
+    const size_t khead = static_cast<size_t>(bh) * a.Tk * W;
     __syncthreads();  // the previous batch entry's readers are done
-    stage_rows<D>(sq, a.q + qhead, l0, kBQ, a.Tq, tid);
-    stage_rows<D>(sdo, a.dout + qhead, l0, kBQ, a.Tq, tid);
+    stage_rows<D>(sq, a.q + qhead, l0, kBQ, a.Tq, W, tid);
+    stage_rows<D>(sdo, a.dout + qhead, l0, kBQ, a.Tq, W, tid);
     stage_row_stats(slse, sdelta, a.lse + static_cast<size_t>(bh) * a.Tq,
                     a.delta + static_cast<size_t>(bh) * a.Tq, l0, a.Tq, tid);
-    stage_rows<D>(sk, a.k + khead, s0, kBK, a.Tk, tid);
-    stage_rows<D>(sv, a.v + khead, s0, kBK, a.Tk, tid);
+    stage_rows<D>(sk, a.k + khead, s0, kBK, a.Tk, W, tid);
+    stage_rows<D>(sv, a.v + khead, s0, kBK, a.Tk, W, tid);
     __syncthreads();
 
 #pragma unroll
@@ -491,7 +524,8 @@ __global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias) {
       const int sj = e - li * kBK;
       float p, dpd;
       tile_entry<D>(sq, sdo, sk, sv, slse, sdelta, bias_h, li, sj, l0 + li,
-                    s0 + sj, a.Tq, a.Tk, klen, a.scale, a.causal, &p, &dpd);
+                    s0 + sj, a.Tq, a.Tk, klen, a.scale, a.causal, W, &p,
+                    &dpd);
       acc[i] += p * dpd;
     }
   }
@@ -513,7 +547,7 @@ __global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias) {
 // at its first launch or query there (setting them twice does no harm)
 constexpr int kMaxDevices = 64;
 
-template <int D, bool kDKV>
+template <int D, bool kDKV, bool kRagged>
 cudaError_t tiles_attributes() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -521,7 +555,7 @@ cudaError_t tiles_attributes() {
   if (rc != cudaSuccess) return rc;
   const bool known = dev >= 0 && dev < kMaxDevices;
   if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  auto kernel = attn_bwd_tiles_kernel<D, kDKV>;
+  auto kernel = attn_bwd_tiles_kernel<D, kDKV, kRagged>;
   rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       tiles_smem_floats<D, kDKV>() * static_cast<int>(sizeof(float)));
@@ -535,37 +569,42 @@ cudaError_t tiles_attributes() {
   return rc;
 }
 
-template <int D, bool kDKV>
+template <int D, bool kDKV, bool kRagged>
 cudaError_t launch_tiles(const Args& a, const float* out, float* delta_out,
-                         float* g1, float* g2, cudaStream_t s) {
+                         float* g1, float* g2, cudaStream_t s, int dim,
+                         bool vec) {
   constexpr int kBytes = tiles_smem_floats<D, kDKV>() * sizeof(float);
-  const cudaError_t rc = tiles_attributes<D, kDKV>();
+  const cudaError_t rc = tiles_attributes<D, kDKV, kRagged>();
   if (rc != cudaSuccess) return rc;
   dim3 grid(((kDKV ? a.Tk : a.Tq) + kOwnRows - 1) / kOwnRows, a.B * a.H);
-  attn_bwd_tiles_kernel<D, kDKV>
-      <<<grid, kThreads, kBytes, s>>>(a, out, delta_out, g1, g2);
+  attn_bwd_tiles_kernel<D, kDKV, kRagged>
+      <<<grid, kThreads, kBytes, s>>>(a, out, delta_out, g1, g2, dim, vec);
   return cudaGetLastError();
 }
 
-template <int D>
+// kRagged: a head of dim < D columns in the tiles built for D
+template <int D, bool kRagged = false>
 cudaError_t launch_dq(const Args& a, const float* out, float* delta_out,
-                      float* dq, cudaStream_t s) {
-  return launch_tiles<D, false>(a, out, delta_out, dq, nullptr, s);
+                      float* dq, cudaStream_t s, int dim, bool vec) {
+  return launch_tiles<D, false, kRagged>(a, out, delta_out, dq, nullptr, s,
+                                         dim, vec);
 }
 
-template <int D>
-cudaError_t launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t s) {
-  return launch_tiles<D, true>(a, nullptr, nullptr, dk, dv, s);
+template <int D, bool kRagged = false>
+cudaError_t launch_dkv(const Args& a, float* dk, float* dv, cudaStream_t s,
+                       int dim, bool vec) {
+  return launch_tiles<D, true, kRagged>(a, nullptr, nullptr, dk, dv, s, dim,
+                                        vec);
 }
 
 // registers a thread, bytes of local memory a thread (spills), bytes of
 // dynamic shared memory and resident blocks an SM of the dq (kDKV false) or
 // dk/dv kernel
-template <int D, bool kDKV>
+template <int D, bool kDKV, bool kRagged>
 cudaError_t tiles_occupancy(int* info) {
-  auto kernel = attn_bwd_tiles_kernel<D, kDKV>;
+  auto kernel = attn_bwd_tiles_kernel<D, kDKV, kRagged>;
   constexpr int kBytes = tiles_smem_floats<D, kDKV>() * sizeof(float);
-  cudaError_t rc = tiles_attributes<D, kDKV>();
+  cudaError_t rc = tiles_attributes<D, kDKV, kRagged>();
   if (rc != cudaSuccess) return rc;
   cudaFuncAttributes attr;
   rc = cudaFuncGetAttributes(&attr, kernel);
@@ -577,12 +616,13 @@ cudaError_t tiles_occupancy(int* info) {
                                                        kThreads, kBytes);
 }
 
-template <int D>
+template <int D, bool kRagged = false>
 cudaError_t occupancy(int dkv, int* info) {
-  return dkv ? tiles_occupancy<D, true>(info) : tiles_occupancy<D, false>(info);
+  return dkv ? tiles_occupancy<D, true, kRagged>(info)
+             : tiles_occupancy<D, false, kRagged>(info);
 }
 
-template <int D>
+template <int D, bool kRagged>
 cudaError_t dbias_attributes() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -591,7 +631,8 @@ cudaError_t dbias_attributes() {
   const bool known = dev >= 0 && dev < kMaxDevices;
   if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   rc = cudaFuncSetAttribute(
-      attn_dbias_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_dbias_kernel<D, kRagged>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       dbias_smem_floats<D>() * static_cast<int>(sizeof(float)));
   if (rc == cudaSuccess && known) {
     done[dev].store(true, std::memory_order_release);
@@ -599,18 +640,30 @@ cudaError_t dbias_attributes() {
   return rc;
 }
 
-template <int D>
-cudaError_t launch_dbias(const Args& a, float* dbias, cudaStream_t s) {
+template <int D, bool kRagged = false>
+cudaError_t launch_dbias(const Args& a, float* dbias, cudaStream_t s,
+                         int dim) {
   constexpr int kBytes = dbias_smem_floats<D>() * sizeof(float);
-  const cudaError_t rc = dbias_attributes<D>();
+  const cudaError_t rc = dbias_attributes<D, kRagged>();
   if (rc != cudaSuccess) return rc;
   dim3 grid((a.Tk + kBK - 1) / kBK, (a.Tq + kBQ - 1) / kBQ, a.H);
-  attn_dbias_kernel<D><<<grid, kThreads, kBytes, s>>>(a, dbias);
+  attn_dbias_kernel<D, kRagged><<<grid, kThreads, kBytes, s>>>(a, dbias, dim);
   return cudaGetLastError();
 }
 
 bool bad_dims(int B, int H, int Tq, int Tk) {
   return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// 16-byte copies of the rows of a ragged head: D % 4 == 0 and every staged
+// operand on the 16-byte grid
+bool vec_rows(int D, const Args& a) {
+  return D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout);
 }
 
 }  // namespace
@@ -619,19 +672,31 @@ extern "C" const char* aps_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// the built widths as they are; any other D up to 128 in the ragged tiles
+// of attn_tiles::tile_width(D) (kRagged)
 #define APS_DISPATCH_D(D, fn, ...)                                \
   switch (D) {                                                    \
     case 16: return static_cast<int>(fn<16>(__VA_ARGS__));        \
     case 32: return static_cast<int>(fn<32>(__VA_ARGS__));        \
     case 64: return static_cast<int>(fn<64>(__VA_ARGS__));        \
     case 128: return static_cast<int>(fn<128>(__VA_ARGS__));      \
+    default: break;                                               \
+  }                                                               \
+  switch (D < 1 || D > 128 ? 0 : attn_tiles::tile_width(D)) {    \
+    case 16: return static_cast<int>(fn<16, true>(__VA_ARGS__));  \
+    case 32: return static_cast<int>(fn<32, true>(__VA_ARGS__));  \
+    case 64: return static_cast<int>(fn<64, true>(__VA_ARGS__));  \
+    case 96: return static_cast<int>(fn<96, true>(__VA_ARGS__));  \
+    case 128: return static_cast<int>(fn<128, true>(__VA_ARGS__)); \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
 // Shapes as in the forward: q, dout, out, dq B x H x Tq x D; k, v, dk, dv B
 // x H x Tk x D; bias H x Tq x Tk or null; k_len B int32; lse, delta B x H x
-// Tq. All float32 (k_len int32), contiguous, on the device. D in {16, 32,
-// 64, 128}. The three entries take the same list of pointers. dq reads the
+// Tq. All float32 (k_len int32), contiguous, on the device. 1 <= D <= 128
+// (another width than 16, 32, 64 and 128 in the tiles of the next one, its
+// rows copied 4 bytes at a time where they leave the 16-byte grid). The
+// three entries take the same list of pointers. dq reads the
 // forward's output `out` and WRITES delta = sum(dout * out, -1); dk/dv and
 // dbias read that delta, so dq is launched first.
 extern "C" int aps_attention_dq(
@@ -645,7 +710,7 @@ extern "C" int aps_attention_dq(
   const Args a{q, k, v, bias, k_len, dout, lse, nullptr,
                B, H, Tq, Tk, scale, causal};
   APS_DISPATCH_D(D, launch_dq, a, out, delta, dq,
-                 static_cast<cudaStream_t>(stream));
+                 static_cast<cudaStream_t>(stream), D, vec_rows(D, a));
 }
 
 extern "C" int aps_attention_dkv(
@@ -656,7 +721,8 @@ extern "C" int aps_attention_dkv(
   if (bad_dims(B, H, Tq, Tk)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, bias, k_len, dout, lse, delta,
                B, H, Tq, Tk, scale, causal};
-  APS_DISPATCH_D(D, launch_dkv, a, dk, dv, static_cast<cudaStream_t>(stream));
+  APS_DISPATCH_D(D, launch_dkv, a, dk, dv, static_cast<cudaStream_t>(stream),
+                 D, vec_rows(D, a));
 }
 
 extern "C" int aps_attention_dbias(
@@ -670,10 +736,11 @@ extern "C" int aps_attention_dbias(
   const Args a{q, k, v, bias, k_len, dout, lse, delta,
                B, H, Tq, Tk, scale, causal};
   APS_DISPATCH_D(D, launch_dbias, a, dbias,
-                 static_cast<cudaStream_t>(stream));
+                 static_cast<cudaStream_t>(stream), D);
 }
 
-// How the dq (dkv 0) or dk/dv (dkv 1) kernel sits on an SM at head dim D:
+// How the dq (dkv 0) or dk/dv (dkv 1) kernel sits on an SM at head dim D
+// (another width than 16, 32, 64 and 128: the ragged tiles it runs):
 // info = {registers a thread, bytes of local memory a thread, bytes of
 // dynamic shared memory a block, resident blocks an SM, streamed rows a
 // tile}.

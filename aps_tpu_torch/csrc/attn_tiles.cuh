@@ -36,7 +36,10 @@
 // (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and B is read with the same
 // permutation of its k index (load_b_rows_k).
 //
-// The tiles. A staged tile holds rows of D floats at a stride of D + 4.
+// The tiles. A staged tile holds rows of D floats at a stride of D + 4. A
+// head narrower than the tile (stage_rows_ragged, K2 at widths other than
+// 16, 32, 64 and 128) is staged at its own row stride in device memory and
+// zero-filled to D: the zero columns add nothing to a product.
 // With that stride the two fragment patterns, (row g, column t) and (row
 // 2t, column g), both fall on 32 different banks; the stride keeps rows
 // 16-byte aligned for cp.async. A B operand read as (row t, column g) of a
@@ -334,6 +337,83 @@ __device__ __forceinline__ void stage_window_async(
     cp_async_16(tile + r * LD + c,
                 ok ? src + static_cast<size_t>(row) * D + c : src, ok);
   }
+}
+
+// stage_rows_async for a head narrower than the tile it runs in: rows
+// [first, first + ROWS) of a (limit x dim) matrix, dim <= D -> tile (row
+// stride tile_ld(D)), zeros past limit and in the columns [dim, D), each
+// thread at a fixed 4-float piece of a row as in stage_rows_async (where
+// the pieces of a row do not divide the threads, as at D = 96, the threads
+// stride over the pieces instead). vec (dim % 4 == 0 and src 16-byte
+// aligned): 16 bytes a copy; else the rows leave the 16-byte grid and each
+// float is a copy of its own (cp_async_4).
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows_ragged(
+    float* tile, const float* __restrict__ src, int first, int limit,
+    int dim, bool vec, int tid) {
+  constexpr int LD = tile_ld(D);
+  constexpr int kChunks = D / 4;  // 4-float pieces of a tile row
+  // a copy of the piece at column c of a row that starts at from (zeros
+  // where the row is past limit or the columns past dim)
+  auto piece = [&](float* dst, const float* from, int c, bool live) {
+    if (vec) {
+      const bool ok = live && c < dim;
+      cp_async_16(dst, ok ? from : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = live && c + e < dim;
+        cp_async_4(dst + e, ok ? from + e : src, ok);
+      }
+    }
+  };
+  if constexpr (THREADS % kChunks != 0) {
+    for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+      const int r = i / kChunks;
+      const int c = (i - r * kChunks) * 4;
+      piece(tile + r * LD + c, src + static_cast<size_t>(first + r) * dim + c,
+            c, first + r < limit);
+    }
+  } else {
+    constexpr int kPassRows = THREADS / kChunks;
+    static_assert(ROWS % kPassRows == 0,
+                  "a pass of all threads covers whole rows of the tile");
+    const int r = tid / kChunks;
+    const int c = (tid - r * kChunks) * 4;
+    const float* from = src + static_cast<size_t>(first + r) * dim + c;
+    const size_t step = static_cast<size_t>(kPassRows) * dim;
+#pragma unroll
+    for (int i = 0; i < ROWS / kPassRows; ++i) {
+      piece(tile + (r + i * kPassRows) * LD + c, from + i * step, c,
+            first + r + i * kPassRows < limit);
+    }
+  }
+}
+
+// rows of a head dim columns wide into tiles built for D, chosen at compile
+// time: kRagged false (dim == D, 16-byte aligned rows) is stage_rows_async
+// as it is, so a built width compiles to the code it had before the ragged
+// variant existed
+template <bool kRagged, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows_of(float* tile,
+                                              const float* __restrict__ src,
+                                              int first, int limit, int dim,
+                                              bool vec, int tid) {
+  if constexpr (kRagged) {
+    stage_rows_ragged<D, ROWS, THREADS>(tile, src, first, limit, dim, vec,
+                                        tid);
+  } else {
+    stage_rows_async<D, ROWS, THREADS>(tile, src, first, limit, tid);
+  }
+}
+
+// the tile width a head of dim columns (1 <= dim <= 128) other than 16,
+// 32, 64 and 128 runs in (the ragged variant): the next of those, and 96
+// for 65 to 96, where the tiles of 128 read 1.29 times the time of a head
+// of 128 (their registers spill more at the 255 a thread may have)
+__host__ __device__ constexpr int tile_width(int dim) {
+  return dim <= 16 ? 16 : dim <= 32 ? 32 : dim <= 64 ? 64 : dim <= 96 ? 96
+                                                                     : 128;
 }
 
 }  // namespace attn_tiles

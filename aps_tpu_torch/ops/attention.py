@@ -26,16 +26,19 @@ summed in order; no model passes a bias) is as first ported. Every kernel
 owns its reduction: outputs and gradients repeat bit for bit from run to
 run. The kernels copy rows 16 bytes at a time, so an operand at an odd
 storage offset is copied first (`_aligned`). They are built for head
-widths 16, 32, 64 and 128: any other head up to 128 is zero-padded up to
-the next of them (`with_padded_heads`, shared with the relative-position
-kernels), which leaves every score unchanged, runs at the true scale and
-gives zero columns that the slice back drops. A head wider than 128 runs
-the wide kernels of csrc/wide_attention.cu with the same arguments,
-counted under the same names: the forward, dq and dk/dv on the tensor
-cores as above, each block's head split between two warpgroups that add
-their partial scores through shared memory, and a head over 256 in
-passes of 256 columns; dbias a warp an entry on the CUDA cores. They take
-every width, a ragged one without a padded copy.
+widths 16, 32, 64 and 128; any other head up to 128 (8 in the tests'
+SepFormer, 96) is launched as it is and runs the tiles of the next of
+them (65 to 96: tiles of 96, built for such heads alone), its rows
+staged at their own width and zero-filled in shared memory, 4 bytes a
+copy where they leave the 16-byte grid, and only its true columns
+written: no padded copy and no slice (`with_padded_heads` is left to
+the relative-position kernels, which still pad such a head). A head
+wider than 128 runs the wide kernels of csrc/wide_attention.cu with the
+same arguments, counted under the same names: the forward, dq and dk/dv
+on the tensor cores as above, each block's head split between two
+warpgroups that add their partial scores through shared memory, and a
+head over 256 in passes of 256 columns; dbias a warp an entry on the
+CUDA cores. They take every width, a ragged one without a padded copy.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -136,11 +139,13 @@ def with_padded_heads(fn, name: str, padded, *args, **kwargs
                       ) -> torch.Tensor:
     """fn(*padded, *args, **kwargs) with each tensor of `padded` zero-padded
     on its last (head) axis from D up to the next width the kernels are
-    built for, and the output sliced back to D. Zero columns change no
-    q . k product, no relative term and no gradient of the true columns,
-    and the padded columns of v give output columns that the slice drops;
-    the caller passes the true scale D**-0.5 in kwargs. A D over 128 is
-    passed as it is: the wide kernels take every width."""
+    built for, and the output sliced back to D: how flash_attention_rel
+    runs a head up to 128 that its kernels are not built for (K2's kernels
+    take such a head as it is). Zero columns change no q . k product, no
+    relative term and no gradient of the true columns, and the padded
+    columns of v give output columns that the slice drops; the caller
+    passes the true scale D**-0.5 in kwargs. A D over 128 is passed as it
+    is: the wide kernels take every width."""
     D = padded[0].shape[-1]
     width = next((w for w in _HEAD_DIMS if w >= D), D)
     out = fn(*(torch.nn.functional.pad(t, (0, width - D)) for t in padded),
@@ -260,16 +265,18 @@ def backward_occupancy(D: int, kernel: str):
 
 WIDE_KERNELS = ("K2 forward", "K2 dq", "K2 dk/dv", "K2 dbias", "K3 forward",
                 "K3 dq", "K3 dk/dv", "K3 dpose", "K2 forward, D > 256",
-                "K2 dq, D > 256", "K2 dk/dv, D > 256")
+                "K2 dq, D > 256", "K2 dk/dv, D > 256", "K3 forward, D > 256",
+                "K3 dq, D > 256", "K3 dk/dv, D > 256", "K3 dpose, D > 256")
 
 
 def wide_occupancy():
     """How each wide kernel (heads over 128, csrc/wide_attention.cu) sits
     on an SM of the current card: registers and bytes of local memory
     (spills) a thread, shared memory a block (static and dynamic), resident
-    blocks an SM, head columns a pass and threads a block, by WIDE_KERNELS
-    name (K2's forward, dq and dk/dv: the tiles that hold a head up to 256
-    whole, and those that run a wider one in passes)."""
+    blocks an SM, head columns a pass (0 for K2's dbias, a warp an entry)
+    and threads a block, by WIDE_KERNELS name (K2's forward, dq and dk/dv
+    and K3's forward, dq, dk/dv and dpose: the tiles that hold a head up to
+    256 whole, and those that run a wider one in passes)."""
     import ctypes
     lib = build.load("wide_attention", "aps_wide_attention_occupancy",
                      [build.I, build.P])
@@ -284,9 +291,9 @@ def wide_occupancy():
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernels copy rows 16 bytes at a time (cp.async). Rows are D * 4
-    bytes, so only a contiguous view at an odd storage offset starts off
-    that grid: it is copied."""
+    """The kernels copy rows 16 bytes at a time (cp.async) where the head
+    width allows it; a contiguous view at an odd storage offset starts off
+    that grid, so it is copied."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -332,8 +339,8 @@ def flash_attention(q: torch.Tensor,
     B x H x Tq x D; gradients flow to q, k, v and bias.
     CPU tensors take mha_reference (and autograd through it); CUDA tensors
     launch the kernels of csrc/attention.cu and, for the gradient,
-    csrc/attention_bwd.cu (D in {16, 32, 64, 128}; any other D up to 128
-    zero-padded up by with_padded_heads; a wider one those of
+    csrc/attention_bwd.cu (any D up to 128, one that is not 16, 32, 64 or
+    128 in the tiles of the next of them, unpadded; a wider one those of
     csrc/wide_attention.cu)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q is {tuple(q.shape)}, expected "
@@ -350,17 +357,12 @@ def flash_attention(q: torch.Tensor,
     if k_len is not None and tuple(k_len.shape) != (B,):
         raise ValueError(f"flash_attention: k_len is {tuple(k_len.shape)}, "
                          f"expected ({B},)")
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return mha_reference(q, k, v, bias=bias, k_len=k_len, causal=causal,
                              softmax_scale=softmax_scale)
-    if D not in _HEAD_DIMS and not is_wide(D):
-        return with_padded_heads(
-            flash_attention, "flash_attention", (q, k, v), bias, k_len,
-            causal, softmax_scale=softmax_scale
-            if softmax_scale is not None else D**-0.5)
-    if Tq == 0 or Tk == 0:
-        raise ValueError(f"flash_attention: empty sequence (Tq {Tq}, "
-                         f"Tk {Tk})")
+    if Tq == 0 or Tk == 0 or D == 0:
+        raise ValueError(f"flash_attention: empty sequence or head (Tq {Tq}, "
+                         f"Tk {Tk}, D {D})")
     tensors = {"q": q, "k": k, "v": v}
     if bias is not None:
         tensors["bias"] = bias

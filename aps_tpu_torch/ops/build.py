@@ -146,21 +146,27 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on a CUDA device, without a
+    torch.cuda.Stream object around it (a wrapper asks for it at every
+    launch)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def require_cuda(name: str, tensors: Dict[str, torch.Tensor],
                  dtype=torch.float32) -> None:
-    """Device / dtype / contiguity checks shared by the wrappers."""
+    """Device / dtype / contiguity checks shared by the wrappers (devices
+    compared by index: a wrapper runs them at every launch)."""
     dev = None
     for key, t in tensors.items():
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: {key} is on {t.device}, not CUDA")
         if dev is None:
-            dev = t.device
-        elif t.device != dev:
+            dev = t.get_device()
+        elif t.get_device() != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
-                             f"{dev}")
+                             f"cuda:{dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, "
                             f"expected {dtype}")

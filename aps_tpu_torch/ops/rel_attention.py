@@ -16,9 +16,12 @@ the autograd Function `_FlashRel`; a failed build or launch raises. The
 kernels copy rows 16 bytes at a time, so an operand at an odd storage
 offset is copied first. A head up to 128 wide and not 16, 32, 64 or 128
 is zero-padded up, table included, and runs at its true scale
-(attention.with_padded_heads); a wider one runs the wide kernels of
+(attention.with_padded_heads; K2's kernels take such a head unpadded,
+these do not yet); a wider one runs the wide kernels of
 csrc/wide_attention.cu (forward with lse, dq, dk/dv and dpose with the
-same arguments, any width), counted under the same names.
+same arguments, any width, on the tensor cores: 32 rows a block, the
+head split in quarters between four warps a row group, a head over 256
+in passes of 256 columns), counted under the same names.
 `rel_mha_reference` and `rel_mha_backward_reference` are the same
 functions in plain PyTorch: the first serves CPU tensors (autograd gives
 its gradient), and both are held against the kernels on the card, as is
@@ -282,7 +285,7 @@ def flash_attention_rel(q_c: torch.Tensor,
     tensors launch the kernels of csrc/rel_attention.cu and, for the
     gradient, csrc/rel_attention_bwd.cu (D in {16, 32, 64, 128}; any
     other D up to 128 zero-padded up by with_padded_heads; a wider one
-    those of csrc/wide_attention.cu)."""
+    the tensor-core tiles of csrc/wide_attention.cu)."""
     tensors = {"q_c": q_c, "q_p": q_p, "k": k, "v": v, "pose": pose}
     B, H, T, D = q_c.shape
     for key, t in tensors.items():

@@ -253,7 +253,8 @@
    vs CPU; no kernel launched. Step 17's training pass runs at two more
    seeds (other weights and utterances), and witnesses put one part of
    the front end at a time in float64; step 21 runs SepFormer once more
-   at heads of 8 (K2 zero-padded to 16, its separation launching K2).
+   at heads of 8 (K2 unpadded in the tiles of 16, its separation
+   launching K2).
    (Steps 12 to 17 run where their data is at hand: 12 with the other
    kernel checks, 13 before step 7, 14 after step 8, 15 between 8 and
    14, 16, 17, 19, 21 and 22 last; step 18 runs first, after the builds,
@@ -5966,7 +5967,7 @@ def transducer_phase(root: Path, gen, dev, card):
 # tests (tests/test_torch_sse_{time,cplx,zoo}.py): one training pass and
 # one separation each, card vs CPU. The sepformers' attention is 32 wide
 # with 2 heads, and once more at the tests' 16 (heads of 8, which K2 takes
-# zero-padded to 16)
+# unpadded in the tiles of 16)
 SSE8_ENH = dict(feats="spectrogram-log-cmvn", frame_len=64, frame_hop=32,
                 window="sqrthann", center=True)
 SSE8_ENH_CPLX = dict(feats="spectrogram", frame_len=128, frame_hop=64,
@@ -5974,8 +5975,8 @@ SSE8_ENH_CPLX = dict(feats="spectrogram", frame_len=128, frame_hop=64,
 SSE8_XFMR = dict(att_dim=32, nhead=2, feedforward_dim=48, att_dropout=0.0,
                  ffn_dropout=0.0)
 SSE8_UNET = dict(K="5,3;3,3", S="2,1;2,1", C="4,6", P="1,1", O="0,1")
-# the CPU tests' SepFormer width: 2 heads of 8, which K2 takes zero-padded
-# to 16 at the true scale
+# the CPU tests' SepFormer width: 2 heads of 8, which K2 takes unpadded in
+# the tiles of 16
 SSE8_XFMR8 = dict(SSE8_XFMR, att_dim=16, feedforward_dim=24)
 # name (a label after "#"): (model conf, enh transform, task, task conf,
 # samples)
@@ -6077,11 +6078,13 @@ def check_k2_cases(dev, gen, cases):
     library's scaled_dot_product_attention computes the same function
     (without a mask where every key is valid): its forward, and autograd
     through it for dq, dk and dv together, are held against the kernels
-    and timed. A head width the kernels are not built for (8: the CPU
-    tests' SepFormer) is launched zero-padded to the next of 16, 32 and 64
-    at its true scale, as flash_attention pads it. -> {"fwd" | "dq" |
-    "dkv": rows}, each row carrying those numbers in a dict after the
-    bound."""
+    and timed, the forward also queued. A head width the kernels are not
+    built for (8: the CPU tests' SepFormer) is launched as flash_attention
+    launches it, unpadded, in the tiles of the next of 16, 32 and 64, and
+    its forward's time is printed over the library's, one call against
+    one and queued against queued. -> {"fwd" |
+    "dq" | "dkv": rows}, each row carrying those numbers in a dict after
+    the bound."""
     import torch
 
     from aps_tpu_torch.ops.attention import (flash_attention,
@@ -6097,19 +6100,15 @@ def check_k2_cases(dev, gen, cases):
         klen = torch.tensor(lens, dtype=torch.int32, device=dev)
         scale = D**-0.5
         label = (f"B={B} H={H} D={D} T={T} k_len="
-                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged")
+                 + ("" if D in (16, 32, 64, 128) else " unpadded"))
         got = flash_attention(q, k, v, k_len=klen)
         want = mha_reference(q, k, v, k_len=klen)
-        width = next(w for w in (16, 32, 64) if w >= D)
-        qw, kw, vw, dow = (torch.nn.functional.pad(t, (0, width - D))
-                           for t in (q, k, v, do))
-        out, lse = launch_forward(qw, kw, vw, None, klen, scale, False, True)
+        out, lse = launch_forward(q, k, v, None, klen, scale, False, True)
         delta = torch.full_like(lse, float("nan"))
         run = lambda kernel: launch_backward_kernel(  # noqa: E731
-            kernel, qw, kw, vw, None, klen, dow, lse, out, delta, scale,
-            False)
-        dq, (dk, dv) = run("dq")[..., :D], run("dkv")
-        dk, dv = dk[..., :D], dv[..., :D]
+            kernel, q, k, v, None, klen, do, lse, out, delta, scale, False)
+        dq, (dk, dv) = run("dq"), run("dkv")
         ref = mha_backward_reference(q, k, v, do, k_len=klen)
         torch.cuda.synchronize()
         errs = {"fwd": (got - want).abs().max().item(),
@@ -6137,6 +6136,7 @@ def check_k2_cases(dev, gen, cases):
         plain = {"fwd": time_ms(lambda: mha_reference(q, k, v, k_len=klen)),
                  "dq": plain_bwd, "dkv": plain_bwd}
         library = {"fwd": None, "dq": None, "dkv": None}
+        library_queued = None
         if min(lens) >= 1:
             # every key valid: the call as a user would write it, no mask
             sdpa = torch.nn.functional.scaled_dot_product_attention \
@@ -6155,6 +6155,8 @@ def check_k2_cases(dev, gen, cases):
                      "scaled_dot_product_attention")
             with torch.no_grad():
                 library["fwd"] = time_ms(lambda: sdpa(q, k, v))
+                library_queued = time_ms(lambda: sdpa(q, k, v),
+                                         calls=QUEUED_CALLS)
             library["dq"] = library["dkv"] = time_ms(lib_bwd)
         for kernel in rows:
             queued = time_ms(calls[kernel], calls=QUEUED_CALLS)
@@ -6162,11 +6164,24 @@ def check_k2_cases(dev, gen, cases):
             if not queued >= tensor_ms:
                 fail(f"flash_attention {kernel} [{label}]: {queued} ms reads "
                      f"below the tensor cores' bound {tensor_ms}")
-            rows[kernel].append(
-                (label, errs[kernel], time_ms(calls[kernel]), plain[kernel])
-                + bounds[kernel] + ({"ms_queued": queued,
-                                     "tensor_core_bound_ms": tensor_ms,
-                                     "library_ms": library[kernel]},))
+            ms = time_ms(calls[kernel])
+            more = {"ms_queued": queued, "tensor_core_bound_ms": tensor_ms,
+                    "library_ms": library[kernel]}
+            if kernel == "fwd" and library_queued is not None:
+                more.update(library_ms_queued=library_queued,
+                            queued_over_library=queued / library_queued,
+                            over_library=ms / library["fwd"])
+            rows[kernel].append((label, errs[kernel], ms, plain[kernel])
+                                + bounds[kernel] + (more,))
+        fwd = rows["fwd"][-1][6]
+        if D not in (16, 32, 64, 128) and "queued_over_library" in fwd:
+            print(f"K2's forward at heads of {D} unpadded [{label}]: through "
+                  f"flash_attention {rows['fwd'][-1][2]:.4f} ms, queued "
+                  f"{fwd['ms_queued']:.4f}; the library's "
+                  f"{library['fwd']:.4f} ms, queued {library_queued:.4f}: "
+                  f"{fwd['over_library']:.3f}x one call against one, "
+                  f"{fwd['queued_over_library']:.3f}x queued against queued",
+                  flush=True)
     return rows
 
 
@@ -6178,7 +6193,7 @@ def sse8_phase(gen, dev, card):
     differ, and the rule holds the others as tightly as the plain one
     where they do not), and one mixture separated on both; the sepformers'
     K2 calls recorded, and on the card their separation must launch K2's
-    forward (the heads of 8 of the CPU tests' SepFormer too, padded to 16);
+    forward (the heads of 8 of the CPU tests' SepFormer too, unpadded);
     then K2's forward, dq and dk/dv at those shapes and
     at SSE8_K2_CASES against their plain versions. -> ({model: launches of
     its pass}, K2's rows by kernel, numbers)."""
@@ -7266,9 +7281,9 @@ def _wide_row(name, label, got, want, launch, plain_ms, bound, ops,
 
 def wrapper_ms(fn, args, do, **kw) -> dict:
     """The wrapper fn (flash_attention or flash_attention_rel) timed as the
-    model calls it, its pads and slices included at a head of 96: the
-    forward alone ("wrapper_ms") and the forward with the backward of
-    every input ("wrapper_train_ms")."""
+    model calls it (at a head of 96 K3's pads and slices included; K2
+    launches such a head unpadded): the forward alone ("wrapper_ms") and
+    the forward with the backward of every input ("wrapper_train_ms")."""
     import torch
     leaves = [a.clone().requires_grad_() for a in args]
 
@@ -7281,26 +7296,27 @@ def wrapper_ms(fn, args, do, **kw) -> dict:
 
 
 def _padded(tensors, width=128):
-    """The tensors zero-padded on their last (head) axis to width, as the
-    wrappers pad a head the kernels are not built for."""
+    """The tensors zero-padded on their last (head) axis to width, as
+    flash_attention_rel pads a head its kernels are not built for."""
     import torch
     return [torch.nn.functional.pad(t, (0, width - t.shape[-1]))
             for t in tensors]
 
 
 def wide_head_phase(dev, gen, card, egs):
-    """K2's and K3's kernels at heads of 96 (zero-padded to 128 by the
-    wrappers) and 128: at the steps' shapes (WIDE_REL_CASES,
-    WIDE_ABS_CASES) and the one-key corner, forward and every backward
-    kernel through the autograd Functions twice for bit-equal results and
-    against the plain versions; each kernel also launched alone on the
-    operands padded to 128 (at 96: what the wrapper launches) and timed,
-    alone and queued, beside its plain version at the true width, its
-    bound and the tensor cores' bound (_wide_row); each forward also
-    through its wrapper, alone and with the backward (pads and slices
-    included at 96); K2's forward at 128 beside the library's call, and
-    the library's forward with the backward of q, k and v; K2's dbias with
-    a bias. Then one
+    """K2's and K3's kernels at heads of 96 (K2 unpadded in its ragged
+    tiles of 96, K3 zero-padded to 128 by its wrapper) and 128: at the steps'
+    shapes (WIDE_REL_CASES, WIDE_ABS_CASES) and the one-key corner, forward
+    and every backward kernel through the autograd Functions twice for
+    bit-equal results and against the plain versions; each kernel also
+    launched alone on what its wrapper launches (K3 at 96: the operands
+    padded to 128) and timed, alone and queued, beside its plain version at
+    the true width, its bound and the tensor cores' bound (_wide_row); each
+    forward also through its wrapper, alone and with the backward (K3's
+    pads and slices included at 96), K2's at 96 beside its launch at 128;
+    K2's forward at 128 beside the library's call, and the library's
+    forward with the backward of q, k and v; K2's dbias with a bias. Then
+    one
     training pass of the flagship cut to 2 conformer layers of width 512
     with 4 heads (head dim 128) card vs CPU on WIDE_PASS_UTTS of the
     training batch, K3 at 128 counted. -> (rows by kernel, launches of the
@@ -7316,6 +7332,7 @@ def wide_head_phase(dev, gen, card, egs):
     rows = {name: [] for name in KERNELS if name.startswith(
         "flash_attention")}
     more = {}
+    k2_step = {}  # D -> K2's forward row at the step's shape
     for D in WIDE_HEADS:
         scale = D**-0.5
         for B, H, T, lens, causal, Hp, role in WIDE_REL_CASES:
@@ -7326,7 +7343,8 @@ def wide_head_phase(dev, gen, card, egs):
             klen = torch.tensor(lens, dtype=torch.int32, device=dev)
             do = torch.randn((B, H, T, D), generator=gen).to(dev)
             label = (f"B={B} H={H} D={D} T={T} Hp={Hp} causal={causal} "
-                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}")
+                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}"
+                     + ("" if D == 128 else " zero-padded to 128"))
             runs = []
             for _ in range(2):
                 leaves = [a.clone().requires_grad_() for a in args]
@@ -7373,7 +7391,8 @@ def wide_head_phase(dev, gen, card, egs):
                            for _ in range(4))
             klen = torch.tensor(lens, dtype=torch.int32, device=dev)
             label = (f"B={B} H={H} D={D} T={T} causal={causal} "
-                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}")
+                     f"k_len={lens[0] if role == 'step' else '1, 2 and T'}"
+                     + ("" if D == 128 else " unpadded"))
             runs = []
             for _ in range(2):
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -7385,10 +7404,9 @@ def wide_head_phase(dev, gen, card, egs):
             want_out = k2.mha_reference(q, k, v, k_len=klen, causal=causal)
             want = k2.mha_backward_reference(q, k, v, do, k_len=klen,
                                              causal=causal)
-            qp, kp, vp, dop = _padded((q, k, v, do))
-            out_p, lse = k2.launch_forward(qp, kp, vp, None, klen, scale,
+            out_w, lse = k2.launch_forward(q, k, v, None, klen, scale,
                                            causal, True)
-            bwd = (qp, kp, vp, None, klen, dop, lse, out_p,
+            bwd = (q, k, v, None, klen, do, lse, out_w,
                    torch.empty_like(lse), scale, causal)
             k2.launch_backward_kernel("dq", *bwd)  # forms delta
             plain_ms = time_ms(lambda: k2.mha_reference(
@@ -7404,11 +7422,13 @@ def wide_head_phase(dev, gen, card, egs):
             size = B * H * T * D
             rows["flash_attention"].append(_wide_row(
                 "flash_attention", label, runs[0][:1], [want_out],
-                lambda: k2.launch_forward(qp, kp, vp, None, klen, scale,
+                lambda: k2.launch_forward(q, k, v, None, klen, scale,
                                           causal, False),
                 plain_ms, bound_ms(4 * (4 * size + B), 2 * flops),
                 2 * flops, **wrapper_ms(k2.flash_attention, (q, k, v), do,
                                         k_len=klen, causal=causal)))
+            if role == "step":
+                k2_step[D] = rows["flash_attention"][-1]
             for kernel, idx, ops in (("dq", (0,), 3 * flops),
                                      ("dkv", (1, 2), 4 * flops)):
                 rows[f"flash_attention_{kernel}"].append(_wide_row(
@@ -7433,20 +7453,28 @@ def wide_head_phase(dev, gen, card, egs):
             fail(f"flash_attention_dbias D={D}: two runs differ")
         want = k2.mha_backward_reference(q, k, v, do, bias=bias,
                                          k_len=klen)[3]
-        qp, kp, vp, dop = _padded((q, k, v, do))
-        out_p, lse = k2.launch_forward(qp, kp, vp, bias, klen, scale, False,
+        out_w, lse = k2.launch_forward(q, k, v, bias, klen, scale, False,
                                        True)
-        bwd = (qp, kp, vp, bias, klen, dop, lse, out_p,
-               torch.empty_like(lse), scale, False)
+        bwd = (q, k, v, bias, klen, do, lse, out_w, torch.empty_like(lse),
+               scale, False)
         k2.launch_backward_kernel("dq", *bwd)  # forms delta
         ops = 3 * 2 * D * H * valid_pairs(T, klen.tolist(), False)
         rows["flash_attention_dbias"].append(_wide_row(
             "flash_attention_dbias", f"B={B} H={H} D={D} T={T} k_len "
-            "ragged with 0", [got[0]], [want],
+            "ragged with 0" + ("" if D == 128 else " unpadded"), [got[0]],
+            [want],
             lambda: k2.launch_backward_kernel("dbias", *bwd),
             time_ms(lambda: k2.mha_backward_reference(
                 q, k, v, do, bias=bias, k_len=klen), iters=5, warmup=1),
             bound_ms(4 * (4 * B * H * T * D + 2 * H * T * T), ops), ops))
+    # K2's forward at 96 through the wrapper (unpadded) against its launch
+    # at 128, the same B and T
+    w96, l128 = k2_step[96][6]["wrapper_ms"], k2_step[128][2]
+    k2_step[96][6]["wrapper_over_D128_launch"] = w96 / l128
+    more["k2_wrapper_96_over_128"] = w96 / l128
+    print(f"K2's forward at D = 96 unpadded through flash_attention "
+          f"[{k2_step[96][0]}]: {w96:.4f} ms, {w96 / l128:.3f}x the launch "
+          f"at D = 128 ({l128:.4f} ms) ({card})", flush=True)
     # the training pass of a 512-wide conformer of 4 heads
     conf = flagship_train_conf(VOCAB)
     nnet_conf = conf["nnet_conf"]
@@ -7469,8 +7497,9 @@ def wide_head_phase(dev, gen, card, egs):
         fail(f"the 512-wide conformer's pass launched {launched['card32']},"
              f" expected {want}")
     more["pass"] = {"loss": (loss_g, loss_c), "errs": errs}
-    print(f"wide heads: K2 and K3 at D = {WIDE_HEADS} (96 zero-padded to "
-          "128) at the steps' shapes and the one-key corner, twice each "
+    print(f"wide heads: K2 and K3 at D = {WIDE_HEADS} (96: K2 unpadded in "
+          "its ragged tiles of 96, K3 zero-padded to 128) at the steps' "
+          "shapes and the one-key corner, twice each "
           "for bit-equal results; a training pass of the flagship cut to 2 "
           f"conformer layers of width 512 with 4 heads card vs CPU on "
           f"{WIDE_PASS_UTTS} utterances: loss {loss_g:.6f} vs {loss_c:.6f}, "
@@ -8081,6 +8110,42 @@ def _k2_over_library(rows, label, card):
           f"backward {dq['library_train_ms']:.4f} ms ({card})", flush=True)
 
 
+# K3's wide kernels as first ported, a warp a row on the CUDA cores (one
+# launch, ms; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): forward
+# with lse, dq, dk/dv, dpose at the step's shape (D = 160, 256) and at
+# WIDE_OVER_SMALL (1100)
+K3_WIDE_CUDA_CORE_MS = {160: (3.8217, 4.5153, 4.6353, 3.2521),
+                        256: (5.1100, 4.1278, 4.3764, 3.6730),
+                        1100: (3.4672, 2.5721, 2.6454, 3.6335)}
+
+
+def _k3_over(rows, D, label, card):
+    """K3's newest forward, dq, dk/dv and dpose rows of wide_heads_phase
+    (one shape, `label`): each kernel's queued time over its tensor cores'
+    bound and the CUDA-core kernels' reading at that width over its
+    one-launch time (K3_WIDE_CUDA_CORE_MS). The first ratio, of this
+    run's numbers alone, goes into the rows; both are printed."""
+    names = {"flash_attention_rel": "forward", "flash_attention_rel_dq":
+             "dq", "flash_attention_rel_dkv": "dk/dv",
+             "flash_attention_rel_dpose": "dpose"}
+    parts = []
+    for (name, short), before in zip(names.items(),
+                                      K3_WIDE_CUDA_CORE_MS[D]):
+        row = rows[name][-1]
+        more = row[6]
+        more["over_tensor_core_bound"] = more["ms_queued"] / more[
+            "tensor_core_bound_ms"]
+        faster = before / row[2]
+        parts.append(f"{short} {row[2]:.4f} ms (queued "
+                     f"{more['ms_queued']:.4f}, "
+                     f"{more['over_tensor_core_bound']:.2f}x the TF32/3 "
+                     f"bound {more['tensor_core_bound_ms']:.5f}; "
+                     f"{faster:.2f}x faster than the "
+                     f"CUDA-core kernels' {before:.4f})")
+    print(f"K3 on the wide tiles [{label}]: " + ", ".join(parts)
+          + f" ({card})", flush=True)
+
+
 def wide_heads_phase(dev, gen, card):
     """K2's and K3's wide kernels (csrc/wide_attention.cu) at heads of
     WIDE_OVER: 160 and 256 at the steps' shapes (WIDE_REL_CASES,
@@ -8092,8 +8157,10 @@ def wide_heads_phase(dev, gen, card):
     queued, beside the plain version, its bound, the tensor cores' bound
     and, for K2 at the step's shape, the library's call (forward, and the
     backward of its three inputs) with each K2 kernel's time over both
-    (_k2_over_library); dbias with a bias. No model has such a head: no
-    path launches them. -> rows by kernel."""
+    (_k2_over_library), for K3 at the step's shape (1100: the small one)
+    each kernel's queued time over its tensor cores' bound and the
+    CUDA-core kernels' time over its own (_k3_over); dbias with a bias. No
+    model has such a head: no path launches them. -> rows by kernel."""
     import torch
 
     from aps_tpu_torch.ops import attention as k2
@@ -8157,6 +8224,8 @@ def wide_heads_phase(dev, gen, card):
                     [runs[0][1 + i] for i in idx], [want[i] for i in idx],
                     lambda: k3.launch_backward_kernel(kernel, *bwd),
                     bwd_plain, bound_ms(reads + written, ops), ops))
+            if role != "corner":
+                _k3_over(rows, D, label, card)
         for B, H, T, lens, causal, role in abs_cases:
             q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
                            for _ in range(4))
@@ -8242,6 +8311,8 @@ def wide_heads_phase(dev, gen, card):
     print(f"wide heads over 128: K2 and K3 at D = {WIDE_OVER} on the wide "
           "kernels (csrc/wide_attention.cu: K2's forward, dq and dk/dv on "
           "the tensor cores, each block's head split between two warpgroups; "
+          "K3's forward, dq, dk/dv and dpose on the tensor cores, each "
+          "block's head split in quarters between four warps a row group; "
           "1100 in five passes of 256 columns), forward and every backward "
           "kernel twice each for "
           f"bit-equal results, within {TOL_WIDE} of the largest entry of "

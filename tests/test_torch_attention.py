@@ -90,7 +90,12 @@ def test_attention_plain_matches_jax(B, Tq, Tk, causal, with_bias, dead):
         assert torch.count_nonzero(got[0]) > 0
 
 
-@pytest.mark.parametrize("D,causal,with_bias", [(96, True, False),
+@pytest.mark.parametrize("D,causal,with_bias", [(8, True, False),
+                                               (12, False, True),
+                                               (40, True, True),
+                                               (50, False, True),
+                                               (96, True, False),
+                                               (96, True, True),
                                                (128, False, True),
                                                (160, True, True),
                                                (256, False, False),
@@ -99,18 +104,21 @@ def test_attention_plain_matches_jax(B, Tq, Tk, causal, with_bias, dead):
                                                (257, True, False),
                                                (384, False, True)])
 def test_attention_wide_heads_match_jax(D, causal, with_bias):
-    """Heads of 96 (the card zero-pads them to 128), 128, and 160, 256 and
+    """Heads that are not 16, 32, 64 or 128, which the card launches
+    unpadded in the tiles of the next width (8: the tests' SepFormer; 12;
+    40; 50, whose rows leave the 16-byte grid; 96), 128, and 160, 256 and
     the edges of the split of a head between two warps, 130 (off the
     16-byte grid), 192, 257 (one column into a second pass of 256) and 384
     (the card's wide kernels): the plain version == aps_tpu's reference and
     its Pallas kernel in interpret mode, across 64-row tiles with ragged
-    k_len."""
+    k_len and a batch entry without any key."""
     q, k, v, bias, k_len = _inputs(D, 3, 2, 70, 65, D, with_bias, True)
     got = flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
                           k_len=_t(k_len), causal=causal)
     kw = dict(bias=_j(bias), k_len=_j(k_len), causal=causal)
     ref = jax_att.mha_reference(_j(q), _j(k), _j(v), **kw)
     want = jax_att.flash_attention(_j(q), _j(k), _j(v), interpret=True, **kw)
+    assert got.shape == (3, 2, 70, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATT_ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATT_ATOL)
     assert torch.count_nonzero(got[-1]) == 0

@@ -217,7 +217,7 @@ def test_kernel_sources_use_the_tensor_cores(source, product):
     assert product in text
     assert "cp_async_commit()" in text and "cp_async_wait<" in text
     assert "stage_rows_async" in text or "stage_window_async" in text or \
-        "cp_async_16" in text
+        "stage_rows_of<" in text or "cp_async_16" in text
     assert "fmaf(" not in text
 
 
@@ -287,6 +287,90 @@ def test_wide_attention_k2_kernels_use_the_tensor_cores():
     for kernel in ("fwd_kernel<false>", "dq_kernel<false>",
                    "dkv_kernel<false>"):
         assert kernel not in text
+
+
+def test_wide_attention_k3_kernels_use_the_tensor_cores():
+    """K3's forward, dq, dk/dv and dpose at heads over 128
+    (csrc/wide_attention.cu) run on the tensor cores: every product through
+    mma_f32 (the three-pass TF32 split) or `accumulate`, the operands staged
+    by cp.async, the four warps of a row group adding their partials
+    through shared memory, the relative term read along the diagonal of a
+    skew tile (dpose: the two warps of a quarter share the window's content
+    scores, summed over the quarters as they are read); the K3 entry points
+    launch these tiles (resident up to 256 columns, in passes over), and no
+    CUDA-core loop (a warp a row: score<, dot(, __ldg) and no atomic is
+    left in them. A later edit that takes K3 back to the CUDA cores fails
+    here."""
+    text = (build.CSRC / "wide_attention.cu").read_text()
+    assert "namespace k3tc {" in text
+    assert "kSmemFloats * 4 <= k2tc::kMaxSmemBytes" in text
+    bodies = {name: _kernel_body(text, name) for name in (
+        "k3_fwd_kernel", "k3_dq_kernel", "k3_dkv_kernel", "k3_dpose_kernel")}
+    for name, body in bodies.items():
+        assert body.count("dot_rows<") >= 2, name
+        assert "accumulate(" in body, name
+        if name == "k3_dpose_kernel":
+            assert "quarter_sync(w.qt);" in body and "publish(" in body
+            assert "dot_rows<kWinFrags>(cs, " in body
+        else:
+            assert "sum4<NT>(" in body and "group_sync(w.rg);" in body, name
+            assert "put_skew(" in body, name
+        assert "stage<" in body and "cp_async_commit();" in body, name
+        assert "cp_async_wait<0>();" in body, name
+        for loop in ("score<", "dot(", "p_ds", "__ldg", "atomic"):
+            assert loop not in body, (name, loop)
+    assert "mma_f32<N>(x, fa, fb);" in text
+    # the staging and the products into accumulators are K2's (k2tc)
+    assert "using k2tc::accumulate;" in text and "using k2tc::stage;" in text
+    assert "mma_tf32(acc[n0 + i], a.big, b[i].big);" in text
+    assert "cp_async_16(tile + r * kLd + c," in text
+    assert "cp_async_4(tile + r * kLd + c," in text
+    for held in ("dot_held<NT>(dp, hdo,", "dot_held<NT>(dp, hv,",
+                 "dot_held<NT>(rel, hp_rows,"):
+        assert held in text, held
+    for entry, launch in (("fwd", "launch_fwd<"), ("dq", "launch_dq<"),
+                          ("dkv", "launch_dkv<"), ("dpose", "launch_dpose<")):
+        beg = text.index(f'extern "C" int aps_rel_attention_wide_{entry}(')
+        body = text[beg:text.index("\n}\n", beg)]
+        assert body.count(f"k3tc::{launch}") == 2, entry
+        assert "atomic" not in body, entry
+    assert "atomic" not in _kernel_body(text, "dpose_sum_kernel")
+    for kernel in ("fwd_kernel<<<", "dq_kernel<<<", "dkv_kernel<<<",
+                   "dpose_partial_kernel"):
+        assert kernel not in text.replace("k3_fwd_kernel<", "").replace(
+            "k3_dq_kernel<", "").replace("k3_dkv_kernel<", ""), kernel
+
+
+def test_flash_attention_launches_narrow_heads_unpadded():
+    """K2's kernels take any head up to 128 at its true width: their C
+    entries dispatch a width that is not 16, 32, 64 or 128 to the ragged
+    tiles of the next one (stage_rows_ragged: rows at their own stride,
+    zeros past the width, 4-byte copies off the 16-byte grid, the true
+    columns written), and flash_attention no longer reaches
+    with_padded_heads (left to K3's D <= 128 kernels)."""
+    import inspect
+
+    from aps_tpu_torch.ops import attention, rel_attention
+    assert "with_padded_heads" not in inspect.getsource(
+        attention.flash_attention)
+    assert "with_padded_heads" in inspect.getsource(
+        rel_attention.flash_attention_rel)
+    tiles = (build.CSRC / "attn_tiles.cuh").read_text()
+    assert "void stage_rows_ragged(" in tiles
+    assert "cp_async_4(dst + e, ok ? from + e : src, ok);" in tiles
+    for source, kernels in (("attention.cu", ("attn_fwd_kernel",)),
+                            ("attention_bwd.cu", ("attn_bwd_tiles_kernel",
+                                                  "attn_dbias_kernel"))):
+        text = (build.CSRC / source).read_text()
+        assert "case 128: return static_cast<int>(fn<128, true>(" in text
+        assert "attn_tiles::tile_width(D)" in text
+        for kernel in kernels:
+            body = _kernel_body(text, kernel)
+            assert "const int W = kRagged ? dim : D;" in body, kernel
+    for kernel in ("attn_fwd_kernel", "attn_bwd_tiles_kernel"):
+        text = (build.CSRC / ("attention.cu" if kernel == "attn_fwd_kernel"
+                              else "attention_bwd.cu")).read_text()
+        assert "stage_rows_of<kRagged, D," in _kernel_body(text, kernel)
 
 
 def test_ctc_score_kernel_scans_over_chunks():
@@ -1168,14 +1252,68 @@ def test_attention_gradcheck_style(cuda_device):
     assert abs(numeric - want) <= 1e-3 * max(1.0, abs(numeric))
 
 
+# K2 at heads that are not 16, 32, 64 or 128, launched unpadded in the
+# tiles of the next of them: 8 (the tests' SepFormer) and 12 below the
+# smallest, 40 (a multiple of 4: 16-byte copies), 50 (off the 16-byte grid:
+# 4-byte copies), 96 and 70 (the tiles of 96, 70 off the grid) and 100
+# (the tiles of 128)
+NARROW_DIMS = [8, 12, 40, 50, 96, 70, 100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", NARROW_DIMS)
+def test_attention_kernels_at_narrow_heads(cuda_device, D):
+    """K2's forward, dq, dk/dv and dbias at a head the kernels are not built
+    for, at lengths across the 64-row tiles, causal, with a bias and k_len
+    with a ragged, a one-key and a no-key entry: each == the plain version,
+    one launch each, two runs bit-equal; and one forward call at such a
+    head runs exactly one CUDA kernel, the forward's (no pad or copy)."""
+    from torch.profiler import ProfilerActivity, profile
+    Tq, Tk = 70, 130
+    att, bias, k_len = _att_args(4, 2, Tq, Tk, D)
+    leaves = [t.to(cuda_device).requires_grad_() for t in att]
+    leaves.append(bias.to(cuda_device).requires_grad_())
+    k_len = k_len.to(cuda_device)
+    do = torch.randn(leaves[0].shape, generator=torch.Generator()
+                     .manual_seed(D)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        build.reset_launches()
+        out = flash_attention(*leaves[:3], bias=leaves[3], k_len=k_len,
+                              causal=True)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, do)))
+        for name in ("", "_dq", "_dkv", "_dbias"):
+            assert build.LAUNCHES["flash_attention" + name] == 1, name
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    plain = [t.detach() for t in leaves]
+    want = mha_reference(*plain[:3], bias=plain[3], k_len=k_len, causal=True)
+    torch.testing.assert_close(runs[0][0], want, atol=ATT_ATOL, rtol=0)
+    grads = mha_backward_reference(*plain[:3], do, bias=plain[3],
+                                   k_len=k_len, causal=True)
+    for name, g, w in zip(ATT_GRAD_NAMES, runs[0][1:], grads):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=0, msg=name)
+    assert torch.count_nonzero(runs[0][0][3]) == 0
+    if D == 8:
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            flash_attention(*plain[:3], k_len=k_len)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "attn_fwd_kernel" in kernels[0], \
+            kernels
+
+
 WIDE_LENGTHS = [(63, 63), (64, 64), (65, 129), (129, 65), (300, 300)]
 
 
-# 96 zero-padded to 128, 128 on the tensor cores; the wide kernels
-# (csrc/wide_attention.cu) at 160, 256 and 1100 (K2 in five passes of 256
-# columns) and at the edges of K2's split of the head between two warps:
-# 130 (off the 16-byte grid: 4-byte copies), 192, 257 (one column into a
-# second pass) and 384
+# 96 (K2 unpadded in its ragged tiles of 96, K3 zero-padded to 128), 128
+# on the tensor cores; the wide kernels (csrc/wide_attention.cu) at 160,
+# 256 and 1100 (K2 and K3 in five passes of 256 columns) and at the edges
+# of their splits of the head between warps: 130 (off the 16-byte grid:
+# 4-byte copies), 192, 257 (one column into a second pass) and 384
 WIDE_DIMS = [96, 128, 160, 256, 1100, 130, 192, 257, 384]
 
 
@@ -1183,9 +1321,10 @@ WIDE_DIMS = [96, 128, 160, 256, 1100, 130, 192, 257, 384]
 @pytest.mark.parametrize("D", WIDE_DIMS)
 @pytest.mark.parametrize("Tq,Tk", WIDE_LENGTHS)
 def test_attention_kernels_at_wide_heads(cuda_device, D, Tq, Tk):
-    """K2's forward, dq, dk/dv and dbias at heads of 96 (zero-padded to
-    128), 128 and the wide kernels' 160, 256 and 1100, at lengths around
-    the 64-row tiles and over several blocks (T = 300), causal where Tq <=
+    """K2's forward, dq, dk/dv and dbias at heads of 96 (unpadded, in its
+    ragged tiles of 96), 128 and the wide kernels' 160, 256 and 1100, at
+    lengths around the 64-row tiles and over several blocks (T = 300),
+    causal where Tq <=
     Tk, a bias, k_len including 1 and 0: each == the plain version, and two
     runs give the same bits."""
     att, bias, k_len = _att_args(4, 2, Tq, Tk, D)
