@@ -24,6 +24,15 @@ paths give it (decode 8 x 149003 samples, step 32 x 147884, long-form
 decode 4 x 454718, long-form step 8 x 441576): a source whose entry takes
 the twiddle table (the FFT) gets it, the stages' radices and the mel
 bands, an older one the dense DFT's cos/sin tables and the mel matrix.
+K2's dbias at the long-form training step (B = 8, H = 4, T = 690, 600
+valid keys) at heads of 64, 96, 128 and 256, at D = 1100 (B = 4, H = 2,
+T = 129, k_len 129, 70, 1, 0) and at SepFormer's heads of 8 (B = 144, H =
+2, T = 16), its delta formed by the repository's dq kernel: a version is
+one source, or several joined by commas (the older tree's
+attention_bwd.cu,wide_attention.cu, whose dbias entry for heads over 128
+was aps_attention_wide_dbias); a source with
+aps_attention_dbias_occupancy takes the batch groups of
+`ops.attention.dbias_groups`.
 The versions run in the order given, so pass them as parent, change,
 change, parent. A version is any file: the parent's source from `git
 archive`, or an edited copy (one constant changed, or K4's serial walk).
@@ -48,6 +57,9 @@ its first differing instruction, and the kernels only the new version has.
         aps_tpu_torch/csrc/rel_attention.cu \\
         --ctc parent/ctc_score.cu aps_tpu_torch/csrc/ctc_score.cu \\
         --fbank parent/fbank.cu aps_tpu_torch/csrc/fbank.cu
+    python -m aps_tpu_torch.cmd.compare_kernels --dbias \\
+        parent/attention_bwd.cu,parent/wide_attention.cu \\
+        aps_tpu_torch/csrc/attention_dbias.cu
     python -m aps_tpu_torch.cmd.compare_kernels --occupancy
     python -m aps_tpu_torch.cmd.compare_kernels \\
         --sass parent/attention.cu aps_tpu_torch/csrc/attention.cu \\
@@ -67,7 +79,11 @@ import numpy as np
 import torch
 
 from aps_tpu_torch.ops import build
-from aps_tpu_torch.ops.attention import _FWD_ARGTYPES, mha_reference
+from aps_tpu_torch.ops import attention
+from aps_tpu_torch.ops.attention import (_BWD_ARGTYPES as _K2_BWD_ARGTYPES,
+                                         _DBIAS_ARGTYPES, _FWD_ARGTYPES,
+                                         mha_backward_reference,
+                                         mha_reference)
 from aps_tpu_torch.ops.ctc_score import _ARGTYPES as _CTC_ARGTYPES
 from aps_tpu_torch.ops.ctc_score import ctc_score_step_plain
 from aps_tpu_torch.ops.rel_attention import _FWD_ARGTYPES as _REL_ARGTYPES
@@ -98,6 +114,10 @@ CTC_SHAPES = ((233, 8), (710, 4))
 FBANK_SHAPES = (("decode", 8, 149003), ("training", 32, 147884),
                 ("long-form decode", 4, 454718),
                 ("long-form training", 8, 441576))
+# K2's dbias: (B, H, T, D, k_len) of the long-form training step at four
+# head widths, a head of 1100 and SepFormer's heads of 8
+DBIAS_SHAPES = tuple((8, 4, 690, D, [600] * 8) for D in (64, 96, 128, 256)) \
+    + ((4, 2, 129, 1100, [129, 70, 1, 0]), (144, 2, 16, 8, [16] * 144))
 QUEUED = 10
 
 
@@ -166,6 +186,72 @@ def compare_attention(sources, dev, gen):
             torch.cuda.synchronize()
             err = (out - want).abs().max().item()
             print(f"  {src}: {time_ms(run):.4f} ms (queued "
+                  f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
+                  f"{err:.3e}", flush=True)
+
+
+def dbias_entry(libs, D: int):
+    """(entry function, takes groups) of a dbias version (its libraries)
+    at head width D: the wide entry of an older tree above 128."""
+    def find(name):
+        return next((getattr(lib, name) for lib in libs
+                     if hasattr(lib, name)), None)
+    if find("aps_attention_dbias_occupancy") is not None:
+        fn, grouped = find("aps_attention_dbias"), True
+    else:
+        fn = find("aps_attention_wide_dbias" if D > 128
+                  else "aps_attention_dbias")
+        grouped = False
+    if fn is None:
+        raise RuntimeError(f"no dbias entry for D = {D}")
+    fn.argtypes = _DBIAS_ARGTYPES if grouped else _K2_BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn, grouped
+
+
+def compare_dbias(versions, dev, gen):
+    """Each version of K2's dbias at DBIAS_SHAPES, one launch and QUEUED
+    queued, against the plain version; every version on the same inputs
+    and the same delta (the repository's dq kernel)."""
+    files = sorted({f for v in versions for f in v.split(",")})
+    built = dict(zip(files, compile_all(files, Path(tempfile.mkdtemp()))))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H, T, D, lens in DBIAS_SHAPES:
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
+                       for _ in range(4))
+        bias = torch.randn((H, T, T), generator=gen).to(dev)
+        klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D**-0.5
+        out, lse = attention.launch_forward(q, k, v, bias, klen, scale,
+                                            False, True)
+        delta = torch.empty_like(lse)
+        attention.launch_backward_kernel("dq", q, k, v, bias, klen, do, lse,
+                                         out, delta, scale, False)
+        want = mha_backward_reference(q, k, v, do, bias=bias, k_len=klen)[3]
+        groups = attention.dbias_groups(B, H, T, T, sms)
+        dbias = torch.empty((H, T, T), device=dev)
+        partial = torch.empty((groups, H, T, T), device=dev)
+        label = (f"K2 dbias B={B} H={H} T={T} D={D} k_len="
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged"))
+        print(f"{label} (groups {groups} where the version takes them):",
+              flush=True)
+        for version in versions:
+            fn, grouped = dbias_entry([built[f] for f in version.split(",")],
+                                      D)
+            head = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    bias.data_ptr(), klen.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), B, H, T, T, D, scale,
+                    0]
+            tail = [groups, dbias.data_ptr(), partial.data_ptr()] \
+                if grouped else [dbias.data_ptr(), None]
+            run = lambda: fn(*head, *tail, stream)  # noqa: E731
+            dbias.fill_(float("nan"))
+            if run() != 0:
+                raise RuntimeError(f"{version}: launch failed")
+            torch.cuda.synchronize()
+            err = (dbias - want).abs().max().item()
+            print(f"  {version}: {time_ms(run):.4f} ms (queued "
                   f"{time_ms(run, calls=QUEUED):.4f}), max abs err "
                   f"{err:.3e}", flush=True)
 
@@ -493,7 +579,8 @@ def compare_sass(pairs) -> None:
 
 def print_occupancy() -> None:
     """Registers, local bytes, shared memory and blocks an SM of K2's and
-    K3's kernels (the repository's sources) at each head width."""
+    K3's kernels (the repository's sources) at each head width, and of
+    K2's dbias (one kernel for every width)."""
     from aps_tpu_torch.ops import attention, rel_attention
     for D in attention._HEAD_DIMS:
         rows = {"K2 forward": attention.forward_occupancy(D),
@@ -507,12 +594,16 @@ def print_occupancy() -> None:
     for name, info in attention.wide_occupancy().items():
         print(f"occupancy D>128 {name}: " + ", ".join(
             f"{key} {value}" for key, value in info.items()), flush=True)
+    print("occupancy K2 dbias (every width; chunks at D = 64): " + ", ".join(
+        f"{key} {value}" for key, value in
+        attention.dbias_occupancy(64).items()), flush=True)
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Time versions of the K2 forward, K5, K3 backward, K3 "
-        "forward, K4 and K1 sources on the card, in the order given",
+        "forward, K4, K1 and K2 dbias sources on the card, in the order "
+        "given",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("--attention", nargs="*", default=[],
                         help="versions of csrc/attention.cu")
@@ -526,6 +617,9 @@ def main(argv=None) -> None:
                         help="versions of csrc/ctc_score.cu")
     parser.add_argument("--fbank", nargs="*", default=[],
                         help="versions of csrc/fbank.cu")
+    parser.add_argument("--dbias", nargs="*", default=[],
+                        help="versions of K2's dbias: a source, or several "
+                        "joined by commas")
     parser.add_argument("--occupancy", action="store_true",
                         help="print how K2's and K3's kernels sit on an SM "
                         "at each head width")
@@ -561,6 +655,8 @@ def main(argv=None) -> None:
         compare_ctc(args.ctc, dev, gen)
     if args.fbank:
         compare_fbank(args.fbank, dev, gen)
+    if args.dbias:
+        compare_dbias(args.dbias, dev, gen)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 // Backward of flash attention (scaled dot product), Hopper (sm_90a),
-// float32: three kernels.
+// float32: dq and dk/dv at heads up to 128.
 //
 // Replaces the backward of aps_tpu/ops/pallas/attention.py::flash_attention
-// (the TPU kernels _dq_kernel, _dkv_kernel and _dbias_kernel launched by
-// _bwd). With the forward's
+// (the TPU kernels _dq_kernel and _dkv_kernel launched by _bwd; its
+// _dbias_kernel is attention_dbias.cu's, at every width). With the
+// forward's
 //
 //   score[l,s] = q[l] . k[s] * scale (+ bias[h,l,s])
 //   p[l,s]     = mask(l,s) ? exp(score[l,s] - lse[l]) : 0
@@ -22,16 +23,12 @@
 // exactly 0.
 //
 // The TPU kernels carry their sums in scratch memory from one grid step to
-// the next, because the TPU's grid runs in order on one core; the dbias
-// kernel makes the batch its last, sequential grid axis. Blocks run in
+// the next, because the TPU's grid runs in order on one core. Blocks run in
 // parallel and in no order here, so each kernel keeps the reduction it owns
 // inside the block, without atomics, and gives the same bits at every run:
 //
 //   dq:    one block per (64 query rows, b*h), loop over key tiles;
-//   dk/dv: one block per (64 key rows, b*h), loop over query tiles;
-//   dbias: one block per (32 key columns, 16 query rows, h) that loops over
-//          the batch in order and writes its tile once. By design it
-//          recomputes the tile's scores and dp once per batch entry.
+//   dk/dv: one block per (64 key rows, b*h), loop over query tiles.
 //
 // Ragged Tq and Tk, k_len, causal and skipped tiles are handled by bounds;
 // no padded copy of an operand is made.
@@ -69,16 +66,16 @@
 //     writes it for dk/dv and dbias, which run after it on the same stream.
 //
 // They still recompute s and dp in both kernels (14 Tq Tk D in all where a
-// fused pass needs 10); dbias is as it was (no model passes a bias).
+// fused pass needs 10).
 //
 // A head of another width up to 128 runs the tiles of the next built width
 // (65 to 96: those of 96) without a padded copy, as the forward does
 // (attention.cu): rows staged at
 // their own stride and zero-filled to the tile's width, s and dp over the
 // fragments that hold the true columns (the gradient products over all of
-// the tile's, as the forward's p . v), those columns written, dbias's dot
-// products over the true width. The variant is chosen
-// at compile time (kRagged); the built widths compile to the code they had.
+// the tile's, as the forward's p . v), those columns written. The variant
+// is chosen at compile time (kRagged); the built widths compile to the code
+// they had.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,11 +87,7 @@
 
 namespace {
 
-// dbias: 16 x 32 tiles, one thread per entry
-constexpr int kBQ = 16;   // query rows of a tile
-constexpr int kBK = 32;   // key rows of a tile
 constexpr int kThreads = 128;
-constexpr int kPerThread = kBQ * kBK / kThreads;  // tile entries of a thread
 constexpr float kLseDead = attn_tiles::kLseDead;
 
 // dq and dk/dv: a block of four warps owns kOwnRows rows, each warp 16; the
@@ -128,34 +121,6 @@ static_assert(kStreamRows % 8 == 0 && 2 * kStreamRows <= kThreads,
               "streamed tiles are whole 8-row fragments; one thread stages "
               "one row statistic");
 
-// rows [first, first + rows) of a (limit x W) matrix -> columns [0, W) of
-// dst (W <= D), zeros outside
-template <int D>
-__device__ __forceinline__ void stage_rows(float (*dst)[D + 1],
-                                           const float* __restrict__ src,
-                                           int first, int rows, int limit,
-                                           int W, int tid) {
-  for (int i = tid; i < rows * W; i += kThreads) {
-    const int r = i / W;
-    const int d = i - r * W;
-    const int g = first + r;
-    dst[r][d] = (g >= 0 && g < limit)
-                    ? src[static_cast<size_t>(g) * W + d]
-                    : 0.f;
-  }
-}
-
-__device__ __forceinline__ void stage_row_stats(float* slse, float* sdelta,
-                                                const float* __restrict__ lse,
-                                                const float* __restrict__ delta,
-                                                int l0, int Tq, int tid) {
-  if (tid < kBQ) {
-    const bool ok = l0 + tid < Tq;
-    slse[tid] = ok ? lse[l0 + tid] : kLseDead;
-    sdelta[tid] = ok ? delta[l0 + tid] : 0.f;
-  }
-}
-
 struct Args {
   const float *q, *k, *v, *bias;
   const int* k_len;
@@ -164,29 +129,6 @@ struct Args {
   float scale;
   int causal;
 };
-
-// p[l,s] and dp[l,s] - delta[l] of tile entry (li, sj): the score is
-// recomputed from the staged rows (W <= D columns), the bias (if any) read
-// from device memory
-template <int D>
-__device__ __forceinline__ void tile_entry(
-    float (*sq)[D + 1], float (*sdo)[D + 1], float (*sk)[D + 1],
-    float (*sv)[D + 1], const float* slse,
-    const float* sdelta, const float* __restrict__ bias_h, int li, int sj,
-    int l, int s, int Tq, int Tk, int klen, float scale, int causal, int W,
-    float* p, float* dpd) {
-  float a = 0.f, dp = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < W; ++d) {
-    a = fmaf(sq[li][d], sk[sj][d], a);
-    dp = fmaf(sdo[li][d], sv[sj][d], dp);
-  }
-  const bool ok = l < Tq && s < klen && (!causal || s <= l);
-  a *= scale;
-  if (ok && bias_h != nullptr) a += bias_h[static_cast<size_t>(l) * Tk + s];
-  *p = ok ? expf(a - slse[li]) : 0.f;
-  *dpd = dp - sdelta[li];
-}
 
 // floats of dynamic shared memory: the owned operands, the ring of two
 // stages of two streamed operands, and the row statistics (dk/dv: lse and
@@ -466,81 +408,6 @@ attn_bwd_tiles_kernel(Args a, const float* __restrict__ out,
   }
 }
 
-// floats of the dbias kernel's shared memory: q and do of the tile's rows,
-// k and v of its columns (rows of D + 1 floats), lse and delta. Dynamic:
-// at D = 128 it is more than the 48 KB a block may declare statically
-template <int D>
-constexpr int dbias_smem_floats() {
-  return (2 * kBQ + 2 * kBK) * (D + 1) + 2 * kBQ;
-}
-
-// dbias: H x Tq x Tk; this block owns tile (rows l0.., columns s0..) of
-// head h and sums it over the batch in order. kRagged: a head of dim < D
-// columns, its dot products over dim; else dim == D and unused.
-template <int D, bool kRagged>
-__global__ void attn_dbias_kernel(Args a, float* __restrict__ dbias,
-                                  int dim) {
-  constexpr int DP = D + 1;
-  const int W = kRagged ? dim : D;  // columns of a row
-  extern __shared__ float sbias_smem[];
-  auto sq = reinterpret_cast<float (*)[DP]>(sbias_smem);
-  auto sdo = sq + kBQ;
-  auto sk = sdo + kBQ;
-  auto sv = sk + kBK;
-  float* slse = reinterpret_cast<float*>(sv + kBK);
-  float* sdelta = slse + kBQ;
-
-  const int h = blockIdx.z;
-  const int l0 = blockIdx.y * kBQ;
-  const int s0 = blockIdx.x * kBK;
-  const int tid = threadIdx.x;
-  const float* bias_h = a.bias + static_cast<size_t>(h) * a.Tq * a.Tk;
-
-  float acc[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) acc[i] = 0.f;
-
-  // under causal a tile wholly above the diagonal sees nothing
-  const bool live = !a.causal || s0 <= l0 + kBQ - 1;
-  for (int b = 0; live && b < a.B; ++b) {
-    const int klen = min(a.Tk, a.k_len[b]);
-    if (s0 >= klen) continue;  // the same for every thread of the block
-    const int bh = b * a.H + h;
-    const size_t qhead = static_cast<size_t>(bh) * a.Tq * W;
-    const size_t khead = static_cast<size_t>(bh) * a.Tk * W;
-    __syncthreads();  // the previous batch entry's readers are done
-    stage_rows<D>(sq, a.q + qhead, l0, kBQ, a.Tq, W, tid);
-    stage_rows<D>(sdo, a.dout + qhead, l0, kBQ, a.Tq, W, tid);
-    stage_row_stats(slse, sdelta, a.lse + static_cast<size_t>(bh) * a.Tq,
-                    a.delta + static_cast<size_t>(bh) * a.Tq, l0, a.Tq, tid);
-    stage_rows<D>(sk, a.k + khead, s0, kBK, a.Tk, W, tid);
-    stage_rows<D>(sv, a.v + khead, s0, kBK, a.Tk, W, tid);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      const int li = e / kBK;
-      const int sj = e - li * kBK;
-      float p, dpd;
-      tile_entry<D>(sq, sdo, sk, sv, slse, sdelta, bias_h, li, sj, l0 + li,
-                    s0 + sj, a.Tq, a.Tk, klen, a.scale, a.causal, W, &p,
-                    &dpd);
-      acc[i] += p * dpd;
-    }
-  }
-
-  float* out = dbias + static_cast<size_t>(h) * a.Tq * a.Tk;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int e = tid + i * kThreads;
-    const int li = e / kBK;
-    const int l = l0 + li;
-    const int s = s0 + e - li * kBK;
-    if (l < a.Tq && s < a.Tk) out[static_cast<size_t>(l) * a.Tk + s] = acc[i];
-  }
-}
-
 // the kernel may take more than 48 KB of dynamic shared memory, and the SM's
 // split between shared memory and L1 goes to shared memory. A function's
 // attributes belong to a device: set once for each instantiation and device,
@@ -622,35 +489,6 @@ cudaError_t occupancy(int dkv, int* info) {
              : tiles_occupancy<D, false, kRagged>(info);
 }
 
-template <int D, bool kRagged>
-cudaError_t dbias_attributes() {
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return rc;
-  const bool known = dev >= 0 && dev < kMaxDevices;
-  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  rc = cudaFuncSetAttribute(
-      attn_dbias_kernel<D, kRagged>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dbias_smem_floats<D>() * static_cast<int>(sizeof(float)));
-  if (rc == cudaSuccess && known) {
-    done[dev].store(true, std::memory_order_release);
-  }
-  return rc;
-}
-
-template <int D, bool kRagged = false>
-cudaError_t launch_dbias(const Args& a, float* dbias, cudaStream_t s,
-                         int dim) {
-  constexpr int kBytes = dbias_smem_floats<D>() * sizeof(float);
-  const cudaError_t rc = dbias_attributes<D, kRagged>();
-  if (rc != cudaSuccess) return rc;
-  dim3 grid((a.Tk + kBK - 1) / kBK, (a.Tq + kBQ - 1) / kBQ, a.H);
-  attn_dbias_kernel<D, kRagged><<<grid, kThreads, kBytes, s>>>(a, dbias, dim);
-  return cudaGetLastError();
-}
-
 bool bad_dims(int B, int H, int Tq, int Tk) {
   return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0;
 }
@@ -696,9 +534,9 @@ extern "C" const char* aps_cuda_error_string(int code) {
 // Tq. All float32 (k_len int32), contiguous, on the device. 1 <= D <= 128
 // (another width than 16, 32, 64 and 128 in the tiles of the next one, its
 // rows copied 4 bytes at a time where they leave the 16-byte grid). The
-// three entries take the same list of pointers. dq reads the
-// forward's output `out` and WRITES delta = sum(dout * out, -1); dk/dv and
-// dbias read that delta, so dq is launched first.
+// two entries take the same list of pointers. dq reads the forward's
+// output `out` and WRITES delta = sum(dout * out, -1); dk/dv and dbias
+// (attention_dbias.cu) read that delta, so dq is launched first.
 extern "C" int aps_attention_dq(
     const float* q, const float* k, const float* v, const float* bias,
     const int* k_len, const float* dout, const float* lse, float* delta,
@@ -723,20 +561,6 @@ extern "C" int aps_attention_dkv(
                B, H, Tq, Tk, scale, causal};
   APS_DISPATCH_D(D, launch_dkv, a, dk, dv, static_cast<cudaStream_t>(stream),
                  D, vec_rows(D, a));
-}
-
-extern "C" int aps_attention_dbias(
-    const float* q, const float* k, const float* v, const float* bias,
-    const int* k_len, const float* dout, const float* lse, const float* delta,
-    int B, int H, int Tq, int Tk, int D, float scale, int causal,
-    float* dbias, float* unused, void* stream) {
-  if (bad_dims(B, H, Tq, Tk) || bias == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args a{q, k, v, bias, k_len, dout, lse, delta,
-               B, H, Tq, Tk, scale, causal};
-  APS_DISPATCH_D(D, launch_dbias, a, dbias,
-                 static_cast<cudaStream_t>(stream), D);
 }
 
 // How the dq (dkv 0) or dk/dv (dkv 1) kernel sits on an SM at head dim D

@@ -3,8 +3,9 @@
 // float32.
 //
 // K2's kernels here replace aps_tpu/ops/pallas/attention.py's
-// flash_attention (the TPU kernels _fwd_kernel, _dq_kernel, _dkv_kernel and
-// _dbias_kernel) at heads over 128, K3's replace
+// flash_attention (the TPU kernels _fwd_kernel, _dq_kernel and
+// _dkv_kernel; its _dbias_kernel is attention_dbias.cu's, at every width)
+// at heads over 128, K3's replace
 // aps_tpu/ops/pallas/rel_attention.py's flash_attention_rel (_fwd_kernel,
 // _dq_kernel, _dkv_kernel, _dpose_kernel) there. The tiled kernels of
 // attention.cu, attention_bwd.cu, rel_attention.cu and rel_attention_bwd.cu
@@ -23,7 +24,6 @@
 //
 //   dq[l] = sum_s ds k[s]            (K3 also dq_p[l] = sum_s ds pose[..])
 //   dk[s] = sum_l ds q[l]            dv[s] = sum_l p do[l]
-//   K2 dbias[h,l,s] = sum_b p (dp - delta)
 //   K3 dpose[hp,r]  = sum over b (and h for a shared table) and l of
 //                     ds[l, l + r - (T-1)] q_p[l]
 //
@@ -116,10 +116,6 @@
 //     dpose_sum_kernel adds them over b (and h for a shared table) in one
 //     fixed order. No atomics anywhere: two launches give the same bits.
 //
-// K2's dbias (no model passes a bias) stays on the CUDA cores: a warp an
-// entry (h, l, s), the lanes striding over the head, the batch summed in
-// order.
-//
 // No model of the repo has such a head, so no path launches them.
 
 #include <cuda_runtime.h>
@@ -131,7 +127,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;               // dbias: entries a block
 constexpr float kLseDead = 1.0e30f;     // lse of a row without a visible key
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -147,7 +142,7 @@ struct Args {
   const int* k_len;   // B
   const float* dout;  // B x H x Tq x D (backward)
   const float* lse;   // B x H x Tq (backward)
-  const float* delta; // B x H x Tq (dk/dv, dbias, dpose)
+  const float* delta; // B x H x Tq (dk/dv, dpose)
   int B, H, Hp, Tq, Tk, D;
   float scale;
   int causal;
@@ -157,55 +152,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
   return x;
-}
-
-// a . b over D, the same bits in every lane
-__device__ __forceinline__ float dot(const float* __restrict__ a,
-                                     const float* __restrict__ b, int D,
-                                     int lane) {
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(__ldg(a + d), __ldg(b + d), acc);
-  return warp_sum(acc);
-}
-
-__device__ __forceinline__ bool visible(const Args& a, int b, int l, int s) {
-  return s < a.k_len[b] && (!a.causal || s <= l);
-}
-
-// K2's scaled score of (l, s) in head (b, h) of flat index bh = b * H + h
-__device__ __forceinline__ float score(const Args& a, int bh, int h, int l,
-                                       int s, int lane) {
-  const size_t D = a.D;
-  const float* qrow = a.q + (static_cast<size_t>(bh) * a.Tq + l) * D;
-  const float* krow = a.k + (static_cast<size_t>(bh) * a.Tk + s) * D;
-  float sc = dot(qrow, krow, a.D, lane) * a.scale;
-  if (a.bias != nullptr)
-    sc += __ldg(a.bias + (static_cast<size_t>(h) * a.Tq + l) * a.Tk + s);
-  return sc;
-}
-
-// K2 only: a warp an entry (h, l, s) of dbias
-__global__ void __launch_bounds__(kWarps * 32)
-    dbias_kernel(Args a, float* __restrict__ dbias) {
-  const int lane = threadIdx.x & 31;
-  const long idx = static_cast<long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (idx >= static_cast<long>(a.H) * a.Tq * a.Tk) return;
-  const int s = idx % a.Tk;
-  const int l = (idx / a.Tk) % a.Tq;
-  const int h = idx / (static_cast<long>(a.Tk) * a.Tq);
-  float acc = 0.f;
-  for (int b = 0; b < a.B; ++b) {
-    if (!visible(a, b, l, s)) continue;
-    const int bh = b * a.H + h;
-    const size_t qr = static_cast<size_t>(bh) * a.Tq + l;
-    const float p = expf(score(a, bh, h, l, s, lane) - a.lse[qr]);
-    const float dp = dot(a.dout + qr * a.D,
-                         a.v + (static_cast<size_t>(bh) * a.Tk + s) * a.D,
-                         a.D, lane);
-    acc += p * (dp - a.delta[qr]);
-  }
-  if (lane == 0) dbias[idx] = acc;
 }
 
 // dpose[hp, r, d] = sum over b, then h (all h for Hp == 1, h = hp else) of
@@ -2195,10 +2141,6 @@ cudaError_t launch_dpose(const Args& a, float* partial, cudaStream_t st) {
 
 }  // namespace k3tc
 
-int blocks_of(long rows) {
-  return static_cast<int>((rows + kWarps - 1) / kWarps);
-}
-
 int status() { return static_cast<int>(cudaGetLastError()); }
 
 bool bad(int B, int H, int Tq, int Tk, int D) {
@@ -2221,8 +2163,6 @@ Args k3_args(const float* q_c, const float* q_p, const float* k,
               B, H, Hp, T, T, D, scale, causal};
 }
 
-constexpr int kThreads = kWarps * 32;
-
 }  // namespace
 
 extern "C" const char* aps_cuda_error_string(int code) {
@@ -2231,8 +2171,7 @@ extern "C" const char* aps_cuda_error_string(int code) {
 
 // ---- K2: the entry points take attention.cu's / attention_bwd.cu's
 // arguments (any D > 0; the wrapper sends D > 128 here). The forward, dq
-// and dk/dv run the tensor-core tiles (k2tc; in passes over 256 columns),
-// dbias the CUDA-core kernel.
+// and dk/dv run the tensor-core tiles (k2tc; in passes over 256 columns).
 
 extern "C" int aps_attention_wide_fwd(const float* q, const float* k,
                                       const float* v, const float* bias,
@@ -2249,7 +2188,7 @@ extern "C" int aps_attention_wide_fwd(const float* q, const float* k,
 }
 
 // dq: out0 = dq, out1 = the forward's output (delta formed and written);
-// dkv: out0 = dk, out1 = dv; dbias: out0 = dbias (H x Tq x Tk)
+// dkv: out0 = dk, out1 = dv
 extern "C" int aps_attention_wide_dq(const float* q, const float* k,
                                      const float* v, const float* bias,
                                      const int* k_len, const float* dout,
@@ -2283,23 +2222,6 @@ extern "C" int aps_attention_wide_dkv(const float* q, const float* k,
       D > k2tc::kPass
           ? k2tc::launch_bwd<true, true>(a, nullptr, nullptr, dk, dv, st)
           : k2tc::launch_bwd<true, false>(a, nullptr, nullptr, dk, dv, st));
-}
-
-extern "C" int aps_attention_wide_dbias(const float* q, const float* k,
-                                        const float* v, const float* bias,
-                                        const int* k_len, const float* dout,
-                                        const float* lse, const float* delta,
-                                        int B, int H, int Tq, int Tk, int D,
-                                        float scale, int causal,
-                                        float* dbias, float* unused,
-                                        void* stream) {
-  (void)unused;
-  if (bad(B, H, Tq, Tk, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = k2_args(q, k, v, bias, k_len, dout, lse, delta, B, H, Tq,
-                         Tk, D, scale, causal);
-  dbias_kernel<<<blocks_of(static_cast<long>(H) * Tq * Tk), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a, dbias);
-  return status();
 }
 
 // ---- K3: the entry points take rel_attention.cu's /
@@ -2377,15 +2299,13 @@ extern "C" int aps_rel_attention_wide_dpose(
   return status();
 }
 
-// How kernel `kernel` sits on an SM: 0 K2 forward, 1 K2 dq, 2 K2 dk/dv
-// (the tensor-core tiles, heads up to 256), 3 K2 dbias (CUDA cores), 4 K3
-// forward, 5 K3 dq, 6 K3 dk/dv, 7 K3 dpose's partial tables (the
-// tensor-core tiles, heads up to 256), 8 K2 forward, 9 K2 dq, 10 K2 dk/dv,
-// 11 K3 forward, 12 K3 dq, 13 K3 dk/dv, 14 K3 dpose (the tiles in passes,
+// How kernel `kernel` sits on an SM: 0 K2 forward, 1 K2 dq, 2 K2 dk/dv, 3
+// K3 forward, 4 K3 dq, 5 K3 dk/dv, 6 K3 dpose's partial tables (the
+// tensor-core tiles, heads up to 256), 7 K2 forward, 8 K2 dq, 9 K2 dk/dv,
+// 10 K3 forward, 11 K3 dq, 12 K3 dk/dv, 13 K3 dpose (the tiles in passes,
 // heads over 256); info = {registers a thread, bytes of local memory a
 // thread (spills), bytes of shared memory a block (static and dynamic),
-// resident blocks an SM, head columns a pass (0 for dbias, whose lanes
-// stride over the head), threads a block}.
+// resident blocks an SM, head columns a pass, threads a block}.
 extern "C" int aps_wide_attention_occupancy(int kernel, int* info) {
   using k3tc::kDkv;
   using k3tc::kDpose;
@@ -2394,7 +2314,6 @@ extern "C" int aps_wide_attention_occupancy(int kernel, int* info) {
   const void* fns[] = {k2tc::fwd_fn<false>(),
                        k2tc::bwd_fn<false, false>(),
                        k2tc::bwd_fn<true, false>(),
-                       reinterpret_cast<const void*>(dbias_kernel),
                        k3tc::kernel_fn<kFwd, false>(),
                        k3tc::kernel_fn<kDq, false>(),
                        k3tc::kernel_fn<kDkv, false>(),
@@ -2409,32 +2328,31 @@ extern "C" int aps_wide_attention_occupancy(int kernel, int* info) {
   constexpr int kKernels = sizeof(fns) / sizeof(fns[0]);
   if (kernel < 0 || kernel >= kKernels)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool k3 = (kernel >= 4 && kernel <= 7) || kernel >= 11;
-  int dynamic = 0, threads = kThreads;
+  const bool k3 = (kernel >= 3 && kernel <= 6) || kernel >= 10;
+  int dynamic = 0, threads = 0;
   cudaError_t err = cudaSuccess;
   switch (kernel) {
     case 0: err = k2tc::fwd_attributes<false>(); break;
     case 1: err = k2tc::bwd_attributes<false, false>(); break;
     case 2: err = k2tc::bwd_attributes<true, false>(); break;
-    case 3: break;
-    case 4: err = k3tc::attributes<kFwd, false>(); break;
-    case 5: err = k3tc::attributes<kDq, false>(); break;
-    case 6: err = k3tc::attributes<kDkv, false>(); break;
-    case 7: err = k3tc::attributes<kDpose, false>(); break;
-    case 8: err = k2tc::fwd_attributes<true>(); break;
-    case 9: err = k2tc::bwd_attributes<false, true>(); break;
-    case 10: err = k2tc::bwd_attributes<true, true>(); break;
-    case 11: err = k3tc::attributes<kFwd, true>(); break;
-    case 12: err = k3tc::attributes<kDq, true>(); break;
-    case 13: err = k3tc::attributes<kDkv, true>(); break;
+    case 3: err = k3tc::attributes<kFwd, false>(); break;
+    case 4: err = k3tc::attributes<kDq, false>(); break;
+    case 5: err = k3tc::attributes<kDkv, false>(); break;
+    case 6: err = k3tc::attributes<kDpose, false>(); break;
+    case 7: err = k2tc::fwd_attributes<true>(); break;
+    case 8: err = k2tc::bwd_attributes<false, true>(); break;
+    case 9: err = k2tc::bwd_attributes<true, true>(); break;
+    case 10: err = k3tc::attributes<kFwd, true>(); break;
+    case 11: err = k3tc::attributes<kDq, true>(); break;
+    case 12: err = k3tc::attributes<kDkv, true>(); break;
     default: err = k3tc::attributes<kDpose, true>(); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k3) {
-    dynamic = k3tc::smem_bytes(kernel == 7 || kernel == 14 ? kDpose : kFwd);
+    dynamic = k3tc::smem_bytes(kernel == 6 || kernel == 13 ? kDpose : kFwd);
     threads = k3tc::kThreads3;
-  } else if (kernel != 3) {
-    dynamic = 4 * (kernel == 0 || kernel == 8 ? k2tc::kFwdSmemFloats
+  } else {
+    dynamic = 4 * (kernel == 0 || kernel == 7 ? k2tc::kFwdSmemFloats
                                               : k2tc::kBwdSmemFloats);
     threads = k2tc::kTcThreads;
   }
@@ -2449,7 +2367,7 @@ extern "C" int aps_wide_attention_occupancy(int kernel, int* info) {
   info[1] = static_cast<int>(attr.localSizeBytes);
   info[2] = static_cast<int>(attr.sharedSizeBytes) + dynamic;
   info[3] = blocks;
-  info[4] = kernel == 3 ? 0 : k2tc::kPass;
+  info[4] = k2tc::kPass;
   info[5] = threads;
   return 0;
 }

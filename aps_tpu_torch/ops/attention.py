@@ -12,19 +12,25 @@ optional causal mask (aligned top-left when Tq != Tk), and rows without a
 visible key giving 0. Tq need not equal Tk.
 
 On CUDA tensors the forward is csrc/attention.cu and the backward
-csrc/attention_bwd.cu, joined by the autograd Function `_Flash`; a failed
-build or launch raises. The backward replaces the TPU kernels _dq_kernel,
-_dkv_kernel and _dbias_kernel of aps_tpu's flash_attention. The forward,
-dq and dk/dv are bound by arithmetic (4, 6 and 8 Tq Tk D operations a head
-on a few T D floats), so they run on the tensor cores: a block owns 64
-rows, streams the other side through a two-stage cp.async ring, keeps its
-sums in registers and does every product as three TF32 products on the
-split operands, which gives float32's accuracy (csrc/attn_tiles.cuh). The
-dq kernel also forms delta = sum(do * out, -1) and hands it to the two
-others, so dq is launched first. dbias (one block per tile, the batch
-summed in order; no model passes a bias) is as first ported. Every kernel
-owns its reduction: outputs and gradients repeat bit for bit from run to
-run. The kernels copy rows 16 bytes at a time, so an operand at an odd
+csrc/attention_bwd.cu (dq, dk/dv) and csrc/attention_dbias.cu (dbias),
+joined by the autograd Function `_Flash`; a failed build or launch raises.
+The backward replaces the TPU kernels _dq_kernel, _dkv_kernel and
+_dbias_kernel of aps_tpu's flash_attention. The forward, dq and dk/dv are
+bound by arithmetic (4, 6 and 8 Tq Tk D operations a head on a few T D
+floats), so they run on the tensor cores: a block owns 64 rows, streams
+the other side through a two-stage cp.async ring, keeps its sums in
+registers and does every product as three TF32 products on the split
+operands, which gives float32's accuracy (csrc/attn_tiles.cuh). The dq
+kernel also forms delta = sum(do * out, -1) and hands it to the two
+others, so dq is launched first. dbias (4 Tq Tk D operations a head and
+batch entry; no model passes a bias) is one tiled kernel for every head
+width: a block owns 64 query rows x 64 key columns of a head and loops
+over the batch in order, the head streamed in chunks of 32 columns
+through a three-stage cp.async ring, s and dp on the tensor cores as
+above, the bias tile and the sum in registers; where the tiles are too
+few for the card the batch is cut into groups whose partial tiles a
+second pass adds in order (`dbias_groups`). Every kernel owns its
+reduction: outputs and gradients repeat bit for bit from run to run. The kernels copy rows 16 bytes at a time, so an operand at an odd
 storage offset is copied first (`_aligned`). They are built for head
 widths 16, 32, 64 and 128; any other head up to 128 (8 in the tests'
 SepFormer, 96) is launched as it is and runs the tiles of the next of
@@ -37,8 +43,8 @@ wider than 128 runs the wide kernels of csrc/wide_attention.cu with the
 same arguments, counted under the same names: the forward, dq and dk/dv
 on the tensor cores as above, each block's head split between two
 warpgroups that add their partial scores through shared memory, and a
-head over 256 in passes of 256 columns; dbias a warp an entry on the
-CUDA cores. They take every width, a ragged one without a padded copy.
+head over 256 in passes of 256 columns. They take every width, a ragged
+one without a padded copy.
 `mha_reference` and `mha_backward_reference` are the same functions in plain
 PyTorch: the first serves CPU tensors (autograd gives its gradient), and
 both are held against the kernels on the card."""
@@ -157,8 +163,15 @@ _IN = [build.P] * 5  # q k v bias k_len
 _DIMS = [build.I] * 5 + [build.F, build.I]  # B H Tq Tk D scale causal
 _FWD_ARGTYPES = _IN + _DIMS + [build.P] * 3  # out lse stream
 # do lse delta, dims, two more pointers (dq: dq and the forward's output;
-# dkv: dk and dv; dbias: dbias, null), stream
+# dkv: dk and dv), stream
 _BWD_ARGTYPES = _IN + [build.P] * 3 + _DIMS + [build.P] * 3
+# dbias: do lse delta, dims, groups, dbias, the groups' partial tiles (or
+# null), stream
+_DBIAS_ARGTYPES = _IN + [build.P] * 3 + _DIMS + [build.I] + [build.P] * 3
+# the dbias kernel's tile (query rows and key columns of a block) and the
+# blocks an SM it is built for
+DBIAS_TILE = 64
+DBIAS_BLOCKS_PER_SM = 2
 
 BACKWARD_KERNELS = ("dq", "dkv", "dbias")
 
@@ -172,7 +185,8 @@ def is_wide(D: int) -> bool:
 
 def _source(D: int, name: str, entry: str):
     """(source, entry point) of kernel `entry` of csrc/<name>.cu at head
-    width D: the wide kernels' twin for D over 128."""
+    width D: the wide kernels' twin for D over 128 (not for dbias, whose
+    one kernel takes every width)."""
     if is_wide(D):
         return "wide_attention", entry.replace("_attention_",
                                                "_attention_wide_", 1)
@@ -200,6 +214,54 @@ def launch_forward(q, k, v, bias, klen, scale: float, causal: bool,
     return out, lse
 
 
+def dbias_groups(B: int, H: int, Tq: int, Tk: int, sms: int) -> int:
+    """Contiguous ranges of the batch that the dbias kernel gives a block
+    each: 1 where its H ceil(Tq / 64) ceil(Tk / 64) tiles fill
+    DBIAS_BLOCKS_PER_SM blocks on each of the card's `sms` SMs, else as
+    many as fill them (at most B). Each group writes a partial tile and a
+    second pass adds them in order, so the result is the same at every run
+    (and between runs of one shape)."""
+    tiles = H * -(-Tq // DBIAS_TILE) * -(-Tk // DBIAS_TILE)
+    want = DBIAS_BLOCKS_PER_SM * sms
+    return 1 if tiles >= want else min(B, -(-want // tiles))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def _launch_dbias(q, k, v, bias, klen, do, lse, delta, scale: float,
+                  causal: bool) -> torch.Tensor:
+    """csrc/attention_dbias.cu at any head width -> dbias (H x Tq x Tk)."""
+    if bias is None:
+        raise ValueError("flash_attention_dbias needs a bias")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    groups = dbias_groups(B, H, Tq, Tk, _sm_count(q.device))
+    dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
+    partial = torch.empty((groups, H, Tq, Tk), dtype=torch.float32,
+                          device=q.device) if groups > 1 else None
+    lib = build.load("attention_dbias", "aps_attention_dbias",
+                     _DBIAS_ARGTYPES)
+    rc = lib.aps_attention_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        klen.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), B,
+        H, Tq, Tk, D, float(scale), int(causal), groups, dbias.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        build.stream_ptr(q.device))
+    build.check(lib, rc, "flash_attention_dbias")
+    build.count_launch("flash_attention_dbias")
+    return dbias
+
+
 def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, out,
                            delta, scale: float, causal: bool):
     """Launch one of BACKWARD_KERNELS on checked CUDA tensors -> dq, (dk,
@@ -207,25 +269,22 @@ def launch_backward_kernel(kernel: str, q, k, v, bias, klen, do, lse, out,
     output and delta a B x H x Tq float32 buffer: "dq" forms delta = sum(do *
     out, -1) in its prologue and writes it there; "dkv" and "dbias" read it
     (and not out), so they run after dq."""
+    if kernel == "dbias":
+        return _launch_dbias(q, k, v, bias, klen, do, lse, delta, scale,
+                             causal)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if kernel == "dq":
         outs = (torch.empty_like(q), out)
-    elif kernel == "dkv":
-        outs = (torch.empty_like(k), torch.empty_like(v))
     else:
-        if bias is None:
-            raise ValueError("flash_attention_dbias needs a bias")
-        outs = (torch.empty((H, Tq, Tk), dtype=torch.float32,
-                            device=q.device), None)
+        outs = (torch.empty_like(k), torch.empty_like(v))
     src, entry = _source(D, "attention_bwd", f"aps_attention_{kernel}")
     lib = build.load(src, entry, _BWD_ARGTYPES)
     rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), klen.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, H, Tq, Tk, D,
-        float(scale), int(causal), outs[0].data_ptr(),
-        None if outs[1] is None else outs[1].data_ptr(),
+        float(scale), int(causal), outs[0].data_ptr(), outs[1].data_ptr(),
         build.stream_ptr(q.device))
     build.check(lib, rc, f"flash_attention_{kernel}")
     build.count_launch(f"flash_attention_{kernel}")
@@ -263,7 +322,25 @@ def backward_occupancy(D: int, kernel: str):
     return dict(zip(_OCCUPANCY_KEYS + ("stream_rows",), info))
 
 
-WIDE_KERNELS = ("K2 forward", "K2 dq", "K2 dk/dv", "K2 dbias", "K3 forward",
+def dbias_occupancy(D: int):
+    """How the dbias kernel sits on an SM of the current card (the same at
+    every head width): registers and bytes of local memory (spills) a
+    thread, bytes of dynamic shared memory a block, resident blocks an SM,
+    head columns a chunk, threads a block, stages of its ring; and the
+    chunks a batch entry takes at head width D."""
+    import ctypes
+    lib = build.load("attention_dbias", "aps_attention_dbias_occupancy",
+                     [build.P])
+    info = (ctypes.c_int * 7)()
+    rc = lib.aps_attention_dbias_occupancy(info)
+    build.check(lib, rc, "flash_attention_dbias occupancy")
+    out = dict(zip(_OCCUPANCY_KEYS + ("chunk_columns", "threads", "stages"),
+                   info))
+    out["chunks"] = -(-D // out["chunk_columns"])
+    return out
+
+
+WIDE_KERNELS = ("K2 forward", "K2 dq", "K2 dk/dv", "K3 forward",
                 "K3 dq", "K3 dk/dv", "K3 dpose", "K2 forward, D > 256",
                 "K2 dq, D > 256", "K2 dk/dv, D > 256", "K3 forward, D > 256",
                 "K3 dq, D > 256", "K3 dk/dv, D > 256", "K3 dpose, D > 256")
@@ -273,8 +350,8 @@ def wide_occupancy():
     """How each wide kernel (heads over 128, csrc/wide_attention.cu) sits
     on an SM of the current card: registers and bytes of local memory
     (spills) a thread, shared memory a block (static and dynamic), resident
-    blocks an SM, head columns a pass (0 for K2's dbias, a warp an entry)
-    and threads a block, by WIDE_KERNELS name (K2's forward, dq and dk/dv
+    blocks an SM, head columns a pass and threads a block, by WIDE_KERNELS
+    name (K2's forward, dq and dk/dv
     and K3's forward, dq, dk/dv and dpose: the tiles that hold a head up to
     256 whole, and those that run a wider one in passes)."""
     import ctypes
@@ -341,7 +418,8 @@ def flash_attention(q: torch.Tensor,
     launch the kernels of csrc/attention.cu and, for the gradient,
     csrc/attention_bwd.cu (any D up to 128, one that is not 16, 32, 64 or
     128 in the tiles of the next of them, unpadded; a wider one those of
-    csrc/wide_attention.cu)."""
+    csrc/wide_attention.cu) and, for the bias's, csrc/attention_dbias.cu
+    (every D)."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q is {tuple(q.shape)}, expected "
                          "B x H x Tq x D")

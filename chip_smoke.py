@@ -97,7 +97,15 @@
    `library_ms`, and the port never calls it. dq and dk/dv run on the
    tensor cores (TF32, each product split in three for float32's
    accuracy), so their entries also carry the tensor cores' bound. No
-   kernel's time may read below its bound.
+   kernel's time may read below its bound. dbias, one tiled kernel for
+   every head width (csrc/attention_dbias.cu), also at the long-form
+   step's shape at heads of 64, 96, 128 and 256, at 1100, at SepFormer's
+   heads of 8 (the batch cut into groups) and at its tiles' edges, twice
+   each for bit-equal results (`check_dbias`); at 64, 128 and 256 with
+   every key visible, K2's forward, dq, dk/dv and dbias beside the one
+   PyTorch call that computes them with a bias gradient
+   (scaled_dot_product_attention with an attn_mask that requires a
+   gradient, forward and backward).
 13. Trains one step of the flagship with att_dropout 0.1 in the encoder on
    the card: the dense attention path, a finite loss, no attention kernel
    launched.
@@ -260,9 +268,11 @@
    14, 16, 17, 19, 21 and 22 last; step 18 runs first, after the builds,
    since its traces name the kernels, and step 20 right after it.)
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-before that line is printed."""
+Each phase's seconds are printed as it ends (`phase <name>: <s> s`) and
+all together before the JSON lines. The second-to-last line is a JSON
+object with one entry per kernel; the last line is {"ok": true,
+"device": {...}}. Any failure exits non-zero before that line is
+printed."""
 
 import contextlib
 import copy
@@ -344,7 +354,7 @@ KERNELS = {
                            "aps_tpu/ops/pallas/attention.py:370"),
     "flash_attention_dkv": ("aps_tpu_torch/csrc/attention_bwd.cu",
                             "aps_tpu/ops/pallas/attention.py:394"),
-    "flash_attention_dbias": ("aps_tpu_torch/csrc/attention_bwd.cu",
+    "flash_attention_dbias": ("aps_tpu_torch/csrc/attention_dbias.cu",
                               "aps_tpu/ops/pallas/attention.py:429"),
     "flash_attention_rel": ("aps_tpu_torch/csrc/rel_attention.cu",
                             "aps_tpu/ops/pallas/rel_attention.py:512"),
@@ -447,7 +457,9 @@ LM_BATCH = 8
 LM_CHECK_UTTS = 2  # of the fused decode, in the card-vs-CPU check
 RNN_LM_YAML = "examples/asr/aishell_v1/conf/nnlm/1a.yaml"
 XFMR_LM_YAML = "examples/asr/librispeech/conf/nnlm/1b.yaml"
-XFMR_LM_UTTS = 2  # it scores the whole prefix again every step
+# it scores the whole prefix again every step, and the CPU's search of an
+# utterance takes some 11 s: one utterance
+XFMR_LM_UTTS = 1
 # the seeded LMs' output layers are scaled so that their log-probabilities
 # are far from uniform and the fusion moves the search
 LM_PEAKY = 4.0
@@ -463,6 +475,27 @@ LM_GRADS = ("lm_embed.weight", "pred.OptimizedLSTMCell_0.weight_hh_l0",
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# seconds of each phase of the run, on the host clock, in the order they
+# ended (a phase inside another is named "outer / inner")
+PHASE_SECS: dict = {}
+
+
+def phase_ended(name: str, beg: float) -> None:
+    """Phase `name`, begun at perf_counter() `beg`, has ended: its seconds
+    are printed now and all together before the `kernels` line."""
+    secs = time.perf_counter() - beg
+    PHASE_SECS[name] = PHASE_SECS.get(name, 0.0) + secs
+    print(f"phase {name}: {secs:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time the phase run inside the block (phase_ended)."""
+    beg = time.perf_counter()
+    yield
+    phase_ended(name, beg)
 
 
 def nbest_error(cpu, card, tol: float = 1e-3):
@@ -1333,6 +1366,191 @@ def check_attention(dev, gen, dec_shape, trn_shape):
                 fail(f"{name} {label}: {queued[kernel]} ms reads below the "
                      f"tensor cores' bound {tensor_ms}")
     return rows, library, backends, more
+
+
+# K2's dbias (csrc/attention_dbias.cu, one kernel for every head width):
+# the long-form training step (the smoke's T and k_len, B = 8, H = 4) at
+# DBIAS_STEP_DIMS, the library's training call with a bias beside K2's
+# four kernels at DBIAS_LIBRARY_DIMS (every key visible); then (B, H, Tq,
+# Tk, D, k_len, causal): a head of 1100, SepFormer's heads of 8 (the batch
+# cut into groups), and the tiles' edges (T 63, 64, 65, 129; k_len 0 and
+# 1; causal with Tq != Tk; a head off the 16-byte grid)
+DBIAS_STEP_DIMS = (64, 96, 128, 256)
+DBIAS_LIBRARY_DIMS = (64, 128, 256)
+DBIAS_CASES = (
+    (4, 2, 129, 129, 1100, [129, 70, 1, 0], False),
+    (144, 2, 16, 16, 8, [16] * 144, False),
+    (4, 2, 63, 63, 40, [63, 30, 1, 0], False),
+    (4, 2, 64, 65, 160, [65, 2, 1, 0], True),
+    (5, 2, 65, 129, 256, [129, 52, 1, 0, 43], True),
+    (4, 2, 129, 64, 50, [64, 13, 1, 0], False),
+)
+
+
+def _sdpa_bias_train(q, k, v, bias, do):
+    """The one PyTorch call that computes K2's forward with a bias H x Tq
+    x Tk that requires a gradient (every key visible), and its backward to
+    q, k, v and the bias: a function of no arguments that runs both and
+    returns the four gradients. The yardstick of check_dbias; nothing in
+    the port calls it."""
+    import torch
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    B, H, Tq, _ = q.shape
+
+    def run():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=leaves[3].expand(B, H, Tq, -1))
+        return torch.autograd.grad(out, leaves, do)
+    return run
+
+
+def _sdpa_bias_backends(run):
+    """The backends of torch.nn.attention.sdpa_kernel that take the
+    library's training call with a bias gradient, each alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    taken = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                run()
+            taken.append(backend.name)
+        except RuntimeError:
+            pass
+    return taken
+
+
+def check_dbias(dev, gen, T_trn, lens_trn, card):
+    """K2's dbias, the one tiled kernel of csrc/attention_dbias.cu, at
+    DBIAS_STEP_DIMS on the long-form step's shape and at DBIAS_CASES: the
+    kernel launched alone on the delta the dq kernel forms, twice for
+    bit-equal results, within TOL_GRAD of mha_backward_reference; timed
+    alone and with QUEUED_CALLS queued beside the plain version, its
+    bound (2 products of 2 D operations a visible pair and batch entry; q,
+    k, v, do, lse and delta read, the bias read and dbias written) and the
+    tensor cores' bound (TF32/3). At DBIAS_LIBRARY_DIMS with every key
+    visible the library's forward and backward with a bias gradient
+    (_sdpa_bias_train) is held against K2's forward, dq, dk/dv and dbias
+    (the bias's gradient within TOL_GRAD) and timed beside them, queued;
+    the profiler names its kernels. -> (rows, library ms at D = 64,
+    numbers for the `kernels` line)"""
+    import torch
+
+    from aps_tpu_torch.ops.attention import (_sm_count, dbias_groups,
+                                             dbias_occupancy,
+                                             launch_backward_kernel,
+                                             launch_forward,
+                                             mha_backward_reference)
+    beg = time.perf_counter()
+    B = len(lens_trn)
+    cases = [(B, 4, T_trn, T_trn, D, list(lens_trn), False)
+             for D in DBIAS_STEP_DIMS] + list(DBIAS_CASES)
+    rows, more = [], {"occupancy": dbias_occupancy(64), "rows": [],
+                      "library": []}
+    sms = _sm_count(dev)
+    for B, H, Tq, Tk, D, lens, causal in cases:
+        q = torch.randn((B, H, Tq, D), generator=gen).to(dev)
+        do = torch.randn((B, H, Tq, D), generator=gen).to(dev)
+        k, v = (torch.randn((B, H, Tk, D), generator=gen).to(dev)
+                for _ in range(2))
+        bias = torch.randn((H, Tq, Tk), generator=gen)
+        bias[1:] *= 2.0
+        bias = bias.to(dev)
+        klen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = D**-0.5
+        groups = dbias_groups(B, H, Tq, Tk, sms)
+        label = (f"B={B} H={H} D={D} Tq={Tq} Tk={Tk} causal={causal} k_len="
+                 + (f"{lens[0]}" if len(set(lens)) == 1 else "ragged")
+                 + f" groups={groups}")
+        out, lse = launch_forward(q, k, v, bias, klen, scale, causal, True)
+        delta = torch.empty_like(lse)
+        run = lambda kernel: launch_backward_kernel(  # noqa: E731
+            kernel, q, k, v, bias, klen, do, lse, out, delta, scale, causal)
+        run("dq")  # forms delta
+        got = run("dbias")
+        if not torch.equal(got, run("dbias")):
+            fail(f"flash_attention_dbias [{label}]: two launches differ")
+        want = mha_backward_reference(q, k, v, do, bias=bias, k_len=klen,
+                                      causal=causal)[3]
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"flash_attention_dbias [{label}]: non-finite gradient")
+        err = (got - want).abs().max().item()
+        if not err <= TOL_GRAD:
+            fail(f"flash_attention_dbias [{label}]: max abs err {err} > "
+                 f"{TOL_GRAD}")
+        ops = 2 * 2 * D * H * valid_pairs(Tq, lens, causal, Tk)
+        nbytes = 4 * (2 * B * H * (Tq + Tk) * D + 2 * B * H * Tq + B +
+                      2 * H * Tq * Tk)
+        bound = bound_ms(nbytes, ops)
+        queued = time_ms(lambda: run("dbias"), calls=QUEUED_CALLS)
+        tensor_ms = tensor_core_ms(ops)
+        if not queued >= tensor_ms:
+            fail(f"flash_attention_dbias [{label}]: {queued} ms queued reads "
+                 f"below the tensor cores' bound {tensor_ms}")
+        plain_ms = time_ms(lambda: mha_backward_reference(
+            q, k, v, do, bias=bias, k_len=klen, causal=causal), iters=3,
+            warmup=1)
+        numbers = {"ms_queued": queued, "tensor_core_bound_ms": tensor_ms,
+                   "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                   "bound_operations_ms": ops / PEAK_FP32_PER_S * 1e3,
+                   "over_tensor_core_bound": queued / tensor_ms,
+                   "rel_err": err / want.abs().max().item(),
+                   "groups": groups}
+        rows.append((label, err, time_ms(lambda: run("dbias")), plain_ms)
+                    + bound + (numbers,))
+        more["rows"].append({"shape": label, "ms": rows[-1][2], **numbers,
+                             "bound_ms": bound[0], "bound_by": bound[1]})
+        if not (Tq == T_trn and D in DBIAS_LIBRARY_DIMS):
+            continue
+        # every key visible: the library's training call with a bias
+        # against K2's four kernels, as _Flash launches them
+        full = torch.full((B,), Tk, dtype=torch.int32, device=dev)
+        lib_run = _sdpa_bias_train(q, k, v, bias, do)
+
+        def k2_train():
+            o, s = launch_forward(q, k, v, bias, full, scale, False, True)
+            args = (q, k, v, bias, full, do, s, o, delta, scale, False)
+            return (launch_backward_kernel("dq", *args),
+                    *launch_backward_kernel("dkv", *args),
+                    launch_backward_kernel("dbias", *args))
+        mine, theirs = k2_train(), lib_run()
+        torch.cuda.synchronize()
+        lib_err = max((a - b).abs().max().item()
+                      for a, b in zip(mine, theirs))
+        if not lib_err <= TOL_GRAD:
+            fail(f"flash_attention_dbias [{label}]: K2's gradients {lib_err} "
+                 "from the library's with a bias")
+        entry = {
+            "shape": label.replace(f"k_len={lens[0]}", f"k_len={Tk}")
+            if len(set(lens)) == 1 else label + " (every key visible)",
+            "library_ms": time_ms(lib_run, iters=10, warmup=2),
+            "library_ms_queued": time_ms(lib_run, iters=5, warmup=1,
+                                         calls=QUEUED_CALLS),
+            "k2_train_ms": time_ms(k2_train, iters=10, warmup=2),
+            "k2_train_ms_queued": time_ms(k2_train, iters=5, warmup=1,
+                                          calls=QUEUED_CALLS),
+            "max_abs_diff": lib_err,
+            "library_kernels": _device_kernel_names(lib_run)[:3],
+            "library_backends": _sdpa_bias_backends(lib_run)}
+        entry["k2_over_library_queued"] = (entry["k2_train_ms_queued"] /
+                                           entry["library_ms_queued"])
+        more["library"].append(entry)
+        print(f"flash_attention_dbias [{entry['shape']}]: the library's "
+              "scaled_dot_product_attention with a bias gradient, forward "
+              f"and backward {entry['library_ms']:.4f} ms (queued "
+              f"{entry['library_ms_queued']:.4f}); K2's forward, dq, dk/dv "
+              f"and dbias {entry['k2_train_ms']:.4f} ms (queued "
+              f"{entry['k2_train_ms_queued']:.4f}, "
+              f"{entry['k2_over_library_queued']:.3f}x the library's); max "
+              f"abs diff {lib_err:.3e}; backends that take it "
+              f"{entry['library_backends']}, its kernels "
+              f"{entry['library_kernels']} ({card})", flush=True)
+    print(f"flash_attention_dbias: one kernel for every head width, "
+          f"{more['occupancy']}; the check took "
+          f"{time.perf_counter() - beg:.1f} s ({card})", flush=True)
+    return rows, more["library"][0]["library_ms"], more
 
 
 def dropout_step(egs, dev, gen, card):
@@ -4233,11 +4451,13 @@ def precision_phase(root: Path, cpt: Path, sep_root: Path, tcn_cpt: Path,
     """decode_batch (DECODE_ARGS) and separate (batches of SEP_BATCH) as
     the commands run now (float32: both TF32 flags off) and as they ran
     before (torch's defaults: cuDNN's convolutions at TF32), in turns
-    (now, before, before, now): the seconds of each batch."""
+    (now, before, before, now): the seconds of each batch; the device time
+    of a whole command run, profiled, in the first turn of each (a
+    profiled run's trace takes some 20 s of the host to read)."""
     from aps_tpu_torch.cmd import decode_batch, separate
     from aps_tpu_torch.cmd.profile_decode import profile
     runs = {"now": [], "before": []}
-    for tag in ("now", "before", "before", "now"):
+    for turn, tag in enumerate(("now", "before", "before", "now")):
         scope = parent_precision(decode_batch, separate) \
             if tag == "before" else contextlib.nullcontext()
         with scope, contextlib.redirect_stdout(sys.stderr):
@@ -4246,13 +4466,15 @@ def precision_phase(root: Path, cpt: Path, sep_root: Path, tcn_cpt: Path,
                  str(cpt), "--dict", str(root / "dict")] + DECODE_ARGS)
             dec_ms = profile(lambda: decode_batch.main(
                 [str(root / "wav.scp"), str(root / "best.precision"), "--am",
-                 str(cpt), "--dict", str(root / "dict")] + DECODE_ARGS))[0]
+                 str(cpt), "--dict", str(root / "dict")] + DECODE_ARGS))[0] \
+                if turn < 2 else None
             sep_argv = [str(sep_root / "mix.scp"),
                         str(sep_root / "sep.precision"), "--checkpoint",
                         str(tcn_cpt), "--sr", str(SEP_SR), "--batch-size",
                         str(SEP_BATCH)]
             sep = separate.main(sep_argv)
-            sep_ms = profile(lambda: separate.main(sep_argv))[0]
+            sep_ms = profile(lambda: separate.main(sep_argv))[0] \
+                if turn < 2 else None
         runs[tag].append((dec["batch_secs"], sep["batch_secs"], dec_ms,
                           sep_ms))
     for tag, entries in runs.items():
@@ -4266,8 +4488,10 @@ def precision_phase(root: Path, cpt: Path, sep_root: Path, tcn_cpt: Path,
                            for e in entries)
               + " s (host clock around a synchronised batch); device time "
               "of a whole command run (profiled, loading included): "
-              "decode_batch " + " | ".join(f"{e[2]:.3f}" for e in entries)
-              + " ms, separate " + " | ".join(f"{e[3]:.3f}" for e in entries)
+              "decode_batch " + " | ".join(f"{e[2]:.3f}" for e in entries
+                                           if e[2] is not None)
+              + " ms, separate " + " | ".join(f"{e[3]:.3f}" for e in entries
+                                             if e[3] is not None)
               + f" ms ({card})", flush=True)
     return runs
 
@@ -4289,7 +4513,9 @@ CHIME4_TRAIN_UTTS = 32  # run.sh's --batch-size
 CHIME4_TRAIN_EPOCHS = 2  # one step each: the corpus is one batch
 CHIME4_TIMED_STEPS = 5
 CHIME4_DECODE_UTTS = 8  # one batch of decode_batch's 8
-CHIME4_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU search
+# of the decode, in the card-vs-CPU search; one: the CPU's search with the
+# LM over 5 channels is the decode's longest part
+CHIME4_CHECK_UTTS = 1
 CHIME4_PASS_UTTS = 4  # of the batch, in the card-vs-CPU training pass
 # run.sh stage 4 (beam 16, nbest 8, ctc 0.4, the char RNN LM at 0.2,
 # len_norm true), max_len cut from 200 to CHIME4_MAX_LEN search steps
@@ -5000,22 +5226,28 @@ def chime4_phase(root: Path, gen, dev, card):
     beg = time.perf_counter()
     root.mkdir()
     data = write_chime4(root, gen)
-    cpt, egs, launches_train, numbers = chime4_train_phase(root, data, dev,
-                                                           card)
+    with phase("chime4 / train_am"):
+        cpt, egs, launches_train, numbers = chime4_train_phase(
+            root, data, dev, card)
     from aps_tpu_torch.conf import load_am_conf
     conf, _ = load_am_conf(str(data / "train.yaml"), str(root / "dict"))
-    pass_shapes, pass_numbers = chime4_pass_check(conf, egs, dev, gen, card)
+    with phase("chime4 / passes card vs CPU"):
+        pass_shapes, pass_numbers = chime4_pass_check(conf, egs, dev, gen,
+                                                      card)
     numbers.update(pass_numbers)
-    numbers["tf32_beam"], numbers["mvdr_ms"] = chime4_beam_check(
-        conf, egs, dev, gen, card)
+    with phase("chime4 / beamformer"):
+        numbers["tf32_beam"], numbers["mvdr_ms"] = chime4_beam_check(
+            conf, egs, dev, gen, card)
     lm_dir, _ = write_lm(root, CHIME4_LM_YAML, gen, "rnn_lm")
-    launches_dec, shapes, dec_numbers = chime4_decode_phase(
-        root, write_decodable(cpt, root), lm_dir, gen, dev, card)
+    with phase("chime4 / decode"):
+        launches_dec, shapes, dec_numbers = chime4_decode_phase(
+            root, write_decodable(cpt, root), lm_dir, gen, dev, card)
     numbers.update(decode=dec_numbers, phase_s=time.perf_counter() - beg)
     print(f"the chime4 phase took {numbers['phase_s']:.1f} s ({card})",
           flush=True)
-    launches_ml, launches_ml_sep, numbers["ml"] = chime4_ml_phase(
-        root / "ml", gen, dev, card)
+    with phase("chime4 / chime4_ml"):
+        launches_ml, launches_ml_sep, numbers["ml"] = chime4_ml_phase(
+            root / "ml", gen, dev, card)
     return launches_train, launches_dec, launches_ml, launches_ml_sep, \
         shapes, pass_shapes, numbers
 
@@ -5037,7 +5269,9 @@ ATT_TRAIN_UTTS = 32  # WSJ's and TIMIT's batch of 32 (WSJ's run.sh: 64)
 ATT_EPOCHS = 2  # one step each: the corpus is one batch
 ATT_TIMED_STEPS = 3
 ATT_DECODE_UTTS = 8  # one batch of decode_batch's 8
-ATT_CHECK_UTTS = 2  # of the decode, in the card-vs-CPU search
+# of the decode, in the card-vs-CPU search; one: the CPU's search with
+# the LM is the phase's longest part
+ATT_CHECK_UTTS = 1
 ATT_PASS_UTTS = 4  # of the batch, in the card-vs-CPU training pass
 # the card-vs-CPU search runs ATT_CHECK_LEN steps and keeps the unfinished
 # hypotheses (allow_partial): with CTC fusion the seeded model ends no
@@ -5093,12 +5327,11 @@ def att_launches(passes: int = 0, steps: int = 0):
     return want
 
 
-def att_kernels_ran(fn, what: str, names) -> None:
-    """Trace one call of fn() and fail unless the trace names each of
-    `names`' device kernels (by its events or by its averages: a kernel
-    launched through ctypes has no PyTorch operator around it). main()
-    runs the phases that call it first (see there)."""
-    seen = traced_kernel_names(fn)
+def att_kernels_ran(prof, what: str, names) -> None:
+    """Fail unless the profiler trace `prof` names each of `names`' device
+    kernels (kernel_names). main() runs the phases that call it first
+    (see there)."""
+    seen = kernel_names(prof)
     for kernel in names:
         if not any(ATT_KERNEL_NAMES[kernel] in s for s in seen):
             fail(f"{what}: the profile shows no {ATT_KERNEL_NAMES[kernel]} "
@@ -5218,8 +5451,7 @@ def att_train_phase(root: Path, name: str, data: Path, dev, card):
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     device_ms, wall, host_launches, prof = profile(
         lambda: trainer.train_one_step(egs))
-    att_kernels_ran(lambda: trainer.train_one_step(egs),
-                    f"{name} training step", ("fused_logmel",))
+    att_kernels_ran(prof, f"{name} training step", ("fused_logmel",))
     hook.remove()
     if set(flags) != {(True, True)} or tf32_flags() != (False, False):
         fail(f"{name} steps at matmul_precision bfloat16: TF32 flags "
@@ -5235,7 +5467,7 @@ def att_train_phase(root: Path, name: str, data: Path, dev, card):
     print(f"train_am {spec['yaml']} as written{patch}: {ATT_TRAIN_UTTS} x "
           f"{spec['secs']} s, {T_max} decoder steps, "
           f"{ATT_EPOCHS} one-step epochs at ssr {rates}, launches "
-          f"{launches}; {ATT_TIMED_STEPS + 2} more steps on the same batch "
+          f"{launches}; {ATT_TIMED_STEPS + 1} more steps on the same batch "
           f"(K1 once each), TF32 flags (cuBLAS, cuDNN) {flags[0]} inside "
           f"them; losses {', '.join(f'{v:.4f}' for v in losses)}",
           flush=True)
@@ -5387,7 +5619,7 @@ def att_decode_phase(root: Path, name: str, am: Path, lm_dir, gen, dev,
     build.reset_launches()
     device_ms, wall, host_launches, prof = profile(search)
     n_steps = build.LAUNCHES["ctc_score_step"]
-    att_kernels_ran(search, f"{name} decode batch",
+    att_kernels_ran(prof, f"{name} decode batch",
                     ("fused_logmel", "ctc_score_step"))
     outs = {}
     check_kw = dict(kw, max_len=ATT_CHECK_LEN, allow_partial=True)
@@ -5441,13 +5673,18 @@ def att_phase(root: Path, name: str, gen, dev, card):
     root.mkdir()
     spec = ATT_RECIPES[name]
     data = write_att_recipe(root, name, gen)
-    cpt, egs, launches_train, numbers, trn_wav = att_train_phase(
-        root, name, data, dev, card)
-    numbers.update(att_pass_check(root, name, data, egs, dev, gen, card))
+    with phase(f"{name} / train_am"):
+        cpt, egs, launches_train, numbers, trn_wav = att_train_phase(
+            root, name, data, dev, card)
+    with phase(f"{name} / pass card vs CPU"):
+        numbers.update(att_pass_check(root, name, data, egs, dev, gen,
+                                      card))
     lm_dir = write_lm(root, spec["lm"], gen, "rnn_lm")[0] \
         if spec["lm"] else None
-    launches_dec, (S, T, k_len), dec_numbers = att_decode_phase(
-        root, name, write_att_decodable(cpt, root), lm_dir, gen, dev, card)
+    with phase(f"{name} / decode and search card vs CPU"):
+        launches_dec, (S, T, k_len), dec_numbers = att_decode_phase(
+            root, name, write_att_decodable(cpt, root), lm_dir, gen, dev,
+            card)
     numbers["decode"] = dec_numbers
     # K1 with the recipe transform's options on the decode batch (int16
     # scale) and on the rescaled, perturbed batch a training pass handed
@@ -5916,12 +6153,16 @@ def transducer_phase(root: Path, gen, dev, card):
     beg = time.perf_counter()
     root.mkdir()
     data = write_trd_recipe(root, gen)
-    cpt, egs, launches_train, numbers, seen = trd_train_phase(
-        root, data, dev, card)
-    numbers.update(trd_pass_check(root, data, egs, dev, gen, card))
-    numbers["loss"] = trd_loss_check(egs, numbers["shape"], dev, gen, card)
-    launches_dec, calls, dec_numbers = trd_decode_phase(
-        root, write_trd_decodable(cpt, root), gen, dev, card)
+    with phase("transducer / train_am"):
+        cpt, egs, launches_train, numbers, seen = trd_train_phase(
+            root, data, dev, card)
+    with phase("transducer / pass and loss card vs CPU"):
+        numbers.update(trd_pass_check(root, data, egs, dev, gen, card))
+        numbers["loss"] = trd_loss_check(egs, numbers["shape"], dev, gen,
+                                         card)
+    with phase("transducer / decode"):
+        launches_dec, calls, dec_numbers = trd_decode_phase(
+            root, write_trd_decodable(cpt, root), gen, dev, card)
     numbers["decode"] = dec_numbers
     tf = aps_transform("asr")(**load_yaml(str(REPO / TRD_YAML))[
         "asr_transform"])
@@ -7315,11 +7556,10 @@ def wide_head_phase(dev, gen, card, egs):
     forward also through its wrapper, alone and with the backward (K3's
     pads and slices included at 96), K2's at 96 beside its launch at 128;
     K2's forward at 128 beside the library's call, and the library's
-    forward with the backward of q, k and v; K2's dbias with a bias. Then
-    one
-    training pass of the flagship cut to 2 conformer layers of width 512
-    with 4 heads (head dim 128) card vs CPU on WIDE_PASS_UTTS of the
-    training batch, K3 at 128 counted. -> (rows by kernel, launches of the
+    forward with the backward of q, k and v (K2's dbias at every width:
+    check_dbias). Then one training pass of the flagship cut to 2
+    conformer layers of width 512 with 4 heads (head dim 128) card vs CPU
+    on WIDE_PASS_UTTS of the training batch, K3 at 128 counted. -> (rows by kernel, launches of the
     pass on the card, numbers)."""
     import torch
 
@@ -7438,35 +7678,6 @@ def wide_head_phase(dev, gen, card, egs):
                     bwd_plain,
                     bound_ms(4 * (4 * size + 2 * B * H * T + B) +
                              4 * len(idx) * size, ops), ops))
-        # dbias (no model passes a bias): once with one, twice
-        B, H, T = 4, 4, 129
-        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
-                       for _ in range(4))
-        bias = torch.randn((H, T, T), generator=gen).to(dev)
-        klen = torch.tensor([T, 70, 1, 0], dtype=torch.int32, device=dev)
-        got = []
-        for _ in range(2):
-            leaf = bias.clone().requires_grad_()
-            out = k2.flash_attention(q, k, v, bias=leaf, k_len=klen)
-            got.append(torch.autograd.grad(out, leaf, do)[0])
-        if not torch.equal(*got):
-            fail(f"flash_attention_dbias D={D}: two runs differ")
-        want = k2.mha_backward_reference(q, k, v, do, bias=bias,
-                                         k_len=klen)[3]
-        out_w, lse = k2.launch_forward(q, k, v, bias, klen, scale, False,
-                                       True)
-        bwd = (q, k, v, bias, klen, do, lse, out_w, torch.empty_like(lse),
-               scale, False)
-        k2.launch_backward_kernel("dq", *bwd)  # forms delta
-        ops = 3 * 2 * D * H * valid_pairs(T, klen.tolist(), False)
-        rows["flash_attention_dbias"].append(_wide_row(
-            "flash_attention_dbias", f"B={B} H={H} D={D} T={T} k_len "
-            "ragged with 0" + ("" if D == 128 else " unpadded"), [got[0]],
-            [want],
-            lambda: k2.launch_backward_kernel("dbias", *bwd),
-            time_ms(lambda: k2.mha_backward_reference(
-                q, k, v, do, bias=bias, k_len=klen), iters=5, warmup=1),
-            bound_ms(4 * (4 * B * H * T * D + 2 * H * T * T), ops), ops))
     # K2's forward at 96 through the wrapper (unpadded) against its launch
     # at 128, the same B and T
     w96, l128 = k2_step[96][6]["wrapper_ms"], k2_step[128][2]
@@ -7611,21 +7822,27 @@ def viterbi_margins(logits, seq, blank: int):
     return gaps, logp[:, sorted(set(ext))].astype(np.float64)
 
 
-def traced_kernel_names(fn):
-    """The device kernels a trace of one call of fn() names (by its events
-    and by its averages: a kernel launched through ctypes has no PyTorch
-    operator around it)."""
+def kernel_names(prof):
+    """The device kernels a profiler trace names (by its events and by its
+    averages: a kernel launched through ctypes has no PyTorch operator
+    around it)."""
     import torch
 
     from aps_tpu_torch.cmd.profile_decode import on_device
+    return {evt.name for evt in prof.events() if on_device(evt)} | {
+        evt.key for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def traced_kernel_names(fn):
+    """The device kernels a trace of one call of fn() names."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return {evt.name for evt in prof.events() if on_device(evt)} | {
-        evt.key for evt in prof.key_averages()
-        if evt.device_type == torch.autograd.DeviceType.CUDA}
+    return kernel_names(prof)
 
 
 def align_phase(root: Path, gen, dev, card):
@@ -8159,8 +8376,8 @@ def wide_heads_phase(dev, gen, card):
     backward of its three inputs) with each K2 kernel's time over both
     (_k2_over_library), for K3 at the step's shape (1100: the small one)
     each kernel's queued time over its tensor cores' bound and the
-    CUDA-core kernels' time over its own (_k3_over); dbias with a bias. No
-    model has such a head: no path launches them. -> rows by kernel."""
+    CUDA-core kernels' time over its own (_k3_over); K2's dbias at these
+    widths is check_dbias's. No model has such a head: no path launches them. -> rows by kernel."""
     import torch
 
     from aps_tpu_torch.ops import attention as k2
@@ -8277,34 +8494,6 @@ def wide_heads_phase(dev, gen, card):
                     **(lib_bwd if lib else {})))
             if lib:
                 _k2_over_library(rows, label, card)
-        # dbias (no model passes a bias): once with one, twice
-        B, H, T = 4, 4, 129
-        q, k, v, do = (torch.randn((B, H, T, D), generator=gen).to(dev)
-                       for _ in range(4))
-        bias = torch.randn((H, T, T), generator=gen).to(dev)
-        klen = torch.tensor([T, 70, 1, 0], dtype=torch.int32, device=dev)
-        got = []
-        for _ in range(2):
-            leaf = bias.clone().requires_grad_()
-            out = k2.flash_attention(q, k, v, bias=leaf, k_len=klen)
-            got.append(torch.autograd.grad(out, leaf, do)[0])
-        if not torch.equal(*got):
-            fail(f"flash_attention_dbias D={D}: two runs differ")
-        want = k2.mha_backward_reference(q, k, v, do, bias=bias,
-                                         k_len=klen)[3]
-        out_w, lse = k2.launch_forward(q, k, v, bias, klen, scale, False,
-                                       True)
-        bwd = (q, k, v, bias, klen, do, lse, out_w, torch.empty_like(lse),
-               scale, False)
-        k2.launch_backward_kernel("dq", *bwd)  # forms delta
-        ops = 3 * 2 * D * H * valid_pairs(T, klen.tolist(), False)
-        rows["flash_attention_dbias"].append(_over_row(
-            "flash_attention_dbias", f"B={B} H={H} D={D} T={T} k_len "
-            "ragged with 0", [got[0]], [want],
-            lambda: k2.launch_backward_kernel("dbias", *bwd),
-            time_ms(lambda: k2.mha_backward_reference(
-                q, k, v, do, bias=bias, k_len=klen), iters=3, warmup=1),
-            bound_ms(4 * (4 * B * H * T * D + 2 * H * T * T), ops), ops))
     for kernel, info in k2.wide_occupancy().items():
         print(f"wide kernel occupancy, {kernel}: " + ", ".join(
             f"{key} {value}" for key, value in info.items()), flush=True)
@@ -8342,10 +8531,11 @@ def main() -> None:
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(SEED)
 
-    beg = time.perf_counter()
-    for name, secs in build.build_all().items():
-        print(f"built {name}.cu in {secs:.1f} s", flush=True)
-    print(f"all kernels built in {time.perf_counter() - beg:.1f} s (one "
+    run_beg = time.perf_counter()
+    with phase("build"):
+        for name, secs in build.build_all().items():
+            print(f"built {name}.cu in {secs:.1f} s", flush=True)
+    print(f"all kernels built in {time.perf_counter() - run_beg:.1f} s (one "
           "nvcc per source, started together)", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -8358,8 +8548,9 @@ def main() -> None:
         # in a process names them
         att_launches_of, att_rows = {}, {}
         for recipe in ATT_RECIPES:
-            launches_trn_att, launches_dec_att, rows_att, _ = att_phase(
-                root / recipe, recipe, gen, dev, card)
+            with phase(recipe):
+                launches_trn_att, launches_dec_att, rows_att, _ = att_phase(
+                    root / recipe, recipe, gen, dev, card)
             att_launches_of[recipe] = (launches_trn_att, launches_dec_att)
             for name, rows in rows_att.items():
                 att_rows.setdefault(name, {})[recipe] = rows
@@ -8368,22 +8559,25 @@ def main() -> None:
         # traced for their device time. It and sse8_phase draw from
         # generators of their own, so the phases after them see the inputs
         # they saw before these two phases were added
-        trd_train, trd_dec, trd_rows, _ = transducer_phase(
-            root / "transducer", torch.Generator().manual_seed(SEED + 1),
-            dev, card)
+        with phase("transducer"):
+            trd_train, trd_dec, trd_rows, _ = transducer_phase(
+                root / "transducer", torch.Generator().manual_seed(SEED + 1),
+                dev, card)
         for name, rows in trd_rows.items():
             print_rows(name, rows, card)
         # this slice's paths early too, each from a generator of its own:
         # their traces name K1's and K3's kernels (align) and K3's four
         # (the trainer's profile)
-        launches_align, align_rows = align_phase(
-            root / "align", torch.Generator().manual_seed(SEED + 9), dev,
-            card)
+        with phase("align"):
+            launches_align, align_rows = align_phase(
+                root / "align", torch.Generator().manual_seed(SEED + 9), dev,
+                card)
         for name, rows in align_rows.items():
             print_rows(name, rows, card)
-        launches_opts = trainer_opts_phase(
-            root / "trainer_opts", torch.Generator().manual_seed(SEED + 10),
-            dev, card)
+        with phase("trainer options"):
+            launches_opts = trainer_opts_phase(
+                root / "trainer_opts",
+                torch.Generator().manual_seed(SEED + 10), dev, card)
         cpt, wavs, model = write_checkpoint(root, gen)
         shapes = S, T, k_len = path_shapes(model)
         print(f"decode path: batches of 8 x {S} samples, encoder T = {T} "
@@ -8413,6 +8607,7 @@ def main() -> None:
         print(f"long-form training path: batches of {LONG_TRAIN_UTTS} x "
               f"{S_ltr} samples, encoder T = {T_ltr} with "
               f"{sorted(set(k_ltr))} valid frames", flush=True)
+        kernel_checks = time.perf_counter()
         fbank_rows, more_fbank = check_fbank(dev, model, (
             ("decode", decode_batch_of(wavs, 8, S)),
             ("training", egs["src_pad"]),
@@ -8437,29 +8632,40 @@ def main() -> None:
             checks[f"flash_attention_{kernel}"] = rows
         print(f"the library's kernels (scaled_dot_product_attention, "
               f"float32, TF32 off), longest first: {backends}", flush=True)
+        # K2's dbias at every head width, beside the library's training
+        # call with a bias
+        dbias_rows, library["flash_attention_dbias"], dbias_more = \
+            check_dbias(dev, torch.Generator().manual_seed(SEED + 13),
+                        T_ltr, k_ltr, card)
+        checks["flash_attention_dbias"] += dbias_rows
+        phase_ended("kernel checks", kernel_checks)
         del model, model_long
         for name, rows in checks.items():
             print_rows(name, rows, card)
         print("the plain time beside a backward kernel is that of the whole "
               "plain backward, which gives all of its gradients", flush=True)
         # K2 and K3 at heads of 96 and 128, and a 512-wide conformer's pass
-        wide_rows, launches_wide, wide_more = wide_head_phase(
-            dev, torch.Generator().manual_seed(SEED + 6), card, egs)
+        with phase("heads of 96 and 128"):
+            wide_rows, launches_wide, wide_more = wide_head_phase(
+                dev, torch.Generator().manual_seed(SEED + 6), card, egs)
         for name, rows in wide_rows.items():
             print_rows(name, rows, card)
         # heads over 128 on the wide kernels, and the feature grammar
-        over_rows = wide_heads_phase(
-            dev, torch.Generator().manual_seed(SEED + 11), card)
+        with phase("heads over 128"):
+            over_rows = wide_heads_phase(
+                dev, torch.Generator().manual_seed(SEED + 11), card)
         for name, rows in over_rows.items():
             print_rows(name, rows, card)
             wide_rows[name] += rows
-        launches_gmvn, launches_feat = features_phase(
-            root / "features", train, egs,
-            torch.Generator().manual_seed(SEED + 12), dev, card)
+        with phase("features"):
+            launches_gmvn, launches_feat = features_phase(
+                root / "features", train, egs,
+                torch.Generator().manual_seed(SEED + 12), dev, card)
 
         best = root / "best.txt"
         argv = [str(root / "wav.scp"), str(best), "--am", str(cpt),
                 "--dict", str(root / "dict")] + DECODE_ARGS
+        decode_clock = time.perf_counter()
         build.reset_launches()
         with scorer_steps() as steps:
             stats = decode_batch.main(argv)
@@ -8492,32 +8698,37 @@ def main() -> None:
         enc_err, score_err = reference_check(cpt, wavs, dev, stats, shapes)
         print(f"card vs CPU on 2 utterances: encoder max abs err "
               f"{enc_err:.3e}, best-score diff {score_err:.3e}", flush=True)
+        phase_ended("flagship decode", decode_clock)
         # the decoding options on the same checkpoint, then kaldi feature
         # archives (am@kaldi, decode from a feats.scp); a generator of its
         # own, so the phases after it see the inputs they saw before
-        launches_opt = decode_options_phase(root, cpt, wavs, shapes, dev,
-                                            card)
-        launches_kal, launches_kal_dec = kaldi_phase(
-            root / "kaldi", root / "dict",
-            torch.Generator().manual_seed(SEED + 5), dev, card)
+        with phase("decoding options"):
+            launches_opt = decode_options_phase(root, cpt, wavs, shapes, dev,
+                                                card)
+        with phase("kaldi"):
+            launches_kal, launches_kal_dec = kaldi_phase(
+                root / "kaldi", root / "dict",
+                torch.Generator().manual_seed(SEED + 5), dev, card)
 
         # the LM slice: run.sh stage 4 with the RNN LM and stage 5, the
         # Transformer LM in the single-utterance search, lm_rescore on its
         # nbest, and stage 3, train_lm
-        lm_dir, _ = write_lm(root, RNN_LM_YAML, gen, "rnn_lm")
-        xfmr_dir, _ = write_lm(root, XFMR_LM_YAML, gen, "xfmr_lm")
-        launches_lm, _ = lm_decode_phase(root, cpt, lm_dir, wavs, shapes,
-                                         dev, card)
-        launches_xlm, xlm_nbest, _ = xfmr_lm_phase(root, cpt, xfmr_dir,
-                                                   wavs, card)
-        lm_rescore_phase(root, xlm_nbest, lm_dir, card)
-        launches_tlm, _, _ = train_lm_phase(root, write_lm_corpus(root, gen),
-                                            dev, card)
+        with phase("LM"):
+            lm_dir, _ = write_lm(root, RNN_LM_YAML, gen, "rnn_lm")
+            xfmr_dir, _ = write_lm(root, XFMR_LM_YAML, gen, "xfmr_lm")
+            launches_lm, _ = lm_decode_phase(root, cpt, lm_dir, wavs, shapes,
+                                             dev, card)
+            launches_xlm, xlm_nbest, _ = xfmr_lm_phase(root, cpt, xfmr_dir,
+                                                       wavs, card)
+            lm_rescore_phase(root, xlm_nbest, lm_dir, card)
+            launches_tlm, _, _ = train_lm_phase(
+                root, write_lm_corpus(root, gen), dev, card)
 
-        dropout_step(egs, dev, gen, card)
-        launches_trn, per_step, flagship_secs = train_phase(
-            root, train, egs, dev, card)
-        loss_g, loss_c, errs = step_check(egs, dev, gen, shapes_trn)
+        with phase("flagship training"):
+            dropout_step(egs, dev, gen, card)
+            launches_trn, per_step, flagship_secs = train_phase(
+                root, train, egs, dev, card)
+            loss_g, loss_c, errs = step_check(egs, dev, gen, shapes_trn)
         print(f"training pass card vs CPU, dropouts off: loss {loss_g:.6f} "
               f"vs {loss_c:.6f}; gradient errors relative to the largest "
               "entry " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
@@ -8525,16 +8736,17 @@ def main() -> None:
 
         # the recipe as written: train_am, then its pass card vs CPU and
         # TF32 vs float32
-        egs_rcp, launches_rcp, per_step_rcp, timed, trainer, seen = \
-            recipe_phase(root, train, dev, card)
-        recipe_rows = check_recipe_kernels(dev, gen, trainer.task.nnet,
-                                           seen)
-        del trainer, seen
-        for name, rows in recipe_rows.items():
-            checks[name] += rows
-            print_rows(name, rows, card)
-        losses, (loss_err, errs), (tf32_loss_err, tf32_errs) = \
-            recipe_check(root, egs_rcp, dev, gen)
+        with phase("recipe"):
+            egs_rcp, launches_rcp, per_step_rcp, timed, trainer, seen = \
+                recipe_phase(root, train, dev, card)
+            recipe_rows = check_recipe_kernels(dev, gen, trainer.task.nnet,
+                                               seen)
+            del trainer, seen
+            for name, rows in recipe_rows.items():
+                checks[name] += rows
+                print_rows(name, rows, card)
+            losses, (loss_err, errs), (tf32_loss_err, tf32_errs) = \
+                recipe_check(root, egs_rcp, dev, gen)
         print(f"recipe pass, dropouts off, draws fed in: loss CPU "
               f"{losses[0]:.6f}, card float32 {losses[1]:.6f}, card TF32 "
               f"{losses[2]:.6f}; card vs CPU: loss {loss_err:.3e}, "
@@ -8552,6 +8764,7 @@ def main() -> None:
               flush=True)
 
         # the long-form path: decode, card vs CPU, training, card vs CPU
+        long_clock = time.perf_counter()
         stats_long, launches_long = long_decode_phase(long_root, cpt_long,
                                                       wavs_long, card)
         enc_err, score_err = reference_check(cpt_long, wavs_long, dev,
@@ -8572,9 +8785,11 @@ def main() -> None:
                   "CPU, card vs float64, CPU vs float64) "
                   + ", ".join(f"{k} " + ", ".join(f"{e:.3e}" for e in v)
                               for k, v in errs.items()), flush=True)
+        phase_ended("long-form", long_clock)
 
         # the separation path: its kernel, the separate command, the
         # train_ss command
+        sep_clock = time.perf_counter()
         sep_root = root / "separation"
         sep_root.mkdir()
         shapes_sep = S_sep, T_sep = sep_shapes()
@@ -8598,15 +8813,18 @@ def main() -> None:
               "gradient, relative to the largest entry: "
               + ", ".join(f"{k} {a:.3e}, {b:.3e}"
                           for k, (a, b) in errs.items()), flush=True)
+        phase_ended("separation", sep_clock)
 
         # the frequency-domain slice: wham/run.sh stages 2 to 4 with
         # recipe 1b as written, then sse@freq_tcn
-        launches_wham, launches_wsep, launches_ftcn, _ = wham_phase(
-            root / "wham", gen, dev, card)
+        with phase("wham"):
+            launches_wham, launches_wsep, launches_ftcn, _ = wham_phase(
+                root / "wham", gen, dev, card)
 
         # the multi-channel slice: chime4 1b (train_am, decode_batch with
         # the LM, compute_wer) and chime4_ml 1a (train_ss, separate); K3's
         # forward and K4 at the chime4 decode's shapes
+        chime4_clock = time.perf_counter()
         (launches_c4, launches_c4dec, launches_ml, launches_mlsep,
          (T_c4, k_c4), pass_c4, _) = chime4_phase(root / "chime4", gen, dev,
                                                   card)
@@ -8632,35 +8850,42 @@ def main() -> None:
         for name, rows in chime4_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
+        phase_ended("chime4", chime4_clock)
         # chunked separation of a 5-channel mixture
-        launches_mc = mc_chunk_phase(root / "mc_chunk",
-                                     torch.Generator().manual_seed(SEED + 7),
-                                     dev, card)
+        with phase("multi-channel chunks"):
+            launches_mc = mc_chunk_phase(
+                root / "mc_chunk", torch.Generator().manual_seed(SEED + 7),
+                dev, card)
 
         # the rest of the SSE zoo: wsj0_2mix/1b, dns_is2020/1a and
         # export_dcunet/1a through train_ss and separate (no kernel on
         # their path), then sse@freq_xfmr through K3's four kernels
         zoo_root = root / "zoo"
         zoo_root.mkdir()
-        zoo_launches = {
-            recipe: zoo_recipe_phase(zoo_root / recipe.replace("/", "_"),
-                                     recipe, gen, dev, card)[:2]
-            for recipe in ZOO_RECIPES}
-        launches_fx, launches_fxsep, fx_rows, _ = freq_xfmr_phase(
-            zoo_root / "freq_xfmr", gen, dev, card)
+        zoo_launches = {}
+        for recipe in ZOO_RECIPES:
+            with phase(recipe):
+                zoo_launches[recipe] = zoo_recipe_phase(
+                    zoo_root / recipe.replace("/", "_"), recipe, gen, dev,
+                    card)[:2]
+        with phase("freq_xfmr"):
+            launches_fx, launches_fxsep, fx_rows, _ = freq_xfmr_phase(
+                zoo_root / "freq_xfmr", gen, dev, card)
         for name, rows in fx_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
         # sse@ts: a student distilled from that checkpoint on se@simu_cmd
         # mixtures, and its separation in bfloat16
-        launches_ts, launches_tssep = ts_phase(
-            zoo_root / "ts", zoo_root / "freq_xfmr" / "cpt",
-            torch.Generator().manual_seed(SEED + 8), dev, card)
+        with phase("ts"):
+            launches_ts, launches_tssep = ts_phase(
+                zoo_root / "ts", zoo_root / "freq_xfmr" / "cpt",
+                torch.Generator().manual_seed(SEED + 8), dev, card)
 
         # the eight sse@ models that no phase above runs, and K2 at
         # SepFormer's chunk shapes
-        sse8_launched, sse8_rows, _ = sse8_phase(
-            torch.Generator().manual_seed(SEED + 2), dev, card)
+        with phase("sse8"):
+            sse8_launched, sse8_rows, _ = sse8_phase(
+                torch.Generator().manual_seed(SEED + 2), dev, card)
         sse8_rows = {f"flash_attention{'' if k == 'fwd' else '_' + k}": r
                      for k, r in sse8_rows.items()}
         for name, rows in sse8_rows.items():
@@ -8669,16 +8894,18 @@ def main() -> None:
         # the streaming slice: streaming_asr@transducer and @ctc at 1f's
         # width, rt_sse@dfsmn and rt_sse@freq_xfmr; K1 at the ASR path's
         # shapes
-        stream_launches_of, stream_rows, _ = streaming_asr_phase(
-            root / "streaming", torch.Generator().manual_seed(SEED + 3),
-            dev, card)
+        with phase("streaming ASR"):
+            stream_launches_of, stream_rows, _ = streaming_asr_phase(
+                root / "streaming", torch.Generator().manual_seed(SEED + 3),
+                dev, card)
         for name, rows in stream_rows.items():
             checks[name] += rows
             print_rows(name, rows, card)
         for rt_name in RT_SSE_CONFS:
-            trn, sep, _ = rt_sse_phase(
-                root / rt_name.split("@")[1], rt_name,
-                torch.Generator().manual_seed(SEED + 4), dev, card)
+            with phase(rt_name):
+                trn, sep, _ = rt_sse_phase(
+                    root / rt_name.split("@")[1], rt_name,
+                    torch.Generator().manual_seed(SEED + 4), dev, card)
             label = rt_name.replace("@", "_")
             stream_launches_of[f"{label}_train_run"] = trn
             stream_launches_of[f"{label}_separate"] = sep
@@ -8722,6 +8949,12 @@ def main() -> None:
                     "no model passes a bias (nor does any caller in "
                     "aps_tpu): the kernel is held against its plain "
                     "versions only")
+                extra["library_ms_covers"] = (
+                    "the forward and the backward of q, k, v and the bias "
+                    "(scaled_dot_product_attention with a bias that "
+                    "requires a gradient, every key visible, D = 64)")
+                extra["tensor_core_bound_note"] = TF32_NOTE
+                extra.update(dbias_more)
             else:
                 extra["library_ms_covers"] = (
                     "dq, dk and dv together (one backward through the "
@@ -8873,16 +9106,20 @@ def main() -> None:
             "bound_by": bound_by,
             # one PyTorch call, scaled_dot_product_attention, computes the
             # scaled-dot-product attention's forward without a bias, and
-            # autograd through it dq, dk and dv together: timed in
-            # check_attention and used nowhere in the port. No single call
+            # autograd through it dq, dk and dv together, and with a bias
+            # that requires a gradient also dbias: timed in check_attention
+            # and check_dbias and used nowhere in the port. No single call
             # computes any other of these functions: the relative term is
-            # formed inside the rel attention kernels, a bias gradient
-            # summed over the batch has no call of its own, the front end
-            # is a chain of calls, the scorer a loop over frames, the TCN
-            # block two products around a stencil
+            # formed inside the rel attention kernels, the front end is a
+            # chain of calls, the scorer a loop over frames, the TCN block
+            # two products around a stencil
             "library_ms": library.get(name),
             **extra,
         })
+    print("phase seconds: " + ", ".join(
+        f"{name} {secs:.1f}" for name, secs in PHASE_SECS.items())
+          + f"; the whole run {time.perf_counter() - run_beg:.1f} s ({card})",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -179,6 +179,12 @@ GRAD_CASES = [
     (2, 70, 65, 128, False, True, False),
     (2, 63, 65, 160, True, True, True),
     (2, 65, 64, 256, False, False, False),
+    # the card's dbias kernel (one for every width) at the edges of its
+    # 64 x 64 tiles and its chunks of 32 head columns: a ragged last chunk
+    # (40), five chunks (160), causal with Tq != Tk, a bias; the same
+    # GRAD_ATOL (a dbias entry sums three batch entries here)
+    (3, 65, 129, 40, True, True, True),
+    (3, 65, 129, 160, True, True, False),
 ]
 
 

@@ -247,7 +247,9 @@ def test_attention_kernels_are_built_for_heads_of_128(source):
         assert "__launch_bounds__(kThreads, dkv_blocks_per_sm<D>())" in text
     if source == "attention_bwd.cu":
         assert "__launch_bounds__(kThreads, blocks_per_sm<D>())" in text
-        assert "extern __shared__ float sbias_smem[];" in text
+        # dbias is csrc/attention_dbias.cu's one kernel, at every width
+        assert "sbias_smem" not in text and "attn_dbias_kernel" not in text
+        assert 'extern "C" int aps_attention_dbias(' not in text
 
 
 def test_wide_attention_k2_kernels_use_the_tensor_cores():
@@ -257,8 +259,8 @@ def test_wide_attention_k2_kernels_use_the_tensor_cores():
     and gradient products through `accumulate`, the operands staged by
     cp.async (16 bytes a copy, 4 off the 16-byte grid), the two warps of a
     row group adding their partials through shared memory; the entry points
-    launch these tiles, and the CUDA-core loops (a warp a row) are left to
-    K3 and dbias. A later edit that takes K2 back to them fails here."""
+    launch these tiles, and the CUDA-core loops (a warp a row) are gone
+    from the file. A later edit that takes K2 back to them fails here."""
     text = (build.CSRC / "wide_attention.cu").read_text()
     assert '#include "attn_tiles.cuh"' in text
     assert "mma_f32<NT>(s, fa1, fb1);" in text
@@ -359,8 +361,7 @@ def test_flash_attention_launches_narrow_heads_unpadded():
     assert "void stage_rows_ragged(" in tiles
     assert "cp_async_4(dst + e, ok ? from + e : src, ok);" in tiles
     for source, kernels in (("attention.cu", ("attn_fwd_kernel",)),
-                            ("attention_bwd.cu", ("attn_bwd_tiles_kernel",
-                                                  "attn_dbias_kernel"))):
+                            ("attention_bwd.cu", ("attn_bwd_tiles_kernel",))):
         text = (build.CSRC / source).read_text()
         assert "case 128: return static_cast<int>(fn<128, true>(" in text
         assert "attn_tiles::tile_width(D)" in text
@@ -371,6 +372,76 @@ def test_flash_attention_launches_narrow_heads_unpadded():
         text = (build.CSRC / ("attention.cu" if kernel == "attn_fwd_kernel"
                               else "attention_bwd.cu")).read_text()
         assert "stage_rows_of<kRagged, D," in _kernel_body(text, kernel)
+    # dbias takes every width in one kernel: a ragged chunk of the head is
+    # zero-filled past D, and rows off the 16-byte grid go a float a copy
+    text = (build.CSRC / "attention_dbias.cu").read_text()
+    assert "const bool ok = live && c0 + c < D;" in text
+    assert "const bool ok = live && c0 + c + e < D;" in text
+    assert "cp_async_4(dst + e, ok ? from + e : src, ok);" in text
+    assert "kRagged" not in text and "tile_width(" not in text
+
+
+def test_attention_dbias_is_one_tiled_kernel():
+    """K2's dbias is one kernel for every head width
+    (csrc/attention_dbias.cu): 64 x 64 tiles of a head, the batch looped
+    over in order inside the block, s and dp on the tensor cores (mma_f32,
+    the three-pass TF32 split; each chunk's products added with rounding)
+    from chunks of the head staged by cp.async
+    into a ring that runs across the (batch entry, chunk) sequence, the
+    bias read once a block; no atomics, no dispatch on the width, no
+    CUDA-core loop. The thread-an-entry kernel of attention_bwd.cu and the
+    warp-an-entry kernel of wide_attention.cu are gone, and the wrapper
+    sends every width to the one entry."""
+    import inspect
+
+    from aps_tpu_torch.ops import attention
+    text = (build.CSRC / "attention_dbias.cu").read_text()
+    assert '#include "attn_tiles.cuh"' in text
+    assert len(re.findall(r"__global__ void", text)) == 2
+    body = _kernel_body(text, "attn_dbias_tiles_kernel")
+    assert "mma_f32<kNT>(part, fa, fb);" in body
+    assert "product(s, tq, tk);" in body and "product(dp, tdo, tv);" in body
+    # a chunk's products are added to s and dp with rounding
+    assert "sum[j][c] += part[j][c];" in body
+    assert "cp_async_commit();" in body
+    assert "cp_async_wait<kStages - 2>();" in body
+    assert body.count("stage_chunk(") == 4
+    assert "cp_async_16(dst, ok ? from : src, ok);" in text
+    assert "constexpr int kStages = 3;" in text
+    assert "next_live(b_beg)" in body and "next_live(cb + 1)" in body
+    assert "bias_h[static_cast<size_t>(l) * a.Tk + sk]" in body
+    assert body.count("bias_h[") == 1  # the bias tile, once a block
+    for loop in ("fmaf(", "atomicAdd", "__ldg", "dot("):
+        assert loop not in text, loop
+    assert "template <" not in text and "switch (D)" not in text
+    entries = re.findall(r'extern "C" int (aps_\w+)\(', text)
+    assert entries == ["aps_attention_dbias", "aps_attention_dbias_occupancy"]
+    assert "acc += partial[group * n + i];" in _kernel_body(
+        text, "dbias_sum_kernel")
+    wide = (build.CSRC / "wide_attention.cu").read_text()
+    assert " dbias_kernel(" not in wide
+    assert "aps_attention_wide_dbias" not in wide
+    bwd = (build.CSRC / "attention_bwd.cu").read_text()
+    assert "attn_dbias_kernel" not in bwd and "kPerThread" not in bwd
+    launch = inspect.getsource(attention._launch_dbias)
+    assert 'build.load("attention_dbias", "aps_attention_dbias",' in launch
+    assert "_source(" not in launch
+    assert "K2 dbias" not in attention.WIDE_KERNELS
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,sms,groups", [
+    (8, 4, 690, 690, 132, 1),     # the long-form step: 484 tiles
+    (4, 2, 129, 129, 132, 4),     # 18 tiles: a group a batch entry
+    (144, 2, 16, 16, 132, 132),   # heads of 8 in SepFormer's chunks
+    (1, 2, 16, 16, 132, 1),
+    (16, 1, 65, 65, 132, 16),
+    (8, 4, 300, 300, 4, 1),       # a small card: 100 tiles fill it
+])
+def test_attention_dbias_groups(B, H, Tq, Tk, sms, groups):
+    """The batch is cut into groups (a block each, partial tiles added in
+    order) only where the tiles are too few to fill two blocks an SM."""
+    from aps_tpu_torch.ops.attention import dbias_groups
+    assert dbias_groups(B, H, Tq, Tk, sms) == groups
 
 
 def test_ctc_score_kernel_scans_over_chunks():
@@ -1159,11 +1230,77 @@ def test_attention_backward_kernels_match_plain(cuda_device, B, H, Tq, Tk, D,
     assert torch.count_nonzero(got[0][3]) == 0
 
 
+# K2's dbias (csrc/attention_dbias.cu) at heads below, on and off the
+# 16-byte grid, through several chunks of 32 columns (1100: 35, the last
+# ragged), and at lengths on either side of its 64 x 64 tiles
+DBIAS_DIMS = [8, 16, 40, 64, 96, 128, 160, 256, 1100]
+DBIAS_SHAPES = [(4, 63, 63, False), (4, 64, 65, True), (5, 65, 129, True),
+                (4, 129, 64, False)]
+
+
+def _dbias_run(dev, B, H, Tq, Tk, D, causal):
+    """(the dbias kernel's result, its plain version, a relaunch) on
+    _att_args' operands, delta formed by the dq kernel."""
+    from aps_tpu_torch.ops.attention import (launch_backward_kernel,
+                                             launch_forward)
+    att, bias, k_len = _att_args(B, H, Tq, Tk, D)
+    q, k, v = [t.to(dev) for t in att]
+    bias, k_len = bias.to(dev), k_len.to(dev)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(
+        D + Tq)).to(dev)
+    scale = D**-0.5
+    out, lse = launch_forward(q, k, v, bias, k_len, scale, causal, True)
+    delta = torch.empty_like(lse)
+    run = lambda kernel: launch_backward_kernel(  # noqa: E731
+        kernel, q, k, v, bias, k_len, do, lse, out, delta, scale, causal)
+    run("dq")
+    build.reset_launches()
+    got = run("dbias")
+    assert build.LAUNCHES["flash_attention_dbias"] == 1
+    want = mha_backward_reference(q, k, v, do, bias=bias, k_len=k_len,
+                                  causal=causal)[3]
+    return got, want, run("dbias")
+
+
 @pytest.mark.cuda
-def test_attention_dbias_is_deterministic(cuda_device):
+@pytest.mark.parametrize("D", DBIAS_DIMS)
+@pytest.mark.parametrize("B,Tq,Tk,causal", DBIAS_SHAPES)
+def test_attention_dbias_kernel_matches_plain(cuda_device, D, B, Tq, Tk,
+                                              causal):
+    """The dbias kernel alone == mha_backward_reference's dbias, with
+    k_len 1 and 0 in the batch (from B = 4 on), Tq != Tk, causal; two
+    launches give the same bits."""
+    got, want, again = _dbias_run(cuda_device, B, 2, Tq, Tk, D, causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D,causal", [
+    (1, 4, 129, 64, True),     # one batch entry
+    (144, 2, 16, 8, False),    # SepFormer's heads of 8: the batch split
+    (144, 2, 16, 8, True),
+    (16, 1, 65, 256, False),   # split, a tile of four blocks' columns
+])
+def test_attention_dbias_kernel_batch_split(cuda_device, B, H, T, D, causal):
+    """At B = 1 one block a tile; where the tiles are too few for the card
+    the batch is cut into groups whose partial tiles a second pass adds in
+    order: still == the plain version, and bit-equal over two launches."""
+    from aps_tpu_torch.ops.attention import _sm_count, dbias_groups
+    groups = dbias_groups(B, H, T, T, _sm_count(cuda_device))
+    assert (groups > 1) == (B > 1)
+    got, want, again = _dbias_run(cuda_device, B, H, T, T, D, causal)
+    torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_attention_dbias_is_deterministic(cuda_device, D):
     """dbias sums over the batch in order inside one block: two runs give
-    the same bits."""
-    att, bias, k_len = _att_args(8, 4, 233, 233, 64)
+    the same bits, at a narrow and a wide head."""
+    att, bias, k_len = _att_args(8, 4, 233, 233, D)
     leaves = [t.to(cuda_device).requires_grad_() for t in att + [bias]]
     do = torch.ones_like(leaves[0])
     runs = []
