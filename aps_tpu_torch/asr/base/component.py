@@ -12,6 +12,8 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from aps_tpu_torch import distributed
+
 IntPair = Union[int, Tuple[int, int]]
 
 rnn_output_nonlinear = {
@@ -32,11 +34,25 @@ class _FlaxRunningStats(object):
     batch variance, where PyTorch's own update takes the unbiased one. The
     statistics are taken over every position of the batch, padded frames
     included, as in aps_tpu. The normalisation itself is PyTorch's (batch
-    statistics in training, running ones in eval)."""
+    statistics in training, running ones in eval).
+
+    In a data-parallel step (aps_tpu_torch.distributed.sharded) each rank
+    holds some rows of the global batch, and aps_tpu normalises over all
+    of them: the mean is taken from the sum of the rows and the count
+    all-reduced over the ranks, then the biased variance from the
+    all-reduced sum of squared deviations from it, both through autograd
+    (torch.distributed.nn.functional.all_reduce, whose backward
+    all-reduces the gradients), so every rank normalises and updates its
+    running statistics with the global ones. nn.SyncBatchNorm does not run
+    on the CPU and gathers with all_gather, which gloo does not do on CUDA
+    tensors."""
 
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super(_FlaxRunningStats, self).forward(inp)
+        group = distributed.step_group()
+        if group is not None:
+            return self._global_batch_norm(inp, group)
         dims = [0] + list(range(2, inp.dim()))
         with torch.no_grad():
             var, mean = torch.var_mean(inp, dims, unbiased=False)
@@ -44,6 +60,24 @@ class _FlaxRunningStats(object):
             self.running_var.lerp_(var, self.momentum)
         return nn.functional.batch_norm(inp, None, None, self.weight,
                                         self.bias, True, 0.0, self.eps)
+
+    def _global_batch_norm(self, inp: torch.Tensor, group) -> torch.Tensor:
+        from torch.distributed.nn.functional import all_reduce
+        dims = [0] + list(range(2, inp.dim()))
+        shape = [1, -1] + [1] * (inp.dim() - 2)
+        count = distributed.global_sum(inp.numel() // inp.shape[1],
+                                       device=inp.device).to(inp.dtype)
+        mean = all_reduce(inp.sum(dims), group=group) / count
+        dev = inp - mean.reshape(shape)
+        var = all_reduce((dev * dev).sum(dims), group=group) / count
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        out = dev * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.affine:
+            out = out * self.weight.reshape(shape) + \
+                self.bias.reshape(shape)
+        return out
 
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):

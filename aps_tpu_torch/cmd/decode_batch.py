@@ -24,20 +24,30 @@ one). A transducer decodes through its batched frame-synchronous search
 (with the LM, which must hold the blank id, or the command raises before
 the first batch); asr@ctc and streaming_asr@ctc one utterance after
 another through CtcApi, as in aps_tpu. The wall time of the decode loop is logged with the real-time factor
-and audio seconds per second."""
+and audio seconds per second.
+
+--data-parallel (with --distributed and its flags, one process a card):
+every rank reads the whole scp and buckets it alike; each bucket's rows
+are split over the ranks, each rank searches its block padded to the
+bucket's length, as one process would pad it, and rank 0 gathers the
+n-best lists in order and writes them (aps_tpu_torch.parallel.
+sharded_map, over a gloo group on the host)."""
 
 import argparse
 import logging
+import os
 import sys
 import time
 
 import torch
 
+from aps_tpu_torch import distributed
 from aps_tpu_torch.io import AudioReader, io_wrapper
-from aps_tpu_torch.opts import DecodingParser
+from aps_tpu_torch.opts import DecodingParser, add_distributed_args
 from aps_tpu_torch.cmd.decode import (FasterDecoder, is_ngram, load_nn_lm,
                                       search_kwargs)
 from aps_tpu_torch.eval.asr import TextPostProcessor
+from aps_tpu_torch.parallel import sharded_map
 from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
 
 logger = logging.getLogger("aps_tpu_torch.decode_batch")
@@ -63,6 +73,12 @@ def run(args) -> dict:
             "NN LMs only (as aps_tpu, which has no batched n-gram path); "
             "decode with aps_tpu_torch.cmd.decode, or rescore the nbest "
             "with aps_tpu_torch.cmd.lm_rescore")
+    if args.data_parallel:
+        device = distributed.launch(args)
+        args.device_id = -1 if device.index is None else device.index
+    elif args.distributed != "none":
+        raise ValueError(f"--distributed {args.distributed} decodes with "
+                         "--data-parallel only")
     decoder = FasterDecoder(args.am, cpt_tag=args.am_tag,
                             device=args.device, device_id=args.device_id)
     with matmul_precision(INFERENCE_PRECISION, decoder.device):
@@ -79,7 +95,8 @@ def _decode(args, decoder: FasterDecoder) -> dict:
     processor = TextPostProcessor(args.dict, space=args.space,
                                   show_unk=args.show_unk, spm=args.spm)
     kwargs = search_kwargs(args)
-    stdout_top, top = io_wrapper(args.best, "w")
+    chief = distributed.rank() == 0
+    stdout_top, top = io_wrapper(args.best if chief else os.devnull, "w")
     stats = {"utts": 0, "audio_secs": 0.0, "decode_secs": 0.0,
              "batch_secs": [], "scores": {}}
     buckets = {}
@@ -88,8 +105,10 @@ def _decode(args, decoder: FasterDecoder) -> dict:
         if decoder.device.type == "cuda":
             torch.cuda.synchronize(decoder.device)
         start = time.perf_counter()
-        hyps = decoder.run_batch([s for _, s in entries], lm=lm,
-                                 pad_to=bucket, **kwargs)
+        hyps = sharded_map(
+            lambda rows, pad_to: decoder.run_batch(rows, lm=lm,
+                                                   pad_to=pad_to, **kwargs),
+            [s for _, s in entries], pad_to=bucket)
         stats["batch_secs"].append(time.perf_counter() - start)
         stats["decode_secs"] += stats["batch_secs"][-1]
         for (key, _), nbest in zip(entries, hyps):
@@ -131,6 +150,10 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--space", type=str, default="")
     parser.add_argument("--show-unk", type=str, default="<unk>")
     parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="Split each decode batch over the processes "
+                        "of --distributed, one a card")
+    add_distributed_args(parser)
     return parser
 
 
@@ -139,7 +162,9 @@ def main(argv=None) -> dict:
         logging.basicConfig(
             stream=sys.stderr, level=logging.INFO,
             format="%(asctime)s [%(name)s:%(lineno)d] %(message)s")
-    return run(make_parser().parse_args(argv))
+    stats = run(make_parser().parse_args(argv))
+    distributed.shutdown()
+    return stats
 
 
 if __name__ == "__main__":

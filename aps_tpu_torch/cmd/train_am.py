@@ -18,8 +18,8 @@ device, and one with att_dropout: 0 through the flash kernels."""
 import argparse
 import pprint
 
+from aps_tpu_torch import distributed
 from aps_tpu_torch.conf import dump_dict, load_am_conf
-from aps_tpu_torch.eval.wrapper import pick_device
 from aps_tpu_torch.libs import aps_asr_nnet, aps_transform, start_trainer
 from aps_tpu_torch.opts import TrainParser
 from aps_tpu_torch.utils import set_seed
@@ -27,7 +27,7 @@ from aps_tpu_torch.utils import set_seed
 
 def run(args):
     """Train as the arguments say; returns the trainer."""
-    device = pick_device(args.device, args.device_id)
+    device = distributed.launch(args)
     set_seed(args.seed)
     conf, vocab = load_am_conf(args.conf, args.dict)
     print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
@@ -43,7 +43,8 @@ def run(args):
     trainer = start_trainer(args.trainer, conf, nnet, args, device,
                             reduction_tag="#tok",
                             other_loader_conf={"vocab_dict": vocab})
-    dump_dict(f"{args.checkpoint}/dict", vocab, reverse=False)
+    if trainer.is_chief:
+        dump_dict(f"{args.checkpoint}/dict", vocab, reverse=False)
     return trainer
 
 
@@ -58,7 +59,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return run(make_parser().parse_args(argv))
+    trainer = run(make_parser().parse_args(argv))
+    distributed.shutdown()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ cpu asks for the CPU in so many words."""
 import argparse
 import pprint
 
+from aps_tpu_torch import distributed
 from aps_tpu_torch.conf import dump_dict, load_lm_conf
-from aps_tpu_torch.eval.wrapper import pick_device
 from aps_tpu_torch.libs import aps_asr_nnet, start_trainer
 from aps_tpu_torch.opts import TrainParser
 from aps_tpu_torch.utils import set_seed
@@ -23,7 +23,7 @@ from aps_tpu_torch.utils import set_seed
 
 def run(args):
     """Train as the arguments say; returns the trainer."""
-    device = pick_device(args.device, args.device_id)
+    device = distributed.launch(args)
     set_seed(args.seed)
     conf, vocab = load_lm_conf(args.conf, args.dict)
     print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
@@ -36,7 +36,8 @@ def run(args):
                                 "sos": conf["sos"],
                                 "eos": conf["eos"],
                             })
-    dump_dict(f"{args.checkpoint}/dict", vocab, reverse=False)
+    if trainer.is_chief:
+        dump_dict(f"{args.checkpoint}/dict", vocab, reverse=False)
     return trainer
 
 
@@ -51,7 +52,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return run(make_parser().parse_args(argv))
+    trainer = run(make_parser().parse_args(argv))
+    distributed.shutdown()
+    return trainer
 
 
 if __name__ == "__main__":

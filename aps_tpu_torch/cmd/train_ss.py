@@ -21,8 +21,8 @@ kernel."""
 import argparse
 import pprint
 
+from aps_tpu_torch import distributed
 from aps_tpu_torch.conf import load_ss_conf
-from aps_tpu_torch.eval.wrapper import pick_device
 from aps_tpu_torch.libs import aps_sse_nnet, aps_transform, start_trainer
 from aps_tpu_torch.opts import TrainParser
 from aps_tpu_torch.utils import set_seed
@@ -30,7 +30,7 @@ from aps_tpu_torch.utils import set_seed
 
 def run(args):
     """Train as the arguments say; returns the trainer."""
-    device = pick_device(args.device, args.device_id)
+    device = distributed.launch(args)
     set_seed(args.seed)
     conf = load_ss_conf(args.conf)
     print(f"Arguments in args:\n{pprint.pformat(vars(args))}", flush=True)
@@ -52,7 +52,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    return run(make_parser().parse_args(argv))
+    trainer = run(make_parser().parse_args(argv))
+    distributed.shutdown()
+    return trainer
 
 
 if __name__ == "__main__":

@@ -158,8 +158,10 @@ def start_trainer(trainer: str,
                   reduction_tag: str = "none",
                   other_loader_conf=None):
     """Assemble task + trainer + loaders from an experiment config and run
-    (port of aps_tpu/libs.py::start_trainer for one device). Returns the
-    trainer."""
+    (port of aps_tpu/libs.py::start_trainer). Returns the trainer. Data
+    parallel (aps_tpu_torch.distributed), as aps_tpu's: every rank builds
+    the same global loaders and the trainer takes the rank's rows of each
+    global batch; the chief alone writes train.yaml."""
     import os
 
     from aps_tpu_torch.conf import dump_conf
@@ -180,8 +182,9 @@ def start_trainer(trainer: str,
     # the assembled config beside the checkpoints rebuilds the model for
     # evaluation; JSON text that aps_tpu's YAML loader reads alike
     conf["cmd_args"] = vars(args)
-    with open(os.path.join(args.checkpoint, "train.yaml"), "w") as f:
-        f.write(dump_conf(conf))
+    if trn.is_chief:
+        with open(os.path.join(args.checkpoint, "train.yaml"), "w") as f:
+            f.write(dump_conf(conf))
 
     data_conf = conf["data_conf"]
     loader_conf = {

@@ -1,13 +1,19 @@
 #!/usr/bin/env python
 """Shared argparse parser parents of the port's commands (the port's own
 copy of the decoding and training parsers of aps_tpu/opts.py, with the
-same option names and defaults; the multi-host and tensorboard options are
-left out).
+same option names and defaults; the tensorboard option is left out).
 
 Devices. The port's commands run on the card: --device defaults to "cuda"
 and the command raises when torch sees no CUDA device. The CPU is used only
 when asked for in so many words, with --device cpu. --device-id picks the
-card (-1: card 0)."""
+card (-1: card 0; in a data-parallel run, the card of the rank's local
+rank).
+
+Data parallelism (add_distributed_args, aps_tpu's four flags): one process
+a device, each started with its own --process-id, all with the same
+--num-processes and --coordinator-address (host:port of rank 0);
+--distributed nccl for cards (one a rank), gloo for the CPU or for ranks
+that share a card (aps_tpu_torch.distributed)."""
 
 import argparse
 
@@ -33,6 +39,17 @@ def add_device_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device-id", type=int, default=-1,
                         help="Index of the card with --device cuda "
                         "(-1: card 0)")
+
+
+def add_distributed_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--distributed", type=str, default="none",
+                        choices=["none", "nccl", "gloo"],
+                        help="Join the processes of a data-parallel run "
+                        "through torch.distributed with this backend")
+    parser.add_argument("--coordinator-address", type=str, default="",
+                        help="host:port of process 0")
+    parser.add_argument("--num-processes", type=int, default=1)
+    parser.add_argument("--process-id", type=int, default=0)
 
 
 class TrainParser(object):
@@ -66,6 +83,7 @@ class TrainParser(object):
     parser.add_argument("--trainer", type=str, default="dp",
                         help="Registered trainer name")
     add_device_args(parser)
+    add_distributed_args(parser)
 
 
 class DecodingParser(object):

@@ -1,7 +1,13 @@
 #!/usr/bin/env python
 """ASR tasks (port of aps_tpu/task/asr.py: CtcTask "asr@ctc",
 CtcXentHybridTask "asr@ctc_xent", TransducerTask "asr@transducer",
-LmXentTask "asr@lm", compute_accu, prep_asr_label, load_label_count)."""
+LmXentTask "asr@lm", compute_accu, prep_asr_label, load_label_count).
+
+In a data-parallel step every denominator is the global batch's
+(aps_tpu_torch.task.objf): each term of a loss, and each reported stat
+("accu", "@ctc", "xent", "@ppl"), is this rank's share of the global
+value, so summing them over the ranks gives the one-process numbers; the
+CTC term and the cross-entropy term count their own tokens."""
 
 import warnings
 from typing import Dict, Optional
@@ -12,6 +18,7 @@ import torch.nn.functional as tf
 from torch import nn
 
 from aps_tpu_torch.const import IGNORE_ID
+from aps_tpu_torch.distributed import global_sum
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops.rnnt import rnnt_loss
 from aps_tpu_torch.task.base import Task
@@ -21,10 +28,12 @@ __all__ = ["CtcTask", "CtcXentHybridTask", "TransducerTask", "LmXentTask"]
 
 
 def compute_accu(dec_out: torch.Tensor, tgt_pad: torch.Tensor):
-    """Token accuracy over non-ignored positions -> (accu, total)."""
+    """Token accuracy over non-ignored positions -> (accu, total); in a
+    data-parallel step the total is the global batch's, so the ranks'
+    accuracies add up to the global one."""
     pred = dec_out.argmax(-1)
     mask = tgt_pad != IGNORE_ID
-    total = mask.sum()
+    total = global_sum(mask.sum())
     return ((pred == tgt_pad) & mask).sum() / total, total
 
 
@@ -166,8 +175,8 @@ class TransducerTask(ASRTask):
                                           self.blank)
         loss = rnnt_loss(dec_out, tgts, enc_len, egs["tgt_len"],
                          blank=self.blank, reduction="sum")
-        denorm = egs["tgt_len"].sum() if self.reduction == "mean" else \
-            dec_out.shape[0]
+        denorm = global_sum(egs["tgt_len"].sum() if self.reduction == "mean"
+                            else dec_out.shape[0], device=dec_out.device)
         return {"loss": loss / denorm}
 
 
@@ -192,5 +201,5 @@ class LmXentTask(ASRTask):
         loss = ce_objf(pred, egs["tgt"], reduction=self.reduction)
         accu, den = compute_accu(pred, egs["tgt"])
         ppl = loss if self.reduction == "mean" else \
-            loss * pred.shape[0] / den
+            loss * global_sum(pred.shape[0], device=pred.device) / den
         return {"accu": accu, "loss": loss, "@ppl": ppl}

@@ -9,7 +9,8 @@ covariances of the MVDR (aps_tpu_torch.asr.filter.mvdr.estimate_covar)
 times C, made Hermitian by (B + B^H) / 2. The log-determinant and the
 quadratic form x^H B_k^-1 x go through the port's clamped Hermitian
 Cholesky on complex64 (aps_tpu_torch.cplx), with every pivot at least
-eps, as aps_tpu's real-embedding Cholesky has them."""
+eps, as aps_tpu's real-embedding Cholesky has them. The mean of the loss
+is the global batch's in a data-parallel step."""
 
 import math
 from typing import Dict
@@ -19,6 +20,7 @@ import torch
 from aps_tpu_torch.asr.filter.mvdr import estimate_covar
 from aps_tpu_torch.const import EPSILON
 from aps_tpu_torch.cplx import logdet_hermitian, solve_hermitian
+from aps_tpu_torch.distributed import global_mean
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.task.base import Task
 
@@ -54,4 +56,4 @@ class MlEnhTask(Task):
         ps = self.log_pdf(ms, obs)
         pn = self.log_pdf(1 - ms, obs)
         log_pdf = torch.logaddexp(ps, pn) + math.log(0.5)
-        return {"loss": -log_pdf.mean()}
+        return {"loss": -global_mean(log_pdf)}

@@ -9,7 +9,13 @@ optax.ctc_loss (a library call outside any kernel on both sides). optax
 clamps an impossible alignment (a target longer than its input allows) at
 about 1e5 per utterance; PyTorch gives inf, which zero_infinity turns into 0
 with a zero gradient. A batch with such an utterance therefore differs
-between the two; every feasible batch agrees to float32 rounding."""
+between the two; every feasible batch agrees to float32 rounding.
+
+Every denominator (the tokens of "mean", the utterances of "batchmean",
+the entries of a mean) is the global batch's in a data-parallel step
+(aps_tpu_torch.distributed.global_sum and global_mean): each rank's loss
+is its rows' sum over the global count, so the ranks' gradients add up to
+the one-process gradient whatever rows each rank holds."""
 
 from itertools import permutations
 from typing import Any, Callable, List, Optional
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as tf
 
 from aps_tpu_torch.const import EPSILON, IGNORE_ID
+from aps_tpu_torch.distributed import global_mean, global_sum
 
 
 def _masked_targets(outs: torch.Tensor, tgts: torch.Tensor):
@@ -25,6 +32,12 @@ def _masked_targets(outs: torch.Tensor, tgts: torch.Tensor):
     safe = torch.where(mask, tgts, torch.zeros_like(tgts)).clamp(
         0, outs.shape[-1] - 1)
     return mask, safe
+
+
+def _denominator(mask: torch.Tensor, outs: torch.Tensor, reduction: str):
+    """The tokens ("mean") or the utterances of the global batch."""
+    return global_sum(mask.sum() if reduction == "mean" else outs.shape[0],
+                      device=outs.device)
 
 
 def ce_objf(outs: torch.Tensor, tgts: torch.Tensor,
@@ -35,7 +48,7 @@ def ce_objf(outs: torch.Tensor, tgts: torch.Tensor,
     logp = tf.log_softmax(outs, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     loss = (nll * mask).sum()
-    return loss / (mask.sum() if reduction == "mean" else outs.shape[0])
+    return loss / _denominator(mask, outs, reduction)
 
 
 def ls_objf(outs: torch.Tensor,
@@ -63,7 +76,7 @@ def ls_objf(outs: torch.Tensor,
     # KL(dist || softmax(outs))
     kld = (dist * (torch.log(dist.clamp_min(EPSILON)) - logp)).sum(-1)
     loss = (kld * mask).sum()
-    return loss / (mask.sum() if reduction == "mean" else outs.shape[0])
+    return loss / _denominator(mask, outs, reduction)
 
 
 def ctc_objf(outs: torch.Tensor,
@@ -82,7 +95,8 @@ def ctc_objf(outs: torch.Tensor,
     safe = torch.where(tgts == IGNORE_ID, torch.zeros_like(tgts), tgts)
     loss = tf.ctc_loss(logp.transpose(0, 1), safe, out_len, tgt_len,
                        blank=blank, reduction="sum", zero_infinity=True)
-    return loss / (tgt_len.sum() if reduction == "mean" else N)
+    return loss / global_sum(tgt_len.sum() if reduction == "mean" else N,
+                             device=outs.device)
 
 
 def _l2norm(mat: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -167,7 +181,7 @@ class DpclObjfComputer(object):
         weights = magnitude_mix / magnitude_mix.sum((-1, -2), keepdim=True)
         loss = dpcl_objf(embedding, classes, weights,
                          num_spks=magnitude_ref.shape[-1])
-        return loss.mean() if mean else loss
+        return global_mean(loss) if mean else loss
 
 
 def multiple_objf(inp: List[Any],
@@ -188,7 +202,7 @@ def multiple_objf(inp: List[Any],
         inp = [transform(i) for i in inp]
         ref = [transform(r) for r in ref]
     loss = sum(s * objf(o, r) for s, o, r in zip(weight, inp, ref))
-    return loss.mean() if batchmean else loss
+    return global_mean(loss) if batchmean else loss
 
 
 def permu_invarint_objf(inp: List[Any],
@@ -216,7 +230,7 @@ def permu_invarint_objf(inp: List[Any],
         [permu_objf(p) for p in permutations(range(num_spks))])
     loss, index = loss_mat.min(dim=0)
     if batchmean:
-        loss = loss.mean()
+        loss = global_mean(loss)
     if return_permutation:
         return loss, index
     return loss

@@ -19,7 +19,11 @@ mask loss, reported as "loss", "dpcl" and "mask".
 The complex tasks reduce the real and the imaginary parts of the
 complex64 spectra or masks as aps_tpu reduces its packed N x F x T x 2
 pairs: the distance of each part (and of the magnitudes, when asked) per
-bin, averaged over T and summed over F."""
+bin, averaged over T and summed over F.
+
+Every mean over the batch is the global batch's in a data-parallel step
+(aps_tpu_torch.distributed.global_mean): this rank's sum over the global
+count."""
 
 from typing import Dict, Optional, Tuple
 
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from aps_tpu_torch.const import EPSILON
+from aps_tpu_torch.distributed import global_mean
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.task.base import Task
 from aps_tpu_torch.task.objf import (DpclObjfComputer, hybrid_permu_objf,
@@ -98,7 +103,7 @@ class TimeDomainTask(SepTask):
                                  weight=self.branch_weight(),
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        return {"loss": loss.mean()}
+        return {"loss": global_mean(loss)}
 
 
 @ApsRegisters.task.register("sse@sisnr")
@@ -221,7 +226,7 @@ class FreqSaTask(SepTask):
                                  weight=self.branch_weight(),
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        mask_loss = loss.mean()
+        mask_loss = global_mean(loss)
         if self.dpcl_weight > 0 and hasattr(self.nnet, "dpcl_embed") \
                 and self.num_spks > 1:
             raw_mag = torch.stack([_magnitude(r) for r in ref_stft], -1)
@@ -317,7 +322,7 @@ class TimeSaTask(SepTask):
                                  weight=self.branch_weight(),
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        return {"loss": loss.mean()}
+        return {"loss": global_mean(loss)}
 
 
 @ApsRegisters.task.register("sse@time_linear_sa")
@@ -382,7 +387,7 @@ class ComplexMappingTask(SepTask):
                                  weight=self.branch_weight(),
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        return {"loss": loss.mean()}
+        return {"loss": global_mean(loss)}
 
     def forward(self, egs: Dict) -> Dict:
         mix, ref = egs["mix"], egs["ref"]

@@ -9,13 +9,15 @@ take no gradient and hold no optimizer state (requires_grad_(False)), it
 stays in eval mode whatever mode the task is put in, and its forward runs
 under torch.no_grad(). The loss is hybrid_permu_objf of the student's
 outputs against the teacher's, with the L1 or L2 distance summed over the
-last axis, as aps_tpu's (objf_name "L1"; any other name takes L2)."""
+last axis, as aps_tpu's (objf_name "L1"; any other name takes L2); its
+mean is the global batch's in a data-parallel step."""
 
 from typing import Dict
 
 import torch
 from torch import nn
 
+from aps_tpu_torch.distributed import global_mean
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.task.base import Task
 from aps_tpu_torch.task.objf import hybrid_permu_objf
@@ -69,4 +71,4 @@ class SseFreqTsTask(Task):
         loss = hybrid_permu_objf(list(out), list(ref), self.objf,
                                  permute=self.permute,
                                  permu_num_spks=self.num_spks)
-        return {"loss": loss.mean()}
+        return {"loss": global_mean(loss)}

@@ -50,9 +50,25 @@ written then. tensorboard: true writes the reports' scalars
 torch.utils.tensorboard.SummaryWriter into the checkpoint directory, and
 warns and goes on without it where that does not import.
 
-Refused when asked for (a ValueError), because the port runs on one card:
-tensor/sequence parallelism and a pipeline depth (aps_tpu's device
-mesh)."""
+Data parallelism, one process a device (aps_tpu_torch.distributed): the
+chief (rank 0) alone writes the checkpoints (and start_trainer's
+train.yaml); in a run of more than one process each rank logs to
+trainer.rank.<rank>.log, as aps_tpu, and trainer.log otherwise. Under a
+process group the generator above stays the same on every rank (the
+weight noise draws from it), while the modules' generator (speed
+perturbation, SpecAugment, schedule-sampling coins) and torch's global one
+(the dropouts) are seeded with seed + 1 + rank, so the ranks' rows get
+draws of their own.
+
+The step is the subclass's: dispatch_step runs one and returns the results
+(True, or False for a skipped step) of the steps finished by then, in
+order, each of which the error breaker sees once; drain() returns those
+still outstanding, and the loops call it before a report, a validation
+or a checkpoint. A subclass that reads each step's result at once
+(pipeline depth 1) returns it from dispatch_step.
+
+Refused when asked for (a ValueError): tensor and sequence parallelism
+(the tensor and sequence axes of aps_tpu's device mesh)."""
 
 import math
 import pickle
@@ -64,6 +80,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from aps_tpu_torch import distributed
 from aps_tpu_torch.trainer.lr import LrScheduler
 from aps_tpu_torch.trainer.ss import SsScheduler
 from aps_tpu_torch.utils import (TF32_PRECISIONS, SimpleTimer, get_logger,
@@ -107,12 +124,13 @@ class ProgressReporter(object):
                  metrics: List[str],
                  period: int = 100,
                  tensorboard: bool = False,
-                 reduction_tag: str = "none") -> None:
+                 reduction_tag: str = "none",
+                 rank: Optional[int] = None) -> None:
         self.period = period
         self.reduction_tag = reduction_tag
         checkpoint.mkdir(parents=True, exist_ok=True)
-        self.logger = get_logger((checkpoint / "trainer.log").as_posix(),
-                                 file=True)
+        name = "trainer.log" if rank is None else f"trainer.rank.{rank}.log"
+        self.logger = get_logger((checkpoint / name).as_posix(), file=True)
         self.header = "Trainer"
         self.board_writer = None
         if tensorboard:
@@ -266,12 +284,12 @@ class ErrorDetector(object):
         return self.counter >= self.stop_on_errors
 
 
-# trainer_conf keys of aps_tpu's device mesh, which the one-card port
-# leaves out for good: refused unless left at the value that turns them off
+# trainer_conf keys of aps_tpu's device mesh that the port does not have
+# (its tensor and sequence axes): refused unless left at the value that
+# turns them off
 _UNPORTED = {
     "tensor_parallel": 1,
     "sequence_parallel": False,
-    "pipeline_depth": 1,
 }
 
 
@@ -316,8 +334,9 @@ class Trainer(object):
                 raise ValueError(f"Unknown trainer option: {key}")
             if value != _UNPORTED[key] and value:
                 raise ValueError(
-                    f"trainer option {key}={value!r}: aps_tpu's device mesh "
-                    "is not part of the one-card port")
+                    f"trainer option {key}={value!r}: the tensor and "
+                    "sequence axes of aps_tpu's device mesh are not part of "
+                    "the port")
         if lr_scheduler_period not in ["epoch", "step"]:
             raise ValueError(
                 f"Unsupported lr_scheduler_period: {lr_scheduler_period}")
@@ -331,13 +350,18 @@ class Trainer(object):
         self.device = torch.device(device)
         self.task = task.to(self.device)
         self.checkpoint = Path(checkpoint)
+        self.data_parallel = distributed.initialized()
+        self.rank = distributed.rank()
+        self.world = distributed.world_size()
+        self.is_chief = self.rank == 0
         last_checkpoint = self.checkpoint / "last.ckpt"
         if last_checkpoint.exists():
             resume = last_checkpoint.as_posix()  # auto-resume
-        self.reporter = ProgressReporter(self.checkpoint, report_metrics,
-                                         period=prog_interval,
-                                         tensorboard=tensorboard,
-                                         reduction_tag=reduction_tag)
+        self.reporter = ProgressReporter(
+            self.checkpoint, report_metrics, period=prog_interval,
+            tensorboard=tensorboard and self.is_chief,
+            reduction_tag=reduction_tag,
+            rank=self.rank if self.world > 1 else None)
         self.weight_noise_std = weight_noise_std
         self.weight_noise_cfg = tuple(weight_noise_cfg)
         # trace the training steps [profile_steps) into `profile`
@@ -356,9 +380,17 @@ class Trainer(object):
             self.generator.manual_seed(self.seed)
         else:
             self.generator.seed()
+        draws = self.generator
+        if self.data_parallel:
+            draws = torch.Generator(device=self.device)
+            if self.seed >= 0:
+                draws.manual_seed(self.seed + 1 + self.rank)
+                torch.manual_seed(self.seed + 1 + self.rank)
+            else:
+                draws.seed()
         for module in self.task.modules():
             if hasattr(module, "generator"):
-                module.generator = self.generator
+                module.generator = draws
         mode = "max" if stop_criterion == "accu" else "min"
         self.stop_on = stop_criterion
         self.stop_detector = StopDetector(no_impr, mode=mode,
@@ -438,6 +470,8 @@ class Trainer(object):
         }
 
     def save_checkpoint(self, epoch: int, best: bool = True) -> None:
+        if not self.is_chief:
+            return
         blob = pickle.dumps(self.checkpoint_states(epoch))
         (self.checkpoint / "last.ckpt").write_bytes(blob)
         if best:
@@ -452,6 +486,14 @@ class Trainer(object):
     def train_one_step(self, egs: Dict) -> bool:
         """One optimizer step; False when the step was skipped."""
         raise NotImplementedError
+
+    def dispatch_step(self, egs: Dict) -> List[bool]:
+        """One step; the results of the steps finished by now, in order."""
+        return [self.train_one_step(egs)]
+
+    def drain(self) -> List[bool]:
+        """The results of the steps still outstanding, in order."""
+        return []
 
     def valid_one_step(self, egs: Dict) -> None:
         raise NotImplementedError
@@ -514,12 +556,18 @@ class Trainer(object):
 
     def _train_step(self, egs: Dict) -> None:
         self._profile_tick()
-        self._breaker(self.train_one_step(egs))
+        for succ in self.dispatch_step(egs):
+            self._breaker(succ)
         self.cur_step += 1
         if self.lr_scheduler_period == "step":
             self.lr_scheduler.step()
 
+    def _drain(self) -> None:
+        for succ in self.drain():
+            self._breaker(succ)
+
     def _eval_and_schedule(self, dev_loader) -> bool:
+        self._drain()
         self.valid_epoch(dev_loader)
         lr = self.lr_scheduler.get_lr()
         reports, logstr = self.reporter.report(self.cur_epoch, lr)
@@ -554,6 +602,7 @@ class Trainer(object):
                                eval_interval)
         else:
             self._run_in_epoch(trn_loader, dev_loader, num_epochs)
+        self._drain()
         if self._profiler is not None:
             self._stop_profile()
         self.reporter.log(
@@ -568,6 +617,7 @@ class Trainer(object):
             self.reporter.train()
             for egs in trn_loader:
                 self._train_step(egs)
+            self._drain()
             _, logstr = self.reporter.report(self.cur_epoch,
                                              self.lr_scheduler.get_lr())
             self.reporter.log(logstr)
@@ -589,6 +639,7 @@ class Trainer(object):
             for egs in trn_loader:
                 self._train_step(egs)
                 if self.cur_step % eval_interval == 0:
+                    self._drain()
                     _, logstr = self.reporter.report(
                         self.cur_epoch, self.lr_scheduler.get_lr())
                     self.reporter.log(logstr)

@@ -318,7 +318,8 @@ def test_port_imports_neither_jax_nor_aps_tpu():
                 "streaming_asr.transformer.encoder", "streaming_asr.ctc",
                 "streaming_asr.transducers", "rt_sse.base",
                 "rt_sse.enh.dfsmn", "rt_sse.enh.transformer", "deploy",
-                "cmd.export", "cmd.rt_ctc", "cmd.rt_enh"):
+                "cmd.export", "cmd.rt_ctc", "cmd.rt_enh", "distributed",
+                "parallel.mesh"):
         assert f"aps_tpu_torch.{new}" in names
     code = ("import importlib, sys\n"
             f"for name in {names!r}:\n"

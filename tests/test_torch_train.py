@@ -529,13 +529,20 @@ def test_trainer_refuses_what_is_not_ported(slice_pair, tmp_path):
         DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
                             matmul_precision="float16")
     # weight noise, profile and tensorboard are ported
-    # (tests/test_torch_trainer_opts.py holds them); the device mesh is
-    # left out of the one-card port for good
-    for key, value in (("tensor_parallel", 2), ("sequence_parallel", True),
-                       ("pipeline_depth", 2)):
+    # (tests/test_torch_trainer_opts.py holds them), and so are the data
+    # axis of the device mesh and the pipeline depth
+    # (tests/test_torch_distributed.py); its tensor and sequence axes are
+    # not
+    for key, value in (("tensor_parallel", 2), ("sequence_parallel", True)):
         with pytest.raises(ValueError, match=f"{key}=.*device mesh"):
             DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
                                 **{key: value})
+    assert DataParallelTrainer(copy.deepcopy(task), device="cpu",
+                               checkpoint=tmp_path,
+                               pipeline_depth=2).pipeline_depth == 2
+    with pytest.raises(ValueError, match="pipeline_depth 2 with acmu"):
+        DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
+                            pipeline_depth=2, acmu_gradient=2)
     # the values that turn those options off pass; schedule sampling is
     # ported (tests/test_torch_att_decode.py holds it)
     DataParallelTrainer(copy.deepcopy(task), device="cpu",
