@@ -74,8 +74,12 @@ class ApsMultiheadAttention(nn.Module):
                          self.head_dim)
 
     def _proj(self, x: torch.Tensor, part: int) -> torch.Tensor:
-        """One of the q (0), k (1), v (2) slices of the fused projection."""
+        """One of the q (0), k (1), v (2) slices of the fused projection
+        (of a column-parallel one: its forward_rows, parallel/tp.py)."""
         E = self.embed_dim
+        rows = getattr(self.in_proj, "forward_rows", None)
+        if rows is not None:
+            return rows(x, part * E, (part + 1) * E)
         return nn.functional.linear(
             x, self.in_proj.weight[part * E:(part + 1) * E],
             self.in_proj.bias[part * E:(part + 1) * E])

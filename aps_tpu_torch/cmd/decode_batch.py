@@ -24,7 +24,9 @@ one). A transducer decodes through its batched frame-synchronous search
 (with the LM, which must hold the blank id, or the command raises before
 the first batch); asr@ctc and streaming_asr@ctc one utterance after
 another through CtcApi, as in aps_tpu. The wall time of the decode loop is logged with the real-time factor
-and audio seconds per second.
+and audio seconds per second. As in aps_tpu, the wavs are read ahead on a
+background thread (aps_tpu_torch/eval/pipeline.py::prefetch_iter, two
+batches deep) while the card searches.
 
 --data-parallel (with --distributed and its flags, one process a card):
 every rank reads the whole scp and buckets it alike; each bucket's rows
@@ -47,6 +49,7 @@ from aps_tpu_torch.opts import DecodingParser, add_distributed_args
 from aps_tpu_torch.cmd.decode import (FasterDecoder, is_ngram, load_nn_lm,
                                       search_kwargs)
 from aps_tpu_torch.eval.asr import TextPostProcessor
+from aps_tpu_torch.eval.pipeline import prefetch_iter
 from aps_tpu_torch.parallel import sharded_map
 from aps_tpu_torch.utils import INFERENCE_PRECISION, matmul_precision
 
@@ -122,7 +125,10 @@ def _decode(args, decoder: FasterDecoder) -> dict:
         top.flush()
         logger.info(f"Processed {stats['utts']} utterances ...")
 
-    for key, src in src_reader:
+    # the next utterances are read on a background thread while the card
+    # searches (eval/pipeline.py); the lines keep the serial loop's order
+    for key, src in prefetch_iter(iter(src_reader),
+                                  depth=2 * args.batch_size):
         bucket = quantize_dur(src.shape[-1], base=args.sr)
         buckets.setdefault(bucket, []).append((key, src))
         stats["audio_secs"] += src.shape[-1] / args.sr

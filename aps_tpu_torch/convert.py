@@ -87,7 +87,7 @@ BatchNorm 1e-5). Module paths map segment by segment (MODULE_NAMES); an
 unmapped or left-over key on either side raises."""
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -369,10 +369,12 @@ def _to_tree(model: nn.Module, named_values, gradients: bool = False
     return tree
 
 
-def to_variables(model: nn.Module) -> Dict:
-    """The port model's weights and buffers -> aps_tpu variables tree of
-    numpy arrays."""
-    return _to_tree(model, model.state_dict().items())
+def to_variables(model: nn.Module, state: Optional[Dict] = None) -> Dict:
+    """The port model's weights and buffers (or `state`, a state_dict of
+    the model's keys: the whole weights of a tensor-parallel model) ->
+    aps_tpu variables tree of numpy arrays."""
+    return _to_tree(model, (model.state_dict() if state is None
+                            else state).items())
 
 
 def to_gradients(model: nn.Module) -> Dict:

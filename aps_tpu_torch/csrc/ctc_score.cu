@@ -99,11 +99,19 @@ static_assert(kChunks == 32 && kThreads / 32 == kLanes,
 
 // logaddexp on the fast exp2 and log2 units: log(1 + e) with e = exp(-|a -
 // b|) in (0, 1] is off by at most ~4e-7 absolute (log1pf(expf()), the
-// accurate pair, runs some forty dependent instructions)
+// accurate pair, runs some forty dependent instructions). A NaN operand
+// gives NaN, as torch.logaddexp: fmaxf returns the other operand, and
+// where that is -inf, a + b is NaN (and -inf for two -inf)
 __device__ __forceinline__ float log_add(float a, float b) {
   const float m = fmaxf(a, b);
-  if (m == -INFINITY) return m;
+  if (m == -INFINITY) return a + b;
   return m + __logf(1.f + __expf(-fabsf(a - b)));
+}
+
+// max(v, kMinF32) that keeps a NaN, as torch.clamp_min (fmaxf would
+// return the floor)
+__device__ __forceinline__ float floor_min(float v) {
+  return v > kMinF32 || v != v ? v : kMinF32;
 }
 
 // x -> (xx + x) (+) vx;  y -> (yx + x) (+) (yy + y) (+) vy
@@ -159,11 +167,16 @@ struct LogSum {
     }
   }
 
+  // m is never NaN (a NaN term fails a > m and goes into s); with no
+  // finite term s is 0, or NaN after a NaN term, and s * exp(-inf - mm)
+  // is 0 or NaN, as logsumexp keeps a NaN
   __device__ __forceinline__ void merge(float m2, float s2) {
     const float mm = fmaxf(m, m2);
-    if (mm == -INFINITY) return;
-    s = (m == -INFINITY ? 0.f : s * __expf(m - mm)) +
-        (m2 == -INFINITY ? 0.f : s2 * __expf(m2 - mm));
+    if (mm == -INFINITY) {
+      s += s2;
+      return;
+    }
+    s = s * __expf(m - mm) + s2 * __expf(m2 - mm);
     m = mm;
   }
 };
@@ -291,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) ctc_score_kernel(Args g) {
     smap[1][k][w] = cy;
     const int lw = blockIdx.x * kLanes + w;
     if (k == 0 && lw < g.L) {
-      float sc = fmaxf(total.m + logf(total.s), kMinF32);
+      float sc = floor_min(total.m + logf(total.s));
       const int cw = lw / (g.L / g.P);
       if (g.eos_mask[lw] > 0.f) {
         const size_t last = static_cast<size_t>(T - 1) * g.P + cw;
@@ -313,9 +326,8 @@ __global__ void __launch_bounds__(kThreads) ctc_score_kernel(Args g) {
     for (int i = 0; i < kGroup; ++i) {
       const int t = tb + i;
       const float a = in.a(cur, tb, i);
-      const float yn =
-          fmaxf(log_add(y + cur.pb[i], x + cur.pb[i]), kMinF32);
-      const float xn = fmaxf(log_add(x + cur.pc[i], a), kMinF32);
+      const float yn = floor_min(log_add(y + cur.pb[i], x + cur.pb[i]));
+      const float xn = floor_min(log_add(x + cur.pc[i], a));
       if (t < t1) {
         x = xn;
         y = yn;

@@ -35,6 +35,14 @@
 //      minus exact zeros), or the identity; the floored log; the N x T x M
 //      features are written. No frame and no spectrum reach device memory.
 //
+// Non-finite values keep the plain version's meaning. The log's floor
+// keeps a NaN (torch.clamp_min), where fmaxf would return the floor. A
+// frame with an inf or NaN sample has non-finite bins (each bin sums every
+// sample); the dense mel product multiplies them by the zero coefficients
+// outside each band, inf * 0 = NaN, so every band of such a frame is NaN:
+// step 4 marks the frames with a non-finite bin and step 5 writes NaN for
+// their bands. The identity (no mel matrix) keeps each bin's own value.
+//
 // Steps 3 and 4 run in float64. An FFT's rounding error is about the same
 // in every bin, a few float32 ulps of the frame's level, where the dense
 // DFT's error in a bin follows that bin's own partial sums. After
@@ -73,6 +81,9 @@ constexpr int kMaxFft = 4096;
 // hide.
 constexpr int kBufferBytes = 32768;
 constexpr int kMaxSmemBytes = 232448;  // a block's limit on sm_90
+// the static flags of step 4 (a frame with a non-finite bin) come out of
+// that limit
+constexpr int kMaxDynamicBytes = kMaxSmemBytes - 4 * kMaxFrames;
 
 struct Args {
   const float* wav;  // N x S
@@ -221,6 +232,11 @@ __global__ void __launch_bounds__(kThreads) fbank_fft_kernel(Args a) {
   const int t0 = blockIdx.x * frames;
   const int nf = min(frames, a.T - t0);
   const int tid = threadIdx.x;
+  // frames of the block with a non-finite bin (step 4 sets them)
+  __shared__ int bad[kMaxFrames];
+  static_assert(sizeof(bad) == kMaxSmemBytes - kMaxDynamicBytes,
+                "the static flags' bytes");
+  if (tid < kMaxFrames) bad[tid] = 0;
 
   // 1. the frames' span of samples, the twiddles and the window
   const float* x = a.wav + static_cast<size_t>(utt) * a.S +
@@ -281,7 +297,9 @@ __global__ void __launch_bounds__(kThreads) fbank_fft_kernel(Args a) {
     const double2 o = make_double2(0.5 * d.y, -0.5 * d.x);  // d / 2i
     const double2 X = cadd(e, cmul(tw[k], o));
     const float p = static_cast<float>(X.x * X.x + X.y * X.y);
-    spec[i] = a.use_power ? p : sqrtf(p + a.mag_eps);
+    const float v = a.use_power ? p : sqrtf(p + a.mag_eps);
+    if (!isfinite(v)) bad[f] = 1;
+    spec[i] = v;
   }
   __syncthreads();
 
@@ -302,8 +320,11 @@ __global__ void __launch_bounds__(kThreads) fbank_fft_kernel(Args a) {
     } else {
       acc = sf[m];
     }
-    out[i] = (a.log_lower_bound > 0.f) ? logf(a.log_lower_bound + acc)
-                                       : logf(fmaxf(acc, a.log_eps));
+    if (a.mel_bands != nullptr && bad[f]) acc = NAN;
+    // the floor as torch.clamp_min: a NaN stays NaN
+    out[i] = (a.log_lower_bound > 0.f)
+                 ? logf(a.log_lower_bound + acc)
+                 : logf(acc > a.log_eps || acc != acc ? acc : a.log_eps);
   }
 }
 
@@ -321,7 +342,7 @@ cudaError_t attributes() {
   if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   rc = cudaFuncSetAttribute(fbank_fft_kernel,
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            kMaxSmemBytes);
+                            kMaxDynamicBytes);
   if (rc == cudaSuccess && known) {
     done[dev].store(true, std::memory_order_release);
   }
@@ -374,7 +395,9 @@ extern "C" int aps_fused_logmel(const float* wav, int N, int S, int T,
   }
   const int frames = frames_of(fft_size);
   const size_t smem = smem_bytes(frames, fft_size, W, hop);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > static_cast<size_t>(kMaxDynamicBytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t rc = attributes();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const Args a{wav, S, T, window, W, hop, fft_size,

@@ -20,7 +20,21 @@ rows are split over the ranks with `sharded()`; inside it,
 global_sum(value) sums a count over the ranks (the denominators of the
 tasks' losses) and step_group() names the group (the batch norms take
 their statistics over the global batch), and outside it both act as for
-one process, with no collective."""
+one process, with no collective.
+
+Tensor parallelism (aps_tpu's "model" mesh axis): init_model_parallel(tp)
+splits the world into data x model ranks in the order of aps_tpu's
+build_mesh (devices reshaped to (data, model)): rank r has data index
+r // tp and model index r % tp. The model group holds the ranks of one
+data index (they hold slices of the same weights and compute the same
+rows), the data group the ranks of one model index (they hold the same
+slices and split the batch's rows); sharded() and global_sum then act
+over the data group. gather_slices and copy_to_model are the autograd
+Functions of the column-parallel layers (aps_tpu_torch/parallel/tp.py)
+and of the sequence-parallel front end: the gather is an all-reduce of a
+zero-filled full buffer in which each rank writes its own slice (x + 0 is
+x, so the gather is exact), one code path for every backend: gloo takes
+CUDA tensors for all_reduce and broadcast only."""
 
 import contextlib
 import datetime
@@ -37,6 +51,8 @@ TIMEOUT = 300.0
 BACKEND = "none"
 _HOST_GROUP = None
 _SHARDED = None
+# init_model_parallel's size and groups: (tp, model group, data group)
+_LAYOUT = (1, None, None)
 
 
 def init(backend: str = "none",
@@ -72,10 +88,10 @@ def init(backend: str = "none",
 
 def shutdown() -> None:
     """Leave the process group (after init)."""
-    global BACKEND, _HOST_GROUP
+    global BACKEND, _HOST_GROUP, _LAYOUT
     if dist.is_initialized():
         dist.destroy_process_group()
-    BACKEND, _HOST_GROUP = "none", None
+    BACKEND, _HOST_GROUP, _LAYOUT = "none", None, (1, None, None)
 
 
 def initialized() -> bool:
@@ -151,16 +167,128 @@ def gather_objects(obj: Any) -> List[Any]:
     return out
 
 
+def init_model_parallel(tp: int) -> None:
+    """Split the world into data x model ranks, `tp` model ranks a data
+    index (the order of aps_tpu's build_mesh), and make the two families
+    of subgroups (every rank makes every group, in the same order). tp 1
+    leaves one model rank a data index. A world that tp does not divide
+    raises a ValueError."""
+    global _LAYOUT
+    world = world_size()
+    if tp < 1 or world % tp:
+        raise ValueError(f"tensor_parallel {tp} does not divide the "
+                         f"{world} process(es) of the run")
+    if tp == _LAYOUT[0]:
+        return
+    if tp == 1:
+        _LAYOUT = (1, None, None)
+        return
+    wait = datetime.timedelta(seconds=TIMEOUT)
+    data = world // tp
+    model_group = data_group = None
+    for d in range(data):
+        group = dist.new_group([d * tp + m for m in range(tp)], timeout=wait)
+        if d == rank() // tp:
+            model_group = group
+    for m in range(tp):
+        group = dist.new_group([d * tp + m for d in range(data)],
+                               timeout=wait)
+        if m == rank() % tp:
+            data_group = group
+    _LAYOUT = (tp, model_group, data_group)
+
+
+def model_index() -> int:
+    """This rank's index on the model axis."""
+    return rank() % _LAYOUT[0]
+
+
+def data_index() -> int:
+    """This rank's index on the data axis."""
+    return rank() // _LAYOUT[0]
+
+
+def data_parallel_size() -> int:
+    return world_size() // _LAYOUT[0]
+
+
+def model_group():
+    """The ranks of this rank's data index (None without tensor
+    parallelism)."""
+    return _LAYOUT[1]
+
+
+def data_group():
+    """The ranks of this rank's model index: the whole run without tensor
+    parallelism."""
+    if _LAYOUT[2] is not None:
+        return _LAYOUT[2]
+    return dist.group.WORLD if initialized() else None
+
+
+class _GatherSlices(torch.autograd.Function):
+    """x, this rank's slice [lo, hi) of a tensor's axis `dim` of `total`
+    entries, -> the whole tensor on every rank of `group`; the backward
+    gives the rank its own slice of the whole tensor's gradient (the work
+    after the gather is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, lo, hi, total, group):
+        shape = list(x.shape)
+        shape[dim] = total
+        out = x.new_zeros(shape)
+        out.narrow(dim, lo, hi - lo).copy_(x)
+        dist.all_reduce(out, group=group)
+        ctx.dim, ctx.lo, ctx.hi = dim, lo, hi
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.lo, ctx.hi - ctx.lo).contiguous(),
+                None, None, None, None, None)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity into a column-parallel product; the backward sums the
+    input's gradient over `group` (each rank's slice of the product gives
+    a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def gather_slices(x: torch.Tensor, dim: int, lo: int, hi: int, total: int,
+                  group) -> torch.Tensor:
+    """The whole tensor from every rank's slice [lo, hi) of axis `dim`
+    (autograd: the backward takes the own slice of the gradient)."""
+    dim = dim % x.dim()
+    return _GatherSlices.apply(x, dim, lo, hi, total, group)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is; its gradient summed over `group` in the backward."""
+    return _CopyToModel.apply(x, group)
+
+
 @contextlib.contextmanager
 def sharded(group=None):
     """Mark work on this rank's rows of a global batch (the data-parallel
     trainer's steps): global_sum and step_group act over `group` (default:
-    the whole run) inside. A no-op for one process without init."""
+    the data group, the whole run without tensor parallelism) inside. A
+    no-op for one process without init."""
     global _SHARDED
     if not initialized():
         yield
         return
-    prev, _SHARDED = _SHARDED, group or dist.group.WORLD
+    prev, _SHARDED = _SHARDED, group or data_group()
     try:
         yield
     finally:

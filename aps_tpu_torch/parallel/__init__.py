@@ -1,4 +1,6 @@
-from aps_tpu_torch.parallel.mesh import (fit_batch_to_mesh, rank_rows,
-                                         sharded_map)
+from aps_tpu_torch.parallel.mesh import (SeqSplit, fit_batch_to_mesh,
+                                         rank_rows, sharded_map,
+                                         tp_param_shardings)
 
-__all__ = ["fit_batch_to_mesh", "rank_rows", "sharded_map"]
+__all__ = ["SeqSplit", "fit_batch_to_mesh", "rank_rows", "sharded_map",
+           "tp_param_shardings"]

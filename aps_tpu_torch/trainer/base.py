@@ -57,18 +57,28 @@ trainer.rank.<rank>.log, as aps_tpu, and trainer.log otherwise. Under a
 process group the generator above stays the same on every rank (the
 weight noise draws from it), while the modules' generator (speed
 perturbation, SpecAugment, schedule-sampling coins) and torch's global one
-(the dropouts) are seeded with seed + 1 + rank, so the ranks' rows get
-draws of their own.
+(the dropouts) are seeded with seed + 1 + the rank's data index, so the
+rows of each data index get draws of their own and the model ranks of one
+data index, which compute the same rows, draw alike.
+
+tensor_parallel (aps_tpu's "model" mesh axis): the world is data x model
+ranks, tensor_parallel model ranks a data index
+(distributed.init_model_parallel; a world that it does not divide raises
+a ValueError). The dp trainer swaps the large weights for column-parallel
+slices (aps_tpu_torch/parallel/tp.py) and splits the batch over the data
+axis only. sequence_parallel (with tensor_parallel above 1 only, as in
+aps_tpu): the model ranks of a data index split the frames of the
+frame-local front end (the STFT and K1) of every transform that has one
+(`seq_split`) and gather them; a model without one computes the whole
+input on every rank, which the trainer logs once. Neither changes a
+result, as in aps_tpu.
 
 The step is the subclass's: dispatch_step runs one and returns the results
 (True, or False for a skipped step) of the steps finished by then, in
 order, each of which the error breaker sees once; drain() returns those
 still outstanding, and the loops call it before a report, a validation
 or a checkpoint. A subclass that reads each step's result at once
-(pipeline depth 1) returns it from dispatch_step.
-
-Refused when asked for (a ValueError): tensor and sequence parallelism
-(the tensor and sequence axes of aps_tpu's device mesh)."""
+(pipeline depth 1) returns it from dispatch_step."""
 
 import math
 import pickle
@@ -81,6 +91,7 @@ import numpy as np
 import torch
 
 from aps_tpu_torch import distributed
+from aps_tpu_torch.parallel import SeqSplit
 from aps_tpu_torch.trainer.lr import LrScheduler
 from aps_tpu_torch.trainer.ss import SsScheduler
 from aps_tpu_torch.utils import (TF32_PRECISIONS, SimpleTimer, get_logger,
@@ -284,15 +295,6 @@ class ErrorDetector(object):
         return self.counter >= self.stop_on_errors
 
 
-# trainer_conf keys of aps_tpu's device mesh that the port does not have
-# (its tensor and sequence axes): refused unless left at the value that
-# turns them off
-_UNPORTED = {
-    "tensor_parallel": 1,
-    "sequence_parallel": False,
-}
-
-
 class Trainer(object):
     """Owns the scheduler, reporter, checkpoint IO and the epoch loops; the
     step is the subclass's (train_one_step / valid_one_step)."""
@@ -328,15 +330,11 @@ class Trainer(object):
                  tensorboard: bool = False,
                  profile: str = "",
                  profile_steps: Sequence[int] = (10, 15),
+                 tensor_parallel: int = 1,
+                 sequence_parallel: bool = False,
                  **kwargs) -> None:
-        for key, value in kwargs.items():
-            if key not in _UNPORTED:
-                raise ValueError(f"Unknown trainer option: {key}")
-            if value != _UNPORTED[key] and value:
-                raise ValueError(
-                    f"trainer option {key}={value!r}: the tensor and "
-                    "sequence axes of aps_tpu's device mesh are not part of "
-                    "the port")
+        for key in kwargs:
+            raise ValueError(f"Unknown trainer option: {key}")
         if lr_scheduler_period not in ["epoch", "step"]:
             raise ValueError(
                 f"Unsupported lr_scheduler_period: {lr_scheduler_period}")
@@ -354,6 +352,13 @@ class Trainer(object):
         self.rank = distributed.rank()
         self.world = distributed.world_size()
         self.is_chief = self.rank == 0
+        # the model axis: tp model ranks a data index
+        self.tp = int(tensor_parallel)
+        distributed.init_model_parallel(self.tp)
+        self.data_index = distributed.data_index()
+        self.model_index = distributed.model_index()
+        self.data_size = distributed.data_parallel_size()
+        self.sequence_parallel = bool(sequence_parallel) and self.tp > 1
         last_checkpoint = self.checkpoint / "last.ckpt"
         if last_checkpoint.exists():
             resume = last_checkpoint.as_posix()  # auto-resume
@@ -384,13 +389,24 @@ class Trainer(object):
         if self.data_parallel:
             draws = torch.Generator(device=self.device)
             if self.seed >= 0:
-                draws.manual_seed(self.seed + 1 + self.rank)
-                torch.manual_seed(self.seed + 1 + self.rank)
+                draws.manual_seed(self.seed + 1 + self.data_index)
+                torch.manual_seed(self.seed + 1 + self.data_index)
             else:
                 draws.seed()
         for module in self.task.modules():
             if hasattr(module, "generator"):
                 module.generator = draws
+        if self.sequence_parallel:
+            split = SeqSplit(self.model_index, self.tp,
+                             distributed.model_group())
+            fronts = [m for m in self.task.modules()
+                      if hasattr(m, "seq_split")]
+            for module in fronts:
+                module.seq_split = split
+            if not fronts:
+                self.reporter.log(
+                    "Sequence parallel: the model has no frame-local front "
+                    "end, so every model rank computes the whole input")
         mode = "max" if stop_criterion == "accu" else "min"
         self.stop_on = stop_criterion
         self.stop_detector = StopDetector(no_impr, mode=mode,
@@ -470,9 +486,14 @@ class Trainer(object):
         }
 
     def save_checkpoint(self, epoch: int, best: bool = True) -> None:
+        # the chief, with its model group under tensor parallelism, which
+        # gathers the sharded weights for it
+        if self.data_index != 0:
+            return
+        states = self.checkpoint_states(epoch)
         if not self.is_chief:
             return
-        blob = pickle.dumps(self.checkpoint_states(epoch))
+        blob = pickle.dumps(states)
         (self.checkpoint / "last.ckpt").write_bytes(blob)
         if best:
             (self.checkpoint / "best.ckpt").write_bytes(blob)

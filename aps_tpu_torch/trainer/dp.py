@@ -48,10 +48,34 @@ run on them unchanged, deciding alike on every rank. At the start, rank
 batch without trimming it and sums the ranks' stats, so it sees every
 utterance. The chief alone writes checkpoints (trainer.base).
 
+Tensor parallelism (tensor_parallel tp above 1, aps_tpu's "model" mesh
+axis; the rank layout in aps_tpu_torch/parallel/mesh.py): after the
+weights are loaded and broadcast, the large weights are swapped for
+column-parallel slices (parallel/tp.py::shard_model); the optimizer and
+its state act on the slices. A training batch is trimmed to a multiple
+of the whole world (data x model ranks), as aps_tpu trims it to its
+device count, and split over the data axis; a batch smaller than the
+world is whole on every rank. The gradients of the replicated leaves are
+the same on every model rank of a data index (the work after each gather
+is); they are broadcast from model rank 0 so that a kernel's
+non-deterministic backward cannot part the replicas. The gradients and
+the stats are then summed over the data group. The global norm adds the
+replicated leaves once and the sharded slices' squares summed over the
+model group. Checkpoints keep aps_tpu's layout: the chief's model group
+gathers every sharded weight and its optimizer state (and accumulated
+gradient) before the chief writes, and a resume under tensor_parallel
+slices them again; a checkpoint written under tensor_parallel loads in
+one process, and in aps_tpu. Weight noise draws the whole weight's shape
+from the shared generator and takes the rank's slice, so the noise is
+the one process's.
+
 pipeline_depth (aps_tpu's pipelined dispatch, dispatch_step): with d above
 1, up to d steps run before the host reads a finite flag; a non-finite
-step is undone on the device. With accumulation (acmu_gradient above 1)
-it is refused."""
+step is undone on the device: the step's snapshot of the parameters, the
+optimizer's tensor state and the buffers is one flat buffer a (device,
+dtype) group, restored by one torch.where a group and torch._foreach_copy_
+(a few tens of launches a step, not one a tensor). With accumulation
+(acmu_gradient above 1) it is refused."""
 
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -65,6 +89,7 @@ from aps_tpu_torch import distributed
 from aps_tpu_torch.convert import to_state_dict, to_variables
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.parallel import fit_batch_to_mesh, rank_rows
+from aps_tpu_torch.parallel import tp
 from aps_tpu_torch.trainer.base import Trainer
 from aps_tpu_torch.utils import matmul_precision
 
@@ -206,11 +231,38 @@ def _shapes(egs: Dict) -> List[Tuple[int, ...]]:
     return out
 
 
-def _map_state(state: Dict, kind, fn) -> Dict:
-    """fn over the leaves of type `kind` of an optimizer's per-parameter
-    state."""
-    return {idx: {k: fn(v) if isinstance(v, kind) else v
-                  for k, v in st.items()} for idx, st in state.items()}
+def _flat_collective(tensors: List[torch.Tensor], op) -> None:
+    """op(flat) in place on one flat copy of the tensors a dtype, copied
+    back into them."""
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = _flatten_dense_tensors(group)
+        op(flat)
+        for t, val in zip(group, _unflatten_dense_tensors(flat, group)):
+            t.copy_(val)
+
+
+class _Snapshot(object):
+    """Copies of tensors as one flat buffer a (device, dtype) group:
+    restore() copies them back, restore(keep) only where the 0-d flag
+    keep is false (torch.where(keep, now, then) a group), in one
+    torch._foreach_copy_ a group."""
+
+    def __init__(self, tensors: List[torch.Tensor]):
+        self.groups = {}
+        for t in tensors:
+            self.groups.setdefault((t.device, t.dtype), []).append(t)
+        self.flats = {key: torch.cat([t.reshape(-1) for t in group])
+                      for key, group in self.groups.items()}
+
+    @torch.no_grad()
+    def restore(self, keep: Optional[torch.Tensor] = None) -> None:
+        for key, group in self.groups.items():
+            old = self.flats[key]
+            if keep is not None:
+                now = torch.cat([t.reshape(-1) for t in group])
+                old = torch.where(keep.to(old.device), now, old)
+            torch._foreach_copy_(group, _unflatten_dense_tensors(old, group))
 
 
 @ApsRegisters.trainer.register("dp")
@@ -227,6 +279,22 @@ class DataParallelTrainer(Trainer):
                 f"pipeline_depth {pipeline_depth} with acmu_gradient "
                 f"{self.acmu_gradient}: the port pipelines whole steps only")
         self._in_flight = deque()
+        if self.cpt_stats is not None:
+            self._load_weights(self.cpt_stats)
+        if self.data_parallel:
+            self._broadcast_state()
+            self.reporter.log(f"Data parallel: rank {self.rank} of "
+                              f"{self.world} ({distributed.BACKEND})")
+        # the sharded parameters' {name: axis} (none without TP)
+        self.tp_plan = {}
+        if self.tp > 1:
+            self.tp_plan = tp.shard_model(self.task.nnet, self.model_index,
+                                          self.tp, distributed.model_group())
+            self.reporter.log(
+                f"Tensor parallel: data {self.data_size} x model {self.tp}, "
+                f"rank {self.rank} at data {self.data_index}, model "
+                f"{self.model_index}; {len(self.tp_plan)} weights sharded"
+                + (", sequence parallel" if self.sequence_parallel else ""))
         self.params = [p for p in self.task.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.optimizer_name, self.params,
                                         self.optimizer_kwargs,
@@ -235,18 +303,14 @@ class DataParallelTrainer(Trainer):
         self.acc_grads = [torch.zeros_like(p) for p in self.params] \
             if self.acmu_gradient > 1 else None
         self.mini_step = 0
-        if self.cpt_stats is not None:
-            self._load_states(self.cpt_stats)
+        if self.cpt_stats is not None and self.init_mode != "init":
+            self._load_optimizer(self.cpt_stats)
         if self.pipeline_depth > 1 and self.device.type == "cuda":
             _on_device_steps(self.optimizer)
-        if self.data_parallel:
-            self._broadcast_state()
-            self.reporter.log(f"Data parallel: rank {self.rank} of "
-                              f"{self.world} ({distributed.BACKEND})")
         num_params = sum(p.numel() for p in self.params) / 1e6
         self.reporter.log(f"#param: {num_params:.2f}M on {self.device}")
 
-    def _load_states(self, cpt: Dict) -> None:
+    def _load_weights(self, cpt: Dict) -> None:
         params = cpt["params"]
         variables = {"params": params.get("nnet", params)}
         for col, tree in cpt.get("mstate", {}).items():
@@ -263,45 +327,75 @@ class DataParallelTrainer(Trainer):
                               "tensors")
             return
         nnet.load_state_dict(to_state_dict(variables, nnet))
+
+    def _local(self, idx: int, val: torch.Tensor) -> torch.Tensor:
+        """A whole tensor of parameter idx's shape -> this rank's slice
+        (the tensor itself for a replicated parameter or another shape)."""
+        shard = tp.shard_of(self.params[idx])
+        if shard is None or val.dim() != 2 or \
+                val.shape[shard.axis] != shard.total:
+            return val
+        return tp.local(val, shard)
+
+    def _full(self, idx: int, val: torch.Tensor) -> torch.Tensor:
+        """The inverse of _local (a collective over the model group)."""
+        shard = tp.shard_of(self.params[idx])
+        if shard is None or tuple(val.shape) != tuple(self.params[idx].shape):
+            return val
+        return tp.full(val, shard)
+
+    def _load_optimizer(self, cpt: Dict) -> None:
+        """The optimizer's state and the accumulated gradient of a resumed
+        checkpoint (whole tensors: sliced under tensor parallelism)."""
         if "torch_opt_state" in cpt:
             opt = dict(cpt["torch_opt_state"])
-            opt["state"] = _map_state(
-                opt["state"], np.ndarray,
-                lambda v: torch.from_numpy(np.array(v)))
+            opt["state"] = {idx: {k: self._local(
+                idx, torch.from_numpy(np.array(v)))
+                if isinstance(v, np.ndarray) else v for k, v in st.items()}
+                for idx, st in opt["state"].items()}
             self.optimizer.load_state_dict(opt)
         if "torch_acmu_state" in cpt and self.acc_grads is not None:
             acmu = cpt["torch_acmu_state"]
             self.mini_step = int(acmu["mini_step"])
-            for acc, val in zip(self.acc_grads, acmu["acc_grads"]):
-                acc.copy_(torch.from_numpy(np.asarray(val)))
+            for idx, (acc, val) in enumerate(zip(self.acc_grads,
+                                                 acmu["acc_grads"])):
+                acc.copy_(self._local(idx, torch.from_numpy(np.asarray(val))))
+
+    def variables(self) -> Dict:
+        """The task's weights and buffers as aps_tpu's variables tree,
+        the sharded weights whole (under tensor parallelism a collective
+        over the model group)."""
+        nnet = self.task.nnet
+        if not self.tp_plan:
+            return to_variables(nnet)
+        return to_variables(nnet, tp.full_state_dict(nnet))
 
     def checkpoint_states(self, epoch: int) -> Dict:
         stats = super(DataParallelTrainer, self).checkpoint_states(epoch)
-        variables = to_variables(self.task.nnet)
+        variables = self.variables()
         stats["params"] = {"nnet": variables.pop("params")}
         stats["mstate"] = {col: {"nnet": tree}
                            for col, tree in variables.items()}
         # the moments as numpy arrays, like every other tree of the file
         opt = self.optimizer.state_dict()
-        opt["state"] = _map_state(opt["state"], torch.Tensor,
-                                  lambda v: v.cpu().numpy())
+        opt["state"] = {idx: {k: self._full(idx, v).cpu().numpy()
+                              if isinstance(v, torch.Tensor) else v
+                              for k, v in st.items()}
+                        for idx, st in opt["state"].items()}
         stats["torch_opt_state"] = opt
         if self.acc_grads is not None:
             stats["torch_acmu_state"] = {
                 "mini_step": self.mini_step,
-                "acc_grads": [a.cpu().numpy() for a in self.acc_grads]}
+                "acc_grads": [self._full(i, a).cpu().numpy()
+                              for i, a in enumerate(self.acc_grads)]}
         return stats
 
     def _broadcast_state(self) -> None:
         """Rank 0's parameters and buffers on every rank (one broadcast a
         dtype), so the replicas start equal whatever each rank drew."""
-        tensors = list(self.task.state_dict(keep_vars=True).values())
-        for dtype in sorted({t.dtype for t in tensors}, key=str):
-            group = [t.data for t in tensors if t.dtype == dtype]
-            flat = _flatten_dense_tensors(group)
-            dist.broadcast(flat, src=0)
-            for t, val in zip(group, _unflatten_dense_tensors(flat, group)):
-                t.copy_(val)
+        tensors = [t.data for t in self.task.state_dict(
+            keep_vars=True).values()]
+        _flat_collective(tensors, lambda flat: dist.broadcast(flat, src=0))
 
     def _split_egs(self, egs: Dict, train: bool = False) -> Tuple[Dict, Dict]:
         """(host stats such as #utt / #tok, device tensors). Data
@@ -315,17 +409,38 @@ class DataParallelTrainer(Trainer):
                 if not isinstance(v, (np.ndarray, torch.Tensor, list))}
         dev = {k: v for k, v in egs.items() if k not in host}
         if self.data_parallel:
-            dev = rank_rows(dev, self.rank, self.world)
+            dev = rank_rows(dev, self.data_index, self.data_size,
+                            whole_below=self.world)
         return host, to_device(dev, self.device)
 
     def _sum_over_ranks(self, tensors: List[torch.Tensor]) -> None:
-        """All-reduce (sum) the tensors in place, one collective a dtype."""
-        for dtype in sorted({t.dtype for t in tensors}, key=str):
-            group = [t for t in tensors if t.dtype == dtype]
-            flat = _flatten_dense_tensors(group)
-            dist.all_reduce(flat)
-            for t, val in zip(group, _unflatten_dense_tensors(flat, group)):
-                t.copy_(val)
+        """All-reduce (sum) the tensors in place over the data group, one
+        collective a dtype."""
+        group = distributed.data_group()
+        _flat_collective(tensors,
+                         lambda flat: dist.all_reduce(flat, group=group))
+
+    def _sync_replicated(self) -> None:
+        """Model rank 0's gradients of the replicated leaves on every model
+        rank of its data index (one broadcast a dtype)."""
+        grads = [p.grad for p in self.params if tp.shard_of(p) is None]
+        src, group = self.data_index * self.tp, distributed.model_group()
+        _flat_collective(grads, lambda flat: dist.broadcast(
+            flat, src=src, group=group))
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the gradients of self.params; under tensor
+        parallelism the replicated leaves once and the slices' squares
+        summed over the model group."""
+        if not self.tp_plan:
+            return global_norm(grads)
+        shards = [tp.shard_of(p) is not None for p in self.params]
+        rep = sum((g.detach()**2).sum()
+                  for g, s in zip(grads, shards) if not s)
+        part = sum((g.detach()**2).sum() for g, s in zip(grads, shards) if s)
+        part = torch.as_tensor(part, device=self.device).clone()
+        dist.all_reduce(part, group=distributed.model_group())
+        return torch.sqrt(rep + part)
 
     def _global_stats(self, stats: Dict) -> Dict:
         """The stats of the global batch: each rank's share summed."""
@@ -364,10 +479,18 @@ class DataParallelTrainer(Trainer):
     def draw_weight_noise(self) -> List[torch.Tensor]:
         """A standard normal draw of each trainable parameter's shape, from
         the trainer's generator on its device (a check may replace this to
-        feed in draws of its own)."""
-        return [torch.randn(p.shape, generator=self.generator,
-                            device=p.device, dtype=p.dtype)
-                for p in self.params]
+        feed in draws of its own); a sharded parameter takes its slice of
+        a draw of the whole weight's shape."""
+        draws = []
+        for p in self.params:
+            shard = tp.shard_of(p)
+            shape = list(p.shape)
+            if shard is not None:
+                shape[shard.axis] = shard.total
+            draw = torch.randn(shape, generator=self.generator,
+                               device=p.device, dtype=p.dtype)
+            draws.append(draw if shard is None else tp.local(draw, shard))
+        return draws
 
     def _forward_backward(self, dev: Dict) -> Optional[Dict]:
         """The task's stats and the parameters' gradients on the rank's
@@ -399,19 +522,21 @@ class DataParallelTrainer(Trainer):
         if self.data_parallel:
             stats = {k: torch.as_tensor(v, device=self.device).detach()
                      for k, v in stats.items()}
+            if self.tp_plan:
+                self._sync_replicated()
             self._sum_over_ranks([p.grad for p in self.params] +
                                  list(stats.values()))
         return stats
 
     def _start_step(self, egs: Dict):
-        """The batch split, the task in training mode, copies of the
-        buffers (batch-norm statistics) and, on a weight-noise step, of
-        the clean parameters before the noise is added."""
+        """The batch split, the task in training mode, a snapshot of the
+        buffers (batch-norm statistics) and, on a weight-noise step,
+        copies of the clean parameters before the noise is added."""
         host, dev = self._split_egs(egs, train=True)
         dev["#ssr"] = self.ssr
         self.task.train()
         buffers = [b for b in self.task.buffers()]
-        saved = [b.clone() for b in buffers]
+        saved = _Snapshot(buffers)
         clean = None
         if self.weight_noise_now():
             clean = [p.detach().clone() for p in self.params]
@@ -423,9 +548,8 @@ class DataParallelTrainer(Trainer):
     def _skip_oom(self, dev, buffers, saved, clean) -> None:
         """As aps_tpu when its train state survived the OOM: the batch
         dropped, buffers and parameters (the noise taken off) as before."""
+        saved.restore()
         with torch.no_grad():
-            for b, old in zip(buffers, saved):
-                b.copy_(old)
             for p, old in zip(self.params, clean or []):
                 p.copy_(old)
         self.reporter.log(f"Step {self.cur_step}: device OOM on batch "
@@ -439,18 +563,16 @@ class DataParallelTrainer(Trainer):
             return False
         loss = stats["loss"]
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.global_norm(grads)
         if not bool(torch.isfinite(loss) & torch.isfinite(norm)):
-            with torch.no_grad():
-                for b, old in zip(buffers, saved):
-                    b.copy_(old)
+            saved.restore()
             self.reporter.log(
                 f"Step {self.cur_step}: non-finite loss/grad, skipped")
             return False
         if self.acc_grads is None:
             self._apply(norm)
         elif self._accumulate(grads):
-            self._apply(global_norm([p.grad for p in self.params]))
+            self._apply(self.global_norm([p.grad for p in self.params]))
         stats = {k: v.detach() for k, v in stats.items()}
         stats["norm"] = norm
         stats["rate"] = self.lr_scheduler.get_lr()
@@ -464,32 +586,24 @@ class DataParallelTrainer(Trainer):
         flag. A step is applied whatever its flag, then undone on the
         device where the flag is false: the parameters, the optimizer's
         state and the buffers are torch.where(finite, new, old), as
-        aps_tpu's step selects them (on a card the optimizer's step
-        counts live on the card for it, capturable). The reporter and the
-        error breaker get each step's result when it is read, in order.
-        The first step, which creates the optimizer's state, runs as a
+        aps_tpu's step selects them, over one flat snapshot a (device,
+        dtype) group (_Snapshot; on a card the optimizer's step counts
+        live on the card for it, capturable). The reporter and the error
+        breaker get each step's result when it is read, in order. The
+        first step, which creates the optimizer's state, runs as a
         blocking one. At depth 1 every step is train_one_step."""
         if self.pipeline_depth == 1 or not self.optimizer.state:
             return self.drain() + [self.train_one_step(egs)]
         host, dev, buffers, saved, clean = self._start_step(egs)
-        params = [p.detach().clone() for p in self.params]
-        state = [{k: v.clone() for k, v in self.optimizer.state[p].items()
-                  if isinstance(v, torch.Tensor)} for p in self.params]
+        snapshot = self._snapshot()
         stats = self._forward_backward(dev)
         if stats is None:
             self._skip_oom(dev, buffers, saved, clean)
             return self.drain() + [False]
-        norm = global_norm([p.grad for p in self.params])
+        norm = self.global_norm([p.grad for p in self.params])
         finite = torch.isfinite(stats["loss"]) & torch.isfinite(norm)
         self._apply(norm)
-        with torch.no_grad():
-            for p, old, st in zip(self.params, params, state):
-                p.copy_(torch.where(finite, p, old))
-                for key, val in st.items():
-                    cur = self.optimizer.state[p][key]
-                    cur.copy_(torch.where(finite.to(cur.device), cur, val))
-            for b, old in zip(buffers, saved):
-                b.copy_(torch.where(finite, b, old))
+        self._undo(snapshot, saved, finite)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["norm"] = norm
         stats["rate"] = self.lr_scheduler.get_lr()
@@ -497,6 +611,21 @@ class DataParallelTrainer(Trainer):
         if len(self._in_flight) <= self.pipeline_depth:
             return []
         return [self._read_oldest()]
+
+    def _snapshot(self) -> _Snapshot:
+        """The parameters and every tensor of the optimizer's state, as a
+        pipelined step may change them."""
+        state = [v for p in self.params
+                 for v in self.optimizer.state[p].values()
+                 if isinstance(v, torch.Tensor)]
+        return _Snapshot([p.detach() for p in self.params] + state)
+
+    @staticmethod
+    def _undo(snapshot: _Snapshot, saved: _Snapshot,
+              finite: torch.Tensor) -> None:
+        """A pipelined step's train state back where finite is false."""
+        snapshot.restore(keep=finite)
+        saved.restore(keep=finite)
 
     def _read_oldest(self) -> bool:
         step, host, stats, finite = self._in_flight.popleft()

@@ -44,7 +44,17 @@ ends), on the feature axis or, with delta_as_channel, on a new axis 1;
 feats_dim grows by (order+1) either way, as in aps_tpu. "splice" stacks
 lctx and rctx neighbours on the feature axis and keeps every
 subsampling_factor-th frame; the frame counts are divided by
-subsampling_factor whatever the tokens, as in aps_tpu."""
+subsampling_factor whatever the tokens, as in aps_tpu.
+
+Sequence parallelism (`seq_split`, a parallel.SeqSplit the trainer sets
+under tensor_parallel with sequence_parallel): the frame-local steps
+from the spectrum on (the STFT chain or K1's fused span, and the
+magnitude, power, mel, log, abs and dct steps after it) run on the model
+rank's frames only, read from the whole waveform, and are gathered along
+time after them; every step after that (cmvn, aug, splice, delta) sees
+all frames, so utterance-level cmvn is that of the whole utterance.
+Speed perturbation runs before, on the whole waveform, with the model
+group's shared draw."""
 
 import warnings
 from typing import List, Optional, Tuple
@@ -57,12 +67,17 @@ from torch import nn
 from aps_tpu_torch.const import EPSILON, MAX_INT16
 from aps_tpu_torch.libs import ApsRegisters
 from aps_tpu_torch.ops import fbank
+from aps_tpu_torch.parallel.mesh import gather_frames, split_frames
 from aps_tpu_torch.transform.augment import perturb_speed, tf_mask
-from aps_tpu_torch.transform.utils import (dct_matrix, fft_size_of,
-                                           forward_stft, make_window,
-                                           mel_filter, num_frames,
-                                           speed_perturb_filter,
+from aps_tpu_torch.transform.utils import (_stft_geometry, dct_matrix,
+                                           fft_size_of, forward_stft,
+                                           make_window, mel_filter,
+                                           num_frames, speed_perturb_filter,
                                            splice_feature)
+
+# steps that act on each frame alone: sequence parallelism splits them
+FRAME_LOCAL = ("spectrogram", "magnitude", "trans", "pow", "mel", "log",
+               "abs", "dct")
 
 
 class RescaleTransform(nn.Module):
@@ -256,7 +271,10 @@ class SpectrogramTransform(nn.Module):
         return num_frames(wav_len, self.frame_len, self.frame_hop,
                           self.round_pow_of_two, self.mode, self.center)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor,
+                center: Optional[bool] = None) -> torch.Tensor:
+        """center: the module's unless given (False on samples padded
+        already)."""
         return forward_stft(wav,
                             self.frame_len,
                             self.frame_hop,
@@ -265,7 +283,7 @@ class SpectrogramTransform(nn.Module):
                             pre_emphasis=self.pre_emphasis,
                             normalized=self.normalized,
                             onesided=self.onesided,
-                            center=self.center,
+                            center=self.center if center is None else center,
                             mode=self.mode)
 
 
@@ -579,6 +597,8 @@ class FeatureTransform(nn.Module):
         # the training draws' generator (the trainer sets one on its
         # device); None draws from torch's default generator
         self.generator = None
+        # sequence parallelism's split of the frames (the trainer sets it)
+        self.seq_split = None
         self.feats_dim = 0
         # step names and their layers, in order; `fused` is the span of
         # steps that K1 replaces (the fbank chain and the log after it)
@@ -768,6 +788,38 @@ class FeatureTransform(nn.Module):
             out = out.reshape(shape[:-1] + out.shape[-2:])
         return out
 
+    def _frame_steps(self, feats: torch.Tensor, beg: int, end: int,
+                     center: Optional[bool] = None) -> torch.Tensor:
+        """Frame-local steps [beg, end) from the spectrum on: K1 over the
+        fused span, the layers elsewhere."""
+        for i in range(beg, end):
+            if self.fused is not None and self.fused[0] <= i < self.fused[1]:
+                if i == self.fused[0]:
+                    feats = self._fbank_log(feats)
+            elif self.steps[i] == "spectrogram" and center is not None:
+                feats = self._layers[i](feats, center=center)
+            else:
+                feats = self._layers[i](feats)
+        return feats
+
+    def _spectra(self, wav: torch.Tensor, beg: int, end: int
+                 ) -> torch.Tensor:
+        """The frame-local steps [beg, end) on a waveform; under sequence
+        parallelism on the model rank's frames, gathered along time."""
+        split = self.seq_split
+        cut = None
+        if split is not None:
+            _, win = _stft_geometry(self.frame_len, self.round_pow_of_two,
+                                    self.stft_mode)
+            cut = split_frames(wav, win, self.frame_hop, self.center, split)
+        if cut is None:
+            return self._frame_steps(wav, beg, end)
+        local, frames, total = cut
+        out = self._frame_steps(local, beg, end, center=False)
+        # the spectrum has time last; each transpose moves it
+        axis = -2 if self.steps[beg:end].count("trans") % 2 else -1
+        return gather_frames(out, axis, frames, total, split.group)
+
     def forward(self, inp_pad: torch.Tensor, inp_len=None,
                 training: bool = False, skip_stft: bool = False):
         """inp_pad: N x (C x) S waveform, inp_len: N or None ->
@@ -788,13 +840,18 @@ class FeatureTransform(nn.Module):
             first = 0
             if self.rescale is not None:
                 feats = self.rescale(feats)
-        for i in range(first, len(self.steps)):
-            if self.fused is not None and not skip_stft and \
-                    self.fused[0] <= i < self.fused[1]:
-                if i == self.fused[0]:
-                    feats = self._fbank_log(feats)
+        i = first
+        while i < len(self.steps):
+            if self.steps[i] == "spectrogram":
+                end = i + 1
+                while end < len(self.steps) and \
+                        self.steps[end] in FRAME_LOCAL:
+                    end += 1
+                feats = self._spectra(feats, i, end)
+                i = end
                 continue
             step, layer = self.steps[i], self._layers[i]
+            i += 1
             if step == "perturb":
                 if training:
                     choice = layer.draw(self.generator)

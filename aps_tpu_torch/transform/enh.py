@@ -18,7 +18,12 @@ FixedBeamformer (a bank of complex beamformers) are aps_tpu's modules on
 complex64. cos and sin of the difference come from x_l conj(x_r) divided
 by max(|x_l| |x_r|, eps), as aps_tpu's PackedIpdTransform computes them by
 the trig identity, so a zero bin gives 0 (not cos 0 = 1); the raw
-difference takes torch.angle of each channel (aps_tpu's PhaseTransform)."""
+difference takes torch.angle of each channel (aps_tpu's PhaseTransform).
+
+Sequence parallelism (`seq_split`, set by the trainer under
+tensor_parallel with sequence_parallel): encode runs the STFT of the
+model rank's frames only, read from the whole waveform, and gathers them
+along time; the features, the model and decode see every frame."""
 
 import math
 from dataclasses import dataclass
@@ -30,9 +35,11 @@ from torch import nn
 
 from aps_tpu_torch.const import EPSILON
 from aps_tpu_torch.libs import ApsRegisters
+from aps_tpu_torch.parallel.mesh import gather_frames, split_frames
 from aps_tpu_torch.transform.asr import FeatureTransform as AsrTransform
-from aps_tpu_torch.transform.utils import (fft_size_of, forward_stft,
-                                           inverse_stft, num_frames)
+from aps_tpu_torch.transform.utils import (_stft_geometry, fft_size_of,
+                                           forward_stft, inverse_stft,
+                                           num_frames)
 
 MATH_PI = math.pi
 
@@ -71,6 +78,20 @@ class StftCtx:
         magnitude and phase)."""
         return forward_stft(wav, self.frame_len, self.frame_hop,
                             pre_emphasis=0, **self._kwargs(return_polar))
+
+    def forward_split(self, wav: torch.Tensor, split) -> torch.Tensor:
+        """forward(wav) with the frames split over the model ranks of a
+        parallel.SeqSplit and gathered along time."""
+        _, win = _stft_geometry(self.frame_len, self.round_pow_of_two,
+                                self.mode)
+        cut = split_frames(wav, win, self.frame_hop, self.center, split)
+        if cut is None:
+            return self.forward(wav)
+        local, frames, total = cut
+        kwargs = dict(self._kwargs(False), center=False)
+        stft = forward_stft(local, self.frame_len, self.frame_hop,
+                            pre_emphasis=0, **kwargs)
+        return gather_frames(stft, -1, frames, total, split.group)
 
     def inverse(self, transform: torch.Tensor,
                 return_polar: bool = False) -> torch.Tensor:
@@ -324,6 +345,8 @@ class FeatureTransform(nn.Module):
                             mode=stft_mode)
         self.mag_transform = None
         self.feats_dim = 0
+        # sequence parallelism's split of the frames (the trainer sets it)
+        self.seq_split = None
         if feats_mag:
             self.mag_transform = AsrTransform(
                 feats=feats_mag,
@@ -385,6 +408,9 @@ class FeatureTransform(nn.Module):
 
     def encode(self, wav_pad: torch.Tensor, wav_len=None):
         """wav: N x (C) x S -> (STFT N x (C) x F x T complex, num_frames)"""
+        if self.seq_split is not None:
+            return self.stft.forward_split(wav_pad, self.seq_split), \
+                self.num_frames(wav_len)
         return self.stft.forward(wav_pad), self.num_frames(wav_len)
 
     def decode(self, stft: List[torch.Tensor]) -> List[torch.Tensor]:

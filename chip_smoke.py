@@ -8533,9 +8533,12 @@ def wide_heads_phase(dev, gen, card):
 
 
 # data parallelism: train_am on the flagship's training corpus (32 x 8 s,
-# one global batch) as one process, as two gloo ranks sharing the card and
-# as one NCCL rank (two, one a card, where the machine has two cards), and
-# decode_batch --data-parallel on two gloo ranks. The ranks are processes
+# one global batch) as one process, as two gloo ranks sharing the card, as
+# one NCCL rank (two, one a card, where the machine has two cards) and as
+# two gloo ranks with tensor_parallel 2 and sequence_parallel (one data
+# index, two model ranks: the attention and feed-forward projections
+# sharded, K1 on half of each batch's frames a rank), and decode_batch
+# --data-parallel on two gloo ranks. The ranks are processes
 # of their own (dp_train_run / dp_decode_run through `python -c`), each
 # with a seed of its own for nothing: dropouts are off, so every run
 # computes the same function of the same global batch
@@ -8551,13 +8554,15 @@ DP_EPS = 1e-3
 # of a batch norm has a gradient of 0, whose float32 values are noise
 DP_FLOOR = 1e-2
 # pipeline_depth on the card: the corpus in batches of DP_PIPE_BATCH, one
-# epoch, the DP_PIPE_POISON-th step non-finite (an entry of its gradient
-# set to inf: an inf in the waveform does not do it on the card, where
-# K1's log floor, fmaxf, turns a NaN power into the floor), so that it
-# is in flight behind its successor at depth DP_PIPE_DEPTH
+# epoch, the DP_PIPE_POISON-th step non-finite (an inf sample in its first
+# waveform: K1 keeps the plain version's NaN, so the loss is NaN), so that
+# it is in flight behind its successor at depth DP_PIPE_DEPTH
 DP_PIPE_BATCH = 8
 DP_PIPE_POISON = 3
 DP_PIPE_DEPTH = 2
+# tensor and sequence parallelism on the card: two gloo ranks (one data
+# index, two model ranks) in the data-parallel phase's runs
+DP_TP = {"tensor_parallel": 2, "sequence_parallel": True}
 
 
 def dp_conf(train: Path, root: Path) -> Path:
@@ -8583,16 +8588,21 @@ def dp_train_argv(conf: Path, root: Path, cpt: Path):
 
 def dp_train_run(spec_path: str) -> None:
     """One process of a dp_phase training run: train_am.main(argv) with
-    the first step's loss and gradients (all-reduced: the global batch's),
-    each step's time on the card's clock (CUDA events around the step;
-    the first one traced by torch.profiler, whose kernel names are kept),
-    the launch counts and the parameters at the end saved to spec's
-    "out" (torch.save)."""
+    the first step's loss and gradients (all-reduced: the global batch's;
+    under tensor parallelism the sharded ones gathered whole), each step's
+    time on the card's clock (CUDA events around the step; the first one
+    traced by torch.profiler, whose kernel names are kept), the launch
+    counts and the parameters at the end (whole) saved to spec's "out"
+    (torch.save). With spec's "poison" that step's first waveform gets an
+    inf sample; with "count_undo" the launches of one pipelined step's
+    snapshot and undo at the end's train state are counted (a trace)."""
+    import numpy as np
     import torch
 
     from aps_tpu_torch.cmd import train_am
     from aps_tpu_torch.ops import build
-    from aps_tpu_torch.trainer.dp import DataParallelTrainer
+    from aps_tpu_torch.parallel import tp
+    from aps_tpu_torch.trainer.dp import DataParallelTrainer, _Snapshot
     spec = json.loads(Path(spec_path).read_text())
     record = {"loss": None, "grads": None, "step_ms": [], "names": [],
               "losses": [], "results": [], "steps_end": None}
@@ -8605,13 +8615,11 @@ def dp_train_run(spec_path: str) -> None:
         if record["grads"] is None and stats is not None:
             names = [k for k, p in self.task.nnet.named_parameters()
                      if p.requires_grad]
-            record["grads"] = {k: p.grad.detach().clone()
-                               for k, p in zip(names, self.params)}
+            record["grads"] = {k: self._full(i, p.grad.detach()).clone()
+                               for i, (k, p) in enumerate(zip(
+                                   names, self.params))}
             record["loss"] = stats["loss"].detach().clone()
         if stats is not None:
-            if spec.get("poison") == len(record["losses"]) + 1:
-                # a non-finite gradient entry: the step's norm is inf
-                self.params[0].grad.view(-1)[0] = float("inf")
             record["losses"].append(stats["loss"].detach().clone())
         return stats
 
@@ -8630,8 +8638,14 @@ def dp_train_run(spec_path: str) -> None:
             # no trace and no wait for the card: the steps' wall time runs
             # from the first dispatch to the first drain (drained)
             record.setdefault("steps_beg", time.perf_counter())
+            if len(record["step_ms"]) == 1:
+                # from the second dispatch on: past the first step, which
+                # runs blocking at every depth and makes Adam's state
+                record["steps_beg2"] = time.perf_counter()
             poisoned = spec.get("poison") == len(record["step_ms"]) + 1
             if poisoned:
+                egs = dict(egs, src_pad=np.array(egs["src_pad"]))
+                egs["src_pad"][0, 1000] = np.inf
                 record["before"] = _train_state(self)
             beg = time.perf_counter()
             out = dispatch(self, egs)
@@ -8666,16 +8680,35 @@ def dp_train_run(spec_path: str) -> None:
         DataParallelTrainer.dispatch_step = dispatch
         DataParallelTrainer._breaker = breaker
         DataParallelTrainer._drain = drain
+    launches = dict(build.LAUNCHES)
+    if spec.get("count_undo"):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        keep = torch.ones((), dtype=torch.bool, device=trainer.device)
+        with torch.profiler.profile(activities=acts) as prof:
+            snapshot = trainer._snapshot()
+            saved = _Snapshot(list(trainer.task.buffers()))
+            trainer._undo(snapshot, saved, keep)
+            torch.cuda.synchronize()
+        record["undo_launches"] = sum(
+            1 for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA)
+        record["undo_tensors"] = sum(
+            len(g) for snap in (snapshot, saved)
+            for g in snap.groups.values())
+    names = [k for k, _ in trainer.task.nnet.named_parameters()]
+    whole = tp.full_state_dict(trainer.task.nnet) if trainer.tp_plan \
+        else dict(trainer.task.nnet.named_parameters())
     record.update(
-        launches=dict(build.LAUNCHES), rank=trainer.rank,
+        launches=launches, rank=trainer.rank,
         world=trainer.world, device=str(trainer.device),
         steps=trainer.cur_step, loss=float(record["loss"]),
         grads={k: v.cpu() for k, v in record["grads"].items()},
         losses=[float(v) for v in record["losses"]],
         undone=[torch.equal(a, b) for a, b in zip(
             record.pop("before", []), record.pop("after", []))],
-        params={k: p.detach().cpu()
-                for k, p in trainer.task.nnet.named_parameters()},
+        params={k: whole[k].detach().cpu() for k in names},
+        sharded=len(trainer.tp_plan),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     torch.save(record, spec["out"])
 
@@ -8826,7 +8859,8 @@ def dp_pipeline_check(root: Path, conf: Path, card) -> dict:
         argv[argv.index("--eval-interval") + 1] = "-1"
         spec.write_text(json.dumps({
             "argv": argv, "out": str(root / f"pipe{depth}.out"),
-            "poison": DP_PIPE_POISON, "host_clock": True}))
+            "poison": DP_PIPE_POISON, "host_clock": True,
+            "count_undo": depth > 1}))
         dp_train_run(str(spec))
         runs[depth] = torch.load(root / f"pipe{depth}.out",
                                  weights_only=False)
@@ -8849,6 +8883,13 @@ def dp_pipeline_check(root: Path, conf: Path, card) -> dict:
             fail(f"dp pipeline: at depth {depth} the non-finite step "
                  f"changed {run['undone'].count(False)} of "
                  f"{len(run['undone'])} tensors of the train state")
+    # the inf sample's step: a NaN loss at both depths (K1 keeps the NaN);
+    # the other steps finite
+    poisoned = [run["losses"].pop(DP_PIPE_POISON - 1)
+                for run in (block, piped)]
+    if any(math.isfinite(v) for v in poisoned):
+        fail(f"dp pipeline: the step with an inf sample gave the losses "
+             f"{poisoned} (blocking, depth {DP_PIPE_DEPTH}), not NaN")
     finite = all(map(math.isfinite, block["losses"] + piped["losses"]))
     loss_err = max(abs(a - b) / abs(a)
                    for a, b in zip(block["losses"], piped["losses"]))
@@ -8863,28 +8904,36 @@ def dp_pipeline_check(root: Path, conf: Path, card) -> dict:
              f"{piped['launches']}, blocking {block['launches']}")
     wall = {d: (r["steps_end"] - r["steps_beg"]) * 1e3
             for d, r in runs.items()}
+    wall2 = {d: (r["steps_end"] - r["steps_beg2"]) * 1e3
+             for d, r in runs.items()}
     print(f"dp pipeline_depth {DP_PIPE_DEPTH} vs blocking (one process, "
           f"{steps} steps of {DP_PIPE_BATCH} utterances, step "
-          f"{DP_PIPE_POISON} non-finite): breaker {piped['results']} as "
+          f"{DP_PIPE_POISON} with an inf sample, its loss {poisoned[1]}): "
+          f"breaker {piped['results']} as "
           f"blocking; the non-finite step left {len(piped['undone'])} "
           "tensors of the train state bit for bit at both depths; losses "
           f"within {loss_err:.3e}, parameters {param_err:.3e} (relative); "
           "the steps' wall ms on the host's clock, first dispatch to the "
-          f"drain, blocking {wall[1]:.2f} (each dispatch "
+          f"drain (from the second dispatch: blocking {wall2[1]:.2f}, depth "
+          f"{DP_PIPE_DEPTH} {wall2[DP_PIPE_DEPTH]:.2f}), "
+          f"blocking {wall[1]:.2f} (each dispatch "
           + ", ".join(f"{v:.2f}" for v in block["step_ms"])
           + f"), depth {DP_PIPE_DEPTH} {wall[DP_PIPE_DEPTH]:.2f} (each "
-          + ", ".join(f"{v:.2f}" for v in piped["step_ms"]) + f") ({card})",
+          + ", ".join(f"{v:.2f}" for v in piped["step_ms"]) + "); a "
+          f"pipelined step's snapshot and undo: {piped['undo_launches']} "
+          f"launches for {piped['undo_tensors']} tensors ({card})",
           flush=True)
     return {"pipe_loss_rel": loss_err, "pipe_param_rel": param_err,
-            "pipe_wall_ms": wall,
+            "pipe_undo_launches": piped["undo_launches"],
+            "pipe_wall_ms": wall, "pipe_wall_ms_from_step2": wall2,
             "pipe_step_ms": {1: block["step_ms"],
                              DP_PIPE_DEPTH: piped["step_ms"]}}
 
 
 def dp_train(root: Path, conf: Path, label: str, world: int, backend: str,
              one_card: bool):
-    """train_am as `world` processes under `backend` -> each rank's
-    record."""
+    """train_am as `world` processes under `backend` (the trainer options
+    of conf) -> each rank's record."""
     port = free_port()
     cpt = root / label
     argvs = []
@@ -8908,9 +8957,10 @@ def free_port() -> int:
 
 
 def dp_phase(root: Path, train: Path, cpt: Path, card):
-    """Data parallelism on the card (module comment above DP_WORLD): the
-    one-process run in this process, then each data-parallel run held
-    against it (dp_check), checkpoints from rank 0 alone and a log a rank,
+    """Data, tensor and sequence parallelism on the card (module comment
+    above DP_WORLD): the one-process run in this process, then each
+    parallel run held against it (dp_check), checkpoints from rank 0 alone
+    and a log a rank,
     then decode_batch --data-parallel against the plain decode_batch,
     utterance by utterance through nbest_error. -> (launch counts of each
     rank of each run, numbers)."""
@@ -8931,7 +8981,12 @@ def dp_phase(root: Path, train: Path, cpt: Path, card):
     if plain["launches"] != want:
         fail(f"dp: the one-process run launched {plain['launches']}, "
              f"expected {want}")
-    runs = [("gloo2", DP_WORLD, "gloo", True), ("nccl1", 1, "nccl", False)]
+    # tensor_parallel 2 with sequence_parallel: the train.yaml with DP_TP
+    tp_conf = json.loads(conf.read_text())
+    tp_conf["trainer_conf"].update(DP_TP)
+    (root / "tp.yaml").write_text(json.dumps(tp_conf, indent=2))
+    runs = [("gloo2", DP_WORLD, "gloo", True), ("nccl1", 1, "nccl", False),
+            ("tp2sp", DP_WORLD, "gloo", True)]
     count = torch.cuda.device_count()
     if count >= 2:
         runs.append(("nccl2", DP_WORLD, "nccl", False))
@@ -8940,8 +8995,9 @@ def dp_phase(root: Path, train: Path, cpt: Path, card):
     launches = {}
     for label, world, backend, one_card in runs:
         beg = time.perf_counter()
-        cpt_dir, records = dp_train(root, conf, label, world, backend,
-                                    one_card)
+        cpt_dir, records = dp_train(
+            root, root / "tp.yaml" if label == "tp2sp" else conf, label,
+            world, backend, one_card)
         secs[label] = time.perf_counter() - beg
         for rec in records:
             if rec["world"] != world or not rec["device"].startswith("cuda"):
@@ -8950,6 +9006,8 @@ def dp_phase(root: Path, train: Path, cpt: Path, card):
             name = f"{label}_rank{rec['rank']}"
             numbers[name] = dp_check(f"dp {name}", rec, plain, want)
             launches[name] = rec["launches"]
+            if (rec["sharded"] > 0) != (label == "tp2sp"):
+                fail(f"dp {name}: {rec['sharded']} weights sharded")
         ranks = [numbers[f"{label}_rank{r}"] for r in range(world)]
         files = sorted(p.name for p in cpt_dir.iterdir())
         logs = [f"trainer.rank.{r}.log" for r in range(world)] \
@@ -8969,6 +9027,11 @@ def dp_phase(root: Path, train: Path, cpt: Path, card):
               + "; ".join(f"rank {r} " + ", ".join(
                   f"{v:.2f}" for v in ranks[r]["step_ms"])
                   for r in range(world))
+              + (f"; {records[0]['sharded']} weights sharded a rank, the "
+                 "front end's frames split, launches a rank "
+                 + "; ".join(f"rank {r} {records[r]['launches']}"
+                             for r in range(world))
+                 if label == "tp2sp" else "")
               + f"; files {files}; {secs[label]:.1f} s ({card})", flush=True)
     print(f"dp one process ({secs['plain']:.1f} s): step ms on the card's "
           "clock (the first traced) "

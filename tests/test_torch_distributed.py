@@ -3,7 +3,11 @@
 (aps_tpu_torch.distributed), the data axis (aps_tpu_torch.parallel), the
 batch norms' global statistics, the tasks' global denominators, the dp
 trainer under a process group, train_am with --distributed, the sharded
-batched search and decode_batch --data-parallel, and pipeline_depth.
+batched search and decode_batch --data-parallel, and pipeline_depth; and
+the model axis: tensor_parallel 2 with sequence_parallel on the two ranks
+(one data index, two model ranks) at the flagship's width 256, against
+the one process and against aps_tpu's trainer on a 1 x 2 mesh, its
+checkpoint, resume, batch trimming, the split front end and the draws.
 
 Two gloo ranks on the CPU are launched once for the module (this file run
 as a script, `worker` mode); they run every case and write what they hold,
@@ -68,6 +72,12 @@ STATS_RTOL = 1e-5
 SCORE_REL = 1e-5
 # seconds a rank waits for a dead peer in the failure case
 DEAD_TIMEOUT = 20
+# tensor and sequence parallelism over the two ranks: one data index, two
+# model ranks
+TP_KW = dict(tensor_parallel=WORLD, sequence_parallel=True)
+# the sequence-parallel front end against the unsplit one: the same
+# frames through the same plain functions (float32)
+SP_ATOL = 1e-5
 
 
 def free_port() -> int:
@@ -83,6 +93,27 @@ def no_dropout_conf():
     nnet_conf["enc_kwargs"]["arch_kwargs"]["ffn_dropout"] = 0.0
     nnet_conf["dec_kwargs"]["arch_kwargs"].update(att_dropout=0.0,
                                                   ffn_dropout=0.0)
+    return conf
+
+
+def tp_conf(draws: bool = False):
+    """The flagship at its full width (att_dim 256, where aps_tpu's min_dim
+    of 256 shards the attention and feed-forward projections), 2 encoder
+    layers and 1 decoder layer; every dropout off, or (draws) the
+    defaults' dropouts with speed perturbation and SpecAugment."""
+    from aps_tpu_torch.flagship import flagship_conf
+    conf = flagship_conf(VOCAB, small=False,
+                         enc_att_dropout=None if draws else 0.0)
+    nnet_conf = conf["nnet_conf"]
+    nnet_conf["enc_kwargs"]["num_layers"] = 2
+    nnet_conf["dec_kwargs"]["num_layers"] = 1
+    if draws:
+        conf["asr_transform"].update(feats="perturb-fbank-log-cmvn-aug",
+                                     aug_prob=1.0)
+    else:
+        nnet_conf["enc_kwargs"]["arch_kwargs"]["ffn_dropout"] = 0.0
+        nnet_conf["dec_kwargs"]["arch_kwargs"].update(att_dropout=0.0,
+                                                      ffn_dropout=0.0)
     return conf
 
 
@@ -121,6 +152,7 @@ def make_inputs():
     torch.manual_seed(3)
     asr = build_flagship(no_dropout_conf())
     tcn = aps_sse_nnet("sse@time_tcn")(**TCN_CONF)
+    tp = build_flagship(tp_conf())
     # global batches of 4: the two ranks' halves hold 13 and 5 tokens,
     # 18 and 10 with eos (and different lengths)
     asr_batches = [asr_batch(20 + i, [8000, 7000, 6250, 4500],
@@ -137,6 +169,13 @@ def make_inputs():
                                [7, 6, 3, 2, 5]),
         "sep_batches": [sep_batch(40 + i) for i in range(2)],
         "search": search,
+        "tp_asr": {k: v.numpy() for k, v in tp.state_dict().items()},
+        # 23, 20, 17 and 13 frames: an odd count for the split front end
+        "tp_batches": [asr_batch(60 + i, [4100, 3500, 3000, 2600],
+                                 [5, 4, 3, 2]) for i in range(3)],
+        # 5 rows: trimmed to the whole world (data x model), 4
+        "tp_odd": asr_batch(70, [4100, 3900, 3000, 2600, 2500],
+                            [5, 4, 3, 2, 4]),
     }
 
 
@@ -147,6 +186,16 @@ def asr_task(inputs, reduction, dtype=torch.float64):
     nnet.load_state_dict({k: torch.from_numpy(v)
                           for k, v in inputs["asr"].items()})
     return aps_task("asr@ctc_xent", nnet, reduction=reduction,
+                    **TASK_CONF).to(dtype)
+
+
+def tp_task(inputs, dtype=torch.float64, draws=False):
+    from aps_tpu_torch.flagship import build_flagship
+    from aps_tpu_torch.libs import aps_task
+    nnet = build_flagship(tp_conf(draws))
+    nnet.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in inputs["tp_asr"].items()})
+    return aps_task("asr@ctc_xent", nnet, reduction="batchmean",
                     **TASK_CONF).to(dtype)
 
 
@@ -169,24 +218,35 @@ def cast(egs, dtype):
     return {k: one(v) for k, v in egs.items()}
 
 
-def run_steps(task, batches, cpt, conf, **kwargs):
+def run_steps(task, batches, cpt, conf, keep_after=0, **kwargs):
     """The dp trainer's steps over `batches` (each one scheduled step, the
     batch in the task's float type) -> its variables, reported stats and
-    the files in its checkpoint directory after save_checkpoint."""
-    from aps_tpu_torch.convert import to_variables
+    the files in its checkpoint directory after save_checkpoint; with
+    keep_after k, (the result after k steps, the result at the end)."""
     from aps_tpu_torch.trainer.dp import DataParallelTrainer
     trainer = DataParallelTrainer(task, device="cpu", checkpoint=cpt,
                                   **conf, **kwargs)
     dtype = next(task.parameters()).detach().numpy().dtype
+
+    def result():
+        stats = {k: [float(v) for v in vals]
+                 for k, vals in trainer.reporter.stats.items()}
+        # the whole weights (under tensor parallelism gathered), copied:
+        # the converter's arrays may share the parameters' memory
+        return {"variables": copy.deepcopy(trainer.variables()),
+                "stats": stats,
+                "files": sorted(os.listdir(cpt)), "sharded": sorted(
+                    trainer.tp_plan), "steps": trainer.cur_step}
+
+    kept = None
     for egs in batches:
         assert trainer.train_one_step(cast(egs, dtype))
         trainer.cur_step += 1
         trainer.lr_scheduler.step()
+        if trainer.cur_step == keep_after:
+            kept = result()
     trainer.save_checkpoint(1)
-    stats = {k: [float(v) for v in vals]
-             for k, vals in trainer.reporter.stats.items()}
-    return {"variables": to_variables(trainer.task.nnet), "stats": stats,
-            "files": sorted(os.listdir(cpt))}
+    return result() if kept is None else (kept, result())
 
 
 def search_model(inputs):
@@ -261,6 +321,7 @@ def worker(case: str, rank: int, port: int, work: Path) -> None:
     out["search"] = sharded_map(
         lambda rows, pad: beam_search_batch(nnet, rows, pad_to=pad,
                                             **SEARCH_KW), inputs["search"])
+    out.update(tp_cases(inputs, work, rank))
     distributed.shutdown()
     from aps_tpu_torch.cmd import decode_batch, train_am
     train_am.main(_train_am_argv(work, rank, ports[1]))
@@ -273,6 +334,68 @@ def worker(case: str, rank: int, port: int, work: Path) -> None:
         f"localhost:{ports[2]}", "--num-processes", str(WORLD),
         "--process-id", str(rank)])
     (work / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def tp_cases(inputs, work: Path, rank: int):
+    """The model axis on the two ranks: two float64 steps (then a resume
+    from rank 0's checkpoint and a third step), two float32 steps, the
+    uneven batch, two steps with every draw on, and the split front end
+    (the fused path through K1's plain version, the layered STFT chain,
+    the enh transform's STFT)."""
+    from aps_tpu_torch import distributed
+    batches = inputs["tp_batches"]
+    out = {"tp64": run_steps(tp_task(inputs), batches[:2], work / "tp64",
+                             TRAINER_CONF, **TP_KW)}
+    distributed.all_reduce(0.0)  # rank 0's checkpoint is on disk
+    out["tp64_resumed"] = run_steps(
+        tp_task(inputs), batches[2:], work / f"tp64r{rank}", TRAINER_CONF,
+        resume=str(work / "tp64" / "last.ckpt"), **TP_KW)
+    out["tp32"] = run_steps(tp_task(inputs, torch.float32), batches[:2],
+                            work / f"tp32{rank}", TRAINER_CONF, **TP_KW)
+    out["tp_odd"] = run_steps(tp_task(inputs), [inputs["tp_odd"]],
+                              work / f"tpodd{rank}", TRAINER_CONF, **TP_KW)
+    out["tp_draws"] = run_steps(tp_task(inputs, torch.float32, draws=True),
+                                batches[:2], work / f"tpdraw{rank}",
+                                TRAINER_CONF, **TP_KW)
+    out["sp_front"] = sp_front_ends(inputs)
+    return out
+
+
+def sp_front_ends(inputs):
+    """(unsplit, split) features of three front ends on tp_batches[0]'s
+    waveforms (23 frames in the longest: 12 and 11 a rank) with their
+    lengths and utterance cmvn."""
+    from aps_tpu_torch import distributed
+    from aps_tpu_torch.libs import aps_transform
+    from aps_tpu_torch.parallel import SeqSplit
+    split = SeqSplit(distributed.model_index(), WORLD,
+                     distributed.model_group())
+    egs = inputs["tp_batches"][0]
+    wav = torch.from_numpy(egs["src_pad"])
+    wav_len = torch.from_numpy(egs["src_len"])
+    kw = dict(frame_len=400, frame_hop=160, window="hamm")
+    fronts = {
+        "fused": aps_transform("asr")(feats="fbank-log-cmvn", **kw),
+        "layered": aps_transform("asr")(feats="fbank-log-cmvn", center=True,
+                                        **kw),
+        "enh": aps_transform("enh")(feats="spectrogram-log-cmvn",
+                                    frame_len=512, frame_hop=256)}
+    out = {}
+    for name, front in fronts.items():
+        pair = []
+        for seq_split in (None, split):
+            front.seq_split = seq_split
+            if name == "enh":
+                stft, _ = front.encode(wav)
+                feats = torch.view_as_real(stft)
+            else:
+                feats, num_frames = front(wav, wav_len)
+                feats = (feats, num_frames)
+            pair.append(feats)
+        out[name] = pair
+    assert fronts["fused"].fused is not None
+    assert fronts["layered"].fused is None
+    return out
 
 
 def start(case: str, work: Path):
@@ -366,6 +489,27 @@ def ctc_xent_mesh(inputs, reduction: str, root: Path):
                               TRAINER_CONF)
 
 
+def tp_mesh(inputs, root: Path):
+    """Two float32 steps of the width-256 flagship in aps_tpu's trainer
+    with tensor_parallel 2 and sequence_parallel on a 1 x 2 CPU mesh, from
+    the port's weights -> its result."""
+    from aps_tpu import libs as jax_libs
+    from aps_tpu.transform import AsrTransform as JaxTransform
+    from aps_tpu_torch.trainer.dp import DataParallelTrainer
+    seed = DataParallelTrainer(tp_task(inputs, torch.float32), device="cpu",
+                               checkpoint=root / "seed", **TRAINER_CONF)
+    seed.save_checkpoint(0, best=False)
+    conf = tp_conf()
+    jnnet = jax_libs.aps_asr_nnet(conf["nnet"])(
+        asr_transform=JaxTransform(**conf["asr_transform"]),
+        **conf["nnet_conf"])
+    jtask = jax_libs.aps_task("asr@ctc_xent", jnnet, **TASK_CONF,
+                              reduction="batchmean")
+    return aps_tpu_mesh_steps(jtask, root / "seed" / "last.ckpt",
+                              root / "jax", inputs["tp_batches"][:2],
+                              dict(TRAINER_CONF, **TP_KW))
+
+
 # the reductions whose aps_tpu mesh run the fixture makes beside the
 # ranks (Tier-1); the others run in their test, under `slow` (XLA takes
 # ~35-40 s to compile the flagship's step on the CPU, even at one layer)
@@ -406,6 +550,14 @@ def ranks(tmp_path_factory):
         refs["search"] = beam_search_batch(search_model(inputs),
                                            inputs["search"], **SEARCH_KW)
         refs["sisnr_mesh"] = sisnr_mesh(inputs, work / "mesh")
+        tp_batches = inputs["tp_batches"]
+        refs["tp64_2"], refs["tp64_3"] = run_steps(
+            tp_task(inputs), tp_batches, work / "one_tp64", TRAINER_CONF,
+            keep_after=2)
+        refs["tp_odd"] = run_steps(
+            tp_task(inputs), [fit_batch_to_mesh(inputs["tp_odd"], WORLD)],
+            work / "one_tp_odd", TRAINER_CONF)
+        refs["tp_mesh"] = tp_mesh(inputs, work / "mesh_tp")
         for reduction in MESH_IN_FIXTURE:
             refs[f"{reduction}_mesh"] = ctc_xent_mesh(
                 inputs, reduction, work / f"mesh_{reduction}")
@@ -618,6 +770,28 @@ def test_train_am_and_decode_batch_data_parallel(ranks, tmp_path):
         (work / "dp_best1.txt").read_text() == ""
 
 
+def test_decode_batch_prefetch_writes_the_serial_loops_bytes(
+        ranks, tmp_path, monkeypatch):
+    """decode_batch reads the wavs ahead on a background thread
+    (eval/pipeline.py::prefetch_iter): its transcripts are the serial
+    loop's byte for byte, in the same order."""
+    from aps_tpu_torch.cmd import decode_batch
+    work = ranks[3]
+    texts = {}
+    for how in ("pipelined", "serial"):
+        if how == "serial":
+            monkeypatch.setattr(decode_batch, "prefetch_iter",
+                                lambda it, depth: it)
+        decode_batch.main([
+            str(work / "am" / "wav.scp"), str(tmp_path / how), "--am",
+            str(work / "am_cpt0"), "--am-tag", "last", "--dict",
+            str(work / "am" / "dict"), "--beam-size", "4", "--batch-size",
+            "5", "--device", "cpu"])
+        texts[how] = (tmp_path / how).read_bytes()
+    assert texts["pipelined"] == texts["serial"]
+    assert len(texts["serial"].splitlines()) == 12
+
+
 def test_a_dead_rank_fails_the_other_in_time(tmp_path):
     """Rank 1 raises after init; rank 0, in an all-reduce, exits non-zero
     within its timeout instead of waiting for ever."""
@@ -629,6 +803,132 @@ def test_a_dead_rank_fails_the_other_in_time(tmp_path):
     waited = float(out0.split("WAITED")[1].split()[0])
     assert waited <= DEAD_TIMEOUT + 5, waited
     assert time.monotonic() - beg < DEAD_TIMEOUT + 60
+
+
+def test_tp_sp_two_ranks_equal_one_process(ranks):
+    """tensor_parallel 2 with sequence_parallel on the two ranks (one data
+    index, two model ranks; the width-256 flagship's attention and
+    feed-forward projections sharded, the front end split in frames):
+    two float64 Adam steps give the one process's parameters, running
+    statistics and stats on every rank; a resume from rank 0's checkpoint
+    under tensor_parallel and a third step give the one process's three
+    steps."""
+    outs, refs, _, _ = ranks
+    assert len(outs[0]["tp64"]["sharded"]) == 23
+    for out in outs:
+        for key, want in (("tp64", refs["tp64_2"]),
+                          ("tp64_resumed", refs["tp64_3"])):
+            got = out[key]
+            assert_close(got["variables"], want["variables"], rel=REL)
+            assert got["steps"] == want["steps"]
+        for key in ("loss", "accu", "@ctc", "xent", "norm", "#tok"):
+            np.testing.assert_allclose(out["tp64"]["stats"][key],
+                                       refs["tp64_2"]["stats"][key],
+                                       rtol=STATS_REL, err_msg=key)
+    assert_close(outs[1]["tp64"]["variables"], outs[0]["tp64"]["variables"])
+
+
+def test_tp_sp_two_ranks_against_aps_tpu_mesh(ranks):
+    """The same two steps in float32 on the two ranks against aps_tpu's
+    DataParallelTrainer(tensor_parallel=2, sequence_parallel=True) on a
+    1 x 2 CPU mesh from the same converted weights: PERF.md section 2's
+    training bounds on every rank."""
+    outs, refs, _, _ = ranks
+    want = refs["tp_mesh"]
+    for out in outs:
+        got = out["tp32"]["variables"]
+        assert_close(got["params"], want["params"], atol=STEP_ATOL)
+        assert_close(got["batch_stats"], want["batch_stats"],
+                     rel=STATS_RTOL)
+        np.testing.assert_allclose(out["tp32"]["stats"]["loss"],
+                                   want["loss"], rtol=1e-4)
+
+
+def test_tp_checkpoint_loads_in_one_process_and_in_aps_tpu(ranks, tmp_path):
+    """Rank 0's checkpoint under tensor_parallel is in aps_tpu's layout:
+    whole weights (and whole Adam moments) that the port's converter
+    loads into one process's model and aps_tpu's load_checkpoint reads,
+    both equal to the ranks' gathered parameters."""
+    import shutil
+
+    from aps_tpu.eval.wrapper import load_checkpoint
+    from aps_tpu_torch.convert import to_state_dict, to_variables
+    from aps_tpu_torch.flagship import build_flagship
+    outs, _, inputs, work = ranks
+    want = outs[0]["tp64"]["variables"]
+    cpt = pickle.loads((work / "tp64" / "last.ckpt").read_bytes())
+    model = build_flagship(tp_conf()).double()
+    model.load_state_dict(to_state_dict(
+        {"params": cpt["params"]["nnet"],
+         "batch_stats": cpt["mstate"]["batch_stats"]["nnet"]}, model))
+    assert_close(to_variables(model), want)
+    shapes = [p.shape for p in model.parameters()]
+    moments = cpt["torch_opt_state"]["state"]
+    assert [moments[i]["exp_avg"].shape for i in range(len(shapes))] == [
+        tuple(s) for s in shapes]
+    shutil.copy(work / "tp64" / "last.ckpt", tmp_path / "last.ckpt")
+    conf = dict(tp_conf(), task="asr@ctc_xent", task_conf=TASK_CONF)
+    (tmp_path / "train.yaml").write_text(json.dumps(conf))
+    theirs = load_checkpoint(str(tmp_path), cpt_tag="last")
+    assert_close({k: np.asarray(v) for k, v in dict(_leaves(
+        theirs["params"])).items()}, dict(_leaves(want["params"])))
+
+
+def test_tp_uneven_batch_is_trimmed_to_the_whole_world(ranks):
+    """Under tensor_parallel the batch is trimmed to a multiple of the
+    whole world (data x model ranks, aps_tpu's device count), not of the
+    data axis: 5 rows -> 4, whole on both model ranks, as aps_tpu's
+    fit_batch_to_mesh on its 1 x 2 mesh."""
+    from aps_tpu.parallel import fit_batch_to_mesh as jax_fit
+
+    outs, refs, inputs, _ = ranks
+    kept, theirs = (fit(inputs["tp_odd"], WORLD)
+                    for fit in (fit_batch_to_mesh, jax_fit))
+    assert kept["#utt"] == theirs["#utt"] == 4
+    np.testing.assert_array_equal(kept["src_pad"], theirs["src_pad"])
+    for out in outs:
+        assert out["tp_odd"]["stats"]["#utt"] == [4.0]
+        assert out["tp_odd"]["stats"]["#tok"] == refs["tp_odd"]["stats"][
+            "#tok"]
+        assert_close(out["tp_odd"]["variables"], refs["tp_odd"]["variables"],
+                     rel=REL)
+
+
+@pytest.mark.parametrize("front", ["fused", "layered", "enh"])
+def test_sp_front_end_gathers_the_unsplit_features(ranks, front):
+    """The frames split over the two model ranks (12 and 11 of the
+    longest utterance's 23; the enh STFT's 15 as 8 and 7), run on each
+    rank's samples and gathered: the unsplit features and frame counts,
+    after the utterance-level cmvn (fused: K1's plain version; layered:
+    the centred STFT chain; enh: the complex STFT)."""
+    outs = ranks[0]
+    for out in outs:
+        whole, split = out["sp_front"][front]
+        if front == "enh":
+            assert whole.shape[-2] == 15
+            torch.testing.assert_close(split, whole, atol=SP_ATOL, rtol=0)
+            continue
+        assert whole[0].shape[1] == (23 if front == "fused" else 26)
+        torch.testing.assert_close(split[0], whole[0], atol=SP_ATOL, rtol=0)
+        assert torch.equal(split[1], whole[1])
+
+
+def test_tp_draws_are_the_same_on_the_model_ranks(ranks):
+    """With the dropouts, speed perturbation and SpecAugment on, the two
+    model ranks (one data index: the same rows) draw alike, so their
+    parameters stay bit-equal after two steps, and the steps moved
+    them."""
+    outs, refs, _, _ = ranks
+    got = [out["tp_draws"]["variables"] for out in outs]
+    assert_close(got[1], got[0])
+    assert all(np.isfinite(out["tp_draws"]["stats"]["loss"]).all()
+               for out in outs)
+    from aps_tpu_torch.convert import to_variables
+    start = dict(_leaves(to_variables(
+        tp_task(ranks[2], torch.float32).nnet)["params"]))
+    moved = max(np.abs(v - start[k]).max()
+                for k, v in _leaves(got[0]["params"]))
+    assert moved > 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -1787,3 +1787,85 @@ def test_tcn_block_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="multiples of 4"):
         tcn_block_fused(x[..., :62].contiguous(), k1[:62].contiguous(), pack,
                         k2[:, :62].contiguous(), b2[:, :62].contiguous(), 1)
+
+
+# ---------------------------------------------------------------------------
+# non-finite inputs: the kernels keep the plain versions' NaNs
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_mel", [True, False])
+def test_fused_logmel_kernel_keeps_the_plain_versions_nan(cuda_device,
+                                                          with_mel):
+    """A waveform with an inf sample (row 0) and a NaN sample (row 2):
+    the kernel's NaNs lie where the plain version's do (with the mel
+    product entry by entry: the dense product's inf * 0 makes every band
+    of such a frame NaN; without it frame by frame), and every other
+    frame is the plain version's within the file's tolerance; the clean
+    row 1 is bit for bit the kernel's output without the bad samples."""
+    wav, *rest = _fbank_args(3, 16000, with_mel)
+    clean = _logmel(wav.to(cuda_device), *rest, log_eps=EPSILON)
+    wav[0, 5000] = float("inf")
+    wav[2, 12345] = float("nan")
+    wav = wav.to(cuda_device)
+    got = _logmel(wav, *rest, log_eps=EPSILON)
+    want = fused_logmel_plain(wav, *rest, log_eps=EPSILON)
+    bad = want.isnan().any(-1)
+    assert bad[0].any() and bad[2].any() and not bad[1].any()
+    assert torch.equal(got.isnan().any(-1), bad)
+    if with_mel:
+        assert torch.equal(got.isnan(), want.isnan())
+    _assert_logmel_close(got[~bad], want[~bad], with_mel)
+    assert torch.equal(got[1], clean[1])
+
+
+@pytest.mark.cuda
+def test_ctc_score_step_kernel_keeps_the_plain_versions_nan(cuda_device):
+    """A NaN log-probability of a token (lane 5, frame 100) and of the
+    blank (the blank column of utterance 2, frame 150): the kernel's
+    gammas, scores and deltas are NaN exactly where the plain version's
+    are (MIN_F32 where fmaxf floored them before), and the others are the
+    plain version's."""
+    T, L, G = 233, 768, 8
+    ops = _ctc_args(T, L, G)
+    ops[0][100, 5] = float("nan")
+    ops[3][150, 2] = float("nan")
+    ops = [t.to(cuda_device) for t in ops]
+    for is_first in (True, False):
+        got = ctc_score_step(*ops, is_first)
+        want = ctc_score_step_plain(*ops, is_first)
+        assert want[0][100:, 5].isnan().all()
+        assert want[1][151:, 2 * L // G].isnan().all()
+        for g, w in zip(got, want):
+            nan = w.isnan()
+            assert torch.equal(g.isnan(), nan)
+            _assert_ctc_close([g[~nan]], [w[~nan]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["abs", "rel"])
+def test_attention_forward_gives_a_nan_query_row_as_the_plain_version(
+        cuda_device, kind):
+    """K2 and K3's forward with one NaN query row. Every score of the row
+    is NaN: the row maximum (fmaxf) drops them and stays -inf, so the
+    kernel takes the row for one without a visible key and writes 0. The
+    plain version writes 0 too, as aps_tpu's kernel and reference do
+    (alive = l > 0 is false for a NaN sum). Every other row is the
+    kernel's output without the NaN, bit for bit."""
+    B, H, T, D = 2, 4, 233, 64
+    if kind == "abs":
+        ops, _, _ = _att_args(B, H, T, T, D)
+        run, plain = flash_attention, mha_reference
+    else:
+        ops, _ = _rel_args(B, H, T, D, 1)
+        run, plain = flash_attention_rel, rel_mha_reference
+    ops = [t.to(cuda_device) for t in ops]
+    clean = run(*ops)
+    ops[0] = ops[0].clone()
+    ops[0][1, 2, 70] = float("nan")
+    got = run(*ops)
+    want = plain(*ops)
+    assert torch.equal(want[1, 2, 70], torch.zeros_like(want[1, 2, 70]))
+    assert torch.equal(got[1, 2, 70], want[1, 2, 70])
+    keep = torch.ones_like(got, dtype=torch.bool)
+    keep[1, 2, 70] = False
+    assert torch.equal(got[keep], clean[keep])

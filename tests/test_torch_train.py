@@ -531,12 +531,17 @@ def test_trainer_refuses_what_is_not_ported(slice_pair, tmp_path):
     # weight noise, profile and tensorboard are ported
     # (tests/test_torch_trainer_opts.py holds them), and so are the data
     # axis of the device mesh and the pipeline depth
-    # (tests/test_torch_distributed.py); its tensor and sequence axes are
-    # not
-    for key, value in (("tensor_parallel", 2), ("sequence_parallel", True)):
-        with pytest.raises(ValueError, match=f"{key}=.*device mesh"):
-            DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
-                                **{key: value})
+    # (tests/test_torch_distributed.py) and its tensor and sequence axes
+    # (tests/test_torch_parallel.py); a model axis that does not divide
+    # the world is refused, as aps_tpu's build_mesh refuses it, and
+    # sequence_parallel without it has no effect, as in aps_tpu
+    with pytest.raises(ValueError, match="tensor_parallel 2 does not "
+                       "divide the 1 process"):
+        DataParallelTrainer(task, device="cpu", checkpoint=tmp_path,
+                            tensor_parallel=2)
+    assert not DataParallelTrainer(
+        copy.deepcopy(task), device="cpu", checkpoint=tmp_path,
+        sequence_parallel=True).sequence_parallel
     assert DataParallelTrainer(copy.deepcopy(task), device="cpu",
                                checkpoint=tmp_path,
                                pipeline_depth=2).pipeline_depth == 2
